@@ -1,0 +1,29 @@
+"""Architecture config registry (dense configs of this slice).
+
+Each architecture lives in its own module and registers an
+:class:`~repro_torch.configs.base.ArchConfig` with its published
+hyper-parameters.
+"""
+
+import importlib
+
+from repro_torch.configs.base import (  # noqa: F401
+    ArchConfig,
+    LayerSpec,
+    MoESpec,
+    get_arch,
+    register,
+)
+
+_MODULES = ["internlm2_1_8b"]
+
+_loaded = False
+
+
+def load_all() -> None:
+    global _loaded
+    if _loaded:
+        return
+    for m in _MODULES:
+        importlib.import_module(f"repro_torch.configs.{m}")
+    _loaded = True

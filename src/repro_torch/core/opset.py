@@ -1,0 +1,177 @@
+"""OpSet — the dispatch seam between the model math and its kernels.
+
+Counterpart of ``repro.core.opset``. The backbone's forward is built
+from a handful of primitive ops (projection matmuls, the attention core,
+paged decode attention, the embedding gather, norms and rope); an
+:class:`OpSet` bundles one implementation of each. The model layer
+(``repro_torch.models``) calls only the OpSet and never imports
+``repro_torch.kernels``.
+
+* ``ref`` — plain PyTorch: ``prepare_block`` dequantizes the whole block
+  up front and every op is a dense torch op.
+* ``cuda`` — the storage-width path, the counterpart of the reference's
+  ``PallasOpSet``: INT8/INT4 weights stay :class:`QTensor` and feed the
+  ``quant_matmul`` kernel, prefill attention runs the flash kernel,
+  decode attention the paged kernel, and the embedding gathers int8 rows
+  and dequantizes only the gathered slice. The CUDA kernels mask their
+  own ragged edges, so none of the TPU path's padding to 128/256 is
+  needed. On CPU tensors each kernel wrapper computes its plain version,
+  which is how the CPU tests run this OpSet.
+"""
+
+from __future__ import annotations
+
+from repro_torch.core.quantization import QTensor, dequantize, maybe_dequantize_tree
+
+
+class OpSet:
+    """One implementation of the backbone's primitive ops."""
+
+    name: str = "abstract"
+
+    def prepare_block(self, p, spec):
+        """Make one block's params consumable by this OpSet's ops."""
+        raise NotImplementedError
+
+    def matmul(self, x, w):
+        """``x @ w`` where ``w`` is a plain tensor or a :class:`QTensor`."""
+        raise NotImplementedError
+
+    def attention(self, q, k, v, cfg, spec):
+        """Causal prefill attention. q: (B,S,H,hd); k, v: (B,S,Hkv,hd),
+        rope applied. Returns (B,S,H·hd)."""
+        raise NotImplementedError
+
+    def paged_attention(self, q, k_pages, v_pages, k_scale, v_scale,
+                        block_tables, lengths, cfg, spec):
+        """Paged-KV decode attention. q: (B, Hkv, n_rep, hd); pages
+        (n_pages, page, Hkv, hd) int8/f32/bf16 (+ scales for int8, else
+        None); block_tables (B, max_pages) int32; lengths (B,) int32.
+        Returns (B, Hkv, n_rep, hd) f32."""
+        raise NotImplementedError
+
+    def embed_lookup(self, embed, tokens):
+        """Token embedding gather; ``embed`` may be a QTensor."""
+        raise NotImplementedError
+
+    def rms_norm(self, x, weight, eps: float = 1e-6):
+        from repro_torch.models.layers import rms_norm
+
+        return rms_norm(x, weight, eps)
+
+    def apply_rope(self, x, positions, theta: float = 10_000.0):
+        from repro_torch.models.layers import apply_rope
+
+        return apply_rope(x, positions, theta)
+
+
+class RefOpSet(OpSet):
+    """Dequantize-then-dense plain PyTorch ops."""
+
+    name = "ref"
+
+    def prepare_block(self, p, spec):
+        return maybe_dequantize_tree(p)
+
+    def matmul(self, x, w):
+        if isinstance(w, QTensor):
+            w = dequantize(w)
+        return x @ w
+
+    def attention(self, q, k, v, cfg, spec):
+        from repro_torch.models.layers import ref_attention_core
+
+        return ref_attention_core(q, k, v, cfg, spec)
+
+    def paged_attention(self, q, k_pages, v_pages, k_scale, v_scale,
+                        block_tables, lengths, cfg, spec):
+        from repro_torch.kernels.ref import paged_attention_ref
+
+        return paged_attention_ref(
+            q, k_pages, v_pages, block_tables, lengths,
+            k_scale=k_scale, v_scale=v_scale, window=spec.window,
+            attn_softcap=cfg.attn_softcap,
+        )
+
+    def embed_lookup(self, embed, tokens):
+        return maybe_dequantize_tree(embed)[tokens.long()]
+
+
+class CudaOpSet(OpSet):
+    """Storage-width ops on the hand-written CUDA kernels. Plain-tensor
+    weights take a dense matmul — the kernels buy nothing unquantized."""
+
+    name = "cuda"
+
+    def prepare_block(self, p, spec):
+        """Keep the projection weights quantized; dequantize only the
+        leaves no kernel takes (the norm gains, which ``quantize_tree``
+        quantizes too when they are period-stacked)."""
+        if spec.kind != "attn" or spec.moe:
+            raise NotImplementedError(
+                "the cuda OpSet covers dense attention blocks; SSM and MoE blocks "
+                "arrive with the other-families slice of the port")
+        out = {"ln1": maybe_dequantize_tree(p["ln1"]), "mixer": p["mixer"]}
+        if "ffn" in p:
+            out["ln2"] = maybe_dequantize_tree(p["ln2"])
+            out["ffn"] = p["ffn"]
+        return out
+
+    def matmul(self, x, w):
+        if not isinstance(w, QTensor):
+            return x @ w
+        from repro_torch.kernels.quant_matmul import QBLOCK, quant_matmul
+
+        if w.block != QBLOCK or w.q.ndim != 2:
+            raise ValueError(f"quant_matmul takes 2-D weights in blocks of {QBLOCK}, got {w}")
+        lead, K = x.shape[:-1], x.shape[-1]
+        out = quant_matmul(x.reshape(-1, K).contiguous(), w.q, w.scale, bits=w.bits)
+        if out.shape[1] != w.orig_last:
+            out = out[:, : w.orig_last]
+        return out.reshape(lead + (w.orig_last,))
+
+    def attention(self, q, k, v, cfg, spec):
+        from repro_torch.kernels.flash_attention import flash_attention
+
+        B, S, H, hd = q.shape
+        hkv = k.shape[2]
+
+        def fold(t, heads):  # (B,S,h,hd) -> (B·h, S, hd)
+            return t.transpose(1, 2).reshape(B * heads, S, hd).contiguous()
+
+        o = flash_attention(fold(q, H), fold(k, hkv), fold(v, hkv), causal=True,
+                            window=spec.window, attn_softcap=cfg.attn_softcap)
+        return o.reshape(B, H, S, hd).transpose(1, 2).reshape(B, S, H * hd)
+
+    def paged_attention(self, q, k_pages, v_pages, k_scale, v_scale,
+                        block_tables, lengths, cfg, spec):
+        from repro_torch.kernels.paged_attention import paged_attention
+
+        return paged_attention(
+            q.contiguous(), k_pages, v_pages, block_tables, lengths,
+            k_scale=k_scale, v_scale=v_scale, window=spec.window,
+            attn_softcap=cfg.attn_softcap,
+        )
+
+    def embed_lookup(self, embed, tokens):
+        if not isinstance(embed, QTensor):
+            return embed[tokens.long()]
+        # gather at storage width, dequantize only the gathered (B,S) rows
+        idx = tokens.long()
+        return dequantize(QTensor(embed.q[idx], embed.scale[idx], embed.bits, embed.block,
+                                  embed.orig_last))
+
+
+_REGISTRY = {"ref": RefOpSet(), "cuda": CudaOpSet()}
+
+
+def get_opset(name) -> OpSet:
+    """Resolve an OpSet by name (``"ref"`` / ``"cuda"``); an OpSet
+    instance passes through."""
+    if isinstance(name, OpSet):
+        return name
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise ValueError(f"unknown OpSet {name!r}; registered: {sorted(_REGISTRY)}") from None
+

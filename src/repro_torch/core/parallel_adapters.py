@@ -1,0 +1,202 @@
+"""Parallel Adapters — the per-user side network (paper §IV-A), serving side.
+
+Counterpart of ``repro.core.parallel_adapters``. Adapter block *i*
+consumes ``λ_i · W_down_i(b_i) + (1 − λ_i) · a_{i−1}``, where ``b_i`` is
+the backbone's hidden state after period *i*; the final adapter state is
+projected up with ``W_up`` and added to the backbone's final hidden
+state before the frozen LM head. The adapter runs on plain PyTorch ops
+(the ``ref`` OpSet), as in the reference.
+
+Multi-tenant serving runs B requests with B different adapters in one
+step. The reference ``vmap``s over requests; here the request axis is
+explicit: :func:`rows` lays a gathered adapter batch out so that every
+weight carries a request axis right after the period axis and every
+gain broadcasts per row, and the single-adapter functions below then run
+all B side networks at once, with per-row positions, cache writes and
+masks.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core.quantization import tree_map
+from repro_torch.models.backbone import (
+    apply_block,
+    apply_block_decode,
+    init_block,
+    init_cache,
+    period_slice,
+)
+from repro_torch.models.layers import LeafMaker, rms_norm
+
+
+def adapter_config(cfg, r: int = 8):
+    """The paper's 'lightweight version of the backbone': every width /r."""
+    d_a = max(8, cfg.d_model // r)
+    n_heads = max(1, cfg.n_heads // r)
+    ratio = max(1, cfg.n_heads // cfg.n_kv_heads)
+    n_kv = max(1, n_heads // ratio)
+    n_heads = max(n_heads, n_kv)
+    hd = max(4, (d_a // n_heads) // 2 * 2)  # rope needs an even head_dim
+    d_a = hd * n_heads
+    pattern = tuple(dataclasses.replace(s, moe=False) for s in cfg.pattern)
+    d_ff = cfg.d_ff
+    if any(s.moe for s in cfg.pattern) and cfg.moe is not None:
+        d_ff = cfg.moe.d_expert * cfg.moe.top_k
+    return dataclasses.replace(
+        cfg,
+        name=cfg.name + f"-adapter-r{r}",
+        d_model=d_a,
+        n_heads=n_heads,
+        n_kv_heads=n_kv,
+        head_dim=hd,
+        d_ff=max(16, d_ff // r) if d_ff else 0,
+        pattern=pattern,
+        moe=None,
+        mlstm_chunk=cfg.mlstm_chunk,
+    )
+
+
+def init_adapter(gen: torch.Generator, cfg, r: int = 8, *, device=None,
+                 dtype=torch.float32) -> dict:
+    """Random (Gaussian) adapter; block leaves stacked over periods."""
+    acfg = adapter_config(cfg, r)
+    n_p = cfg.n_periods
+    d, d_a = cfg.d_model, acfg.d_model
+    leaf = LeafMaker(gen, device=device, dtype=dtype)
+    return {
+        "downs": leaf.normal((n_p + 1, d, d_a), d ** -0.5),  # [0] embeds b_0
+        "lambda": torch.full((n_p,), 0.5, dtype=torch.float32, device=device),
+        "blocks": [init_block(LeafMaker(gen, device=device, dtype=dtype, lead=(n_p,)), acfg, s)
+                   for s in acfg.pattern],
+        "up": leaf.normal((d_a, d), d_a ** -0.5),
+        "out_norm": torch.zeros((d_a,), dtype=dtype, device=device),
+    }
+
+
+def init_adapter_cache(cfg, B: int, max_len: int, r: int = 8, dtype=torch.float32,
+                       device=None):
+    return init_cache(adapter_config(cfg, r), B, max_len, dtype, device)
+
+
+# ---------------------------------------------------------------------------
+# Adapter banks: one adapter per request
+# ---------------------------------------------------------------------------
+
+
+def stack_adapters(adapters):
+    """Stack per-user adapter trees into one bank with a leading user axis."""
+    adapters = list(adapters)
+    if not adapters:
+        raise ValueError("need at least one adapter")
+
+    def zip_map(*trees):
+        first = trees[0]
+        if isinstance(first, dict):
+            return {k: zip_map(*(t[k] for t in trees)) for k in first}
+        if isinstance(first, (list, tuple)):
+            return type(first)(zip_map(*vs) for vs in zip(*trees))
+        return torch.stack(trees)
+
+    return zip_map(*adapters)
+
+
+def gather_adapters(bank, user_idx: torch.Tensor):
+    """Per-request adapters: bank leaves (U, ...) gathered to (B, ...) by
+    ``user_idx`` (B,) — duplicates are fine."""
+    idx = user_idx.long()
+    return tree_map(lambda t: t[idx], bank)
+
+
+def rows(adapter_batch):
+    """Lay a gathered (B, ...) adapter batch out for the batched forward:
+    period-stacked leaves become (n_p, B, ...), so that indexing period i
+    gives per-row weights (B, d_in, d_out) for ``x @ w``; vector gains
+    gain a broadcast axis, (…, B, 1, d); λ becomes (n_p, B, 1, 1)."""
+
+    def per_period(t):  # (B, n_p, *rest) -> (n_p, B, *rest), gains (n_p, B, 1, d)
+        t = t.transpose(0, 1)
+        return t[:, :, None, :] if t.ndim == 3 else t
+
+    return {
+        "downs": adapter_batch["downs"].transpose(0, 1),
+        "lambda": adapter_batch["lambda"].transpose(0, 1)[:, :, None, None],
+        "blocks": [tree_map(per_period, b) for b in adapter_batch["blocks"]],
+        "up": adapter_batch["up"],
+        "out_norm": adapter_batch["out_norm"][:, None, :],
+    }
+
+
+# ---------------------------------------------------------------------------
+# Decode / prefill
+# ---------------------------------------------------------------------------
+
+
+def adapter_decode(adapter_params, cfg, b0_t, taps_t, cache, pos, r: int = 8):
+    """One-token adapter step. b0_t: (B,1,d); taps_t: (n_p,B,1,d); cache:
+    the :func:`init_adapter_cache` layout, updated in place; pos: (B,)
+    per-row write index. ``adapter_params`` is one adapter or a
+    :func:`rows` batch. Returns (side (B,1,d), cache)."""
+    acfg = adapter_config(cfg, r)
+    downs = adapter_params["downs"]
+    lambdas = torch.clamp(adapter_params["lambda"], 0.0, 1.0)
+    a = b0_t @ downs[0]
+    blocks = adapter_params["blocks"]
+    for i in range(cfg.n_periods):
+        lam = lambdas[i]
+        h = (lam * (taps_t[i] @ downs[i + 1]) + (1.0 - lam) * a).to(a.dtype)
+        for j, (spec, p) in enumerate(zip(acfg.pattern, period_slice(blocks, i))):
+            entry = {"k": cache[j]["k"][i], "v": cache[j]["v"][i]}
+            h, _ = apply_block_decode(p, h, acfg, spec, entry, pos)
+        a = h
+    a = rms_norm(a, adapter_params["out_norm"], acfg.norm_eps)
+    return a @ adapter_params["up"], cache
+
+
+def batched_adapter_decode(adapter_batch, cfg, b0_t, taps_t, cache, lengths, r: int = 8):
+    """One adapter step for B requests with B different adapters and
+    per-request write positions. adapter_batch: (B, ...) leaves (see
+    :func:`gather_adapters`); cache leaves (n_p, B, L, ...), updated in
+    place; lengths: (B,). Row b equals :func:`adapter_decode` of
+    request b alone."""
+    return adapter_decode(rows(adapter_batch), cfg, b0_t, taps_t, cache, lengths, r)
+
+
+def adapter_prefill(adapter_params, cfg, b0, taps, positions, max_len: int, r: int = 8):
+    """Side-network prefill: one forward over the prompt that also
+    captures the adapter's KV (the decode-ready state).
+
+    b0: (B,S,d); taps: (n_p,B,S,d) or a list of n_p (B,S,d); positions
+    (B,S). Returns (side (B,S,d), caches) with caches in the
+    :func:`init_adapter_cache` layout, the first S slots holding the
+    prompt KV."""
+    acfg = adapter_config(cfg, r)
+    S = b0.shape[1]
+    if S > max_len:
+        raise ValueError(f"prompt length {S} exceeds max_len {max_len}")
+    downs = adapter_params["downs"]
+    lambdas = torch.clamp(adapter_params["lambda"], 0.0, 1.0)
+    a = b0 @ downs[0]
+    B = b0.shape[0]
+    caches = init_cache(acfg, B, max_len, dtype=b0.dtype, device=b0.device)
+    blocks = adapter_params["blocks"]
+    for i in range(cfg.n_periods):
+        lam = lambdas[i]
+        h = (lam * (taps[i] @ downs[i + 1]) + (1.0 - lam) * a).to(a.dtype)
+        for j, (spec, p) in enumerate(zip(acfg.pattern, period_slice(blocks, i))):
+            h, (k, v) = apply_block(p, h, acfg, spec, positions, return_kv=True)
+            caches[j]["k"][i, :, :S] = k
+            caches[j]["v"][i, :, :S] = v
+        a = h
+    a = rms_norm(a, adapter_params["out_norm"], acfg.norm_eps)
+    return a @ adapter_params["up"], caches
+
+
+def batched_adapter_prefill(adapter_batch, cfg, b0, taps, positions, max_len: int,
+                            r: int = 8):
+    """Per-request-adapter prefill: :func:`adapter_prefill` with a
+    (B, ...) adapter batch."""
+    return adapter_prefill(rows(adapter_batch), cfg, b0, taps, positions, max_len, r)

@@ -1,0 +1,87 @@
+"""Causal online-softmax ("flash") attention, forward.
+
+Replaces the TPU kernel ``src/repro/kernels/flash_attention.py``
+(``_kernel`` / ``flash_attention_tpu``), with the CUDA kernel
+``csrc/flash_attention.cu``: causal masking, optional sliding
+``window`` and tanh ``attn_softcap``, f32.
+
+What bounds it on the H100: at the prefill shape of internlm2-1.8b
+(B·H = 8·16, S = 512, hd = 128) it does ~8.6 GFLOP of f32 work on ~134 MB,
+so it is bound by operations (CUDA cores; tensor cores are later work).
+The kernel keeps the softmax state in registers, loops over key tiles
+inside one block per (head, query tile), and skips key tiles outside
+the causal/window band. It reads grouped GQA heads directly — query row
+``bh`` uses kv row ``bh // n_rep`` — so the repeated-KV copy the TPU
+path built is never made. Padded prompt positions lie past every real
+query, so the causal mask keeps them out of real rows.
+
+On CPU tensors the wrapper computes
+:func:`~repro_torch.kernels.ref.flash_attention_ref`; on CUDA tensors it
+launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels._build import require
+from repro_torch.kernels.ref import flash_attention_ref
+
+#: launches of the CUDA kernel in this process (the CPU path does not count)
+launches = 0
+
+HEAD_DIMS = (64, 128)  # the head widths the kernel is instantiated for
+
+
+def _fn():
+    lib = _build.library("flash_attention")
+    fn = lib.flash_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                       + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    attn_softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """Blocked online-softmax attention -> (BH, Sq, hd) f32.
+
+    q: (BH, Sq, hd); k, v: (BH / n_rep, Sk, hd) — ``n_rep = 1`` is the
+    reference's repeated-KV layout, ``n_rep > 1`` reads grouped heads.
+    """
+    global launches
+    require(q.ndim == 3 and k.ndim == 3 and k.shape == v.shape, "q, k, v must be (BH, S, hd)")
+    BH, Sq, hd = q.shape
+    require(k.shape[0] > 0 and BH % k.shape[0] == 0 and k.shape[2] == hd,
+            f"kv shape {tuple(k.shape)} does not group q {tuple(q.shape)}")
+    require(window is None or window > 0, "window must be positive")
+    require(attn_softcap is None or attn_softcap > 0, "attn_softcap must be positive")
+    require(q.device == k.device == v.device, "q, k, v on different devices")
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   attn_softcap=attn_softcap)
+    require(q.device.type == "cuda", f"unsupported device {q.device}")
+    require(q.dtype == k.dtype == v.dtype == torch.float32, "q, k, v must be float32")
+    require(hd in HEAD_DIMS, f"head dim {hd} not in {HEAD_DIMS}")
+    require(q.is_contiguous() and k.is_contiguous() and v.is_contiguous(),
+            "q, k, v must be contiguous")
+    lib, fn = _fn()
+    out = torch.empty_like(q)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, Sq, k.shape[1], hd,
+            BH // k.shape[0], int(causal), window or 0, attn_softcap or 0.0, hd ** -0.5,
+            _build.stream_of(q))
+    _build.check(lib, rc, "flash_attention")
+    launches += 1
+    return out

@@ -1,0 +1,87 @@
+"""``y = x @ dequant(Wq)`` — block-dequant INT8/INT4 matmul.
+
+Replaces the TPU kernel ``src/repro/kernels/quant_matmul.py``
+(``_kernel`` / ``quant_matmul``), with the CUDA kernel
+``csrc/quant_matmul.cu``. Weights stay at storage width in device
+memory and are dequantized tile by tile on chip (``float(q) * scale``,
+the reference's product), with f32 accumulation.
+
+What bounds it on the H100: the decode step (M = batch bucket <= 8) is
+a GEMV bound by the weight bytes — about 1.56 GB of int8 weights plus
+scales per decode step across the 24 layers of internlm2-1.8b, about
+0.47 ms at 3.35 TB/s. Its kernel path reads whole 128-byte weight rows
+per warp, splits K across blocks to fill the card, and sums the slices
+in a fixed order (deterministic). Prefill (M up to 4096) is bound by
+f32 operations on the CUDA cores; its path tiles 64x128 outputs with
+the x and dequantized weight tiles in shared memory. Tensor cores are
+later work.
+
+On CPU tensors the wrapper computes :func:`~repro_torch.kernels.ref.quant_matmul_ref`;
+on CUDA tensors it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels._build import require
+from repro_torch.kernels.ref import quant_matmul_ref
+
+QBLOCK = 128  # quantization block along N (matches core.quantization)
+
+#: launches of the CUDA kernel in this process (the CPU path does not count)
+launches = 0
+
+
+def _fn():
+    lib = _build.library("quant_matmul")
+    fn = lib.qmm_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        for name in ("qmm_skinny_rows", "qmm_kchunk"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = ctypes.c_int
+    return lib, fn
+
+
+def quant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, bits: int = 8
+                 ) -> torch.Tensor:
+    """``x @ dequant(q, scale)`` -> (M, N) f32.
+
+    x: (M, K) f32; q: (K, N) int8 or (K, N//2) packed int4 nibbles;
+    scale: (K, N // 128) f32 — the storage format of
+    ``core.quantization.quantize(block=128)``. M and K need no padding.
+    """
+    global launches
+    require(bits in (8, 4), f"bits must be 8 or 4, got {bits}")
+    require(x.ndim == 2 and q.ndim == 2 and scale.ndim == 2, "x, q, scale must be 2-D")
+    M, K = x.shape
+    N = scale.shape[1] * QBLOCK
+    require(q.shape == (K, N if bits == 8 else N // 2),
+            f"q shape {tuple(q.shape)} does not match x {tuple(x.shape)} / scale "
+            f"{tuple(scale.shape)} at int{bits}")
+    require(scale.shape[0] == K, "scale must have one row per weight row")
+    require(x.dtype == torch.float32, f"x must be float32, got {x.dtype}")
+    require(q.dtype == torch.int8 and scale.dtype == torch.float32, "q int8, scale float32")
+    require(x.device == q.device == scale.device, "x, q, scale on different devices")
+    if x.device.type == "cpu":
+        return quant_matmul_ref(x, q, scale, bits)
+    require(x.device.type == "cuda", f"unsupported device {x.device}")
+    require(x.is_contiguous() and q.is_contiguous() and scale.is_contiguous(),
+            "x, q, scale must be contiguous")
+    require(q.data_ptr() % 4 == 0 and x.data_ptr() % 16 == 0, "misaligned x or q")
+    lib, fn = _fn()
+    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    partial = out
+    if M <= lib.qmm_skinny_rows():
+        splits = -(-K // lib.qmm_kchunk())
+        partial = torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
+    rc = fn(x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), partial.data_ptr(),
+            M, K, N, bits, _build.stream_of(x))
+    _build.check(lib, rc, "quant_matmul")
+    launches += 1
+    return out

@@ -1,0 +1,179 @@
+"""Pattern-driven decoder backbone (counterpart of ``repro.models.backbone``).
+
+An :class:`~repro_torch.configs.base.ArchConfig` declares a period of
+layers tiled ``n_periods`` times. Block parameters are stacked over
+periods (leaves ``(n_p, ...)``, as in the reference, so parameters bridge
+over unchanged); the forward is a Python loop over periods where the
+reference scans. Dense attention blocks only in this slice: SSM and MoE
+kinds, and mrope, raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.opset import get_opset
+from repro_torch.core.quantization import (
+    index_tree,
+    maybe_dequantize_tree,
+    quantize,
+    should_quantize,
+)
+from repro_torch.models.layers import (
+    LeafMaker,
+    attention_decode,
+    attention_forward,
+    init_attention,
+    init_mlp,
+    mlp_forward,
+    rms_norm,
+    softcap,
+)
+
+_REF_OPS = get_opset("ref")
+
+
+def _dense_only(spec) -> None:
+    if spec.kind != "attn" or spec.moe:
+        raise NotImplementedError(
+            f"layer kind {spec.kind!r} (moe={spec.moe}) arrives with the SSM/MoE "
+            "slice of the port; this slice covers dense attention blocks")
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def init_block(leaf: LeafMaker, cfg, spec) -> dict:
+    """Parameters for one layer position (leaves get ``leaf.lead`` in front)."""
+    _dense_only(spec)
+    d = cfg.d_model
+    p = {"ln1": leaf.zeros((d,)), "mixer": init_attention(leaf, cfg)}
+    if spec.ffn and cfg.d_ff:
+        p["ln2"] = leaf.zeros((d,))
+        p["ffn"] = init_mlp(leaf, d, cfg.d_ff)
+    return p
+
+
+def init_backbone(gen: torch.Generator, cfg, *, device=None, dtype=torch.float32,
+                  quant_bits: Optional[int] = None) -> dict:
+    """Random backbone with block leaves stacked over periods.
+
+    ``quant_bits`` (8 or 4) quantizes each leaf the moment it is drawn,
+    by the rule of ``quantize_tree(bits)``, so at full width the f32 tree
+    is never resident at once."""
+
+    def finish(t):
+        if quant_bits is not None and should_quantize((), t):
+            return quantize(t, quant_bits)
+        return t
+
+    def maker(lead=()):
+        return LeafMaker(gen, device=device, dtype=dtype, lead=lead, finish=finish)
+
+    d = cfg.d_model
+    params = {
+        "embed": maker().normal((cfg.vocab, d), d ** -0.5),
+        "final_norm": maker().zeros((d,)),
+        "blocks": [init_block(maker((cfg.n_periods,)), cfg, spec) for spec in cfg.pattern],
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = maker().normal((d, cfg.vocab), d ** -0.5)
+    return params
+
+
+def period_slice(blocks, i: int):
+    """Period ``i`` of the stacked block list (views, no copies)."""
+    return [index_tree(b, i) for b in blocks]
+
+
+# ---------------------------------------------------------------------------
+# Forward (prefill)
+# ---------------------------------------------------------------------------
+
+
+def apply_block(p, x, cfg, spec, positions, ops=None, return_kv: bool = False):
+    ops = ops if ops is not None else _REF_OPS
+    _dense_only(spec)
+    p = ops.prepare_block(p, spec)
+    h = ops.rms_norm(x, p["ln1"], cfg.norm_eps)
+    if return_kv:
+        mix, kv = attention_forward(p["mixer"], h, cfg, spec, positions, ops=ops, return_kv=True)
+    else:
+        mix = attention_forward(p["mixer"], h, cfg, spec, positions, ops=ops)
+    x = x + mix
+    if "ffn" in p:
+        h = ops.rms_norm(x, p["ln2"], cfg.norm_eps)
+        x = x + mlp_forward(p["ffn"], h, ops=ops)
+    if return_kv:
+        return x, kv
+    return x
+
+
+def embed_inputs(params, cfg, batch: dict, ops=None):
+    """Token embedding. batch: {"tokens": (B,S) int} or {"embeds": (B,S,d)};
+    optional {"positions": (B,S)}. Returns (x, positions)."""
+    ops = ops if ops is not None else _REF_OPS
+    if cfg.rope == "mrope":
+        raise NotImplementedError("mrope (qwen2-vl) arrives with the other-families slice")
+    if "embeds" in batch:
+        x = batch["embeds"]
+    else:
+        x = ops.embed_lookup(params["embed"], batch["tokens"])
+    B, S = x.shape[:2]
+    if "positions" in batch:
+        positions = batch["positions"]
+    else:
+        positions = torch.arange(S, device=x.device).expand(B, S)
+    return x, positions
+
+
+def head_weight(params, cfg):
+    """The (d, vocab) LM-head matrix, dequantized (a plain matmul follows,
+    as in the reference, which computes the head outside any kernel)."""
+    if cfg.tie_embeddings:
+        return maybe_dequantize_tree(params["embed"]).T
+    return maybe_dequantize_tree(params["lm_head"])
+
+
+def logits_from_hidden(params, cfg, h):
+    p_norm = maybe_dequantize_tree(params["final_norm"])
+    h = rms_norm(h, p_norm, cfg.norm_eps)
+    logits = h @ head_weight(params, cfg)
+    return softcap(logits, cfg.logit_softcap)
+
+
+# ---------------------------------------------------------------------------
+# Decode against a linear cache (the adapter side of serving)
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg, B: int, max_len: int, dtype=torch.float32, device=None):
+    """Linear KV cache: one ``{"k", "v"}`` entry per pattern position,
+    leaves (n_p, B, max_len, Hkv, hd)."""
+    caches = []
+    for spec in cfg.pattern:
+        _dense_only(spec)
+        shape = (cfg.n_periods, B, max_len, cfg.n_kv_heads, cfg.hd)
+        caches.append({"k": torch.zeros(shape, dtype=dtype, device=device),
+                       "v": torch.zeros(shape, dtype=dtype, device=device)})
+    return caches
+
+
+def apply_block_decode(p, x, cfg, spec, cache, pos, ops=None):
+    """One token through one block; ``cache`` is one period's
+    ``{"k", "v"}`` (B, max_len, Hkv, hd), updated in place; pos: (B,)."""
+    ops = ops if ops is not None else _REF_OPS
+    _dense_only(spec)
+    p = ops.prepare_block(p, spec)
+    h = ops.rms_norm(x, p["ln1"], cfg.norm_eps)
+    mix, ck, cv = attention_decode(p["mixer"], h, cfg, spec, cache["k"], cache["v"], pos,
+                                   ops=ops)
+    x = x + mix
+    if "ffn" in p:
+        h = ops.rms_norm(x, p["ln2"], cfg.norm_eps)
+        x = x + mlp_forward(p["ffn"], h, ops=ops)
+    return x, {"k": ck, "v": cv}

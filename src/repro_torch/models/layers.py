@@ -1,0 +1,215 @@
+"""Core transformer layers: norms, rotary embeddings, GQA attention, MLP.
+
+Counterpart of ``repro.models.layers``. Shapes follow the reference:
+activations (B, S, d), heads (B, S, H, hd). Every weight may carry a
+leading request axis — ``x @ w`` with x (B, S, d_in) and w (B, d_in,
+d_out) applies row b's own weight, and a norm gain (B, 1, d) broadcasts
+per row — which is how the per-user adapters run B different side
+networks in one batch (the reference ``vmap``s over requests instead).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+_NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Parameter init
+# ---------------------------------------------------------------------------
+
+
+class LeafMaker:
+    """Draws parameter leaves from one ``torch.Generator``.
+
+    ``lead`` is prepended to every shape (the period-stacking axis);
+    ``finish`` maps each new leaf (e.g. quantizes it as soon as it is
+    drawn, so a full f32 tree is never resident)."""
+
+    def __init__(self, gen: torch.Generator, *, device=None, dtype=torch.float32,
+                 lead: tuple = (), finish=None):
+        self.gen = gen
+        self.device = device
+        self.dtype = dtype
+        self.lead = tuple(lead)
+        self.finish = finish
+
+    def _out(self, t):
+        return self.finish(t) if self.finish is not None else t
+
+    def normal(self, shape, std: float):
+        t = torch.randn(self.lead + tuple(shape), generator=self.gen, device=self.device,
+                        dtype=torch.float32)
+        return self._out((t * std).to(self.dtype))
+
+    def zeros(self, shape):
+        return self._out(torch.zeros(self.lead + tuple(shape), device=self.device,
+                                     dtype=self.dtype))
+
+
+def init_attention(leaf: LeafMaker, cfg) -> dict:
+    d, hd = cfg.d_model, cfg.hd
+    s = d ** -0.5
+    return {
+        "wq": leaf.normal((d, cfg.n_heads * hd), s),
+        "wk": leaf.normal((d, cfg.n_kv_heads * hd), s),
+        "wv": leaf.normal((d, cfg.n_kv_heads * hd), s),
+        "wo": leaf.normal((cfg.n_heads * hd, d), s),
+    }
+
+
+def init_mlp(leaf: LeafMaker, d: int, d_ff: int) -> dict:
+    return {
+        "wi": leaf.normal((d, d_ff), d ** -0.5),
+        "wg": leaf.normal((d, d_ff), d ** -0.5),
+        "wo": leaf.normal((d_ff, d), d_ff ** -0.5),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Norms, softcap, rope
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + weight)).to(dtype)
+
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32, device=device) / hd))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10_000.0) -> torch.Tensor:
+    """Rotate-half rope. x: (B, S, H, hd); positions: (B, S) int."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)
+    angles = positions[..., None].float() * freqs  # (B, S, hd/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+
+def _project_qkv(p, x, cfg, positions, ops=None):
+    B, S, _ = x.shape
+    hd = cfg.hd
+    mm = ops.matmul if ops is not None else (lambda a, w: a @ w)
+    q = mm(x, p["wq"]).reshape(B, S, cfg.n_heads, hd)
+    k = mm(x, p["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
+    v = mm(x, p["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
+    if cfg.rope == "rope":
+        rope = ops.apply_rope if ops is not None else apply_rope
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    elif cfg.rope == "mrope":
+        raise NotImplementedError("mrope (qwen2-vl) arrives with the other-families slice")
+    return q, k, v
+
+
+def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(B, S, Hkv, hd) -> (B, S, Hkv·n_rep, hd); head g·n_rep+r reads kv head g."""
+    if n_rep == 1:
+        return k
+    B, S, Hkv, hd = k.shape
+    return k[:, :, :, None, :].expand(B, S, Hkv, n_rep, hd).reshape(B, S, Hkv * n_rep, hd)
+
+
+def ref_attention_core(q, k, v, cfg, spec) -> torch.Tensor:
+    """Dense grouped-head causal attention on projected/rope'd q, k, v —
+    the ``ref`` OpSet's attention. q: (B,S,H,hd); k,v: (B,S,Hkv,hd)
+    -> (B,S,H·hd). Query head g·n_rep+r reads kv head g."""
+    B, S, H, hd = q.shape
+    hkv = cfg.n_kv_heads
+    n_rep = H // hkv
+    qg = q.float().reshape(B, S, hkv, n_rep, hd)
+    s = torch.einsum("bsgrd,btgd->bgrst", qg, k.float()) * (hd ** -0.5)
+    s = softcap(s, cfg.attn_softcap)
+    pos = torch.arange(S, device=q.device)
+    mask = pos[:, None] >= pos[None, :]
+    if spec.window is not None:
+        mask &= (pos[:, None] - pos[None, :]) < spec.window
+    s = torch.where(mask, s, torch.full_like(s, _NEG_INF))
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bgrst,btgd->bsgrd", w, v.float())
+    return o.reshape(B, S, H * hd).to(q.dtype)
+
+
+def attention_forward(p, x, cfg, spec, positions, ops=None, return_kv: bool = False):
+    """Full-sequence (prefill) attention. x: (B,S,d); positions: (B,S).
+
+    ``return_kv=True`` also returns the post-rope ``(k, v)`` pair
+    ((B,S,Hkv,hd) each), which paged prefill scatters into the pages."""
+    q, k, v = _project_qkv(p, x, cfg, positions, ops)
+    if ops is not None:
+        o = ops.attention(q, k, v, cfg, spec)
+        out = ops.matmul(o, p["wo"])
+    else:
+        o = ref_attention_core(q, k, v, cfg, spec)
+        out = o @ p["wo"]
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+def attention_decode(p, x, cfg, spec, cache_k, cache_v, pos, ops=None):
+    """Single-token decode against a linear cache, per-row positions.
+
+    x: (B,1,d); cache_[kv]: (B,Smax,Hkv,hd); pos: (B,) int — the slot
+    row b's new token is written at (a scalar applies to every row).
+    The caches are updated **in place** (the reference returns new
+    arrays); they are also returned. Returns (out (B,1,d), cache_k, cache_v).
+    """
+    B = x.shape[0]
+    Smax = cache_k.shape[1]
+    pos = torch.as_tensor(pos, device=x.device).long().expand(B)
+    q, k, v = _project_qkv(p, x, cfg, pos[:, None], ops)
+    rows = torch.arange(B, device=x.device)
+    cache_k[rows, pos] = k[:, 0].to(cache_k.dtype)
+    cache_v[rows, pos] = v[:, 0].to(cache_v.dtype)
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    hd = cfg.hd
+    qh = q.reshape(B, cfg.n_kv_heads, n_rep, hd)
+    s = torch.einsum("bgrd,bsgd->bgrs", qh.float(), cache_k.float()) * (hd ** -0.5)
+    s = softcap(s, cfg.attn_softcap)
+    kpos = torch.arange(Smax, device=x.device)
+    valid = kpos[None, :] <= pos[:, None]
+    if spec.window is not None:
+        valid &= kpos[None, :] > pos[:, None] - spec.window
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, _NEG_INF))
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bgrs,bsgd->bgrd", w, cache_v.float())
+    o = o.reshape(B, 1, cfg.n_heads * hd).to(x.dtype)
+    out = ops.matmul(o, p["wo"]) if ops is not None else o @ p["wo"]
+    return out, cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# Gated MLP (llama-style)
+# ---------------------------------------------------------------------------
+
+
+def mlp_forward(p, x: torch.Tensor, ops=None) -> torch.Tensor:
+    if ops is not None:
+        mm = ops.matmul
+        return mm(F.silu(mm(x, p["wg"])) * mm(x, p["wi"]), p["wo"])
+    return (F.silu(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]

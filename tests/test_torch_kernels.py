@@ -1,0 +1,162 @@
+"""The port's kernel modules against the JAX Pallas kernels (interpret mode).
+
+On the CPU each wrapper computes its plain PyTorch version (the CUDA
+kernels build and run only on the card, where ``chip_smoke.py`` holds
+them against these same plain versions). Inputs come from numpy with a
+fixed seed and go through both packages; tolerances are the reference's
+own (tests/test_kernels.py, tests/test_decode_parity.py).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.quantization import quantize as jax_quantize
+from repro.kernels.flash_attention import flash_attention_tpu
+from repro.kernels.paged_attention import paged_attention as jax_paged_attention
+from repro.kernels.quant_matmul import quant_matmul as jax_quant_matmul
+from repro.serve.paging import quantize_kv_pages as jax_quantize_kv_pages
+from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.paged_attention import paged_attention
+from repro_torch.kernels.quant_matmul import quant_matmul
+
+torch.set_num_threads(2)
+
+
+def _randn(shape, seed, scale=1.0):
+    return (np.random.default_rng(seed).standard_normal(shape) * scale).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# quant_matmul
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("M,K,N", [(64, 256, 128), (8, 512, 256), (24, 200, 384), (1, 136, 128)])
+def test_quant_matmul_matches_pallas(bits, M, K, N):
+    x = _randn((M, K), seed=M + K)
+    qt = jax_quantize(jnp.asarray(_randn((K, N), seed=N)), bits=bits, block=128)
+    want = jax_quant_matmul(jnp.asarray(x), qt.q, qt.scale, bits=bits, interpret=True)
+    xt = torch.from_numpy(x)
+    q, s = torch.from_numpy(np.array(qt.q)), torch.from_numpy(np.array(qt.scale))
+    got = ref.quant_matmul_ref(xt, q, s, bits)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-3, rtol=1e-4)
+    # the wrapper takes the plain version on CPU tensors, exactly
+    torch.testing.assert_close(quant_matmul(xt, q, s, bits=bits), got, atol=0, rtol=0)
+
+
+def test_quant_matmul_wrapper_validates():
+    x = torch.zeros(4, 256)
+    q = torch.zeros(256, 128, dtype=torch.int8)
+    s = torch.zeros(256, 1)
+    with pytest.raises(ValueError):
+        quant_matmul(x, q[:, :64], s, bits=8)  # int8 q must be (K, N)
+    with pytest.raises(ValueError):
+        quant_matmul(x.double(), q, s, bits=8)
+    with pytest.raises(ValueError):
+        quant_matmul(x, q, s, bits=3)
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window", [None, 32])
+@pytest.mark.parametrize("cap", [None, 30.0])
+def test_flash_attention_matches_pallas(causal, window, cap):
+    BH, S, hd = 3, 128, 32
+    q, k, v = (_randn((BH, S, hd), seed=i) for i in range(3))
+    want = flash_attention_tpu(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+                               window=window, attn_softcap=cap, bq=32, bk=32, interpret=True)
+    got = flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                          causal=causal, window=window, attn_softcap=cap)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-5)
+
+
+def test_flash_attention_grouped_kv_equals_repeated_layout():
+    """Grouped KV (query row bh reads kv row bh // n_rep) is the Pallas
+    kernel's repeated-KV layout without the copy."""
+    B, hkv, n_rep, S, hd = 2, 2, 2, 64, 32
+    q = _randn((B * hkv * n_rep, S, hd), seed=4)
+    k, v = _randn((B * hkv, S, hd), seed=5), _randn((B * hkv, S, hd), seed=6)
+    rep = lambda t: np.repeat(t, n_rep, axis=0)  # noqa: E731
+    want = flash_attention_tpu(jnp.asarray(q), jnp.asarray(rep(k)), jnp.asarray(rep(v)),
+                               bq=32, bk=32, interpret=True)
+    got = flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-5)
+
+
+# ---------------------------------------------------------------------------
+# paged attention
+# ---------------------------------------------------------------------------
+
+PAGED_TOL = {"f32": 2e-4, "bf16": 3e-2, "int8": 2e-4}  # test_decode_parity.py:36
+
+
+def _paged_case(policy, seed=0):
+    rng = np.random.default_rng(seed)
+    B, hkv, n_rep, hd, page, max_pages, n_pages = 4, 2, 2, 64, 4, 5, 16
+    q = _randn((B, hkv, n_rep, hd), seed + 1)
+    kf = _randn((n_pages, page, hkv, hd), seed + 2)
+    vf = _randn((n_pages, page, hkv, hd), seed + 3)
+    perm = rng.permutation(np.arange(1, n_pages))
+    bt = np.zeros((B, max_pages), np.int32)
+    lengths = np.array([17, 3, 0, 9], np.int32)  # row 2: a padding row (null page)
+    used = 0
+    for b in range(B):
+        n = -(-(int(lengths[b]) + 1) // page) if lengths[b] else 0
+        bt[b, :n] = perm[used:used + n]
+        used += n
+    pages = {"k": kf, "v": vf}
+    if policy == "int8":
+        pages = {}
+        for name, t in (("k", kf), ("v", vf)):
+            qv, s = jax_quantize_kv_pages(jnp.asarray(t))
+            pages[name], pages[name + "_scale"] = np.array(qv), np.array(s)
+    return q, pages, bt, lengths
+
+
+def _to_torch_pages(pages, policy):
+    if policy == "bf16":
+        return {k: torch.from_numpy(v).to(torch.bfloat16) for k, v in pages.items()}
+    return {k: torch.from_numpy(v) for k, v in pages.items()}
+
+
+def _to_jax_pages(pages, policy):
+    if policy == "bf16":
+        return {k: jnp.asarray(v).astype(jnp.bfloat16) for k, v in pages.items()}
+    return {k: jnp.asarray(v) for k, v in pages.items()}
+
+
+@pytest.mark.parametrize("policy", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("window,cap", [(None, None), (6, None), (None, 20.0)])
+def test_paged_attention_matches_pallas(policy, window, cap):
+    q, pages, bt, lengths = _paged_case(policy)
+    jp, tp = _to_jax_pages(pages, policy), _to_torch_pages(pages, policy)
+    want = jax_paged_attention(
+        jnp.asarray(q), jp["k"], jp["v"], jnp.asarray(bt), jnp.asarray(lengths),
+        k_scale=jp.get("k_scale"), v_scale=jp.get("v_scale"), window=window,
+        attn_softcap=cap, interpret=True)
+    args = (torch.from_numpy(q), tp["k"], tp["v"], torch.from_numpy(bt),
+            torch.from_numpy(lengths))
+    kw = dict(k_scale=tp.get("k_scale"), v_scale=tp.get("v_scale"), window=window,
+              attn_softcap=cap)
+    got = ref.paged_attention_ref(*args, **kw)
+    assert np.isfinite(got.numpy()).all()  # the length-0 padding row included
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=PAGED_TOL[policy])
+    torch.testing.assert_close(paged_attention(*args, **kw), got, atol=0, rtol=0)
+
+
+def test_paged_attention_wrapper_validates():
+    q, pages, bt, lengths = _paged_case("int8")
+    tp = _to_torch_pages(pages, "int8")
+    args = (torch.from_numpy(q), tp["k"], tp["v"], torch.from_numpy(bt), torch.from_numpy(lengths))
+    with pytest.raises(ValueError):
+        paged_attention(*args, k_scale=tp["k_scale"])  # scales come in pairs
+    with pytest.raises(ValueError):
+        paged_attention(*args[:3], torch.from_numpy(bt[:2]), args[4])
