@@ -9,12 +9,12 @@ Phases, in order; any failure exits non-zero:
    matmuls and convolutions, so every plain version runs in full f32.
 2. Build: compile the kernels from ``src/repro_torch/kernels/csrc`` with
    nvcc for sm_90a (one process per source, all at once).
-3. Kernels: each CUDA kernel against its plain PyTorch version at the
-   shapes of the serving path, with the stated tolerance; the device
-   time per call (CUDA graph replays, L2 cold; see ``Timer``) of the
-   kernel, the plain version and one PyTorch call for the same function
-   (a yardstick the port never calls), and the least time the card could
-   take.
+3. Serving kernels: ``quant_matmul``, flash and paged attention against
+   their plain PyTorch versions at the serving path's shapes, with the
+   stated tolerance; the device time per call (CUDA graph replays, L2
+   cold; see ``Timer``) of the kernel, the plain version and one
+   PyTorch call for the same function (a yardstick the port never
+   calls), and the least time the card could take.
 4. Serving: internlm2-1.8b at full width (24 layers, d=2048), random
    weights from a seeded generator, INT8 backbone and INT8 KV pages,
    4 users with r=8 adapters, 8 requests with ragged prompts, 32 new
@@ -23,7 +23,21 @@ Phases, in order; any failure exits non-zero:
    under ``torch.profiler`` for the device's busy share and kernel time
    by name. Then the first prefill and two decode steps run again under
    the ``ref`` OpSet, and the logits are compared.
-5. Summary: one JSON line ``{"kernels": [...]}``, the card's line, and
+5. Training kernels: ``mix_fwd``/``mix_dw`` and ``ce_fwd``/``ce_bwd`` the
+   same way at the training path's shapes (ragged and soft-capped cases
+   too), and the gradients of their two autograd Functions against
+   autograd of the plain versions.
+6. Training: PAC+ on internlm2-1.8b at full width through
+   ``EdgeSession``/``EpochRunner`` — INT8 backbone, int8 activation
+   cache, pruning init, 3 epochs x 2 steps of 4 x 512 tokens: epoch 0
+   full (frozen forward through ``quant_matmul`` and flash attention,
+   taps emitted int8), epochs 1-2 from the cache through the mix and CE
+   kernels. Launch counts from this run alone must all be positive.
+   One cached batch then goes through the cached step under ``cuda`` and
+   ``ref`` (loss and gradients compared), one full and one cached step
+   run under ``torch.profiler``, and the same trainer runs under ``ref``
+   (per-epoch losses compared).
+7. Summary: one JSON line ``{"kernels": [...]}``, the card's line, and
    last ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card and the repository's ``src`` beside this file; it
@@ -43,6 +57,7 @@ import numpy as np
 import torch
 
 SEED = 0
+T_START = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12     # H100 SXM f32 on the CUDA cores (NVIDIA data sheet)
 REPEATS = 15
@@ -81,17 +96,18 @@ class Timer:
     def __init__(self):
         self.flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")  # > 50 MB L2
 
-    def __call__(self, fns) -> float:
+    def __call__(self, fns, calls: int = CALLS, repeats: int = REPEATS) -> float:
+        """``calls``/``repeats`` shrink for calls of tens of milliseconds."""
         fns = fns if isinstance(fns, list) else [fns]
         for fn in fns:
             fn()
         torch.cuda.synchronize()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            for i in range(self.CALLS):
+            for i in range(calls):
                 fns[i % len(fns)]()
         times = []
-        for _ in range(REPEATS):
+        for _ in range(repeats):
             self.flush.zero_()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -99,7 +115,7 @@ class Timer:
             graph.replay()
             end.record()
             end.synchronize()
-            times.append(start.elapsed_time(end) / self.CALLS)
+            times.append(start.elapsed_time(end) / calls)
         del graph
         return statistics.median(times)
 
@@ -277,25 +293,21 @@ def kernel_phase(timer: Timer, gen: torch.Generator):
 # ---------------------------------------------------------------- serving
 
 
-def profile_decode(eng, prompts, names) -> None:
-    """Two steady decode steps at batch 8 under ``torch.profiler``: the
-    device's busy share of the host wall time and kernel time by name."""
+def device_profile(fn) -> dict:
+    """``fn`` under ``torch.profiler``: the host wall time, the device's
+    busy time and its share of the wall time, the torch ops called from
+    Python (top-level host events) and device time by kernel name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for i, p in enumerate(prompts):
-        eng.submit(p, names[i % len(names)], max_new_tokens=8)
-    eng.step()  # prefill + first decode step
-    eng.step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.step()
-        eng.step()
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name = {}
-    host_ops = 0  # torch ops called from Python (top-level CPU events)
+    host_ops = 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
@@ -303,11 +315,21 @@ def profile_decode(eng, prompts, names) -> None:
             host_ops += 1
     busy_us = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    emit({"phase": "decode_profile", "steps": 2, "batch": 8, "wall_ms": wall_us / 1e3,
-          "device_busy_ms": busy_us / 1e3 if by_name else "not measured",
-          "device_busy_share": busy_us / wall_us if by_name else "not measured",
-          "host_ops": host_ops,
-          "kernels_by_device_ms": [[n[:80], t / 1e3] for n, t in top]})
+    return {"wall_ms": wall_us / 1e3,
+            "device_busy_ms": busy_us / 1e3 if by_name else "not measured",
+            "device_busy_share": busy_us / wall_us if by_name else "not measured",
+            "host_ops": host_ops,
+            "kernels_by_device_ms": [[n[:80], t / 1e3] for n, t in top]}
+
+
+def profile_decode(eng, prompts, names) -> None:
+    """Two steady decode steps at batch 8 under ``torch.profiler``."""
+    for i, p in enumerate(prompts):
+        eng.submit(p, names[i % len(names)], max_new_tokens=8)
+    eng.step()  # prefill + first decode step
+    eng.step()
+    emit({"phase": "decode_profile", "steps": 2, "batch": 8,
+          **device_profile(lambda: (eng.step(), eng.step()))})
     eng.drain()
 
 
@@ -422,6 +444,301 @@ def serving_phase(gen: torch.Generator):
         raise AssertionError(f"cuda vs ref logits: {diffs} (tol {tol}), finite={finite}")
     return launches
 
+# ---------------------------------------------------------------- training kernels
+
+TRAIN_T, TRAIN_D, TRAIN_DA, TRAIN_V = 4 * 512, 2048, 256, 92544  # internlm2-1.8b, r=8, B=4, S=512
+
+
+def _row(r, at):
+    out = {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    out["at"] = at
+    return out
+
+
+def training_kernel_phase(timer: Timer, gen: torch.Generator):
+    """The four training kernels against their plain versions at the
+    training path's shapes, their timings, and the gradients of the two
+    autograd Functions against autograd of the plain versions."""
+    from repro_torch.core.quantization import dequantize, quantize
+    from repro_torch.kernels import cached_mix, lmhead_ce, ref
+    from repro_torch.kernels.cached_step import dq_adapter_mix
+    from repro_torch.kernels.cached_step import lmhead_ce as lmhead_ce_op
+
+    dev = "cuda"
+    rows = {}
+
+    # ---- mix_fwd / mix_dw: f32, bf16, int8 entries at (T, d, d_a), and a ragged case
+    mix_reason = ("the reference's dq_adapter_mix tolerances (tests/test_cached_step.py:55, "
+                  ":84); f32 sums over d or T reorder")
+    worst = {"mix_fwd": 0.0, "mix_dw": 0.0}
+    for T, d, da in ((TRAIN_T, TRAIN_D, TRAIN_DA), (1000, 1000, 200)):
+        b = torch.randn(T, d, generator=gen, device=dev)
+        w = torch.randn(d, da, generator=gen, device=dev) * d ** -0.5
+        a = torch.randn(T, da, generator=gen, device=dev)
+        g = torch.randn(T, da, generator=gen, device=dev)
+        lam = torch.tensor(0.7, device=dev)
+        for storage, ent in (("f32", b), ("bf16", b.bfloat16()), ("int8", quantize(b, 8, 128))):
+            out, bw = cached_mix.mix_fwd(ent, w, a, lam)
+            want_out, want_bw = ref.mix_fwd_ref(ent, w, a, lam)
+            dw, want_dw = cached_mix.mix_dw(ent, g, lam, d), ref.mix_dw_ref(ent, g, lam, d)
+            e_fwd = max(float(((out - want_out).abs() - 1e-4 * want_out.abs()).max()),
+                        float(((bw - want_bw).abs() - 1e-4 * want_bw.abs()).max()))
+            e_dw = float(((dw - want_dw).abs() - 1e-3 * want_dw.abs()).max())
+            check(f"mix_fwd {storage} T={T} d={d} da={da}", e_fwd, 1e-4)
+            check(f"mix_dw {storage} T={T} d={d} da={da}", e_dw, 2e-4)
+            err_f, err_d = max(max_err(out, want_out), max_err(bw, want_bw)), max_err(dw, want_dw)
+            worst["mix_fwd"] = max(worst["mix_fwd"], err_f)
+            worst["mix_dw"] = max(worst["mix_dw"], err_d)
+            emit({"check": "cached_mix", "storage": storage, "T": T, "d": d, "da": da,
+                  "mix_fwd_max_abs_err": err_f, "mix_dw_max_abs_err": err_d,
+                  "tol": "mix_fwd atol 1e-4 + rtol 1e-4; mix_dw atol 2e-4 + rtol 1e-3",
+                  "tol_reason": mix_reason})
+    # timings at the training path's storage (int8 taps), T = 2048, d = 2048, d_a = 256
+    T, d, da = TRAIN_T, TRAIN_D, TRAIN_DA
+    ents = [quantize(torch.randn(T, d, generator=gen, device=dev), 8, 128)
+            for _ in range(copies(T * d))]
+    w = torch.randn(d, da, generator=gen, device=dev) * d ** -0.5
+    a = torch.randn(T, da, generator=gen, device=dev)
+    g = torch.randn(T, da, generator=gen, device=dev)
+    lam = torch.tensor(0.7, device=dev)
+    ent_bytes = T * d + T * (d // 128) * 4
+    deq = [dequantize(e) for e in ents[:2]]
+    b_ms, b_by = bound(ent_bytes + 4 * (d * da + 3 * T * da), 2.0 * T * d * da)
+    r = {"check": "mix_fwd", "storage": "int8", "T": T, "d": d, "da": da,
+         "max_abs_err": worst["mix_fwd"],
+         "ms": timer([lambda e=e: cached_mix.mix_fwd(e, w, a, lam) for e in ents]),
+         "plain_ms": timer([lambda e=e: ref.mix_fwd_ref(e, w, a, lam) for e in ents]),
+         "library_ms": timer([lambda e=e: torch.matmul(dequantize(e), w) for e in ents]),
+         "library": "dequantize, then torch.matmul", "bound_ms": b_ms, "bound_by": b_by}
+    emit(r)
+    rows["mix_fwd"] = _row(r, "one period's mix, T=4*512, d=2048, d_a=256, int8 entry")
+    b_ms, b_by = bound(ent_bytes + 4 * (T * da + d * da), 2.0 * T * d * da)
+    r = {"check": "mix_dw", "storage": "int8", "T": T, "d": d, "da": da,
+         "max_abs_err": worst["mix_dw"],
+         "ms": timer([lambda e=e: cached_mix.mix_dw(e, g, lam, d) for e in ents]),
+         "plain_ms": timer([lambda e=e: ref.mix_dw_ref(e, g, lam, d) for e in ents]),
+         "library_ms": timer([lambda x=x: torch.matmul(x.T, g) for x in deq]),
+         "library": "torch.matmul of the dequantized entry's transpose and g",
+         "bound_ms": b_ms, "bound_by": b_by}
+    emit(r)
+    rows["mix_dw"] = _row(r, "one period's dW_down, T=4*512, d=2048, d_a=256, int8 entry")
+    # gradients through MixFn against autograd of the plain version
+    ent = ents[0]
+    grads = {}
+    for impl in ("cuda", "plain"):
+        wr, ar, lr_ = (t.clone().requires_grad_() for t in (w, a, torch.tensor(0.3, device=dev)))
+        if impl == "cuda":
+            out = dq_adapter_mix(ent, wr, ar, lr_)
+        else:
+            out = ref.dq_adapter_mix_ref(ent, wr, ar, lr_, d)
+        grads[impl] = torch.autograd.grad(torch.sin(out).sum(), (wr, ar, lr_))
+    errs = [float(((x - y).abs() - 1e-3 * y.abs()).max()) for x, y in zip(*grads.values())]
+    emit({"check": "MixFn_grad", "T": T, "d": d, "da": da, "storage": "int8",
+          "max_abs_err": [max_err(x, y) for x, y in zip(*grads.values())],
+          "grads": ["W_down", "a", "lambda"], "tol": "atol 2e-4 + rtol 1e-3",
+          "tol_reason": "the reference's custom-VJP gradient tolerance (tests/test_cached_step.py:84)"})
+    check("MixFn gradients", max(errs), 2e-4)
+    del ents, deq, grads
+
+    # ---- ce_fwd / ce_bwd at (T, d, V), with and without the soft-cap
+    T, d, V = TRAIN_T, TRAIN_D, TRAIN_V
+    h = torch.randn(T, d, generator=gen, device=dev)
+    w = torch.randn(d, V, generator=gen, device=dev) * d ** -0.5
+    lab = torch.randint(0, V, (T,), generator=gen, device=dev)
+    g = torch.randn(T, generator=gen, device=dev)
+    ce_errs = {"ce_fwd": 0.0, "ce_bwd": 0.0}
+    for cap in (None, 30.0):
+        nll, lse = lmhead_ce.ce_fwd(h, w, lab, cap)
+        want_nll, want_lse = ref.ce_fwd_ref(h, w, lab, cap)
+        dh = lmhead_ce.ce_bwd(h, w, lab, want_lse, g, cap)
+        want_dh = ref.ce_bwd_ref(h, w, lab, want_lse, g, cap)
+        e_f = max(float(((nll - want_nll).abs() - 1e-5 * want_nll.abs()).max()),
+                  float(((lse - want_lse).abs() - 1e-5 * want_lse.abs()).max()))
+        e_b = float(((dh - want_dh).abs() - 1e-4 * want_dh.abs()).max())
+        check(f"ce_fwd cap={cap}", e_f, 2e-5)
+        check(f"ce_bwd cap={cap}", e_b, 1e-5)
+        errs = {"ce_fwd": max(max_err(nll, want_nll), max_err(lse, want_lse)),
+                "ce_bwd": max_err(dh, want_dh)}
+        for k in ce_errs:
+            ce_errs[k] = max(ce_errs[k], errs[k])
+        emit({"check": "lmhead_ce", "T": T, "d": d, "V": V, "softcap": cap,
+              "ce_fwd_max_abs_err": errs["ce_fwd"], "ce_bwd_max_abs_err": errs["ce_bwd"],
+              "tol": "ce_fwd atol 2e-5 + rtol 1e-5; ce_bwd atol 1e-5 + rtol 1e-4",
+              "tol_reason": "the reference's blockwise-CE tolerances "
+                            "(tests/test_cached_step.py:105, :113); f32 sums reorder"})
+        del dh, want_dh
+    nll, lse = ref.ce_fwd_ref(h, w, lab)
+    b_ms, b_by = bound(4.0 * (T * d + d * V + 3 * T), 2.0 * T * d * V)
+    r = {"check": "ce_fwd", "T": T, "d": d, "V": V, "max_abs_err": ce_errs["ce_fwd"],
+         "ms": timer(lambda: lmhead_ce.ce_fwd(h, w, lab), calls=2, repeats=3),
+         "plain_ms": timer(lambda: ref.ce_fwd_ref(h, w, lab), calls=2, repeats=3),
+         "library_ms": timer(lambda: torch.logsumexp(torch.matmul(h, w), dim=-1), calls=2,
+                             repeats=3),
+         "library": "torch.matmul, then torch.logsumexp", "bound_ms": b_ms, "bound_by": b_by}
+    emit(r)
+    rows["ce_fwd"] = _row(r, "LM-head CE forward, T=4*512, d=2048, V=92544")
+    hr = h.clone().requires_grad_()
+
+    def library_bwd():
+        loss = torch.nn.functional.cross_entropy(torch.matmul(hr, w), lab.long(),
+                                                 reduction="sum")
+        return torch.autograd.grad(loss, hr)
+
+    b_ms, b_by = bound(4.0 * (2 * T * d + d * V + 4 * T), 4.0 * T * d * V)
+    r = {"check": "ce_bwd", "T": T, "d": d, "V": V, "max_abs_err": ce_errs["ce_bwd"],
+         "ms": timer(lambda: lmhead_ce.ce_bwd(h, w, lab, lse, g), calls=2, repeats=3),
+         "plain_ms": timer(lambda: ref.ce_bwd_ref(h, w, lab, lse, g), calls=2, repeats=3),
+         "library_ms": timer(library_bwd, calls=2, repeats=3),
+         "library": "autograd of F.cross_entropy(h @ W) (its forward included)",
+         "bound_ms": b_ms, "bound_by": b_by}
+    emit(r)
+    rows["ce_bwd"] = _row(r, "LM-head CE backward (logits recomputed), T=4*512, d=2048, V=92544")
+    # gradients through CEFn against autograd of the plain version
+    grads = []
+    for fn in (lambda x: lmhead_ce_op(x, w, lab), lambda x: ref.lmhead_ce_ref(x, w, lab)):
+        x = h.clone().requires_grad_()
+        grads.append(torch.autograd.grad(torch.cos(fn(x)).sum(), x)[0])
+    emit({"check": "CEFn_grad", "T": T, "d": d, "V": V, "max_abs_err": max_err(*grads),
+          "tol": "atol 1e-5 + rtol 1e-4",
+          "tol_reason": "the reference's dh tolerance (tests/test_cached_step.py:113)"})
+    check("CEFn gradient", float(((grads[0] - grads[1]).abs() - 1e-4 * grads[1].abs()).max()),
+          1e-5)
+    return rows
+
+
+# ---------------------------------------------------------------- training
+
+
+def training_phase():
+    """PAC+ at full width through the port's EdgeSession/EpochRunner."""
+    from repro_torch.core.quantization import tree_leaves, tree_map
+    from repro_torch.kernels import cached_mix, flash_attention, lmhead_ce, quant_matmul
+    from repro_torch.kernels.cached_step import cached_loss_parts
+    from repro_torch.runtime import (ConsoleHook, EdgeSession, EpochReport, EpochRunner,
+                                     RunHooks, RunSpec)
+
+    spec = RunSpec(arch="internlm2-1.8b", quant=8, cache_compress="int8", kernels="cuda",
+                   init="pruning", epochs=3, steps_per_epoch=2, batch=4, seq=512, seed=SEED)
+    counters = [(quant_matmul, None), (flash_attention, None), (cached_mix, "mix_fwd"),
+                (cached_mix, "mix_dw"), (lmhead_ce, "ce_fwd"), (lmhead_ce, "ce_bwd")]
+
+    def names():
+        return [key or mod.__name__.rsplit(".", 1)[1] for mod, key in counters]
+
+    def reset():
+        for mod, key in counters:
+            if key is None:
+                mod.launches = 0
+            else:
+                mod.launches[key] = 0
+
+    def read():
+        return {n: (mod.launches if key is None else mod.launches[key])
+                for n, (mod, key) in zip(names(), counters)}
+
+    per_step = []
+
+    class StepLaunches(RunHooks):
+        """Each step's launches (counts read after the step's loss is on the host)."""
+
+        def on_step(self, session, event):
+            now = read()
+            before = per_step[-1][1] if per_step else dict.fromkeys(now, 0)
+            per_step.append(({k: now[k] - before[k] for k in now}, now))
+
+    def run(s, hooks=()):
+        events = list(EpochRunner(s, hooks=[ConsoleHook(), *hooks]).events())
+        return ([e for e in events if not isinstance(e, EpochReport)],
+                [e for e in events if isinstance(e, EpochReport)])
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    s = EdgeSession(spec, log=print).open()
+    torch.cuda.synchronize()
+    open_s = time.perf_counter() - t0
+    reset()
+    steps_, reports = run(s, [StepLaunches()])
+    launches = read()
+    peak = torch.cuda.max_memory_allocated()
+    full = [e.wall_s for e in steps_ if not e.cache_hit]
+    cached = [e.wall_s for e in steps_ if e.cache_hit]
+    emit({"phase": "training", "arch": s.cfg.name, "layers": s.cfg.n_layers,
+          "d_model": s.cfg.d_model, "vocab": s.cfg.vocab, "batch": spec.batch, "seq": spec.seq,
+          "quant": spec.quant, "cache": spec.cache_compress, "r": spec.r,
+          "modes": [r.mode for r in reports], "epoch_losses": [r.mean_loss for r in reports],
+          "step_losses": [e.loss for e in steps_], "open_s": open_s,
+          "full_step_s": full, "cached_step_s": cached,
+          "max_memory_allocated": peak, "cache_bytes": s.cache.nbytes,
+          "cache_seqs": len(s.cache), "launches": launches,
+          "launches_per_step": [d for d, _ in per_step]})
+    if [r.mode for r in reports] != ["full", "cached", "cached"]:
+        raise AssertionError(f"modes {[r.mode for r in reports]}")
+    if not all(np.isfinite(r.mean_loss) for r in reports) or not (
+            reports[-1].mean_loss < reports[0].mean_loss):
+        raise AssertionError(f"epoch losses do not fall: {[r.mean_loss for r in reports]}")
+    missing = [n for n, c in launches.items() if c <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the training path: {missing}")
+
+    # one cached batch through the cached step's loss, cuda against ref
+    ids = s.pipe.epoch_order(0)[0]
+    labels = torch.from_numpy(s.corpus.batch(ids)["labels"]).cuda()
+    hit = s.cache.get_batch(ids, with_final=True, dtype=None, compressed=True)
+    cached_b = {k: v.to("cuda") for k, v in zip(("b0", "taps", "b_final"), hit)}
+    cached_b["labels"] = labels
+    pos = torch.arange(spec.seq, device="cuda").expand(spec.batch, spec.seq)
+    res = {}
+    for impl in ("cuda", "ref"):
+        ap = tree_map(lambda t: t.clone().requires_grad_(), s.adapter)
+        num, den = cached_loss_parts(s.backbone, ap, s.cfg, cached_b, pos, spec.r, impl=impl)
+        loss = num / den.clamp_min(1)
+        res[impl] = (float(loss.detach()), torch.autograd.grad(loss, tree_leaves(ap)))
+    gmax = max(float(g.abs().max()) for g in res["ref"][1])
+    gerr = max(max_err(a, b) for a, b in zip(res["cuda"][1], res["ref"][1]))
+    dloss = abs(res["cuda"][0] - res["ref"][0])
+    loss_tol, grad_tol = 2e-5, 1e-4 * max(1.0, gmax)
+    emit({"phase": "cached_step_cuda_vs_ref", "loss": [res["cuda"][0], res["ref"][0]],
+          "abs_dloss": dloss, "max_abs_dgrad": gerr, "grad_max": gmax,
+          "tol": {"loss": loss_tol, "grads": grad_tol},
+          "tol_reason": "the reference's pallas-vs-ref cached-step tolerances "
+                        "(tests/test_cached_step.py:163-190): f32 sums reorder"})
+    if not (dloss <= loss_tol and gerr <= grad_tol):
+        raise AssertionError(f"cached step cuda vs ref: dloss {dloss}, dgrad {gerr}")
+    cuda_losses = [r.mean_loss for r in reports]
+
+    # where the time goes: one full step (the cache emptied first) and one
+    # cached step of the same batch under the profiler
+    batch = s.corpus.batch(ids)
+    s.cache.clear()
+    for mode in ("full", "cached"):
+        events = []
+        prof = device_profile(lambda: events.append(s.step(dict(batch))))
+        if events[0].mode != mode:
+            raise AssertionError(f"profiled a {events[0].mode} step, wanted {mode}")
+        emit({"phase": "train_profile", "step": mode, **prof})
+    s.close()
+    del s, res, cached_b, hit
+
+    # the same trainer under the ref kernels: per-epoch losses
+    s = EdgeSession(spec.replace(kernels="ref"), log=print).open()
+    ref_steps, ref_reports = run(s)
+    s.close()
+    del s
+    ref_losses = [r.mean_loss for r in ref_reports]
+    tol = 5e-2
+    diffs = [abs(a - b) for a, b in zip(cuda_losses, ref_losses)]
+    emit({"phase": "trainer_cuda_vs_ref", "cuda_epoch_losses": cuda_losses,
+          "ref_epoch_losses": ref_losses, "ref_modes": [r.mode for r in ref_reports],
+          "ref_full_step_s": [e.wall_s for e in ref_steps if not e.cache_hit],
+          "ref_cached_step_s": [e.wall_s for e in ref_steps if e.cache_hit],
+          "abs_diff": diffs, "tol": tol,
+          "tol_reason": "the reference's int8 pallas-vs-ref trainer tolerance "
+                        "(tests/test_cached_step.py:257): under cuda epoch 0 trains on taps "
+                        "quantized at the tap site, under ref on f32 taps"})
+    if max(diffs) > tol:
+        raise AssertionError(f"trainer cuda vs ref epoch losses differ by {diffs}")
+    return launches
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -449,19 +766,38 @@ def main() -> int:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    # each path's kernels are checked just before the path runs, so that
+    # neither path's measurements carry the other's leftovers
     rows = kernel_phase(Timer(), gen)
-    launches = serving_phase(gen)
+    serving = serving_phase(gen)
+    serving_done_s = time.perf_counter() - T_START  # the serving slice's phases
+    rows.update(training_kernel_phase(Timer(), gen))
+    training = training_phase()
 
     sources = {"quant_matmul": ("src/repro_torch/kernels/csrc/quant_matmul.cu",
                                 "src/repro/kernels/quant_matmul.py:93"),
                "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:108"),
                "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
-                                   "src/repro/kernels/paged_attention.py:142")}
+                                   "src/repro/kernels/paged_attention.py:142"),
+               "mix_fwd": ("src/repro_torch/kernels/csrc/cached_mix.cu",
+                           "src/repro/kernels/cached_step.py:186"),
+               "mix_dw": ("src/repro_torch/kernels/csrc/cached_mix.cu",
+                          "src/repro/kernels/cached_step.py:271"),
+               "ce_fwd": ("src/repro_torch/kernels/csrc/lmhead_ce.cu",
+                          "src/repro/kernels/cached_step.py:459"),
+               "ce_bwd": ("src/repro_torch/kernels/csrc/lmhead_ce.cu",
+                          "src/repro/kernels/cached_step.py:497")}
+    # each kernel's launches on its own main path (serving for the first
+    # three, training for the four training kernels), both paths listed
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], **rows[name]}
+         "launches": serving[name] if name in serving else training[name],
+         "launches_by_path": {"serving": serving.get(name, 0), "training": training.get(name, 0)},
+         **rows[name]}
         for name, (src, rep) in sources.items()]})
+    emit({"phase": "done", "wall_s": time.perf_counter() - T_START,
+          "through_serving_s": serving_done_s})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

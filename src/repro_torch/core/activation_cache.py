@@ -1,0 +1,363 @@
+"""Activation cache for Parallel Adapters (paper §IV-B, §V-B).
+
+Counterpart of ``repro.core.activation_cache``. The backbone is frozen,
+so the taps ``b_0..b_L`` and the final hidden state ``b_final`` of a
+sequence never change: epoch 1 captures them, and from epoch 2 on the
+adapter trains straight from the cache with no backbone forward.
+
+* **Compressed entries** — the ``compress`` policy (``"f32"``,
+  ``"bf16"``, ``"int8"``) applies at put time; ``int8`` is the block
+  absmax scheme of the backbone weights (~3.9× smaller than f32 with
+  its scales). The byte budget and every eviction and spill count
+  compressed bytes.
+* **Storage-form handoff** — ``get``/``get_batch`` with
+  ``compressed=True`` hand each part over in its storage form (int8 as
+  a :class:`~repro_torch.core.quantization.QTensor`, bf16 as bf16), so
+  the host→device copy and the kernels read it at storage width.
+* **Spill** — entries evicted from RAM go to ``act_<key>.npz`` shards in
+  ``spill_dir``, in the reference's format (bf16 as uint16, one JSON
+  ``meta`` record), so either package reads the other's shards.
+
+Host storage is torch CPU tensors. Entries taken from the card are
+compressed there and copied to the host at storage width. Cross-run
+persistence (``save_manifest``/``open_persistent``) and the background
+``CachePrefetcher`` arrive with a later slice of the port.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+from dataclasses import dataclass, field
+from typing import Dict, Iterable, Optional, Set, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.quantization import QTensor, dequantize, quantize, stack
+
+COMPRESS_POLICIES = ("f32", "bf16", "int8")
+_INT8_BLOCK = 128
+
+
+def cache_bytes_per_sequence(cfg, seq_len: int, dtype_bytes: float = 4,
+                             with_final: bool = False) -> int:
+    """Paper §V-B storage analysis: s·h·(l+1) values per sequence, or
+    s·h·(l+2) ``with_final`` (the ``b_final`` plane entries fold in);
+    pass :func:`policy_bytes_per_value` as ``dtype_bytes`` for
+    compressed entries."""
+    planes = cfg.n_periods + (2 if with_final else 1)
+    return int(planes * seq_len * cfg.d_model * dtype_bytes)
+
+
+def policy_bytes_per_value(policy: str, block: int = _INT8_BLOCK) -> float:
+    """Stored bytes per cached value (int8 includes its f32 scale
+    amortised over the block)."""
+    return {"f32": 4.0, "bf16": 2.0, "int8": 1.0 + 4.0 / block}[policy]
+
+
+# ---------------------------------------------------------------------------
+# Compressed tensors / cache entries
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class _CTensor:
+    """One compressed host tensor and what it takes to invert it.
+
+    f32: data float32, scale None; bf16: data bfloat16; int8: data the
+    int8 payload, scale the f32 per-block absmax/127 (exactly
+    ``quantize(bits=8, block=_INT8_BLOCK)``)."""
+
+    policy: str
+    data: torch.Tensor
+    scale: Optional[torch.Tensor]
+    orig_last: int
+    block: int = 0
+
+    @property
+    def nbytes(self) -> int:
+        n = self.data.numel() * self.data.element_size()
+        return n + (0 if self.scale is None else self.scale.numel() * 4)
+
+
+def _compress(x, policy: str, orig_last: Optional[int] = None) -> _CTensor:
+    """``x`` may already BE storage form: an int8 :class:`QTensor` as the
+    ``cuda`` OpSet emits it at the tap site. It is adopted as it is (no
+    recompression, no f32 round trip), provided the policy is int8;
+    ``orig_last`` names the unpadded feature width."""
+    if isinstance(x, QTensor):
+        if policy != "int8":
+            raise ValueError(f"a storage-form (int8) tap requires the int8 policy, got {policy!r}")
+        last = x.q.shape[-1] if orig_last is None else orig_last
+        return _CTensor("int8", x.q.detach().cpu().contiguous(),
+                        x.scale.detach().cpu().contiguous(), last, x.block)
+    x = torch.as_tensor(x)
+    if policy in ("f32", "bf16"):
+        dtype = torch.float32 if policy == "f32" else torch.bfloat16
+        return _CTensor(policy, x.detach().to(dtype).cpu().contiguous(), None, x.shape[-1])
+    if policy == "int8":
+        qt = quantize(x.detach().float(), bits=8, block=_INT8_BLOCK)
+        return _CTensor("int8", qt.q.cpu(), qt.scale.cpu(), qt.orig_last, qt.block)
+    raise ValueError(f"compress must be one of {COMPRESS_POLICIES}, got {policy!r}")
+
+
+def _ct_index(ct: _CTensor, idx) -> _CTensor:
+    """One sequence out of a batch-compressed tensor, with its own bytes
+    (compression runs along the last axis, so slicing leading axes is
+    exact)."""
+    return _CTensor(ct.policy, ct.data[idx].clone(),
+                    None if ct.scale is None else ct.scale[idx].clone(), ct.orig_last, ct.block)
+
+
+def _decompress(ct: _CTensor, dtype=torch.float32) -> torch.Tensor:
+    """``dtype=None`` keeps a float payload in its storage dtype (bf16
+    entries go to the device compressed; the step upcasts). int8 entries
+    dequantize here; read with ``compressed=True`` to keep them int8."""
+    if ct.policy in ("f32", "bf16"):
+        return ct.data if dtype is None else ct.data.to(dtype)
+    out = dequantize(QTensor(ct.data, ct.scale, 8, ct.block, ct.orig_last))
+    return out if dtype is None else out.to(dtype)
+
+
+def _raw_part(ct: _CTensor):
+    """Storage form for the step: the payload, or a QTensor for int8."""
+    if ct.policy == "int8":
+        return QTensor(ct.data, ct.scale, 8, ct.block, ct.orig_last)
+    return ct.data
+
+
+@dataclass
+class CacheEntry:
+    """One sequence's cached activations: (b0, taps[, b_final])."""
+
+    b0: _CTensor
+    taps: _CTensor
+    b_final: Optional[_CTensor] = None
+
+    @property
+    def nbytes(self) -> int:
+        n = self.b0.nbytes + self.taps.nbytes
+        return n + (0 if self.b_final is None else self.b_final.nbytes)
+
+    def parts(self) -> Iterable[Tuple[str, _CTensor]]:
+        yield "b0", self.b0
+        yield "taps", self.taps
+        if self.b_final is not None:
+            yield "bf", self.b_final
+
+
+def _entry_to_npz(entry: CacheEntry) -> Dict[str, np.ndarray]:
+    meta = {}
+    arrays: Dict[str, np.ndarray] = {}
+    for name, ct in entry.parts():
+        meta[name] = {"policy": ct.policy, "orig_last": ct.orig_last, "block": ct.block}
+        data = ct.data.view(torch.uint16) if ct.policy == "bf16" else ct.data
+        arrays[name] = data.numpy()
+        if ct.scale is not None:
+            arrays[name + "_scale"] = ct.scale.numpy()
+    arrays["meta"] = np.array(json.dumps(meta))
+    return arrays
+
+
+def _entry_from_npz(z) -> CacheEntry:
+    meta = json.loads(str(z["meta"]))
+
+    def part(name: str) -> _CTensor:
+        m = meta[name]
+        data = torch.from_numpy(np.array(z[name]))
+        if m["policy"] == "bf16":
+            data = data.view(torch.bfloat16)
+        scale = torch.from_numpy(np.array(z[name + "_scale"])) if name + "_scale" in z.files else None
+        return _CTensor(m["policy"], data, scale, m["orig_last"], m["block"])
+
+    return CacheEntry(part("b0"), part("taps"), part("bf") if "bf" in meta else None)
+
+
+# ---------------------------------------------------------------------------
+# The cache manager
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class ActivationCache:
+    """Keyed store of backbone taps.
+
+    Keys are sequence ids. Values are (b0, taps[, b_final]) of shapes
+    (S, d), (n_periods, S, d) and (S, d), stored per sequence so epochs
+    can re-batch freely. Entries are compressed per ``compress`` at put
+    time and the byte budget counts compressed bytes. Mutating paths
+    hold a lock, so a reader thread may share the cache."""
+
+    budget_bytes: int = 2 << 30
+    spill_dir: Optional[str] = None
+    compress: str = "f32"
+    _ram: Dict[int, CacheEntry] = field(default_factory=dict)
+    _disk: Dict[int, str] = field(default_factory=dict)
+    _final_absent: Set[int] = field(default_factory=set)
+    _ram_bytes: int = 0
+    hits: int = 0
+    misses: int = 0
+    _lock: threading.RLock = field(default_factory=threading.RLock, repr=False)
+
+    def __post_init__(self):
+        if self.compress not in COMPRESS_POLICIES:
+            raise ValueError(f"compress must be one of {COMPRESS_POLICIES}, got {self.compress!r}")
+
+    def __contains__(self, key: int) -> bool:
+        return key in self._ram or key in self._disk
+
+    def __len__(self) -> int:
+        # a promoted entry keeps its (clean) disk copy: count keys once
+        return len(self._ram.keys() | self._disk.keys())
+
+    @property
+    def nbytes(self) -> int:
+        return self._ram_bytes
+
+    def covers(self, keys, with_final: bool = False) -> bool:
+        """True when every key is resident (RAM or disk)."""
+        with self._lock:
+            return all(int(k) in self and not (with_final and int(k) in self._final_absent)
+                       for k in keys)
+
+    # -- writes ------------------------------------------------------------
+
+    def put(self, key: int, b0, taps, b_final=None) -> None:
+        # _ct_index(..., ...) copies: an entry must own its bytes, not view
+        # the caller's array (the budget would then not bound real memory)
+        entry = CacheEntry(*(None if x is None else _ct_index(_compress(x, self.compress), ...)
+                             for x in (b0, taps, b_final)))
+        with self._lock:
+            self._put_entry(int(key), entry)
+
+    def _put_entry(self, key: int, entry: CacheEntry) -> None:
+        size = entry.nbytes
+        if entry.b_final is None:
+            self._final_absent.add(key)
+        else:
+            self._final_absent.discard(key)
+        # re-putting a key replaces it: retire the old bytes first, or the
+        # budget check double-counts
+        if key in self._ram:
+            self._ram_bytes -= self._ram.pop(key).nbytes
+        if size > self.budget_bytes:
+            # alone larger than the whole budget: disk is its home (or it
+            # is dropped) rather than flushing the hot working set
+            if self.spill_dir:
+                self._spill(key, entry)
+            return
+        # LRU: the oldest RAM entries move to disk, the new one stays
+        self._evict_until(self.budget_bytes - size)
+        if key in self._disk:  # new data for the key: the spill is stale
+            path = self._disk.pop(key)
+            try:
+                os.remove(path)
+            except OSError:
+                pass
+        self._ram[key] = entry
+        self._ram_bytes += size
+
+    def _evict_until(self, target_bytes: int) -> None:
+        """Evict the oldest RAM entries until ``_ram_bytes <= target``: one
+        with a clean disk copy is dropped for free, others are spilled (or
+        dropped without a spill_dir)."""
+        while self._ram and self._ram_bytes > target_bytes:
+            k, entry = next(iter(self._ram.items()))
+            self._ram_bytes -= entry.nbytes
+            del self._ram[k]
+            if self.spill_dir and k not in self._disk:
+                self._spill(k, entry)
+
+    def _spill(self, key: int, entry: CacheEntry) -> None:
+        os.makedirs(self.spill_dir, exist_ok=True)
+        path = os.path.join(self.spill_dir, f"act_{key}.npz")
+        np.savez(path, **_entry_to_npz(entry))
+        self._disk[key] = path
+
+    # -- reads -------------------------------------------------------------
+
+    def _get_entry(self, key: int, need_final: bool) -> Optional[CacheEntry]:
+        with self._lock:
+            if need_final and key in self._final_absent:
+                self.misses += 1
+                return None
+            if key in self._ram:
+                self.hits += 1
+                entry = self._ram.pop(key)  # refresh recency
+                self._ram[key] = entry
+                return entry
+            if key in self._disk:
+                self.hits += 1
+                with np.load(self._disk[key]) as z:
+                    entry = _entry_from_npz(z)
+                # promote into RAM, keeping the npz as a clean copy, so a
+                # later eviction of it costs no write
+                size = entry.nbytes
+                if size <= self.budget_bytes:
+                    self._evict_until(self.budget_bytes - size)
+                    self._ram[key] = entry
+                    self._ram_bytes += size
+                return entry
+            self.misses += 1
+            return None
+
+    def get(self, key: int, with_final: bool = False, dtype=torch.float32,
+            compressed: bool = False):
+        """Decompressed (b0, taps[, b_final]), or None on a miss (also for
+        an entry without b_final when it is asked for). ``dtype=None``
+        keeps bf16 payloads bf16; ``compressed=True`` returns every part
+        in its storage form (int8 as a QTensor)."""
+        entry = self._get_entry(int(key), need_final=with_final)
+        if entry is None:
+            return None
+        parts = [entry.b0, entry.taps] + ([entry.b_final] if with_final else [])
+        if compressed:
+            return tuple(_raw_part(ct) for ct in parts)
+        return tuple(_decompress(ct, dtype) for ct in parts)
+
+    def put_batch(self, keys, b0, taps, b_final=None, orig_last: Optional[int] = None) -> None:
+        """b0 (B,S,d); taps (n_p,B,S,d); b_final (B,S,d) — tensors from
+        epoch 1, on the card or not, or already in storage form (an int8
+        QTensor from the ``cuda`` OpSet's tap site, adopted as it is;
+        ``orig_last`` = d). Compression runs once on the whole batch and
+        per-sequence entries are sliced out (with copies): block-wise
+        along the last axis, so the payloads equal per-sequence
+        compression bit for bit."""
+        cb0 = _compress(b0, self.compress, orig_last)
+        ctaps = _compress(taps, self.compress, orig_last)
+        cbf = None if b_final is None else _compress(b_final, self.compress, orig_last)
+        for i, k in enumerate(keys):
+            entry = CacheEntry(_ct_index(cb0, i), _ct_index(ctaps, (slice(None), i)),
+                               None if cbf is None else _ct_index(cbf, i))
+            with self._lock:
+                self._put_entry(int(k), entry)
+
+    def get_batch(self, keys, with_final: bool = False, dtype=torch.float32,
+                  compressed: bool = False):
+        """A training batch from cached sequences: b0 (B,S,d), taps
+        (n_p,B,S,d)[, b_final (B,S,d)], or None if any key misses. With
+        ``compressed=True`` int8 parts are QTensors of (B,S,·) payloads
+        and scales."""
+        items = [self.get(int(k), with_final=with_final, dtype=dtype, compressed=compressed)
+                 for k in keys]
+        if any(it is None for it in items):
+            return None
+        b0 = stack([it[0] for it in items], 0)
+        taps = stack([it[1] for it in items], 1)
+        if not with_final:
+            return b0, taps
+        return b0, taps, stack([it[2] for it in items], 0)
+
+    def clear(self) -> None:
+        with self._lock:
+            for path in self._disk.values():
+                try:
+                    os.remove(path)
+                except OSError:
+                    pass
+            self._ram.clear()
+            self._disk.clear()
+            self._final_absent.clear()
+            self._ram_bytes = 0

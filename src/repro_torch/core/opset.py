@@ -17,17 +17,33 @@ paged decode attention, the embedding gather, norms and rope); an
   own ragged edges, so none of the TPU path's padding to 128/256 is
   needed. On CPU tensors each kernel wrapper computes its plain version,
   which is how the CPU tests run this OpSet.
+
+Each OpSet instance carries a ``tap_policy`` (the activation cache's
+compress policy): ``emit_tap`` hands a PAC+ tap to the cache in that
+storage form. Under ``cuda`` an int8 tap leaves the forward as a
+:class:`QTensor` (payload + one f32 scale per ``TAP_BLOCK`` values), a
+bf16 tap as a bf16 tensor; ``ref`` always emits f32 and leaves
+compression to the cache.
 """
 
 from __future__ import annotations
 
-from repro_torch.core.quantization import QTensor, dequantize, maybe_dequantize_tree
+import torch
+
+from repro_torch.core.quantization import QTensor, dequantize, maybe_dequantize_tree, quantize
+
+# quantization block of emitted int8 taps — the activation cache's int8
+# block, so tap-site quantization equals cache-side compression bit for bit
+TAP_BLOCK = 128
+
+TAP_POLICIES = ("f32", "bf16", "int8")
 
 
 class OpSet:
     """One implementation of the backbone's primitive ops."""
 
     name: str = "abstract"
+    tap_policy: str = "f32"
 
     def prepare_block(self, p, spec):
         """Make one block's params consumable by this OpSet's ops."""
@@ -54,6 +70,11 @@ class OpSet:
         """Token embedding gather; ``embed`` may be a QTensor."""
         raise NotImplementedError
 
+    def emit_tap(self, h):
+        """A PAC+ tap leaving the backbone forward, in the form the
+        activation cache stores (identity for the f32 policy)."""
+        raise NotImplementedError
+
     def rms_norm(self, x, weight, eps: float = 1e-6):
         from repro_torch.models.layers import rms_norm
 
@@ -69,6 +90,11 @@ class RefOpSet(OpSet):
     """Dequantize-then-dense plain PyTorch ops."""
 
     name = "ref"
+
+    def __init__(self, tap_policy: str = "f32"):
+        # taps leave the ref forward in f32 whatever the cache policy:
+        # compression stays the cache's job on this path
+        self.tap_policy = "f32"
 
     def prepare_block(self, p, spec):
         return maybe_dequantize_tree(p)
@@ -96,12 +122,20 @@ class RefOpSet(OpSet):
     def embed_lookup(self, embed, tokens):
         return maybe_dequantize_tree(embed)[tokens.long()]
 
+    def emit_tap(self, h):
+        return h
+
 
 class CudaOpSet(OpSet):
     """Storage-width ops on the hand-written CUDA kernels. Plain-tensor
     weights take a dense matmul — the kernels buy nothing unquantized."""
 
     name = "cuda"
+
+    def __init__(self, tap_policy: str = "f32"):
+        if tap_policy not in TAP_POLICIES:
+            raise ValueError(f"tap_policy must be one of {TAP_POLICIES}, got {tap_policy!r}")
+        self.tap_policy = tap_policy
 
     def prepare_block(self, p, spec):
         """Keep the projection weights quantized; dequantize only the
@@ -161,17 +195,27 @@ class CudaOpSet(OpSet):
         return dequantize(QTensor(embed.q[idx], embed.scale[idx], embed.bits, embed.block,
                                   embed.orig_last))
 
+    def emit_tap(self, h):
+        if self.tap_policy == "f32":
+            return h
+        if self.tap_policy == "bf16":
+            return h.to(torch.bfloat16)
+        return quantize(h.to(torch.float32), bits=8, block=TAP_BLOCK)
 
-_REGISTRY = {"ref": RefOpSet(), "cuda": CudaOpSet()}
+
+_REGISTRY = {"ref": RefOpSet, "cuda": CudaOpSet}
+_INSTANCES: dict = {}
 
 
-def get_opset(name) -> OpSet:
-    """Resolve an OpSet by name (``"ref"`` / ``"cuda"``); an OpSet
-    instance passes through."""
+def get_opset(name, tap_policy: str = "f32") -> OpSet:
+    """Resolve an OpSet by name (``"ref"`` / ``"cuda"``), one stateless
+    instance per (name, tap_policy); an OpSet instance passes through."""
     if isinstance(name, OpSet):
         return name
-    try:
-        return _REGISTRY[name]
-    except KeyError:
-        raise ValueError(f"unknown OpSet {name!r}; registered: {sorted(_REGISTRY)}") from None
+    key = (name, tap_policy)
+    if key not in _INSTANCES:
+        if name not in _REGISTRY:
+            raise ValueError(f"unknown OpSet {name!r}; registered: {sorted(_REGISTRY)}")
+        _INSTANCES[key] = _REGISTRY[name](tap_policy=tap_policy)
+    return _INSTANCES[key]
 

@@ -1,4 +1,4 @@
-"""Parallel Adapters — the per-user side network (paper §IV-A), serving side.
+"""Parallel Adapters — the per-user side network (paper §IV-A).
 
 Counterpart of ``repro.core.parallel_adapters``. Adapter block *i*
 consumes ``λ_i · W_down_i(b_i) + (1 − λ_i) · a_{i−1}``, where ``b_i`` is
@@ -28,6 +28,7 @@ from repro_torch.models.backbone import (
     apply_block_decode,
     init_block,
     init_cache,
+    logits_from_hidden,
     period_slice,
 )
 from repro_torch.models.layers import LeafMaker, rms_norm
@@ -77,9 +78,50 @@ def init_adapter(gen: torch.Generator, cfg, r: int = 8, *, device=None,
     }
 
 
+def adapter_param_count(cfg, r: int = 8) -> int:
+    """Trainable parameters of one adapter (counted from the shapes)."""
+    acfg = adapter_config(cfg, r)
+    n_p, d, d_a = cfg.n_periods, cfg.d_model, acfg.d_model
+    embed_and_head = acfg.vocab * d_a * (1 if acfg.tie_embeddings else 2)
+    blocks = acfg.param_count() - embed_and_head
+    return (n_p + 1) * d * d_a + n_p + blocks + d_a * d + d_a
+
+
 def init_adapter_cache(cfg, B: int, max_len: int, r: int = 8, dtype=torch.float32,
                        device=None):
     return init_cache(adapter_config(cfg, r), B, max_len, dtype, device)
+
+
+# ---------------------------------------------------------------------------
+# Training forward
+# ---------------------------------------------------------------------------
+
+
+def adapter_forward(adapter_params, cfg, b0, taps, positions, r: int = 8):
+    """Run the side network. b0: (B,S,d) embedding output; taps:
+    (n_p,B,S,d) activations after each period. Returns the final adapter
+    state projected up to d: (B,S,d)."""
+    acfg = adapter_config(cfg, r)
+    downs = adapter_params["downs"]
+    lambdas = torch.clamp(adapter_params["lambda"], 0.0, 1.0)
+    a = b0 @ downs[0]
+    blocks = adapter_params["blocks"]
+    for i in range(cfg.n_periods):
+        lam = lambdas[i]
+        h = (lam * (taps[i] @ downs[i + 1]) + (1.0 - lam) * a).to(a.dtype)
+        for spec, p in zip(acfg.pattern, period_slice(blocks, i)):
+            h = apply_block(p, h, acfg, spec, positions)
+        a = h
+    a = rms_norm(a, adapter_params["out_norm"], acfg.norm_eps)
+    return a @ adapter_params["up"]
+
+
+def pac_logits(backbone_params, adapter_params, cfg, b0, taps, b_final, positions,
+               r: int = 8):
+    """Side-tuning combine: adapter output + backbone final hidden state
+    through the frozen head."""
+    side = adapter_forward(adapter_params, cfg, b0, taps, positions, r)
+    return logits_from_hidden(backbone_params, cfg, b_final + side)
 
 
 # ---------------------------------------------------------------------------

@@ -45,6 +45,11 @@ class QTensor:
     def nbytes(self) -> int:
         return self.q.numel() + self.scale.numel() * 4
 
+    def to(self, device) -> "QTensor":
+        """Payload and scales on ``device``."""
+        return QTensor(self.q.to(device), self.scale.to(device), self.bits, self.block,
+                       self.orig_last)
+
     def __getitem__(self, idx) -> "QTensor":
         """Index the leading axes (e.g. one period of a stacked leaf);
         the quantized last axis is never cut."""
@@ -177,6 +182,17 @@ def tree_storage_bytes(tree) -> int:
         elif isinstance(leaf, torch.Tensor):
             total += leaf.numel() * leaf.element_size()
     return total
+
+
+def stack(parts, dim: int = 0):
+    """``torch.stack`` of tensors, or of QTensors of one layout
+    (payloads and scales stacked alike; ``dim`` counts leading axes)."""
+    first = parts[0]
+    if isinstance(first, QTensor):
+        return QTensor(torch.stack([p.q for p in parts], dim),
+                       torch.stack([p.scale for p in parts], dim),
+                       first.bits, first.block, first.orig_last)
+    return torch.stack(parts, dim)
 
 
 def index_tree(tree, idx: Any):

@@ -2,8 +2,12 @@
 PyTorch versions (``ref``).
 
 Each wrapper module (``quant_matmul``, ``flash_attention``,
-``paged_attention``) names the TPU kernel it replaces, computes its plain
-version on CPU tensors, launches its kernel on CUDA tensors (or raises)
-and counts its launches in a module-level ``launches`` integer.
-``_build`` compiles ``csrc/*.cu`` with ``nvcc`` at first use.
+``paged_attention``; ``cached_mix`` with ``mix_fwd``/``mix_dw`` and
+``lmhead_ce`` with ``ce_fwd``/``ce_bwd``, the training kernels) names the
+TPU kernel it replaces, computes its plain version on CPU tensors,
+launches its kernel on CUDA tensors (or raises) and counts its launches
+in a module-level ``launches`` integer (a dict by kernel name where a
+module holds two). ``cached_step`` composes the training kernels into
+the cached-epoch loss. ``_build`` compiles ``csrc/*.cu`` with ``nvcc``
+at first use.
 """

@@ -27,7 +27,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-KERNELS = ("quant_matmul", "flash_attention", "paged_attention")
+KERNELS = ("quant_matmul", "flash_attention", "paged_attention", "cached_mix", "lmhead_ce")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo",

@@ -1,0 +1,146 @@
+"""Blockwise cross-entropy over the frozen LM head: per-token NLL and
+log-sum-exp of ``softmax(softcap(h @ W))``, and ``dh``.
+
+Replaces the TPU kernels ``src/repro/kernels/cached_step.py``
+``_ce_fwd_kernel`` (``_ce_fwd_impl``) and ``_ce_bwd_kernel``
+(``_ce_bwd_impl``), with the CUDA kernels ``csrc/lmhead_ce.cu``
+(``ce_fwd``: an online softmax over vocab tiles, the vocab split across
+blocks and merged in a second pass; ``ce_bwd``: logits tiles recomputed
+from ``lse``, the softmax gradient of one vocab chunk at a time times
+``Wᵀ`` summed into ``dh``). The (T, V) logits never reach device
+memory; the backward keeps one (T, ``VCHUNK``) gradient chunk.
+
+What bounds them on the H100: at the training shape of internlm2-1.8b
+(T = 2048, d = 2048, V = 92544) the forward is ~0.78 TFLOP and the
+backward ~1.55 TFLOP of f32 work against ~0.77 GB of head weights:
+operations bound both (≈11.6 and ≈23.2 ms at 67 TFLOP/s). Any d and V
+are taken (ragged edges are masked).
+
+:class:`CEFn` is the counterpart of the reference's custom VJP
+``_ce_op``: it saves ``lse`` and its backward is ``ce_bwd``; the head is
+frozen and the labels are integers, so neither gets a gradient.
+
+On CPU tensors the wrappers compute the plain versions
+(:func:`~repro_torch.kernels.ref.ce_fwd_ref`,
+:func:`~repro_torch.kernels.ref.ce_bwd_ref`); on CUDA tensors they
+launch the kernels or raise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels._build import require
+from repro_torch.kernels.ref import ce_bwd_ref, ce_fwd_ref
+
+#: launches of each CUDA kernel in this process (the CPU path does not count)
+launches = {"ce_fwd": 0, "ce_bwd": 0}
+
+#: vocab columns per backward chunk: the chunk's (T, VCHUNK) f32 gradient
+#: and W's (d, VCHUNK) slice stay in the 50 MB L2 at T = d = 2048
+VCHUNK = 2048
+
+
+def _lib():
+    lib = _build.library("lmhead_ce")
+    if lib.ce_fwd_launch.argtypes is None:
+        lib.ce_fwd_launch.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                                      + [ctypes.c_float, ctypes.c_void_p])
+        lib.ce_fwd_launch.restype = ctypes.c_int
+        lib.ce_bwd_launch.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+                                      + [ctypes.c_float, ctypes.c_void_p])
+        lib.ce_bwd_launch.restype = ctypes.c_int
+        for name in ("ce_block_rows", "ce_block_cols"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+def _validate(h, w, labels, softcap) -> None:
+    require(h.ndim == 2 and w.ndim == 2 and h.shape[1] == w.shape[0],
+            f"h {tuple(h.shape)} and W {tuple(w.shape)} do not chain")
+    require(labels.shape == (h.shape[0],), f"labels {tuple(labels.shape)} must be ({h.shape[0]},)")
+    require(softcap is None or softcap > 0, "softcap must be positive")
+    require(h.device == w.device == labels.device, "h, W, labels on different devices")
+
+
+def _check_cuda(*tensors) -> None:
+    for t in tensors:
+        require(t.device.type == "cuda", f"unsupported device {t.device}")
+        require(t.dtype == torch.float32, f"h, W, lse, g must be float32, got {t.dtype}")
+        require(t.is_contiguous(), "h, W, lse, g must be contiguous")
+
+
+def ce_fwd(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+           softcap: Optional[float] = None):
+    """(nll, lse), each (T,) f32. h (T, d); W (d, V); labels (T,) in [0, V)."""
+    _validate(h, w, labels, softcap)
+    if h.device.type == "cpu":
+        return ce_fwd_ref(h, w, labels, softcap)
+    _check_cuda(h, w)
+    lib = _lib()
+    T, d = h.shape
+    V = w.shape[1]
+    labels = labels.to(torch.int32).contiguous()
+    rows, cols = lib.ce_block_rows(), lib.ce_block_cols()
+    # split the vocab so that token tiles x splits fill the card twice over
+    sms = torch.cuda.get_device_properties(h.device).multi_processor_count
+    v_tiles = -(-V // cols)
+    n_split = max(1, min(v_tiles, -(-2 * sms // -(-T // rows))))
+    v_split = -(-v_tiles // n_split) * cols
+    n_split = -(-V // v_split)
+    part = torch.empty((3, n_split, T), dtype=torch.float32, device=h.device)
+    nll = torch.empty(T, dtype=torch.float32, device=h.device)
+    lse = torch.empty(T, dtype=torch.float32, device=h.device)
+    rc = lib.ce_fwd_launch(h.data_ptr(), w.data_ptr(), labels.data_ptr(), part[0].data_ptr(),
+                           part[1].data_ptr(), part[2].data_ptr(), nll.data_ptr(),
+                           lse.data_ptr(), T, d, V, n_split, v_split, softcap or 0.0,
+                           _build.stream_of(h))
+    _build.check(lib, rc, "ce_fwd")
+    launches["ce_fwd"] += 1
+    return nll, lse
+
+
+def ce_bwd(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, lse: torch.Tensor,
+           g: torch.Tensor, softcap: Optional[float] = None) -> torch.Tensor:
+    """``dh = g · ((softmax − onehot)·(1 − tanh²)) @ Wᵀ`` -> (T, d) in
+    ``h``'s dtype; lse and g (T,) f32."""
+    _validate(h, w, labels, softcap)
+    require(lse.shape == g.shape == (h.shape[0],), "lse and g must be (T,)")
+    if h.device.type == "cpu":
+        return ce_bwd_ref(h, w, labels, lse, g, softcap)
+    g = g.float().contiguous()
+    _check_cuda(h, w, lse, g)
+    lib = _lib()
+    T, d = h.shape
+    V = w.shape[1]
+    labels = labels.to(torch.int32).contiguous()
+    vc = min(VCHUNK, -(-V // lib.ce_block_cols()) * lib.ce_block_cols())
+    scratch = torch.empty((T, vc), dtype=torch.float32, device=h.device)
+    dh = torch.empty((T, d), dtype=torch.float32, device=h.device)
+    rc = lib.ce_bwd_launch(h.data_ptr(), w.data_ptr(), labels.data_ptr(), lse.data_ptr(),
+                           g.data_ptr(), scratch.data_ptr(), dh.data_ptr(), T, d, V, vc,
+                           softcap or 0.0, _build.stream_of(h))
+    _build.check(lib, rc, "ce_bwd")
+    launches["ce_bwd"] += 1
+    return dh
+
+
+class CEFn(torch.autograd.Function):
+    """Differentiable in h only (the head is frozen in PAC+)."""
+
+    @staticmethod
+    def forward(ctx, h, w, labels, softcap):
+        nll, lse = ce_fwd(h, w, labels, softcap)
+        ctx.softcap = softcap
+        ctx.save_for_backward(h, w, labels, lse)
+        return nll
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w, labels, lse = ctx.saved_tensors
+        return ce_bwd(h, w, labels, lse, g, ctx.softcap), None, None, None

@@ -26,6 +26,69 @@ def quant_matmul_ref(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     return x @ w.to(x.dtype)
 
 
+def mix_fwd_ref(b, w_down: torch.Tensor, a: torch.Tensor, lam):
+    """The ``mix_fwd`` kernel's function: (out in ``a``'s dtype, the f32
+    residual ``bw = dequant(b)[:, :d] @ w_down``); b (T, d_store), w_down
+    (d, d_a) with d <= d_store, a (T, d_a), λ a scalar."""
+    from repro_torch.kernels.cached_step import entry_as_f32
+
+    bw = entry_as_f32(b, w_down.shape[0]) @ w_down.float()
+    lam = torch.as_tensor(lam, dtype=torch.float32, device=a.device)
+    return (lam * bw + (1.0 - lam) * a.float()).to(a.dtype), bw
+
+
+def dq_adapter_mix_ref(b, w_down: torch.Tensor, a: torch.Tensor, lam, orig_last: int
+                       ) -> torch.Tensor:
+    """Eager twin of ``cached_step.dq_adapter_mix`` (the reference
+    oracle's signature; ``orig_last``, the tap's width, is W_down's rows):
+    decompress the entry to f32, dense matmul, λ-mix, in ``a``'s dtype."""
+    return mix_fwd_ref(b, w_down[:orig_last], a, lam)[0]
+
+
+def mix_dw_ref(b, g: torch.Tensor, lam, d: int, dtype=torch.float32) -> torch.Tensor:
+    """The ``mix_dw`` kernel's function: ``λ · dequant(b)[:, :d]ᵀ @ g``
+    -> (d, d_a) in ``dtype``."""
+    from repro_torch.kernels.cached_step import entry_as_f32
+
+    lam = torch.as_tensor(lam, dtype=torch.float32, device=g.device)
+    return (lam * (entry_as_f32(b, d).T @ g.float())).to(dtype)
+
+
+def _capped_logits(h, w, softcap):
+    """(logits, d logits / d z): ``softcap(h @ w)`` in f32 and its slope
+    (None without a cap)."""
+    z = h.float() @ w.float()
+    if softcap is None:
+        return z, None
+    t = torch.tanh(z / softcap)
+    return softcap * t, 1.0 - t * t
+
+
+def ce_fwd_ref(h, w, labels, softcap=None):
+    """The ``ce_fwd`` kernel's function: per-token (nll, lse), f32."""
+    logits, _ = _capped_logits(h, w, softcap)
+    lse = torch.logsumexp(logits, dim=-1)
+    return lse - torch.gather(logits, 1, labels.long()[:, None])[:, 0], lse
+
+
+def lmhead_ce_ref(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, softcap=None
+                  ) -> torch.Tensor:
+    """Full-logits per-token NLL (the (T, V) tensor the CE kernels avoid)."""
+    return ce_fwd_ref(h, w, labels, softcap)[0]
+
+
+def ce_bwd_ref(h, w, labels, lse, g, softcap=None) -> torch.Tensor:
+    """The ``ce_bwd`` kernel's function:
+    ``dh = g · ((softmax − onehot) · (1 − tanh²)) @ wᵀ`` in ``h``'s dtype,
+    the tanh factor only under a softcap."""
+    logits, slope = _capped_logits(h, w, softcap)
+    p = torch.exp(logits - lse.float()[:, None])
+    p[torch.arange(p.shape[0], device=p.device), labels.long()] -= 1.0
+    if slope is not None:
+        p = p * slope
+    return ((p @ w.float().T) * g.float()[:, None]).to(h.dtype)
+
+
 def _repeat_heads(t: torch.Tensor, n: int) -> torch.Tensor:
     """(BHkv, S, hd) -> (BHkv·n, S, hd): row bh reads kv row bh // n."""
     return t if n == 1 else t.repeat_interleave(n, dim=0)

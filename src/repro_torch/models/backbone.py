@@ -4,8 +4,8 @@ An :class:`~repro_torch.configs.base.ArchConfig` declares a period of
 layers tiled ``n_periods`` times. Block parameters are stacked over
 periods (leaves ``(n_p, ...)``, as in the reference, so parameters bridge
 over unchanged); the forward is a Python loop over periods where the
-reference scans. Dense attention blocks only in this slice: SSM and MoE
-kinds, and mrope, raise ``NotImplementedError``.
+reference scans. Dense attention blocks only: SSM and MoE kinds, and
+mrope, raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from repro_torch.core.quantization import (
     maybe_dequantize_tree,
     quantize,
     should_quantize,
+    stack,
 )
 from repro_torch.models.layers import (
     LeafMaker,
@@ -131,6 +132,32 @@ def embed_inputs(params, cfg, batch: dict, ops=None):
     return x, positions
 
 
+def backbone_forward(params, cfg, batch: dict, collect_taps: bool = False,
+                     return_inputs: bool = False, ops=None):
+    """Returns (final_hidden (B,S,d), taps (n_p,B,S,d) | None), or
+    ``(final, taps, x0, positions)`` with ``return_inputs=True`` (so the
+    PAC+ steps get ``b0`` without a second embedding lookup).
+
+    Each period's output passes through ``ops.emit_tap`` where it is
+    tapped: under the ``cuda`` OpSet with an int8 tap policy the stacked
+    taps are one :class:`QTensor` (payload and scales both stacked over
+    periods), with bf16 a bf16 tensor — already the cache's storage form.
+    """
+    ops = ops if ops is not None else _REF_OPS
+    x, positions = embed_inputs(params, cfg, batch, ops=ops)
+    x0 = x
+    taps = []
+    for i in range(cfg.n_periods):
+        for spec, p in zip(cfg.pattern, period_slice(params["blocks"], i)):
+            x = apply_block(p, x, cfg, spec, positions, ops=ops)
+        if collect_taps:
+            taps.append(ops.emit_tap(x))
+    taps = stack(taps) if collect_taps else None
+    if return_inputs:
+        return x, taps, x0, positions
+    return x, taps
+
+
 def head_weight(params, cfg):
     """The (d, vocab) LM-head matrix, dequantized (a plain matmul follows,
     as in the reference, which computes the head outside any kernel)."""
@@ -144,6 +171,28 @@ def logits_from_hidden(params, cfg, h):
     h = rms_norm(h, p_norm, cfg.norm_eps)
     logits = h @ head_weight(params, cfg)
     return softcap(logits, cfg.logit_softcap)
+
+
+def backbone_logits(params, cfg, batch: dict):
+    h, _ = backbone_forward(params, cfg, batch)
+    return logits_from_hidden(params, cfg, h)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, ignore: int = -100):
+    """Mean CE over non-ignored positions. logits (B,S,V), labels (B,S)."""
+    num, den = cross_entropy_parts(logits, labels, ignore)
+    return num / torch.clamp_min(den, 1)
+
+
+def cross_entropy_parts(logits: torch.Tensor, labels: torch.Tensor, ignore: int = -100):
+    """(summed NLL, valid-token count) — the pieces of the mean CE. The
+    label's log-probability is gathered (the reference contracts with a
+    one-hot for vocab sharding; the sum it takes is the same value)."""
+    mask = labels != ignore
+    lab = torch.where(mask, labels, torch.zeros_like(labels)).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, lab[..., None])[..., 0]
+    return torch.sum(nll * mask), torch.sum(mask)
 
 
 # ---------------------------------------------------------------------------

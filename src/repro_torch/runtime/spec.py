@@ -1,0 +1,144 @@
+"""RunSpec — the typed, serializable description of one fine-tuning run
+(counterpart of ``repro.runtime.spec``).
+
+The fields are the reference's, so a spec saved by either package loads
+in the other; this slice of the port runs on one device. Fields whose
+feature arrives with a later slice (data and pipeline parallelism, the
+planner, persistent caches, checkpoints) must keep their defaults, and
+:meth:`RunSpec.validate` names the slice when they do not. ``kernels``
+is the port's own: ``"cuda"`` (the default: the hand-written kernels)
+or ``"ref"`` (plain PyTorch).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from dataclasses import dataclass
+from typing import Optional
+
+INIT_METHODS = ("pruning", "random")
+KERNEL_IMPLS = ("ref", "cuda")
+QUANT_BITS = (4, 8)
+COMPRESS_POLICIES = ("f32", "bf16", "int8")
+
+#: field -> (its only value in this slice, the slice of the port that lifts that)
+_LATER = {
+    "dp": (1, "distributed training (DP x PP on torch.distributed)"),
+    "stages": (1, "distributed training (DP x PP on torch.distributed)"),
+    "micro": (None, "distributed training (DP x PP on torch.distributed)"),
+    "plan": (None, "cost models and the planner"),
+    "pool": (None, "cost models and the planner"),
+    "save_plan": (None, "cost models and the planner"),
+    "calibrate": (False, "cost models and the planner"),
+    "cache_dir": (None, "the persistent activation cache"),
+    "ckpt": (None, "fleet and checkpoint"),
+}
+
+
+class RunSpecError(ValueError):
+    """An invalid or inconsistent RunSpec."""
+
+
+@dataclass(frozen=True)
+class RunSpec:
+    """One run of the paper's workflow (Fig. 4), as data. Defaults match
+    the trainer CLI's; ``use_cache`` inverts ``--no-cache``."""
+
+    # model / workload
+    arch: str = "internlm2-1.8b"
+    reduced: bool = False
+    epochs: int = 3
+    steps_per_epoch: int = 8
+    batch: int = 4
+    seq: int = 32
+    seed: int = 0
+    # adapter + backbone treatment
+    r: int = 8
+    init: str = "pruning"
+    quant: Optional[int] = None
+    lr: float = 3e-3
+    # activation cache
+    use_cache: bool = True
+    cache_dir: Optional[str] = None
+    cache_compress: str = "f32"
+    cache_budget_mb: int = 4096
+    # parallelism / planning (later slices)
+    dp: int = 1
+    stages: int = 1
+    micro: Optional[int] = None
+    plan: Optional[str] = None
+    pool: Optional[int] = None
+    save_plan: Optional[str] = None
+    calibrate: bool = False
+    # compute path of both the epoch-1 frozen forward and the cached step
+    kernels: str = "cuda"
+    # outputs (later slice)
+    ckpt: Optional[str] = None
+
+    def arch_config(self):
+        """The effective ArchConfig (``reduced`` applied)."""
+        from repro_torch.configs import get_arch
+
+        cfg = get_arch(self.arch)
+        return cfg.reduced() if self.reduced else cfg
+
+    def validate(self) -> "RunSpec":
+        """Raise :class:`RunSpecError` on a bad value, or on a field this
+        slice of the port does not run yet. Returns self."""
+        def bad(msg):
+            raise RunSpecError(msg)
+
+        for name in ("epochs", "steps_per_epoch", "batch", "seq", "r", "dp", "stages",
+                     "cache_budget_mb"):
+            if getattr(self, name) < 1:
+                bad(f"{name} must be >= 1, got {getattr(self, name)}")
+        if self.init not in INIT_METHODS:
+            bad(f"init must be one of {INIT_METHODS}, got {self.init!r}")
+        if self.kernels not in KERNEL_IMPLS:
+            bad(f"kernels must be one of {KERNEL_IMPLS}, got {self.kernels!r}")
+        if self.quant is not None and self.quant not in QUANT_BITS:
+            bad(f"quant must be one of {QUANT_BITS} or None, got {self.quant!r}")
+        if self.cache_compress not in COMPRESS_POLICIES:
+            bad(f"cache_compress must be one of {COMPRESS_POLICIES}, got {self.cache_compress!r}")
+        for name, (default, later) in _LATER.items():
+            if getattr(self, name) != default:
+                bad(f"{name}={getattr(self, name)!r}: the PyTorch port runs on one device "
+                    f"without it so far; it arrives with the slice that ports {later}")
+        try:
+            self.arch_config()
+        except KeyError as e:
+            bad(str(e))
+        return self
+
+    def replace(self, **changes) -> "RunSpec":
+        """A modified, re-validated copy."""
+        return dataclasses.replace(self, **changes).validate()
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "RunSpec":
+        known = {f.name for f in dataclasses.fields(cls)}
+        unknown = sorted(set(d) - known)
+        if unknown:
+            raise RunSpecError(f"unknown RunSpec field(s): {unknown}")
+        return cls(**d)
+
+    def to_json(self, indent: Optional[int] = 1) -> str:
+        return json.dumps(self.to_dict(), indent=indent, sort_keys=True)
+
+    @classmethod
+    def from_json(cls, s: str) -> "RunSpec":
+        return cls.from_dict(json.loads(s))
+
+    @classmethod
+    def from_args(cls, ns) -> "RunSpec":
+        """From the trainer CLI's parsed flags."""
+        return cls(arch=ns.arch, reduced=ns.reduced, epochs=ns.epochs,
+                   steps_per_epoch=ns.steps_per_epoch, batch=ns.batch, seq=ns.seq,
+                   seed=ns.seed, r=ns.r, init=ns.init, quant=ns.quant, lr=ns.lr,
+                   use_cache=not ns.no_cache, cache_dir=ns.cache_dir,
+                   cache_compress=ns.cache_compress, cache_budget_mb=ns.cache_budget_mb,
+                   kernels=ns.kernels, ckpt=ns.ckpt)
