@@ -36,9 +36,29 @@ Phases, in order; any failure exits non-zero:
    One cached batch then goes through the cached step under ``cuda`` and
    ``ref`` (loss and gradients compared), one full and one cached step
    run under ``torch.profiler``, and the same trainer runs under ``ref``
-   (per-epoch losses compared).
-7. Summary: one JSON line ``{"kernels": [...]}``, the card's line, and
-   last ``{"ok": true, "device": {...}}``.
+   (per-epoch losses compared). The run writes its adapter checkpoint
+   and a persistent activation cache into a temporary directory
+   (``persistence`` line): the checkpoint loads back bit-equal; a second
+   run (1 epoch x 2 steps) over the cache directory is warm — every step
+   cached, no ``quant_matmul``/``flash_attention`` launch, the first
+   run's epoch-0 losses; another seed invalidates and re-captures it.
+7. Personal kernels: ``adapter_fuse`` against its plain version (f32 and
+   bf16, λ in {0, 0.5, 1}) at T = 1, 8, 2048 and ragged shapes on both
+   of its paths, timed beside the plain version and ``torch.addmm``; ``quant_matmul`` at
+   M = 1; flash attention and ``quant_matmul`` at the prompt's shapes.
+8. Personal: the checkpoint served with ``pac_decode_step`` at B = 1
+   over an INT8 linear KV cache, 32 teacher-forced prompt tokens then
+   32 greedy tokens, under ``cuda`` (launch counts from this run alone:
+   ``adapter_fuse`` 24 and ``quant_matmul`` 168 per step) and ``ref``
+   (equal tokens, logits compared), two steps under ``torch.profiler``;
+   ``prefill_step`` against the teacher-forced f32-KV decode, and INT8
+   against f32 KV. The same loop over an f32 KV cache under both OpSets
+   (``personal_gap`` line: each step's gap, and the INT8 KV codes that
+   the two INT8 runs wrote differently) holds ``cuda`` to ``ref``
+   without the INT8 codes' one-step flips.
+9. Summary: one JSON line ``{"kernels": [...]}`` (eight kernels, each
+   with its launches on every path), the card's line, and last
+   ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card and the repository's ``src`` beside this file; it
 imports no JAX and nothing of the JAX package.
@@ -50,6 +70,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -57,9 +78,11 @@ import numpy as np
 import torch
 
 SEED = 0
+DEV = "cuda"
 T_START = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12     # H100 SXM f32 on the CUDA cores (NVIDIA data sheet)
+BF16_FLOP_PER_S = 989e12   # H100 SXM bf16 on the tensor cores, dense (NVIDIA data sheet)
 REPEATS = 15
 
 QMM_SHAPES = [(2048, 2048), (2048, 1024), (2048, 8192), (8192, 2048)]  # (K, N)
@@ -78,8 +101,10 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+def bound(nbytes: float, flops: float, flop_per_s: float = F32_FLOP_PER_S):
+    """The least time for the work: bytes over the HBM rate or operations
+    over the card's peak for the operands' type (f32 by default)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -137,56 +162,67 @@ def check(name: str, err: float, tol: float) -> None:
 # ---------------------------------------------------------------- kernels
 
 
-def kernel_phase(timer: Timer, gen: torch.Generator):
+def qmm_case(timer: Timer, gen: torch.Generator, M: int, K: int, N: int, bits: int) -> dict:
+    """``quant_matmul`` at (M, K, N) against its plain version, timed
+    beside the plain version and cuBLAS on the pre-dequantized weight."""
     from repro_torch.core.quantization import dequantize, quantize
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.quant_matmul import quant_matmul
+
+    dev, tol = DEV, 1e-3
+    x = torch.randn(M, K, generator=gen, device=dev)
+    w = quantize(torch.randn(K, N, generator=gen, device=dev) * K ** -0.5, bits)
+    got = quant_matmul(x, w.q, w.scale, bits=bits)
+    want = ref.quant_matmul_ref(x, w.q, w.scale, bits)
+    err = float(((got - want).abs() - 1e-4 * want.abs()).max())
+    check(f"quant_matmul M={M} K={K} N={N} int{bits}", err, tol)
+    nbytes = M * K * 4 + w.q.numel() + w.scale.numel() * 4 + M * N * 4
+    ws = [w] + [quantize(torch.randn(K, N, generator=gen, device=dev) * K ** -0.5, bits)
+                for _ in range(copies(w.q.numel()) - 1)]
+    wfs = [dequantize(c) for c in ws[:copies(4 * K * N)]]
+    b_ms, b_by = bound(nbytes, 2.0 * M * N * K)
+    r = {"check": "quant_matmul", "M": M, "K": K, "N": N, "bits": bits,
+         "max_abs_err": max_err(got, want), "tol": f"atol {tol} + rtol 1e-4",
+         "tol_reason": "f32 atol 1e-3 / rtol 1e-4 of the reference (tests/test_kernels.py:38); "
+                       "sums reorder",
+         "ms": timer([lambda c=c: quant_matmul(x, c.q, c.scale, bits=bits) for c in ws]),
+         "plain_ms": timer([lambda c=c: ref.quant_matmul_ref(x, c.q, c.scale, bits)
+                            for c in ws]),
+         "library_ms": timer([lambda c=c: torch.matmul(x, c) for c in wfs]),
+         "library": "torch.matmul on the pre-dequantized f32 weight",
+         "bound_ms": b_ms, "bound_by": b_by}
+    emit(r)
+    return r
+
+
+def layer_row(qmm: dict, M: int) -> dict:
+    """The 7 int8 projections of one layer at ``M`` rows, times summed."""
+    def layer_sum(key):
+        return sum(qmm[(M, K, N, 8)][key] for K, N in LAYER_PROJECTIONS)
+
+    return {"at": f"the 7 projections of one layer at decode M={M}, int8 (times summed)",
+            "max_abs_err": max(r["max_abs_err"] for r in qmm.values()),
+            "ms": layer_sum("ms"), "plain_ms": layer_sum("plain_ms"),
+            "bound_ms": layer_sum("bound_ms"), "bound_by": "bytes",
+            "library_ms": layer_sum("library_ms")}
+
+
+def kernel_phase(timer: Timer, gen: torch.Generator):
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.paged_attention import paged_attention
-    from repro_torch.kernels.quant_matmul import quant_matmul
     from repro_torch.serve.paging import quantize_kv_pages
 
     dev = "cuda"
     rows = {}
 
     # quant_matmul: decode M=8 and prefill M=4096 over the path's (K, N), plus int4
-    qmm_tol, qmm_reason = 1e-3, "f32 atol 1e-3 / rtol 1e-4 of the reference (tests/test_kernels.py:38); sums reorder"
     qmm = {}
     cases = [(M, K, N, 8) for M in (8, 4096) for K, N in QMM_SHAPES] + [(8, 2048, 2048, 4),
                                                                        (4096, 2048, 2048, 4)]
     for M, K, N, bits in cases:
-        x = torch.randn(M, K, generator=gen, device=dev)
-        w = quantize(torch.randn(K, N, generator=gen, device=dev) * K ** -0.5, bits)
-        got = quant_matmul(x, w.q, w.scale, bits=bits)
-        want = ref.quant_matmul_ref(x, w.q, w.scale, bits)
-        err = float(((got - want).abs() - 1e-4 * want.abs()).max())
-        check(f"quant_matmul M={M} K={K} N={N} int{bits}", err, qmm_tol)
-        nbytes = M * K * 4 + w.q.numel() + w.scale.numel() * 4 + M * N * 4
-        ws = [w] + [quantize(torch.randn(K, N, generator=gen, device=dev) * K ** -0.5, bits)
-                    for _ in range(copies(w.q.numel()) - 1)]
-        wfs = [dequantize(c) for c in ws[:copies(4 * K * N)]]
-        b_ms, b_by = bound(nbytes, 2.0 * M * N * K)
-        r = {"check": "quant_matmul", "M": M, "K": K, "N": N, "bits": bits,
-             "max_abs_err": max_err(got, want), "tol": f"atol {qmm_tol} + rtol 1e-4",
-             "tol_reason": qmm_reason,
-             "ms": timer([lambda c=c: quant_matmul(x, c.q, c.scale, bits=bits) for c in ws]),
-             "plain_ms": timer([lambda c=c: ref.quant_matmul_ref(x, c.q, c.scale, bits)
-                                for c in ws]),
-             "library_ms": timer([lambda c=c: torch.matmul(x, c) for c in wfs]),
-             "library": "torch.matmul on the pre-dequantized f32 weight",
-             "bound_ms": b_ms, "bound_by": b_by}
-        emit(r)
-        qmm[(M, K, N, bits)] = r
-        del x, w, ws, wfs, got, want
-
-    def layer_sum(M, key):
-        return sum(qmm[(M, K, N, 8)][key] for K, N in LAYER_PROJECTIONS)
-
-    rows["quant_matmul"] = {
-        "at": "the 7 projections of one layer at decode M=8, int8 (times summed)",
-        "max_abs_err": max(r["max_abs_err"] for r in qmm.values()),
-        "ms": layer_sum(8, "ms"), "plain_ms": layer_sum(8, "plain_ms"),
-        "bound_ms": layer_sum(8, "bound_ms"), "bound_by": "bytes",
-        "library_ms": layer_sum(8, "library_ms")}
+        qmm[(M, K, N, bits)] = qmm_case(timer, gen, M, K, N, bits)
+    rows["quant_matmul"] = layer_row(qmm, 8)
 
     # flash attention: prefill, B·H = 8·16, S = 512, hd = 128, causal, grouped KV
     B, H, Hkv, S, hd = 8, 16, 8, 512, 128
@@ -609,32 +645,49 @@ def training_kernel_phase(timer: Timer, gen: torch.Generator):
 # ---------------------------------------------------------------- training
 
 
-def training_phase():
-    """PAC+ at full width through the port's EdgeSession/EpochRunner."""
+def kernel_counters():
+    """(module, key) of every kernel's launch count; key None where the
+    module counts one kernel in a plain integer."""
+    from repro_torch.kernels import (adapter_fuse, cached_mix, flash_attention, lmhead_ce,
+                                     paged_attention, quant_matmul)
+
+    return [(quant_matmul, None), (flash_attention, None), (paged_attention, None),
+            (cached_mix, "mix_fwd"), (cached_mix, "mix_dw"), (lmhead_ce, "ce_fwd"),
+            (lmhead_ce, "ce_bwd"), (adapter_fuse, None)]
+
+
+def reset_launches() -> None:
+    for mod, key in kernel_counters():
+        if key is None:
+            mod.launches = 0
+        else:
+            mod.launches[key] = 0
+
+
+def read_launches() -> dict:
+    return {key or mod.__name__.rsplit(".", 1)[1]: (mod.launches if key is None
+                                                    else mod.launches[key])
+            for mod, key in kernel_counters()}
+
+
+def training_phase(workdir: Path):
+    """PAC+ at full width through the port's EdgeSession/EpochRunner,
+    with its checkpoint and persistent cache in ``workdir``. Returns
+    (launches, the session's backbone, the checkpoint's path)."""
     from repro_torch.core.quantization import tree_leaves, tree_map
-    from repro_torch.kernels import cached_mix, flash_attention, lmhead_ce, quant_matmul
     from repro_torch.kernels.cached_step import cached_loss_parts
     from repro_torch.runtime import (ConsoleHook, EdgeSession, EpochReport, EpochRunner,
                                      RunHooks, RunSpec)
 
+    ckpt = workdir / "adapter.msgpack"
     spec = RunSpec(arch="internlm2-1.8b", quant=8, cache_compress="int8", kernels="cuda",
-                   init="pruning", epochs=3, steps_per_epoch=2, batch=4, seq=512, seed=SEED)
-    counters = [(quant_matmul, None), (flash_attention, None), (cached_mix, "mix_fwd"),
-                (cached_mix, "mix_dw"), (lmhead_ce, "ce_fwd"), (lmhead_ce, "ce_bwd")]
-
-    def names():
-        return [key or mod.__name__.rsplit(".", 1)[1] for mod, key in counters]
-
-    def reset():
-        for mod, key in counters:
-            if key is None:
-                mod.launches = 0
-            else:
-                mod.launches[key] = 0
+                   init="pruning", epochs=3, steps_per_epoch=2, batch=4, seq=512, seed=SEED,
+                   ckpt=str(ckpt), cache_dir=str(workdir / "act_cache"))
+    training_kernels = ("quant_matmul", "flash_attention", "mix_fwd", "mix_dw", "ce_fwd",
+                        "ce_bwd")
 
     def read():
-        return {n: (mod.launches if key is None else mod.launches[key])
-                for n, (mod, key) in zip(names(), counters)}
+        return {k: v for k, v in read_launches().items() if k in training_kernels}
 
     per_step = []
 
@@ -656,10 +709,11 @@ def training_phase():
     s = EdgeSession(spec, log=print).open()
     torch.cuda.synchronize()
     open_s = time.perf_counter() - t0
-    reset()
+    reset_launches()
     steps_, reports = run(s, [StepLaunches()])
     launches = read()
     peak = torch.cuda.max_memory_allocated()
+    s.finish()
     full = [e.wall_s for e in steps_ if not e.cache_hit]
     cached = [e.wall_s for e in steps_ if e.cache_hit]
     emit({"phase": "training", "arch": s.cfg.name, "layers": s.cfg.n_layers,
@@ -679,6 +733,7 @@ def training_phase():
     missing = [n for n, c in launches.items() if c <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the training path: {missing}")
+    persistence_phase(s, spec, steps_, run)
 
     # one cached batch through the cached step's loss, cuda against ref
     ids = s.pipe.epoch_order(0)[0]
@@ -716,11 +771,12 @@ def training_phase():
         if events[0].mode != mode:
             raise AssertionError(f"profiled a {events[0].mode} step, wanted {mode}")
         emit({"phase": "train_profile", "step": mode, **prof})
+    backbone = s.backbone
     s.close()
     del s, res, cached_b, hit
 
-    # the same trainer under the ref kernels: per-epoch losses
-    s = EdgeSession(spec.replace(kernels="ref"), log=print).open()
+    # the same trainer under the ref kernels, in memory: per-epoch losses
+    s = EdgeSession(spec.replace(kernels="ref", ckpt=None, cache_dir=None), log=print).open()
     ref_steps, ref_reports = run(s)
     s.close()
     del s
@@ -737,6 +793,268 @@ def training_phase():
                         "quantized at the tap site, under ref on f32 taps"})
     if max(diffs) > tol:
         raise AssertionError(f"trainer cuda vs ref epoch losses differ by {diffs}")
+    return launches, backbone, ckpt
+
+
+def persistence_phase(s, spec, steps_, run) -> None:
+    """The training run's durable outputs: its checkpoint loads back bit
+    for bit; a second run over its cache directory (1 epoch x 2 steps)
+    is warm — every step cached, no frozen-forward kernel launched — and
+    gives the first run's epoch-0 losses; another seed invalidates the
+    directory and re-captures it."""
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.core.activation_cache import MANIFEST_NAME
+    from repro_torch.core.quantization import tree_leaves
+    from repro_torch.runtime import EdgeSession
+
+    t0 = time.perf_counter()
+    loaded = load_checkpoint(spec.ckpt, device=DEV)
+    load_s = time.perf_counter() - t0
+    pairs = list(zip(tree_leaves(loaded["adapter"]), tree_leaves(s.adapter)))
+    bit_equal = (loaded["config"] == s.cfg.name and len(pairs) == len(tree_leaves(s.adapter))
+                 and all(a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs))
+    del loaded, pairs
+    manifest = Path(spec.cache_dir) / MANIFEST_NAME
+
+    def rerun(run_spec):
+        reset_launches()
+        t = time.perf_counter()
+        session = EdgeSession(run_spec, log=print).open()
+        open_s = time.perf_counter() - t
+        events, reports = run(session)
+        session.finish()
+        session.close()
+        return session, events, reports, open_s, read_launches()
+
+    warm_s, warm_steps, warm_reports, warm_open_s, warm_launches = rerun(
+        spec.replace(epochs=1, ckpt=None))
+    cold = [e.loss for e in steps_ if e.epoch == 0]
+    warm = [e.loss for e in warm_steps]
+    reseed = spec.replace(epochs=1, seed=SEED + 1, ckpt=None)
+    seeded_s, seeded_steps, _, _, seeded_launches = rerun(reseed)
+    recaptured = json.loads(manifest.read_text())["meta"] == seeded_s.meta
+    loss_tol = 2e-5
+    emit({"phase": "persistence", "ckpt": Path(spec.ckpt).name,
+          "ckpt_bytes": Path(spec.ckpt).stat().st_size, "ckpt_load_s": load_s,
+          "ckpt_bit_equal": bit_equal, "warm": warm_s.warm, "warm_open_s": warm_open_s,
+          "warm_modes": [r.mode for r in warm_reports],
+          "warm_steps_cached": [e.cache_hit for e in warm_steps],
+          "warm_step_s": [e.wall_s for e in warm_steps], "warm_launches": warm_launches,
+          "warm_losses": warm, "cold_epoch0_losses": cold, "loss_tol": loss_tol,
+          "loss_tol_reason": "the reference's cached-step loss tolerance "
+                             "(tests/test_cached_step.py:163): the same int8 taps, from the "
+                             "tap site in the first run and from the cache in the second",
+          "reseeded_warm": seeded_s.warm, "reseeded_modes": [e.mode for e in seeded_steps],
+          "reseeded_launches": seeded_launches, "reseeded_manifest_recaptured": recaptured})
+    if not bit_equal:
+        raise AssertionError("the checkpoint does not load back bit-equal to the adapter")
+    if not (warm_s.warm and all(e.cache_hit for e in warm_steps)
+            and [r.mode for r in warm_reports] == ["cached"]):
+        raise AssertionError("the rerun over the cache directory was not warm")
+    if warm_launches["quant_matmul"] or warm_launches["flash_attention"]:
+        raise AssertionError(f"the warm rerun ran the frozen forward: {warm_launches}")
+    if max(abs(a - b) for a, b in zip(warm, cold)) > loss_tol:
+        raise AssertionError(f"warm losses {warm} differ from the first run's {cold}")
+    if seeded_s.warm or any(e.cache_hit for e in seeded_steps) or not recaptured \
+            or seeded_launches["quant_matmul"] <= 0:
+        raise AssertionError("a new seed did not invalidate and re-capture the cache")
+
+
+# ---------------------------------------------------------------- personal serving
+
+PERSONAL_D, PERSONAL_DA = 2048, 256  # internlm2-1.8b, r=8
+PROMPT_LEN, N_GREEDY, PERSONAL_MAX_LEN = 32, 32, 64
+
+
+def personal_kernel_phase(timer: Timer, gen: torch.Generator):
+    """``adapter_fuse`` against its plain version (f32 and bf16, λ in
+    {0, 0.5, 1}) at the decode shapes T = 1 and 8, the training width
+    T = 2048, and ragged shapes on both paths (the split-K path at T = 1
+    and 8 with a partial 32-row slice of d, a partial 128-column block
+    and 32 or 47 slices; the tiled path at T = 100), each timed beside
+    the plain version and ``torch.addmm``; ``quant_matmul`` at the decode step's M = 1; flash
+    attention and ``quant_matmul`` at the 32-token prompt's shapes."""
+    from repro_torch.core.quantization import quantize
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.adapter_fuse import adapter_fuse
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.quant_matmul import quant_matmul
+
+    dev, rows = DEV, {}
+    reason = {torch.float32: "the reference's adapter_fuse tolerance (tests/test_kernels.py:68); "
+                             "f32 sums reorder",
+              torch.bfloat16: "bf16 output: the two f32 results may round to neighbouring bf16 "
+                              "values, one step of 2^-7 relative at most; 1e-5 for the f32 "
+                              "sums' reordering"}
+    tol = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1e-5, 2.0 ** -7)}
+    for T, d, da in ((1, PERSONAL_D, PERSONAL_DA), (8, PERSONAL_D, PERSONAL_DA),
+                     (2048, PERSONAL_D, PERSONAL_DA), (1, 1000, 200), (8, 1500, 200),
+                     (100, 1000, 200)):
+        b32 = torch.randn(T, d, generator=gen, device=dev)
+        w32 = torch.randn(d, da, generator=gen, device=dev) * d ** -0.5
+        a32 = torch.randn(T, da, generator=gen, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            b, w, a = (t.to(dtype) for t in (b32, w32, a32))
+            atol, rtol = tol[dtype]
+            err = 0.0
+            for lam_v in (0.0, 0.5, 1.0):
+                lam = torch.tensor(lam_v, device=dev)
+                got, want = adapter_fuse(b, w, a, lam), ref.adapter_fuse_ref(b, w, a, lam)
+                if got.dtype != dtype or got.shape != (T, da):
+                    raise AssertionError(f"adapter_fuse gave {got.dtype} {tuple(got.shape)}")
+                check(f"adapter_fuse T={T} d={d} da={da} {dtype} lam={lam_v}",
+                      float(((got - want).float().abs() - rtol * want.float().abs()).max()),
+                      atol)
+                err = max(err, max_err(got, want))
+            lam = torch.tensor(0.5, device=dev)
+            lam_host = float(lam)  # read once, outside the timing
+            ws = [w] + [torch.randn(d, da, generator=gen, device=dev).to(dtype) * d ** -0.5
+                        for _ in range(copies(w.numel() * w.element_size()) - 1)]
+            esize = b.element_size()
+            nbytes = T * d * esize + d * da * esize + 2 * T * da * esize + 4
+            b_ms, b_by = bound(nbytes, 2.0 * T * d * da + 3.0 * T * da,
+                               BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S)
+            r = {"check": "adapter_fuse", "T": T, "d": d, "da": da, "dtype": str(dtype),
+                 "lambdas": [0.0, 0.5, 1.0], "max_abs_err": err,
+                 "tol": f"atol {atol} + rtol {rtol}", "tol_reason": reason[dtype],
+                 "ms": timer([lambda w_=w_: adapter_fuse(b, w_, a, lam) for w_ in ws]),
+                 "plain_ms": timer([lambda w_=w_: ref.adapter_fuse_ref(b, w_, a, lam)
+                                    for w_ in ws]),
+                 "library_ms": timer([lambda w_=w_: torch.addmm(a, b, w_, beta=1.0 - lam_host,
+                                                                alpha=lam_host) for w_ in ws]),
+                 "library": "torch.addmm(a, b, W, beta=1-λ, alpha=λ), λ read on the host once",
+                 "bound_ms": b_ms, "bound_by": b_by,
+                 "path": "split-K" if T <= 8 else "tiled"}
+            emit(r)
+            if (T, d, da) == (1, PERSONAL_D, PERSONAL_DA) and dtype == torch.float32:
+                rows["adapter_fuse"] = _row(r, "one period's mix at decode, T=1, d=2048, "
+                                               "d_a=256, f32 (PERF.md also lists T=2048)")
+            del ws
+    qmm = {(1, K, N, 8): qmm_case(timer, gen, 1, K, N, 8) for K, N in QMM_SHAPES}
+    emit({"check": "quant_matmul_layer", "M": 1, **layer_row(qmm, 1)})
+    # the prompt's shapes: 32 tokens, 16 heads over 8 KV heads
+    for K, N in QMM_SHAPES:
+        x = torch.randn(PROMPT_LEN, K, generator=gen, device=dev)
+        w = quantize(torch.randn(K, N, generator=gen, device=dev) * K ** -0.5, 8)
+        got, want = quant_matmul(x, w.q, w.scale), ref.quant_matmul_ref(x, w.q, w.scale)
+        check(f"quant_matmul M={PROMPT_LEN} K={K} N={N}",
+              float(((got - want).abs() - 1e-4 * want.abs()).max()), 1e-3)
+    q = torch.randn(16, PROMPT_LEN, 128, generator=gen, device=dev)
+    k, v = (torch.randn(8, PROMPT_LEN, 128, generator=gen, device=dev) for _ in range(2))
+    err = max_err(flash_attention(q, k, v), ref.flash_attention_ref(q, k, v))
+    check(f"flash_attention S={PROMPT_LEN}", err, 3e-5)
+    emit({"check": "prompt_shapes", "quant_matmul_M": PROMPT_LEN, "flash_BH": 16,
+          "flash_S": PROMPT_LEN, "flash_max_abs_err": err, "tol": "as above"})
+    return rows
+
+
+def personal_phase(backbone, cfg, ckpt: Path, r: int = 8):
+    """Serve the trained adapter, loaded from its checkpoint, with the
+    reference's one-request loop: ``pac_decode_step`` at B=1 over an
+    INT8 linear KV cache, 32 teacher-forced prompt tokens then 32 greedy
+    tokens, under ``cuda`` (launches counted) and then ``ref``. Then
+    ``prefill_step`` against the teacher-forced f32-cache decode, and
+    the INT8-KV decode against the f32-KV one. Last, where the gap
+    between the OpSets arises: the same loop over an f32 linear KV cache
+    under both, each step's largest gap, and how many INT8 KV codes the
+    two INT8 runs wrote differently."""
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.core.parallel_adapters import init_adapter_cache
+    from repro_torch.core.steps import decode_step, pac_decode_step, prefill_step
+    from repro_torch.models.backbone import init_cache
+
+    dev = DEV
+    adapter = load_checkpoint(str(ckpt), device=dev)["adapter"]
+    rng = np.random.default_rng(SEED)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, size=(1, PROMPT_LEN)).astype(np.int32))
+    prompt = prompt.to(dev)
+    n_steps = PROMPT_LEN + N_GREEDY - 1  # the last step's logits give the 32nd greedy token
+
+    def serve(impl, steps=n_steps, kv_quant=8):
+        cache = init_cache(cfg, 1, PERSONAL_MAX_LEN, device=dev, kv_quant=kv_quant)
+        acache = init_adapter_cache(cfg, 1, PERSONAL_MAX_LEN, r, device=dev)
+        logits, greedy = [], []
+        tok = prompt[:, :1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for p in range(steps):
+            lg, cache, acache = pac_decode_step(
+                backbone, adapter, {"tokens": tok}, cache, acache,
+                torch.full((1,), p, dtype=torch.long, device=dev), cfg=cfg, r=r,
+                kernel_impl=impl)
+            logits.append(lg[:, 0])
+            if p >= PROMPT_LEN - 1:
+                greedy.append(lg[:, 0].argmax(-1))
+            tok = prompt[:, p + 1:p + 2] if p + 1 < PROMPT_LEN else greedy[-1][:, None].int()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tokens = [int(t) for t in torch.cat(greedy)] if greedy else []
+        return torch.cat(logits), tokens, wall, cache
+
+    serve("cuda", steps=2)  # warm-up: first launches, allocator growth
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    logits_cuda, tokens_cuda, wall, cache_cuda = serve("cuda")
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    emit({"phase": "personal_profile", "steps": 2, "from": "an empty cache",
+          **device_profile(lambda: serve("cuda", steps=2))})
+    logits_ref, tokens_ref, wall_ref, cache_ref = serve("ref")
+    dlogits = max_err(logits_cuda, logits_ref)
+    logits_cuda32, tokens_cuda32, _, _ = serve("cuda", kv_quant=None)
+    logits_ref32, tokens_ref32, _, _ = serve("ref", kv_quant=None)
+    dlogits32 = max_err(logits_cuda32, logits_ref32)
+    codes = [(cc[k].int() - cr[k].int()).abs()[:, :, :n_steps]
+             for cc, cr in zip(cache_cuda, cache_ref) for k in ("k", "v")]
+    emit({"phase": "personal_gap", "steps": n_steps,
+          "max_abs_dlogits_int8_kv": dlogits, "max_abs_dlogits_f32_kv": dlogits32,
+          "tokens_equal_f32_kv": tokens_cuda32 == tokens_ref32,
+          "kv_codes_differing": sum(int((c != 0).sum()) for c in codes),
+          "kv_codes_written": sum(c.numel() for c in codes),
+          "kv_code_max_step": max(int(c.max()) for c in codes),
+          "per_step_int8_kv": (logits_cuda - logits_ref).abs().amax(-1).tolist(),
+          "per_step_f32_kv": (logits_cuda32 - logits_ref32).abs().amax(-1).tolist()})
+
+    def teacher_forced(kv_quant):
+        cache = init_cache(cfg, 1, PROMPT_LEN, device=dev, kv_quant=kv_quant)
+        for p in range(PROMPT_LEN):
+            lg, cache = decode_step(backbone, {"tokens": prompt[:, p:p + 1]}, cache,
+                                    torch.full((1,), p, dtype=torch.long, device=dev), cfg=cfg,
+                                    kernel_impl="cuda")
+        return lg
+
+    pre = prefill_step(backbone, {"tokens": prompt}, cfg=cfg, kernel_impl="cuda")
+    dec32, dec8 = teacher_forced(None), teacher_forced(8)
+    rel_prefill = max_err(dec32, pre) / float(pre.abs().max())
+    rel_kv = max_err(dec8, dec32) / float(dec32.abs().max())
+    per_step = {k: v / n_steps for k, v in launches.items()}
+    finite = bool(torch.isfinite(logits_cuda).all() and torch.isfinite(logits_ref).all())
+    tol = {"dlogits": 2e-2, "dlogits_f32_kv": 2e-4, "prefill_rel": 2e-3, "int8_kv_rel": 5e-2}
+    emit({"phase": "personal", "arch": cfg.name, "batch": 1, "prompt_tokens": PROMPT_LEN,
+          "greedy_tokens": N_GREEDY, "max_len": PERSONAL_MAX_LEN, "kv": "int8 linear",
+          "adapter": f"{ckpt.name}, r={r}", "steps": n_steps,
+          "decode_ms_per_step": wall * 1e3 / n_steps,
+          "ref_decode_ms_per_step": wall_ref * 1e3 / n_steps,
+          "max_memory_allocated": peak, "launches": launches, "launches_per_step": per_step,
+          "tokens_cuda": tokens_cuda, "tokens_equal": tokens_cuda == tokens_ref,
+          "max_abs_dlogits": dlogits, "max_abs_dlogits_f32_kv": dlogits32,
+          "prefill_vs_decode_rel": rel_prefill,
+          "int8_vs_f32_kv_rel": rel_kv, "finite": finite, "logits_shape": list(pre.shape),
+          "tol": tol,
+          "tol_reason": "serving gate (PERF.md section 2) over the int8 KV, whose one-step code "
+                        "flips carry the f32 sums' reordering forward; over the f32 KV the "
+                        "reference's decode-parity ceiling (tests/test_decode_parity.py:36); "
+                        "prefill vs decode and int8 vs f32 KV are the reference's bounds "
+                        "(tests/test_backbone_smoke.py:123, :152)"})
+    if (tokens_cuda != tokens_ref or tokens_cuda32 != tokens_ref32 or not finite
+            or dlogits > tol["dlogits"] or dlogits32 > tol["dlogits_f32_kv"]):
+        raise AssertionError(f"cuda vs ref: tokens equal {tokens_cuda == tokens_ref} (int8 KV), "
+                             f"{tokens_cuda32 == tokens_ref32} (f32 KV), |dlogits| {dlogits} "
+                             f"(int8 KV), {dlogits32} (f32 KV), finite {finite}")
+    if rel_prefill > tol["prefill_rel"] or rel_kv > tol["int8_kv_rel"]:
+        raise AssertionError(f"prefill vs decode {rel_prefill}, int8 vs f32 KV {rel_kv}")
+    if per_step["adapter_fuse"] != cfg.n_periods or per_step["quant_matmul"] != 7 * cfg.n_layers:
+        raise AssertionError(f"launches per decode step: {per_step}")
     return launches
 
 
@@ -745,6 +1063,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.configs import get_arch
     from repro_torch.kernels import _build
 
     card = card_line()
@@ -767,12 +1086,17 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     # each path's kernels are checked just before the path runs, so that
-    # neither path's measurements carry the other's leftovers
+    # no path's measurements carry another's leftovers
     rows = kernel_phase(Timer(), gen)
     serving = serving_phase(gen)
     serving_done_s = time.perf_counter() - T_START  # the serving slice's phases
     rows.update(training_kernel_phase(Timer(), gen))
-    training = training_phase()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        training, backbone, ckpt = training_phase(Path(workdir))
+        training_done_s = time.perf_counter() - T_START
+        rows.update(personal_kernel_phase(Timer(), gen))
+        personal = personal_phase(backbone, get_arch("internlm2-1.8b"), ckpt)
+    del backbone
 
     sources = {"quant_matmul": ("src/repro_torch/kernels/csrc/quant_matmul.cu",
                                 "src/repro/kernels/quant_matmul.py:93"),
@@ -787,17 +1111,23 @@ def main() -> int:
                "ce_fwd": ("src/repro_torch/kernels/csrc/lmhead_ce.cu",
                           "src/repro/kernels/cached_step.py:459"),
                "ce_bwd": ("src/repro_torch/kernels/csrc/lmhead_ce.cu",
-                          "src/repro/kernels/cached_step.py:497")}
+                          "src/repro/kernels/cached_step.py:497"),
+               "adapter_fuse": ("src/repro_torch/kernels/csrc/adapter_fuse.cu",
+                                "src/repro/kernels/adapter_fuse.py:83")}
+    paths = {"serving": serving, "training": training, "personal": personal}
+    home = {"quant_matmul": "serving", "flash_attention": "serving",
+            "paged_attention": "serving", "adapter_fuse": "personal"}
     # each kernel's launches on its own main path (serving for the first
-    # three, training for the four training kernels), both paths listed
+    # three, training for the four training kernels, personal for
+    # adapter_fuse), every path listed
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": serving[name] if name in serving else training[name],
-         "launches_by_path": {"serving": serving.get(name, 0), "training": training.get(name, 0)},
+         "launches": paths[home.get(name, "training")][name],
+         "launches_by_path": {p: counts.get(name, 0) for p, counts in paths.items()},
          **rows[name]}
         for name, (src, rep) in sources.items()]})
     emit({"phase": "done", "wall_s": time.perf_counter() - T_START,
-          "through_serving_s": serving_done_s})
+          "through_serving_s": serving_done_s, "through_training_s": training_done_s})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -3,18 +3,24 @@ is the reference).
 
 The package keeps ``repro``'s module layout so that each module has a
 named counterpart there, and imports neither JAX nor anything of
-``repro``. Two slices are ported: multi-tenant paged serving of a dense
-decoder with an INT8 backbone, and single-device PAC+ training (epoch 1
-through the frozen backbone, later epochs from the activation cache):
+``repro``. Three slices are ported: multi-tenant paged serving of a
+dense decoder with an INT8 backbone; single-device PAC+ training (epoch
+1 through the frozen backbone, later epochs from the activation cache);
+and the personal model's lifecycle (checkpoint, a persistent cache
+reopened warm, one user's model served with ``pac_decode_step`` over a
+linear INT8 KV cache):
 
 * ``repro_torch.configs`` — architecture configs (dense only);
 * ``repro_torch.core`` — block quantization, the OpSet seam (with tap
-  emission), the parallel adapters, pruning init, the activation cache
-  and the PAC+ training steps;
+  emission and the adapter mix), the parallel adapters, pruning init,
+  the activation cache (with its manifest) and the PAC+ training and
+  serving steps;
+* ``repro_torch.checkpoint`` — trees to disk in the reference's msgpack
+  framing (each package reads the other's files);
 * ``repro_torch.kernels`` — hand-written CUDA kernels for ``sm_90a``
   (``quant_matmul``, ``flash_attention``, ``paged_attention``,
-  ``mix_fwd``/``mix_dw``, ``ce_fwd``/``ce_bwd``), each beside its plain
-  PyTorch version;
+  ``mix_fwd``/``mix_dw``, ``ce_fwd``/``ce_bwd``, ``adapter_fuse``), each
+  beside its plain PyTorch version;
 * ``repro_torch.models`` — layers and the pattern-driven backbone;
 * ``repro_torch.optim`` — AdamW and global-norm clipping;
 * ``repro_torch.data`` — the synthetic personal corpus and its pipeline;

@@ -55,7 +55,7 @@ def to_torch(tree, device="cpu"):
         return {k: to_torch(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(to_torch(v, device) for v in tree)
-    if tree is None or isinstance(tree, (int, float, bool)):
+    if tree is None or isinstance(tree, (int, float, bool, str)):
         return tree
     return _to_tensor(tree, device)
 

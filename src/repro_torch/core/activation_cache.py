@@ -18,16 +18,25 @@ adapter trains straight from the cache with no backbone forward.
   ``spill_dir``, in the reference's format (bf16 as uint16, one JSON
   ``meta`` record), so either package reads the other's shards.
 
+* **Persistence** — :meth:`ActivationCache.save_manifest` flushes every
+  entry to ``spill_dir`` and writes ``manifest.json`` (the reference's
+  JSON format); :func:`open_persistent` reopens such a directory warm
+  when the manifest's identity record (:func:`manifest_for`: backbone
+  and corpus fingerprints, shapes, policy) matches, and otherwise
+  invalidates it loudly and removes the stale entries. The port's
+  fingerprints never equal the reference's, so a directory the other
+  package wrote is re-captured, never misread.
+
 Host storage is torch CPU tensors. Entries taken from the card are
-compressed there and copied to the host at storage width. Cross-run
-persistence (``save_manifest``/``open_persistent``) and the background
-``CachePrefetcher`` arrive with a later slice of the port.
+compressed there and copied to the host at storage width. The
+background ``CachePrefetcher`` arrives with a later slice of the port.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import sys
 import threading
 from dataclasses import dataclass, field
 from typing import Dict, Iterable, Optional, Set, Tuple
@@ -39,6 +48,8 @@ from repro_torch.core.quantization import QTensor, dequantize, quantize, stack
 
 COMPRESS_POLICIES = ("f32", "bf16", "int8")
 _INT8_BLOCK = 128
+MANIFEST_NAME = "manifest.json"
+MANIFEST_VERSION = 2
 
 
 def cache_bytes_per_sequence(cfg, seq_len: int, dtype_bytes: float = 4,
@@ -276,6 +287,16 @@ class ActivationCache:
         np.savez(path, **_entry_to_npz(entry))
         self._disk[key] = path
 
+    def flush(self) -> None:
+        """Write every RAM entry without a clean disk copy to spill_dir —
+        the persistence barrier before :meth:`save_manifest`."""
+        if not self.spill_dir:
+            raise ValueError("flush() requires a spill_dir")
+        with self._lock:
+            for k, entry in self._ram.items():
+                if k not in self._disk:
+                    self._spill(k, entry)
+
     # -- reads -------------------------------------------------------------
 
     def _get_entry(self, key: int, need_final: bool) -> Optional[CacheEntry]:
@@ -361,3 +382,96 @@ class ActivationCache:
             self._disk.clear()
             self._final_absent.clear()
             self._ram_bytes = 0
+
+    # -- cross-run persistence ---------------------------------------------
+
+    def save_manifest(self, meta: dict) -> str:
+        """Flush all entries to spill_dir and write the manifest that lets
+        a later run resume warm (:func:`open_persistent`). ``meta`` is the
+        caller's identity record (:func:`manifest_for`), compared
+        verbatim on reopen. Written atomically."""
+        self.flush()
+        with self._lock:
+            entries = {
+                str(k): {"file": os.path.basename(self._disk[k]),
+                         "has_final": k not in self._final_absent}
+                for k in sorted(self._ram.keys() | self._disk.keys())
+            }
+            manifest = {"version": MANIFEST_VERSION, "compress": self.compress, "meta": meta,
+                        "entries": entries}
+            path = os.path.join(self.spill_dir, MANIFEST_NAME)
+            tmp = path + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump(manifest, f, indent=1, sort_keys=True)
+            os.replace(tmp, path)
+            return path
+
+
+def manifest_for(cfg, *, reduced, seq_len, quant_bits, backbone, corpus_tokens) -> dict:
+    """The cache-manifest identity record. Any change to the backbone's
+    weights (seed, quantization), the corpus, or the shapes changes a
+    field here and invalidates the cache on reopen."""
+    from repro_torch.checkpoint import tree_fingerprint
+
+    return {
+        "arch": cfg.name,
+        "reduced": bool(reduced),
+        "seq": int(seq_len),
+        "quant": int(quant_bits or 0),
+        "backbone": tree_fingerprint(backbone),
+        "corpus": tree_fingerprint(corpus_tokens),
+    }
+
+
+def _invalidate(cache_dir: str, reason: str) -> None:
+    print(f"ACTIVATION CACHE INVALIDATED at {cache_dir}: {reason} — discarding cached "
+          f"entries; epoch 1 will re-run the backbone forward", file=sys.stderr)
+    for name in os.listdir(cache_dir):
+        if name == MANIFEST_NAME or (name.startswith("act_") and name.endswith(".npz")):
+            try:
+                os.remove(os.path.join(cache_dir, name))
+            except OSError:
+                pass
+
+
+def open_persistent(cache_dir: str, meta: dict, *, budget_bytes: int = 2 << 30,
+                    compress: str = "f32") -> Tuple[ActivationCache, bool]:
+    """Open (or create) a persistent cache at ``cache_dir``.
+
+    Returns ``(cache, warm)``. ``warm`` is True iff a manifest exists and
+    validates against ``meta`` and ``compress`` with every entry file
+    present: the cache's disk index is then filled from it, and an epoch
+    over its keys runs no backbone forward. Any mismatch invalidates
+    loudly (stderr) and removes the stale entries."""
+    cache = ActivationCache(budget_bytes=budget_bytes, spill_dir=cache_dir, compress=compress)
+    path = os.path.join(cache_dir, MANIFEST_NAME)
+    if not os.path.exists(path):
+        return cache, False
+    try:
+        with open(path) as f:
+            m = json.load(f)
+    except (OSError, json.JSONDecodeError) as e:
+        _invalidate(cache_dir, f"unreadable manifest ({e})")
+        return cache, False
+    if m.get("version") != MANIFEST_VERSION:
+        _invalidate(cache_dir, f"manifest version {m.get('version')} != {MANIFEST_VERSION}")
+        return cache, False
+    if m.get("compress") != compress:
+        _invalidate(cache_dir, f"compression policy changed ({m.get('compress')} -> {compress})")
+        return cache, False
+    old = m.get("meta", {})
+    if old != meta:
+        changed = sorted(k for k in set(old) | set(meta) if old.get(k) != meta.get(k))
+        _invalidate(cache_dir, f"meta mismatch on {changed}")
+        return cache, False
+    entries = m.get("entries", {})
+    files = {k: os.path.join(cache_dir, v["file"]) for k, v in entries.items()}
+    missing = [k for k, p in files.items() if not os.path.exists(p)]
+    if missing:
+        _invalidate(cache_dir, f"{len(missing)} entry file(s) missing")
+        return cache, False
+    for k, v in entries.items():
+        cache._disk[int(k)] = files[k]
+        if not v.get("has_final", False):
+            cache._final_absent.add(int(k))
+    return cache, True

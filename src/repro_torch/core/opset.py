@@ -13,7 +13,9 @@ paged decode attention, the embedding gather, norms and rope); an
   ``PallasOpSet``: INT8/INT4 weights stay :class:`QTensor` and feed the
   ``quant_matmul`` kernel, prefill attention runs the flash kernel,
   decode attention the paged kernel, and the embedding gathers int8 rows
-  and dequantizes only the gathered slice. The CUDA kernels mask their
+  and dequantizes only the gathered slice; the adapter's per-period
+  λ-mix with one adapter's weight runs the ``adapter_fuse`` kernel. The
+  ops go through ``repro_torch.kernels.ops``. The CUDA kernels mask their
   own ragged edges, so none of the TPU path's padding to 128/256 is
   needed. On CPU tensors each kernel wrapper computes its plain version,
   which is how the CPU tests run this OpSet.
@@ -74,6 +76,12 @@ class OpSet:
         """A PAC+ tap leaving the backbone forward, in the form the
         activation cache stores (identity for the f32 policy)."""
         raise NotImplementedError
+
+    def adapter_mix(self, b, w_down, a, lam):
+        """The adapter's per-period mix ``λ·(b @ w_down) + (1−λ)·a``.
+        b (B,S,d); a (B,S,d_a); w_down (d, d_a), or (B, d, d_a) with one
+        adapter per request row; λ a 0-d tensor in [0, 1] (or (B,1,1))."""
+        return lam * (b @ w_down) + (1.0 - lam) * a
 
     def rms_norm(self, x, weight, eps: float = 1e-6):
         from repro_torch.models.layers import rms_norm
@@ -154,28 +162,17 @@ class CudaOpSet(OpSet):
     def matmul(self, x, w):
         if not isinstance(w, QTensor):
             return x @ w
-        from repro_torch.kernels.quant_matmul import QBLOCK, quant_matmul
+        from repro_torch.kernels import ops
 
-        if w.block != QBLOCK or w.q.ndim != 2:
-            raise ValueError(f"quant_matmul takes 2-D weights in blocks of {QBLOCK}, got {w}")
-        lead, K = x.shape[:-1], x.shape[-1]
-        out = quant_matmul(x.reshape(-1, K).contiguous(), w.q, w.scale, bits=w.bits)
-        if out.shape[1] != w.orig_last:
-            out = out[:, : w.orig_last]
-        return out.reshape(lead + (w.orig_last,))
+        return ops.quant_matmul(x, w)
 
     def attention(self, q, k, v, cfg, spec):
-        from repro_torch.kernels.flash_attention import flash_attention
+        from repro_torch.kernels import ops
 
         B, S, H, hd = q.shape
-        hkv = k.shape[2]
-
-        def fold(t, heads):  # (B,S,h,hd) -> (B·h, S, hd)
-            return t.transpose(1, 2).reshape(B * heads, S, hd).contiguous()
-
-        o = flash_attention(fold(q, H), fold(k, hkv), fold(v, hkv), causal=True,
-                            window=spec.window, attn_softcap=cfg.attn_softcap)
-        return o.reshape(B, H, S, hd).transpose(1, 2).reshape(B, S, H * hd)
+        o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                causal=True, window=spec.window, attn_softcap=cfg.attn_softcap)
+        return o.transpose(1, 2).reshape(B, S, H * hd)
 
     def paged_attention(self, q, k_pages, v_pages, k_scale, v_scale,
                         block_tables, lengths, cfg, spec):
@@ -194,6 +191,16 @@ class CudaOpSet(OpSet):
         idx = tokens.long()
         return dequantize(QTensor(embed.q[idx], embed.scale[idx], embed.bits, embed.block,
                                   embed.orig_last))
+
+    def adapter_mix(self, b, w_down, a, lam):
+        """One adapter's weight: the ``adapter_fuse`` kernel. A request
+        axis on ``w_down`` (the engine's adapter bank) keeps the batched
+        plain ops: the kernel, like the TPU one, takes a single W."""
+        if w_down.ndim != 2:
+            return super().adapter_mix(b, w_down, a, lam)
+        from repro_torch.kernels import ops
+
+        return ops.adapter_fuse(b, w_down, a, lam)
 
     def emit_tap(self, h):
         if self.tap_policy == "f32":

@@ -22,6 +22,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.core.opset import get_opset
 from repro_torch.core.quantization import tree_map
 from repro_torch.models.backbone import (
     apply_block,
@@ -177,19 +178,22 @@ def rows(adapter_batch):
 # ---------------------------------------------------------------------------
 
 
-def adapter_decode(adapter_params, cfg, b0_t, taps_t, cache, pos, r: int = 8):
+def adapter_decode(adapter_params, cfg, b0_t, taps_t, cache, pos, r: int = 8, ops=None):
     """One-token adapter step. b0_t: (B,1,d); taps_t: (n_p,B,1,d); cache:
     the :func:`init_adapter_cache` layout, updated in place; pos: (B,)
     per-row write index. ``adapter_params`` is one adapter or a
-    :func:`rows` batch. Returns (side (B,1,d), cache)."""
+    :func:`rows` batch. Each period's λ-mix runs ``ops.adapter_mix``
+    (the ``cuda`` OpSet's ``adapter_fuse`` kernel for one adapter); the
+    adapter's blocks stay on the plain ops, as in the reference.
+    Returns (side (B,1,d), cache)."""
+    ops = ops if ops is not None else get_opset("ref")
     acfg = adapter_config(cfg, r)
     downs = adapter_params["downs"]
     lambdas = torch.clamp(adapter_params["lambda"], 0.0, 1.0)
     a = b0_t @ downs[0]
     blocks = adapter_params["blocks"]
     for i in range(cfg.n_periods):
-        lam = lambdas[i]
-        h = (lam * (taps_t[i] @ downs[i + 1]) + (1.0 - lam) * a).to(a.dtype)
+        h = ops.adapter_mix(taps_t[i], downs[i + 1], a, lambdas[i]).to(a.dtype)
         for j, (spec, p) in enumerate(zip(acfg.pattern, period_slice(blocks, i))):
             entry = {"k": cache[j]["k"][i], "v": cache[j]["v"][i]}
             h, _ = apply_block_decode(p, h, acfg, spec, entry, pos)

@@ -1,9 +1,13 @@
-"""PAC+ training steps (counterpart of ``repro.core.steps``).
+"""PAC+ training and single-user serving steps (counterpart of
+``repro.core.steps``).
 
 * :func:`pac_train_step` — epoch 1: frozen (possibly quantized) backbone
   forward, then an adapter update; returns the activations for the cache.
 * :func:`pac_cached_train_step` — epoch ≥ 2: adapter-only, from cached
   activations.
+* :func:`prefill_step`, :func:`decode_step`, :func:`pac_decode_step` —
+  serving one user's personal model against a linear KV cache (f32, or
+  INT8 from ``init_cache(kv_quant=8)``), updated in place.
 
 Gradients are ``torch.autograd.grad`` over the adapter's leaves; the
 frozen path runs under ``torch.no_grad()`` (the reference's
@@ -17,9 +21,15 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.opset import get_opset
-from repro_torch.core.parallel_adapters import pac_logits
+from repro_torch.core.parallel_adapters import adapter_decode, pac_logits
 from repro_torch.core.quantization import tree_leaves, tree_map
-from repro_torch.models.backbone import backbone_forward, cross_entropy
+from repro_torch.models.backbone import (
+    backbone_decode,
+    backbone_forward,
+    cross_entropy,
+    decode_periods,
+    logits_from_hidden,
+)
 from repro_torch.optim import adamw_update, clip_by_global_norm
 
 
@@ -107,3 +117,47 @@ def pac_cached_train_step(backbone_params, adapter_params, opt_state, cached_bat
         return num / torch.clamp_min(den, 1)
 
     return _update(loss_fn, adapter_params, opt_state, lr, clip)
+
+
+# ---------------------------------------------------------------------------
+# Serving steps
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def prefill_step(params, batch, *, cfg, kernel_impl: str = "ref"):
+    """Full-prompt forward through the ``kernel_impl`` OpSet. Returns the
+    last position's logits (B,1,V)."""
+    h, _ = backbone_forward(params, cfg, batch, ops=get_opset(kernel_impl))
+    return logits_from_hidden(params, cfg, h[:, -1:, :])
+
+
+@torch.no_grad()
+def decode_step(params, token_batch, cache, pos, *, cfg, kernel_impl: str = "ref"):
+    """One-token decode against the linear cache. Returns (logits, cache)."""
+    return backbone_decode(params, cfg, token_batch, cache, pos, ops=get_opset(kernel_impl))
+
+
+@torch.no_grad()
+def pac_decode_step(backbone_params, adapter_params, token_batch, cache, adapter_cache, pos,
+                    *, cfg, r: int = 8, kernel_impl: str = "ref"):
+    """Serve the personal model: backbone decode plus side-network decode.
+
+    token_batch: {"tokens": (B,1)} or {"embeds": (B,1,d)}; cache: the
+    backbone's linear cache (``init_cache``, f32 or ``kv_quant=8``);
+    adapter_cache: ``init_adapter_cache``; pos: the index the token is
+    written at (an int or a (B,) tensor). The frozen backbone runs on the
+    ``kernel_impl`` OpSet, so does the adapter's per-period λ-mix (under
+    ``cuda`` the ``adapter_fuse`` kernel); the adapter's blocks and the
+    LM head stay on plain ops, as in the reference. Returns (logits
+    (B,1,V), cache, adapter_cache) — both caches updated in place."""
+    ops = get_opset(kernel_impl)
+    if "embeds" in token_batch:
+        x = token_batch["embeds"]
+    else:
+        x = ops.embed_lookup(backbone_params["embed"], token_batch["tokens"])
+    pos = torch.as_tensor(pos, device=x.device).long().expand(x.shape[0])
+    b_final, taps = decode_periods(backbone_params, cfg, x, cache, pos, ops=ops)
+    side, adapter_cache = adapter_decode(adapter_params, cfg, x, taps, adapter_cache, pos, r,
+                                         ops=ops)
+    return logits_from_hidden(backbone_params, cfg, b_final + side), cache, adapter_cache

@@ -4,8 +4,9 @@ Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface and loaded with ``ctypes``; every
 pointer and the stream cross as ``c_void_p``. Libraries are built at
 first use into ``build/repro_torch_kernels/`` at the repository root
-(ignored by git), named by a hash of the source and the flags, so an
-edited source rebuilds and an unchanged one is reused. :func:`build`
+(ignored by git), named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds
+and an unchanged one is reused. :func:`build`
 starts one ``nvcc`` per source, all at once.
 
 Each C entry point returns ``cudaGetLastError()`` after its launch;
@@ -27,7 +28,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-KERNELS = ("quant_matmul", "flash_attention", "paged_attention", "cached_mix", "lmhead_ce")
+KERNELS = ("quant_matmul", "flash_attention", "paged_attention", "cached_mix", "lmhead_ce",
+           "adapter_fuse")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo",
@@ -51,9 +53,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # shared device code any source may include
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:

@@ -18,7 +18,8 @@
 // owns a 64x64 output tile and loops over the contraction inside the
 // block (the Pallas grid's sequential K axis carries nothing between
 // blocks here), staging a 32-deep slice of each operand in shared
-// memory. The entry tile is dequantized as it is staged, so the entry
+// memory (mix_fwd's loop is mix_tile.cuh's, shared with adapter_fuse.cu).
+// The entry tile is dequantized as it is staged, so the entry
 // crosses device memory at its storage width and the f32 tap is never
 // written. mix_dw owns each dW tile in one block and loops over tokens:
 // no atomics, a deterministic sum. Tensor cores are later work.
@@ -28,17 +29,11 @@
 
 #include <type_traits>
 
+#include "mix_tile.cuh"
+
 namespace {
 
-constexpr int BM = 64, BN = 64, BK = 32;
-constexpr int THREADS = 256;  // 16 x 16; thread (ty, tx) owns rows ty+16i, cols tx+16j, i, j < 4
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f32(int8_t v) { return (float)v; }
-
-__device__ __forceinline__ void put(float* p, float v) { *p = v; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+using namespace mix_tile;
 
 // entry element (t, k) in f32: the int8 payload times its block's scale
 // (the reference's exact product), or the float value
@@ -51,61 +46,23 @@ __device__ __forceinline__ float entry_at(const S* __restrict__ b, const float* 
   return v;
 }
 
+template <typename S>
+struct CacheEntry {
+  const S* __restrict__ b;
+  const float* __restrict__ scale;
+  int ld, qblock;
+  __device__ __forceinline__ float operator()(int t, int k) const {
+    return entry_at(b, scale, t, k, ld, qblock);
+  }
+};
+
+// the forward tile loop lives in mix_tile.cuh (shared with adapter_fuse.cu)
 template <typename S, typename A>
 __global__ void __launch_bounds__(THREADS)
 mix_fwd(const S* __restrict__ b, const float* __restrict__ scale, const float* __restrict__ w,
         const A* __restrict__ a, const float* __restrict__ lam_p, A* __restrict__ out,
         float* __restrict__ bw, int T, int ld, int d, int da, int qblock) {
-  __shared__ float xs[BK][BM + 1];  // entry tile, transposed, dequantized
-  __shared__ float ws[BK][BN];      // W_down tile
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int t0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < ld; k0 += BK) {
-    for (int idx = threadIdx.x; idx < BM * BK; idx += THREADS) {
-      const int m = idx / BK, kk = idx % BK;
-      const int gt = t0 + m, gk = k0 + kk;
-      xs[kk][m] = (gt < T && gk < ld) ? entry_at(b, scale, gt, gk, ld, qblock) : 0.f;
-    }
-    for (int idx = threadIdx.x; idx < BK * BN; idx += THREADS) {
-      const int kk = idx / BN, n = idx % BN;
-      const int gk = k0 + kk, gn = n0 + n;
-      ws[kk][n] = (gk < d && gn < da) ? w[(size_t)gk * da + gn] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
-      float x[4], y[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) x[i] = xs[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) y[j] = ws[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += x[i] * y[j];
-    }
-    __syncthreads();
-  }
-  const float lam = *lam_p;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gt = t0 + ty + 16 * i;
-    if (gt >= T) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx + 16 * j;
-      if (gn >= da) continue;
-      const size_t o = (size_t)gt * da + gn;
-      bw[o] = acc[i][j];
-      put(out + o, lam * acc[i][j] + (1.f - lam) * to_f32(a[o]));
-    }
-  }
+  mix_tile::fwd_tile(CacheEntry<S>{b, scale, ld, qblock}, w, a, lam_p, out, bw, T, ld, d, da);
 }
 
 template <typename S>

@@ -26,6 +26,16 @@ def quant_matmul_ref(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     return x @ w.to(x.dtype)
 
 
+def adapter_fuse_ref(b: torch.Tensor, w_down: torch.Tensor, a: torch.Tensor, lam
+                     ) -> torch.Tensor:
+    """The ``adapter_fuse`` kernel's function: ``λ·(b @ w_down) + (1−λ)·a``
+    in ``b``'s dtype, the product and the mix in f32. b (T, d), w_down
+    (d, d_a), a (T, d_a); λ a scalar, already clamped to [0, 1]."""
+    lam = torch.as_tensor(lam, dtype=torch.float32, device=b.device)
+    out = lam * (b.float() @ w_down.float()) + (1.0 - lam) * a.float()
+    return out.to(b.dtype)
+
+
 def mix_fwd_ref(b, w_down: torch.Tensor, a: torch.Tensor, lam):
     """The ``mix_fwd`` kernel's function: (out in ``a``'s dtype, the f32
     residual ``bw = dequant(b)[:, :d] @ w_down``); b (T, d_store), w_down

@@ -11,7 +11,14 @@ epochs ≥ 2 (cache hit, adapter only). The flags are a thin veneer over
         --epochs 3 --steps-per-epoch 2 --batch 4 --seq 512
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \\
-        --epochs 3 --steps-per-epoch 4 --batch 2 --seq 16 --quant 8 --cache-compress int8
+        --epochs 3 --steps-per-epoch 4 --batch 2 --seq 16 --quant 8 --cache-compress int8 \\
+        --cache-dir act_cache --ckpt adapter.msgpack
+
+``--ckpt`` writes the trained adapter when the run ends (the reference's
+msgpack format); ``--cache-dir`` keeps the activation cache on disk with
+a manifest, so a second run with the same backbone, corpus and policy
+resumes warm (every epoch cached, no backbone forward) and a changed
+one is invalidated and re-captured.
 
 ``--kernels cuda`` (the default) runs epoch 1's frozen forward on the
 quantized weights through the CUDA kernels, emits the taps in the
@@ -43,13 +50,14 @@ def main(argv=None) -> None:
     ap.add_argument("--init", default="pruning", choices=["pruning", "random"])
     ap.add_argument("--no-cache", action="store_true")
     ap.add_argument("--cache-dir", default=None,
-                    help="persistent cache directory (arrives with a later slice; refused)")
+                    help="persistent activation-cache directory: a later run with the same "
+                         "backbone, corpus and policy resumes warm (no backbone forward)")
     ap.add_argument("--cache-compress", default="f32", choices=["f32", "bf16", "int8"],
                     help="activation-cache entry compression policy")
     ap.add_argument("--cache-budget-mb", type=int, default=4096,
                     help="RAM budget for cache entries (compressed bytes)")
     ap.add_argument("--ckpt", default=None,
-                    help="adapter checkpoint path (arrives with a later slice; refused)")
+                    help="write the trained adapter here (msgpack, the reference's format)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernels", default="cuda", choices=["cuda", "ref"],
                     help="'cuda' = the hand-written kernels; 'ref' = plain PyTorch")

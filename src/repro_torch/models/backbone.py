@@ -25,6 +25,7 @@ from repro_torch.core.quantization import (
 from repro_torch.models.layers import (
     LeafMaker,
     attention_decode,
+    attention_decode_quant,
     attention_forward,
     init_attention,
     init_mlp,
@@ -196,33 +197,78 @@ def cross_entropy_parts(logits: torch.Tensor, labels: torch.Tensor, ignore: int 
 
 
 # ---------------------------------------------------------------------------
-# Decode against a linear cache (the adapter side of serving)
+# Decode against a linear cache
 # ---------------------------------------------------------------------------
 
 
-def init_cache(cfg, B: int, max_len: int, dtype=torch.float32, device=None):
-    """Linear KV cache: one ``{"k", "v"}`` entry per pattern position,
-    leaves (n_p, B, max_len, Hkv, hd)."""
+def init_cache(cfg, B: int, max_len: int, dtype=torch.float32, device=None, kv_quant=None):
+    """Linear KV cache: one entry per pattern position, leaves
+    (n_p, B, max_len, Hkv, hd). ``kv_quant=8`` stores K/V as int8 with
+    f32 ``k_scale``/``v_scale`` (n_p, B, max_len, Hkv), one per (token,
+    kv head), as the reference does."""
     caches = []
     for spec in cfg.pattern:
         _dense_only(spec)
         shape = (cfg.n_periods, B, max_len, cfg.n_kv_heads, cfg.hd)
-        caches.append({"k": torch.zeros(shape, dtype=dtype, device=device),
-                       "v": torch.zeros(shape, dtype=dtype, device=device)})
+        if kv_quant == 8:
+            caches.append({
+                "k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+                "v_scale": torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+            })
+        elif kv_quant is None:
+            caches.append({"k": torch.zeros(shape, dtype=dtype, device=device),
+                           "v": torch.zeros(shape, dtype=dtype, device=device)})
+        else:
+            raise ValueError(f"kv_quant must be 8 or None, got {kv_quant!r}")
     return caches
 
 
 def apply_block_decode(p, x, cfg, spec, cache, pos, ops=None):
-    """One token through one block; ``cache`` is one period's
-    ``{"k", "v"}`` (B, max_len, Hkv, hd), updated in place; pos: (B,)."""
+    """One token through one block; ``cache`` is one period's entry,
+    (B, max_len, ...) leaves, updated in place (INT8 when it holds
+    ``k_scale``); pos: (B,)."""
     ops = ops if ops is not None else _REF_OPS
     _dense_only(spec)
     p = ops.prepare_block(p, spec)
     h = ops.rms_norm(x, p["ln1"], cfg.norm_eps)
-    mix, ck, cv = attention_decode(p["mixer"], h, cfg, spec, cache["k"], cache["v"], pos,
-                                   ops=ops)
+    if "k_scale" in cache:
+        mix, cache = attention_decode_quant(p["mixer"], h, cfg, spec, cache, pos, ops=ops)
+    else:
+        mix, ck, cv = attention_decode(p["mixer"], h, cfg, spec, cache["k"], cache["v"], pos,
+                                       ops=ops)
+        cache = {"k": ck, "v": cv}
     x = x + mix
     if "ffn" in p:
         h = ops.rms_norm(x, p["ln2"], cfg.norm_eps)
         x = x + mlp_forward(p["ffn"], h, ops=ops)
-    return x, {"k": ck, "v": cv}
+    return x, cache
+
+
+def decode_periods(params, cfg, x, cache, pos, ops=None):
+    """``x`` (B,1,d) through every period against the linear cache
+    (written in place at ``pos``). Returns (final hidden, the hidden
+    state after each period: the PAC+ taps)."""
+    taps = []
+    for i in range(cfg.n_periods):
+        for j, (spec, p) in enumerate(zip(cfg.pattern, period_slice(params["blocks"], i))):
+            entry = {name: t[i] for name, t in cache[j].items()}
+            x, _ = apply_block_decode(p, x, cfg, spec, entry, pos, ops=ops)
+        taps.append(x)
+    return x, taps
+
+
+def backbone_decode(params, cfg, token_batch: dict, cache, pos, ops=None):
+    """One decode step. token_batch: {"tokens": (B,1)} or {"embeds":
+    (B,1,d)}; pos: the index the new token is written at, an int or a
+    (B,) tensor (per row). Returns (logits (B,1,V), cache) — the cache
+    updated in place."""
+    ops = ops if ops is not None else _REF_OPS
+    if "embeds" in token_batch:
+        x = token_batch["embeds"]
+    else:
+        x = ops.embed_lookup(params["embed"], token_batch["tokens"])
+    pos = torch.as_tensor(pos, device=x.device).long().expand(x.shape[0])
+    x, _ = decode_periods(params, cfg, x, cache, pos, ops=ops)
+    return logits_from_hidden(params, cfg, x), cache

@@ -203,6 +203,54 @@ def attention_decode(p, x, cfg, spec, cache_k, cache_v, pos, ops=None):
     return out, cache_k, cache_v
 
 
+def quantize_kv_token(t: torch.Tensor):
+    """Per-(B,1,Hkv) absmax INT8 quantization of one K/V token, bit for
+    bit the reference's. t: (B, 1, Hkv, hd) -> (int8 same shape, f32
+    scale (B, 1, Hkv))."""
+    t = t.float()
+    scale = torch.clamp_min(t.abs().amax(dim=-1), 1e-8) / 127.0
+    q = torch.clamp(torch.round(t / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def attention_decode_quant(p, x, cfg, spec, cache, pos, ops=None):
+    """Single-token decode against an INT8 linear KV cache, per-row
+    positions (the paper's Eq. 1 absmax applied to the KV cache, one
+    scale per (token, kv head)).
+
+    cache: one period's ``{"k", "v"}`` int8 (B,Smax,Hkv,hd) and
+    ``{"k_scale", "v_scale"}`` f32 (B,Smax,Hkv), updated **in place**
+    at ``pos`` (B,). The scales are folded in after the score and value
+    einsums, as in the reference, so the cache is read at int8 width.
+    Returns (out (B,1,d), cache)."""
+    B = x.shape[0]
+    Smax = cache["k"].shape[1]
+    pos = torch.as_tensor(pos, device=x.device).long().expand(B)
+    q, k, v = _project_qkv(p, x, cfg, pos[:, None], ops)
+    rows = torch.arange(B, device=x.device)
+    for name, t in (("k", k), ("v", v)):
+        tq, ts = quantize_kv_token(t)
+        cache[name][rows, pos] = tq[:, 0]
+        cache[name + "_scale"][rows, pos] = ts[:, 0]
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    hd = cfg.hd
+    qh = q.reshape(B, cfg.n_kv_heads, n_rep, hd)
+    s = torch.einsum("bgrd,bsgd->bgrs", qh.float(), cache["k"].float()) * (hd ** -0.5)
+    s = s * cache["k_scale"].transpose(1, 2)[:, :, None, :]  # fold K scales
+    s = softcap(s, cfg.attn_softcap)
+    kpos = torch.arange(Smax, device=x.device)
+    valid = kpos[None, :] <= pos[:, None]
+    if spec.window is not None:
+        valid &= kpos[None, :] > pos[:, None] - spec.window
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, _NEG_INF))
+    w = torch.softmax(s, dim=-1)
+    w = w * cache["v_scale"].transpose(1, 2)[:, :, None, :]  # fold V scales
+    o = torch.einsum("bgrs,bsgd->bgrd", w, cache["v"].float())
+    o = o.reshape(B, 1, cfg.n_heads * hd).to(x.dtype)
+    out = ops.matmul(o, p["wo"]) if ops is not None else o @ p["wo"]
+    return out, cache
+
+
 # ---------------------------------------------------------------------------
 # Gated MLP (llama-style)
 # ---------------------------------------------------------------------------

@@ -10,11 +10,19 @@ An :class:`EdgeSession` takes a validated
   leaf on the device and quantized as drawn (``quant``), so the f32 tree
   is never resident; the adapter (pruning or random init) and AdamW;
 * **cache** — an :class:`~repro_torch.core.activation_cache.ActivationCache`
-  with the spec's policy and budget;
+  with the spec's policy and budget; with ``cache_dir`` a persistent one
+  (:func:`~repro_torch.core.activation_cache.open_persistent`) that a
+  later run with the same backbone, corpus and policy reopens warm
+  (``warm``: every epoch trains from the cache, no backbone forward);
 * **steps** — :meth:`step` runs one batch: on a cache miss the epoch-1
   step (frozen forward + adapter update) and the cache fill, on a hit
   the cached step. Under ``kernels="cuda"`` the taps leave the forward
-  already in the cache's storage form and reach the cached step in it.
+  already in the cache's storage form and reach the cached step in it;
+* **outputs** — :meth:`finish` writes the adapter checkpoint (``ckpt``,
+  the reference's msgpack format) and the cache manifest;
+  :meth:`snapshot`/:meth:`restore` carry the adapter and optimizer state
+  across a preemption; :meth:`serving_engine` serves the trained
+  adapter from the session's backbone.
 
     spec = RunSpec(arch="internlm2-1.8b", reduced=True, epochs=3)
     reports = EdgeSession(spec, device="cpu").run()   # one EpochReport per epoch
@@ -31,7 +39,7 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.runtime.spec import RunSpec
+from repro_torch.runtime.spec import RunSpec, RunSpecError
 from repro_torch.serve.engine import resolve_device
 
 
@@ -49,7 +57,8 @@ class StepEvent:
 
 class EdgeSession:
     """The run engine. ``open()``/``close()`` (or ``with``) bracket the
-    heavy state; :meth:`step` is the one dispatch the epoch loop calls."""
+    heavy state; :meth:`step` is the one dispatch the epoch loop calls;
+    :meth:`finish` writes the run's durable outputs."""
 
     def __init__(self, spec: RunSpec, *, device=None, log=None):
         spec.validate()
@@ -57,6 +66,7 @@ class EdgeSession:
         self.device = resolve_device(device)
         self._log = log if log is not None else (lambda *a: None)
         self._opened = False
+        self._finished = False
         # populated by open():
         self.cfg = None
         self.backbone = None      # the (possibly quantized) frozen tree
@@ -65,6 +75,8 @@ class EdgeSession:
         self.corpus = None
         self.pipe = None
         self.cache = None
+        self.warm = False
+        self.meta = None      # the persistent cache's identity record
 
     def __enter__(self) -> "EdgeSession":
         return self.open()
@@ -76,7 +88,11 @@ class EdgeSession:
     def open(self) -> "EdgeSession":
         if self._opened:
             return self
-        from repro_torch.core.activation_cache import ActivationCache
+        from repro_torch.core.activation_cache import (
+            ActivationCache,
+            manifest_for,
+            open_persistent,
+        )
         from repro_torch.core.init_methods import pruning_init
         from repro_torch.core.parallel_adapters import init_adapter
         from repro_torch.core.quantization import tree_leaves, tree_storage_bytes
@@ -106,14 +122,33 @@ class EdgeSession:
                                               spec.steps_per_epoch * spec.batch, seed=spec.seed)
         self.pipe = DataPipeline(self.corpus, global_batch=spec.batch, shuffle=True,
                                  seed=spec.seed)
-        self.cache = ActivationCache(budget_bytes=spec.cache_budget_mb << 20,
-                                     compress=spec.cache_compress)
+        budget = spec.cache_budget_mb << 20
+        if self.persistent:
+            self.meta = manifest_for(cfg, reduced=spec.reduced, seq_len=spec.seq,
+                                     quant_bits=spec.quant, backbone=self.backbone,
+                                     corpus_tokens=self.corpus.tokens)
+            self.cache, self.warm = open_persistent(spec.cache_dir, self.meta,
+                                                    budget_bytes=budget,
+                                                    compress=spec.cache_compress)
+            if self.warm:
+                log(f"activation cache: warm manifest at {spec.cache_dir} "
+                    f"({len(self.cache)} seqs, {spec.cache_compress}) — "
+                    f"cached epochs skip the backbone forward entirely")
+        else:
+            self.cache = ActivationCache(budget_bytes=budget, compress=spec.cache_compress)
         self._opened = True
         return self
 
+    @property
+    def persistent(self) -> bool:
+        """True when the cache outlives the run (``cache_dir`` set)."""
+        return bool(self.spec.cache_dir and self.spec.use_cache)
+
     def close(self) -> None:
-        """Release per-run state (the cache's entries and spill files)."""
-        if self.cache is not None:
+        """Release per-run state: a non-persistent cache's entries and
+        spill files. Writes no outputs; that is :meth:`finish`, which
+        only a completed run calls."""
+        if self.cache is not None and not self.persistent:
             self.cache.clear()
         self._opened = False
 
@@ -159,11 +194,91 @@ class EdgeSession:
         """The run-mode label the trainer reports."""
         return "cached" if cache_hit else "full"
 
+    # -- preemption snapshots -------------------------------------------------
+
+    def snapshot(self, extra: dict = None) -> dict:
+        """The run's preemptible state: adapter and optimizer (the
+        backbone is frozen and the cache reproducible, so neither
+        belongs here). ``extra`` carries a caller's cursor along. The
+        tree round-trips through :func:`~repro_torch.checkpoint.save_checkpoint`
+        bit for bit."""
+        if not self._opened:
+            raise RuntimeError("snapshot() needs an open()ed session")
+        snap = {"adapter": self.adapter, "opt": self.opt, "config": self.cfg.name}
+        if extra:
+            snap["extra"] = dict(extra)
+        return snap
+
+    def restore(self, snap: dict) -> dict:
+        """Adopt a :meth:`snapshot` (its tensors moved to the session's
+        device). Returns the snapshot's ``extra``."""
+        from repro_torch.core.quantization import tree_map
+
+        if not self._opened:
+            raise RuntimeError("restore() needs an open()ed session")
+        if snap.get("config") != self.cfg.name:
+            raise RunSpecError(f"snapshot is for arch {snap.get('config')!r}, "
+                               f"session runs {self.cfg.name!r}")
+        self.adapter = tree_map(lambda t: t.to(self.device), snap["adapter"])
+        self.opt = tree_map(lambda t: t.to(self.device), snap["opt"])
+        return snap.get("extra", {})
+
+    def save_snapshot(self, path: str, extra: dict = None) -> str:
+        """:meth:`snapshot` to disk (atomic), so a preempted run
+        survives its process."""
+        from repro_torch.checkpoint import save_checkpoint
+
+        save_checkpoint(path, self.snapshot(extra))
+        return path
+
+    def restore_snapshot(self, path: str) -> dict:
+        from repro_torch.checkpoint import load_checkpoint
+
+        return self.restore(load_checkpoint(path, device=self.device))
+
+    # -- outputs --------------------------------------------------------------
+
+    def finish(self) -> None:
+        """Write the run's durable outputs: the adapter checkpoint
+        (``spec.ckpt``: ``{"adapter", "config"}``) and, for a persistent
+        cache, the manifest that lets the next run resume warm."""
+        if self._finished:
+            return
+        spec, log = self.spec, self._log
+        if spec.ckpt:
+            from repro_torch.checkpoint import save_checkpoint
+
+            n = save_checkpoint(spec.ckpt, {"adapter": self.adapter, "config": self.cfg.name})
+            log(f"checkpoint: {spec.ckpt} ({n/2**20:.1f} MB)")
+        if self.meta is not None:
+            path = self.cache.save_manifest(self.meta)
+            log(f"cache manifest: {path} ({len(self.cache)} seqs, {spec.cache_compress})")
+        self._finished = True
+
+    def serving_engine(self, adapters=None, **kw):
+        """A :class:`~repro_torch.serve.ServeEngine` over this session's
+        (quantized) frozen backbone on its device, serving by default
+        the adapter it trained (as ``"local"``); ``adapters={name: tree}``
+        serves another bank. Engine knobs pass through; ``r`` and
+        ``kernel_impl`` default to the run's."""
+        from repro_torch.serve import ServeEngine
+
+        if self.backbone is None:
+            raise RunSpecError("serving_engine() needs an open()ed session")
+        if adapters is None:
+            adapters = {"local": self.adapter}
+        kw.setdefault("r", self.spec.r)
+        kw.setdefault("kernel_impl", self.spec.kernels)
+        kw.setdefault("device", self.device)
+        return ServeEngine(self.backbone, self.cfg, adapters, **kw)
+
     def run(self, hooks=()) -> list:
         """open → every epoch through an
-        :class:`~repro_torch.runtime.runner.EpochRunner` → close. Returns
-        the list of :class:`~repro_torch.runtime.runner.EpochReport`."""
+        :class:`~repro_torch.runtime.runner.EpochRunner` → finish → close.
+        Returns the list of :class:`~repro_torch.runtime.runner.EpochReport`."""
         from repro_torch.runtime.runner import EpochRunner
 
         with self:
-            return EpochRunner(self, hooks=hooks).run()
+            reports = EpochRunner(self, hooks=hooks).run()
+            self.finish()
+        return reports

@@ -2,9 +2,9 @@
 (counterpart of ``repro.runtime.spec``).
 
 The fields are the reference's, so a spec saved by either package loads
-in the other; this slice of the port runs on one device. Fields whose
-feature arrives with a later slice (data and pipeline parallelism, the
-planner, persistent caches, checkpoints) must keep their defaults, and
+in the other; the port runs on one device so far. Fields whose feature
+arrives with a later slice (data and pipeline parallelism, the planner)
+must keep their defaults, and
 :meth:`RunSpec.validate` names the slice when they do not. ``kernels``
 is the port's own: ``"cuda"`` (the default: the hand-written kernels)
 or ``"ref"`` (plain PyTorch).
@@ -31,8 +31,6 @@ _LATER = {
     "pool": (None, "cost models and the planner"),
     "save_plan": (None, "cost models and the planner"),
     "calibrate": (False, "cost models and the planner"),
-    "cache_dir": (None, "the persistent activation cache"),
-    "ckpt": (None, "fleet and checkpoint"),
 }
 
 
@@ -73,7 +71,7 @@ class RunSpec:
     calibrate: bool = False
     # compute path of both the epoch-1 frozen forward and the cached step
     kernels: str = "cuda"
-    # outputs (later slice)
+    # outputs: the adapter checkpoint written by EdgeSession.finish()
     ckpt: Optional[str] = None
 
     def arch_config(self):

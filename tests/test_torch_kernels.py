@@ -160,3 +160,29 @@ def test_paged_attention_wrapper_validates():
         paged_attention(*args, k_scale=tp["k_scale"])  # scales come in pairs
     with pytest.raises(ValueError):
         paged_attention(*args[:3], torch.from_numpy(bt[:2]), args[4])
+
+
+# ---------------------------------------------------------------------------
+# the build's cache key
+# ---------------------------------------------------------------------------
+
+
+def test_library_name_covers_the_shared_headers(tmp_path, monkeypatch):
+    """A library is named by a hash of its source, the shared headers and
+    the flags: editing a header renames (so rebuilds) every library, and
+    every header a real source includes is one the hash reads."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    real = _build.CSRC
+    for src in real.glob("*.cu"):
+        for inc in re.findall(r'#include\s+"([^"]+)"', src.read_text()):
+            assert inc.endswith(".cuh") and (real / inc).is_file(), (src.name, inc)
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build.library_path("k")
+    assert _build.library_path("k") == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert _build.library_path("k") != first

@@ -48,7 +48,6 @@ def test_corpus_and_epoch_order_are_identical(vocab, seq, n, seed):
 
 @pytest.mark.parametrize("field,value", [("dp", 2), ("stages", 2), ("plan", "auto"),
                                          ("pool", 4), ("calibrate", True),
-                                         ("cache_dir", "act_cache"), ("ckpt", "a.msgpack"),
                                          ("micro", 2), ("save_plan", "p.json")])
 def test_runspec_refuses_later_slices(field, value):
     with pytest.raises(RunSpecError, match="arrives with the slice"):
@@ -117,21 +116,31 @@ def test_reduced_run_matches_the_jax_session(compress, kernels):
                         + compress + r"\]", lines[-1])
 
 
-def test_cli_on_the_cpu():
+def test_cli_on_the_cpu(tmp_path):
+    """The reference's CLI run, with ``--cache-dir`` and ``--ckpt``: the
+    first run trains full then cached and writes the checkpoint and the
+    cache manifest; a second run over the same directory is warm (every
+    epoch cached) and gives the same losses."""
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu", "--reduced",
            "--epochs", "3", "--steps-per-epoch", "2", "--batch", "2", "--seq", "16",
-           "--quant", "8", "--cache-compress", "int8"]
-    out = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=300)
-    assert out.returncode == 0, out.stderr[-3000:]
-    # the reference CLI test's regex (tests/test_cached_step.py:241)
-    losses = [float(m) for m in re.findall(r"epoch \d+: loss=([0-9.]+)", out.stdout)]
-    modes = re.findall(r"\((full|cached)\)", out.stdout)
-    assert len(losses) == 3 and modes == ["full", "cached", "cached"]
-    assert losses[-1] < losses[0]
-    bad = subprocess.run(cmd + ["--cache-dir", "act_cache"], capture_output=True, text=True,
-                         env=env, timeout=300)
-    assert bad.returncode != 0 and "persistent activation cache" in bad.stderr
+           "--quant", "8", "--cache-compress", "int8", "--cache-dir", str(tmp_path / "act"),
+           "--ckpt", str(tmp_path / "adapter.msgpack")]
+    runs = []
+    for _ in range(2):
+        out = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=300)
+        assert out.returncode == 0, out.stderr[-3000:]
+        # the reference CLI test's regex (tests/test_cached_step.py:241)
+        losses = [float(m) for m in re.findall(r"epoch \d+: loss=([0-9.]+)", out.stdout)]
+        modes = re.findall(r"\((full|cached)\)", out.stdout)
+        assert len(losses) == 3 and losses[-1] < losses[0]
+        assert "checkpoint: " in out.stdout and "cache manifest: " in out.stdout
+        runs.append((losses, modes, out.stdout))
+    assert runs[0][1] == ["full", "cached", "cached"]
+    assert runs[1][1] == ["cached"] * 3 and "warm manifest" in runs[1][2]
+    np.testing.assert_allclose(runs[1][0], runs[0][0], rtol=0, atol=1e-4)
+    assert (tmp_path / "adapter.msgpack").exists()
+    assert (tmp_path / "act" / "manifest.json").exists()
 
 
 def test_importing_the_training_slice_leaves_jax_unloaded():
