@@ -26,7 +26,11 @@ Phases, in order; any failure exits non-zero:
 5. Training kernels: ``mix_fwd``/``mix_dw`` and ``ce_fwd``/``ce_bwd`` the
    same way at the training path's shapes (ragged and soft-capped cases
    too), and the gradients of their two autograd Functions against
-   autograd of the plain versions.
+   autograd of the plain versions. ``mix_dw`` (bf16 tensor cores) also
+   at T=1001, d=1000, d_a=100 with int8 scales per 32 columns (every
+   masked edge, scales changing inside a tile), twice at the training
+   shape (bit-equal), and beside both its bounds: the bf16 tensor cores'
+   (its 3-term split triples the operations) and f32's.
 6. Training: PAC+ on internlm2-1.8b at full width through
    ``EdgeSession``/``EpochRunner`` — INT8 backbone, int8 activation
    cache, pruning init, 3 epochs x 2 steps of 4 x 512 tokens: epoch 0
@@ -329,10 +333,11 @@ def kernel_phase(timer: Timer, gen: torch.Generator):
 # ---------------------------------------------------------------- serving
 
 
-def device_profile(fn) -> dict:
+def device_profile(fn, watch=()) -> dict:
     """``fn`` under ``torch.profiler``: the host wall time, the device's
     busy time and its share of the wall time, the torch ops called from
-    Python (top-level host events) and device time by kernel name."""
+    Python (top-level host events), device time by kernel name (the top
+    ten) and summed over the kernels whose names hold each of ``watch``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -355,7 +360,9 @@ def device_profile(fn) -> dict:
             "device_busy_ms": busy_us / 1e3 if by_name else "not measured",
             "device_busy_share": busy_us / wall_us if by_name else "not measured",
             "host_ops": host_ops,
-            "kernels_by_device_ms": [[n[:80], t / 1e3] for n, t in top]}
+            "kernels_by_device_ms": [[n[:80], t / 1e3] for n, t in top],
+            **({"watched_device_ms": {w: sum(t for n, t in by_name.items() if w in n) / 1e3
+                                      for w in watch}} if watch else {})}
 
 
 def profile_decode(eng, prompts, names) -> None:
@@ -527,8 +534,30 @@ def training_kernel_phase(timer: Timer, gen: torch.Generator):
             worst["mix_dw"] = max(worst["mix_dw"], err_d)
             emit({"check": "cached_mix", "storage": storage, "T": T, "d": d, "da": da,
                   "mix_fwd_max_abs_err": err_f, "mix_dw_max_abs_err": err_d,
+                  "mix_dw_check": e_dw,
                   "tol": "mix_fwd atol 1e-4 + rtol 1e-4; mix_dw atol 2e-4 + rtol 1e-3",
                   "tol_reason": mix_reason})
+            if (T, d, da) == (TRAIN_T, TRAIN_D, TRAIN_DA):  # a second call, bit for bit
+                equal = bool(torch.equal(dw, cached_mix.mix_dw(ent, g, lam, d)))
+                emit({"check": "mix_dw_deterministic", "storage": storage, "T": T, "d": d,
+                      "da": da, "bit_equal": equal})
+                if not equal:
+                    raise AssertionError(f"mix_dw {storage}: two calls differ")
+    # mix_dw on every masked edge (T, d, d_a off the tiles, ld > d) and, with
+    # qblock 32, on int8 entries whose scale changes inside a dW tile
+    T, d, da, qblock = 1001, 1000, 100, 32
+    b = torch.randn(T, d, generator=gen, device=dev)
+    g = torch.randn(T, da, generator=gen, device=dev)
+    lam = torch.tensor(0.7, device=dev)
+    for storage, ent in (("f32", b), ("bf16", b.bfloat16()), ("int8", quantize(b, 8, qblock))):
+        dw, want_dw = cached_mix.mix_dw(ent, g, lam, d), ref.mix_dw_ref(ent, g, lam, d)
+        e_dw = float(((dw - want_dw).abs() - 1e-3 * want_dw.abs()).max())
+        check(f"mix_dw {storage} T={T} d={d} da={da} qblock={qblock}", e_dw, 2e-4)
+        worst["mix_dw"] = max(worst["mix_dw"], max_err(dw, want_dw))
+        emit({"check": "mix_dw_ragged", "storage": storage, "T": T, "d": d, "da": da,
+              "qblock": qblock if storage == "int8" else None,
+              "mix_dw_max_abs_err": max_err(dw, want_dw), "mix_dw_check": e_dw,
+              "tol": "atol 2e-4 + rtol 1e-3", "tol_reason": mix_reason})
     # timings at the training path's storage (int8 taps), T = 2048, d = 2048, d_a = 256
     T, d, da = TRAIN_T, TRAIN_D, TRAIN_DA
     ents = [quantize(torch.randn(T, d, generator=gen, device=dev), 8, 128)
@@ -548,14 +577,19 @@ def training_kernel_phase(timer: Timer, gen: torch.Generator):
          "library": "dequantize, then torch.matmul", "bound_ms": b_ms, "bound_by": b_by}
     emit(r)
     rows["mix_fwd"] = _row(r, "one period's mix, T=4*512, d=2048, d_a=256, int8 entry")
-    b_ms, b_by = bound(ent_bytes + 4 * (T * da + d * da), 2.0 * T * d * da)
+    # mix_dw runs on the bf16 tensor cores, g (scaled) split in three terms:
+    # it is held to that work's bound, the f32 CUDA-core bound beside it
+    dw_bytes = ent_bytes + 4 * (T * da + d * da)
+    b_ms, b_by = bound(dw_bytes, 3 * 2.0 * T * d * da, flop_per_s=BF16_FLOP_PER_S)
+    f32_ms, f32_by = bound(dw_bytes, 2.0 * T * d * da)
     r = {"check": "mix_dw", "storage": "int8", "T": T, "d": d, "da": da,
          "max_abs_err": worst["mix_dw"],
          "ms": timer([lambda e=e: cached_mix.mix_dw(e, g, lam, d) for e in ents]),
          "plain_ms": timer([lambda e=e: ref.mix_dw_ref(e, g, lam, d) for e in ents]),
          "library_ms": timer([lambda x=x: torch.matmul(x.T, g) for x in deq]),
          "library": "torch.matmul of the dequantized entry's transpose and g",
-         "bound_ms": b_ms, "bound_by": b_by}
+         "bound_ms": b_ms, "bound_by": b_by, "bound_tc_ms": b_ms, "bound_tc_by": b_by,
+         "bound_f32_ms": f32_ms, "bound_f32_by": f32_by}
     emit(r)
     rows["mix_dw"] = _row(r, "one period's dW_down, T=4*512, d=2048, d_a=256, int8 entry")
     # gradients through MixFn against autograd of the plain version
@@ -767,7 +801,8 @@ def training_phase(workdir: Path):
     s.cache.clear()
     for mode in ("full", "cached"):
         events = []
-        prof = device_profile(lambda: events.append(s.step(dict(batch))))
+        prof = device_profile(lambda: events.append(s.step(dict(batch))),
+                              watch=("mix_dw_mma", "dw_reduce", "mix_fwd"))
         if events[0].mode != mode:
             raise AssertionError(f"profiled a {events[0].mode} step, wanted {mode}")
         emit({"phase": "train_profile", "step": mode, **prof})
@@ -1080,9 +1115,12 @@ def main() -> int:
     seconds = _build.build()
     emit({"phase": "build", "wall_s": time.perf_counter() - t0, "per_source_s": seconds})
     for name in _build.KERNELS:
+        entry = ""
         for line in _build.build_log(name).splitlines():
-            if "Used" in line or "spill" in line:
-                print(f"ptxas {name}: {line.strip()}", flush=True)
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else ""
+            elif "Used" in line or "spill" in line:
+                print(f"ptxas {name} {entry}: {line.strip()}", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     # each path's kernels are checked just before the path runs, so that

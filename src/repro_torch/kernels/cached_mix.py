@@ -10,12 +10,22 @@ storage form: an f32 or bf16 tensor, or an int8
 of the last axis). The kernels dequantize it tile by tile on chip, so
 the tap crosses device memory at its storage width and never as f32.
 
-What bounds them on the H100: at the training shape of internlm2-1.8b
-(T = 2048 tokens, d = 2048, d_a = 256) each call is ~2.1 GFLOP of f32
-work on ~10 MB, so f32 operations bound it (~32 µs at 67 TFLOP/s); each
-kernel is one register-tiled GEMM with the contraction looped inside
-the block, and ``mix_dw`` owns each dW tile in one block (no atomics,
-deterministic).
+``mix_fwd`` is a register-tiled f32 GEMM: at the training shape of
+internlm2-1.8b (T = 2048 tokens, d = 2048, d_a = 256) it is ~2.1 GFLOP
+of f32 work on ~10 MB, so f32 operations on the CUDA cores bound it.
+``mix_dw`` runs on the bf16 tensor cores (``mma.sync`` with f32
+accumulators): its f32 operand is split into three bf16 terms (hi, mid,
+lo) as it is staged, so the product keeps ~24 significant bits. An int8
+entry's codes go to the MMA unsplit, its per-token scale folded into
+``g``; a bf16 entry is exact as it is; an f32 entry is split too (6
+products). A 2-term split would miss ``mix_dw``'s stated tolerance,
+``|Δ| ≤ 2e-4 + 1e-3·|dW|`` against :func:`~repro_torch.kernels.ref.mix_dw_ref`
+(the reference's custom-VJP tolerance, tests/test_cached_step.py:84);
+``tests/test_torch_kernels.py::test_mix_dw_bf16_split_error_model``
+holds the split's arithmetic to it on the CPU. The tokens are cut into
+slices whose partial sums a second kernel adds in a fixed order: no
+atomics, and two calls give bit-equal dW. The kernels' times on the
+card are in PERF.md.
 
 :class:`MixFn` is the counterpart of the reference's custom VJP
 ``_mix_op``: the forward saves the f32 residual ``bw`` (T, d_a), never
@@ -51,8 +61,10 @@ def _lib():
     if lib.mix_fwd_launch.argtypes is None:
         lib.mix_fwd_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         lib.mix_fwd_launch.restype = ctypes.c_int
-        lib.mix_dw_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        lib.mix_dw_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.mix_dw_launch.restype = ctypes.c_int
+        lib.mix_dw_slices.argtypes = [ctypes.c_int] * 3
+        lib.mix_dw_slices.restype = ctypes.c_int
     return lib
 
 
@@ -126,9 +138,12 @@ def mix_dw(b, g: torch.Tensor, lam, d: int) -> torch.Tensor:
     lib = _lib()
     da = g.shape[1]
     dw = torch.empty((d, da), dtype=torch.float32, device=g.device)
+    slices = lib.mix_dw_slices(T, d, da)  # the token slices' partial dW, summed in order
+    partial = dw if slices == 1 else torch.empty((slices, d, da), dtype=torch.float32,
+                                                 device=g.device)
     rc = lib.mix_dw_launch(payload.data_ptr(), 0 if scale is None else scale.data_ptr(),
-                           g.data_ptr(), lam.data_ptr(), dw.data_ptr(), T, ld, d, da, qblock,
-                           _STORAGE[payload.dtype], _build.stream_of(g))
+                           g.data_ptr(), lam.data_ptr(), dw.data_ptr(), partial.data_ptr(), T,
+                           ld, d, da, qblock, _STORAGE[payload.dtype], _build.stream_of(g))
     _build.check(lib, rc, "mix_dw")
     launches["mix_dw"] += 1
     return dw

@@ -17,7 +17,9 @@ from repro.kernels.flash_attention import flash_attention_tpu
 from repro.kernels.paged_attention import paged_attention as jax_paged_attention
 from repro.kernels.quant_matmul import quant_matmul as jax_quant_matmul
 from repro.serve.paging import quantize_kv_pages as jax_quantize_kv_pages
+from repro_torch.core.quantization import QTensor, quantize
 from repro_torch.kernels import ref
+from repro_torch.kernels.cached_step import entry_as_f32
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.quant_matmul import quant_matmul
@@ -160,6 +162,64 @@ def test_paged_attention_wrapper_validates():
         paged_attention(*args, k_scale=tp["k_scale"])  # scales come in pairs
     with pytest.raises(ValueError):
         paged_attention(*args[:3], torch.from_numpy(bt[:2]), args[4])
+
+
+# ---------------------------------------------------------------------------
+# mix_dw's bf16 split (the CUDA kernel's arithmetic, emulated)
+# ---------------------------------------------------------------------------
+
+
+def _bf16_terms(v: torch.Tensor, n: int) -> list:
+    """f32 ``v`` as ``n`` bf16 terms in float64, hi first: hi = bf16(v),
+    mid = bf16(v - hi), lo = bf16(v - hi - mid)."""
+    terms = []
+    for _ in range(n):
+        t = v.bfloat16().float()
+        terms.append(t.double())
+        v = v - t
+    return terms
+
+
+def _mix_dw_split(entry, g: torch.Tensor, lam: float, d: int, n: int) -> torch.Tensor:
+    """``mix_dw`` as the kernel computes it with an ``n``-term split of its
+    f32 operand: int8 codes and bf16 entries go to the MMA whole (exact in
+    bf16), an int8 block's scale folded into ``g`` in f32; an f32 entry is
+    split too, keeping the products of terms i + j < n. Products are
+    summed in float64 (the split's error alone), then rounded to f32."""
+    if isinstance(entry, QTensor):
+        out = torch.zeros(d, g.shape[1], dtype=torch.float64)
+        for kb in range(-(-d // entry.block)):
+            cols = slice(kb * entry.block, min(d, (kb + 1) * entry.block))
+            scaled = entry.scale[:, kb:kb + 1] * g
+            out[cols] = entry.q[:, cols].double().T @ sum(_bf16_terms(scaled, n))
+    else:
+        a = entry[:, :d]
+        a_terms = [a.double()] if a.dtype == torch.bfloat16 else _bf16_terms(a.float(), n)
+        b_terms = _bf16_terms(g, n)
+        out = sum(x.T @ y for i, x in enumerate(a_terms) for j, y in enumerate(b_terms)
+                  if i + j < n)
+    return out.float() * lam
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16", "int8"])
+def test_mix_dw_bf16_split_error_model(storage):
+    """The split behind ``mix_dw``'s tensor-core kernel, at T = 2048 (the
+    training contraction, which sets the error) with narrow d and d_a:
+    three bf16 terms meet ``chip_smoke.py``'s ``mix_dw`` check against the
+    plain version (|Δ| <= 2e-4 + 1e-3·|want|, the reference's custom-VJP
+    tolerance), and two terms (~16 significant bits) err at least 10x more
+    against the exact product, which is why the kernel takes three."""
+    T, d, da, lam = 2048, 256, 64, 0.7
+    b = torch.from_numpy(_randn((T, d), 11))
+    g = torch.from_numpy(_randn((T, da), 12))
+    entry = {"f32": b, "bf16": b.bfloat16(), "int8": quantize(b, 8, 128)}[storage]
+    want = ref.mix_dw_ref(entry, g, lam, d)
+    exact = lam * (entry_as_f32(entry, d).double().T @ g.double())
+    three, two = (_mix_dw_split(entry, g, lam, d, n) for n in (3, 2))
+    assert float(((three - want).abs() - 1e-3 * want.abs()).max()) <= 2e-4
+    err3 = float((three.double() - exact).abs().max())
+    err2 = float((two.double() - exact).abs().max())
+    assert err2 >= 10 * err3, (err2, err3)
 
 
 # ---------------------------------------------------------------------------
