@@ -26,11 +26,14 @@ Phases, in order; any failure exits non-zero:
 5. Training kernels: ``mix_fwd``/``mix_dw`` and ``ce_fwd``/``ce_bwd`` the
    same way at the training path's shapes (ragged and soft-capped cases
    too), and the gradients of their two autograd Functions against
-   autograd of the plain versions. ``mix_dw`` (bf16 tensor cores) also
-   at T=1001, d=1000, d_a=100 with int8 scales per 32 columns (every
-   masked edge, scales changing inside a tile), twice at the training
-   shape (bit-equal), and beside both its bounds: the bf16 tensor cores'
-   (its 3-term split triples the operations) and f32's.
+   autograd of the plain versions. ``mix_fwd`` and ``mix_dw`` (both on
+   the bf16 tensor cores) also at T=1001, d=1000, d_a=100 with int8
+   scales per 32 columns (every masked edge, scales changing inside a
+   tile; ``mix_fwd`` with f32 and bf16 ``a`` too) and at T=37, d=130,
+   d_a=17 with qblock 24 (unaligned rows; ``mix_fwd``'s dequantizing
+   path), twice at the training shape (bit-equal), and beside both their
+   bounds: the bf16 tensor cores' (a 3-term split triples the operations)
+   and f32's.
 6. Training: PAC+ on internlm2-1.8b at full width through
    ``EdgeSession``/``EpochRunner`` — INT8 backbone, int8 activation
    cache, pruning init, 3 epochs x 2 steps of 4 x 512 tokens: epoch 0
@@ -48,7 +51,8 @@ Phases, in order; any failure exits non-zero:
    run's epoch-0 losses; another seed invalidates and re-captures it.
 7. Personal kernels: ``adapter_fuse`` against its plain version (f32 and
    bf16, λ in {0, 0.5, 1}) at T = 1, 8, 2048 and ragged shapes on both
-   of its paths, timed beside the plain version and ``torch.addmm``; ``quant_matmul`` at
+   of its paths, timed beside the plain version and ``torch.addmm`` (the
+   tiled path, on the tensor cores, beside both its bounds); ``quant_matmul`` at
    M = 1; flash attention and ``quant_matmul`` at the prompt's shapes.
 8. Personal: the checkpoint served with ``pac_decode_step`` at B = 1
    over an INT8 linear KV cache, 32 teacher-forced prompt tokens then
@@ -492,6 +496,16 @@ def serving_phase(gen: torch.Generator):
 TRAIN_T, TRAIN_D, TRAIN_DA, TRAIN_V = 4 * 512, 2048, 256, 92544  # internlm2-1.8b, r=8, B=4, S=512
 
 
+def mix_fwd_check(out, bw, want_out, want_bw) -> float:
+    """max(|Δ| − rtol·|want|) over ``out`` and ``bw``, rtol 1e-4; a bf16
+    ``out`` adds one bf16 step (2^-7 relative): two f32 results inside the
+    tolerance may round to neighbouring bf16 values."""
+    rtol = 1e-4 + (2.0 ** -7 if out.dtype == torch.bfloat16 else 0.0)
+    got, want = out.float(), want_out.float()
+    return max(float(((got - want).abs() - rtol * want.abs()).max()),
+               float(((bw - want_bw).abs() - 1e-4 * want_bw.abs()).max()))
+
+
 def _row(r, at):
     out = {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     out["at"] = at
@@ -524,8 +538,7 @@ def training_kernel_phase(timer: Timer, gen: torch.Generator):
             out, bw = cached_mix.mix_fwd(ent, w, a, lam)
             want_out, want_bw = ref.mix_fwd_ref(ent, w, a, lam)
             dw, want_dw = cached_mix.mix_dw(ent, g, lam, d), ref.mix_dw_ref(ent, g, lam, d)
-            e_fwd = max(float(((out - want_out).abs() - 1e-4 * want_out.abs()).max()),
-                        float(((bw - want_bw).abs() - 1e-4 * want_bw.abs()).max()))
+            e_fwd = mix_fwd_check(out, bw, want_out, want_bw)
             e_dw = float(((dw - want_dw).abs() - 1e-3 * want_dw.abs()).max())
             check(f"mix_fwd {storage} T={T} d={d} da={da}", e_fwd, 1e-4)
             check(f"mix_dw {storage} T={T} d={d} da={da}", e_dw, 2e-4)
@@ -534,30 +547,59 @@ def training_kernel_phase(timer: Timer, gen: torch.Generator):
             worst["mix_dw"] = max(worst["mix_dw"], err_d)
             emit({"check": "cached_mix", "storage": storage, "T": T, "d": d, "da": da,
                   "mix_fwd_max_abs_err": err_f, "mix_dw_max_abs_err": err_d,
-                  "mix_dw_check": e_dw,
+                  "mix_fwd_check": e_fwd, "mix_dw_check": e_dw,
                   "tol": "mix_fwd atol 1e-4 + rtol 1e-4; mix_dw atol 2e-4 + rtol 1e-3",
                   "tol_reason": mix_reason})
             if (T, d, da) == (TRAIN_T, TRAIN_D, TRAIN_DA):  # a second call, bit for bit
+                out2, bw2 = cached_mix.mix_fwd(ent, w, a, lam)
+                equal = bool(torch.equal(out, out2) and torch.equal(bw, bw2))
+                emit({"check": "mix_fwd_deterministic", "storage": storage, "T": T, "d": d,
+                      "da": da, "bit_equal": equal})
+                if not equal:
+                    raise AssertionError(f"mix_fwd {storage}: two calls differ")
                 equal = bool(torch.equal(dw, cached_mix.mix_dw(ent, g, lam, d)))
                 emit({"check": "mix_dw_deterministic", "storage": storage, "T": T, "d": d,
                       "da": da, "bit_equal": equal})
                 if not equal:
                     raise AssertionError(f"mix_dw {storage}: two calls differ")
-    # mix_dw on every masked edge (T, d, d_a off the tiles, ld > d) and, with
-    # qblock 32, on int8 entries whose scale changes inside a dW tile
-    T, d, da, qblock = 1001, 1000, 100, 32
-    b = torch.randn(T, d, generator=gen, device=dev)
-    g = torch.randn(T, da, generator=gen, device=dev)
-    lam = torch.tensor(0.7, device=dev)
-    for storage, ent in (("f32", b), ("bf16", b.bfloat16()), ("int8", quantize(b, 8, qblock))):
-        dw, want_dw = cached_mix.mix_dw(ent, g, lam, d), ref.mix_dw_ref(ent, g, lam, d)
-        e_dw = float(((dw - want_dw).abs() - 1e-3 * want_dw.abs()).max())
-        check(f"mix_dw {storage} T={T} d={d} da={da} qblock={qblock}", e_dw, 2e-4)
-        worst["mix_dw"] = max(worst["mix_dw"], max_err(dw, want_dw))
-        emit({"check": "mix_dw_ragged", "storage": storage, "T": T, "d": d, "da": da,
-              "qblock": qblock if storage == "int8" else None,
-              "mix_dw_max_abs_err": max_err(dw, want_dw), "mix_dw_check": e_dw,
-              "tol": "atol 2e-4 + rtol 1e-3", "tol_reason": mix_reason})
+    # both kernels on every masked edge (T, d, d_a off the tiles, ld > d)
+    # and, with qblock 32, on int8 entries whose scale changes inside a
+    # tile; mix_fwd with f32 and bf16 a. T=37, d=130, d_a=17 adds rows whose
+    # width is not a multiple of 8 (element-wise loads) and qblock 24, which
+    # mix_fwd dequantizes as it stages (a k16 step would straddle blocks)
+    for T, d, da, qblock in ((1001, 1000, 100, 32), (37, 130, 17, 24)):
+        b = torch.randn(T, d, generator=gen, device=dev)
+        w = torch.randn(d, da, generator=gen, device=dev) * d ** -0.5
+        a = torch.randn(T, da, generator=gen, device=dev)
+        g = torch.randn(T, da, generator=gen, device=dev)
+        lam = torch.tensor(0.7, device=dev)
+        for storage, ent in (("f32", b), ("bf16", b.bfloat16()), ("int8", quantize(b, 8, qblock))):
+            for a_ in (a, a.bfloat16()):
+                out, bw = cached_mix.mix_fwd(ent, w, a_, lam)
+                want_out, want_bw = ref.mix_fwd_ref(ent, w, a_, lam)
+                if out.dtype != a_.dtype or bw.dtype != torch.float32:
+                    raise AssertionError(f"mix_fwd gave out {out.dtype}, bw {bw.dtype}")
+                e_fwd = mix_fwd_check(out, bw, want_out, want_bw)
+                check(f"mix_fwd {storage} T={T} d={d} da={da} qblock={qblock} a={a_.dtype}", e_fwd,
+                      1e-4)
+                err_f = max(max_err(out, want_out), max_err(bw, want_bw))
+                # a bf16 out's one-step rounding flips are not the kernel's error
+                worst["mix_fwd"] = max(worst["mix_fwd"], err_f if out.dtype == torch.float32
+                                       else max_err(bw, want_bw))
+                emit({"check": "mix_fwd_ragged", "storage": storage, "T": T, "d": d, "da": da,
+                      "qblock": qblock if storage == "int8" else None,
+                      "ld": ent.q.shape[1] if storage == "int8" else d, "a": str(a_.dtype),
+                      "mix_fwd_max_abs_err": err_f, "mix_fwd_check": e_fwd,
+                      "tol": "out and bw atol 1e-4 + rtol 1e-4 (bf16 out: + 2^-7 relative, one "
+                             "bf16 step)", "tol_reason": mix_reason})
+            dw, want_dw = cached_mix.mix_dw(ent, g, lam, d), ref.mix_dw_ref(ent, g, lam, d)
+            e_dw = float(((dw - want_dw).abs() - 1e-3 * want_dw.abs()).max())
+            check(f"mix_dw {storage} T={T} d={d} da={da} qblock={qblock}", e_dw, 2e-4)
+            worst["mix_dw"] = max(worst["mix_dw"], max_err(dw, want_dw))
+            emit({"check": "mix_dw_ragged", "storage": storage, "T": T, "d": d, "da": da,
+                  "qblock": qblock if storage == "int8" else None,
+                  "mix_dw_max_abs_err": max_err(dw, want_dw), "mix_dw_check": e_dw,
+                  "tol": "atol 2e-4 + rtol 1e-3", "tol_reason": mix_reason})
     # timings at the training path's storage (int8 taps), T = 2048, d = 2048, d_a = 256
     T, d, da = TRAIN_T, TRAIN_D, TRAIN_DA
     ents = [quantize(torch.randn(T, d, generator=gen, device=dev), 8, 128)
@@ -568,13 +610,19 @@ def training_kernel_phase(timer: Timer, gen: torch.Generator):
     lam = torch.tensor(0.7, device=dev)
     ent_bytes = T * d + T * (d // 128) * 4
     deq = [dequantize(e) for e in ents[:2]]
-    b_ms, b_by = bound(ent_bytes + 4 * (d * da + 3 * T * da), 2.0 * T * d * da)
+    # mix_fwd runs on the bf16 tensor cores, W_down split in three terms:
+    # it is held to that work's bound, the f32 CUDA-core bound beside it
+    fwd_bytes = ent_bytes + 4 * (d * da + 3 * T * da)
+    b_ms, b_by = bound(fwd_bytes, 3 * 2.0 * T * d * da, flop_per_s=BF16_FLOP_PER_S)
+    f32_ms, f32_by = bound(fwd_bytes, 2.0 * T * d * da)
     r = {"check": "mix_fwd", "storage": "int8", "T": T, "d": d, "da": da,
          "max_abs_err": worst["mix_fwd"],
          "ms": timer([lambda e=e: cached_mix.mix_fwd(e, w, a, lam) for e in ents]),
          "plain_ms": timer([lambda e=e: ref.mix_fwd_ref(e, w, a, lam) for e in ents]),
          "library_ms": timer([lambda e=e: torch.matmul(dequantize(e), w) for e in ents]),
-         "library": "dequantize, then torch.matmul", "bound_ms": b_ms, "bound_by": b_by}
+         "library": "dequantize, then torch.matmul", "bound_ms": b_ms, "bound_by": b_by,
+         "bound_tc_ms": b_ms, "bound_tc_by": b_by, "bound_f32_ms": f32_ms,
+         "bound_f32_by": f32_by}
     emit(r)
     rows["mix_fwd"] = _row(r, "one period's mix, T=4*512, d=2048, d_a=256, int8 entry")
     # mix_dw runs on the bf16 tensor cores, g (scaled) split in three terms:
@@ -802,7 +850,8 @@ def training_phase(workdir: Path):
     for mode in ("full", "cached"):
         events = []
         prof = device_profile(lambda: events.append(s.step(dict(batch))),
-                              watch=("mix_dw_mma", "dw_reduce", "mix_fwd"))
+                              watch=("mix_dw_mma", "dw_reduce", "mix_fwd_mma",
+                                     "mix_fwd_reduce"))
         if events[0].mode != mode:
             raise AssertionError(f"profiled a {events[0].mode} step, wanted {mode}")
         emit({"phase": "train_profile", "step": mode, **prof})
@@ -949,6 +998,14 @@ def personal_kernel_phase(timer: Timer, gen: torch.Generator):
             nbytes = T * d * esize + d * da * esize + 2 * T * da * esize + 4
             b_ms, b_by = bound(nbytes, 2.0 * T * d * da + 3.0 * T * da,
                                BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S)
+            bounds = {}
+            if T > 8:  # the tiled path: bf16 tensor cores, f32 operands split in three
+                products = 6 if dtype == torch.float32 else 1
+                b_ms, b_by = bound(nbytes, products * 2.0 * T * d * da + 3.0 * T * da,
+                                   BF16_FLOP_PER_S)
+                f32_ms, f32_by = bound(nbytes, 2.0 * T * d * da + 3.0 * T * da)
+                bounds = {"bound_tc_ms": b_ms, "bound_tc_by": b_by, "bound_f32_ms": f32_ms,
+                          "bound_f32_by": f32_by}
             r = {"check": "adapter_fuse", "T": T, "d": d, "da": da, "dtype": str(dtype),
                  "lambdas": [0.0, 0.5, 1.0], "max_abs_err": err,
                  "tol": f"atol {atol} + rtol {rtol}", "tol_reason": reason[dtype],
@@ -958,7 +1015,7 @@ def personal_kernel_phase(timer: Timer, gen: torch.Generator):
                  "library_ms": timer([lambda w_=w_: torch.addmm(a, b, w_, beta=1.0 - lam_host,
                                                                 alpha=lam_host) for w_ in ws]),
                  "library": "torch.addmm(a, b, W, beta=1-λ, alpha=λ), λ read on the host once",
-                 "bound_ms": b_ms, "bound_by": b_by,
+                 "bound_ms": b_ms, "bound_by": b_by, **bounds,
                  "path": "split-K" if T <= 8 else "tiled"}
             emit(r)
             if (T, d, da) == (1, PERSONAL_D, PERSONAL_DA) and dtype == torch.float32:

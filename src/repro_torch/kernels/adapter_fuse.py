@@ -15,7 +15,9 @@ one call per period) T is the batch (1 at B = 1), d = 2048 and
 d_a = 256: the call reads the 2.1 MB f32 ``W_down`` and little else, so
 the bytes bound it (~0.63 µs at 3.35 TB/s). Its path for T <= 8 splits
 the contraction across 128 blocks and sums the slices in a fixed order
-(deterministic); larger T takes 64x64 register tiles.
+(deterministic); larger T takes ``cached_mix``'s ``mix_fwd`` loop on the
+bf16 tensor cores (an f32 operand split in three bf16 terms), its
+contraction cut into slices summed in a fixed order too.
 
 There is no gradient (the TPU kernel has none): inputs that require
 grad are refused; training's mix is
@@ -46,9 +48,8 @@ def _lib():
         lib.adapter_fuse_launch.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                                             + [ctypes.c_void_p])
         lib.adapter_fuse_launch.restype = ctypes.c_int
-        for name in ("adapter_fuse_skinny_rows", "adapter_fuse_kchunk"):
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = ctypes.c_int
+        lib.adapter_fuse_partials.argtypes = [ctypes.c_int] * 3
+        lib.adapter_fuse_partials.restype = ctypes.c_int
     return lib
 
 
@@ -81,10 +82,9 @@ def adapter_fuse(b: torch.Tensor, w_down: torch.Tensor, a: torch.Tensor, lam) ->
     if T == 0 or da == 0:
         return out
     lib = _lib()
-    partial = out
-    if T <= lib.adapter_fuse_skinny_rows():
-        splits = -(-d // lib.adapter_fuse_kchunk())
-        partial = torch.empty((splits, T, da), dtype=torch.float32, device=b.device)
+    splits = lib.adapter_fuse_partials(T, d, da)  # slices of the contraction, summed in order
+    partial = out if splits == 0 else torch.empty((splits, T, da), dtype=torch.float32,
+                                                  device=b.device)
     rc = lib.adapter_fuse_launch(
         b.data_ptr(), w_down.data_ptr(), a.data_ptr(), lam.data_ptr(), out.data_ptr(),
         partial.data_ptr(), T, d, da, int(b.dtype == torch.bfloat16),

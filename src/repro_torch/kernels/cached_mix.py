@@ -10,22 +10,32 @@ storage form: an f32 or bf16 tensor, or an int8
 of the last axis). The kernels dequantize it tile by tile on chip, so
 the tap crosses device memory at its storage width and never as f32.
 
-``mix_fwd`` is a register-tiled f32 GEMM: at the training shape of
-internlm2-1.8b (T = 2048 tokens, d = 2048, d_a = 256) it is ~2.1 GFLOP
-of f32 work on ~10 MB, so f32 operations on the CUDA cores bound it.
-``mix_dw`` runs on the bf16 tensor cores (``mma.sync`` with f32
-accumulators): its f32 operand is split into three bf16 terms (hi, mid,
-lo) as it is staged, so the product keeps ~24 significant bits. An int8
-entry's codes go to the MMA unsplit, its per-token scale folded into
-``g``; a bf16 entry is exact as it is; an f32 entry is split too (6
-products). A 2-term split would miss ``mix_dw``'s stated tolerance,
-``|Δ| ≤ 2e-4 + 1e-3·|dW|`` against :func:`~repro_torch.kernels.ref.mix_dw_ref`
-(the reference's custom-VJP tolerance, tests/test_cached_step.py:84);
+Both kernels run on the bf16 tensor cores (``mma.sync`` with f32
+accumulators). An f32 operand is split into three bf16 terms (hi, mid,
+lo) as it is staged, so the product keeps ~24 significant bits; int8
+codes and bf16 entries are exact in bf16 and go to the MMA whole, so an
+f32 entry costs 6 products per step and the others 3. At the training
+shape of internlm2-1.8b (T = 2048 tokens, d = 2048, d_a = 256) each is
+~6.4 GFLOP of bf16 work on ~8–12 MB, so the tensor cores' operations
+bound it (~6.5 µs; the same product in f32 on the CUDA cores, ~32 µs).
+
+``mix_fwd`` (``csrc/mix_tile.cuh``'s loop, shared with
+``adapter_fuse``'s tiled path) splits ``W_down``. The int8 scale changes
+along its contraction, so each 16-deep step's sum is multiplied by its
+token's scale as it is added up; the contraction is cut into slices
+summed in a fixed order. Held to the reference's forward tolerance,
+``|Δ| ≤ 1e-4 + 1e-4·|want|`` for ``out`` and ``bw``
+(tests/test_cached_step.py:53-56);
+``tests/test_torch_kernels.py::test_mix_fwd_bf16_split_error_model``
+emulates the split on the CPU. ``mix_dw`` splits ``g``, an int8 entry's
+per-token scale folded into it, and cuts the tokens into slices. A
+2-term split would miss its stated tolerance, ``|Δ| ≤ 2e-4 + 1e-3·|dW|``
+against :func:`~repro_torch.kernels.ref.mix_dw_ref` (the reference's
+custom-VJP tolerance, tests/test_cached_step.py:84);
 ``tests/test_torch_kernels.py::test_mix_dw_bf16_split_error_model``
-holds the split's arithmetic to it on the CPU. The tokens are cut into
-slices whose partial sums a second kernel adds in a fixed order: no
-atomics, and two calls give bit-equal dW. The kernels' times on the
-card are in PERF.md.
+holds the split's arithmetic to it on the CPU. Neither uses atomics:
+two calls give bit-equal results. The kernels' times on the card are
+in PERF.md.
 
 :class:`MixFn` is the counterpart of the reference's custom VJP
 ``_mix_op``: the forward saves the f32 residual ``bw`` (T, d_a), never
@@ -59,8 +69,10 @@ _STORAGE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 def _lib():
     lib = _build.library("cached_mix")
     if lib.mix_fwd_launch.argtypes is None:
-        lib.mix_fwd_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        lib.mix_fwd_launch.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         lib.mix_fwd_launch.restype = ctypes.c_int
+        lib.mix_fwd_slices.argtypes = [ctypes.c_int] * 3
+        lib.mix_fwd_slices.restype = ctypes.c_int
         lib.mix_dw_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.mix_dw_launch.restype = ctypes.c_int
         lib.mix_dw_slices.argtypes = [ctypes.c_int] * 3
@@ -110,13 +122,19 @@ def mix_fwd(b, w_down: torch.Tensor, a: torch.Tensor, lam):
     require(w_down.dtype == torch.float32, "W_down must be float32")
     lam = _lam_on(lam, a.device)
     _check_cuda(payload, scale, w_down, a, lam)
-    lib = _lib()
     out = torch.empty_like(a)
     bw = torch.empty((T, da), dtype=torch.float32, device=a.device)
+    if T == 0 or da == 0:
+        return out, bw
+    lib = _lib()
+    slices = lib.mix_fwd_slices(T, d, da)  # the contraction's slices, summed in order
+    partial = bw if slices == 1 else torch.empty((slices, T, da), dtype=torch.float32,
+                                                 device=a.device)
     rc = lib.mix_fwd_launch(payload.data_ptr(), 0 if scale is None else scale.data_ptr(),
                             w_down.data_ptr(), a.data_ptr(), lam.data_ptr(), out.data_ptr(),
-                            bw.data_ptr(), T, ld, d, da, qblock, _STORAGE[payload.dtype],
-                            int(a.dtype == torch.bfloat16), _build.stream_of(a))
+                            bw.data_ptr(), partial.data_ptr(), T, ld, d, da, qblock,
+                            _STORAGE[payload.dtype], int(a.dtype == torch.bfloat16),
+                            _build.stream_of(a))
     _build.check(lib, rc, "mix_fwd")
     launches["mix_fwd"] += 1
     return out, bw

@@ -13,8 +13,10 @@
 // call per period of a decode step) T is the batch, 1 to 8, with d = 2048
 // and da = 256. The call then reads W_down (2.1 MB in f32) once and does
 // almost no arithmetic: the bytes bound it (~0.63 µs at 3.35 TB/s), and
-// in practice the launch latency. At the training width (T = 2048) f32
-// operations on the CUDA cores bound it (~32 µs at 67 TFLOP/s).
+// in practice the launch latency. At the training width (T = 2048) the
+// tensor cores' operations bound it: 6 bf16 products of 2·T·d·da for f32
+// taps and W (13 µs at 989 TFLOP/s; 32 µs in f32 on the CUDA cores), one
+// for bf16 (2.2 µs, under the 3.4 µs its bytes take).
 //
 // Two paths, chosen by T:
 //  * skinny (T <= 8): split-K. A block owns 128 columns (lane l reads
@@ -24,10 +26,14 @@
 //    memory in warp order. A second small kernel sums the slices in
 //    slice order and applies the λ-mix (deterministic, no atomics). At
 //    d = 2048, da = 256 that is 2 x 64 = 128 blocks for 132 SMs.
-//  * tiled (T > 8): mix_tile.cuh's 64x64 register-tiled loop, the one
-//    cached_mix.cu's mix_fwd runs, without its residual and with b's and
-//    W's own types.
-// Tensor cores are later work.
+//  * tiled (T > 8): mix_tile.cuh's tensor-core loop (mixfwd::launch), the
+//    one cached_mix.cu's mix_fwd runs, without its residual: b as the
+//    entry (f32 split in three bf16 terms, bf16 whole), W split in three
+//    when f32 and whole when bf16, so 6 products per k16 step for f32 b
+//    and W, 3 for one bf16 operand, 1 for both bf16. 128 x 64 output
+//    tiles with the contraction cut into slices (4 at T = 2048, d = 2048,
+//    da = 256; 8 at T = 100, d = 1000, da = 200), summed in slice order
+//    by the same reduce as the skinny path's.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -36,7 +42,6 @@
 
 namespace {
 
-using mix_tile::put;
 using mix_tile::to_f32;
 
 // ---------------------------------------------------------------- skinny
@@ -98,58 +103,22 @@ fuse_skinny(const TB* __restrict__ b, const TW* __restrict__ w, float* __restric
   }
 }
 
-// out[i] = λ·Σ_j partial[j][i] + (1−λ)·a[i], the slices summed in order
-template <typename TB, typename TA>
-__global__ void fuse_reduce(const float* __restrict__ partial, const TA* __restrict__ a,
-                            const float* __restrict__ lam_p, TB* __restrict__ out, int splits,
-                            int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int j = 0; j < splits; ++j) s += partial[(size_t)j * n + i];
-  const float lam = *lam_p;
-  put(out + i, lam * s + (1.f - lam) * to_f32(a[i]));
-}
-
-// ----------------------------------------------------------------- tiled
-// b's rows as the shared tile loop reads its entry
-template <typename TB>
-struct Taps {
-  const TB* __restrict__ b;
-  int d;
-  __device__ __forceinline__ float operator()(int t, int k) const {
-    return to_f32(b[(size_t)t * d + k]);
-  }
-};
-
-template <typename TB, typename TW, typename TA>
-__global__ void __launch_bounds__(mix_tile::THREADS)
-fuse_tiled(const TB* __restrict__ b, const TW* __restrict__ w, const TA* __restrict__ a,
-           const float* __restrict__ lam_p, TB* __restrict__ out, int T, int d, int da) {
-  mix_tile::fwd_tile(Taps<TB>{b, d}, w, a, lam_p, out, static_cast<float*>(nullptr), T, d, d,
-                     da);
-}
-
 template <typename TB, typename TW, typename TA>
 int launch(const void* b, const void* w, const void* a, const void* lam, void* out,
            void* partial, int T, int d, int da, cudaStream_t s) {
-  if (T <= SK_ROWS) {
-    const dim3 grid((da + SK_COLS - 1) / SK_COLS, (d + SK_KCHUNK - 1) / SK_KCHUNK);
-    fuse_skinny<TB, TW><<<grid, SK_THREADS, 0, s>>>((const TB*)b, (const TW*)w,
-                                                    (float*)partial, T, d, da);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    const int n = T * da;
-    fuse_reduce<TB, TA><<<(n + 255) / 256, 256, 0, s>>>((const float*)partial, (const TA*)a,
-                                                         (const float*)lam, (TB*)out,
-                                                         (int)grid.y, n);
-  } else {
-    using mix_tile::BM, mix_tile::BN;
-    const dim3 grid((da + BN - 1) / BN, (T + BM - 1) / BM);
-    fuse_tiled<TB, TW, TA><<<grid, mix_tile::THREADS, 0, s>>>(
-        (const TB*)b, (const TW*)w, (const TA*)a, (const float*)lam, (TB*)out, T, d, da);
+  if (T > SK_ROWS) {  // tiled: b is the loop's entry, its own width d
+    constexpr int KIND = sizeof(TB) == 4 ? mix_tile::F32 : mix_tile::BF16;
+    return mixfwd::launch<KIND, TW, TA, TB>(b, nullptr, (const TW*)w, (const TA*)a,
+                                            (const float*)lam, (TB*)out, nullptr,
+                                            (float*)partial, T, d, d, da, 0, s);
   }
-  return (int)cudaGetLastError();
+  const dim3 grid((da + SK_COLS - 1) / SK_COLS, (d + SK_KCHUNK - 1) / SK_KCHUNK);
+  fuse_skinny<TB, TW><<<grid, SK_THREADS, 0, s>>>((const TB*)b, (const TW*)w, (float*)partial,
+                                                  T, d, da);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return mixfwd::reduce((const float*)partial, (const TA*)a, (const float*)lam, (TB*)out,
+                        static_cast<float*>(nullptr), (int)grid.y, (long long)T * da, s);
 }
 
 template <typename TB, typename TW>
@@ -163,10 +132,15 @@ int launch_a(int a_bf16, const void* b, const void* w, const void* a, const void
 
 extern "C" {
 
-int adapter_fuse_skinny_rows() { return SK_ROWS; }
-int adapter_fuse_kchunk() { return SK_KCHUNK; }
+// (T, da) f32 partials one call sums: the skinny path's 32-row slices of
+// d, or the tiled path's contraction slices when more than one; 0: none
+int adapter_fuse_partials(int T, int d, int da) {
+  if (T <= SK_ROWS) return (d + SK_KCHUNK - 1) / SK_KCHUNK;
+  const int S = mixfwd::slices(T, d, da);
+  return S > 1 ? S : 0;
+}
 
-// partial: (ceil(d / kchunk), T, da) f32 scratch when T <= skinny_rows, else unused.
+// partial: (adapter_fuse_partials(T, d, da), T, da) f32 scratch when that is > 0, else unused.
 // *_bf16: that operand (and, for b, out) is bf16, else f32.
 int adapter_fuse_launch(const void* b, const void* w, const void* a, const void* lam, void* out,
                         void* partial, int T, int d, int da, int b_bf16, int w_bf16, int a_bf16,

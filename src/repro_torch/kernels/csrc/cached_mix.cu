@@ -11,17 +11,56 @@
 // or bf16; bw (T, da) f32 is the residual the backward pass reads.
 // λ is read from device memory (no host round trip per period).
 //
-// mix_fwd: at the training shape of internlm2-1.8b (T = 4·512 tokens,
-// d = 2048, da = 256) it is ~2.1 GFLOP on ~10 MB, so f32 operations on
-// the CUDA cores bound it (~32 µs at 67 TFLOP/s). It is one
-// register-tiled f32 GEMM: a block owns a 64x64 output tile and loops
-// over the contraction inside the block, staging a 32-deep slice of each
-// operand in shared memory, the entry dequantized as it is staged (the
-// loop is mix_tile.cuh's, shared with adapter_fuse.cu).
+// Both kernels run on the bf16 tensor cores (mma.sync m16n8k16, f32
+// accumulators). An f32 operand is split into three bf16 terms as it is
+// staged, hi = bf16(v), mid = bf16(v − hi), lo = bf16(v − hi − mid), and
+// the products of terms i + j <= 2 are kept; int8 codes (|q| <= 127) and
+// bf16 values are exact in bf16 and go to the MMA whole. The MMA helpers
+// (swizzle, ldmatrix, mma, split3, codes) are mix_tile.cuh's.
 //
-// mix_dw runs on the bf16 tensor cores (mma.sync m16n8k16, f32
-// accumulators). Its f32 operand is split into three bf16 terms as it is
-// staged, hi = bf16(v), mid = bf16(v − hi), lo = bf16(v − hi − mid):
+// mix_fwd is mix_tile.cuh's forward loop (mixfwd::launch, shared with
+// adapter_fuse.cu's tiled path; its note has the design). Per storage:
+//  * int8 entry, qblock a multiple of 16 (the training path's 128): the
+//    codes whole, W_down split in three: 3 products per k16 step. The
+//    scale changes along the contraction, so it cannot fold into W_down:
+//    each k16 step's fresh sum is multiplied by its row's scale as it is
+//    added to the accumulator. (The reference rounds q·s in f32, the
+//    kernel scales the partial sum.)
+//  * bf16 entry: whole, W_down split in three: 3 products.
+//  * f32 entry: both split, the 6 products with i + j <= 2.
+//  * int8 entry, any other qblock: dequantized to f32 as it is staged,
+//    then the f32 entry's path.
+// Its error model, emulated on the CPU with float64 products
+// (tests/test_torch_kernels.py::test_mix_fwd_bf16_split_error_model) at
+// the training contraction d = 2048: against the exact product three
+// terms err 1.2e-7–1.6e-7, under the plain version's own f32 sum
+// (1.3e-6–1.9e-6), and two terms 8.8e-6–2.0e-5. Both would meet the
+// forward's tolerance, atol 1e-4 + rtol 1e-4 for out and bw (the
+// reference's dq_adapter_mix check, tests/test_cached_step.py:53-56);
+// three keep it at f32 accuracy, which bw carries into the backward's dλ.
+// On the card (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W) the kernel
+// differs from the plain version by at most 2.0e-6 at the training shape,
+// every storage. What bounds it at the training shape (T = 4·512,
+// d = 2048, da = 256, int8 entries): 3 terms x 2·T·d·da = 6.4 GFLOP of
+// bf16 work, 6.5 µs at 989 TFLOP/s; ~12.4 MB of bytes (entry and scales,
+// W_down, a, out, bw), 3.7 µs at 3.35 TB/s; the same work in f32 on the
+// CUDA cores, 32 µs. What the redesign does about the four things that
+// held the scalar f32 kernel it replaced (a 4x4 register tile a thread)
+// at 0.34 ms:
+//  * CUDA cores, 8 shared loads for 16 FMAs: bf16 MMAs, fragments read
+//    by ldmatrix from XOR-swizzled rows, no bank conflicts.
+//  * 128 blocks of 256 threads for 132 SMs, each walking all of d: the
+//    contraction is cut into S slices (S = 4 at the training shape: 256
+//    blocks, two on each SM), summed by mixfwd::mix_fwd_reduce in slice
+//    order, so reruns stay bit-equal (no atomics).
+//  * one byte a thread through a functor, two integer divisions and a
+//    transposed store an element: 16-byte loads a thread, int8 codes
+//    converted four at a time by byte permutes, one scale a thread a
+//    step, rows stored in their global order.
+//  * one buffer, loads and math serialized: the next step's loads go to
+//    registers before this step's MMAs, into the other of two buffers.
+//
+// mix_dw's operand split, per storage:
 //  * int8 entry, qblock a multiple of BM (the training path's 128): the
 //    codes (|q| <= 127) are exact in bf16. A block's BM dW rows lie in
 //    one quantization block, so the scale is one number per token for
@@ -48,7 +87,7 @@
 // training shape the f32 entry's check came to 1.6e-4 (first chip run,
 // NVIDIA H100 80GB HBM3, 700 W). So each k16 step's products go into a
 // fresh f32 sum, smallest terms first, which one rounded add then puts
-// into the accumulator: 2.6e-5 on the same inputs.
+// into the accumulator: 2.6e-5 on the same inputs. mix_fwd does the same.
 //
 // What bounds mix_dw on the H100 at the training shape: 3 terms x 2·T·d·da
 // = 6.4 GFLOP of bf16 work, 6.5 µs at 989 TFLOP/s; ~8.4 MB of bytes,
@@ -72,46 +111,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 #include "mix_tile.cuh"
 
 namespace {
 
-using namespace mix_tile;
-
-// entry element (t, k) in f32: the int8 payload times its block's scale
-// (the reference's exact product), or the float value
-template <typename S>
-__device__ __forceinline__ float entry_at(const S* __restrict__ b, const float* __restrict__ scale,
-                                          int t, int k, int ld, int qblock) {
-  const float v = to_f32(b[(size_t)t * ld + k]);
-  if constexpr (std::is_same<S, int8_t>::value)
-    return v * scale[(size_t)t * (ld / qblock) + k / qblock];
-  return v;
-}
-
-template <typename S>
-struct CacheEntry {
-  const S* __restrict__ b;
-  const float* __restrict__ scale;
-  int ld, qblock;
-  __device__ __forceinline__ float operator()(int t, int k) const {
-    return entry_at(b, scale, t, k, ld, qblock);
-  }
-};
-
-// the forward tile loop lives in mix_tile.cuh (shared with adapter_fuse.cu)
-template <typename S, typename A>
-__global__ void __launch_bounds__(THREADS)
-mix_fwd(const S* __restrict__ b, const float* __restrict__ scale, const float* __restrict__ w,
-        const A* __restrict__ a, const float* __restrict__ lam_p, A* __restrict__ out,
-        float* __restrict__ bw, int T, int ld, int d, int da, int qblock) {
-  mix_tile::fwd_tile(CacheEntry<S>{b, scale, ld, qblock}, w, a, lam_p, out, bw, T, ld, d, da);
-}
-
 // ---------------------------------------------------------------- mix_dw
 namespace mixdw {
+
+using namespace mix_tile;
 
 constexpr int WARPS_M = 4, WARPS_N = 2;  // 8 warps of 32 x 32
 constexpr int BM = 32 * WARPS_M;    // dW rows (of d) per block
@@ -125,91 +132,6 @@ constexpr int MIN_BLOCKS = 2;       // per SM, so <= 128 registers a thread
 constexpr int TARGET_BLOCKS = 256;  // 2 blocks of 8 warps on each of 132 SMs
 constexpr int MIN_STEPS = 4;        // token steps a slice keeps at least
 
-// the entry's storage and how it reaches the MMA
-enum Kind { F32 = 0, BF16 = 1, I8_FOLD = 2, I8_DEQ = 3 };
-
-template <int K> struct Entry;
-template <> struct Entry<F32> { using U = uint32_t; static constexpr int A_TERMS = 3; };
-template <> struct Entry<BF16> { using U = uint16_t; static constexpr int A_TERMS = 1; };
-template <> struct Entry<I8_FOLD> { using U = uint8_t; static constexpr int A_TERMS = 1; };
-template <> struct Entry<I8_DEQ> { using U = uint8_t; static constexpr int A_TERMS = 3; };
-
-// element (t, c) of a staged term, rows of W bf16 (W >= 64): the 16-byte
-// chunks XOR-swizzled by row, so the 8 rows one ldmatrix matrix reads
-// (one chunk column) sit in 8 different bank groups
-template <int W>
-__device__ __forceinline__ int swz(int t, int c) {
-  return t * W + ((((c >> 3) ^ (t & 7)) << 3) | (c & 7));
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// four 8x8 b16 matrices, transposed: lane l gives the row address of
-// matrix l / 8, row l % 8
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 h) {
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// (x0, x1) -> three packed bf16 pairs, hi, mid, lo (x0 in the low half)
-__device__ __forceinline__ void split3(float x0, float x1, uint32_t (&w)[3]) {
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-    w[j] = bits(h);
-    x0 -= __low2float(h);
-    x1 -= __high2float(h);
-  }
-}
-
-// four int8 codes -> their exact f32 values (2^23 + 128 + q, less 2^23 + 128)
-__device__ __forceinline__ void codes_f32(uint32_t w, float (&f)[4]) {
-  const uint32_t u = w ^ 0x80808080u;  // q + 128 as unsigned bytes
-  f[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - 8388736.f;
-  f[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - 8388736.f;
-  f[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - 8388736.f;
-  f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - 8388736.f;
-}
-
-// the upper halves of two exact small integers' f32 bits are their bf16
-__device__ __forceinline__ uint32_t pack_hi(float lo, float hi) {
-  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
-}
-
-// 16 bytes of a row from column m: one vector load where the row allows,
-// else element by element; columns >= n read as zero
-template <typename U>
-__device__ __forceinline__ uint4 load_chunk(const U* __restrict__ row, int m, int n, bool vec) {
-  constexpr int EPC = 16 / sizeof(U);
-  if (vec && m + EPC <= n) return *reinterpret_cast<const uint4*>(row + m);
-  union {
-    uint4 v;
-    U e[EPC];
-  } r;
-#pragma unroll
-  for (int e = 0; e < EPC; ++e) r.e[e] = (m + e < n) ? row[m + e] : U(0);
-  return r.v;
-}
-
-// One (BM x BN dW tile, token slice) per block: grid (ceil(da / BN),
-// ceil(d / BM), S). out is dw (S == 1, scaled by λ here) or the slice's
-// partial in (S, d, da).
 template <int KIND>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 mix_dw_mma(const void* __restrict__ b_, const float* __restrict__ scale,
@@ -222,7 +144,7 @@ mix_dw_mma(const void* __restrict__ b_, const float* __restrict__ scale,
   constexpr int CPR = BM / EPC;                  // chunks per staged row
   constexpr int A_CH = BK * CPR / THREADS;       // entry chunks per thread per step
   constexpr int G_CH = BK * (BN / 4) / THREADS;  // g chunks (4 floats) per thread per step
-  constexpr bool FOLD = KIND == I8_FOLD;
+  constexpr bool FOLD = KIND == I8;
   static_assert(A_CH >= 1 && G_CH >= 1, "tile too small for the block");
 
   extern __shared__ __align__(16) uint16_t smem[];  // 2 x (A_TERMS A_TILEs, B_TERMS B_TILEs)
@@ -267,18 +189,11 @@ mix_dw_mma(const void* __restrict__ b_, const float* __restrict__ scale,
       const uint4 v = ar[i];
       if constexpr (KIND == BF16) {
         *reinterpret_cast<uint4*>(as + swz<BM>(t, m)) = v;
-      } else if constexpr (KIND == I8_FOLD) {
-        const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-        uint32_t p[8];
-#pragma unroll
-        for (int h = 0; h < 4; ++h) {
-          float f[4];
-          codes_f32(w[h], f);
-          p[2 * h] = pack_hi(f[0], f[1]);
-          p[2 * h + 1] = pack_hi(f[2], f[3]);
-        }
-        *reinterpret_cast<uint4*>(as + swz<BM>(t, m)) = make_uint4(p[0], p[1], p[2], p[3]);
-        *reinterpret_cast<uint4*>(as + swz<BM>(t, m + 8)) = make_uint4(p[4], p[5], p[6], p[7]);
+      } else if constexpr (KIND == I8) {
+        uint4 lo, hi;
+        codes_bf16(v, lo, hi);
+        *reinterpret_cast<uint4*>(as + swz<BM>(t, m)) = lo;
+        *reinterpret_cast<uint4*>(as + swz<BM>(t, m + 8)) = hi;
       } else if constexpr (KIND == F32) {
         uint32_t w01[3], w23[3];
         split3(__uint_as_float(v.x), __uint_as_float(v.y), w01);
@@ -485,35 +400,54 @@ int launch(const void* b, const void* scale, const void* g, const void* lam, voi
 
 }  // namespace mixdw
 
-template <typename S, typename A>
-void launch_fwd(const void* b, const void* scale, const void* w, const void* a, const void* lam,
-                void* out, void* bw, int T, int ld, int d, int da, int qblock, cudaStream_t s) {
-  const dim3 grid((da + BN - 1) / BN, (T + BM - 1) / BM);
-  mix_fwd<S, A><<<grid, THREADS, 0, s>>>((const S*)b, (const float*)scale, (const float*)w,
-                                         (const A*)a, (const float*)lam, (A*)out, (float*)bw,
-                                         T, ld, d, da, qblock);
+template <int KIND, typename TA>
+int launch_fwd(const void* b, const void* scale, const void* w, const void* a, const void* lam,
+               void* out, void* bw, void* partial, int T, int ld, int d, int da, int qblock,
+               cudaStream_t s) {
+  return mixfwd::launch<KIND, float, TA, TA>(b, (const float*)scale, (const float*)w,
+                                             (const TA*)a, (const float*)lam, (TA*)out,
+                                             (float*)bw, (float*)partial, T, ld, d, da, qblock,
+                                             s);
+}
+
+template <int KIND>
+int launch_fwd_a(int a_bf16, const void* b, const void* scale, const void* w, const void* a,
+                 const void* lam, void* out, void* bw, void* partial, int T, int ld, int d,
+                 int da, int qblock, cudaStream_t s) {
+  return a_bf16 ? launch_fwd<KIND, __nv_bfloat16>(b, scale, w, a, lam, out, bw, partial, T, ld,
+                                                  d, da, qblock, s)
+                : launch_fwd<KIND, float>(b, scale, w, a, lam, out, bw, partial, T, ld, d, da,
+                                          qblock, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// storage: 0 = f32, 1 = bf16, 2 = int8 (+ scale); a_bf16: a and out are bf16, else f32
+// contraction slices of one mix_fwd call: its scratch is (slices, T, da) f32 when > 1
+int mix_fwd_slices(int T, int d, int da) { return mixfwd::slices(T, d, da); }
+
+// storage: 0 = f32, 1 = bf16, 2 = int8 (+ scale); a_bf16: a and out are bf16, else f32;
+// partial: (mix_fwd_slices(T, d, da), T, da) f32 scratch when that is > 1, else unused
 int mix_fwd_launch(const void* b, const void* scale, const void* w, const void* a,
-                   const void* lam, void* out, void* bw, int T, int ld, int d, int da,
-                   int qblock, int storage, int a_bf16, void* stream) {
+                   const void* lam, void* out, void* bw, void* partial, int T, int ld, int d,
+                   int da, int qblock, int storage, int a_bf16, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const int which = storage * 2 + (a_bf16 ? 1 : 0);
-  switch (which) {
-    case 0: launch_fwd<float, float>(b, scale, w, a, lam, out, bw, T, ld, d, da, qblock, s); break;
-    case 1: launch_fwd<float, __nv_bfloat16>(b, scale, w, a, lam, out, bw, T, ld, d, da, qblock, s); break;
-    case 2: launch_fwd<__nv_bfloat16, float>(b, scale, w, a, lam, out, bw, T, ld, d, da, qblock, s); break;
-    case 3: launch_fwd<__nv_bfloat16, __nv_bfloat16>(b, scale, w, a, lam, out, bw, T, ld, d, da, qblock, s); break;
-    case 4: launch_fwd<int8_t, float>(b, scale, w, a, lam, out, bw, T, ld, d, da, qblock, s); break;
-    case 5: launch_fwd<int8_t, __nv_bfloat16>(b, scale, w, a, lam, out, bw, T, ld, d, da, qblock, s); break;
+  switch (storage) {
+    case 0:
+      return launch_fwd_a<mix_tile::F32>(a_bf16, b, scale, w, a, lam, out, bw, partial, T, ld, d,
+                                         da, qblock, s);
+    case 1:
+      return launch_fwd_a<mix_tile::BF16>(a_bf16, b, scale, w, a, lam, out, bw, partial, T, ld,
+                                          d, da, qblock, s);
+    case 2:
+      if (qblock % 16 == 0)  // a k16 step lies in one block: its sum is scaled
+        return launch_fwd_a<mix_tile::I8>(a_bf16, b, scale, w, a, lam, out, bw, partial, T, ld,
+                                          d, da, qblock, s);
+      return launch_fwd_a<mix_tile::I8_DEQ>(a_bf16, b, scale, w, a, lam, out, bw, partial, T, ld,
+                                            d, da, qblock, s);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 // token slices of one mix_dw call: its scratch is (slices, d, da) f32 when > 1
@@ -525,12 +459,12 @@ int mix_dw_launch(const void* b, const void* scale, const void* g, const void* l
                   void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   switch (storage) {
-    case 0: return mixdw::launch<mixdw::F32>(b, scale, g, lam, dw, partial, T, ld, d, da, qblock, s);
-    case 1: return mixdw::launch<mixdw::BF16>(b, scale, g, lam, dw, partial, T, ld, d, da, qblock, s);
+    case 0: return mixdw::launch<mix_tile::F32>(b, scale, g, lam, dw, partial, T, ld, d, da, qblock, s);
+    case 1: return mixdw::launch<mix_tile::BF16>(b, scale, g, lam, dw, partial, T, ld, d, da, qblock, s);
     case 2:
       if (qblock % mixdw::BM == 0)
-        return mixdw::launch<mixdw::I8_FOLD>(b, scale, g, lam, dw, partial, T, ld, d, da, qblock, s);
-      return mixdw::launch<mixdw::I8_DEQ>(b, scale, g, lam, dw, partial, T, ld, d, da, qblock, s);
+        return mixdw::launch<mix_tile::I8>(b, scale, g, lam, dw, partial, T, ld, d, da, qblock, s);
+      return mixdw::launch<mix_tile::I8_DEQ>(b, scale, g, lam, dw, partial, T, ld, d, da, qblock, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -60,12 +60,14 @@ def _np(tree):
 
 
 def _entry(b, storage):
-    """The same entry in both packages' storage forms: (jax, torch)."""
+    """The same entry in both packages' storage forms: (jax, torch).
+    ``int8_q32``: int8 with one scale per 32 columns (the training path's
+    quantization block is 128)."""
     if storage == "bf16":
         jb = jnp.asarray(b).astype(jnp.bfloat16)
         return jb, bridge.to_torch(np.asarray(jb))
-    if storage == "int8":
-        qt = jax_quantize(jnp.asarray(b), bits=8, block=128)
+    if storage.startswith("int8"):
+        qt = jax_quantize(jnp.asarray(b), bits=8, block=32 if storage == "int8_q32" else 128)
         return {"q": qt.q, "scale": qt.scale}, bridge.to_torch(_np(qt))
     return jnp.asarray(b), torch.from_numpy(b)
 
@@ -121,7 +123,7 @@ def torch_cfg(tiny_cfg):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("storage", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("storage", ["f32", "bf16", "int8", "int8_q32"])
 @pytest.mark.parametrize("T,d,da", [(64, 256, 32), (100, 130, 17), (7, 300, 40)])
 def test_mix_kernels_match_pallas(storage, T, d, da):
     """``mix_fwd`` (out and the bw residual) and ``mix_dw`` against the
@@ -130,7 +132,7 @@ def test_mix_kernels_match_pallas(storage, T, d, da):
     b, w, a = _randn((T, d), 1), _randn((d, da), 2, 0.1), _randn((T, da), 3)
     g = _randn((T, da), 4)
     jb, tb = _entry(b, storage)
-    q, scale = (jb["q"], jb["scale"]) if storage == "int8" else (jb, None)
+    q, scale = (jb["q"], jb["scale"]) if storage.startswith("int8") else (jb, None)
     want_out, want_bw = jax_cs._mix_fwd_impl(q, scale, jnp.asarray(w), jnp.asarray(a), 0.7,
                                              256, 128, 512, True)
     out, bw = cached_mix.mix_fwd(tb, torch.from_numpy(w), torch.from_numpy(a), 0.7)
@@ -143,7 +145,7 @@ def test_mix_kernels_match_pallas(storage, T, d, da):
     np.testing.assert_allclose(dw.numpy(), np.asarray(want_dw), atol=2e-4, rtol=1e-3)
 
 
-@pytest.mark.parametrize("storage", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("storage", ["f32", "bf16", "int8", "int8_q32"])
 @pytest.mark.parametrize("T,d,da", [(64, 256, 32), (100, 130, 17)])
 def test_dq_adapter_mix_forward(storage, T, d, da):
     b, w, a = _randn((T, d), 5), _randn((d, da), 6, 0.1), _randn((T, da), 7)

@@ -223,6 +223,68 @@ def test_mix_dw_bf16_split_error_model(storage):
 
 
 # ---------------------------------------------------------------------------
+# mix_fwd's bf16 split (the CUDA kernel's arithmetic, emulated)
+# ---------------------------------------------------------------------------
+
+
+def _mix_fwd_split(entry, w: torch.Tensor, n: int) -> torch.Tensor:
+    """``bw = dequant(entry)[:, :d] @ w`` as the kernel computes it with an
+    ``n``-term split of ``w``: int8 codes and bf16 entries go to the MMA
+    whole, an f32 entry is split too, keeping the products of terms
+    i + j < n. An int8 entry's sum over each 16-deep step of the
+    contraction is multiplied by its token's scale for that step. Products
+    are summed in float64 (the split's error alone), then rounded to f32."""
+    d, da = w.shape
+    w_sum = sum(_bf16_terms(w, n))
+    if isinstance(entry, QTensor):
+        steps = -(-d // 16)
+        codes = torch.zeros(entry.q.shape[0], steps * 16, dtype=torch.float64)
+        codes[:, :d] = entry.q[:, :d].double()
+        w_pad = torch.zeros(steps * 16, da, dtype=torch.float64)
+        w_pad[:d] = w_sum
+        parts = torch.einsum("tsk,skn->tsn", codes.reshape(-1, steps, 16),
+                             w_pad.reshape(steps, 16, da))
+        step_scale = entry.scale[:, torch.arange(steps) * 16 // entry.block].double()
+        out = (step_scale[..., None] * parts).sum(dim=1)
+    else:
+        b = entry[:, :d]
+        b_terms = [b.double()] if b.dtype == torch.bfloat16 else _bf16_terms(b.float(), n)
+        out = sum(x @ y for i, x in enumerate(b_terms) for j, y in enumerate(_bf16_terms(w, n))
+                  if i + j < n)
+    return out.float()
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16", "int8", "int8_q32_ragged"])
+def test_mix_fwd_bf16_split_error_model(storage):
+    """The split behind ``mix_fwd``'s tensor-core kernel, at d = 2048 (the
+    training contraction, which sets the error) with narrow T and d_a, and
+    on a ragged int8 entry (qblock 32, d = 1000 inside ld = 1024): three
+    bf16 terms meet the forward's check against the plain version
+    (|Δ| <= 1e-4 + 1e-4·|want| for out and bw, the reference's
+    dq_adapter_mix tolerance, tests/test_cached_step.py:53-56), and two
+    terms err at least 10x more against the exact product."""
+    T, d, da, lam, qblock = 64, 2048, 32, 0.7, 128
+    if storage == "int8_q32_ragged":
+        T, d, da, qblock = 37, 1000, 24, 32
+    b = torch.from_numpy(_randn((T, d), 13))
+    w = torch.from_numpy(_randn((d, da), 14, d ** -0.5))
+    a = torch.from_numpy(_randn((T, da), 15))
+    entry = {"f32": b, "bf16": b.bfloat16()}[storage] if storage in ("f32", "bf16") \
+        else quantize(b, 8, qblock)
+    if storage == "int8_q32_ragged":
+        assert entry.q.shape[1] > d
+    want_out, want_bw = ref.mix_fwd_ref(entry, w, a, lam)
+    exact = entry_as_f32(entry, d).double() @ w.double()
+    three, two = (_mix_fwd_split(entry, w, n) for n in (3, 2))
+    out3 = lam * three + (1 - lam) * a
+    for got, want in ((three, want_bw), (out3, want_out)):
+        assert float(((got - want).abs() - 1e-4 * want.abs()).max()) <= 1e-4
+    err3 = float((three.double() - exact).abs().max())
+    err2 = float((two.double() - exact).abs().max())
+    assert err2 >= 10 * err3, (err2, err3)
+
+
+# ---------------------------------------------------------------------------
 # the build's cache key
 # ---------------------------------------------------------------------------
 
