@@ -33,7 +33,10 @@ Phases, in order; any failure exits non-zero:
    d_a=17 with qblock 24 (unaligned rows; ``mix_fwd``'s dequantizing
    path), twice at the training shape (bit-equal), and beside both their
    bounds: the bf16 tensor cores' (a 3-term split triples the operations)
-   and f32's.
+   and f32's. ``ce_fwd`` (on the bf16 tensor cores, both operands split
+   in three terms) also at T=1001, d=1000, V=3001 and T=37, d=130, V=517
+   with and without the soft-cap (every masked edge), twice at the
+   training shape (bit-equal), and beside both its bounds (6 products).
 6. Training: PAC+ on internlm2-1.8b at full width through
    ``EdgeSession``/``EpochRunner`` — INT8 backbone, int8 activation
    cache, pruning init, 3 epochs x 2 steps of 4 x 512 tokens: epoch 0
@@ -665,13 +668,19 @@ def training_kernel_phase(timer: Timer, gen: torch.Generator):
     lab = torch.randint(0, V, (T,), generator=gen, device=dev)
     g = torch.randn(T, generator=gen, device=dev)
     ce_errs = {"ce_fwd": 0.0, "ce_bwd": 0.0}
+    ce_reason = ("the reference's blockwise-CE tolerances (tests/test_cached_step.py:105, "
+                 ":113); f32 sums reorder")
+
+    def ce_fwd_check(nll, lse, want_nll, want_lse) -> float:
+        return max(float(((nll - want_nll).abs() - 1e-5 * want_nll.abs()).max()),
+                   float(((lse - want_lse).abs() - 1e-5 * want_lse.abs()).max()))
+
     for cap in (None, 30.0):
         nll, lse = lmhead_ce.ce_fwd(h, w, lab, cap)
         want_nll, want_lse = ref.ce_fwd_ref(h, w, lab, cap)
         dh = lmhead_ce.ce_bwd(h, w, lab, want_lse, g, cap)
         want_dh = ref.ce_bwd_ref(h, w, lab, want_lse, g, cap)
-        e_f = max(float(((nll - want_nll).abs() - 1e-5 * want_nll.abs()).max()),
-                  float(((lse - want_lse).abs() - 1e-5 * want_lse.abs()).max()))
+        e_f = ce_fwd_check(nll, lse, want_nll, want_lse)
         e_b = float(((dh - want_dh).abs() - 1e-4 * want_dh.abs()).max())
         check(f"ce_fwd cap={cap}", e_f, 2e-5)
         check(f"ce_bwd cap={cap}", e_b, 1e-5)
@@ -681,18 +690,46 @@ def training_kernel_phase(timer: Timer, gen: torch.Generator):
             ce_errs[k] = max(ce_errs[k], errs[k])
         emit({"check": "lmhead_ce", "T": T, "d": d, "V": V, "softcap": cap,
               "ce_fwd_max_abs_err": errs["ce_fwd"], "ce_bwd_max_abs_err": errs["ce_bwd"],
+              "ce_fwd_check": e_f, "ce_bwd_check": e_b,
               "tol": "ce_fwd atol 2e-5 + rtol 1e-5; ce_bwd atol 1e-5 + rtol 1e-4",
-              "tol_reason": "the reference's blockwise-CE tolerances "
-                            "(tests/test_cached_step.py:105, :113); f32 sums reorder"})
+              "tol_reason": ce_reason})
         del dh, want_dh
+        nll2, lse2 = lmhead_ce.ce_fwd(h, w, lab, cap)  # a second call, bit for bit
+        equal = bool(torch.equal(nll, nll2) and torch.equal(lse, lse2))
+        emit({"check": "ce_fwd_deterministic", "T": T, "d": d, "V": V, "softcap": cap,
+              "bit_equal": equal})
+        if not equal:
+            raise AssertionError(f"ce_fwd cap={cap}: two calls differ")
+    # every masked edge: T, d and V off the tiles (V ends inside a vocab
+    # tile and a W chunk), d not a multiple of 4 (element-wise split loads)
+    for Tr, dr, Vr in ((1001, 1000, 3001), (37, 130, 517)):
+        h2 = torch.randn(Tr, dr, generator=gen, device=dev)
+        w2 = torch.randn(dr, Vr, generator=gen, device=dev) * dr ** -0.5
+        lab2 = torch.randint(0, Vr, (Tr,), generator=gen, device=dev)
+        for cap in (None, 30.0):
+            nll, lse = lmhead_ce.ce_fwd(h2, w2, lab2, cap)
+            want_nll, want_lse = ref.ce_fwd_ref(h2, w2, lab2, cap)
+            e_f = ce_fwd_check(nll, lse, want_nll, want_lse)
+            check(f"ce_fwd T={Tr} d={dr} V={Vr} cap={cap}", e_f, 2e-5)
+            err = max(max_err(nll, want_nll), max_err(lse, want_lse))
+            ce_errs["ce_fwd"] = max(ce_errs["ce_fwd"], err)
+            emit({"check": "ce_fwd_ragged", "T": Tr, "d": dr, "V": Vr, "softcap": cap,
+                  "ce_fwd_max_abs_err": err, "ce_fwd_check": e_f,
+                  "tol": "atol 2e-5 + rtol 1e-5", "tol_reason": ce_reason})
     nll, lse = ref.ce_fwd_ref(h, w, lab)
-    b_ms, b_by = bound(4.0 * (T * d + d * V + 3 * T), 2.0 * T * d * V)
+    # ce_fwd runs on the bf16 tensor cores, h and W split in three terms (6
+    # products): it is held to that work's bound, the f32 CUDA-core bound beside it
+    fwd_bytes = 4.0 * (T * d + d * V + 3 * T)
+    b_ms, b_by = bound(fwd_bytes, 6 * 2.0 * T * d * V, flop_per_s=BF16_FLOP_PER_S)
+    f32_ms, f32_by = bound(fwd_bytes, 2.0 * T * d * V)
     r = {"check": "ce_fwd", "T": T, "d": d, "V": V, "max_abs_err": ce_errs["ce_fwd"],
          "ms": timer(lambda: lmhead_ce.ce_fwd(h, w, lab), calls=2, repeats=3),
          "plain_ms": timer(lambda: ref.ce_fwd_ref(h, w, lab), calls=2, repeats=3),
          "library_ms": timer(lambda: torch.logsumexp(torch.matmul(h, w), dim=-1), calls=2,
                              repeats=3),
-         "library": "torch.matmul, then torch.logsumexp", "bound_ms": b_ms, "bound_by": b_by}
+         "library": "torch.matmul, then torch.logsumexp", "bound_ms": b_ms, "bound_by": b_by,
+         "bound_tc_ms": b_ms, "bound_tc_by": b_by, "bound_f32_ms": f32_ms,
+         "bound_f32_by": f32_by}
     emit(r)
     rows["ce_fwd"] = _row(r, "LM-head CE forward, T=4*512, d=2048, V=92544")
     hr = h.clone().requires_grad_()
@@ -851,7 +888,8 @@ def training_phase(workdir: Path):
         events = []
         prof = device_profile(lambda: events.append(s.step(dict(batch))),
                               watch=("mix_dw_mma", "dw_reduce", "mix_fwd_mma",
-                                     "mix_fwd_reduce"))
+                                     "mix_fwd_reduce", "ce_split", "ce_fwd_mma", "ce_merge",
+                                     "ce_grad_chunk", "ce_dh_chunk"))
         if events[0].mode != mode:
             raise AssertionError(f"profiled a {events[0].mode} step, wanted {mode}")
         emit({"phase": "train_profile", "step": mode, **prof})

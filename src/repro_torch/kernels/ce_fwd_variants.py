@@ -1,0 +1,170 @@
+"""What bounds the LM-head CE forward's tensor-core loop (``ce_fwd``,
+``src/repro_torch/kernels/csrc/lmhead_ce.cu``): the kernel as shipped
+beside variants of its source, built and timed in one process on one card.
+
+    PYTHONPATH=src python3 -m repro_torch.kernels.ce_fwd_variants
+
+Each variant is the shipped source with a few constants or lines
+replaced, compiled by nvcc into ``build/ce_fwd_variants/`` at the
+repository root (all at once, with the port's flags) and swapped in
+under the ``ce_fwd`` wrapper:
+
+* ``shipped``: the source as it is (BK = 64, two stages, 64 x 32 warp tiles).
+* ``bk32_s4``: 32-deep stages, four of them.
+* ``warp64x64``: 64 x 64 warp tiles (a third fewer ldmatrix a product),
+  32-deep stages, three of them.
+* ``one_product``, ``no_mma``: diagnostics, not the function: only the
+  hi·hi product, or no MMA at all (the loads, ldmatrix and epilogue
+  alone). Their time less the shipped one's splits the loop into the
+  tensor cores' share and the operand streaming's.
+
+The variants that compute the function are held to the plain version
+(atol 2e-5 + rtol 1e-5 on nll and lse, soft-cap on and off, the training
+shape and two ragged ones) and to bit-equal reruns. Times are CUDA-event
+means over 4 calls at T = 4·512, d = 2048, V = 92544, the variants in
+turns and then in reverse, and device time by kernel name from
+``torch.profiler``. One JSON object a line; the card's name and power
+limit first. Needs one CUDA card and nvcc; imports no JAX.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import _build, lmhead_ce, ref
+
+K32 = [("BK = 64;                   // contraction per stage", "BK = 32;")]
+ONE = [("for (int ord = 2; ord >= 0; --ord)", "for (int ord = 0; ord >= 0; --ord)")]
+NO_MMA = [("mma_bf16(part[mm][ni], af[mm][i], bf[ord - i][ni]);", "{}")]
+VARIANTS = {
+    "shipped": [],
+    "bk32_s4": K32 + [("STAGES = 2;", "STAGES = 4;")],
+    "warp64x64": K32 + [("WTM = 64, WTN = 32;", "WTM = 64, WTN = 64;"),
+                        ("STAGES = 2;", "STAGES = 3;")],
+    "one_product": ONE,
+    "no_mma": NO_MMA,
+}
+DIAGNOSTIC = ("one_product", "no_mma")
+SHAPES = [(2048, 2048, 92544), (1001, 1000, 3001), (37, 130, 517)]
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def build(out: Path) -> dict:
+    src = (_build.CSRC / "lmhead_ce.cu").read_text()
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, subs in VARIANTS.items():
+        text = src
+        for old, new in subs:
+            if text.count(old) != 1:
+                raise SystemExit(f"variant {name}: {old!r} not found once in lmhead_ce.cu")
+            text = text.replace(old, new)
+        (out / f"{name}.cu").write_text(text)
+        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+               "-o", str(out / f"{name}.so"), str(out / f"{name}.cu")]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True)
+    libs = {}
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise SystemExit(f"nvcc failed for {name}:\n{log}")
+        entry, report = "", []
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                entry = line
+            elif "ce_fwd_mma" in entry and ("Used" in line or "spill" in line):
+                report.append(line.strip())
+        emit({"variant": name, "ptxas_ce_fwd_mma": report})
+        lib = ctypes.CDLL(str(out / f"{name}.so"))
+        lib.kernel_error_string.argtypes = [ctypes.c_int]
+        lib.kernel_error_string.restype = ctypes.c_char_p
+        libs[name] = lib
+    return libs
+
+
+def use(lib) -> None:
+    """Route the ``ce_fwd`` wrapper to ``lib``."""
+    _build._libs["lmhead_ce"] = lib
+
+
+def mean_ms(fn, calls: int = 4) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("ce_fwd_variants: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    emit({"card": card, "torch": torch.__version__})
+    libs = build(_build.BUILD_DIR.parent / "ce_fwd_variants")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    data = {}
+    for T, d, V in SHAPES:
+        h = torch.randn(T, d, generator=gen, device="cuda")
+        w = torch.randn(d, V, generator=gen, device="cuda") * d ** -0.5
+        lab = torch.randint(0, V, (T,), generator=gen, device="cuda")
+        data[(T, d, V)] = (h, w, lab, {cap: ref.ce_fwd_ref(h, w, lab, cap) for cap in (None, 30.0)})
+    ok = True
+    for name, lib in libs.items():
+        if name in DIAGNOSTIC:
+            continue
+        use(lib)
+        for (T, d, V), (h, w, lab, wants) in data.items():
+            for cap, (want_nll, want_lse) in wants.items():
+                nll, lse = lmhead_ce.ce_fwd(h, w, lab, cap)
+                nll2, lse2 = lmhead_ce.ce_fwd(h, w, lab, cap)
+                chk = max(float(((nll - want_nll).abs() - 1e-5 * want_nll.abs()).max()),
+                          float(((lse - want_lse).abs() - 1e-5 * want_lse.abs()).max()))
+                equal = bool(torch.equal(nll, nll2) and torch.equal(lse, lse2))
+                ok &= chk <= 2e-5 and equal
+                emit({"variant": name, "T": T, "d": d, "V": V, "softcap": cap,
+                      "max_abs_err": max(float((nll - want_nll).abs().max()),
+                                         float((lse - want_lse).abs().max())),
+                      "check": chk, "tol": "atol 2e-5 + rtol 1e-5", "bit_equal": equal})
+    h, w, lab, _ = data[SHAPES[0]]
+    times = {name: [] for name in libs}
+    for name in list(libs) + list(libs)[::-1]:
+        use(libs[name])
+        times[name].append(mean_ms(lambda: lmhead_ce.ce_fwd(h, w, lab)))
+    library = mean_ms(lambda: torch.logsumexp(torch.matmul(h, w), dim=-1))
+    from torch.profiler import ProfilerActivity, profile
+
+    for name, lib in libs.items():
+        use(lib)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            lmhead_ce.ce_fwd(h, w, lab)
+            torch.cuda.synchronize()
+        by_name = {e.key.replace("(anonymous namespace)::", "").split("(")[0][-60:]:
+                   e.device_time_total / 1e3 for e in prof.key_averages()
+                   if e.device_time_total > 0}
+        emit({"variant": name, "T": SHAPES[0][0], "d": SHAPES[0][1], "V": SHAPES[0][2],
+              "ms_in_turns": times[name], "device_ms_by_kernel": by_name,
+              "computes_the_function": name not in DIAGNOSTIC})
+    emit({"library_ms": library, "library": "torch.matmul, then torch.logsumexp",
+          "card": card, "all_checks_ok": ok})
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -6,7 +6,8 @@
 // Two callers run mixfwd::launch: cached_mix.cu's mix_fwd (an activation-
 // cache entry in its storage form, f32 W, with the f32 residual bw) and
 // adapter_fuse.cu's tiled path (f32 or bf16 taps and W, no residual).
-// cached_mix.cu's mix_dw runs its own loop on the helpers of mix_tile.
+// cached_mix.cu's mix_dw and lmhead_ce.cu's ce_fwd run their own loops on
+// the helpers of mix_tile.
 //
 // entry (T, ld) row-major: f32, bf16, or int8 with one f32 scale per
 // (token, qblock columns), scale (T, ld / qblock). W (d, da) row-major,

@@ -4,17 +4,20 @@ log-sum-exp of ``softmax(softcap(h @ W))``, and ``dh``.
 Replaces the TPU kernels ``src/repro/kernels/cached_step.py``
 ``_ce_fwd_kernel`` (``_ce_fwd_impl``) and ``_ce_bwd_kernel``
 (``_ce_bwd_impl``), with the CUDA kernels ``csrc/lmhead_ce.cu``
-(``ce_fwd``: an online softmax over vocab tiles, the vocab split across
-blocks and merged in a second pass; ``ce_bwd``: logits tiles recomputed
-from ``lse``, the softmax gradient of one vocab chunk at a time times
-``Wᵀ`` summed into ``dh``). The (T, V) logits never reach device
-memory; the backward keeps one (T, ``VCHUNK``) gradient chunk.
+(``ce_fwd``: h and W split once per call in three bf16 terms each, W one
+vocab chunk at a time, then one 128 x 128 logits tile per block on the
+bf16 tensor cores with an online softmax in its epilogue, the partials of
+the vocab tiles merged in a second pass; ``ce_bwd``: logits tiles
+recomputed from ``lse``, the softmax gradient of one vocab chunk at a time
+times ``Wᵀ`` summed into ``dh``). The (T, V) logits never reach device
+memory; the forward keeps the split planes of h and of one W chunk, the
+backward one (T, ``VCHUNK``) gradient chunk.
 
 What bounds them on the H100: at the training shape of internlm2-1.8b
-(T = 2048, d = 2048, V = 92544) the forward is ~0.78 TFLOP and the
-backward ~1.55 TFLOP of f32 work against ~0.77 GB of head weights:
-operations bound both (≈11.6 and ≈23.2 ms at 67 TFLOP/s). Any d and V
-are taken (ragged edges are masked).
+(T = 2048, d = 2048, V = 92544) the forward is 6 bf16 products of ~0.78
+TFLOP each (≈4.7 ms at 989 TFLOP/s) and the backward ~1.55 TFLOP of f32
+work (≈23.2 ms at 67 TFLOP/s), against ~0.77 GB of head weights:
+operations bound both. Any d and V are taken (ragged edges are masked).
 
 :class:`CEFn` is the counterpart of the reference's custom VJP
 ``_ce_op``: it saves ``lse`` and its backward is ``ce_bwd``; the head is
@@ -44,19 +47,25 @@ launches = {"ce_fwd": 0, "ce_bwd": 0}
 #: and W's (d, VCHUNK) slice stay in the 50 MB L2 at T = d = 2048
 VCHUNK = 2048
 
+#: vocab columns the forward splits at a time, about (rounded to whole
+#: waves of the card): W's three bf16 planes of one chunk, 3·d·FWD_CHUNK·2
+#: bytes (0.1 GB at d = 2048), are scratch beside h's (25 MB at T = d = 2048)
+FWD_CHUNK = 8192
+
 
 def _lib():
     lib = _build.library("lmhead_ce")
     if lib.ce_fwd_launch.argtypes is None:
-        lib.ce_fwd_launch.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+        lib.ce_fwd_launch.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
                                       + [ctypes.c_float, ctypes.c_void_p])
         lib.ce_fwd_launch.restype = ctypes.c_int
         lib.ce_bwd_launch.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                                       + [ctypes.c_float, ctypes.c_void_p])
         lib.ce_bwd_launch.restype = ctypes.c_int
-        for name in ("ce_block_rows", "ce_block_cols"):
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = ctypes.c_int
+        lib.ce_block_cols.argtypes = []
+        lib.ce_block_cols.restype = ctypes.c_int
+        lib.ce_fwd_tile.argtypes = [ctypes.c_int]
+        lib.ce_fwd_tile.restype = ctypes.c_int
     return lib
 
 
@@ -75,6 +84,15 @@ def _check_cuda(*tensors) -> None:
         require(t.is_contiguous(), "h, W, lse, g must be contiguous")
 
 
+def fwd_chunk_tiles(t_tiles: int, v_tiles: int, bn: int, sms: int) -> int:
+    """Vocab tiles per W chunk of the forward: about ``FWD_CHUNK`` columns,
+    rounded so that the chunk's blocks (one per SM, ``t_tiles`` token tiles
+    by the chunk's vocab tiles) fill whole waves of the card, and at most
+    twice ``FWD_CHUNK``."""
+    waves = max(1, round(FWD_CHUNK / bn * t_tiles / sms))
+    return max(1, min(v_tiles, 2 * FWD_CHUNK // bn, waves * sms // t_tiles))
+
+
 def ce_fwd(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
            softcap: Optional[float] = None):
     """(nll, lse), each (T,) f32. h (T, d); W (d, V); labels (T,) in [0, V)."""
@@ -86,20 +104,20 @@ def ce_fwd(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
     T, d = h.shape
     V = w.shape[1]
     labels = labels.to(torch.int32).contiguous()
-    rows, cols = lib.ce_block_rows(), lib.ce_block_cols()
-    # split the vocab so that token tiles x splits fill the card twice over
+    bm, bn, bk = (lib.ce_fwd_tile(i) for i in range(3))
+    t_tiles, v_tiles = -(-T // bm), -(-V // bn)
+    dp = -(-d // bk) * bk
     sms = torch.cuda.get_device_properties(h.device).multi_processor_count
-    v_tiles = -(-V // cols)
-    n_split = max(1, min(v_tiles, -(-2 * sms // -(-T // rows))))
-    v_split = -(-v_tiles // n_split) * cols
-    n_split = -(-V // v_split)
-    part = torch.empty((3, n_split, T), dtype=torch.float32, device=h.device)
+    chunk = fwd_chunk_tiles(t_tiles, v_tiles, bn, sms)
+    hs = torch.empty(3 * t_tiles * bm * dp, dtype=torch.bfloat16, device=h.device)
+    ws = torch.empty(3 * dp * chunk * bn, dtype=torch.bfloat16, device=h.device)
+    part = torch.empty((3, T, v_tiles), dtype=torch.float32, device=h.device)
     nll = torch.empty(T, dtype=torch.float32, device=h.device)
     lse = torch.empty(T, dtype=torch.float32, device=h.device)
-    rc = lib.ce_fwd_launch(h.data_ptr(), w.data_ptr(), labels.data_ptr(), part[0].data_ptr(),
-                           part[1].data_ptr(), part[2].data_ptr(), nll.data_ptr(),
-                           lse.data_ptr(), T, d, V, n_split, v_split, softcap or 0.0,
-                           _build.stream_of(h))
+    rc = lib.ce_fwd_launch(h.data_ptr(), w.data_ptr(), labels.data_ptr(), hs.data_ptr(),
+                           ws.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
+                           part[2].data_ptr(), nll.data_ptr(), lse.data_ptr(), T, d, V, chunk,
+                           softcap or 0.0, _build.stream_of(h))
     _build.check(lib, rc, "ce_fwd")
     launches["ce_fwd"] += 1
     return nll, lse

@@ -285,6 +285,79 @@ def test_mix_fwd_bf16_split_error_model(storage):
 
 
 # ---------------------------------------------------------------------------
+# ce_fwd's bf16 split (the CUDA kernel's arithmetic, emulated)
+# ---------------------------------------------------------------------------
+
+
+def _ce_fwd_split(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, softcap, n: int,
+                  bn: int = 128):
+    """``ce_fwd`` as the kernel computes it with both operands split in
+    ``n`` bf16 terms: the products of terms i + j < n summed in float64,
+    rounded to f32 (the logits the tensor cores leave), then the soft-cap
+    and the online softmax over vocab tiles of ``bn`` columns in float64.
+    Returns float64 (nll, lse)."""
+    z = sum(x @ y for i, x in enumerate(_bf16_terms(h, n)) for j, y in enumerate(_bf16_terms(w, n))
+            if i + j < n)
+    return _online_ce(z.float(), labels, softcap, bn)
+
+
+def _online_ce(z: torch.Tensor, labels: torch.Tensor, softcap, bn: int = 128):
+    z = z.double()
+    if softcap is not None:
+        z = softcap * torch.tanh(z / softcap)
+    m = torch.full((z.shape[0],), -1e30, dtype=torch.float64)
+    l = torch.zeros(z.shape[0], dtype=torch.float64)
+    for v0 in range(0, z.shape[1], bn):
+        tile = z[:, v0:v0 + bn]
+        m_new = torch.maximum(m, tile.max(dim=1).values)
+        l = l * torch.exp(m - m_new) + torch.exp(tile - m_new[:, None]).sum(dim=1)
+        m = m_new
+    lse = m + torch.log(l)
+    return lse - z[torch.arange(z.shape[0]), labels], lse
+
+
+@pytest.mark.parametrize("softcap", [None, 30.0])
+def test_ce_fwd_bf16_split_error_model(softcap):
+    """The split behind ``ce_fwd``'s tensor-core kernel, at d = 2048 (the
+    training contraction, which sets the error) with narrow T and a V that
+    ends inside a 128-column tile: three bf16 terms meet the forward's
+    check against the plain version (|Δ| <= 2e-5 + 1e-5·|want| for nll and
+    lse, the reference's blockwise-CE tolerance, tests/test_cached_step.py:
+    105), and two terms err at least 10x more against the exact result.
+    Why the kernel takes three: two terms (~16 significant bits) meet the
+    check here too, but err ~1e-5 against the exact result, half the
+    check's absolute term and ~10x the plain f32 version's own error, so
+    larger logits would cross it; three err ~5e-8, below the f32 rounding
+    of the result. One term (bf16 alone) errs ~8e-3 and fails it."""
+    T, d, V = 64, 2048, 1000
+    h = torch.from_numpy(_randn((T, d), 16))
+    w = torch.from_numpy(_randn((d, V), 17, d ** -0.5))
+    labels = torch.from_numpy(np.random.default_rng(18).integers(0, V, T))
+    want = ref.ce_fwd_ref(h, w, labels, softcap)
+    exact = _online_ce(h.double() @ w.double(), labels, softcap)
+    three, two = (_ce_fwd_split(h, w, labels, softcap, n) for n in (3, 2))
+    for got, x in zip(three, want):
+        assert float(((got.float() - x).abs() - 1e-5 * x.abs()).max()) <= 2e-5
+    err3 = max(float((g - x).abs().max()) for g, x in zip(three, exact))
+    err2 = max(float((g - x).abs().max()) for g, x in zip(two, exact))
+    assert err2 >= 10 * err3, (err2, err3)
+
+
+def test_ce_fwd_chunk_fills_whole_waves():
+    """The forward's W chunk: about FWD_CHUNK columns, a whole number of
+    waves of one block per SM where the token tiles allow, never past the
+    vocab or twice FWD_CHUNK (the scratch's bound)."""
+    from repro_torch.kernels.lmhead_ce import FWD_CHUNK, fwd_chunk_tiles
+
+    bn, sms = 128, 132
+    chunk = fwd_chunk_tiles(16, 723, bn, sms)  # T = 2048, V = 92544 on an H100
+    assert chunk == 66 and chunk * 16 % sms == 0
+    for t_tiles, v_tiles in ((1, 723), (8, 24), (3, 5), (16, 1), (40, 723), (200, 723)):
+        c = fwd_chunk_tiles(t_tiles, v_tiles, bn, sms)
+        assert 1 <= c <= min(v_tiles, 2 * FWD_CHUNK // bn), (t_tiles, v_tiles, c)
+
+
+# ---------------------------------------------------------------------------
 # the build's cache key
 # ---------------------------------------------------------------------------
 
