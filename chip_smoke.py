@@ -33,10 +33,15 @@ Phases, in order; any failure exits non-zero:
    d_a=17 with qblock 24 (unaligned rows; ``mix_fwd``'s dequantizing
    path), twice at the training shape (bit-equal), and beside both their
    bounds: the bf16 tensor cores' (a 3-term split triples the operations)
-   and f32's. ``ce_fwd`` (on the bf16 tensor cores, both operands split
-   in three terms) also at T=1001, d=1000, V=3001 and T=37, d=130, V=517
-   with and without the soft-cap (every masked edge), twice at the
-   training shape (bit-equal), and beside both its bounds (6 products).
+   and f32's. ``ce_fwd`` and ``ce_bwd`` (on the bf16 tensor cores, every
+   f32 operand split in three terms: the forward's logits, then the
+   backward's logits again and ``dh = P @ Wᵀ``) also at T=1001, d=1000,
+   V=3001 and T=37, d=130, V=517 with and without the soft-cap (every
+   masked edge; ``ce_bwd`` on the lse of the plain forward), twice at the
+   training shape with and without it (bit-equal), and beside both their
+   bounds (6 products, 12 for the backward). ``ce_bwd`` is also timed
+   beside the backward alone of autograd on a graph built once (no
+   logits recompute), which the library time, with its forward, is not.
 6. Training: PAC+ on internlm2-1.8b at full width through
    ``EdgeSession``/``EpochRunner`` — INT8 backbone, int8 activation
    cache, pruning init, 3 epochs x 2 steps of 4 x 512 tokens: epoch 0
@@ -142,17 +147,29 @@ class Timer:
         with torch.cuda.graph(graph):
             for i in range(calls):
                 fns[i % len(fns)]()
+        ms = self._median(graph.replay, calls, repeats)
+        del graph
+        return ms
+
+    def eager(self, fn, calls: int, repeats: int) -> float:
+        """The same without a CUDA graph, ``calls`` calls launched from the
+        host each time (for work that cannot be captured, in calls of
+        milliseconds, where the host's launches hide)."""
+        fn()
+        torch.cuda.synchronize()
+        return self._median(lambda: [fn() for _ in range(calls)], calls, repeats)
+
+    def _median(self, run, calls: int, repeats: int) -> float:
         times = []
         for _ in range(repeats):
             self.flush.zero_()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            graph.replay()
+            run()
             end.record()
             end.synchronize()
             times.append(start.elapsed_time(end) / calls)
-        del graph
         return statistics.median(times)
 
 
@@ -693,6 +710,11 @@ def training_kernel_phase(timer: Timer, gen: torch.Generator):
               "ce_fwd_check": e_f, "ce_bwd_check": e_b,
               "tol": "ce_fwd atol 2e-5 + rtol 1e-5; ce_bwd atol 1e-5 + rtol 1e-4",
               "tol_reason": ce_reason})
+        equal = bool(torch.equal(dh, lmhead_ce.ce_bwd(h, w, lab, want_lse, g, cap)))
+        emit({"check": "ce_bwd_deterministic", "T": T, "d": d, "V": V, "softcap": cap,
+              "bit_equal": equal})
+        if not equal:
+            raise AssertionError(f"ce_bwd cap={cap}: two calls differ")
         del dh, want_dh
         nll2, lse2 = lmhead_ce.ce_fwd(h, w, lab, cap)  # a second call, bit for bit
         equal = bool(torch.equal(nll, nll2) and torch.equal(lse, lse2))
@@ -706,6 +728,7 @@ def training_kernel_phase(timer: Timer, gen: torch.Generator):
         h2 = torch.randn(Tr, dr, generator=gen, device=dev)
         w2 = torch.randn(dr, Vr, generator=gen, device=dev) * dr ** -0.5
         lab2 = torch.randint(0, Vr, (Tr,), generator=gen, device=dev)
+        g2 = torch.randn(Tr, generator=gen, device=dev)
         for cap in (None, 30.0):
             nll, lse = lmhead_ce.ce_fwd(h2, w2, lab2, cap)
             want_nll, want_lse = ref.ce_fwd_ref(h2, w2, lab2, cap)
@@ -716,6 +739,15 @@ def training_kernel_phase(timer: Timer, gen: torch.Generator):
             emit({"check": "ce_fwd_ragged", "T": Tr, "d": dr, "V": Vr, "softcap": cap,
                   "ce_fwd_max_abs_err": err, "ce_fwd_check": e_f,
                   "tol": "atol 2e-5 + rtol 1e-5", "tol_reason": ce_reason})
+            dh = lmhead_ce.ce_bwd(h2, w2, lab2, want_lse, g2, cap)
+            want_dh = ref.ce_bwd_ref(h2, w2, lab2, want_lse, g2, cap)
+            e_b = float(((dh - want_dh).abs() - 1e-4 * want_dh.abs()).max())
+            check(f"ce_bwd T={Tr} d={dr} V={Vr} cap={cap}", e_b, 1e-5)
+            err = max_err(dh, want_dh)
+            ce_errs["ce_bwd"] = max(ce_errs["ce_bwd"], err)
+            emit({"check": "ce_bwd_ragged", "T": Tr, "d": dr, "V": Vr, "softcap": cap,
+                  "ce_bwd_max_abs_err": err, "ce_bwd_check": e_b,
+                  "tol": "atol 1e-5 + rtol 1e-4", "tol_reason": ce_reason})
     nll, lse = ref.ce_fwd_ref(h, w, lab)
     # ce_fwd runs on the bf16 tensor cores, h and W split in three terms (6
     # products): it is held to that work's bound, the f32 CUDA-core bound beside it
@@ -739,13 +771,28 @@ def training_kernel_phase(timer: Timer, gen: torch.Generator):
                                                  reduction="sum")
         return torch.autograd.grad(loss, hr)
 
-    b_ms, b_by = bound(4.0 * (2 * T * d + d * V + 4 * T), 4.0 * T * d * V)
+    # ce_bwd runs two GEMMs of the forward's size on the bf16 tensor cores
+    # (the logits again, then dh), each 6 products of the 3-term split
+    bwd_bytes = 4.0 * (2 * T * d + d * V + 4 * T)
+    b_ms, b_by = bound(bwd_bytes, 12 * 2.0 * T * d * V, flop_per_s=BF16_FLOP_PER_S)
+    f32_ms, f32_by = bound(bwd_bytes, 4.0 * T * d * V)
     r = {"check": "ce_bwd", "T": T, "d": d, "V": V, "max_abs_err": ce_errs["ce_bwd"],
          "ms": timer(lambda: lmhead_ce.ce_bwd(h, w, lab, lse, g), calls=2, repeats=3),
          "plain_ms": timer(lambda: ref.ce_bwd_ref(h, w, lab, lse, g), calls=2, repeats=3),
          "library_ms": timer(library_bwd, calls=2, repeats=3),
          "library": "autograd of F.cross_entropy(h @ W) (its forward included)",
-         "bound_ms": b_ms, "bound_by": b_by}
+         "bound_ms": b_ms, "bound_by": b_by, "bound_tc_ms": b_ms, "bound_tc_by": b_by,
+         "bound_f32_ms": f32_ms, "bound_f32_by": f32_by}
+    # the backward alone, on an autograd graph built once (no logits
+    # recompute): a yardstick beside the library column, not in it.
+    # Autograd runs it on the stream its forward ran on, not a CUDA
+    # graph's capture stream, so it is timed without a graph
+    loss = torch.nn.functional.cross_entropy(torch.matmul(hr, w), lab.long(), reduction="sum")
+    r["library_bwd_only_ms"] = timer.eager(
+        lambda: torch.autograd.grad(loss, hr, retain_graph=True), calls=2, repeats=3)
+    r["library_bwd_only"] = ("torch.autograd.grad of F.cross_entropy(h @ W) on a graph built "
+                             "once (retain_graph): the backward without a logits recompute")
+    del loss
     emit(r)
     rows["ce_bwd"] = _row(r, "LM-head CE backward (logits recomputed), T=4*512, d=2048, V=92544")
     # gradients through CEFn against autograd of the plain version
@@ -889,7 +936,7 @@ def training_phase(workdir: Path):
         prof = device_profile(lambda: events.append(s.step(dict(batch))),
                               watch=("mix_dw_mma", "dw_reduce", "mix_fwd_mma",
                                      "mix_fwd_reduce", "ce_split", "ce_fwd_mma", "ce_merge",
-                                     "ce_grad_chunk", "ce_dh_chunk"))
+                                     "ce_grad_mma", "ce_dh_mma"))
         if events[0].mode != mode:
             raise AssertionError(f"profiled a {events[0].mode} step, wanted {mode}")
         emit({"phase": "train_profile", "step": mode, **prof})

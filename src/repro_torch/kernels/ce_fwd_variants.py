@@ -1,13 +1,14 @@
-"""What bounds the LM-head CE forward's tensor-core loop (``ce_fwd``,
-``src/repro_torch/kernels/csrc/lmhead_ce.cu``): the kernel as shipped
-beside variants of its source, built and timed in one process on one card.
+"""What bounds the LM-head CE kernels' tensor-core loop (``ce_fwd`` and
+``ce_bwd``, which share it, ``src/repro_torch/kernels/csrc/lmhead_ce.cu``):
+the kernels as shipped beside variants of their source, built and timed in
+one process on one card.
 
     PYTHONPATH=src python3 -m repro_torch.kernels.ce_fwd_variants
 
 Each variant is the shipped source with a few constants or lines
 replaced, compiled by nvcc into ``build/ce_fwd_variants/`` at the
 repository root (all at once, with the port's flags) and swapped in
-under the ``ce_fwd`` wrapper:
+under the ``ce_fwd`` and ``ce_bwd`` wrappers:
 
 * ``shipped``: the source as it is (BK = 64, two stages, 64 x 32 warp tiles).
 * ``bk32_s4``: 32-deep stages, four of them.
@@ -18,13 +19,14 @@ under the ``ce_fwd`` wrapper:
   alone). Their time less the shipped one's splits the loop into the
   tensor cores' share and the operand streaming's.
 
-The variants that compute the function are held to the plain version
-(atol 2e-5 + rtol 1e-5 on nll and lse, soft-cap on and off, the training
-shape and two ragged ones) and to bit-equal reruns. Times are CUDA-event
-means over 4 calls at T = 4·512, d = 2048, V = 92544, the variants in
-turns and then in reverse, and device time by kernel name from
-``torch.profiler``. One JSON object a line; the card's name and power
-limit first. Needs one CUDA card and nvcc; imports no JAX.
+The variants that compute the function are held to the plain versions
+(nll and lse atol 2e-5 + rtol 1e-5, dh on the plain forward's lse atol
+1e-5 + rtol 1e-4; soft-cap on and off, the training shape and two ragged
+ones) and to bit-equal reruns. Times are CUDA-event means over 4 calls at
+T = 4·512, d = 2048, V = 92544, the variants in turns and then in
+reverse, and device time by kernel name from ``torch.profiler``. One JSON
+object a line; the card's name and power limit first. Needs one CUDA card
+and nvcc; imports no JAX.
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ VARIANTS = {
     "no_mma": NO_MMA,
 }
 DIAGNOSTIC = ("one_product", "no_mma")
+MMA_KERNELS = ("ce_fwd_mma", "ce_grad_mma", "ce_dh_mma")
 SHAPES = [(2048, 2048, 92544), (1001, 1000, 3001), (37, 130, 517)]
 
 
@@ -81,10 +84,10 @@ def build(out: Path) -> dict:
         entry, report = "", []
         for line in log.splitlines():
             if "Compiling entry function" in line:
-                entry = line
-            elif "ce_fwd_mma" in entry and ("Used" in line or "spill" in line):
-                report.append(line.strip())
-        emit({"variant": name, "ptxas_ce_fwd_mma": report})
+                entry = next((k for k in MMA_KERNELS if k in line), "")
+            elif entry and ("Used" in line or "spill" in line):
+                report.append(f"{entry}: {line.strip()}")
+        emit({"variant": name, "ptxas": report})
         lib = ctypes.CDLL(str(out / f"{name}.so"))
         lib.kernel_error_string.argtypes = [ctypes.c_int]
         lib.kernel_error_string.restype = ctypes.c_char_p
@@ -93,7 +96,7 @@ def build(out: Path) -> dict:
 
 
 def use(lib) -> None:
-    """Route the ``ce_fwd`` wrapper to ``lib``."""
+    """Route the ``ce_fwd`` and ``ce_bwd`` wrappers to ``lib``."""
     _build._libs["lmhead_ce"] = lib
 
 
@@ -124,36 +127,55 @@ def main() -> int:
         h = torch.randn(T, d, generator=gen, device="cuda")
         w = torch.randn(d, V, generator=gen, device="cuda") * d ** -0.5
         lab = torch.randint(0, V, (T,), generator=gen, device="cuda")
-        data[(T, d, V)] = (h, w, lab, {cap: ref.ce_fwd_ref(h, w, lab, cap) for cap in (None, 30.0)})
+        g = torch.randn(T, generator=gen, device="cuda")
+        wants = {}
+        for cap in (None, 30.0):
+            nll, lse = ref.ce_fwd_ref(h, w, lab, cap)
+            wants[cap] = (nll, lse, ref.ce_bwd_ref(h, w, lab, lse, g, cap))
+        data[(T, d, V)] = (h, w, lab, g, wants)
     ok = True
     for name, lib in libs.items():
         if name in DIAGNOSTIC:
             continue
         use(lib)
-        for (T, d, V), (h, w, lab, wants) in data.items():
-            for cap, (want_nll, want_lse) in wants.items():
+        for (T, d, V), (h, w, lab, g, wants) in data.items():
+            for cap, (want_nll, want_lse, want_dh) in wants.items():
                 nll, lse = lmhead_ce.ce_fwd(h, w, lab, cap)
                 nll2, lse2 = lmhead_ce.ce_fwd(h, w, lab, cap)
                 chk = max(float(((nll - want_nll).abs() - 1e-5 * want_nll.abs()).max()),
                           float(((lse - want_lse).abs() - 1e-5 * want_lse.abs()).max()))
                 equal = bool(torch.equal(nll, nll2) and torch.equal(lse, lse2))
-                ok &= chk <= 2e-5 and equal
+                dh = lmhead_ce.ce_bwd(h, w, lab, want_lse, g, cap)
+                chk_b = float(((dh - want_dh).abs() - 1e-4 * want_dh.abs()).max())
+                equal_b = bool(torch.equal(dh, lmhead_ce.ce_bwd(h, w, lab, want_lse, g, cap)))
+                ok &= chk <= 2e-5 and equal and chk_b <= 1e-5 and equal_b
                 emit({"variant": name, "T": T, "d": d, "V": V, "softcap": cap,
                       "max_abs_err": max(float((nll - want_nll).abs().max()),
                                          float((lse - want_lse).abs().max())),
-                      "check": chk, "tol": "atol 2e-5 + rtol 1e-5", "bit_equal": equal})
-    h, w, lab, _ = data[SHAPES[0]]
-    times = {name: [] for name in libs}
+                      "check": chk, "tol": "atol 2e-5 + rtol 1e-5", "bit_equal": equal,
+                      "dh_max_abs_err": float((dh - want_dh).abs().max()), "dh_check": chk_b,
+                      "dh_tol": "atol 1e-5 + rtol 1e-4", "dh_bit_equal": equal_b})
+    h, w, lab, g, wants = data[SHAPES[0]]
+    lse = wants[None][1]
+    calls = {"ce_fwd": lambda: lmhead_ce.ce_fwd(h, w, lab),
+             "ce_bwd": lambda: lmhead_ce.ce_bwd(h, w, lab, lse, g)}
+    times = {name: {k: [] for k in calls} for name in libs}
     for name in list(libs) + list(libs)[::-1]:
         use(libs[name])
-        times[name].append(mean_ms(lambda: lmhead_ce.ce_fwd(h, w, lab)))
+        for k, fn in calls.items():
+            times[name][k].append(mean_ms(fn))
     library = mean_ms(lambda: torch.logsumexp(torch.matmul(h, w), dim=-1))
+    hr = h.clone().requires_grad_()
+    loss = torch.nn.functional.cross_entropy(torch.matmul(hr, w), lab.long(), reduction="sum")
+    library_bwd = mean_ms(lambda: torch.autograd.grad(loss, hr, retain_graph=True))
+    del loss
     from torch.profiler import ProfilerActivity, profile
 
     for name, lib in libs.items():
         use(lib)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            lmhead_ce.ce_fwd(h, w, lab)
+            for fn in calls.values():
+                fn()
             torch.cuda.synchronize()
         by_name = {e.key.replace("(anonymous namespace)::", "").split("(")[0][-60:]:
                    e.device_time_total / 1e3 for e in prof.key_averages()
@@ -162,6 +184,8 @@ def main() -> int:
               "ms_in_turns": times[name], "device_ms_by_kernel": by_name,
               "computes_the_function": name not in DIAGNOSTIC})
     emit({"library_ms": library, "library": "torch.matmul, then torch.logsumexp",
+          "library_bwd_only_ms": library_bwd,
+          "library_bwd_only": "torch.autograd.grad of F.cross_entropy(h @ W), graph built once",
           "card": card, "all_checks_ok": ok})
     return 0 if ok else 1
 

@@ -8,41 +8,45 @@
 //
 // What bounds them on the H100: at the training shape of internlm2-1.8b
 // (T = 2048, d = 2048, V = 92544) the logits are 2·T·d·V ≈ 0.78 TFLOP
-// against ~0.77 GB of head weights. The forward runs on the bf16 tensor
-// cores with both operands split in three terms (6 products): 4.7 TFLOP,
-// 4.7 ms at 989 TFLOP/s (the same work in f32 on the CUDA cores, 11.6 ms
-// at 67 TFLOP/s). The backward recomputes the logits and runs on the CUDA
-// cores in f32: twice the forward's f32 work, ≈23.2 ms.
+// against ~0.77 GB of head weights. Both kernels run on the bf16 tensor
+// cores with each f32 operand split in three terms (6 products a GEMM):
+// the forward one GEMM, 4.7 TFLOP, 4.7 ms at 989 TFLOP/s (the same work
+// in f32 on the CUDA cores, 11.6 ms at 67 TFLOP/s); the backward two
+// (the logits again, and dh), 9.4 ms (23.2 in f32).
 //
-// Forward (cefwd::launch):
-//  * Split once per call. ce_split writes h as three bf16 planes, hi =
-//    bf16(v), mid = bf16(v − hi), lo = bf16(v − hi − mid), zero-padded
-//    to whole tiles (Tp x dp: tokens to BM, d to BK), and W the same way
-//    one vocab chunk at a time (dp x chunk columns, zero past V) into a
-//    scratch the caller sizes (~0.1 GB at d = 2048, against 1.14 GB for
-//    all of W). h is reused by every vocab tile and W by every token
-//    tile, so splitting as staged would convert each value once per tile.
-//    The padding is the ragged edge: rows past T, k past d and columns
-//    past V are zero terms, and the main loop reads whole tiles unmasked.
-//  * ce_fwd_mma: one block of 8 warps owns one BM x BN = 128 x 128 logits
-//    tile (a warp 64 x 32) and runs the whole contraction, BK = 64 deep
-//    a stage, the planes streaming with cp.async into two 96 KB
-//    shared-memory stages (one barrier a stage; one block an SM, 253
-//    registers a thread). mma.sync m16n8k16 bf16 with f32 accumulators,
-//    the products of terms i + j <= 2; each k16 step's six products go
-//    into a fresh f32 sum, smallest terms first, which one add puts into
-//    the accumulator (the tensor core truncates its addends on the
-//    largest one's grid: mix_tile.cuh's note).
-//  * The epilogue stays in registers: the soft-cap, columns >= V masked,
-//    each row's max, sum of exponentials and label logit over the tile's
-//    128 columns (quad shuffles over a C fragment's row, then the four
-//    warps along N through shared memory), one partial (m, l, ll) per
-//    (token, vocab tile). ce_merge, a warp a token, sums them in a fixed
-//    order: no atomics, two calls give bit-equal nll and lse.
-//  * Raster: the token tile is the fastest grid index, so the token tiles
-//    that share one W tile run together and W's planes are read from
-//    device memory about once. A chunk is a whole number of waves of the
-//    card (the caller picks its width).
+// The shared loop (tile_mma): one block of 8 warps owns one BM x BN =
+// 128 x 128 output tile (a warp 64 x 32) and runs the whole contraction,
+// BK = 64 deep a stage, three bf16 planes of each operand streaming with
+// cp.async into two 96 KB shared-memory stages (one barrier a stage; one
+// block an SM, ~255 registers a thread). mma.sync m16n8k16 bf16 with f32
+// accumulators, the products of terms i + j <= 2; each k16 step's six
+// products go into a fresh f32 sum, smallest terms first, which one add
+// puts into the accumulator (the tensor core truncates its addends on the
+// largest one's grid: mix_tile.cuh's note). A is row-major with k
+// contiguous (ldmatrix); B is read either as stored, (K, N) with n
+// contiguous (ldmatrix.trans), or as the transpose of an (N, K) plane
+// with k contiguous, the MMA's own column-major B (ldmatrix).
+//
+// Split once per call. ce_split writes h as three bf16 planes, hi =
+// bf16(v), mid = bf16(v − hi), lo = bf16(v − hi − mid), zero-padded to
+// whole tiles (Tp x dp: tokens to BM, d to BK in the forward and to BN in
+// the backward), and W the same way one vocab chunk at a time (dp x chunk
+// columns, zero past V) into a scratch the caller sizes (~0.1 GB at d =
+// 2048, against 1.14 GB for all of W). h is reused by every vocab tile
+// and W by every token tile, so splitting as staged would convert each
+// value once per tile. The padding is the ragged edge: rows past T, k past
+// d and columns past V are zero terms, and the loops read whole tiles.
+// A chunk is a whole number of waves of the card (the caller picks its
+// width), the token tile the fastest grid index, so the token tiles that
+// share one W tile run together and W's planes are read about once.
+//
+// Forward (fwd_launch): ce_fwd_mma runs the loop on h @ W, one logits
+// tile a block. Its epilogue stays in registers: the soft-cap, columns
+// >= V masked, each row's max, sum of exponentials and label logit over
+// the tile's 128 columns (quad shuffles over a C fragment's row, then the
+// four warps along N through shared memory), one partial (m, l, ll) per
+// (token, vocab tile). ce_merge, a warp a token, sums them in a fixed
+// order: no atomics, two calls give bit-equal nll and lse.
 //  What holds it at the training shape (chip_smoke.py, ../ce_fwd_variants.py;
 //  NVIDIA H100 80GB HBM3, 700 W): ~11.3 ms a call, 10.6–10.8 of them in
 //  ce_fwd_mma, 0.63 in the 12 splits, 0.012 in the merge; 2.4x its
@@ -54,17 +58,33 @@
 //  measured the same or up to 5 % slower. wgmma, which reads both
 //  operands from shared memory without ldmatrix, is the next step.
 //
-// Backward: dh = g · ((softmax − onehot) · (1 − tanh²)) @ Wᵀ needs, per
-// token, a d-wide sum over the whole vocab. A d-wide accumulator per
-// token does not fit a block for enough tokens to reuse each W tile, so
-// the vocab runs in chunks of vc columns: ce_grad_chunk recomputes the
-// chunk's logits tiles from lse and writes the softmax gradient of the
-// chunk, (T, vc) f32 (scratch from the caller, vc ≪ V), and
-// ce_dh_chunk adds that chunk times W[:, chunk]ᵀ into dh, the per-token
-// d-wide f32 accumulator, as a tiled GEMM; the last chunk applies g[t].
-// Every logits tile is a register-tiled f32 GEMM of 64 tokens x 128
-// vocab columns, the h and W slices staged 32 deep in shared memory.
-// Chunks run in vocab order on one stream: a deterministic sum.
+// Backward (bwd_launch): dh = g · P @ Wᵀ with P = (softmax − onehot) ·
+// (1 − tanh²) needs, per token, a d-wide sum over the whole vocab. A
+// block holding one token tile's P would need that tile's d-wide f32
+// accumulator (1 MB at d = 2048), and splitting dh by d instead would
+// recompute the logits d / BN times. So the vocab runs in the forward's
+// chunks, each in two kernels on the same W planes:
+//  * ce_grad_mma runs the forward's loop unchanged (the logits bit for
+//    bit), then computes P from lse, the label and the soft-cap's slope
+//    in registers (0 at columns >= V and rows >= T), splits each value in
+//    three bf16 terms and writes them, through shared memory, as three
+//    (Tp, chunk) planes with vocab contiguous: no f32 gradient in device
+//    memory and no separate split pass.
+//  * ce_dh_mma runs the loop on P_chunk @ W_chunkᵀ: A is the P planes,
+//    B the W planes read as Wᵀ (row d of a plane has the vocab
+//    contiguous: ldmatrix without .trans, where the forward takes .trans).
+//    Grid (Tp / BM, dp / BN), d padded to BN so the loop reads whole
+//    tiles of W's rows. The first chunk writes dh, later chunks add to
+//    it, the last multiplies by g[t]. Chunks run in vocab order on one
+//    stream, without atomics: two calls give bit-equal dh.
+// The P planes of a chunk are as large as W's (~0.1 GB): 1.14 GB written
+// and read once a call at the training shape, ~0.7 ms of device memory
+// traffic beside the two ~10 ms loops.
+//  What holds it at the training shape (../ce_fwd_variants.py; NVIDIA H100
+//  80GB HBM3, 700 W): ~23.5 ms a call, 11.5 in ce_grad_mma, 11.4 in
+//  ce_dh_mma, 0.64 in the 12 splits; 2.5x its tensor-core bound. Without
+//  their MMAs the two loops take 4.9 and 4.6 ms: the forward's picture,
+//  twice. ce_dh_mma's 256 blocks a chunk are 1.94 waves of one block an SM.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -75,27 +95,28 @@ namespace {
 
 constexpr float NEG = -1e30f;
 
-// ------------------------------------------------------------ the forward
-namespace cefwd {
+namespace ce {
 
 using namespace mix_tile;
 
 constexpr int WARPS_M = 2, WARPS_N = 4;  // 8 warps
-constexpr int WTM = 64, WTN = 32;        // a warp's tile: tokens x vocab columns
+constexpr int WTM = 64, WTN = 32;        // a warp's tile: tokens x vocab columns (or d)
 constexpr int MI = WTM / 16, NI = WTN / 8;  // its MMA tiles
 constexpr int MG = 2;                    // 16-row tiles summed together: 8 fresh sums
 constexpr int BM = WTM * WARPS_M;        // tokens per tile
-constexpr int BN = WTN * WARPS_N;        // vocab columns per tile
+constexpr int BN = WTN * WARPS_N;        // vocab columns (or d) per tile
 constexpr int BK = 64;                   // contraction per stage
 constexpr int THREADS = 32 * WARPS_M * WARPS_N;
 constexpr int TERMS = 3;                 // bf16 terms of each f32 operand
 constexpr int STAGES = 2;
 static_assert(MI % MG == 0 && NI % 2 == 0, "whole groups of MMA tiles");
-constexpr int A_TILE = BM * BK;          // bf16 values of one staged h term
-constexpr int B_TILE = BK * BN;          // bf16 values of one staged W term
+static_assert(BN % BK == 0, "d padded to BN is whole stages");
+constexpr int A_TILE = BM * BK;          // bf16 values of one staged A term
+constexpr int B_TILE = BK * BN;          // bf16 values of one staged B term
 constexpr int STAGE = TERMS * (A_TILE + B_TILE);
 constexpr int SMEM = STAGES * STAGE * (int)sizeof(uint16_t);  // 192 KB
 static_assert(3 * WARPS_N * BM * (int)sizeof(float) <= SMEM, "epilogue fits the ring");
+static_assert(TERMS * BM * BN * (int)sizeof(uint16_t) <= SMEM, "a P tile fits the ring");
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
@@ -133,24 +154,36 @@ __global__ void ce_split(const float* __restrict__ src, uint16_t* __restrict__ d
     *reinterpret_cast<uint2*>(dst + j * plane + e) = make_uint2(w01[j], w23[j]);
 }
 
-// One (token tile, vocab tile of the chunk) per block: grid (Tp / BM,
-// chunk tiles). hs (3, Tp, dp) and ws (3, dp, ncp) are the split planes;
-// the chunk starts at vocab column vt0·BN. Writes the partials (T, n_vt)
-// of vocab tile vt0 + blockIdx.y for tokens < T.
-__global__ void __launch_bounds__(THREADS, 1)
-ce_fwd_mma(const uint16_t* __restrict__ hs, const uint16_t* __restrict__ ws,
-           const int* __restrict__ labels, float* __restrict__ pm, float* __restrict__ pl,
-           float* __restrict__ pll, int T, int Tp, int dp, int V, int ncp, int vt0, int n_vt,
-           float cap) {
-  extern __shared__ __align__(16) uint16_t smem[];  // STAGES x (A terms, B terms)
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int t0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const size_t hplane = (size_t)Tp * dp, wplane = (size_t)dp * ncp;
-  const int steps = dp / BK;
+// This lane's place in the block's tile: the warp's first row (wm) and
+// column (wn), and its C fragment's rows lane/4 (+8) and columns
+// 2·(lane%4) (+1) of each 16 x 8 MMA tile
+struct Frag {
+  int wm, wn, gq, tq;
+  __device__ __forceinline__ Frag() {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    wm = (warp / WARPS_N) * WTM, wn = (warp % WARPS_N) * WTN;
+    gq = lane >> 2, tq = lane & 3;
+  }
+};
 
-  // global -> shared stage `slot`: the three h terms' BM x BK tile at
-  // (t0, k0) and the three W terms' BK x BN tile at (k0, n0), 16 bytes a
-  // copy, rows in global order with their chunks swizzled
+// The loop of both kernels: acc (this warp's share of the block's BM x BN
+// tile at rows t0, columns n0) = the sum over k < steps·BK of A[t, k] ·
+// B(k, n), each operand three bf16 planes `a_plane` / `b_plane` values
+// apart. A is (M, K) row-major, leading dimension lda. B is (K, N)
+// row-major (ldb, n contiguous) when !BT, the forward's W; when BT it is
+// the transpose of an (N, K) row-major plane (ldb, k contiguous), the
+// backward's Wᵀ. Leaves the shared-memory ring free for the epilogue.
+template <bool BT>
+__device__ __forceinline__ void tile_mma(const uint16_t* __restrict__ a, size_t a_plane, int lda,
+                                         const uint16_t* __restrict__ b, size_t b_plane, int ldb,
+                                         int t0, int n0, int steps, uint16_t* smem,
+                                         float (&acc)[MI][NI][4]) {
+  const int tid = threadIdx.x, lane = tid & 31;
+
+  // global -> shared stage `slot`: the three A terms' BM x BK tile at
+  // (t0, k0) and the three B terms' BK x BN tile at (k0, n0) (stored
+  // BN x BK when BT), 16 bytes a copy, rows in global order with their
+  // chunks swizzled
   auto load = [&](int slot, int k0) {
     uint16_t* as = smem + slot * STAGE;
     uint16_t* bs = as + TERMS * A_TILE;
@@ -160,28 +193,35 @@ ce_fwd_mma(const uint16_t* __restrict__ hs, const uint16_t* __restrict__ ws,
       for (int i = 0; i < A_TILE / 8 / THREADS; ++i) {
         const int q = tid + i * THREADS, t = q / (BK / 8), m = (q % (BK / 8)) * 8;
         cp_async16(as + j * A_TILE + swz<BK>(t, m),
-                   hs + j * hplane + (size_t)(t0 + t) * dp + k0 + m);
+                   a + j * a_plane + (size_t)(t0 + t) * lda + k0 + m);
       }
 #pragma unroll
     for (int j = 0; j < TERMS; ++j)
 #pragma unroll
       for (int i = 0; i < B_TILE / 8 / THREADS; ++i) {
-        const int q = tid + i * THREADS, kr = q / (BN / 8), n = (q % (BN / 8)) * 8;
-        cp_async16(bs + j * B_TILE + swz<BN>(kr, n),
-                   ws + j * wplane + (size_t)(k0 + kr) * ncp + n0 + n);
+        const int q = tid + i * THREADS;
+        if constexpr (BT) {
+          const int n = q / (BK / 8), kc = (q % (BK / 8)) * 8;
+          cp_async16(bs + j * B_TILE + swz<BK>(n, kc),
+                     b + j * b_plane + (size_t)(n0 + n) * ldb + k0 + kc);
+        } else {
+          const int kr = q / (BN / 8), n = (q % (BN / 8)) * 8;
+          cp_async16(bs + j * B_TILE + swz<BN>(kr, n),
+                     b + j * b_plane + (size_t)(k0 + kr) * ldb + n0 + n);
+        }
       }
   };
 
   // ldmatrix row of this lane (mix_tile.cuh's forward has the layout):
-  // A from h's [token][k] rows, B from W's [k][n] rows, transposed
+  // A from [row][k] rows; B from [k][n] rows, transposed, or (BT) from
+  // [n][k] rows as they are. Matrix lj of an x4 load: A (rows 0-7, k
+  // 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15); B (k 0-7, n 0-7),
+  // (8-15, 0-7), (0-7, 8-15), (8-15, 8-15): two 8-column tiles' b0, b1.
+  const Frag f;
   const int lj = lane >> 3, lr = lane & 7;
-  const int wm = (warp / WARPS_N) * WTM, wn = (warp % WARPS_N) * WTN;
-  const int a_t = wm + ((lj & 1) << 3) + lr, a_k = (lj >> 1) << 3;
-  const int b_k = ((lj & 1) << 3) + lr, b_n = wn + ((lj >> 1) << 3);
-  // C fragment: rows lane/4 (+8), columns 2·(lane%4) (+1) of each 16 x 8 tile
-  const int gq = lane >> 2, tq = lane & 3;
+  const int a_t = f.wm + ((lj & 1) << 3) + lr, a_k = (lj >> 1) << 3;
+  const int b_k = ((lj & 1) << 3) + (BT ? 0 : lr), b_n = f.wn + ((lj >> 1) << 3) + (BT ? lr : 0);
 
-  float acc[MI][NI][4];
 #pragma unroll
   for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
@@ -201,7 +241,10 @@ ce_fwd_mma(const uint16_t* __restrict__ hs, const uint16_t* __restrict__ ws,
 #pragma unroll
         for (int j = 0; j < TERMS; ++j) {
           uint32_t r[4];
-          ldsm_x4_t(r, smem_addr(bs + j * B_TILE + swz<BN>(kk + b_k, b_n + 16 * np)));
+          if constexpr (BT)
+            ldsm_x4(r, smem_addr(bs + j * B_TILE + swz<BK>(b_n + 16 * np, kk + b_k)));
+          else
+            ldsm_x4_t(r, smem_addr(bs + j * B_TILE + swz<BN>(kk + b_k, b_n + 16 * np)));
           bf[j][2 * np][0] = r[0];
           bf[j][2 * np][1] = r[1];
           bf[j][2 * np + 1][0] = r[2];
@@ -258,6 +301,24 @@ ce_fwd_mma(const uint16_t* __restrict__ hs, const uint16_t* __restrict__ ws,
   }
   cp_wait<0>();
   __syncthreads();  // the ring becomes the epilogue's scratch
+}
+
+// One (token tile, vocab tile of the chunk) per block: grid (Tp / BM,
+// chunk tiles). hs (3, Tp, dp) and ws (3, dp, ncp) are the split planes;
+// the chunk starts at vocab column vt0·BN. Writes the partials (T, n_vt)
+// of vocab tile vt0 + blockIdx.y for tokens < T.
+__global__ void __launch_bounds__(THREADS, 1)
+ce_fwd_mma(const uint16_t* __restrict__ hs, const uint16_t* __restrict__ ws,
+           const int* __restrict__ labels, float* __restrict__ pm, float* __restrict__ pl,
+           float* __restrict__ pll, int T, int Tp, int dp, int V, int ncp, int vt0, int n_vt,
+           float cap) {
+  extern __shared__ __align__(16) uint16_t smem[];  // STAGES x (A terms, B terms)
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int t0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  float acc[MI][NI][4];
+  tile_mma<false>(hs, (size_t)Tp * dp, dp, ws, (size_t)dp * ncp, ncp, t0, n0, dp / BK, smem, acc);
+  const Frag f;
+  const int wm = f.wm, wn = f.wn, gq = f.gq, tq = f.tq;
 
   // the epilogue: soft-cap, columns >= V masked, then per row the max,
   // the sum of exponentials and the label logit over the tile's columns
@@ -335,7 +396,103 @@ ce_fwd_mma(const uint16_t* __restrict__ hs, const uint16_t* __restrict__ ws,
   }
 }
 
-}  // namespace cefwd
+// One (token tile, vocab tile of the chunk) per block, grid (Tp / BM,
+// chunk tiles), as ce_fwd_mma: the same logits, then the softmax
+// gradient P = (exp(s − lse) − onehot)·(1 − tanh²) of the tile (the
+// slope only under a soft-cap; 0 at columns >= V and rows >= T), split in
+// three bf16 terms into ps (3, Tp, ncp) at columns blockIdx.y·BN of the
+// chunk. The terms are staged in the free ring, then stored 16 bytes a
+// thread, whole rows of the tile at a time.
+__global__ void __launch_bounds__(THREADS, 1)
+ce_grad_mma(const uint16_t* __restrict__ hs, const uint16_t* __restrict__ ws,
+            const int* __restrict__ labels, const float* __restrict__ lse,
+            uint16_t* __restrict__ ps, int T, int Tp, int dp, int V, int ncp, int vt0,
+            float cap) {
+  extern __shared__ __align__(16) uint16_t smem[];
+  const int tid = threadIdx.x;
+  const int t0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  float acc[MI][NI][4];
+  tile_mma<false>(hs, (size_t)Tp * dp, dp, ws, (size_t)dp * ncp, ncp, t0, n0, dp / BK, smem, acc);
+  const Frag f;
+  const int col0 = (vt0 + blockIdx.y) * BN + f.wn + 2 * f.tq;  // this thread's first vocab column
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = f.wm + 16 * mi + f.gq + 8 * h;
+      const bool live = t0 + row < T;
+      const int lab = live ? labels[t0 + row] : -1;
+      const float lz = live ? lse[t0 + row] : 0.f;
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        float p[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = col0 + 8 * ni + e;
+          float z = acc[mi][ni][2 * h + e], slope = 1.f;
+          if (cap > 0.f) {
+            const float th = tanhf(z / cap);
+            z = cap * th;
+            slope = 1.f - th * th;
+          }
+          p[e] = live && col < V ? (expf(z - lz) - (col == lab ? 1.f : 0.f)) * slope : 0.f;
+        }
+        uint32_t w3[TERMS];
+        split3(p[0], p[1], w3);
+#pragma unroll
+        for (int j = 0; j < TERMS; ++j)
+          *reinterpret_cast<uint32_t*>(smem + j * BM * BN +
+                                       swz<BN>(row, f.wn + 8 * ni + 2 * f.tq)) = w3[j];
+      }
+    }
+  __syncthreads();
+  const size_t pplane = (size_t)Tp * ncp;
+#pragma unroll
+  for (int j = 0; j < TERMS; ++j)
+#pragma unroll
+    for (int i = 0; i < BM * BN / 8 / THREADS; ++i) {
+      const int q = tid + i * THREADS, r = q / (BN / 8), c = (q % (BN / 8)) * 8;
+      *reinterpret_cast<uint4*>(ps + j * pplane + (size_t)(t0 + r) * ncp + n0 + c) =
+          *reinterpret_cast<const uint4*>(smem + j * BM * BN + swz<BN>(r, c));
+    }
+}
+
+// dh[t0 : t0 + BM, n0 : n0 + BN] (+)= P_chunk @ W_chunkᵀ, one tile a
+// block, grid (Tp / BM, dp / BN): the contraction over the chunk's ncp
+// vocab columns; ps (3, Tp, ncp) the P planes, ws (3, dp, ncp) the W
+// planes read as Wᵀ. The first chunk writes dh, later chunks add to it,
+// the last multiplies by g[t]; rows >= T and columns >= d are not stored.
+__global__ void __launch_bounds__(THREADS, 1)
+ce_dh_mma(const uint16_t* __restrict__ ps, const uint16_t* __restrict__ ws,
+          const float* __restrict__ g, float* __restrict__ dh, int T, int Tp, int d, int dp,
+          int ncp, int first, int last) {
+  extern __shared__ __align__(16) uint16_t smem[];
+  const int t0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  float acc[MI][NI][4];
+  tile_mma<true>(ps, (size_t)Tp * ncp, ncp, ws, (size_t)dp * ncp, ncp, t0, n0, ncp / BK, smem,
+                 acc);
+  const Frag f;
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int t = t0 + f.wm + 16 * mi + f.gq + 8 * h;
+      if (t >= T) continue;
+      const float scale = last ? g[t] : 1.f;
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = n0 + f.wn + 8 * ni + 2 * f.tq + e;
+          if (n >= d) continue;
+          const size_t o = (size_t)t * d + n;
+          const float v = acc[mi][ni][2 * h + e];
+          dh[o] = (first ? v : dh[o] + v) * scale;
+        }
+    }
+}
+
+}  // namespace ce
 
 // lse = log-sum-exp over a token's n partials, nll = lse − label logit:
 // one warp a token (partials (T, n) row-major), each lane's partials in
@@ -367,36 +524,44 @@ __global__ void ce_merge(const float* __restrict__ pm, const float* __restrict__
   }
 }
 
-namespace cefwd {
+namespace ce {
+
+// above the default 48 KB of shared memory: opt in, once per kernel
+template <typename K>
+cudaError_t opt_in(K kernel, bool& opted) {
+  if (opted) return cudaSuccess;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  opted = e == cudaSuccess;
+  return e;
+}
+
+// dst (3, rows_p, cols_p) from src's rows < rows and columns [c0, c0 +
+// cols_p) below cols (ld floats a row)
+cudaError_t split(const float* src, uint16_t* dst, int rows, int cols, int ld, int c0,
+                  int rows_p, int cols_p, cudaStream_t s) {
+  const long long quads = (long long)rows_p * cols_p / 4;
+  ce_split<<<(unsigned)((quads + 255) / 256), 256, 0, s>>>(
+      src, dst, rows, cols, ld, c0, rows_p, cols_p, ld % 4 == 0 && (uintptr_t)src % 16 == 0);
+  return cudaGetLastError();
+}
 
 // the whole forward: split h, then per vocab chunk split W and run the
 // tiles, then merge; returns a cudaError_t. hs: 3 * Tp * dp bf16 (Tp, dp:
-// T, d rounded up to the tile); ws: 3 * dp * chunk * BN bf16; partials: 3
+// T, d rounded up to BM, BK); ws: 3 * dp * chunk * BN bf16; partials: 3
 // arrays of T * ceil(V / BN) floats
-int launch(const float* h, const float* w, const int* labels, uint16_t* hs, uint16_t* ws,
-           float* pm, float* pl, float* pll, float* nll, float* lse, int T, int d, int V,
-           int chunk, float cap, cudaStream_t s) {
-  static bool opted = false;  // above the default 48 KB: opt in, once
-  if (!opted) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(ce_fwd_mma, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-    if (e != cudaSuccess) return (int)e;
-    opted = true;
-  }
+int fwd_launch(const float* h, const float* w, const int* labels, uint16_t* hs, uint16_t* ws,
+               float* pm, float* pl, float* pll, float* nll, float* lse, int T, int d, int V,
+               int chunk, float cap, cudaStream_t s) {
+  static bool opted = false;
+  cudaError_t e = opt_in(ce_fwd_mma, opted);
+  if (e != cudaSuccess) return (int)e;
   const int Tp = (T + BM - 1) / BM * BM, dp = (d + BK - 1) / BK * BK;
   const int v_tiles = (V + BN - 1) / BN;
-  const long long h_quads = (long long)Tp * dp / 4;
-  ce_split<<<(unsigned)((h_quads + 255) / 256), 256, 0, s>>>(
-      h, hs, T, d, d, 0, Tp, dp, d % 4 == 0 && (uintptr_t)h % 16 == 0);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  if ((e = split(h, hs, T, d, d, 0, Tp, dp, s)) != cudaSuccess) return (int)e;
   for (int vt0 = 0; vt0 < v_tiles; vt0 += chunk) {
     const int nt = v_tiles - vt0 < chunk ? v_tiles - vt0 : chunk, ncp = nt * BN;
-    const long long w_quads = (long long)dp * ncp / 4;
-    ce_split<<<(unsigned)((w_quads + 255) / 256), 256, 0, s>>>(
-        w, ws, d, V, V, vt0 * BN, dp, ncp, V % 4 == 0 && (uintptr_t)w % 16 == 0);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
+    if ((e = split(w, ws, d, V, V, vt0 * BN, dp, ncp, s)) != cudaSuccess) return (int)e;
     ce_fwd_mma<<<dim3(Tp / BM, nt), THREADS, SMEM, s>>>(hs, ws, labels, pm, pl, pll, T, Tp, dp,
                                                         V, ncp, vt0, v_tiles, cap);
     e = cudaGetLastError();
@@ -406,181 +571,63 @@ int launch(const float* h, const float* w, const int* labels, uint16_t* hs, uint
   return (int)cudaGetLastError();
 }
 
-}  // namespace cefwd
-
-// ----------------------------------------------------------- the backward
-constexpr int BM = 64, BN = 128, BK = 32;
-constexpr int THREADS = 256;  // 16 x 16; thread (ty, tx) owns rows ty+16i (i < 4), cols tx+16j (j < 8)
-
-// acc[i][j] = sum over k < d of h[t0 + ty + 16i, k] * w[k, v0 + tx + 16j]
-// (rows >= T and columns >= V read as zero)
-__device__ __forceinline__ void logits_tile(const float* __restrict__ h,
-                                            const float* __restrict__ w, int T, int d, int V,
-                                            int t0, int v0, float (*xs)[BM + 1],
-                                            float (*ws)[BN], float acc[4][8]) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < d; k0 += BK) {
-    for (int idx = threadIdx.x; idx < BM * BK; idx += THREADS) {
-      const int m = idx / BK, kk = idx % BK;
-      const int gt = t0 + m, gk = k0 + kk;
-      xs[kk][m] = (gt < T && gk < d) ? h[(size_t)gt * d + gk] : 0.f;
-    }
-    for (int idx = threadIdx.x; idx < BK * BN; idx += THREADS) {
-      const int kk = idx / BN, n = idx % BN;
-      const int gk = k0 + kk, gv = v0 + n;
-      ws[kk][n] = (gk < d && gv < V) ? w[(size_t)gk * V + gv] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
-      float x[4], y[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) x[i] = xs[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) y[j] = ws[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] += x[i] * y[j];
-    }
-    __syncthreads();
+// the whole backward: split h, then per vocab chunk (in order) split W,
+// write the chunk's P planes and add P @ Wᵀ into dh; returns a
+// cudaError_t. hs: 3 * Tp * dp bf16 (Tp, dp: T, d rounded up to BM, BN);
+// ws: 3 * dp * chunk * BN bf16; ps: 3 * Tp * chunk * BN bf16; dh (T, d)
+// f32 is fully written
+int bwd_launch(const float* h, const float* w, const int* labels, const float* lse,
+               const float* g, uint16_t* hs, uint16_t* ws, uint16_t* ps, float* dh, int T, int d,
+               int V, int chunk, float cap, cudaStream_t s) {
+  static bool opted_grad = false, opted_dh = false;
+  cudaError_t e = opt_in(ce_grad_mma, opted_grad);
+  if (e == cudaSuccess) e = opt_in(ce_dh_mma, opted_dh);
+  if (e != cudaSuccess) return (int)e;
+  const int Tp = (T + BM - 1) / BM * BM, dp = (d + BN - 1) / BN * BN;
+  const int v_tiles = (V + BN - 1) / BN;
+  if ((e = split(h, hs, T, d, d, 0, Tp, dp, s)) != cudaSuccess) return (int)e;
+  for (int vt0 = 0; vt0 < v_tiles; vt0 += chunk) {
+    const int nt = v_tiles - vt0 < chunk ? v_tiles - vt0 : chunk, ncp = nt * BN;
+    if ((e = split(w, ws, d, V, V, vt0 * BN, dp, ncp, s)) != cudaSuccess) return (int)e;
+    ce_grad_mma<<<dim3(Tp / BM, nt), THREADS, SMEM, s>>>(hs, ws, labels, lse, ps, T, Tp, dp, V,
+                                                         ncp, vt0, cap);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    ce_dh_mma<<<dim3(Tp / BM, dp / BN), THREADS, SMEM, s>>>(ps, ws, g, dh, T, Tp, d, dp, ncp,
+                                                           vt0 == 0, vt0 + nt >= v_tiles);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
   }
+  return (int)cudaSuccess;
 }
 
-// p[t, c] = (softmax − onehot)·(1 − tanh²) of column c0 + c, for c < vc
-// (0 past V)
-__global__ void __launch_bounds__(THREADS)
-ce_grad_chunk(const float* __restrict__ h, const float* __restrict__ w,
-              const int* __restrict__ labels, const float* __restrict__ lse,
-              float* __restrict__ p, int T, int d, int V, int c0, int vc, float cap) {
-  __shared__ float xs[BK][BM + 1];
-  __shared__ float ws[BK][BN];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int t0 = blockIdx.y * BM, v0 = c0 + blockIdx.x * BN;
-  float acc[4][8];
-  logits_tile(h, w, T, d, V, t0, v0, xs, ws, acc);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gt = t0 + ty + 16 * i;
-    if (gt >= T) continue;
-    const int lab = labels[gt];
-    const float lz = lse[gt];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = v0 + tx + 16 * j;
-      if (col - c0 >= vc) continue;
-      float z = acc[i][j], slope = 1.f;
-      if (cap > 0.f) {
-        const float th = tanhf(z / cap);
-        z = cap * th;
-        slope = 1.f - th * th;
-      }
-      const float g = col < V ? (expf(z - lz) - (col == lab ? 1.f : 0.f)) * slope : 0.f;
-      p[(size_t)gt * vc + (col - c0)] = g;
-    }
-  }
-}
-
-// dh[t, k] (+)= sum over c < n of p[t, c] * w[k, c0 + c]; the first
-// chunk writes, the last multiplies by g[t]
-__global__ void __launch_bounds__(THREADS)
-ce_dh_chunk(const float* __restrict__ p, const float* __restrict__ w,
-            const float* __restrict__ g, float* __restrict__ dh, int T, int d, int V, int c0,
-            int vc, int n, int first, int last) {
-  __shared__ float xs[BK][BM + 1];  // p tile, transposed
-  __shared__ float ws[BK][BN + 1];  // ws[c][k] = w[k0 + k, c0 + v0 + c]
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int t0 = blockIdx.y * BM, k0 = blockIdx.x * BN;
-  float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  for (int v0 = 0; v0 < n; v0 += BK) {
-    for (int idx = threadIdx.x; idx < BM * BK; idx += THREADS) {
-      const int m = idx / BK, c = idx % BK;
-      const int gt = t0 + m, gc = v0 + c;
-      xs[c][m] = (gt < T && gc < n) ? p[(size_t)gt * vc + gc] : 0.f;
-    }
-    for (int idx = threadIdx.x; idx < BK * BN; idx += THREADS) {
-      const int k = idx / BK, c = idx % BK;
-      const int gk = k0 + k, gc = v0 + c;
-      ws[c][k] = (gk < d && gc < n) ? w[(size_t)gk * V + c0 + gc] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int c = 0; c < BK; ++c) {
-      float x[4], y[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) x[i] = xs[c][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) y[j] = ws[c][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] += x[i] * y[j];
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gt = t0 + ty + 16 * i;
-    if (gt >= T) continue;
-    const float gt_scale = last ? g[gt] : 1.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int gk = k0 + tx + 16 * j;
-      if (gk >= d) continue;
-      const size_t o = (size_t)gt * d + gk;
-      const float v = first ? acc[i][j] : dh[o] + acc[i][j];
-      dh[o] = v * gt_scale;
-    }
-  }
-}
+}  // namespace ce
 
 }  // namespace
 
 extern "C" {
 
-// The backward's tile width, which its wrapper sizes the chunk scratch by.
-int ce_block_cols() { return BN; }
-
-// The forward's tile: 0 -> tokens (BM), 1 -> vocab columns (BN), 2 -> depth (BK).
-int ce_fwd_tile(int dim) { return dim == 0 ? cefwd::BM : dim == 1 ? cefwd::BN : cefwd::BK; }
+// The kernels' tile: 0 -> tokens (BM), 1 -> vocab columns or d (BN), 2 -> depth (BK).
+int ce_tile(int dim) { return dim == 0 ? ce::BM : dim == 1 ? ce::BN : ce::BK; }
 
 // hs, ws: the split planes' scratch; partials: 3 arrays of T * ceil(V / BN)
-// floats (cefwd::launch has the sizes); chunk: vocab tiles per W chunk
+// floats (ce::fwd_launch has the sizes); chunk: vocab tiles per W chunk
 int ce_fwd_launch(const void* h, const void* w, const void* labels, void* hs, void* ws,
                   void* pm, void* pl, void* pll, void* nll, void* lse, int T, int d, int V,
                   int chunk, float cap, void* stream) {
-  return cefwd::launch((const float*)h, (const float*)w, (const int*)labels, (uint16_t*)hs,
-                       (uint16_t*)ws, (float*)pm, (float*)pl, (float*)pll, (float*)nll,
-                       (float*)lse, T, d, V, chunk, cap, reinterpret_cast<cudaStream_t>(stream));
+  return ce::fwd_launch((const float*)h, (const float*)w, (const int*)labels, (uint16_t*)hs,
+                        (uint16_t*)ws, (float*)pm, (float*)pl, (float*)pll, (float*)nll,
+                        (float*)lse, T, d, V, chunk, cap, reinterpret_cast<cudaStream_t>(stream));
 }
 
-// p: scratch of T * vc floats; dh (T, d) f32 is fully written
+// hs, ws, ps: the split planes' scratch (ce::bwd_launch has the sizes);
+// chunk: vocab tiles per W chunk; dh (T, d) f32 is fully written
 int ce_bwd_launch(const void* h, const void* w, const void* labels, const void* lse,
-                  const void* g, void* p, void* dh, int T, int d, int V, int vc, float cap,
-                  void* stream) {
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  for (int c0 = 0; c0 < V; c0 += vc) {
-    const int n = V - c0 < vc ? V - c0 : vc;
-    ce_grad_chunk<<<dim3((n + BN - 1) / BN, (T + BM - 1) / BM), THREADS, 0, s>>>(
-        (const float*)h, (const float*)w, (const int*)labels, (const float*)lse, (float*)p,
-        T, d, V, c0, vc, cap);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    ce_dh_chunk<<<dim3((d + BN - 1) / BN, (T + BM - 1) / BM), THREADS, 0, s>>>(
-        (const float*)p, (const float*)w, (const float*)g, (float*)dh, T, d, V, c0, vc, n,
-        c0 == 0, c0 + vc >= V);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  return (int)cudaSuccess;
+                  const void* g, void* hs, void* ws, void* ps, void* dh, int T, int d, int V,
+                  int chunk, float cap, void* stream) {
+  return ce::bwd_launch((const float*)h, (const float*)w, (const int*)labels, (const float*)lse,
+                        (const float*)g, (uint16_t*)hs, (uint16_t*)ws, (uint16_t*)ps, (float*)dh,
+                        T, d, V, chunk, cap, reinterpret_cast<cudaStream_t>(stream));
 }
 
 const char* kernel_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -3,21 +3,22 @@ log-sum-exp of ``softmax(softcap(h @ W))``, and ``dh``.
 
 Replaces the TPU kernels ``src/repro/kernels/cached_step.py``
 ``_ce_fwd_kernel`` (``_ce_fwd_impl``) and ``_ce_bwd_kernel``
-(``_ce_bwd_impl``), with the CUDA kernels ``csrc/lmhead_ce.cu``
-(``ce_fwd``: h and W split once per call in three bf16 terms each, W one
-vocab chunk at a time, then one 128 x 128 logits tile per block on the
-bf16 tensor cores with an online softmax in its epilogue, the partials of
-the vocab tiles merged in a second pass; ``ce_bwd``: logits tiles
-recomputed from ``lse``, the softmax gradient of one vocab chunk at a time
-times ``Wᵀ`` summed into ``dh``). The (T, V) logits never reach device
-memory; the forward keeps the split planes of h and of one W chunk, the
-backward one (T, ``VCHUNK``) gradient chunk.
+(``_ce_bwd_impl``), with the CUDA kernels ``csrc/lmhead_ce.cu``. Both
+split h and W once per call in three bf16 terms each, W one vocab chunk at
+a time, and run one 128 x 128 tile per block on the bf16 tensor cores
+(one loop, shared). ``ce_fwd``: the logits tile with an online softmax in
+its epilogue, the partials of the vocab tiles merged in a second pass.
+``ce_bwd``: per chunk, the logits tiles recomputed bit for bit and turned
+into the softmax gradient ``P``, stored as three bf16 planes, then
+``dh += P @ Wᵀ`` on the same W planes. The (T, V) logits never reach
+device memory; the scratch is the split planes of h and of one W chunk,
+and in the backward one P chunk's (:func:`ce_bwd_scratch`).
 
 What bounds them on the H100: at the training shape of internlm2-1.8b
 (T = 2048, d = 2048, V = 92544) the forward is 6 bf16 products of ~0.78
-TFLOP each (≈4.7 ms at 989 TFLOP/s) and the backward ~1.55 TFLOP of f32
-work (≈23.2 ms at 67 TFLOP/s), against ~0.77 GB of head weights:
-operations bound both. Any d and V are taken (ragged edges are masked).
+TFLOP each (≈4.7 ms at 989 TFLOP/s) and the backward twice that (≈9.4
+ms), against ~0.77 GB of head weights: operations bound both. Any d and
+V are taken (ragged edges are padded with zero terms or masked).
 
 :class:`CEFn` is the counterpart of the reference's custom VJP
 ``_ce_op``: it saves ``lse`` and its backward is ``ce_bwd``; the head is
@@ -32,7 +33,7 @@ launch the kernels or raise.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -43,11 +44,7 @@ from repro_torch.kernels.ref import ce_bwd_ref, ce_fwd_ref
 #: launches of each CUDA kernel in this process (the CPU path does not count)
 launches = {"ce_fwd": 0, "ce_bwd": 0}
 
-#: vocab columns per backward chunk: the chunk's (T, VCHUNK) f32 gradient
-#: and W's (d, VCHUNK) slice stay in the 50 MB L2 at T = d = 2048
-VCHUNK = 2048
-
-#: vocab columns the forward splits at a time, about (rounded to whole
+#: vocab columns the kernels split at a time, about (rounded to whole
 #: waves of the card): W's three bf16 planes of one chunk, 3·d·FWD_CHUNK·2
 #: bytes (0.1 GB at d = 2048), are scratch beside h's (25 MB at T = d = 2048)
 FWD_CHUNK = 8192
@@ -59,13 +56,11 @@ def _lib():
         lib.ce_fwd_launch.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
                                       + [ctypes.c_float, ctypes.c_void_p])
         lib.ce_fwd_launch.restype = ctypes.c_int
-        lib.ce_bwd_launch.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+        lib.ce_bwd_launch.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
                                       + [ctypes.c_float, ctypes.c_void_p])
         lib.ce_bwd_launch.restype = ctypes.c_int
-        lib.ce_block_cols.argtypes = []
-        lib.ce_block_cols.restype = ctypes.c_int
-        lib.ce_fwd_tile.argtypes = [ctypes.c_int]
-        lib.ce_fwd_tile.restype = ctypes.c_int
+        lib.ce_tile.argtypes = [ctypes.c_int]
+        lib.ce_tile.restype = ctypes.c_int
     return lib
 
 
@@ -85,12 +80,24 @@ def _check_cuda(*tensors) -> None:
 
 
 def fwd_chunk_tiles(t_tiles: int, v_tiles: int, bn: int, sms: int) -> int:
-    """Vocab tiles per W chunk of the forward: about ``FWD_CHUNK`` columns,
+    """Vocab tiles per W chunk of both kernels: about ``FWD_CHUNK`` columns,
     rounded so that the chunk's blocks (one per SM, ``t_tiles`` token tiles
     by the chunk's vocab tiles) fill whole waves of the card, and at most
     twice ``FWD_CHUNK``."""
     waves = max(1, round(FWD_CHUNK / bn * t_tiles / sms))
     return max(1, min(v_tiles, 2 * FWD_CHUNK // bn, waves * sms // t_tiles))
+
+
+def ce_bwd_scratch(T: int, d: int, V: int, bm: int, bn: int, sms: int) -> Tuple[int, ...]:
+    """The backward's W chunk, in vocab tiles (the forward's), and the bf16
+    values of its three scratches: h's planes (3, Tp, dp), one W chunk's
+    (3, dp, chunk·bn) and one P chunk's (3, Tp, chunk·bn), where Tp is T
+    in whole token tiles (``bm``) and dp is d in whole ``dh`` tiles
+    (``bn``)."""
+    t_tiles, v_tiles = -(-T // bm), -(-V // bn)
+    tp, dp = t_tiles * bm, -(-d // bn) * bn
+    chunk = fwd_chunk_tiles(t_tiles, v_tiles, bn, sms)
+    return chunk, 3 * tp * dp, 3 * dp * chunk * bn, 3 * tp * chunk * bn
 
 
 def ce_fwd(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
@@ -104,7 +111,7 @@ def ce_fwd(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
     T, d = h.shape
     V = w.shape[1]
     labels = labels.to(torch.int32).contiguous()
-    bm, bn, bk = (lib.ce_fwd_tile(i) for i in range(3))
+    bm, bn, bk = (lib.ce_tile(i) for i in range(3))
     t_tiles, v_tiles = -(-T // bm), -(-V // bn)
     dp = -(-d // bk) * bk
     sms = torch.cuda.get_device_properties(h.device).multi_processor_count
@@ -137,12 +144,13 @@ def ce_bwd(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, lse: torch.Te
     T, d = h.shape
     V = w.shape[1]
     labels = labels.to(torch.int32).contiguous()
-    vc = min(VCHUNK, -(-V // lib.ce_block_cols()) * lib.ce_block_cols())
-    scratch = torch.empty((T, vc), dtype=torch.float32, device=h.device)
+    sms = torch.cuda.get_device_properties(h.device).multi_processor_count
+    chunk, *sizes = ce_bwd_scratch(T, d, V, lib.ce_tile(0), lib.ce_tile(1), sms)
+    hs, ws, ps = (torch.empty(n, dtype=torch.bfloat16, device=h.device) for n in sizes)
     dh = torch.empty((T, d), dtype=torch.float32, device=h.device)
     rc = lib.ce_bwd_launch(h.data_ptr(), w.data_ptr(), labels.data_ptr(), lse.data_ptr(),
-                           g.data_ptr(), scratch.data_ptr(), dh.data_ptr(), T, d, V, vc,
-                           softcap or 0.0, _build.stream_of(h))
+                           g.data_ptr(), hs.data_ptr(), ws.data_ptr(), ps.data_ptr(),
+                           dh.data_ptr(), T, d, V, chunk, softcap or 0.0, _build.stream_of(h))
     _build.check(lib, rc, "ce_bwd")
     launches["ce_bwd"] += 1
     return dh

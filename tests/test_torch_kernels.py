@@ -357,6 +357,79 @@ def test_ce_fwd_chunk_fills_whole_waves():
         assert 1 <= c <= min(v_tiles, 2 * FWD_CHUNK // bn), (t_tiles, v_tiles, c)
 
 
+def test_ce_bwd_chunk_and_scratch_sizes():
+    """The backward's W chunk is the forward's (whole waves at the training
+    shape); its scratch is h's three bf16 planes with d padded to whole
+    dh tiles, and one chunk's W and P planes: ~0.23 GB at T = d = 2048,
+    V = 92544, with d padded to 128 at ragged widths."""
+    from repro_torch.kernels.lmhead_ce import ce_bwd_scratch, fwd_chunk_tiles
+
+    bm = bn = 128
+    chunk, n_h, n_w, n_p = ce_bwd_scratch(2048, 2048, 92544, bm, bn, 132)
+    assert chunk == fwd_chunk_tiles(16, 723, bn, 132) == 66
+    assert (n_h, n_w, n_p) == (3 * 2048 * 2048, 3 * 2048 * 66 * 128, 3 * 2048 * 66 * 128)
+    assert 2 * (n_h + n_w + n_p) < 0.3e9
+    for T, d, V, tp, dp in ((1001, 1000, 3001, 1024, 1024), (37, 130, 517, 128, 256)):
+        chunk, n_h, n_w, n_p = ce_bwd_scratch(T, d, V, bm, bn, 132)
+        assert chunk == fwd_chunk_tiles(tp // bm, -(-V // bn), bn, 132) <= -(-V // bn)
+        assert (n_h, n_w, n_p) == (3 * tp * dp, 3 * dp * chunk * bn, 3 * tp * chunk * bn)
+
+
+def _ce_grad(z: torch.Tensor, labels: torch.Tensor, lse: torch.Tensor, softcap) -> torch.Tensor:
+    """``(exp(s − lse) − onehot)·slope`` in ``z``'s dtype, ``s`` and the
+    slope ``1 − tanh²`` from the soft-cap (slope 1 without one)."""
+    slope = 1.0
+    if softcap is not None:
+        th = torch.tanh(z / softcap)
+        z, slope = softcap * th, 1.0 - th * th
+    p = torch.exp(z - lse.to(z.dtype)[:, None])
+    p[torch.arange(z.shape[0]), labels] -= 1.0
+    return p * slope
+
+
+def _ce_bwd_split(h, w, labels, lse, g, softcap, n: int) -> torch.Tensor:
+    """``ce_bwd`` as the kernel computes it with ``n``-term splits: the
+    logits from the products of h's and W's terms i + j < n, summed in
+    float64 and rounded to f32 (the forward's logits); P in f32; then P's
+    ``n`` terms times W's ``n`` terms (i + j < n) in float64, rounded to
+    f32, times g."""
+    w_terms = _bf16_terms(w, n)
+    z = sum(x @ y for i, x in enumerate(_bf16_terms(h, n)) for j, y in enumerate(w_terms)
+            if i + j < n)
+    p = _ce_grad(z.float(), labels, lse, softcap)
+    dh = sum(x @ y.T for i, x in enumerate(_bf16_terms(p, n)) for j, y in enumerate(w_terms)
+             if i + j < n)
+    return dh.float() * g
+
+
+@pytest.mark.parametrize("softcap", [None, 30.0])
+def test_ce_bwd_bf16_split_error_model(softcap):
+    """The splits behind ``ce_bwd``'s tensor-core kernel (the logits as the
+    forward computes them, then P split in three terms against the same
+    W terms), at d = 2048 with narrow T and a V that ends inside a
+    128-column tile, the forward's lse: three bf16 terms meet the
+    backward's check against the plain version (|Δdh| <= 1e-5 +
+    1e-4·|want|, the reference's tolerance, tests/test_cached_step.py:113),
+    and two terms err at least 10x more against the float64 result on the
+    same lse. Two terms err ~1.4e-6 (cap off) and ~1.8e-6 (cap 30)
+    against it, ~8x the plain f32 version's own error, inside the check;
+    three ~2e-8, below it."""
+    T, d, V = 64, 2048, 1000
+    h = torch.from_numpy(_randn((T, d), 19))
+    w = torch.from_numpy(_randn((d, V), 20, d ** -0.5))
+    labels = torch.from_numpy(np.random.default_rng(21).integers(0, V, T))
+    g = torch.from_numpy(_randn((T,), 22))
+    _, lse = ref.ce_fwd_ref(h, w, labels, softcap)
+    want = ref.ce_bwd_ref(h, w, labels, lse, g, softcap)
+    exact = (_ce_grad(h.double() @ w.double(), labels, lse, softcap) @ w.double().T
+             * g.double()[:, None])
+    three, two = (_ce_bwd_split(h, w, labels, lse, g[:, None], softcap, n) for n in (3, 2))
+    assert float(((three - want).abs() - 1e-4 * want.abs()).max()) <= 1e-5
+    err3 = float((three.double() - exact).abs().max())
+    err2 = float((two.double() - exact).abs().max())
+    assert err2 >= 10 * err3, (err2, err3)
+
+
 # ---------------------------------------------------------------------------
 # the build's cache key
 # ---------------------------------------------------------------------------
