@@ -14,7 +14,17 @@ Phases, in order; any failure exits non-zero:
    stated tolerance; the device time per call (CUDA graph replays, L2
    cold; see ``Timer``) of the kernel, the plain version and one
    PyTorch call for the same function (a yardstick the port never
-   calls), and the least time the card could take.
+   calls), and the least time the card could take. ``quant_matmul`` at
+   the decode step's M = 8 (skinny path) and at M = 2048 and 4096 (the
+   tiled path, on the bf16 tensor cores with x·s split in three terms:
+   the epoch-1 step's and the prefill's rows), one layer's seven
+   projections summed at each M (``quant_matmul_layer`` lines), each
+   tiled line beside both its bounds (the tensor cores' with 3 products,
+   and f32's); int4 at M = 8 and 4096; the tiled path also at its
+   smallest M = 9 and at M = 1001 with K = 1000 (masked M and K) and
+   K = 998 (rows unaligned for 16-byte loads), N = 384, int8 and int4
+   (``quant_matmul_ragged`` lines), and twice at M = 4096, K = 2048,
+   N = 8192 (``quant_matmul_deterministic``: bit-equal).
 4. Serving: internlm2-1.8b at full width (24 layers, d=2048), random
    weights from a seeded generator, INT8 backbone and INT8 KV pages,
    4 users with r=8 adapters, 8 requests with ragged prompts, 32 new
@@ -102,6 +112,7 @@ BF16_FLOP_PER_S = 989e12   # H100 SXM bf16 on the tensor cores, dense (NVIDIA da
 REPEATS = 15
 
 QMM_SHAPES = [(2048, 2048), (2048, 1024), (2048, 8192), (8192, 2048)]  # (K, N)
+QMM_SKINNY_ROWS = 8  # quant_matmul's tiled path runs above this M (csrc/quant_matmul.cu)
 #: the seven projections of one internlm2-1.8b layer, by (K, N)
 LAYER_PROJECTIONS = [(2048, 2048), (2048, 1024), (2048, 1024), (2048, 2048),
                      (2048, 8192), (2048, 8192), (8192, 2048)]
@@ -197,30 +208,60 @@ def qmm_case(timer: Timer, gen: torch.Generator, M: int, K: int, N: int, bits: i
     from repro_torch.kernels import ref
     from repro_torch.kernels.quant_matmul import quant_matmul
 
-    dev, tol = DEV, 1e-3
-    x = torch.randn(M, K, generator=gen, device=dev)
-    w = quantize(torch.randn(K, N, generator=gen, device=dev) * K ** -0.5, bits)
-    got = quant_matmul(x, w.q, w.scale, bits=bits)
-    want = ref.quant_matmul_ref(x, w.q, w.scale, bits)
-    err = float(((got - want).abs() - 1e-4 * want.abs()).max())
-    check(f"quant_matmul M={M} K={K} N={N} int{bits}", err, tol)
+    x, w, got, want = qmm_check(gen, M, K, N, bits)
     nbytes = M * K * 4 + w.q.numel() + w.scale.numel() * 4 + M * N * 4
-    ws = [w] + [quantize(torch.randn(K, N, generator=gen, device=dev) * K ** -0.5, bits)
+    ws = [w] + [quantize(torch.randn(K, N, generator=gen, device=DEV) * K ** -0.5, bits)
                 for _ in range(copies(w.q.numel()) - 1)]
     wfs = [dequantize(c) for c in ws[:copies(4 * K * N)]]
     b_ms, b_by = bound(nbytes, 2.0 * M * N * K)
+    bounds = {}
+    if M > QMM_SKINNY_ROWS:  # the tiled path: bf16 tensor cores, x·s split in three
+        f32_ms, f32_by = b_ms, b_by
+        b_ms, b_by = bound(nbytes, 3 * 2.0 * M * N * K, BF16_FLOP_PER_S)
+        bounds = {"bound_tc_ms": b_ms, "bound_tc_by": b_by, "bound_f32_ms": f32_ms,
+                  "bound_f32_by": f32_by}
     r = {"check": "quant_matmul", "M": M, "K": K, "N": N, "bits": bits,
-         "max_abs_err": max_err(got, want), "tol": f"atol {tol} + rtol 1e-4",
-         "tol_reason": "f32 atol 1e-3 / rtol 1e-4 of the reference (tests/test_kernels.py:38); "
-                       "sums reorder",
+         "path": "tiled" if M > QMM_SKINNY_ROWS else "skinny",
+         "max_abs_err": max_err(got, want), "tol": "atol 1e-3 + rtol 1e-4",
+         "tol_reason": qmm_tol_reason(M),
          "ms": timer([lambda c=c: quant_matmul(x, c.q, c.scale, bits=bits) for c in ws]),
          "plain_ms": timer([lambda c=c: ref.quant_matmul_ref(x, c.q, c.scale, bits)
                             for c in ws]),
          "library_ms": timer([lambda c=c: torch.matmul(x, c) for c in wfs]),
          "library": "torch.matmul on the pre-dequantized f32 weight",
-         "bound_ms": b_ms, "bound_by": b_by}
+         "bound_ms": b_ms, "bound_by": b_by, **bounds}
     emit(r)
     return r
+
+
+def qmm_tol_reason(M: int) -> str:
+    reason = "f32 atol 1e-3 / rtol 1e-4 of the reference (tests/test_kernels.py:38); "
+    if M <= QMM_SKINNY_ROWS:
+        return reason + "sums reorder"
+    return reason + ("the kernel rounds x·s in f32 where the reference rounds q·s, and "
+                     "carries it to the tensor cores as three bf16 terms (~24 bits, "
+                     "tests/test_torch_kernels.py::test_quant_matmul_bf16_split_error_model: "
+                     "~2e-7 against the exact product, under the plain f32 version's own "
+                     "error); sums reorder")
+
+
+def qmm_check(gen: torch.Generator, M: int, K: int, N: int, bits: int):
+    """``quant_matmul`` on seeded inputs at (M, K, N), held to its plain
+    version: (x, w, kernel's y, plain y)."""
+    from repro_torch.core.quantization import quantize
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.quant_matmul import quant_matmul
+
+    x = torch.randn(M, K, generator=gen, device=DEV)
+    w = quantize(torch.randn(K, N, generator=gen, device=DEV) * K ** -0.5, bits)
+    got = quant_matmul(x, w.q, w.scale, bits=bits)
+    want = ref.quant_matmul_ref(x, w.q, w.scale, bits)
+    if got.shape != (M, N) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"quant_matmul M={M} K={K} N={N} int{bits}: shape "
+                             f"{tuple(got.shape)} or non-finite output")
+    check(f"quant_matmul M={M} K={K} N={N} int{bits}",
+          float(((got - want).abs() - 1e-4 * want.abs()).max()), 1e-3)
+    return x, w, got, want
 
 
 def layer_row(qmm: dict, M: int) -> dict:
@@ -228,29 +269,53 @@ def layer_row(qmm: dict, M: int) -> dict:
     def layer_sum(key):
         return sum(qmm[(M, K, N, 8)][key] for K, N in LAYER_PROJECTIONS)
 
-    return {"at": f"the 7 projections of one layer at decode M={M}, int8 (times summed)",
-            "max_abs_err": max(r["max_abs_err"] for r in qmm.values()),
-            "ms": layer_sum("ms"), "plain_ms": layer_sum("plain_ms"),
-            "bound_ms": layer_sum("bound_ms"), "bound_by": "bytes",
-            "library_ms": layer_sum("library_ms")}
+    rows = [qmm[(M, K, N, 8)] for K, N in QMM_SHAPES]
+    r = {"at": f"the 7 projections of one layer at M={M}, int8 (times summed)",
+         "max_abs_err": max(r_["max_abs_err"] for r_ in rows),
+         "ms": layer_sum("ms"), "plain_ms": layer_sum("plain_ms"),
+         "bound_ms": layer_sum("bound_ms"), "bound_by": rows[0]["bound_by"],
+         "library_ms": layer_sum("library_ms")}
+    if M > QMM_SKINNY_ROWS:
+        r.update(bound_tc_ms=layer_sum("bound_tc_ms"), bound_f32_ms=layer_sum("bound_f32_ms"))
+    return r
 
 
 def kernel_phase(timer: Timer, gen: torch.Generator):
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.quant_matmul import quant_matmul
     from repro_torch.serve.paging import quantize_kv_pages
 
     dev = "cuda"
     rows = {}
 
-    # quant_matmul: decode M=8 and prefill M=4096 over the path's (K, N), plus int4
+    # quant_matmul: decode M=8, epoch-1 M=2048 and prefill M=4096 over the
+    # path's (K, N), plus int4
     qmm = {}
-    cases = [(M, K, N, 8) for M in (8, 4096) for K, N in QMM_SHAPES] + [(8, 2048, 2048, 4),
-                                                                       (4096, 2048, 2048, 4)]
+    cases = [(M, K, N, 8) for M in (8, 2048, 4096) for K, N in QMM_SHAPES] + [
+        (8, 2048, 2048, 4), (4096, 2048, 2048, 4)]
     for M, K, N, bits in cases:
         qmm[(M, K, N, bits)] = qmm_case(timer, gen, M, K, N, bits)
+    for M in (8, 2048, 4096):
+        emit({"check": "quant_matmul_layer", "M": M, **layer_row(qmm, M)})
     rows["quant_matmul"] = layer_row(qmm, 8)
+    # the tiled path's ragged edges: its smallest M, masked M and K, rows
+    # unaligned for 16-byte loads (K = 998)
+    for M, K, N in ((9, 1000, 384), (1001, 1000, 384), (1001, 998, 384)):
+        for bits in (8, 4):
+            _, _, got, want = qmm_check(gen, M, K, N, bits)
+            emit({"check": "quant_matmul_ragged", "M": M, "K": K, "N": N, "bits": bits,
+                  "max_abs_err": max_err(got, want),
+                  "check_value": float(((got - want).abs() - 1e-4 * want.abs()).max()),
+                  "tol": "atol 1e-3 + rtol 1e-4", "tol_reason": qmm_tol_reason(M)})
+    x, w, got, _ = qmm_check(gen, 4096, 2048, 8192, 8)
+    again = quant_matmul(x, w.q, w.scale)
+    emit({"check": "quant_matmul_deterministic", "M": 4096, "K": 2048, "N": 8192,
+          "bit_equal": bool(torch.equal(got, again))})
+    if not torch.equal(got, again):
+        raise AssertionError("quant_matmul: two calls at M=4096 differ")
+    del x, w, got, again
 
     # flash attention: prefill, B·H = 8·16, S = 512, hd = 128, causal, grouped KV
     B, H, Hkv, S, hd = 8, 16, 8, 512, 128
@@ -1043,11 +1108,9 @@ def personal_kernel_phase(timer: Timer, gen: torch.Generator):
     and 32 or 47 slices; the tiled path at T = 100), each timed beside
     the plain version and ``torch.addmm``; ``quant_matmul`` at the decode step's M = 1; flash
     attention and ``quant_matmul`` at the 32-token prompt's shapes."""
-    from repro_torch.core.quantization import quantize
     from repro_torch.kernels import ref
     from repro_torch.kernels.adapter_fuse import adapter_fuse
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.quant_matmul import quant_matmul
 
     dev, rows = DEV, {}
     reason = {torch.float32: "the reference's adapter_fuse tolerance (tests/test_kernels.py:68); "
@@ -1111,11 +1174,7 @@ def personal_kernel_phase(timer: Timer, gen: torch.Generator):
     emit({"check": "quant_matmul_layer", "M": 1, **layer_row(qmm, 1)})
     # the prompt's shapes: 32 tokens, 16 heads over 8 KV heads
     for K, N in QMM_SHAPES:
-        x = torch.randn(PROMPT_LEN, K, generator=gen, device=dev)
-        w = quantize(torch.randn(K, N, generator=gen, device=dev) * K ** -0.5, 8)
-        got, want = quant_matmul(x, w.q, w.scale), ref.quant_matmul_ref(x, w.q, w.scale)
-        check(f"quant_matmul M={PROMPT_LEN} K={K} N={N}",
-              float(((got - want).abs() - 1e-4 * want.abs()).max()), 1e-3)
+        qmm_check(gen, PROMPT_LEN, K, N, 8)
     q = torch.randn(16, PROMPT_LEN, 128, generator=gen, device=dev)
     k, v = (torch.randn(8, PROMPT_LEN, 128, generator=gen, device=dev) for _ in range(2))
     err = max_err(flash_attention(q, k, v), ref.flash_attention_ref(q, k, v))

@@ -3,18 +3,26 @@
 Replaces the TPU kernel ``src/repro/kernels/quant_matmul.py``
 (``_kernel`` / ``quant_matmul``), with the CUDA kernel
 ``csrc/quant_matmul.cu``. Weights stay at storage width in device
-memory and are dequantized tile by tile on chip (``float(q) * scale``,
-the reference's product), with f32 accumulation.
+memory and are dequantized tile by tile on chip.
 
 What bounds it on the H100: the decode step (M = batch bucket <= 8) is
 a GEMV bound by the weight bytes — about 1.56 GB of int8 weights plus
 scales per decode step across the 24 layers of internlm2-1.8b, about
-0.47 ms at 3.35 TB/s. Its kernel path reads whole 128-byte weight rows
-per warp, splits K across blocks to fill the card, and sums the slices
-in a fixed order (deterministic). Prefill (M up to 4096) is bound by
-f32 operations on the CUDA cores; its path tiles 64x128 outputs with
-the x and dequantized weight tiles in shared memory. Tensor cores are
-later work.
+0.47 ms at 3.35 TB/s. Its kernel path dequantizes as the reference does
+(``float(q) * scale``, f32 accumulation), reads whole 128-byte weight
+rows per warp, splits K across blocks to fill the card, and sums the
+slices in a fixed order (deterministic). Prefill and the epoch-1
+training step (M > 8, up to 4096) are bound by operations: one layer's
+seven projections at M = 4096 take at least 1.563 ms on the bf16 tensor
+cores (three products a weight, below) and 7.69 ms in f32 on the CUDA
+cores. Its kernel path runs on the bf16 tensor cores: the scale, which
+changes at every k, is folded into x once per 128-column quantization
+block (``a = f32(x * scale[:, nb])``), ``a`` is split in three bf16
+terms as it is staged, the int8 or int4 codes go whole (exact in bf16),
+and each 64 x 128 output tile is written once (reruns bit-equal). It
+rounds ``x * scale`` where the reference rounds ``q * scale``; the three
+terms keep that f32 value whole, and the result stays within the
+reference's f32 tolerance (atol 1e-3 + rtol 1e-4).
 
 On CPU tensors the wrapper computes :func:`~repro_torch.kernels.ref.quant_matmul_ref`;
 on CUDA tensors it launches the kernel or raises.

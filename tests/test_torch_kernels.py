@@ -17,7 +17,7 @@ from repro.kernels.flash_attention import flash_attention_tpu
 from repro.kernels.paged_attention import paged_attention as jax_paged_attention
 from repro.kernels.quant_matmul import quant_matmul as jax_quant_matmul
 from repro.serve.paging import quantize_kv_pages as jax_quantize_kv_pages
-from repro_torch.core.quantization import QTensor, quantize
+from repro_torch.core.quantization import QTensor, quantize, unpack_int4
 from repro_torch.kernels import ref
 from repro_torch.kernels.cached_step import entry_as_f32
 from repro_torch.kernels.flash_attention import flash_attention
@@ -425,6 +425,61 @@ def test_ce_bwd_bf16_split_error_model(softcap):
              * g.double()[:, None])
     three, two = (_ce_bwd_split(h, w, labels, lse, g[:, None], softcap, n) for n in (3, 2))
     assert float(((three - want).abs() - 1e-4 * want.abs()).max()) <= 1e-5
+    err3 = float((three.double() - exact).abs().max())
+    err2 = float((two.double() - exact).abs().max())
+    assert err2 >= 10 * err3, (err2, err3)
+
+
+# ---------------------------------------------------------------------------
+# quant_matmul's tiled path: x·s split in bf16 terms (the CUDA kernel's
+# arithmetic, emulated)
+# ---------------------------------------------------------------------------
+
+
+def _qmm_split(x: torch.Tensor, w: QTensor, n: int) -> torch.Tensor:
+    """``x @ dequant(w)`` as the tiled kernel computes it with an ``n``-term
+    split: per 128-column quantization block ``nb``, ``a = f32(x·s[:, nb])``
+    split in ``n`` bf16 terms, times the exact int8 or int4 codes, each
+    16-deep step of the contraction summed in float64, the steps summed,
+    then rounded to f32."""
+    codes = (unpack_int4(w.q) if w.bits == 4 else w.q).double()
+    (M, K), N = x.shape, codes.shape[1]
+    steps = -(-K // 16)
+    c_pad = torch.zeros(steps * 16, N, dtype=torch.float64)
+    c_pad[:K] = codes
+    out = torch.zeros(M, N, dtype=torch.float64)
+    for nb in range(N // 128):
+        cols = slice(nb * 128, (nb + 1) * 128)
+        a_pad = torch.zeros(M, steps * 16, dtype=torch.float64)
+        a_pad[:, :K] = sum(_bf16_terms(x * w.scale[:, nb], n))
+        parts = torch.einsum("msk,skn->msn", a_pad.reshape(M, steps, 16),
+                             c_pad[:, cols].reshape(steps, 16, 128))
+        out[:, cols] = parts.sum(dim=1)
+    return out.float()
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("M,K,N", [(64, 8192, 256), (37, 1000, 384)])
+def test_quant_matmul_bf16_split_error_model(bits, M, K, N):
+    """The split behind ``quant_matmul``'s tensor-core tiled path, at
+    K = 8192 (the longest contraction of internlm2-1.8b's projections)
+    with narrow M and N, and at a ragged M, K and N: three bf16 terms of
+    x·s meet the reference's f32 check against the plain version
+    (|Δ| <= 1e-3 + 1e-4·|want|, tests/test_kernels.py:38), two terms err
+    at least 10x more than three against the exact product, and one term
+    (bf16 x·s alone) misses the check: why the kernel takes three."""
+    x = torch.from_numpy(_randn((M, K), 19))
+    w = quantize(torch.from_numpy(_randn((K, N), 20, K ** -0.5)), bits, 128)
+    want = ref.quant_matmul_ref(x, w.q, w.scale, bits)
+    codes = (unpack_int4(w.q) if bits == 4 else w.q).double()
+    exact = x.double() @ (codes * w.scale.double().repeat_interleave(128, dim=1))
+    three, two, one = (_qmm_split(x, w, n) for n in (3, 2, 1))
+
+    def check(got):
+        return float(((got - want).abs() - 1e-4 * want.abs()).max())
+
+    assert check(three) <= 1e-3
+    assert check(one) > 1e-3
     err3 = float((three.double() - exact).abs().max())
     err2 = float((two.double() - exact).abs().max())
     assert err2 >= 10 * err3, (err2, err3)
