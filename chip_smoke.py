@@ -24,7 +24,14 @@ Phases, in order; any failure exits non-zero:
    smallest M = 9 and at M = 1001 with K = 1000 (masked M and K) and
    K = 998 (rows unaligned for 16-byte loads), N = 384, int8 and int4
    (``quant_matmul_ragged`` lines), and twice at M = 4096, K = 2048,
-   N = 8192 (``quant_matmul_deterministic``: bit-equal).
+   N = 8192 (``quant_matmul_deterministic``: bit-equal). Flash attention
+   (on the bf16 tensor cores, Q, K, V and P split in three terms) at the
+   prefill shape beside both its bounds (12 bf16 products, and f32's) and
+   SDPA's kernel names, with window 128 and soft-cap 30, at Sq = Sk = 37
+   and 1001, hd 64 and 128, n_rep 1 and 2, each causal or not, window 32
+   or none, soft-cap 30 or none (``flash_attention_ragged`` lines), and
+   twice at the prefill shape (``flash_attention_deterministic``:
+   bit-equal).
 4. Serving: internlm2-1.8b at full width (24 layers, d=2048), random
    weights from a seeded generator, INT8 backbone and INT8 KV pages,
    4 users with r=8 adapters, 8 requests with ragged prompts, 32 new
@@ -33,7 +40,8 @@ Phases, in order; any failure exits non-zero:
    under ``torch.profiler`` for the device's busy share and kernel time
    by name. Then the first prefill and two decode steps run again under
    the ``ref`` OpSet, and the logits are compared.
-5. Training kernels: ``mix_fwd``/``mix_dw`` and ``ce_fwd``/``ce_bwd`` the
+5. Training kernels: flash attention timed at the epoch-1 step's
+   B·H = 4·16; ``mix_fwd``/``mix_dw`` and ``ce_fwd``/``ce_bwd`` the
    same way at the training path's shapes (ragged and soft-capped cases
    too), and the gradients of their two autograd Functions against
    autograd of the plain versions. ``mix_fwd`` and ``mix_dw`` (both on
@@ -280,6 +288,97 @@ def layer_row(qmm: dict, M: int) -> dict:
     return r
 
 
+FLASH_TOL = 3e-5  # the reference's flash tolerance (tests/test_kernels.py:105)
+FLASH_TOL_REASON = ("the reference's flash tolerance (tests/test_kernels.py:105); Q, K, V and P "
+                    "reach the tensor cores as three bf16 terms each (~24 bits: "
+                    "tests/test_torch_kernels.py::test_flash_bf16_split_error_model errs 4.5e-7 "
+                    "against float64 attention, under the plain f32 version's own error); "
+                    "sums reorder")
+
+
+def flash_case(timer: Timer, gen: torch.Generator, B: int, H: int, Hkv: int, S: int, hd: int,
+               at: str):
+    """Causal ``flash_attention`` over grouped KV at (B·H, S, hd) against
+    its plain version, timed beside the plain version and SDPA (KV heads
+    repeated beforehand), with both bounds: the bf16 tensor cores' (each
+    product's 3-term split takes six bf16 products: 12 in all) and f32's.
+    Returns (the row, (q, k, v), the SDPA call)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q = torch.randn(B * H, S, hd, generator=gen, device=DEV)
+    k = torch.randn(B * Hkv, S, hd, generator=gen, device=DEV)
+    v = torch.randn(B * Hkv, S, hd, generator=gen, device=DEV)
+    got, want = flash_attention(q, k, v), ref.flash_attention_ref(q, k, v)
+    if got.shape != q.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"flash_attention {at}: shape {tuple(got.shape)} or non-finite")
+    err = max_err(got, want)
+    check(f"flash_attention {at}", err, FLASH_TOL)
+    q4, k4, v4 = (t.reshape(B, -1, S, hd) for t in (q, k, v))
+    k4r, v4r = k4.repeat_interleave(H // Hkv, dim=1), v4.repeat_interleave(H // Hkv, dim=1)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(q4, k4r, v4r, is_causal=True)
+
+    pairs = S * (S + 1) // 2  # causal (query, key) pairs per head
+    nbytes = 4.0 * (q.numel() * 2 + k.numel() + v.numel())
+    flops = 4.0 * hd * pairs * B * H
+    f32_ms, f32_by = bound(nbytes, flops)
+    b_ms, b_by = bound(nbytes, 6 * flops, BF16_FLOP_PER_S)
+    r = {"check": "flash_attention", "at": at, "BH": B * H, "BHkv": B * Hkv, "S": S, "hd": hd,
+         "causal": True, "max_abs_err": err, "tol": f"atol {FLASH_TOL}",
+         "tol_reason": FLASH_TOL_REASON,
+         "ms": timer(lambda: flash_attention(q, k, v)),
+         "plain_ms": timer(lambda: ref.flash_attention_ref(q, k, v)),
+         "library_ms": timer(sdpa),
+         "library": "scaled_dot_product_attention, causal, KV heads repeated beforehand",
+         "bound_ms": b_ms, "bound_by": b_by, "bound_tc_ms": b_ms, "bound_tc_by": b_by,
+         "bound_f32_ms": f32_ms, "bound_f32_by": f32_by}
+    return r, (q, k, v), sdpa
+
+
+def device_kernels(fn) -> list:
+    """The names of the kernels one call of ``fn`` runs on the device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.name[:120] for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
+def flash_ragged(gen: torch.Generator) -> None:
+    """``flash_attention`` at Sq = Sk = 37 and 1001 (partial query and key
+    tiles), hd 64 and 128, n_rep 1 and 2, each with causal on and off,
+    window 32 or none and soft-cap 30 or none, against its plain version:
+    one line per (S, hd, n_rep)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    for S in (37, 1001):
+        for hd in (64, 128):
+            for n_rep in (1, 2):
+                q = torch.randn(4 * n_rep, S, hd, generator=gen, device=DEV)
+                k, v = (torch.randn(4, S, hd, generator=gen, device=DEV) for _ in range(2))
+                cases = []
+                for causal in (True, False):
+                    for window in (None, 32):
+                        for cap in (None, 30.0):
+                            kw = dict(causal=causal, window=window, attn_softcap=cap)
+                            got = flash_attention(q, k, v, **kw)
+                            if not bool(torch.isfinite(got).all()):
+                                raise AssertionError(f"flash_attention S={S} {kw}: non-finite")
+                            err = max_err(got, ref.flash_attention_ref(q, k, v, **kw))
+                            check(f"flash_attention S={S} hd={hd} n_rep={n_rep} {kw}", err,
+                                  FLASH_TOL)
+                            cases.append({**kw, "max_abs_err": err})
+                worst = max(c["max_abs_err"] for c in cases)
+                emit({"check": "flash_attention_ragged", "S": S, "hd": hd, "n_rep": n_rep,
+                      "BH": 4 * n_rep, "cases": cases, "max_abs_err": worst, "check_value": worst,
+                      "tol": f"atol {FLASH_TOL}", "tol_reason": FLASH_TOL_REASON})
+
+
 def kernel_phase(timer: Timer, gen: torch.Generator):
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
@@ -319,33 +418,24 @@ def kernel_phase(timer: Timer, gen: torch.Generator):
 
     # flash attention: prefill, B·H = 8·16, S = 512, hd = 128, causal, grouped KV
     B, H, Hkv, S, hd = 8, 16, 8, 512, 128
-    q = torch.randn(B * H, S, hd, generator=gen, device=dev)
-    k = torch.randn(B * Hkv, S, hd, generator=gen, device=dev)
-    v = torch.randn(B * Hkv, S, hd, generator=gen, device=dev)
-    fa_tol = 3e-5
-    for window, cap in ((None, None), (128, 30.0)):
-        err = max_err(flash_attention(q, k, v, window=window, attn_softcap=cap),
-                      ref.flash_attention_ref(q, k, v, window=window, attn_softcap=cap))
-        check(f"flash_attention window={window} cap={cap}", err, fa_tol)
-    got, want = flash_attention(q, k, v), ref.flash_attention_ref(q, k, v)
-    q4, k4, v4 = (t.reshape(B, -1, S, hd) for t in (q, k, v))
-    k4r, v4r = k4.repeat_interleave(H // Hkv, dim=1), v4.repeat_interleave(H // Hkv, dim=1)
-    pairs = S * (S + 1) // 2  # causal (query, key) pairs per head
-    b_ms, b_by = bound(4.0 * (q.numel() * 2 + k.numel() + v.numel()), 4.0 * hd * pairs * B * H)
-    r = {"check": "flash_attention", "BH": B * H, "BHkv": B * Hkv, "S": S, "hd": hd,
-         "causal": True, "max_abs_err": max_err(got, want), "tol": f"atol {fa_tol}",
-         "tol_reason": "the reference's flash tolerance (tests/test_kernels.py:105)",
-         "ms": timer(lambda: flash_attention(q, k, v)),
-         "plain_ms": timer(lambda: ref.flash_attention_ref(q, k, v)),
-         "library_ms": timer(lambda: torch.nn.functional.scaled_dot_product_attention(
-             q4, k4r, v4r, is_causal=True)),
-         "library": "scaled_dot_product_attention, causal, KV heads repeated beforehand",
-         "bound_ms": b_ms, "bound_by": b_by}
+    r, (q, k, v), sdpa = flash_case(timer, gen, B, H, Hkv, S, hd, "prefill")
+    r["library_kernels"] = device_kernels(sdpa)  # which of PyTorch's attention kernels runs
+    kw = dict(window=128, attn_softcap=30.0)
+    r["max_abs_err_window128_cap30"] = max_err(flash_attention(q, k, v, **kw),
+                                               ref.flash_attention_ref(q, k, v, **kw))
+    check("flash_attention window=128 cap=30", r["max_abs_err_window128_cap30"], FLASH_TOL)
     emit(r)
     rows["flash_attention"] = {k_: r[k_] for k_ in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                                    "bound_by", "library_ms")}
+                                                    "bound_by", "bound_tc_ms", "bound_f32_ms",
+                                                    "library_ms", "library_kernels")}
     rows["flash_attention"]["at"] = "prefill BH=8*16 S=512 hd=128 causal"
-    del q, k, v, q4, k4, v4, k4r, v4r, got, want
+    got, again = flash_attention(q, k, v), flash_attention(q, k, v)
+    emit({"check": "flash_attention_deterministic", "BH": B * H, "BHkv": B * Hkv, "S": S,
+          "hd": hd, "bit_equal": bool(torch.equal(got, again))})
+    if not torch.equal(got, again):
+        raise AssertionError("flash_attention: two calls at the prefill shape differ")
+    del q, k, v, got, again, sdpa
+    flash_ragged(gen)
 
     # paged attention: decode B=8, Hkv=8, n_rep=2, hd=128, page 16, ragged lengths <= 511
     B, Hkv, n_rep, hd, page = 8, 8, 2, 128, 16
@@ -598,9 +688,10 @@ def _row(r, at):
 
 
 def training_kernel_phase(timer: Timer, gen: torch.Generator):
-    """The four training kernels against their plain versions at the
-    training path's shapes, their timings, and the gradients of the two
-    autograd Functions against autograd of the plain versions."""
+    """Flash attention at the epoch-1 step's shape, timed; the four
+    training kernels against their plain versions at the training path's
+    shapes, their timings, and the gradients of the two autograd Functions
+    against autograd of the plain versions."""
     from repro_torch.core.quantization import dequantize, quantize
     from repro_torch.kernels import cached_mix, lmhead_ce, ref
     from repro_torch.kernels.cached_step import dq_adapter_mix
@@ -608,6 +699,9 @@ def training_kernel_phase(timer: Timer, gen: torch.Generator):
 
     dev = "cuda"
     rows = {}
+
+    # ---- flash attention at the epoch-1 step's shape: B·H = 4·16, S = 512
+    emit(flash_case(timer, gen, 4, 16, 8, 512, 128, "training")[0])
 
     # ---- mix_fwd / mix_dw: f32, bf16, int8 entries at (T, d, d_a), and a ragged case
     mix_reason = ("the reference's dq_adapter_mix tolerances (tests/test_cached_step.py:55, "
@@ -1001,7 +1095,8 @@ def training_phase(workdir: Path):
         prof = device_profile(lambda: events.append(s.step(dict(batch))),
                               watch=("mix_dw_mma", "dw_reduce", "mix_fwd_mma",
                                      "mix_fwd_reduce", "ce_split", "ce_fwd_mma", "ce_merge",
-                                     "ce_grad_mma", "ce_dh_mma"))
+                                     "ce_grad_mma", "ce_dh_mma", "flash_split",
+                                     "flash_fwd_mma"))
         if events[0].mode != mode:
             raise AssertionError(f"profiled a {events[0].mode} step, wanted {mode}")
         emit({"phase": "train_profile", "step": mode, **prof})

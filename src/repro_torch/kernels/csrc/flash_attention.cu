@@ -1,195 +1,437 @@
-// Causal online-softmax ("flash") attention forward for sm_90a, f32.
+// Causal online-softmax ("flash") attention forward for sm_90a, f32 in and
+// out, on the bf16 tensor cores.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py (_kernel /
 // flash_attention_tpu). q, o: (BH, Sq, HD); k, v: (BH / n_rep, Sk, HD),
 // all f32 row-major — query row bh reads kv row bh / n_rep, i.e. grouped
 // GQA heads read directly instead of the repeated-KV copy the TPU path
 // builds. Options: causal mask, sliding window (window > 0), tanh softcap
-// (cap > 0). Positions are 0..S-1 for both queries and keys.
+// (cap > 0). Positions are 0..S-1 for both queries and keys. HD is 64 or
+// 128.
 //
-// One block per (bh, 64-row query tile). The TPU kernel's sequential key
-// grid axis becomes a loop inside the block over 32-row key tiles, with
-// the softmax state (m, l, acc) in registers. Key tiles wholly outside
-// the causal/window band are skipped: on the TPU they contribute zero
-// after the alpha rescale, so the result is the same function.
+// What bounds it on the H100: at the prefill shape (BH = 8·16 over 8·8 KV
+// heads, S = 512, HD = 128, causal) the two products are 8.6 GFLOP on
+// ~101 MB. In f32 on the CUDA cores that is 0.128 ms at 67 TFLOP/s; here
+// each f32 operand is split in three bf16 terms and each product takes
+// the six products of terms i + j <= 2 (12 in all), 52 GFLOP, 0.052 ms at
+// 989 TFLOP/s: bound by operations either way.
 //
-// Bound on the H100: at the prefill shape (BH=128, S=512, HD=128) the f32
-// FLOPs (~8.6 GFLOP causal) dominate the bytes (~134 MB), so it is
-// bound by operations on the CUDA cores. This first version stages Q, K,
-// V and the probabilities in shared memory (rows padded to HD+1 floats
-// so the strided thread layout reads distinct banks) and runs scalar
-// FMAs; tensor cores (wgmma) are later work.
+// Split. flash_split writes K and V once per call as three bf16 planes
+// each, hi = bf16(x), mid = bf16(x − hi), lo = bf16(x − hi − mid)
+// (mix_tile.cuh's split3), zero-padded to whole key tiles (Skp), into a
+// scratch the caller allocates (flash_scratch_elems; 50 MB at the prefill
+// shape): each K/V row serves up to Sq / BQ · n_rep query tiles, so a
+// split as staged would be repeated that often. Q is read by one block
+// only and is split as it is staged into shared memory.
+//
+// The loop (flash_fwd_mma): one block of 4 warps per (bh, 64-row query
+// tile), each warp 16 query rows, so the softmax state (m, l, O) is a
+// warp's own: a row's max and sum are quad shuffles over the C fragment,
+// with no shared-memory round trip and no cross-warp barrier. Key tiles of
+// BKV = 32 rows:
+//  * S = Q·Kᵀ on mma.sync m16n8k16: Q's planes are the row-major A
+//    (ldmatrix); K stored (keys, HD) with HD contiguous is the MMA's
+//    column-major B as it lies (ldmatrix without .trans). Each k16 step's
+//    six products go into a fresh f32 sum, smallest terms first, which one
+//    add puts into S: the tensor core truncates its addends on the grid of
+//    the largest one (mix_tile.cuh's note).
+//  * Scale, softcap, then the mask (causal, window, keys >= Sk) only on
+//    tiles that cross the diagonal, the window's edge or Sk; p = exp(s − m)
+//    in f32, l summed from the f32 p; O rescaled by exp(m_old − m_new).
+//  * P never leaves the registers: the C fragments of two adjacent n8
+//    tiles of S are the A fragment of one k16 step of P·V (FlashAttention-
+//    2's layout identity). Each p is split in three bf16 terms there; V
+//    stored (keys, HD) is the B with n contiguous (ldmatrix.trans). The six
+//    products again into a fresh sum per k16 step, 8 n8 tiles at a time.
+//  * One K and one V buffer, filled by cp.async in FlashAttention-2's
+//    interleaved order: V(j) loads while S(j) is computed, K(j + 1) while
+//    P·V(j) is; two barriers a tile. Staged rows are padded by 16 bytes
+//    (conflict-free ldmatrix, every fragment address a constant offset).
+//    At HD = 128: Q's three planes 51 KB, K's and V's 25.5 KB each, 102 KB
+//    a block, so two blocks (8 warps) share an SM; O (64 f32 a thread), S
+//    and the fresh sums fill ~255 registers.
+//  * Key tiles wholly outside the causal/window band are skipped: on the
+//    TPU they contribute zero after the alpha rescale, so the result is
+//    the same function. Query tiles launch longest first (the grid's slow
+//    index counts down), so the last wave is short.
+// Each output row is owned by one block, summed in a fixed order with no
+// atomics: two calls give bit-equal results. A row with no key in its band
+// (only possible with Sq > Sk) gets l = 0 and writes 0, where the plain
+// version averages V.
+//
+// What holds it (chip_smoke.py, ../flash_variants.py; NVIDIA H100 80GB
+// HBM3, 700 W): 0.213–0.215 ms a call at the prefill shape (the scalar f32
+// kernel before it: 0.548–0.552; SDPA 0.276–0.278), 4.1x its tensor-core
+// bound, 0.031 of it in flash_split; 0.109–0.110 ms at the epoch-1 step's
+// BH = 4·16. The loop without its MMAs (loads, Q's split, ldmatrix, the
+// softmax, P's split) takes 0.147 ms with the split, and the MMAs add
+// ~0.067 on top: the two overlap little, as in lmhead_ce.cu's loop. Per
+// warp and 32-key tile it issues 120 ldmatrix.x4 for 384 MMAs, and every
+// query tile re-reads its K/V tiles' three planes from L2; 64-key tiles
+// (one block an SM) and 128-row query tiles of 8 warps measured 42 % and
+// 14 % slower. ptxas: 255 registers, 8 bytes of spill at HD = 128; 240
+// and none at HD = 64.
+//
+// Tolerance: the reference's flash tolerance, atol 3e-5
+// (tests/test_kernels.py:105); the CPU model of this arithmetic
+// (tests/test_torch_kernels.py::test_flash_bf16_split_error_model, S = 256,
+// HD = 128) errs 4.5e-7 against float64 attention with three terms, under
+// the Pallas kernel's own f32 error (9.5e-7), 1.3e-5 with two, 8e-3 with one.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "mix_tile.cuh"
 
 namespace {
 
-constexpr int BQ = 64, BKV = 32, THREADS = 256;  // 16 x 16 threads
-constexpr float NEG_INF = -1e30f;
+namespace flash {
+
+using namespace mix_tile;
+
+constexpr int WARPS = 4;            // each warp owns 16 query rows
+constexpr int BQ = 16 * WARPS;      // query rows per block
+constexpr int BKV = 32;             // keys per tile
+constexpr int THREADS = 32 * WARPS;
+constexpr int MIN_BLOCKS = 2;       // per SM (102 KB of shared memory each at HD = 128)
+constexpr int TERMS = 3;            // bf16 terms of each f32 operand
+constexpr int NT = BKV / 8;         // S's n8 tiles a warp holds
+constexpr int NG = 8;               // P·V's n8 tiles summed together
+constexpr int SPLIT_THREADS = 256;
+static_assert(NT % 2 == 0, "whole k16 steps of P·V");
+
+// a staged row: HD bf16 values and 16 bytes of padding, so that the 8 rows
+// one ldmatrix matrix reads start in 8 different 16-byte bank groups, and
+// every fragment's address is the lane's base plus a constant
+template <int HD>
+__host__ __device__ constexpr int row_ld() { return HD + 8; }
 
 template <int HD>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, float* __restrict__ o,
-          int Sq, int Sk, int n_rep, int causal, int window, float cap, float scale) {
-  constexpr int QS = HD + 1;  // padded row stride of Qs / Ks
-  constexpr int DJ = HD / 16; // output dims per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;              // BQ x QS
-  float* Ks = Qs + BQ * QS;      // BKV x QS
-  float* Vs = Ks + BKV * QS;     // BKV x HD
-  float* Ps = Vs + BKV * HD;     // BQ x (BKV + 1)
+__host__ __device__ constexpr int smem_bytes() {
+  return TERMS * (BQ + 2 * BKV) * row_ld<HD>() * (int)sizeof(uint16_t);
+}
 
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
-  const float* qb = q + (size_t)bh * Sq * HD;
-  const float* kb = k + (size_t)(bh / n_rep) * Sk * HD;
-  const float* vb = v + (size_t)(bh / n_rep) * Sk * HD;
-
-  for (int idx = threadIdx.x; idx < BQ * HD / 4; idx += THREADS) {
-    const int r = idx / (HD / 4), d = (idx % (HD / 4)) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < Sq) val = *reinterpret_cast<const float4*>(qb + (size_t)(q0 + r) * HD + d);
-    Qs[r * QS + d] = val.x; Qs[r * QS + d + 1] = val.y;
-    Qs[r * QS + d + 2] = val.z; Qs[r * QS + d + 3] = val.w;
-  }
-
-  float m[4], l[4], acc[4][DJ];
+// dst: K's three planes (BHkv, Skp, HD), then V's (blockIdx.y picks which),
+// `plane` values each; rows past Sk are zero. Four values a thread.
+__global__ void flash_split(const float* __restrict__ k, const float* __restrict__ v,
+                            uint16_t* __restrict__ dst, int Sk, int Skp, int hd,
+                            long long plane) {
+  const long long e = 4 * ((long long)blockIdx.x * blockDim.x + threadIdx.x);
+  if (e >= plane) return;
+  const float* __restrict__ src = blockIdx.y ? v : k;
+  uint16_t* __restrict__ out = dst + blockIdx.y * TERMS * plane;
+  const long long row = e / hd;  // (head, key) of the padded plane
+  const int key = (int)(row % Skp), d = (int)(e % hd);
+  float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (key < Sk) f = *reinterpret_cast<const float4*>(src + ((row / Skp) * Sk + key) * hd + d);
+  uint32_t w01[3], w23[3];
+  split3(f.x, f.y, w01);
+  split3(f.z, f.w, w23);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF; l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-  }
+  for (int j = 0; j < TERMS; ++j)
+    *reinterpret_cast<uint2*>(out + j * plane + e) = make_uint2(w01[j], w23[j]);
+}
+
+// One block per (bh, query tile): grid (BH, ceil(Sq / BQ)). kv is
+// flash_split's scratch.
+template <int HD>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+flash_fwd_mma(const float* __restrict__ q, const uint16_t* __restrict__ kv, float* __restrict__ o,
+              int Sq, int Sk, int Skp, int n_rep, int causal, int window, float cap, float scale,
+              long long plane) {
+  constexpr int LD = row_ld<HD>();
+  constexpr int Q_TILE = BQ * LD, KV_TILE = BKV * LD;  // bf16 values of one staged term
+  constexpr int KSTEPS = HD / 16;                      // k16 steps of Q·Kᵀ
+  constexpr int NO = HD / 8;                           // O's n8 tiles
+  constexpr int CPR = HD / 8;                          // 16-byte chunks of a row
+  constexpr int CHUNKS = BKV * CPR / THREADS;          // a thread's chunks of a K/V term
+  static_assert(NO % NG == 0 && BKV * CPR % THREADS == 0, "whole groups");
+  extern __shared__ __align__(16) uint16_t smem[];
+  uint16_t* qs = smem;                 // 3 x BQ x LD
+  uint16_t* ks = qs + TERMS * Q_TILE;  // 3 x BKV x LD
+  uint16_t* vs = ks + TERMS * KV_TILE; // 3 x BKV x LD
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest query tiles first
+  const uint16_t* __restrict__ kg = kv + (size_t)(bh / n_rep) * Skp * HD;
+  const uint16_t* __restrict__ vg = kg + TERMS * plane;
 
   const int q_last = min(q0 + BQ, Sq) - 1;
   const int k_end = causal ? min(Sk, q_last + 1) : Sk;  // exclusive
   int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
   k_begin = (k_begin / BKV) * BKV;
 
-  for (int k0 = k_begin; k0 < k_end; k0 += BKV) {
-    __syncthreads();  // previous tile's Ks/Vs/Ps fully consumed (and Qs stored)
-    for (int idx = threadIdx.x; idx < BKV * HD / 4; idx += THREADS) {
-      const int r = idx / (HD / 4), d = (idx % (HD / 4)) * 4;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-      if (k0 + r < Sk) {
-        kv = *reinterpret_cast<const float4*>(kb + (size_t)(k0 + r) * HD + d);
-        vv = *reinterpret_cast<const float4*>(vb + (size_t)(k0 + r) * HD + d);
+  // the three planes' BKV x HD tile at key k0 -> `dst`, in padded rows
+  auto load_kv = [&](uint16_t* dst, const uint16_t* __restrict__ src, int k0) {
+#pragma unroll
+    for (int j = 0; j < TERMS; ++j)
+#pragma unroll
+      for (int i = 0; i < CHUNKS; ++i) {
+        const int c = tid + i * THREADS, r = c / CPR, m = (c % CPR) * 8;
+        cp_async16(dst + j * KV_TILE + r * LD + m, src + j * plane + (size_t)(k0 + r) * HD + m);
       }
-      Ks[r * QS + d] = kv.x; Ks[r * QS + d + 1] = kv.y;
-      Ks[r * QS + d + 2] = kv.z; Ks[r * QS + d + 3] = kv.w;
-      *reinterpret_cast<float4*>(Vs + r * HD + d) = vv;
-    }
-    __syncthreads();
+  };
 
-    float s[4][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) s[i][j] = 0.f;
+  if (k_begin < k_end) load_kv(ks, kg, k_begin);
+  cp_commit();
+  // Q: f32 rows, split in three terms as staged (rows past Sq are zero)
+  const float* __restrict__ qb = q + ((size_t)bh * Sq + q0) * HD;
 #pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float a[4], b[2];
+  for (int i = 0; i < BQ * HD / 4 / THREADS; ++i) {
+    const int c = tid + i * THREADS, r = c / (HD / 4), d = (c % (HD / 4)) * 4;
+    float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + r < Sq) f = *reinterpret_cast<const float4*>(qb + (size_t)r * HD + d);
+    uint32_t w01[3], w23[3];
+    split3(f.x, f.y, w01);
+    split3(f.z, f.w, w23);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Qs[(ty + 16 * i) * QS + d];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) b[j] = Ks[(tx + 16 * j) * QS + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) s[i][j] += a[i] * b[j];
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty + 16 * i;
-      bool valid[2];
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        float x = s[i][j] * scale;
-        if (cap > 0.f) x = cap * tanhf(x / cap);
-        valid[j] = kpos < Sk && (!causal || kpos <= qpos) && (window <= 0 || qpos - kpos < window);
-        s[i][j] = valid[j] ? x : NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off, 16));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const float p = valid[j] ? expf(s[i][j] - m_new) : 0.f;
-        Ps[(ty + 16 * i) * (BKV + 1) + tx + 16 * j] = p;
-        rs += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off, 16);
-      l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < BKV; ++c) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ps[(ty + 16 * i) * (BKV + 1) + c];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const float vv = Vs[c * HD + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] += p[i] * vv;
-      }
-    }
+    for (int j = 0; j < TERMS; ++j)
+      *reinterpret_cast<uint2*>(qs + j * Q_TILE + r * LD + d) = make_uint2(w01[j], w23[j]);
   }
 
+  // ldmatrix row of this lane, matrix lj = lane / 8, row lane % 8:
+  // Q (A, [row][hd]): (rows 0-7, hd 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15);
+  // K (B = Kᵀ, [key][hd] as stored): (keys 0-7, hd 0-7), (0-7, 8-15),
+  //   (8-15, 0-7), (8-15, 8-15): two n8 tiles' b0, b1;
+  // V (B, [key][hd], transposed): (keys 0-7, hd 0-7), (8-15, 0-7),
+  //   (0-7, 8-15), (8-15, 8-15): two n8 tiles' b0, b1.
+  const int lj = lane >> 3, lr = lane & 7;
+  const uint32_t q_lane = smem_addr(qs + (16 * warp + ((lj & 1) << 3) + lr) * LD + ((lj >> 1) << 3));
+  const uint32_t k_lane = smem_addr(ks + (((lj >> 1) << 3) + lr) * LD + ((lj & 1) << 3));
+  const uint32_t v_lane = smem_addr(vs + (((lj & 1) << 3) + lr) * LD + ((lj >> 1) << 3));
+  constexpr int B = (int)sizeof(uint16_t);  // bytes of a staged value
+  // C fragment: rows lane/4 (+8), columns 2·(lane%4) (+1) of each 16 x 8 tile
+  const int gq = lane >> 2, tq = lane & 3;
+  const int row0 = q0 + 16 * warp + gq;
+
+  float acc[NO][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r >= Sq) continue;
-    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+  for (int n = 0; n < NO; ++n)
 #pragma unroll
-    for (int j = 0; j < DJ; ++j)
-      o[((size_t)bh * Sq + r) * HD + tx + 16 * j] = acc[i][j] * inv;
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+
+  // S = Q·Kᵀ for the warp's 16 rows x BKV keys
+  auto scores = [&](float (&s)[NT][4]) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      uint32_t qa[TERMS][4];
+#pragma unroll
+      for (int i = 0; i < TERMS; ++i) ldsm_x4(qa[i], q_lane + B * (i * Q_TILE + 16 * kk));
+      uint32_t kb[TERMS][NT][2];
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np)
+#pragma unroll
+        for (int j = 0; j < TERMS; ++j) {
+          uint32_t r[4];
+          ldsm_x4(r, k_lane + B * (j * KV_TILE + 16 * np * LD + 16 * kk));
+          kb[j][2 * np][0] = r[0];
+          kb[j][2 * np][1] = r[1];
+          kb[j][2 * np + 1][0] = r[2];
+          kb[j][2 * np + 1][1] = r[3];
+        }
+      // the k16 step into a fresh f32 sum, smallest products first
+      // (terms i + j = 2, 1, then hi·hi)
+      float part[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[nt][e] = 0.f;
+#pragma unroll
+      for (int ord = 2; ord >= 0; --ord)
+#pragma unroll
+        for (int i = 0; i <= ord; ++i)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) mma_bf16(part[nt], qa[i], kb[ord - i][nt]);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] += part[nt][e];
+    }
+  };
+
+  // s -> p in place: scale, softcap, the mask where the tile at k0 crosses
+  // the band's or Sk's edge, then the online softmax's update of m, l, O
+  auto softmax = [&](float (&s)[NT][4], int k0) {
+    const bool edge = k0 + BKV > Sk || (causal && k0 + BKV - 1 > q0) ||
+                      (window > 0 && q0 + BQ - 1 - k0 >= window);
+    float mt[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[nt][e] * scale;
+        if (cap > 0.f) x = cap * tanhf(x / cap);
+        if (edge) {
+          const int row = row0 + 8 * (e >> 1), key = k0 + 8 * nt + 2 * tq + (e & 1);
+          const bool valid = key < Sk && (!causal || key <= row) &&
+                             (window <= 0 || row - key < window);
+          if (!valid) x = -INFINITY;
+        }
+        s[nt][e] = x;
+        mt[e >> 1] = fmaxf(mt[e >> 1], x);
+      }
+    float mu[2], alpha[2], ls[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mt[h] = fmaxf(mt[h], __shfl_xor_sync(0xffffffffu, mt[h], 1));
+      mt[h] = fmaxf(mt[h], __shfl_xor_sync(0xffffffffu, mt[h], 2));
+      const float m_new = fmaxf(m_run[h], mt[h]);
+      mu[h] = m_new == -INFINITY ? 0.f : m_new;  // a row with no key yet: p = 0
+      alpha[h] = expf(m_run[h] - mu[h]);
+      m_run[h] = m_new;
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[nt][e] - mu[e >> 1]);
+        s[nt][e] = p;
+        ls[e >> 1] += p;
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l_run[h] = l_run[h] * alpha[h] + ls[h];
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+  };
+
+  // O += P·V: the C fragments of S's n8 tiles 2kc, 2kc + 1 are the A
+  // fragment of k16 step kc, split in three bf16 terms in registers
+  auto add_pv = [&](const float (&p)[NT][4]) {
+#pragma unroll
+    for (int kc = 0; kc < NT / 2; ++kc) {
+      uint32_t pa[TERMS][4], w[3];
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {  // a0..a3: rows +0, +8 of keys 0-7, then of keys 8-15
+        split3(p[2 * kc + (x >> 1)][2 * (x & 1)], p[2 * kc + (x >> 1)][2 * (x & 1) + 1], w);
+#pragma unroll
+        for (int j = 0; j < TERMS; ++j) pa[j][x] = w[j];
+      }
+#pragma unroll
+      for (int ng = 0; ng < NO / NG; ++ng) {
+        uint32_t vb[TERMS][NG][2];
+#pragma unroll
+        for (int np = 0; np < NG / 2; ++np)
+#pragma unroll
+          for (int j = 0; j < TERMS; ++j) {
+            uint32_t r[4];
+            ldsm_x4_t(r, v_lane + B * (j * KV_TILE + 16 * kc * LD + 8 * NG * ng + 16 * np));
+            vb[j][2 * np][0] = r[0];
+            vb[j][2 * np][1] = r[1];
+            vb[j][2 * np + 1][0] = r[2];
+            vb[j][2 * np + 1][1] = r[3];
+          }
+        float part[NG][4];
+#pragma unroll
+        for (int nt = 0; nt < NG; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[nt][e] = 0.f;
+#pragma unroll
+        for (int ord = 2; ord >= 0; --ord)
+#pragma unroll
+          for (int i = 0; i <= ord; ++i)
+#pragma unroll
+            for (int nt = 0; nt < NG; ++nt) mma_bf16(part[nt], pa[i], vb[ord - i][nt]);
+#pragma unroll
+        for (int nt = 0; nt < NG; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[NG * ng + nt][e] += part[nt][e];
+      }
+    }
+  };
+
+  for (int k0 = k_begin; k0 < k_end; k0 += BKV) {
+    cp_wait<0>();     // K(k0) has landed (this thread's copies) ...
+    __syncthreads();  // ... every thread's; V's buffer is free (and Q stored)
+    load_kv(vs, vg, k0);
+    cp_commit();
+    float s[NT][4];
+    scores(s);
+    softmax(s, k0);
+    cp_wait<0>();     // V(k0) has landed ...
+    __syncthreads();  // ... every thread's; K's buffer is free
+    if (k0 + BKV < k_end) load_kv(ks, kg, k0 + BKV);
+    cp_commit();
+    add_pv(s);
+  }
+  cp_wait<0>();
+
+  // O / l, l summed over the quad in a fixed order
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float l = l_run[h];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int row = row0 + 8 * h;
+    if (row >= Sq) continue;
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    float* __restrict__ orow = o + ((size_t)bh * Sq + row) * HD + 2 * tq;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<float2*>(orow + 8 * n) =
+          make_float2(acc[n][2 * h] * inv, acc[n][2 * h + 1] * inv);
   }
 }
+
+inline int key_rows(int Sk) { return (Sk + BKV - 1) / BKV * BKV; }
 
 template <int HD>
-int launch(const float* q, const float* k, const float* v, float* o, int BH, int Sq, int Sk,
-           int n_rep, int causal, int window, float cap, float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (BQ * (HD + 1) + BKV * (HD + 1) + BKV * HD + BQ * (BKV + 1));
-  static bool configured = false;  // once, before any graph capture of the launch
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(flash_fwd<HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+int launch(const float* q, const float* k, const float* v, float* o, uint16_t* scratch, int BH,
+           int Sq, int Sk, int n_rep, int causal, int window, float cap, float scale,
+           cudaStream_t s) {
+  const int Skp = key_rows(Sk);
+  const long long plane = (long long)(BH / n_rep) * Skp * HD;
+  if (plane > 0) {
+    const long long blocks = (plane / 4 + SPLIT_THREADS - 1) / SPLIT_THREADS;
+    flash_split<<<dim3((unsigned)blocks, 2), SPLIT_THREADS, 0, s>>>(k, v, scratch, Sk, Skp, HD,
+                                                                    plane);
+    const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    configured = true;
   }
-  flash_fwd<HD><<<dim3((Sq + BQ - 1) / BQ, BH), THREADS, smem, stream>>>(
-      q, k, v, o, Sq, Sk, n_rep, causal, window, cap, scale);
+  if (Sq == 0) return 0;
+  constexpr int smem = smem_bytes<HD>();
+  static bool opted = false;  // once, before any graph capture of the launch
+  if (!opted) {
+    const cudaError_t e = cudaFuncSetAttribute(flash_fwd_mma<HD>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    opted = true;
+  }
+  flash_fwd_mma<HD><<<dim3(BH, (Sq + BQ - 1) / BQ), THREADS, smem, s>>>(
+      q, scratch, o, Sq, Sk, Skp, n_rep, causal, window, cap, scale, plane);
   return (int)cudaGetLastError();
 }
+
+}  // namespace flash
 
 }  // namespace
 
 extern "C" {
 
-int flash_launch(const void* q, const void* k, const void* v, void* o, int BH, int Sq, int Sk,
-                 int hd, int n_rep, int causal, int window, float cap, float scale,
-                 void* stream) {
+// bf16 values of the K/V split scratch flash_launch needs
+long long flash_scratch_elems(int BH, int Sk, int hd, int n_rep) {
+  return 2LL * flash::TERMS * (BH / n_rep) * flash::key_rows(Sk) * hd;
+}
+
+int flash_launch(const void* q, const void* k, const void* v, void* o, void* scratch, int BH,
+                 int Sq, int Sk, int hd, int n_rep, int causal, int window, float cap,
+                 float scale, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  uint16_t* kv = static_cast<uint16_t*>(scratch);
   if (hd == 64)
-    return launch<64>((const float*)q, (const float*)k, (const float*)v, (float*)o, BH, Sq, Sk,
-                      n_rep, causal, window, cap, scale, s);
+    return flash::launch<64>((const float*)q, (const float*)k, (const float*)v, (float*)o, kv,
+                             BH, Sq, Sk, n_rep, causal, window, cap, scale, s);
   if (hd == 128)
-    return launch<128>((const float*)q, (const float*)k, (const float*)v, (float*)o, BH, Sq, Sk,
-                       n_rep, causal, window, cap, scale, s);
+    return flash::launch<128>((const float*)q, (const float*)k, (const float*)v, (float*)o, kv,
+                              BH, Sq, Sk, n_rep, causal, window, cap, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -118,16 +118,6 @@ constexpr int SMEM = STAGES * STAGE * (int)sizeof(uint16_t);  // 192 KB
 static_assert(3 * WARPS_N * BM * (int)sizeof(float) <= SMEM, "epilogue fits the ring");
 static_assert(TERMS * BM * BN * (int)sizeof(uint16_t) <= SMEM, "a P tile fits the ring");
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // dst (3, rows_p, cols_p) bf16: the hi, mid, lo terms of
 // src[r·ld + c0 + c] for r < rows and c0 + c < cols, zero elsewhere;
 // four values a thread (cols_p a multiple of 4)

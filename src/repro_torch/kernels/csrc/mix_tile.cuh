@@ -6,8 +6,9 @@
 // Two callers run mixfwd::launch: cached_mix.cu's mix_fwd (an activation-
 // cache entry in its storage form, f32 W, with the f32 residual bw) and
 // adapter_fuse.cu's tiled path (f32 or bf16 taps and W, no residual).
-// cached_mix.cu's mix_dw and lmhead_ce.cu's ce_fwd run their own loops on
-// the helpers of mix_tile.
+// cached_mix.cu's mix_dw, lmhead_ce.cu's ce_fwd and ce_bwd, quant_matmul.cu's
+// qmm_mma and flash_attention.cu's flash_fwd_mma run their own loops on the
+// helpers of mix_tile.
 //
 // entry (T, ld) row-major: f32, bf16, or int8 with one f32 scale per
 // (token, qblock columns), scale (T, ld / qblock). W (d, da) row-major,
@@ -103,6 +104,17 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr)
                : "memory");
+}
+
+// 16 bytes global -> shared without registers (L2 only), in commit groups
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],

@@ -3,17 +3,25 @@
 Replaces the TPU kernel ``src/repro/kernels/flash_attention.py``
 (``_kernel`` / ``flash_attention_tpu``), with the CUDA kernel
 ``csrc/flash_attention.cu``: causal masking, optional sliding
-``window`` and tanh ``attn_softcap``, f32.
+``window`` and tanh ``attn_softcap``, f32 in and out.
 
 What bounds it on the H100: at the prefill shape of internlm2-1.8b
-(B·H = 8·16, S = 512, hd = 128) it does ~8.6 GFLOP of f32 work on ~134 MB,
-so it is bound by operations (CUDA cores; tensor cores are later work).
-The kernel keeps the softmax state in registers, loops over key tiles
-inside one block per (head, query tile), and skips key tiles outside
-the causal/window band. It reads grouped GQA heads directly — query row
-``bh`` uses kv row ``bh // n_rep`` — so the repeated-KV copy the TPU
-path built is never made. Padded prompt positions lie past every real
-query, so the causal mask keeps them out of real rows.
+(B·H = 8·16, S = 512, hd = 128) it does ~8.6 GFLOP of f32 work on ~101 MB,
+so it is bound by operations. Both products run on the bf16 tensor cores
+with every f32 operand (Q, K, V and the probabilities P) split in three
+bf16 terms, six products each: K and V are split once per call into a
+scratch this wrapper allocates, Q as it is staged, P in registers, where
+the scores S stay from the softmax to the P·V product. Each block owns a
+(head, 64-row query tile), loops over key tiles with the softmax state in
+registers and skips key tiles outside the causal/window band. It reads
+grouped GQA heads directly — query row ``bh`` uses kv row ``bh // n_rep``
+— so the repeated-KV copy the TPU path built is never made. Padded
+prompt positions lie past every real query, so the causal mask keeps
+them out of real rows. Tolerance: the reference's atol 3e-5
+(``tests/test_kernels.py:105``); ``chip_smoke.py`` holds the kernel to it
+(max |Δ| 1.4e-6 at the prefill shape) and times it: 0.213–0.215 ms a call
+at the prefill shape on an NVIDIA H100 80GB HBM3 at 700 W, against SDPA's
+0.276–0.278 and the 0.052 ms tensor-core bound (``PERF.md``).
 
 On CPU tensors the wrapper computes
 :func:`~repro_torch.kernels.ref.flash_attention_ref`; on CUDA tensors it
@@ -41,9 +49,11 @@ def _fn():
     lib = _build.library("flash_attention")
     fn = lib.flash_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                        + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        lib.flash_scratch_elems.argtypes = [ctypes.c_int] * 4
+        lib.flash_scratch_elems.restype = ctypes.c_longlong
     return lib, fn
 
 
@@ -75,12 +85,16 @@ def flash_attention(
     require(q.device.type == "cuda", f"unsupported device {q.device}")
     require(q.dtype == k.dtype == v.dtype == torch.float32, "q, k, v must be float32")
     require(hd in HEAD_DIMS, f"head dim {hd} not in {HEAD_DIMS}")
-    require(q.is_contiguous() and k.is_contiguous() and v.is_contiguous(),
-            "q, k, v must be contiguous")
+    require(all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (q, k, v)),
+            "q, k, v must be contiguous and 16-byte aligned")
     lib, fn = _fn()
+    n_rep, Sk = BH // k.shape[0], k.shape[1]
     out = torch.empty_like(q)
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, Sq, k.shape[1], hd,
-            BH // k.shape[0], int(causal), window or 0, attn_softcap or 0.0, hd ** -0.5,
+    # K's and V's three bf16 planes, padded to whole key tiles
+    scratch = torch.empty(lib.flash_scratch_elems(BH, Sk, hd, n_rep), dtype=torch.bfloat16,
+                          device=q.device)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), scratch.data_ptr(), BH, Sq,
+            Sk, hd, n_rep, int(causal), window or 0, attn_softcap or 0.0, hd ** -0.5,
             _build.stream_of(q))
     _build.check(lib, rc, "flash_attention")
     launches += 1

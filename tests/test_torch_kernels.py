@@ -486,6 +486,97 @@ def test_quant_matmul_bf16_split_error_model(bits, M, K, N):
 
 
 # ---------------------------------------------------------------------------
+# flash attention's bf16 split (the CUDA kernel's arithmetic, emulated)
+# ---------------------------------------------------------------------------
+
+
+def _split_product(a_terms, b_terms, eq: str, n: int, a_dim: int, b_dim: int) -> torch.Tensor:
+    """Σ over 16-deep steps of the contraction, in f32, of each step's
+    products of terms i + j < n summed in float64 (the kernel's fresh sum)
+    and rounded to f32. ``a_dim``/``b_dim``: the contracted dim of each."""
+    depth = a_terms[0].shape[a_dim]
+    out = None
+    for k0 in range(0, depth, 16):
+        part = sum(torch.einsum(eq, x.narrow(a_dim, k0, 16), y.narrow(b_dim, k0, 16))
+                   for i, x in enumerate(a_terms) for j, y in enumerate(b_terms) if i + j < n)
+        out = part.float() if out is None else out + part.float()
+    return out
+
+
+def _flash_split(q, k, v, softcap, n: int, bkv: int = 64) -> torch.Tensor:
+    """Causal flash attention as the kernel computes it with Q, K, V and
+    the probabilities P each in ``n`` bf16 terms: S = Q·Kᵀ and each key
+    tile's P·V keep the products of terms i + j < n per 16-deep step
+    (:func:`_split_product`); scale, soft-cap, mask and the online softmax
+    over key tiles of ``bkv`` in f32, l summed from the f32 p."""
+    BH, S, hd = q.shape
+    k_terms, v_terms = _bf16_terms(k, n), _bf16_terms(v, n)
+    s_all = _split_product(_bf16_terms(q, n), k_terms, "bqd,bkd->bqk", n, 2, 2) * hd ** -0.5
+    if softcap is not None:
+        s_all = softcap * torch.tanh(s_all / softcap)
+    pos = torch.arange(S)
+    s_all = torch.where(pos[:, None] >= pos[None, :], s_all, torch.tensor(-torch.inf))
+    m = torch.full((BH, S), -torch.inf)
+    l, o = torch.zeros(BH, S), torch.zeros(BH, S, hd)
+    for k0 in range(0, S, bkv):
+        s = s_all[:, :, k0:k0 + bkv]
+        m_new = torch.maximum(m, s.amax(-1))
+        mu = torch.where(m_new == -torch.inf, torch.zeros_like(m_new), m_new)
+        alpha = torch.exp(m - mu)
+        p = torch.exp(s - mu[..., None])
+        l = l * alpha + p.sum(-1)
+        o = o * alpha[..., None] + _split_product(
+            _bf16_terms(p, n), [t[:, k0:k0 + bkv] for t in v_terms], "bqk,bkd->bqd", n, 2, 1)
+        m = m_new
+    return o / torch.clamp(l, min=1e-30)[..., None]
+
+
+@pytest.mark.parametrize("softcap", [None, 30.0])
+def test_flash_bf16_split_error_model(softcap):
+    """The split behind flash attention's tensor-core kernel, causal at
+    hd = 128 and S = 256: three bf16 terms of Q, K, V and P meet the
+    reference's flash tolerance (atol 3e-5, tests/test_kernels.py:105)
+    against the Pallas kernel in interpret mode; two terms err at least 10x
+    more than three against float64 attention (~1e-5, at the tolerance),
+    and one term (bf16 alone) misses the tolerance: why both products take
+    three terms, six bf16 products each."""
+    BH, S, hd = 2, 256, 128
+    q, k, v = (_randn((BH, S, hd), seed) for seed in (21, 22, 23))
+    want = np.asarray(flash_attention_tpu(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                          attn_softcap=softcap, bq=64, bk=64, interpret=True))
+    qt, kt, vt = (torch.from_numpy(t) for t in (q, k, v))
+    s = torch.einsum("bqd,bkd->bqk", qt.double(), kt.double()) * hd ** -0.5
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    s = s.masked_fill(torch.ones(S, S, dtype=torch.bool).triu(1), -torch.inf)
+    exact = torch.softmax(s, dim=-1) @ vt.double()
+    three, two, one = (_flash_split(qt, kt, vt, softcap, n) for n in (3, 2, 1))
+    np.testing.assert_allclose(three.numpy(), want, atol=3e-5)
+    err3, err2, err1 = (float((x.double() - exact).abs().max()) for x in (three, two, one))
+    assert err2 >= 10 * err3, (err2, err3)
+    assert err1 > 3e-5, err1
+
+
+@pytest.mark.parametrize("harness,source", [("ce_fwd_variants", "lmhead_ce.cu"),
+                                            ("qmm_variants", "quant_matmul.cu"),
+                                            ("flash_variants", "flash_attention.cu")])
+def test_variant_harness_edits_apply_to_the_shipped_source(harness, source):
+    """Each variant of a kernel's timing harness replaces text that occurs
+    exactly once in the source it builds from, so a kernel edit that moves
+    such text fails here rather than on the card."""
+    import importlib
+
+    from repro_torch.kernels import _build
+
+    variants = importlib.import_module(f"repro_torch.kernels.{harness}").VARIANTS
+    text = (_build.CSRC / source).read_text()
+    assert "shipped" in variants and not variants["shipped"]
+    for name, edits in variants.items():
+        for old, new in edits:
+            assert text.count(old) == 1 and new != old, (name, old)
+
+
+# ---------------------------------------------------------------------------
 # the build's cache key
 # ---------------------------------------------------------------------------
 
