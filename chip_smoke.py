@@ -15,23 +15,29 @@ Phases, in order; any failure exits non-zero:
    cold; see ``Timer``) of the kernel, the plain version and one
    PyTorch call for the same function (a yardstick the port never
    calls), and the least time the card could take. ``quant_matmul`` at
-   the decode step's M = 8 (skinny path) and at M = 2048 and 4096 (the
-   tiled path, on the bf16 tensor cores with x·s split in three terms:
-   the epoch-1 step's and the prefill's rows), one layer's seven
-   projections summed at each M (``quant_matmul_layer`` lines), each
-   tiled line beside both its bounds (the tensor cores' with 3 products,
-   and f32's); int4 at M = 8 and 4096; the tiled path also at its
-   smallest M = 9 and at M = 1001 with K = 1000 (masked M and K) and
-   K = 998 (rows unaligned for 16-byte loads), N = 384, int8 and int4
+   the decode step's M = 8 (the skinny path: one launch of
+   ``skinny::gemv``, the contraction split over a thread block cluster
+   and summed through distributed shared memory) and at M = 2048 and 4096
+   (the tiled path, ``qmm_mma`` on the bf16 tensor cores with x·s split
+   in three terms: the epoch-1 step's and the prefill's rows), one
+   layer's seven projections summed at each M (``quant_matmul_layer``
+   lines), each tiled line beside both its bounds (the tensor cores' with
+   3 products, and f32's); int4 at M = 8 and 4096; the skinny path at
+   M = 3, K = 1000 (a partial last slice), the tiled path at its smallest
+   M = 9 and at M = 1001 with K = 1000 (masked M and K) and K = 998 (rows
+   unaligned for 16-byte loads), N = 384, int8 and int4
    (``quant_matmul_ragged`` lines), and twice at M = 4096, K = 2048,
-   N = 8192 (``quant_matmul_deterministic``: bit-equal). Flash attention
+   N = 8192 and at M = 1, K = 8192, N = 2048
+   (``quant_matmul_deterministic``: bit-equal). Flash attention
    (on the bf16 tensor cores, Q, K, V and P split in three terms) at the
    prefill shape beside both its bounds (12 bf16 products, and f32's) and
    SDPA's kernel names, with window 128 and soft-cap 30, at Sq = Sk = 37
    and 1001, hd 64 and 128, n_rep 1 and 2, each causal or not, window 32
    or none, soft-cap 30 or none (``flash_attention_ragged`` lines), and
    twice at the prefill shape (``flash_attention_deterministic``:
-   bit-equal).
+   bit-equal), and with Sq = 300 queries over Sk = 100 keys, window 32,
+   where rows 131.. have no key and get V's mean, the reference's answer
+   (``flash_attention_keyless``).
 4. Serving: internlm2-1.8b at full width (24 layers, d=2048), random
    weights from a seeded generator, INT8 backbone and INT8 KV pages,
    4 users with r=8 adapters, 8 requests with ragged prompts, 32 new
@@ -77,9 +83,14 @@ Phases, in order; any failure exits non-zero:
    run's epoch-0 losses; another seed invalidates and re-captures it.
 7. Personal kernels: ``adapter_fuse`` against its plain version (f32 and
    bf16, λ in {0, 0.5, 1}) at T = 1, 8, 2048 and ragged shapes on both
-   of its paths, timed beside the plain version and ``torch.addmm`` (the
-   tiled path, on the tensor cores, beside both its bounds); ``quant_matmul`` at
-   M = 1; flash attention and ``quant_matmul`` at the prompt's shapes.
+   of its paths (T <= 8: one launch of ``skinny::gemv``, with T = 3,
+   d = 2047, d_a = 130 on its element-by-element loads), timed beside the
+   plain version and ``torch.addmm`` (the tiled path, on the tensor
+   cores, beside both its bounds); ``quant_matmul`` at M = 1; two calls
+   bit-equal (``adapter_fuse_deterministic``) and both GEMV calls captured
+   in a CUDA graph, replayed three times, equal to the eager call bit for
+   bit (``skinny_graph_replay``); flash attention and ``quant_matmul`` at
+   the prompt's shapes.
 8. Personal: the checkpoint served with ``pac_decode_step`` at B = 1
    over an INT8 linear KV cache, 32 teacher-forced prompt tokens then
    32 greedy tokens, under ``cuda`` (launch counts from this run alone:
@@ -91,8 +102,9 @@ Phases, in order; any failure exits non-zero:
    the two INT8 runs wrote differently) holds ``cuda`` to ``ref``
    without the INT8 codes' one-step flips.
 9. Summary: one JSON line ``{"kernels": [...]}`` (eight kernels, each
-   with its launches on every path), the card's line, and last
-   ``{"ok": true, "device": {...}}``.
+   with its launches on every path and its device kernels by name:
+   ``skinny::gemv`` for ``quant_matmul`` at M <= 8 and ``adapter_fuse`` at
+   T <= 8), the card's line, and last ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card and the repository's ``src`` beside this file; it
 imports no JAX and nothing of the JAX package.
@@ -122,6 +134,9 @@ REPEATS = 15
 QMM_SHAPES = [(2048, 2048), (2048, 1024), (2048, 8192), (8192, 2048)]  # (K, N)
 QMM_SKINNY_ROWS = 8  # quant_matmul's tiled path runs above this M (csrc/quant_matmul.cu)
 #: the seven projections of one internlm2-1.8b layer, by (K, N)
+#: the decode path's kernels, by name in a profile: the GEMV (quant_matmul
+#: at M <= 8, adapter_fuse at T <= 8), paged attention
+SKINNY_WATCH = ("skinny::gemv", "paged_attn")
 LAYER_PROJECTIONS = [(2048, 2048), (2048, 1024), (2048, 1024), (2048, 2048),
                      (2048, 8192), (2048, 8192), (8192, 2048)]
 
@@ -379,6 +394,36 @@ def flash_ragged(gen: torch.Generator) -> None:
                       "tol": f"atol {FLASH_TOL}", "tol_reason": FLASH_TOL_REASON})
 
 
+def flash_keyless(gen: torch.Generator) -> None:
+    """``flash_attention`` with Sq = 300 queries over Sk = 100 keys and
+    window 32 (B·H = 8 over 4 KV heads, hd 64 and 128, causal or not):
+    rows q >= Sk + window - 1 = 131 have no key and get V's mean, as in
+    the plain version and the reference."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import _keyless_from, flash_attention
+
+    Sq, Sk, window = 300, 100, 32
+    for hd in (64, 128):
+        q = torch.randn(8, Sq, hd, generator=gen, device=DEV)
+        k, v = (torch.randn(4, Sk, hd, generator=gen, device=DEV) for _ in range(2))
+        cases = []
+        for causal in (True, False):
+            got = flash_attention(q, k, v, causal=causal, window=window)
+            want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+            if got.shape != q.shape or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"flash_attention keyless hd={hd}: shape or non-finite")
+            first = _keyless_from(Sq, Sk, window)
+            err = max_err(got, want)
+            check(f"flash_attention keyless hd={hd} causal={causal}", err, FLASH_TOL)
+            cases.append({"causal": causal, "max_abs_err": err,
+                          "max_abs_err_keyless_rows": max_err(got[:, first:], want[:, first:])})
+        worst = max(c["max_abs_err"] for c in cases)
+        emit({"check": "flash_attention_keyless", "BH": 8, "BHkv": 4, "Sq": Sq, "Sk": Sk,
+              "window": window, "hd": hd, "keyless_rows": Sq - first, "cases": cases,
+              "max_abs_err": worst, "check_value": worst, "tol": f"atol {FLASH_TOL}",
+              "tol_reason": FLASH_TOL_REASON})
+
+
 def kernel_phase(timer: Timer, gen: torch.Generator):
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
@@ -399,9 +444,10 @@ def kernel_phase(timer: Timer, gen: torch.Generator):
     for M in (8, 2048, 4096):
         emit({"check": "quant_matmul_layer", "M": M, **layer_row(qmm, M)})
     rows["quant_matmul"] = layer_row(qmm, 8)
-    # the tiled path's ragged edges: its smallest M, masked M and K, rows
-    # unaligned for 16-byte loads (K = 998)
-    for M, K, N in ((9, 1000, 384), (1001, 1000, 384), (1001, 998, 384)):
+    # the skinny path with a partial last slice; the tiled path's ragged
+    # edges: its smallest M, masked M and K, rows unaligned for 16-byte
+    # loads (K = 998)
+    for M, K, N in ((3, 1000, 384), (9, 1000, 384), (1001, 1000, 384), (1001, 998, 384)):
         for bits in (8, 4):
             _, _, got, want = qmm_check(gen, M, K, N, bits)
             emit({"check": "quant_matmul_ragged", "M": M, "K": K, "N": N, "bits": bits,
@@ -414,6 +460,12 @@ def kernel_phase(timer: Timer, gen: torch.Generator):
           "bit_equal": bool(torch.equal(got, again))})
     if not torch.equal(got, again):
         raise AssertionError("quant_matmul: two calls at M=4096 differ")
+    x, w, got, _ = qmm_check(gen, 1, 8192, 2048, 8)
+    again = quant_matmul(x, w.q, w.scale)
+    emit({"check": "quant_matmul_deterministic", "M": 1, "K": 8192, "N": 2048,
+          "bit_equal": bool(torch.equal(got, again))})
+    if not torch.equal(got, again):
+        raise AssertionError("quant_matmul: two calls at M=1 differ")
     del x, w, got, again
 
     # flash attention: prefill, B·H = 8·16, S = 512, hd = 128, causal, grouped KV
@@ -436,6 +488,7 @@ def kernel_phase(timer: Timer, gen: torch.Generator):
         raise AssertionError("flash_attention: two calls at the prefill shape differ")
     del q, k, v, got, again, sdpa
     flash_ragged(gen)
+    flash_keyless(gen)
 
     # paged attention: decode B=8, Hkv=8, n_rep=2, hd=128, page 16, ragged lengths <= 511
     B, Hkv, n_rep, hd, page = 8, 8, 2, 128, 16
@@ -551,7 +604,7 @@ def profile_decode(eng, prompts, names) -> None:
     eng.step()  # prefill + first decode step
     eng.step()
     emit({"phase": "decode_profile", "steps": 2, "batch": 8,
-          **device_profile(lambda: (eng.step(), eng.step()))})
+          **device_profile(lambda: (eng.step(), eng.step()), watch=SKINNY_WATCH)})
     eng.drain()
 
 
@@ -1216,7 +1269,7 @@ def personal_kernel_phase(timer: Timer, gen: torch.Generator):
     tol = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1e-5, 2.0 ** -7)}
     for T, d, da in ((1, PERSONAL_D, PERSONAL_DA), (8, PERSONAL_D, PERSONAL_DA),
                      (2048, PERSONAL_D, PERSONAL_DA), (1, 1000, 200), (8, 1500, 200),
-                     (100, 1000, 200)):
+                     (3, 2047, 130), (100, 1000, 200)):
         b32 = torch.randn(T, d, generator=gen, device=dev)
         w32 = torch.randn(d, da, generator=gen, device=dev) * d ** -0.5
         a32 = torch.randn(T, da, generator=gen, device=dev)
@@ -1267,6 +1320,7 @@ def personal_kernel_phase(timer: Timer, gen: torch.Generator):
             del ws
     qmm = {(1, K, N, 8): qmm_case(timer, gen, 1, K, N, 8) for K, N in QMM_SHAPES}
     emit({"check": "quant_matmul_layer", "M": 1, **layer_row(qmm, 1)})
+    skinny_reruns(gen)
     # the prompt's shapes: 32 tokens, 16 heads over 8 KV heads
     for K, N in QMM_SHAPES:
         qmm_check(gen, PROMPT_LEN, K, N, 8)
@@ -1277,6 +1331,50 @@ def personal_kernel_phase(timer: Timer, gen: torch.Generator):
     emit({"check": "prompt_shapes", "quant_matmul_M": PROMPT_LEN, "flash_BH": 16,
           "flash_S": PROMPT_LEN, "flash_max_abs_err": err, "tol": "as above"})
     return rows
+
+
+def skinny_reruns(gen: torch.Generator) -> None:
+    """The decode path's GEMV (``adapter_fuse`` at T = 1, f32, and
+    ``quant_matmul`` at M = 1, K = 8192, N = 2048): two eager calls
+    bit-equal, and each call captured in a CUDA graph and replayed three
+    times equal to the eager call bit for bit."""
+    from repro_torch.core.quantization import quantize
+    from repro_torch.kernels.adapter_fuse import adapter_fuse
+    from repro_torch.kernels.quant_matmul import quant_matmul
+
+    b = torch.randn(1, PERSONAL_D, generator=gen, device=DEV)
+    w = torch.randn(PERSONAL_D, PERSONAL_DA, generator=gen, device=DEV) * PERSONAL_D ** -0.5
+    a = torch.randn(1, PERSONAL_DA, generator=gen, device=DEV)
+    lam = torch.tensor(0.5, device=DEV)
+    x = torch.randn(1, 8192, generator=gen, device=DEV)
+    wq = quantize(torch.randn(8192, 2048, generator=gen, device=DEV) * 8192 ** -0.5, 8)
+    calls = {"adapter_fuse": lambda: adapter_fuse(b, w, a, lam),
+             "quant_matmul": lambda: quant_matmul(x, wq.q, wq.scale)}
+    got = {}
+    for name, fn in calls.items():
+        eager = fn()
+        again = fn()
+        emit({"check": f"{name}_deterministic", "at": "T=1 d=2048 d_a=256 f32"
+              if name == "adapter_fuse" else "M=1 K=8192 N=2048 int8",
+              "bit_equal": bool(torch.equal(eager, again))})
+        if not torch.equal(eager, again):
+            raise AssertionError(f"{name}: two calls differ")
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            static = fn()
+        replays = []
+        for _ in range(3):
+            static.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            replays.append(bool(torch.equal(static, eager)))
+        got[name] = replays
+        del graph
+    ok = all(all(v) for v in got.values())
+    emit({"check": "skinny_graph_replay", "replays_equal_eager": got, "bit_equal": ok})
+    if not ok:
+        raise AssertionError(f"skinny GEMV: graph replays differ from eager: {got}")
 
 
 def personal_phase(backbone, cfg, ckpt: Path, r: int = 8):
@@ -1329,7 +1427,7 @@ def personal_phase(backbone, cfg, ckpt: Path, r: int = 8):
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     emit({"phase": "personal_profile", "steps": 2, "from": "an empty cache",
-          **device_profile(lambda: serve("cuda", steps=2))})
+          **device_profile(lambda: serve("cuda", steps=2), watch=SKINNY_WATCH)})
     logits_ref, tokens_ref, wall_ref, cache_ref = serve("ref")
     dlogits = max_err(logits_cuda, logits_ref)
     logits_cuda32, tokens_cuda32, _, _ = serve("cuda", kv_quant=None)
@@ -1454,8 +1552,18 @@ def main() -> int:
     # each kernel's launches on its own main path (serving for the first
     # three, training for the four training kernels, personal for
     # adapter_fuse), every path listed
+    device_names = {"quant_matmul": ["skinny::gemv (M <= 8)", "qmm_mma (M > 8)"],
+                    "flash_attention": ["flash_split", "flash_fwd_mma"],
+                    "paged_attention": ["paged_attn"],
+                    "mix_fwd": ["mix_fwd_mma", "mix_fwd_reduce"],
+                    "mix_dw": ["mix_dw_mma", "dw_reduce"],
+                    "ce_fwd": ["ce_split", "ce_fwd_mma", "ce_merge"],
+                    "ce_bwd": ["ce_split", "ce_grad_mma", "ce_dh_mma"],
+                    "adapter_fuse": ["skinny::gemv (T <= 8)",
+                                     "mix_fwd_mma + mix_fwd_reduce (T > 8)"]}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "device_kernels": device_names[name],
          "launches": paths[home.get(name, "training")][name],
          "launches_by_path": {p: counts.get(name, 0) for p, counts in paths.items()},
          **rows[name]}

@@ -35,6 +35,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.core.device import resolve_device
 from repro_torch.core.quantization import QTensor
 
 _SENTINEL_Q = "__qtensor__"
@@ -274,12 +275,14 @@ def save_checkpoint(path: str, tree: Any) -> int:
     return n
 
 
-def load_checkpoint(path: str, device="cpu") -> Any:
+def load_checkpoint(path: str, device=None) -> Any:
     """Read a checkpoint written by either package; array leaves become
-    tensors on ``device``, quantized leaves :class:`QTensor`."""
+    tensors on ``device``, quantized leaves :class:`QTensor`. ``None``
+    means the card; with no card, only ``device="cpu"`` runs."""
+    device = resolve_device(device)
     with open(path, "rb") as f:
         data = f.read()
-    return _decode(unpackb(data), torch.device(device))
+    return _decode(unpackb(data), device)
 
 
 def _structure(tree) -> str:

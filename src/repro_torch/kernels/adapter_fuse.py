@@ -13,11 +13,15 @@ would stall the stream 24 times a decode step.
 What bounds it on the H100: on the serving path (``pac_decode_step``,
 one call per period) T is the batch (1 at B = 1), d = 2048 and
 d_a = 256: the call reads the 2.1 MB f32 ``W_down`` and little else, so
-the bytes bound it (~0.63 µs at 3.35 TB/s). Its path for T <= 8 splits
-the contraction across 128 blocks and sums the slices in a fixed order
-(deterministic); larger T takes ``cached_mix``'s ``mix_fwd`` loop on the
-bf16 tensor cores (an f32 operand split in three bf16 terms), its
-contraction cut into slices summed in a fixed order too.
+the bytes bound it (~0.63 µs at 3.35 TB/s). Its path for T <= 8 is one
+launch of ``csrc/skinny.cuh``'s GEMV: 16-byte loads of W rows, the
+contraction split over the blocks of a thread block cluster (the plan of
+:mod:`~repro_torch.kernels.skinny`: 8 tiles of 32 columns x 8 ranks at
+this shape) and summed in a fixed order through distributed shared memory,
+where the λ-mix is applied (deterministic, no scratch); larger T takes
+``cached_mix``'s ``mix_fwd`` loop on the bf16 tensor cores (an f32
+operand split in three bf16 terms), its contraction cut into slices
+summed in a fixed order too.
 
 There is no gradient (the TPU kernel has none): inputs that require
 grad are refused; training's mix is
@@ -35,6 +39,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import require
 from repro_torch.kernels.ref import adapter_fuse_ref
+from repro_torch.kernels.skinny import SKINNY_ROWS, plan_for
 
 _FLOATS = (torch.float32, torch.bfloat16)
 
@@ -45,7 +50,7 @@ launches = 0
 def _lib():
     lib = _build.library("adapter_fuse")
     if lib.adapter_fuse_launch.argtypes is None:
-        lib.adapter_fuse_launch.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+        lib.adapter_fuse_launch.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
                                             + [ctypes.c_void_p])
         lib.adapter_fuse_launch.restype = ctypes.c_int
         lib.adapter_fuse_partials.argtypes = [ctypes.c_int] * 3
@@ -82,13 +87,19 @@ def adapter_fuse(b: torch.Tensor, w_down: torch.Tensor, a: torch.Tensor, lam) ->
     if T == 0 or da == 0:
         return out
     lib = _lib()
-    splits = lib.adapter_fuse_partials(T, d, da)  # slices of the contraction, summed in order
-    partial = out if splits == 0 else torch.empty((splits, T, da), dtype=torch.float32,
-                                                  device=b.device)
+    ranks = cols = 0
+    partial = out
+    if T <= SKINNY_ROWS:
+        _, _, ranks, cols = plan_for(b, T, d, da, 8 * w_down.element_size())
+    else:  # the tiled path's contraction slices, summed in order
+        splits = lib.adapter_fuse_partials(T, d, da)
+        if splits:
+            partial = torch.empty((splits, T, da), dtype=torch.float32, device=b.device)
     rc = lib.adapter_fuse_launch(
         b.data_ptr(), w_down.data_ptr(), a.data_ptr(), lam.data_ptr(), out.data_ptr(),
         partial.data_ptr(), T, d, da, int(b.dtype == torch.bfloat16),
-        int(w_down.dtype == torch.bfloat16), int(a.dtype == torch.bfloat16), _build.stream_of(b))
+        int(w_down.dtype == torch.bfloat16), int(a.dtype == torch.bfloat16), ranks, cols,
+        _build.stream_of(b))
     _build.check(lib, rc, "adapter_fuse")
     launches += 1
     return out

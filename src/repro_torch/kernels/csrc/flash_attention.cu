@@ -56,8 +56,9 @@
 //    index counts down), so the last wave is short.
 // Each output row is owned by one block, summed in a fixed order with no
 // atomics: two calls give bit-equal results. A row with no key in its band
-// (only possible with Sq > Sk) gets l = 0 and writes 0, where the plain
-// version averages V.
+// (only with a window and Sq > Sk: q >= Sk + window - 1) gets l = 0 and
+// writes 0; the wrapper (../flash_attention.py) overwrites such rows with
+// V's mean over the Sk keys, the reference's answer.
 //
 // What holds it (chip_smoke.py, ../flash_variants.py; NVIDIA H100 80GB
 // HBM3, 700 W): 0.213–0.215 ms a call at the prefill shape (the scalar f32

@@ -9,13 +9,18 @@
 //
 // Two paths, chosen by M:
 //  * skinny (M <= 8, the decode step): a GEMV bound by the int8 weight
-//    bytes. Each weight is dequantized as float(q) * scale, the
-//    reference's product, and accumulated in f32 on the CUDA cores. A
-//    block owns 128 columns (one quantization block, so one scale per
-//    weight row) and a 128-row slice of K; each warp reads whole 128-byte
-//    weight rows (4 bytes a lane), x sits in shared memory. The K slices
-//    are summed in a fixed order by a second small kernel (deterministic,
-//    no atomics).
+//    bytes, skinny.cuh's, in one launch. Each weight is dequantized as
+//    float(q) * scale, the reference's product, and accumulated in f32 on
+//    the CUDA cores. A column tile lies in one quantization block (so one
+//    scale a weight row); its contraction slices are one thread block
+//    cluster, a lane loads 16 codes of a row (16 bytes; 8 codes at M > 4,
+//    and 32, 16 or 8 int4 codes), several rows a lane in flight, and the
+//    slices are summed in a fixed order through distributed shared memory
+//    (deterministic, no scratch, no atomics). At K = 2048, N = 2048 the
+//    plan (../skinny.py) is 16 tiles of 128 columns x 8 ranks (3 ranks at
+//    N = 8192). One layer's seven projections at M = 1: 0.064–0.068 ms on
+//    an H100 at 700 W, against torch.matmul's 0.115–0.120 on the f32
+//    weight and the 0.0194 ms byte bound (PERF.md).
 //  * tiled (M > 8: prefill, and the epoch-1 training step at M = 2048),
 //    qmm_mma on the bf16 tensor cores, below.
 //
@@ -106,98 +111,11 @@
 #include <stdint.h>
 
 #include "mix_tile.cuh"
+#include "skinny.cuh"
 
 namespace {
 
 constexpr int QBLOCK = 128;
-
-// ---------------------------------------------------------------- skinny
-constexpr int SK_ROWS = 8;     // max M on this path
-constexpr int SK_COLS = 128;   // columns per block (= QBLOCK)
-constexpr int SK_WARPS = 8;    // k-lanes per block
-constexpr int SK_KCHUNK = 128; // weight rows per block
-constexpr int SK_THREADS = 32 * SK_WARPS;
-
-template <int BITS>
-__device__ __forceinline__ void load4(const int8_t* __restrict__ q, size_t row, int N, int col,
-                                      float w[4]) {
-  if (BITS == 8) {
-    char4 v = *reinterpret_cast<const char4*>(q + row * N + col);
-    w[0] = (float)v.x; w[1] = (float)v.y; w[2] = (float)v.z; w[3] = (float)v.w;
-  } else {
-    // two bytes hold columns col..col+3: lo/hi nibble of byte 0, then byte 1
-    const uint8_t* p = reinterpret_cast<const uint8_t*>(q) + row * (N / 2) + col / 2;
-    uchar2 v = *reinterpret_cast<const uchar2*>(p);
-    int b0 = v.x, b1 = v.y;
-    int n0 = b0 & 0xF, n1 = (b0 >> 4) & 0xF, n2 = b1 & 0xF, n3 = (b1 >> 4) & 0xF;
-    w[0] = (float)(n0 >= 8 ? n0 - 16 : n0);
-    w[1] = (float)(n1 >= 8 ? n1 - 16 : n1);
-    w[2] = (float)(n2 >= 8 ? n2 - 16 : n2);
-    w[3] = (float)(n3 >= 8 ? n3 - 16 : n3);
-  }
-}
-
-template <int BITS>
-__global__ void __launch_bounds__(SK_THREADS)
-qmm_skinny(const float* __restrict__ x, const int8_t* __restrict__ q,
-           const float* __restrict__ scale, float* __restrict__ partial,
-           int M, int K, int N) {
-  __shared__ float xs[SK_ROWS][SK_KCHUNK];
-  __shared__ float red[SK_WARPS][SK_ROWS][SK_COLS];
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int n0 = blockIdx.x * SK_COLS;
-  const int kbeg = blockIdx.y * SK_KCHUNK;
-  const int nsb = N / QBLOCK;
-  for (int idx = threadIdx.x; idx < SK_ROWS * SK_KCHUNK; idx += SK_THREADS) {
-    int m = idx / SK_KCHUNK, kk = idx % SK_KCHUNK;
-    xs[m][kk] = (m < M && kbeg + kk < K) ? x[(size_t)m * K + kbeg + kk] : 0.f;
-  }
-  __syncthreads();
-  float acc[SK_ROWS][4];
-#pragma unroll
-  for (int m = 0; m < SK_ROWS; ++m)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[m][c] = 0.f;
-  const int col = n0 + lane * 4;
-#pragma unroll 4
-  for (int kk = warp; kk < SK_KCHUNK; kk += SK_WARPS) {
-    const int k = kbeg + kk;
-    if (k >= K) break;
-    const float s = scale[(size_t)k * nsb + blockIdx.x];
-    float w[4];
-    load4<BITS>(q, (size_t)k, N, col, w);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) w[c] = w[c] * s;
-#pragma unroll
-    for (int m = 0; m < SK_ROWS; ++m) {
-      const float xv = xs[m][kk];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[m][c] += xv * w[c];
-    }
-  }
-#pragma unroll
-  for (int m = 0; m < SK_ROWS; ++m)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) red[warp][m][lane * 4 + c] = acc[m][c];
-  __syncthreads();
-  for (int o = threadIdx.x; o < M * SK_COLS; o += SK_THREADS) {
-    const int m = o / SK_COLS, c = o % SK_COLS;
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < SK_WARPS; ++w) s += red[w][m][c];
-    partial[((size_t)blockIdx.y * M + m) * N + n0 + c] = s;
-  }
-}
-
-// out[m, n] = sum over K slices, in slice order
-__global__ void qmm_reduce(const float* __restrict__ partial, float* __restrict__ out,
-                           int splits, int MN) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= MN) return;
-  float s = 0.f;
-  for (int j = 0; j < splits; ++j) s += partial[(size_t)j * MN + i];
-  out[i] = s;
-}
 
 // ----------------------------------------------------------------- tiled
 namespace tiled {
@@ -435,35 +353,27 @@ int launch(const float* x, const int8_t* q, const float* scale, float* out, int 
 }  // namespace tiled
 
 template <int BITS>
-int launch(const float* x, const int8_t* q, const float* scale, float* out, float* partial,
-           int M, int K, int N, cudaStream_t stream) {
-  if (M > SK_ROWS) return tiled::launch<BITS>(x, q, scale, out, M, K, N, stream);
-  const int splits = (K + SK_KCHUNK - 1) / SK_KCHUNK;
-  qmm_skinny<BITS><<<dim3(N / SK_COLS, splits), SK_THREADS, 0, stream>>>(
-      x, q, scale, partial, M, K, N);
-  const int MN = M * N;
-  qmm_reduce<<<(MN + 255) / 256, 256, 0, stream>>>(partial, out, splits, MN);
-  return (int)cudaGetLastError();
+int launch(const float* x, const int8_t* q, const float* scale, float* out, int M, int K, int N,
+           int ranks, int cols, cudaStream_t stream) {
+  if (M > skinny::MAX_ROWS) return tiled::launch<BITS>(x, q, scale, out, M, K, N, stream);
+  return skinny::launch<BITS == 8 ? skinny::I8 : skinny::I4>(x, q, scale, skinny::Store{out}, M,
+                                                             K, N, ranks, cols, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Rows of x at or below which the skinny path runs; its K-slice count
-// sizes the caller's partial-sum scratch (splits * M * N floats).
-int qmm_skinny_rows() { return SK_ROWS; }
-int qmm_kchunk() { return SK_KCHUNK; }
-
-int qmm_launch(const void* x, const void* q, const void* scale, void* out, void* partial,
-               int M, int K, int N, int bits, void* stream) {
+// ranks, cols: the skinny path's plan (M <= 8; ../skinny.py), else unused
+int qmm_launch(const void* x, const void* q, const void* scale, void* out, int M, int K, int N,
+               int bits, int ranks, int cols, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (bits == 8)
-    return launch<8>((const float*)x, (const int8_t*)q, (const float*)scale, (float*)out,
-                     (float*)partial, M, K, N, s);
+    return launch<8>((const float*)x, (const int8_t*)q, (const float*)scale, (float*)out, M, K,
+                     N, ranks, cols, s);
   if (bits == 4)
-    return launch<4>((const float*)x, (const int8_t*)q, (const float*)scale, (float*)out,
-                     (float*)partial, M, K, N, s);
+    return launch<4>((const float*)x, (const int8_t*)q, (const float*)scale, (float*)out, M, K,
+                     N, ranks, cols, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -17,8 +17,13 @@ registers and skips key tiles outside the causal/window band. It reads
 grouped GQA heads directly — query row ``bh`` uses kv row ``bh // n_rep``
 — so the repeated-KV copy the TPU path built is never made. Padded
 prompt positions lie past every real query, so the causal mask keeps
-them out of real rows. Tolerance: the reference's atol 3e-5
-(``tests/test_kernels.py:105``); ``chip_smoke.py`` holds the kernel to it
+them out of real rows. A query row with no key in its band (only with a
+``window`` and Sq > Sk: rows ``q >= Sk + window - 1``) gets the
+reference's answer, V's mean over the Sk keys of its KV head: the
+reference masks with a finite -1e30, so every p of such a row is 1. The
+kernel leaves such rows at 0 and this wrapper overwrites them, only when
+they exist (never at Sq = Sk, every path's shape). Tolerance: the
+reference's atol 3e-5 (``tests/test_kernels.py:105``); ``chip_smoke.py`` holds the kernel to it
 (max |Δ| 1.4e-6 at the prefill shape) and times it: 0.213–0.215 ms a call
 at the prefill shape on an NVIDIA H100 80GB HBM3 at 700 W, against SDPA's
 0.276–0.278 and the 0.052 ms tensor-core bound (``PERF.md``).
@@ -55,6 +60,26 @@ def _fn():
         lib.flash_scratch_elems.argtypes = [ctypes.c_int] * 4
         lib.flash_scratch_elems.restype = ctypes.c_longlong
     return lib, fn
+
+
+def _keyless_from(Sq: int, Sk: int, window: Optional[int]) -> int:
+    """The first query row with no key in its band, or ``Sq``. Row q's
+    band holds the keys k < Sk with q - k < window (and k <= q when
+    causal): causal or not, it is empty once q - (Sk - 1) >= window."""
+    if window is None:
+        return Sq
+    return min(Sq, Sk + window - 1)
+
+
+def _fill_keyless(out: torch.Tensor, v: torch.Tensor, n_rep: int, window: Optional[int]
+                  ) -> torch.Tensor:
+    """Give ``out``'s rows with no key the reference's answer, in place:
+    V's mean over the Sk keys of the KV head query head ``bh`` reads,
+    ``bh // n_rep`` (the kernel leaves them at 0)."""
+    first = _keyless_from(out.shape[1], v.shape[1], window)
+    if first < out.shape[1]:
+        out[:, first:] = v.mean(dim=1).repeat_interleave(n_rep, dim=0)[:, None, :]
+    return out
 
 
 def flash_attention(
@@ -98,4 +123,4 @@ def flash_attention(
             _build.stream_of(q))
     _build.check(lib, rc, "flash_attention")
     launches += 1
-    return out
+    return _fill_keyless(out, v, n_rep, window)

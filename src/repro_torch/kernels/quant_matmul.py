@@ -8,14 +8,16 @@ memory and are dequantized tile by tile on chip.
 What bounds it on the H100: the decode step (M = batch bucket <= 8) is
 a GEMV bound by the weight bytes — about 1.56 GB of int8 weights plus
 scales per decode step across the 24 layers of internlm2-1.8b, about
-0.47 ms at 3.35 TB/s. Its kernel path dequantizes as the reference does
-(``float(q) * scale``, f32 accumulation), reads whole 128-byte weight
-rows per warp, splits K across blocks to fill the card, and sums the
-slices in a fixed order (deterministic). Prefill and the epoch-1
-training step (M > 8, up to 4096) are bound by operations: one layer's
-seven projections at M = 4096 take at least 1.563 ms on the bf16 tensor
-cores (three products a weight, below) and 7.69 ms in f32 on the CUDA
-cores. Its kernel path runs on the bf16 tensor cores: the scale, which
+0.47 ms at 3.35 TB/s. Its kernel path is one launch of
+``csrc/skinny.cuh``'s GEMV: it dequantizes as the reference does
+(``float(q) * scale``, f32 accumulation), loads 16 codes a lane (fewer
+at M > 4), splits K over the blocks of a thread block cluster (the plan
+of :mod:`~repro_torch.kernels.skinny`) and sums the slices in a fixed
+order through distributed shared memory (deterministic, no scratch).
+Prefill and the epoch-1 training step (M > 8, up to 4096) are bound by
+operations: one layer's seven projections at M = 4096 take at least
+1.563 ms on the bf16 tensor cores (three products a weight, below) and
+7.69 ms in f32 on the CUDA cores. Its kernel path runs on the bf16 tensor cores: the scale, which
 changes at every k, is folded into x once per 128-column quantization
 block (``a = f32(x * scale[:, nb])``), ``a`` is split in three bf16
 terms as it is staged, the int8 or int4 codes go whole (exact in bf16),
@@ -37,6 +39,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import require
 from repro_torch.kernels.ref import quant_matmul_ref
+from repro_torch.kernels.skinny import SKINNY_ROWS, plan_for
 
 QBLOCK = 128  # quantization block along N (matches core.quantization)
 
@@ -48,11 +51,8 @@ def _fn():
     lib = _build.library("quant_matmul")
     fn = lib.qmm_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        for name in ("qmm_skinny_rows", "qmm_kchunk"):
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = ctypes.c_int
     return lib, fn
 
 
@@ -84,12 +84,11 @@ def quant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, bits: in
     require(q.data_ptr() % 4 == 0 and x.data_ptr() % 16 == 0, "misaligned x or q")
     lib, fn = _fn()
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    partial = out
-    if M <= lib.qmm_skinny_rows():
-        splits = -(-K // lib.qmm_kchunk())
-        partial = torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
-    rc = fn(x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), partial.data_ptr(),
-            M, K, N, bits, _build.stream_of(x))
+    ranks = cols = 0
+    if M <= SKINNY_ROWS:
+        _, _, ranks, cols = plan_for(x, M, K, N, bits)
+    rc = fn(x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), M, K, N, bits, ranks,
+            cols, _build.stream_of(x))
     _build.check(lib, rc, "quant_matmul")
     launches += 1
     return out

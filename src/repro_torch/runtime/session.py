@@ -39,8 +39,8 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.core.device import resolve_device
 from repro_torch.runtime.spec import RunSpec, RunSpecError
-from repro_torch.serve.engine import resolve_device
 
 
 @dataclass

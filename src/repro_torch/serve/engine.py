@@ -39,6 +39,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.device import resolve_device
 from repro_torch.core.parallel_adapters import (
     gather_adapters,
     init_adapter_cache,
@@ -47,16 +48,6 @@ from repro_torch.core.parallel_adapters import (
 from repro_torch.core.quantization import tree_leaves, tree_map
 from repro_torch.serve import paging
 from repro_torch.serve.decode import paged_pac_decode_step, paged_prefill
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the card; with no card, only an explicit CPU runs."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: pass device='cpu' to run the engine on the CPU")
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device(device)
 
 
 def _bucket(n: int, cap: int) -> int:

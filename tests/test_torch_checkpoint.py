@@ -113,7 +113,7 @@ def test_checkpoint_crosses_packages_bit_for_bit(direction, tmp_path):
     assert Path(tpath).read_bytes() == Path(jpath).read_bytes() and n == os.path.getsize(jpath)
     assert not Path(tpath + ".tmp").exists()
     if direction == "jax_to_port":
-        _assert_tree_equal(load_checkpoint(jpath), tree)
+        _assert_tree_equal(load_checkpoint(jpath, device="cpu"), tree)
     else:
         _assert_tree_equal(bridge.to_torch(jax_load(tpath)), tree)
 
@@ -128,7 +128,18 @@ def test_bf16_leaves_are_refused(tmp_path):
     assert not path.exists() and not Path(str(path) + ".tmp").exists()
     jax_save(str(path), {"w": jnp.zeros(2, jnp.bfloat16)})
     with pytest.raises(CheckpointError, match="bfloat16"):
-        load_checkpoint(str(path))
+        load_checkpoint(str(path), device="cpu")
+
+
+def test_load_checkpoint_runs_on_the_card_unless_asked_for_the_cpu(tmp_path, monkeypatch):
+    """``device=None`` means the card, as for the port's other entry
+    points: with no card it raises, and only ``device="cpu"`` runs."""
+    path = str(tmp_path / "a.msgpack")
+    save_checkpoint(path, {"x": torch.arange(3.0)})
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_checkpoint(path)
+    assert load_checkpoint(path, device="cpu")["x"].device.type == "cpu"
 
 
 def test_checkpoint_needs_no_msgpack_package(tmp_path):
@@ -140,7 +151,7 @@ def test_checkpoint_needs_no_msgpack_package(tmp_path):
             "                                    tree_fingerprint)\n"
             f"p = {str(tmp_path / 'a.msgpack')!r}\n"
             "t = {'x': torch.arange(6.).reshape(2, 3), 'n': (1, 'a')}\n"
-            "save_checkpoint(p, t); b = load_checkpoint(p)\n"
+            "save_checkpoint(p, t); b = load_checkpoint(p, device='cpu')\n"
             "assert torch.equal(b['x'], t['x']) and b['n'] == (1, 'a')\n"
             "assert len(tree_fingerprint(t)) == 16\n")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))

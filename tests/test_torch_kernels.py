@@ -559,7 +559,8 @@ def test_flash_bf16_split_error_model(softcap):
 
 @pytest.mark.parametrize("harness,source", [("ce_fwd_variants", "lmhead_ce.cu"),
                                             ("qmm_variants", "quant_matmul.cu"),
-                                            ("flash_variants", "flash_attention.cu")])
+                                            ("flash_variants", "flash_attention.cu"),
+                                            ("skinny_variants", "skinny.cuh")])
 def test_variant_harness_edits_apply_to_the_shipped_source(harness, source):
     """Each variant of a kernel's timing harness replaces text that occurs
     exactly once in the source it builds from, so a kernel edit that moves
