@@ -37,7 +37,18 @@ Phases, in order; any failure exits non-zero:
    twice at the prefill shape (``flash_attention_deterministic``:
    bit-equal), and with Sq = 300 queries over Sk = 100 keys, window 32,
    where rows 131.. have no key and get V's mean, the reference's answer
-   (``flash_attention_keyless``).
+   (``flash_attention_keyless``). Paged attention (one launch: each
+   request's pages split over a thread block cluster, staged by cp.async,
+   merged in rank order through distributed shared memory) at the check's
+   shape (B = 8, Hkv = 8, n_rep = 2, hd = 128, int8 pages of 16 tokens,
+   lengths <= 511) and at a long context (lengths <= 4095, max_pages 256),
+   each beside its byte bound, the plain version and SDPA over gathered
+   KV; at B 1, 3, 8 and 72, Hkv 2 and 8, n_rep 1, 2 and 8, hd 64 and 128,
+   pages of 4 and 16 tokens, lengths on page edges up to 543 and padding
+   rows, f32, bf16 and int8 pages, plain, window 64 with soft-cap 30, and
+   window 20 (``paged_attention_ragged`` lines, unaligned pools too); and
+   two calls and three CUDA-graph replays bit-equal
+   (``paged_attention_deterministic``).
 4. Serving: internlm2-1.8b at full width (24 layers, d=2048), random
    weights from a seeded generator, INT8 backbone and INT8 KV pages,
    4 users with r=8 adapters, 8 requests with ragged prompts, 32 new
@@ -424,14 +435,208 @@ def flash_keyless(gen: torch.Generator) -> None:
               "tol_reason": FLASH_TOL_REASON})
 
 
+PAGED_TOL = {"f32": 2e-4, "int8": 2e-4, "bf16": 3e-2}  # tests/test_decode_parity.py:36
+PAGED_TOL_REASON = "the reference's paged tolerances (tests/test_decode_parity.py:36)"
+
+
+def paged_case(gen: torch.Generator, rng: np.random.Generator, B: int, Hkv: int, n_rep: int,
+               hd: int, page: int, max_pages: int, lengths_np: np.ndarray, padding=()):
+    """Seeded decode inputs: q (B, Hkv, n_rep, hd), f32 K/V pools of
+    B * max_pages + 1 pages (page 0 the null page), and block tables that
+    give each row the pages its length needs, in a random order; the rows
+    in ``padding`` keep the null page (length 0: a padding row)."""
+    n_pages = B * max_pages + 1
+    perm = rng.permutation(np.arange(1, n_pages)).astype(np.int32)
+    bt_np = np.zeros((B, max_pages), np.int32)
+    for b in range(B):
+        if b not in padding:
+            n = min(max_pages, -(-(int(lengths_np[b]) + 1) // page))
+            bt_np[b, :n] = perm[b * max_pages:b * max_pages + n]
+    q = torch.randn(B, Hkv, n_rep, hd, generator=gen, device=DEV)
+    kf = torch.randn(n_pages, page, Hkv, hd, generator=gen, device=DEV)
+    vf = torch.randn(n_pages, page, Hkv, hd, generator=gen, device=DEV)
+    return (q, kf, vf, torch.from_numpy(bt_np).to(DEV),
+            torch.from_numpy(lengths_np.astype(np.int32)).to(DEV))
+
+
+def paged_bound(lengths_np: np.ndarray, Hkv: int, n_rep: int, hd: int, page: int):
+    """The least time of one int8 call: each attended K/V row and its scale
+    read once, q read and the output written once, the block-table entries
+    and lengths read once; 4 * n_rep * hd f32 FLOPs a token and kv head."""
+    tokens = int((lengths_np.astype(np.int64) + 1).sum())
+    B = len(lengths_np)
+    nbytes = (tokens * Hkv * 2 * (hd + 4) + 2 * B * Hkv * n_rep * hd * 4
+              + 4 * int(sum(-(-(int(n) + 1) // page) for n in lengths_np)) + 4 * B)
+    return bound(nbytes, 4.0 * n_rep * hd * Hkv * tokens)
+
+
+def paged_timed(timer: Timer, gen: torch.Generator, lengths_np: np.ndarray, max_pages: int,
+                at: str) -> dict:
+    """``paged_attention`` at B = len(lengths), Hkv = 8, n_rep = 2,
+    hd = 128, int8 pages of 16 tokens, against its plain version; timed
+    beside the plain version and SDPA over the KV gathered to dense f32
+    beforehand (length mask), with the byte bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import paged_attention, plan_for
+    from repro_torch.serve.paging import quantize_kv_pages
+
+    B, Hkv, n_rep, hd, page = len(lengths_np), 8, 2, 128, 16
+    rng = np.random.default_rng(SEED)
+    qd, kf, vf, bt, lengths = paged_case(gen, rng, B, Hkv, n_rep, hd, page, max_pages, lengths_np)
+    (kq, ks), (vq, vs) = quantize_kv_pages(kf), quantize_kv_pages(vf)
+    del kf, vf
+    got = paged_attention(qd, kq, vq, bt, lengths, k_scale=ks, v_scale=vs)
+    want = ref.paged_attention_ref(qd, kq, vq, bt, lengths, k_scale=ks, v_scale=vs)
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"paged_attention {at}: non-finite output")
+    check(f"paged_attention {at}", max_err(got, want), PAGED_TOL["int8"])
+    b_ms, b_by = paged_bound(lengths_np, Hkv, n_rep, hd, page)
+    S = max_pages * page
+    idx = bt.long()
+    kd = (kq[idx].float() * ks[idx][..., None]).reshape(B, S, Hkv, hd)
+    vd = (vq[idx].float() * vs[idx][..., None]).reshape(B, S, Hkv, hd)
+    kd = kd.transpose(1, 2).repeat_interleave(n_rep, dim=1)
+    vd = vd.transpose(1, 2).repeat_interleave(n_rep, dim=1)
+    qsd = qd.reshape(B, Hkv * n_rep, 1, hd)
+    mask = (torch.arange(S, device=DEV)[None, :] <= lengths[:, None])[:, None, None, :]
+    pools = [(kq, vq, ks, vs)] + [(kq.clone(), vq.clone(), ks.clone(), vs.clone())
+                                  for _ in range(copies(2 * (kq.numel() + 4 * ks.numel())) - 1)]
+    r = {"check": "paged_attention", "at": at, "B": B, "Hkv": Hkv, "n_rep": n_rep, "hd": hd,
+         "page": page, "max_pages": max_pages, "lengths": lengths_np.tolist(), "pages": "int8",
+         "plan": plan_for(qd, B, Hkv, n_rep, hd, page, max_pages, 0)._asdict(),
+         "max_abs_err": max_err(got, want), "tol": f"atol {PAGED_TOL['int8']}",
+         "tol_reason": PAGED_TOL_REASON,
+         "ms": timer([lambda p=p: paged_attention(qd, p[0], p[1], bt, lengths, k_scale=p[2],
+                                                  v_scale=p[3]) for p in pools]),
+         "plain_ms": timer([lambda p=p: ref.paged_attention_ref(
+             qd, p[0], p[1], bt, lengths, k_scale=p[2], v_scale=p[3]) for p in pools]),
+         "library_ms": timer(lambda: torch.nn.functional.scaled_dot_product_attention(
+             qsd, kd, vd, attn_mask=mask)),
+         "library": "scaled_dot_product_attention over dense f32 KV gathered beforehand",
+         "bound_ms": b_ms, "bound_by": b_by}
+    emit(r)
+    return r
+
+
+def paged_ragged(gen: torch.Generator) -> None:
+    """``paged_attention`` against its plain version at B 1, 3, 8 and 72
+    (the last groups two kv heads a block, one rank: no cluster), Hkv 2
+    and 8, n_rep 1, 2 and 8, hd 64 and 128, pages of 4 and 16 tokens,
+    lengths on page edges up to 543 (the serving ``max_len`` 544) and
+    padding rows (length 0 on the null page), f32, bf16 and int8 pages,
+    each plain, with window 64 and soft-cap 30, and with window 20 (which
+    leaves most ranks of a long row empty); and int8 and bf16 pools whose
+    base is not 16-byte aligned. One line per shape."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import paged_attention, plan_for
+    from repro_torch.serve.paging import quantize_kv_pages
+
+    rng = np.random.default_rng(SEED + 1)
+    shapes = [  # B, Hkv, n_rep, hd, page, max_pages, lengths, padding rows
+        (1, 2, 1, 64, 4, 136, [543], ()),
+        (3, 8, 8, 128, 16, 34, [0, 16, 543], (0,)),
+        (8, 2, 2, 64, 16, 34, [0, 15, 16, 17, 255, 256, 542, 543], ()),
+        (8, 8, 2, 128, 4, 136, [3, 4, 5, 127, 128, 300, 542, 543], ()),
+        (3, 2, 8, 128, 4, 136, [0, 3, 543], (0,)),
+        (72, 8, 2, 128, 16, 34, list(rng.integers(0, 544, size=72)), (5,)),
+    ]
+    options = {"plain": {}, "window64_cap30": dict(window=64, attn_softcap=30.0),
+               "window20": dict(window=20)}
+    for B, Hkv, n_rep, hd, page, max_pages, lens, padding in shapes:
+        lengths_np = np.array(lens, np.int32)
+        lengths_np[list(padding)] = 0
+        q, kf, vf, bt, lengths = paged_case(gen, rng, B, Hkv, n_rep, hd, page, max_pages,
+                                            lengths_np, padding)
+        (kq, ks), (vq, vs) = quantize_kv_pages(kf), quantize_kv_pages(vf)
+        pools = {"f32": ((kf, vf), {}), "bf16": ((kf.bfloat16(), vf.bfloat16()), {}),
+                 "int8": ((kq, vq), dict(k_scale=ks, v_scale=vs))}
+        if B == 8 and hd == 64:  # pools whose base is off 16-byte alignment: plain loads
+            def shifted(t):
+                flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=DEV)
+                out = flat[1:].view(t.shape)
+                out.copy_(t)
+                return out
+            pools["int8_unaligned"] = ((shifted(kq), shifted(vq)), dict(k_scale=ks, v_scale=vs))
+            pools["bf16_unaligned"] = ((shifted(kf.bfloat16()), shifted(vf.bfloat16())), {})
+        errs = {}
+        for kind, ((kp, vp), scales) in pools.items():
+            for opt, kw in options.items():
+                got = paged_attention(q, kp, vp, bt, lengths, **scales, **kw)
+                want = ref.paged_attention_ref(q, kp, vp, bt, lengths, **scales, **kw)
+                label = f"{kind} {opt}"
+                if not torch.isfinite(got).all():
+                    raise AssertionError(f"paged_attention_ragged B={B} {label}: non-finite")
+                errs[label] = max_err(got, want)
+                check(f"paged_attention_ragged B={B} Hkv={Hkv} n_rep={n_rep} hd={hd} "
+                      f"page={page} {label}", errs[label], PAGED_TOL[kind.split("_")[0]])
+        emit({"check": "paged_attention_ragged", "B": B, "Hkv": Hkv, "n_rep": n_rep, "hd": hd,
+              "page": page, "max_pages": max_pages, "lengths": lengths_np.tolist(),
+              "padding_rows": list(padding),
+              "plan_int8": plan_for(q, B, Hkv, n_rep, hd, page, max_pages, 0)._asdict(),
+              "max_abs_err": errs, "tol": {k: f"atol {v}" for k, v in PAGED_TOL.items()},
+              "tol_reason": PAGED_TOL_REASON})
+
+
+def paged_deterministic(gen: torch.Generator, lengths_np: np.ndarray, max_pages: int) -> None:
+    """Two eager calls at the check's shape bit-equal, and the call
+    captured in a CUDA graph and replayed three times, each bit-equal to
+    the eager call."""
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.serve.paging import quantize_kv_pages
+
+    q, kf, vf, bt, lengths = paged_case(gen, np.random.default_rng(SEED), len(lengths_np), 8, 2,
+                                        128, 16, max_pages, lengths_np)
+    (kq, ks), (vq, vs) = quantize_kv_pages(kf), quantize_kv_pages(vf)
+
+    def fn():
+        return paged_attention(q, kq, vq, bt, lengths, k_scale=ks, v_scale=vs)
+
+    eager, again = fn(), fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = fn()
+    replays = []
+    for _ in range(3):
+        static.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append(bool(torch.equal(static, eager)))
+    del graph
+    ok = bool(torch.equal(eager, again)) and all(replays)
+    emit({"check": "paged_attention_deterministic", "at": "B=8 Hkv=8 n_rep=2 hd=128 page=16 int8",
+          "calls_bit_equal": bool(torch.equal(eager, again)), "replays_equal_eager": replays,
+          "bit_equal": ok})
+    if not ok:
+        raise AssertionError(f"paged_attention: reruns or graph replays differ ({replays})")
+
+
+def paged_phase(timer: Timer, gen: torch.Generator) -> dict:
+    """Paged attention at the check's shape (B = 8, Hkv = 8, n_rep = 2,
+    hd = 128, int8 pages of 16 tokens, seeded lengths <= 511, max_pages
+    32) and at a long context (seeded lengths <= 4095, max_pages 256),
+    both timed; the ragged cases; bit-equal reruns and graph replays."""
+    rng = np.random.default_rng(SEED)
+    lengths_np = rng.integers(1, 512, size=8).astype(np.int32)
+    r = paged_timed(timer, gen, lengths_np, 32, "decode B=8 Hkv=8 n_rep=2 hd=128 page=16 int8, "
+                    "lengths<=511")
+    long_lengths = np.random.default_rng(SEED + 2).integers(1, 4096, size=8).astype(np.int32)
+    long = paged_timed(timer, gen, long_lengths, 256, "long context B=8 Hkv=8 n_rep=2 hd=128 "
+                       "page=16 int8, lengths<=4095")
+    paged_ragged(gen)
+    paged_deterministic(gen, lengths_np, 32)
+    row = {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms", "at", "plan")}
+    row["long"] = {k: long[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                        "library_ms", "at", "plan")}
+    return row
+
+
 def kernel_phase(timer: Timer, gen: torch.Generator):
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.kernels.quant_matmul import quant_matmul
-    from repro_torch.serve.paging import quantize_kv_pages
 
-    dev = "cuda"
     rows = {}
 
     # quant_matmul: decode M=8, epoch-1 M=2048 and prefill M=4096 over the
@@ -490,75 +695,7 @@ def kernel_phase(timer: Timer, gen: torch.Generator):
     flash_ragged(gen)
     flash_keyless(gen)
 
-    # paged attention: decode B=8, Hkv=8, n_rep=2, hd=128, page 16, ragged lengths <= 511
-    B, Hkv, n_rep, hd, page = 8, 8, 2, 128, 16
-    max_pages = 512 // page
-    rng = np.random.default_rng(SEED)
-    lengths_np = rng.integers(1, 512, size=B).astype(np.int32)
-    n_pages = B * max_pages + 1
-    perm = rng.permutation(np.arange(1, n_pages)).astype(np.int32)
-    bt_np = np.zeros((B, max_pages), np.int32)
-    for b in range(B):
-        n = -(-(int(lengths_np[b]) + 1) // page)
-        bt_np[b, :n] = perm[b * max_pages:b * max_pages + n]
-    bt = torch.from_numpy(bt_np).to(dev)
-    lengths = torch.from_numpy(lengths_np).to(dev)
-    qd = torch.randn(B, Hkv, n_rep, hd, generator=gen, device=dev)
-    kf = torch.randn(n_pages, page, Hkv, hd, generator=gen, device=dev)
-    vf = torch.randn(n_pages, page, Hkv, hd, generator=gen, device=dev)
-    (kq, ks), (vq, vs) = quantize_kv_pages(kf), quantize_kv_pages(vf)
-    pa_tol = 2e-4
-    pad_lengths = lengths.clone()
-    pad_lengths[-1] = 0
-    pad_bt = bt.clone()
-    pad_bt[-1] = 0  # a padding row: length 0 on the null page
-    variants = [
-        ("int8", (kq, vq), dict(k_scale=ks, v_scale=vs), bt, lengths),
-        ("int8 window=64 cap=30", (kq, vq), dict(k_scale=ks, v_scale=vs, window=64,
-                                                 attn_softcap=30.0), bt, lengths),
-        ("int8 padding row", (kq, vq), dict(k_scale=ks, v_scale=vs), pad_bt, pad_lengths),
-        ("f32", (kf, vf), {}, bt, lengths),
-        ("bf16", (kf.bfloat16(), vf.bfloat16()), {}, bt, lengths),
-    ]
-    for label, (kp, vp), kw, bt_, len_ in variants:
-        got = paged_attention(qd, kp, vp, bt_, len_, **kw)
-        want = ref.paged_attention_ref(qd, kp, vp, bt_, len_, **kw)
-        if not torch.isfinite(got).all():
-            raise AssertionError(f"paged_attention {label}: non-finite output")
-        check(f"paged_attention {label}", max_err(got, want), pa_tol)
-    kw = dict(k_scale=ks, v_scale=vs)
-    got = paged_attention(qd, kq, vq, bt, lengths, **kw)
-    want = ref.paged_attention_ref(qd, kq, vq, bt, lengths, **kw)
-    tokens = int((lengths + 1).sum())
-    nbytes = (tokens * Hkv * 2 * (hd + 4) + 2 * qd.numel() * 4
-              + 4 * int(sum(-(-(int(n) + 1) // page) for n in lengths_np)) + 4 * B)
-    b_ms, b_by = bound(nbytes, 4.0 * n_rep * hd * Hkv * tokens)
-    # yardstick: SDPA over the KV gathered to dense f32 beforehand, length mask
-    S = max_pages * page
-    kd = (kq[bt.long()].float() * ks[bt.long()][..., None]).reshape(B, S, Hkv, hd)
-    vd = (vq[bt.long()].float() * vs[bt.long()][..., None]).reshape(B, S, Hkv, hd)
-    kd = kd.transpose(1, 2).repeat_interleave(n_rep, dim=1)
-    vd = vd.transpose(1, 2).repeat_interleave(n_rep, dim=1)
-    qsd = qd.reshape(B, Hkv * n_rep, 1, hd)
-    mask = (torch.arange(S, device=dev)[None, :] <= lengths[:, None])[:, None, None, :]
-    pools = [(kq, vq, ks, vs)] + [(kq.clone(), vq.clone(), ks.clone(), vs.clone())
-                                  for _ in range(copies(2 * (kq.numel() + 4 * ks.numel())) - 1)]
-    r = {"check": "paged_attention", "B": B, "Hkv": Hkv, "n_rep": n_rep, "hd": hd,
-         "page": page, "lengths": lengths_np.tolist(), "pages": "int8",
-         "max_abs_err": max_err(got, want), "tol": f"atol {pa_tol}",
-         "tol_reason": "the reference's int8/f32 paged tolerance (tests/test_decode_parity.py:36)",
-         "ms": timer([lambda p=p: paged_attention(qd, p[0], p[1], bt, lengths, k_scale=p[2],
-                                                  v_scale=p[3]) for p in pools]),
-         "plain_ms": timer([lambda p=p: ref.paged_attention_ref(
-             qd, p[0], p[1], bt, lengths, k_scale=p[2], v_scale=p[3]) for p in pools]),
-         "library_ms": timer(lambda: torch.nn.functional.scaled_dot_product_attention(
-             qsd, kd, vd, attn_mask=mask)),
-         "library": "scaled_dot_product_attention over dense f32 KV gathered beforehand",
-         "bound_ms": b_ms, "bound_by": b_by}
-    emit(r)
-    rows["paged_attention"] = {k_: r[k_] for k_ in ("max_abs_err", "ms", "plain_ms",
-                                                    "bound_ms", "bound_by", "library_ms")}
-    rows["paged_attention"]["at"] = "decode B=8 Hkv=8 n_rep=2 hd=128 page=16 int8, lengths<=511"
+    rows["paged_attention"] = paged_phase(timer, gen)
     return rows
 
 

@@ -8,14 +8,17 @@ INT8 pages dequantized with per-(token, kv-head) scales, optional
 sliding ``window`` and tanh ``attn_softcap``, f32/bf16/int8 pages, page
 0 the null page.
 
-What bounds it on the H100: bytes — each attended K/V row is read once
-(int8: 2·(hd + 4) bytes per token and kv head) for 4·n_rep·hd FLOPs. The
-kernel runs one block per (request, kv head); the block reads its own
-block-table row and length (the card has no scalar prefetch), walks
-only the attended positions, dequantizes in registers and merges its
-warps' online-softmax states at the end. A padding row (length 0, null
-page) attends one finite slot, so its output is finite. Limits on the
-card: hd in (64, 128), n_rep <= 8; page size and kv-head count are free.
+What bounds it on the H100: bytes at long contexts — each attended K/V
+row is read once (int8: 2·(hd + 4) bytes per token and kv head) for
+4·n_rep·hd FLOPs — and at the serving shape the latency of one launch and
+its dependent loads. The kernel runs one thread block cluster per
+(request, group of kv heads); its ranks split the request's pages, stage
+their rows into shared memory with asynchronous copies, score a stage at
+a time, and merge their online-softmax states in rank order through
+distributed shared memory (the source's note has the design).
+:func:`plan` sets the grid. A padding row (length 0, null page) attends
+one finite slot, so its output is finite. Limits on the card: hd in (64,
+128), n_rep <= 8; page size and kv-head count are free.
 
 On CPU tensors the wrapper computes
 :func:`~repro_torch.kernels.ref.paged_attention_ref`; on CUDA tensors it
@@ -25,7 +28,8 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -38,6 +42,69 @@ launches = 0
 
 HEAD_DIMS = (64, 128)
 _KIND = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
+KIND_BYTES = {0: 1, 1: 4, 2: 2}  # bytes an element of each page kind
+
+# paged_attention.cu's constants
+WARPS = 8          # a block's warps
+MAX_ROWS = 8       # query rows a block: kv heads x n_rep
+MAX_RANKS = 8      # the portable cluster size
+STAGE_BYTES = 8192  # K (and V) bytes a ring stage holds at most
+MAX_CHUNK = 64     # (token, kv head) rows a stage at most
+RESIDENT = 2       # blocks an SM holds (__launch_bounds__(THREADS, 2))
+
+
+class Plan(NamedTuple):
+    ranks: int  # blocks of a cluster, rank r taking pages [r * pages, (r + 1) * pages)
+    pages: int  # block-table pages a rank
+    heads: int  # kv heads a block
+    chunk: int  # tokens a ring stage holds
+
+
+def chunk_rows(hd: int, kind: int) -> int:
+    """(token, kv head) rows a ring stage holds: 8 KB of K, at most 64."""
+    return min(MAX_CHUNK, STAGE_BYTES // (hd * KIND_BYTES[kind]))
+
+
+@functools.lru_cache(maxsize=512)
+def plan(B: int, Hkv: int, n_rep: int, hd: int, page: int, max_pages: int, kind: int,
+         sms: int) -> Plan:
+    """The grid for q (B, Hkv, n_rep, hd) over a (B, max_pages) block
+    table of ``page``-token pages of ``kind`` (0 int8, 1 f32, 2 bf16) on a
+    card of ``sms`` SMs, from shapes alone (lengths live on the card).
+
+    One wave is ``RESIDENT`` blocks an SM. kv heads are grouped in a
+    block (a power of two dividing Hkv, with heads x n_rep <= 8 query
+    rows) only while the (request, head group) pairs still fill that wave;
+    then each pair's pages are split over as many ranks, up to 8, as the
+    wave holds. Rank r takes pages [r * pages, (r + 1) * pages) of the
+    table, and every rank has at least one. At the serving shape (B = 8,
+    Hkv = 8, n_rep = 2, max_pages 34) on 132 SMs: 4 ranks of 9 pages, one
+    head a block, 256 blocks, which ``paged_variants.py`` measured fastest
+    there (PERF.md).
+    """
+    if not (B >= 1 and Hkv >= 1 and 1 <= n_rep <= MAX_ROWS and hd in HEAD_DIMS and page >= 1
+            and max_pages >= 1 and kind in KIND_BYTES and sms >= 1):
+        raise ValueError(f"no paged-attention plan for B={B} Hkv={Hkv} n_rep={n_rep} hd={hd} "
+                         f"page={page} max_pages={max_pages} kind={kind}")
+    wave = RESIDENT * sms
+    heads = 1
+    while (2 * heads <= WARPS and Hkv % (2 * heads) == 0 and 2 * heads * n_rep <= MAX_ROWS
+           and B * Hkv // (2 * heads) >= wave):
+        heads *= 2
+    ranks = max(1, min(MAX_RANKS, max_pages, wave // (B * Hkv // heads)))
+    pages = -(-max_pages // ranks)
+    return Plan(-(-max_pages // pages), pages, heads, chunk_rows(hd, kind) // heads)
+
+
+@functools.lru_cache(maxsize=16)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def plan_for(t: torch.Tensor, B: int, Hkv: int, n_rep: int, hd: int, page: int, max_pages: int,
+             kind: int) -> Plan:
+    """:func:`plan` on ``t``'s card."""
+    return plan(B, Hkv, n_rep, hd, page, max_pages, kind, _sms(t.device.index))
 
 
 def _fn():
@@ -45,10 +112,9 @@ def _fn():
     fn = lib.paged_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
-                       + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        lib.paged_max_rep.argtypes = []
-        lib.paged_max_rep.restype = ctypes.c_int
     return lib, fn
 
 
@@ -104,15 +170,18 @@ def paged_attention(
             "block_tables and lengths must be int32")
     require(k_pages.dtype == v_pages.dtype, "k and v pages must share a dtype")
     require(hd in HEAD_DIMS, f"head dim {hd} not in {HEAD_DIMS}")
+    require(n_rep <= MAX_ROWS, f"n_rep {n_rep} > {MAX_ROWS}")
+    max_pages = block_tables.shape[1]
+    kind = _KIND[k_pages.dtype]
+    p = plan_for(q, B, hkv, n_rep, hd, k_pages.shape[1], max_pages, kind)
     lib, fn = _fn()
-    require(n_rep <= lib.paged_max_rep(), f"n_rep {n_rep} > {lib.paged_max_rep()}")
     out = torch.empty_like(q)
     ks = k_scale.data_ptr() if quantized else None
     vs = v_scale.data_ptr() if quantized else None
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ks, vs,
             block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            B, hkv, n_rep, hd, k_pages.shape[1], block_tables.shape[1], _KIND[k_pages.dtype],
-            window or 0, attn_softcap or 0.0, hd ** -0.5, _build.stream_of(q))
+            B, hkv, n_rep, hd, k_pages.shape[1], max_pages, kind, window or 0,
+            attn_softcap or 0.0, hd ** -0.5, *p, _build.stream_of(q))
     _build.check(lib, rc, "paged_attention")
     launches += 1
     return out
