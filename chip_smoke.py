@@ -81,8 +81,11 @@ Phases, in order; any failure exits non-zero:
    ``EdgeSession``/``EpochRunner`` — INT8 backbone, int8 activation
    cache, pruning init, 3 epochs x 2 steps of 4 x 512 tokens: epoch 0
    full (frozen forward through ``quant_matmul`` and flash attention,
-   taps emitted int8), epochs 1-2 from the cache through the mix and CE
-   kernels. Launch counts from this run alone must all be positive.
+   taps emitted int8, copied to pinned host buffers on a side stream),
+   epochs 1-2 from the cache through the mix and CE kernels, their
+   batches read, stacked and copied by the ``CachePrefetcher`` that
+   ``EdgeSession.epoch_scope`` arms. Launch counts from this run alone
+   must all be positive.
    One cached batch then goes through the cached step under ``cuda`` and
    ``ref`` (loss and gradients compared), one full and one cached step
    run under ``torch.profiler``, and the same trainer runs under ``ref``
@@ -91,7 +94,8 @@ Phases, in order; any failure exits non-zero:
    (``persistence`` line): the checkpoint loads back bit-equal; a second
    run (1 epoch x 2 steps) over the cache directory is warm — every step
    cached, no ``quant_matmul``/``flash_attention`` launch, the first
-   run's epoch-0 losses; another seed invalidates and re-captures it.
+   run's epoch-0 losses (its entries read off disk by the prefetcher's
+   worker); another seed invalidates and re-captures it.
 7. Personal kernels: ``adapter_fuse`` against its plain version (f32 and
    bf16, λ in {0, 0.5, 1}) at T = 1, 8, 2048 and ragged shapes on both
    of its paths (T <= 8: one launch of ``skinny::gemv``, with T = 3,
@@ -112,7 +116,17 @@ Phases, in order; any failure exits non-zero:
    (``personal_gap`` line: each step's gap, and the INT8 KV codes that
    the two INT8 runs wrote differently) holds ``cuda`` to ``ref``
    without the INT8 codes' one-step flips.
-9. Summary: one JSON line ``{"kernels": [...]}`` (eight kernels, each
+9. Prefetch: the cached epoch's input path at full width, 8 steps of
+   4 x 512 tokens, int8 cache (``prefetch`` line). Epoch 0 fills the
+   cache; from one snapshot the cached epoch then runs in turns through
+   ``EpochRunner`` (the prefetcher: pinned ring, side-stream copies)
+   and through ``step`` with no epoch scope (read and copied on the
+   caller's thread), twice each, the second time with one step under
+   ``torch.profiler``: per-step losses bit-equal, the prefetched batch's
+   host→device copies ``Pinned -> Device`` on a stream no kernel runs
+   on, epoch 1's tap copies ``Device -> Pinned``, no worker thread left;
+   per-step wall times, medians, busy shares and memory high-water marks.
+10. Summary: one JSON line ``{"kernels": [...]}`` (eight kernels, each
    with its launches on every path and its device kernels by name:
    ``skinny::gemv`` for ``quant_matmul`` at M <= 8 and ``adapter_fuse`` at
    T <= 8), the card's line, and last ``{"ok": true, "device": {...}}``.
@@ -702,11 +716,13 @@ def kernel_phase(timer: Timer, gen: torch.Generator):
 # ---------------------------------------------------------------- serving
 
 
-def device_profile(fn, watch=()) -> dict:
+def device_profile(fn, watch=(), trace: Path = None) -> dict:
     """``fn`` under ``torch.profiler``: the host wall time, the device's
     busy time and its share of the wall time, the torch ops called from
     Python (top-level host events), device time by kernel name (the top
-    ten) and summed over the kernels whose names hold each of ``watch``."""
+    ten) and summed over the kernels whose names hold each of ``watch``.
+    With ``trace`` (a file to write the profiler's trace to) also every
+    memory copy (its kind, stream and bytes) and the kernels' streams."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -716,6 +732,15 @@ def device_profile(fn, watch=()) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    streams = {}
+    if trace is not None:
+        prof.export_chrome_trace(str(trace))
+        events = json.loads(Path(trace).read_text())["traceEvents"]
+        streams = {"copies": [{"kind": e["name"], "stream": e["args"]["stream"],
+                               "bytes": e["args"]["bytes"], "ms": e["dur"] / 1e3}
+                              for e in events if e.get("cat") == "gpu_memcpy"],
+                   "kernel_streams": sorted({e["args"]["stream"] for e in events
+                                             if e.get("cat") == "kernel"})}
     by_name = {}
     host_ops = 0
     for e in prof.events():
@@ -731,7 +756,8 @@ def device_profile(fn, watch=()) -> dict:
             "host_ops": host_ops,
             "kernels_by_device_ms": [[n[:80], t / 1e3] for n, t in top],
             **({"watched_device_ms": {w: sum(t for n, t in by_name.items() if w in n) / 1e3
-                                      for w in watch}} if watch else {})}
+                                      for w in watch}} if watch else {}),
+            **streams}
 
 
 def profile_decode(eng, prompts, names) -> None:
@@ -1379,6 +1405,140 @@ def persistence_phase(s, spec, steps_, run) -> None:
         raise AssertionError("a new seed did not invalidate and re-capture the cache")
 
 
+# ---------------------------------------------------------------- prefetch
+
+PREFETCH_WORKER = "activation-cache-prefetch"  # CachePrefetcher's thread
+
+
+def prefetch_phase(workdir: Path) -> dict:
+    """The cached epoch's input path at full width: 8 steps of 4 x 512
+    tokens, int8 cache, ``cuda`` kernels. Epoch 0 fills the cache (its
+    second step profiled: the taps' device→host copy must land in pinned
+    memory); then, from one snapshot, the cached epoch runs four times in
+    turns: through ``EpochRunner`` (the prefetcher), through ``step``
+    with no epoch scope (read and copied on the caller's thread), and
+    both again with their third step profiled. Gates: bit-equal per-step
+    losses; the prefetched batch's host→device copies from pinned memory
+    on a stream no kernel runs on; no worker thread left. Returns the
+    path's launches (epoch 0 and the first prefetched epoch)."""
+    import threading
+
+    from repro_torch.core.quantization import tree_map
+    from repro_torch.runtime import EdgeSession, EpochReport, EpochRunner, RunSpec
+
+    spec = RunSpec(arch="internlm2-1.8b", quant=8, cache_compress="int8", kernels="cuda",
+                   init="pruning", epochs=2, steps_per_epoch=8, batch=4, seq=512, seed=SEED)
+    s = EdgeSession(spec, log=print).open()
+    runner = EpochRunner(s)
+    # a batch's int8 payloads and f32 scales (one per 128 columns): b0 and
+    # b_final (B, S, d), taps (n_p, B, S, d); their copies, by size
+    rows = spec.batch * spec.seq * s.cfg.d_model
+    batch_bytes = {n * rows * size // block for n in (1, s.cfg.n_periods)
+                   for size, block in ((1, 1), (4, 128))}
+
+    def workers():
+        return [t.name for t in threading.enumerate() if t.name == PREFETCH_WORKER and t.is_alive()]
+
+    def steps_of(epoch, profile_at=None, prefetched=True):
+        """One epoch's StepEvents, through EpochRunner or step(); the
+        ``profile_at``-th step under the profiler (its trace kept)."""
+        events, prof, on_pf = [], None, []
+        if prefetched:
+            it = runner.run_epoch(epoch)
+        else:
+            it = (s.step(b, epoch=epoch, index=i) for i, b in enumerate(s.pipe.epoch(epoch)))
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(spec.steps_per_epoch):
+            if i == profile_at:
+                prof = device_profile(lambda: events.append(next(it)),
+                                      trace=workdir / f"prefetch_{epoch}_{prefetched}.json")
+            else:
+                events.append(next(it))
+            on_pf.append(s._prefetch is not None)
+        rest = list(it)  # the report: the epoch scope closes here
+        if prefetched and not (len(rest) == 1 and isinstance(rest[0], EpochReport)):
+            raise AssertionError(f"the epoch did not end with its report: {rest}")
+        return events, prof, on_pf, torch.cuda.max_memory_allocated()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    fill, fill_prof, _, fill_peak = steps_of(0, profile_at=1)
+    fill_s = time.perf_counter() - t0
+    snap = {k: tree_map(lambda t: t.clone(), v) if k in ("adapter", "opt") else v
+            for k, v in s.snapshot().items()}
+    cached, _, on_pf, pf_peak = steps_of(1)
+    launches = read_launches()
+    after_epoch = workers()
+    runs = {"prefetched": (cached, None, on_pf, pf_peak)}
+    for name, prefetched in (("sync", False), ("prefetched_profiled", True),
+                             ("sync_profiled", False)):
+        s.restore(snap)
+        runs[name] = steps_of(1, profile_at=2 if "profiled" in name else None,
+                              prefetched=prefetched)
+    s.restore(snap)
+    left = workers()
+    cache_bytes, cache_seqs = s.cache.nbytes, len(s.cache)
+    s.close()
+    del s, snap, runner
+
+    losses = {k: [e.loss for e in v[0]] for k, v in runs.items()}
+    walls = {k: [e.wall_s for e in v[0]] for k, v in runs.items()}
+    pf_prof, sync_prof = runs["prefetched_profiled"][1], runs["sync_profiled"][1]
+
+    def batch_copies(prof, kind):
+        return [c for c in prof["copies"] if kind in c["kind"] and c["bytes"] in batch_bytes]
+
+    h2d = batch_copies(pf_prof, "HtoD")
+    taps_d2h = batch_copies(fill_prof, "DtoH")
+    line = {"phase": "prefetch", "arch": "internlm2-1.8b", "steps_per_epoch": spec.steps_per_epoch,
+            "batch": spec.batch, "seq": spec.seq, "cache": spec.cache_compress,
+            "cache_bytes": cache_bytes, "cache_seqs": cache_seqs, "fill_epoch_s": fill_s,
+            "modes": [[e.mode for e in fill], [e.mode for e in cached]],
+            "steps_on_prefetcher": {k: v[2] for k, v in runs.items()},
+            "losses": losses, "step_s": walls,
+            "median_step_s": {k: statistics.median(v) for k, v in walls.items()},
+            "max_memory_allocated": {"fill": fill_peak, **{k: v[3] for k, v in runs.items()}},
+            "busy_share": {"prefetched": pf_prof["device_busy_share"],
+                           "sync": sync_prof["device_busy_share"]},
+            "profiled_wall_ms": {"prefetched": pf_prof["wall_ms"], "sync": sync_prof["wall_ms"]},
+            "device_busy_ms": {"prefetched": pf_prof["device_busy_ms"],
+                               "sync": sync_prof["device_busy_ms"]},
+            "prefetched_h2d": h2d, "sync_h2d": batch_copies(sync_prof, "HtoD"),
+            "kernel_streams": {"prefetched": pf_prof["kernel_streams"],
+                               "sync": sync_prof["kernel_streams"]},
+            "fill_d2h": taps_d2h, "fill_profile_wall_ms": fill_prof["wall_ms"],
+            "fill_busy_share": fill_prof["device_busy_share"],
+            "kernels_by_device_ms": {"fill": fill_prof["kernels_by_device_ms"],
+                                     "prefetched": pf_prof["kernels_by_device_ms"],
+                                     "sync": sync_prof["kernels_by_device_ms"]},
+            "workers_alive_after_epoch": after_epoch, "workers_alive_at_end": left,
+            "launches": launches}
+    emit(line)
+    if [e.mode for e in fill] != ["full"] * 8 or any(e.mode != "cached" for v in runs.values()
+                                                      for e in v[0]):
+        raise AssertionError(f"modes {line['modes']}")
+    if line["steps_on_prefetcher"] != {"prefetched": [True] * 8, "sync": [False] * 8,
+                                       "prefetched_profiled": [True] * 8,
+                                       "sync_profiled": [False] * 8}:
+        raise AssertionError(f"steps on the prefetcher: {line['steps_on_prefetcher']}")
+    if len({tuple(v) for v in losses.values()}) != 1 or not all(
+            np.isfinite(x) for x in losses["sync"]):
+        raise AssertionError(f"prefetched and synchronous losses differ: {losses}")
+    if not h2d or any(c["kind"] != "Memcpy HtoD (Pinned -> Device)"
+                      or c["stream"] in pf_prof["kernel_streams"] for c in h2d):
+        raise AssertionError(f"the prefetched batch's copies: {h2d}, kernels on "
+                             f"{pf_prof['kernel_streams']}")
+    if not taps_d2h or any(c["kind"] != "Memcpy DtoH (Device -> Pinned)" for c in taps_d2h):
+        raise AssertionError(f"epoch 1's tap copies: {taps_d2h}")
+    if after_epoch or left:
+        raise AssertionError(f"prefetch workers still alive: {after_epoch}, {left}")
+    missing = [n for n in ("quant_matmul", "flash_attention", "mix_fwd", "mix_dw", "ce_fwd",
+                           "ce_bwd") if launches[n] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the prefetch path: {missing}")
+    return launches
+
+
 # ---------------------------------------------------------------- personal serving
 
 PERSONAL_D, PERSONAL_DA = 2048, 256  # internlm2-1.8b, r=8
@@ -1665,7 +1825,9 @@ def main() -> int:
         training_done_s = time.perf_counter() - T_START
         rows.update(personal_kernel_phase(Timer(), gen))
         personal = personal_phase(backbone, get_arch("internlm2-1.8b"), ckpt)
-    del backbone
+        del backbone
+        personal_done_s = time.perf_counter() - T_START
+        prefetch = prefetch_phase(Path(workdir))
 
     sources = {"quant_matmul": ("src/repro_torch/kernels/csrc/quant_matmul.cu",
                                 "src/repro/kernels/quant_matmul.py:93"),
@@ -1683,7 +1845,8 @@ def main() -> int:
                           "src/repro/kernels/cached_step.py:497"),
                "adapter_fuse": ("src/repro_torch/kernels/csrc/adapter_fuse.cu",
                                 "src/repro/kernels/adapter_fuse.py:83")}
-    paths = {"serving": serving, "training": training, "personal": personal}
+    paths = {"serving": serving, "training": training, "personal": personal,
+             "prefetch": prefetch}
     home = {"quant_matmul": "serving", "flash_attention": "serving",
             "paged_attention": "serving", "adapter_fuse": "personal"}
     # each kernel's launches on its own main path (serving for the first
@@ -1706,7 +1869,8 @@ def main() -> int:
          **rows[name]}
         for name, (src, rep) in sources.items()]})
     emit({"phase": "done", "wall_s": time.perf_counter() - T_START,
-          "through_serving_s": serving_done_s, "through_training_s": training_done_s})
+          "through_serving_s": serving_done_s, "through_training_s": training_done_s,
+          "through_personal_s": personal_done_s})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

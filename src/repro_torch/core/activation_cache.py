@@ -27,29 +27,43 @@ adapter trains straight from the cache with no backbone forward.
   fingerprints never equal the reference's, so a directory the other
   package wrote is re-captured, never misread.
 
+* **Prefetch** — :class:`CachePrefetcher` reads a cached epoch's
+  batches (``DataPipeline.epoch_order``) on a daemon thread, so batch
+  *k+1* is read (off disk too), stacked and on its way to the card
+  while step *k* runs. On the card its worker stacks each part into a
+  ring of pinned host buffers and copies it with ``non_blocking`` on a
+  side stream; the consumer's stream waits on the copy's event.
+
 Host storage is torch CPU tensors. Entries taken from the card are
-compressed there and copied to the host at storage width. The
-background ``CachePrefetcher`` arrives with a later slice of the port.
+compressed there and copied to the host at storage width, into
+reusable pinned buffers on a side stream (:class:`_PinnedStaging`); the
+cache fill still ends inside the step.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import queue
 import sys
 import threading
 from dataclasses import dataclass, field
-from typing import Dict, Iterable, Optional, Set, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core.device import resolve_device
 from repro_torch.core.quantization import QTensor, dequantize, quantize, stack
 
 COMPRESS_POLICIES = ("f32", "bf16", "int8")
 _INT8_BLOCK = 128
 MANIFEST_NAME = "manifest.json"
 MANIFEST_VERSION = 2
+#: the batch axis of each part as a batch stacks it: b0 (B,S,d),
+#: taps (n_p,B,S,d), b_final (B,S,d)
+_STACK_DIMS = (0, 1, 0)
 
 
 def cache_bytes_per_sequence(cfg, seq_len: int, dtype_bytes: float = 4,
@@ -97,21 +111,56 @@ def _compress(x, policy: str, orig_last: Optional[int] = None) -> _CTensor:
     """``x`` may already BE storage form: an int8 :class:`QTensor` as the
     ``cuda`` OpSet emits it at the tap site. It is adopted as it is (no
     recompression, no f32 round trip), provided the policy is int8;
-    ``orig_last`` names the unpadded feature width."""
+    ``orig_last`` names the unpadded feature width. The result stays on
+    ``x``'s device: :meth:`ActivationCache._host` moves it."""
     if isinstance(x, QTensor):
         if policy != "int8":
             raise ValueError(f"a storage-form (int8) tap requires the int8 policy, got {policy!r}")
         last = x.q.shape[-1] if orig_last is None else orig_last
-        return _CTensor("int8", x.q.detach().cpu().contiguous(),
-                        x.scale.detach().cpu().contiguous(), last, x.block)
+        return _CTensor("int8", x.q.detach(), x.scale.detach(), last, x.block)
     x = torch.as_tensor(x)
     if policy in ("f32", "bf16"):
         dtype = torch.float32 if policy == "f32" else torch.bfloat16
-        return _CTensor(policy, x.detach().to(dtype).cpu().contiguous(), None, x.shape[-1])
+        return _CTensor(policy, x.detach().to(dtype), None, x.shape[-1])
     if policy == "int8":
         qt = quantize(x.detach().float(), bits=8, block=_INT8_BLOCK)
-        return _CTensor("int8", qt.q.cpu(), qt.scale.cpu(), qt.orig_last, qt.block)
+        return _CTensor("int8", qt.q, qt.scale, qt.orig_last, qt.block)
     raise ValueError(f"compress must be one of {COMPRESS_POLICIES}, got {policy!r}")
+
+
+class _PinnedStaging:
+    """The epoch-1 cache fill's device→host copies: each tensor lands in
+    a pinned host buffer kept for the next call (one per position in the
+    call, replaced when its shape changes), copied with ``non_blocking``
+    on a side stream that first waits for the producer's stream.
+    :meth:`host` returns once the copies' event has completed; the next
+    call overwrites the buffers, so the caller copies out what it keeps."""
+
+    def __init__(self):
+        self._bufs: Dict[int, torch.Tensor] = {}
+        self._side: Optional[torch.cuda.Stream] = None
+
+    def host(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """``tensors`` (all from one step, so on one device) on the host,
+        contiguous; host tensors stay where they are."""
+        dev = tensors[0].device
+        if dev.type != "cuda":
+            return [t.contiguous() for t in tensors]
+        if self._side is None or self._side.device != dev:
+            self._side = torch.cuda.Stream(device=dev)
+        self._side.wait_stream(torch.cuda.current_stream(dev))
+        out = []
+        with torch.cuda.stream(self._side):
+            for i, t in enumerate(tensors):
+                buf = self._bufs.get(i)
+                if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
+                    buf = self._bufs[i] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                buf.copy_(t, non_blocking=True)
+                out.append(buf)
+            copied = torch.cuda.Event()
+            copied.record(self._side)
+        copied.synchronize()
+        return out
 
 
 def _ct_index(ct: _CTensor, idx) -> _CTensor:
@@ -211,6 +260,7 @@ class ActivationCache:
     hits: int = 0
     misses: int = 0
     _lock: threading.RLock = field(default_factory=threading.RLock, repr=False)
+    _staging: _PinnedStaging = field(default_factory=_PinnedStaging, repr=False, compare=False)
 
     def __post_init__(self):
         if self.compress not in COMPRESS_POLICIES:
@@ -237,11 +287,25 @@ class ActivationCache:
 
     def put(self, key: int, b0, taps, b_final=None) -> None:
         # _ct_index(..., ...) copies: an entry must own its bytes, not view
-        # the caller's array (the budget would then not bound real memory)
-        entry = CacheEntry(*(None if x is None else _ct_index(_compress(x, self.compress), ...)
-                             for x in (b0, taps, b_final)))
+        # the caller's array or a staging buffer (the budget would then not
+        # bound real memory)
+        parts = self._host([None if x is None else _compress(x, self.compress)
+                            for x in (b0, taps, b_final)])
+        entry = CacheEntry(*(None if ct is None else _ct_index(ct, ...) for ct in parts))
         with self._lock:
             self._put_entry(int(key), entry)
+
+    def _host(self, parts: List[Optional[_CTensor]]) -> List[Optional[_CTensor]]:
+        """Compressed parts with their payloads and scales on the host:
+        from the card through the pinned staging buffers, which the next
+        fill overwrites (callers slice entries out with copies)."""
+        leaves = [t for ct in parts if ct is not None
+                  for t in (ct.data, ct.scale) if t is not None]
+        host = iter(self._staging.host(leaves))
+        return [None if ct is None else
+                _CTensor(ct.policy, next(host), None if ct.scale is None else next(host),
+                         ct.orig_last, ct.block)
+                for ct in parts]
 
     def _put_entry(self, key: int, entry: CacheEntry) -> None:
         size = entry.nbytes
@@ -345,10 +409,10 @@ class ActivationCache:
         ``orig_last`` = d). Compression runs once on the whole batch and
         per-sequence entries are sliced out (with copies): block-wise
         along the last axis, so the payloads equal per-sequence
-        compression bit for bit."""
-        cb0 = _compress(b0, self.compress, orig_last)
-        ctaps = _compress(taps, self.compress, orig_last)
-        cbf = None if b_final is None else _compress(b_final, self.compress, orig_last)
+        compression bit for bit. Parts on the card reach the host in one
+        side-stream copy into pinned buffers (:class:`_PinnedStaging`)."""
+        cb0, ctaps, cbf = self._host([None if x is None else _compress(x, self.compress, orig_last)
+                                      for x in (b0, taps, b_final)])
         for i, k in enumerate(keys):
             entry = CacheEntry(_ct_index(cb0, i), _ct_index(ctaps, (slice(None), i)),
                                None if cbf is None else _ct_index(cbf, i))
@@ -365,11 +429,7 @@ class ActivationCache:
                  for k in keys]
         if any(it is None for it in items):
             return None
-        b0 = stack([it[0] for it in items], 0)
-        taps = stack([it[1] for it in items], 1)
-        if not with_final:
-            return b0, taps
-        return b0, taps, stack([it[2] for it in items], 0)
+        return tuple(stack(parts, dim) for parts, dim in zip(zip(*items), _STACK_DIMS))
 
     def clear(self) -> None:
         with self._lock:
@@ -475,3 +535,214 @@ def open_persistent(cache_dir: str, meta: dict, *, budget_bytes: int = 2 << 30,
         if not v.get("has_final", False):
             cache._final_absent.add(int(k))
     return cache, True
+
+
+# ---------------------------------------------------------------------------
+# Async prefetch
+# ---------------------------------------------------------------------------
+
+def _leaves(part) -> tuple:
+    """The tensors of one part: a QTensor's payload and scales, or the part."""
+    return (part.q, part.scale) if isinstance(part, QTensor) else (part,)
+
+
+def _like(part, leaves):
+    """``part`` rebuilt over other tensors (see :func:`_leaves`)."""
+    if isinstance(part, QTensor):
+        return QTensor(leaves[0], leaves[1], part.bits, part.block, part.orig_last)
+    return leaves[0]
+
+
+def _stacked_specs(items) -> list:
+    """(shape, dtype) of every stacked leaf of a batch of ``items`` (the
+    per-sequence tuples :meth:`ActivationCache.get` returns), in part order."""
+    specs = []
+    for j, part in enumerate(items[0]):
+        for leaf in _leaves(part):
+            shape = list(leaf.shape)
+            shape.insert(_STACK_DIMS[j], len(items))
+            specs.append((tuple(shape), leaf.dtype))
+    return specs
+
+
+def _stack_into(items, bufs) -> tuple:
+    """``get_batch``'s stacking of ``items`` written into ``bufs`` (one
+    per leaf, shaped as :func:`_stacked_specs` says); the parts over them."""
+    bufs = iter(bufs)
+    out = []
+    for j, part in enumerate(items[0]):
+        stacked = []
+        for i in range(len(_leaves(part))):
+            buf = next(bufs)
+            torch.stack([_leaves(it[j])[i] for it in items], _STACK_DIMS[j], out=buf)
+            stacked.append(buf)
+        out.append(_like(part, stacked))
+    return tuple(out)
+
+
+class CachePrefetcher:
+    """Background loader for cached epochs (paper Fig. 11's pure-DP phase).
+
+    Iterates the epoch's known batch order (``DataPipeline.epoch_order``)
+    on a daemon thread, so reading (off disk too), stacking and the
+    host→device copy of batch *k+1* overlap train step *k*; the bounded
+    queue (``depth``, default 2) double-buffers, and the thread blocks
+    rather than loading the whole epoch ahead.
+
+    Yields one ``(b0, taps[, b_final])`` tuple per key-batch, in order —
+    or ``None`` for a batch with a missing key (the consumer falls back
+    to the forward path). With ``compressed=True`` each part comes in its
+    storage form (int8 entries as :class:`QTensor`), so the copy to the
+    card stays at integer width and the kernels dequantize. While a
+    prefetcher is draining, the owning thread must not mutate the cache
+    except via ``put`` (both sides take the cache lock).
+
+    ``to_device`` names where the batches go: ``True`` the card (as
+    :func:`~repro_torch.core.device.resolve_device` reads ``None``), a
+    device that device, ``False`` the host. On the card the worker
+    stacks each part into a pinned host buffer from a ring of ``depth +
+    2`` slots (allocated once, from the first batch's shapes; a slot is
+    restacked only after the copy that last read it is done), copies it
+    with ``non_blocking`` on a side stream and queues the device
+    tensors with the copy's event; :meth:`__next__` makes the caller's
+    stream wait on that event and records the tensors on it, so the
+    caching allocator does not hand their memory out while the step
+    still reads it. A CPU target leaves the batches on the host, as
+    stacked.
+
+    A prefetcher is a context manager: ``with CachePrefetcher(...) as
+    pf:`` guarantees deterministic shutdown on exit — including an
+    exception mid-epoch — via :meth:`close` (signal the worker to stop,
+    drain the queue so a blocked ``put`` unblocks, join the thread). A
+    leaked worker would otherwise keep device batches alive through its
+    queue until process exit.
+    """
+
+    _DONE = object()
+
+    def __init__(self, cache: ActivationCache, key_batches: Sequence[np.ndarray], *,
+                 with_final: bool = True, depth: int = 2, to_device=True,
+                 dtype=torch.float32, compressed: bool = False):
+        self._cache = cache
+        self._key_batches = list(key_batches)
+        self._with_final = with_final
+        self._dtype = dtype
+        self._compressed = compressed
+        self._device = None if to_device is False else resolve_device(
+            None if to_device is True else to_device)
+        card = self._device is not None and self._device.type == "cuda"
+        self._side = torch.cuda.Stream(device=self._device) if card else None
+        self._slots = max(1, depth) + 2
+        self._ring = None      # pinned slots, allocated by the worker
+        self._q: queue.Queue = queue.Queue(maxsize=max(1, depth))
+        self._err: Optional[BaseException] = None
+        self._stop = threading.Event()
+        self._done = False    # consumer saw the _DONE sentinel
+        self._closed = False  # close() ran — iteration must fail fast
+        self._thread = threading.Thread(target=self._worker, name="activation-cache-prefetch",
+                                        daemon=True)
+        self._thread.start()
+
+    def _worker(self) -> None:
+        try:
+            with contextlib.ExitStack() as on_card:
+                if self._side is not None:
+                    # the current device and stream are per thread
+                    on_card.enter_context(torch.cuda.device(self._device))
+                    on_card.enter_context(torch.cuda.stream(self._side))
+                for keys in self._key_batches:
+                    if self._stop.is_set():
+                        break
+                    self._q.put(self._load(keys))
+        except Exception as e:  # surfaced on the consumer side
+            self._err = e
+        finally:
+            self._q.put(self._DONE)
+
+    def _load(self, keys):
+        """(parts or None, the copy's event or None) for one key batch."""
+        kw = dict(with_final=self._with_final, dtype=self._dtype, compressed=self._compressed)
+        if self._side is None:
+            return self._cache.get_batch(keys, **kw), None
+        items = [self._cache.get(int(k), **kw) for k in keys]
+        if any(it is None for it in items):
+            return None, None
+        slot = self._slot(_stacked_specs(items))
+        host = _stack_into(items, self._ring[slot][0])
+        parts = tuple(_like(p, [t.to(self._device, non_blocking=True) for t in _leaves(p)])
+                      for p in host)
+        copied = torch.cuda.Event()
+        copied.record(self._side)
+        self._ring[slot][1] = copied
+        return parts, copied
+
+    def _slot(self, specs) -> int:
+        """The next ring slot, free to restack (the ring allocated anew
+        if this batch's shapes differ from the ring's)."""
+        if self._ring is None or self._specs != specs:
+            self._side.synchronize()
+            self._specs = specs
+            self._ring = [[[torch.empty(shape, dtype=dtype, pin_memory=True)
+                            for shape, dtype in specs], None] for _ in range(self._slots)]
+            self._next = 0
+        slot, self._next = self._next, (self._next + 1) % self._slots
+        copied = self._ring[slot][1]
+        if copied is not None:
+            copied.synchronize()
+        return slot
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._closed:
+            # after close() the queue is drained and the worker is gone —
+            # a blocking get() here would hang forever. Elastic resharding
+            # closes mid-epoch and re-opens over the remaining order; a
+            # stale iterator must fail loudly instead.
+            raise RuntimeError(
+                "CachePrefetcher iterated after close(); open a new "
+                "prefetcher over the remaining key batches")
+        item = self._q.get()
+        if item is self._DONE:
+            self._done = True
+            if self._err is not None:
+                raise self._err
+            raise StopIteration
+        parts, copied = item
+        if copied is not None:
+            stream = torch.cuda.current_stream(self._device)
+            stream.wait_event(copied)
+            for part in parts:
+                for t in _leaves(part):
+                    t.record_stream(stream)
+        return parts
+
+    def __enter__(self) -> "CachePrefetcher":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.close()
+        return False
+
+    def close(self) -> None:
+        """Deterministic shutdown: signal the worker to stop, drain the
+        queue until its ``_DONE`` sentinel (unblocking a worker stuck on
+        a full queue), join the thread, and free the pinned ring once
+        the side stream's copies are done. Idempotent; safe mid-epoch
+        (early exit / exception) and after normal exhaustion. Unlike
+        iteration, a worker error is swallowed here — close() is for
+        unwinding, not for results."""
+        self._closed = True
+        self._stop.set()
+        while not self._done:
+            try:
+                item = self._q.get(timeout=60)
+            except queue.Empty:  # worker wedged — join below, best effort
+                break
+            if item is self._DONE:
+                self._done = True
+        self._thread.join(timeout=30)
+        if self._side is not None and not self._thread.is_alive():
+            self._side.synchronize()
+            self._ring = None

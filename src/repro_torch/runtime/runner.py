@@ -76,14 +76,18 @@ class EpochRunner:
             h.on_epoch_start(s, epoch)
         report = EpochReport(epoch=epoch)
         t0 = time.perf_counter()
-        for i, batch in enumerate(s.pipe.epoch(epoch)):
-            event = s.step(batch, epoch=epoch, index=i)
-            report.losses.append(event.loss)
-            report.used_cache = report.used_cache or event.cache_hit
-            report.steps += 1
-            for h in self.hooks:
-                h.on_step(s, event)
-            yield event
+        # epoch_scope arms the prefetcher (when the epoch is fully
+        # cache-resident) as a context manager: an exception mid-epoch
+        # joins the worker thread instead of leaking it
+        with s.epoch_scope(epoch):
+            for i, batch in enumerate(s.pipe.epoch(epoch)):
+                event = s.step(batch, epoch=epoch, index=i)
+                report.losses.append(event.loss)
+                report.used_cache = report.used_cache or event.cache_hit
+                report.steps += 1
+                for h in self.hooks:
+                    h.on_step(s, event)
+                yield event
         report.time_s = time.perf_counter() - t0
         report.mode = s.mode(report.used_cache)
         for h in self.hooks:

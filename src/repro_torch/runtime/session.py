@@ -18,6 +18,12 @@ An :class:`EdgeSession` takes a validated
   step (frozen forward + adapter update) and the cache fill, on a hit
   the cached step. Under ``kernels="cuda"`` the taps leave the forward
   already in the cache's storage form and reach the cached step in it;
+* **epoch scope** — :meth:`epoch_scope` brackets one epoch: when the
+  whole epoch is in the cache it arms a
+  :class:`~repro_torch.core.activation_cache.CachePrefetcher`, whose
+  worker reads, stacks and copies batch *k+1* to the card (pinned host
+  buffers, a side stream) while step *k* runs, and :meth:`step` takes
+  its hit from it; outside a scope a hit is read on the caller's thread;
 * **outputs** — :meth:`finish` writes the adapter checkpoint (``ckpt``,
   the reference's msgpack format) and the cache manifest;
   :meth:`snapshot`/:meth:`restore` carry the adapter and optimizer state
@@ -34,9 +40,11 @@ report line arrives with the cost-model slice of the port.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from repro_torch.core.device import resolve_device
@@ -77,6 +85,7 @@ class EdgeSession:
         self.cache = None
         self.warm = False
         self.meta = None      # the persistent cache's identity record
+        self._prefetch = None  # the live epoch_scope's CachePrefetcher
 
     def __enter__(self) -> "EdgeSession":
         return self.open()
@@ -145,9 +154,13 @@ class EdgeSession:
         return bool(self.spec.cache_dir and self.spec.use_cache)
 
     def close(self) -> None:
-        """Release per-run state: a non-persistent cache's entries and
-        spill files. Writes no outputs; that is :meth:`finish`, which
-        only a completed run calls."""
+        """Release per-run state: join a live prefetcher, and drop a
+        non-persistent cache's entries and spill files. Writes no
+        outputs; that is :meth:`finish`, which only a completed run
+        calls."""
+        if self._prefetch is not None:  # defensive: epoch_scope owns it
+            self._prefetch.close()
+            self._prefetch = None
         if self.cache is not None and not self.persistent:
             self.cache.clear()
         self._opened = False
@@ -165,13 +178,10 @@ class EdgeSession:
         spec, dev = self.spec, self.device
         t0 = time.perf_counter()
         ids = batch["seq_ids"]
-        tokens = torch.from_numpy(batch["tokens"]).to(dev)
         labels = torch.from_numpy(batch["labels"]).to(dev)
-        hit = None
-        if spec.use_cache:
-            hit = self.cache.get_batch(ids, with_final=True, dtype=None,
-                                       compressed=spec.kernels == "cuda")
+        hit = self._next_hit(ids)
         if hit is None:
+            tokens = torch.from_numpy(batch["tokens"]).to(dev)
             loss, self.adapter, self.opt, (b0, taps, bf) = steps.pac_train_step(
                 self.backbone, self.adapter, self.opt, {"tokens": tokens, "labels": labels},
                 cfg=self.cfg, r=spec.r, lr=spec.lr, kernel_impl=spec.kernels,
@@ -181,7 +191,8 @@ class EdgeSession:
             if spec.use_cache:
                 self.cache.put_batch(ids, b0, taps, bf, orig_last=self.cfg.d_model)
         else:
-            b0, taps, bf = (h.to(dev) for h in hit)  # tensors or int8 QTensors
+            # tensors or int8 QTensors; a prefetched hit is already on dev
+            b0, taps, bf = (h.to(dev) for h in hit)
             cached = {"b0": b0, "taps": taps, "b_final": bf, "labels": labels}
             loss, self.adapter, self.opt = steps.pac_cached_train_step(
                 self.backbone, self.adapter, self.opt, cached, cfg=self.cfg, r=spec.r,
@@ -189,6 +200,44 @@ class EdgeSession:
         loss = float(loss)
         return StepEvent(epoch=epoch, index=index, loss=loss, cache_hit=hit is not None,
                          mode=self.mode(hit is not None), wall_s=time.perf_counter() - t0)
+
+    @contextlib.contextmanager
+    def epoch_scope(self, epoch: int):
+        """Bracket one epoch's prefetcher lifecycle. When the whole epoch
+        is cache-resident this arms a
+        :class:`~repro_torch.core.activation_cache.CachePrefetcher` over
+        the epoch's batch order (a background thread reads batch k+1 and
+        starts its copy to the device while step k runs) *as a context
+        manager*, so an exception mid-epoch joins the worker thread and
+        drains its queue instead of leaking a daemon holding device
+        batches. Yields True iff the epoch trains straight from the cache."""
+        pf = None
+        if self.spec.use_cache:
+            from repro_torch.core.activation_cache import CachePrefetcher
+
+            order = self.pipe.epoch_order(epoch)
+            if order and self.cache.covers(np.concatenate(order), with_final=True):
+                pf = CachePrefetcher(self.cache, order, to_device=self.device, dtype=None,
+                                     compressed=self.spec.kernels == "cuda")
+        if pf is None:
+            yield False
+            return
+        with pf:
+            self._prefetch = pf
+            try:
+                yield True
+            finally:
+                self._prefetch = None
+
+    def _next_hit(self, ids):
+        """The step's cached batch: the live prefetcher's next, else read
+        here (None on a miss, or without the cache)."""
+        if self._prefetch is not None:
+            return next(self._prefetch)
+        if not self.spec.use_cache:
+            return None
+        return self.cache.get_batch(ids, with_final=True, dtype=None,
+                                    compressed=self.spec.kernels == "cuda")
 
     def mode(self, cache_hit: bool) -> str:
         """The run-mode label the trainer reports."""
