@@ -126,7 +126,27 @@ Phases, in order; any failure exits non-zero:
    host→device copies ``Pinned -> Device`` on a stream no kernel runs
    on, epoch 1's tap copies ``Device -> Pinned``, no worker thread left;
    per-step wall times, medians, busy shares and memory high-water marks.
-10. Summary: one JSON line ``{"kernels": [...]}`` (eight kernels, each
+10. Distributed: first the six kernels of this path against their
+   plain versions at the shapes one rank gives them (``quant_matmul`` at
+   M = 512 over the layer's projections, flash at B·H = 1·16 x 512,
+   mix and CE at T = 1024 and 512, int8 entries; ``*_distributed``
+   lines); then the training phase's spec at dp=2 x stages=2 (12
+   periods a stage, 2 micro-batches) through ``EdgeSession`` and
+   ``EpochRunner`` in four ranks that ``repro_torch.launch.mesh.spawn``
+   starts on the one card, over gloo, twice (``distributed`` line).
+   Epoch 0 pipelines the frozen forward (``quant_matmul``, flash) over
+   each dp row's two stages and runs the adapter step (mix and CE
+   kernels) on each row's first stage; epochs 1-2 run the cached step
+   over all four ranks, the owner (rank 0) scattering the cached rows.
+   Gates: the first step's loss within 1e-4, every step's within 1e-5
+   and the epoch means within 5e-2 of the training phase's; epoch 0's cache entries against the
+   training phase's: b0 codes bit-equal, tap and b_final codes within one
+   step (the share that moved printed); every rank's adapter and
+   optimizer bit-equal after every step, and the losses of the two runs;
+   each training kernel launched on the ranks that run it. Per rank and
+   step: wall time, launches, bytes sent point to point and all-reduced
+   with their host seconds; each rank's memory high-water mark.
+11. Summary: one JSON line ``{"kernels": [...]}`` (eight kernels, each
    with its launches on every path and its device kernels by name:
    ``skinny::gemv`` for ``quant_matmul`` at M <= 8 and ``adapter_fuse`` at
    T <= 8), the card's line, and last ``{"ok": true, "device": {...}}``.
@@ -1214,7 +1234,8 @@ def read_launches() -> dict:
 def training_phase(workdir: Path):
     """PAC+ at full width through the port's EdgeSession/EpochRunner,
     with its checkpoint and persistent cache in ``workdir``. Returns
-    (launches, the session's backbone, the checkpoint's path)."""
+    (launches, the session's backbone, the checkpoint's path, the run's
+    per-step and per-epoch losses and epoch 0's cache entries)."""
     from repro_torch.core.quantization import tree_leaves, tree_map
     from repro_torch.kernels.cached_step import cached_loss_parts
     from repro_torch.runtime import (ConsoleHook, EdgeSession, EpochReport, EpochRunner,
@@ -1254,6 +1275,12 @@ def training_phase(workdir: Path):
     steps_, reports = run(s, [StepLaunches()])
     launches = read()
     peak = torch.cuda.max_memory_allocated()
+    # what the distributed phase holds its run against: the per-step
+    # losses and epoch 0's cache entries (int8 codes and scales, host)
+    single = {"step_losses": [e.loss for e in steps_],
+              "epoch_losses": [r.mean_loss for r in reports],
+              "codes": {int(k): s.cache.get(int(k), with_final=True, dtype=None, compressed=True)
+                        for ids in s.pipe.epoch_order(0) for k in ids}}
     s.finish()
     full = [e.wall_s for e in steps_ if not e.cache_hit]
     cached = [e.wall_s for e in steps_ if e.cache_hit]
@@ -1338,7 +1365,7 @@ def training_phase(workdir: Path):
                         "quantized at the tap site, under ref on f32 taps"})
     if max(diffs) > tol:
         raise AssertionError(f"trainer cuda vs ref epoch losses differ by {diffs}")
-    return launches, backbone, ckpt
+    return launches, backbone, ckpt, single
 
 
 def persistence_phase(s, spec, steps_, run) -> None:
@@ -1536,6 +1563,250 @@ def prefetch_phase(workdir: Path) -> dict:
                            "ce_bwd") if launches[n] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the prefetch path: {missing}")
+    return launches
+
+
+# ---------------------------------------------------------------- distributed training
+
+DIST_DP, DIST_STAGES = 2, 2
+DIST_ROWS = 1  # a rank's rows: batch 4 over 2 micro-batches x dp 2, and over the pool of 4
+DIST_STEP_TOL = 1e-5  # per-step |Δloss| against the single process
+TRAINING_KERNELS = ("quant_matmul", "flash_attention", "mix_fwd", "mix_dw", "ce_fwd", "ce_bwd")
+
+
+def fingerprint(tree) -> list:
+    """Two int64 sums a leaf over its 16-bit words (plain, and weighted
+    by position mod 1021): equal bits give equal sums; the card computes
+    them, so comparing ranks costs no copy of the state."""
+    from repro_torch.core.quantization import tree_leaves
+
+    out = []
+    for t in tree_leaves(tree):
+        w = t.detach().reshape(-1).contiguous().view(torch.int16).to(torch.int64)
+        pos = torch.arange(w.numel(), device=w.device) % 1021 + 1
+        out += [int(w.sum()), int((w * pos).sum())]
+    return out
+
+
+def distributed_rank(spec, runs: int) -> dict:
+    """One rank of the distributed phase: ``runs`` runs of ``spec``
+    through ``EdgeSession``/``EpochRunner``, each step's loss, wall time,
+    launches, mesh transfer counters and adapter/optimizer fingerprint;
+    on the owner also epoch 0's cache entries (first run)."""
+    import torch.distributed as dist
+
+    from repro_torch.runtime import EdgeSession, EpochRunner, RunHooks
+
+    rank = dist.get_rank()
+    out = {"rank": rank, "runs": []}
+    for run in range(runs):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        s = EdgeSession(spec, log=print if rank == 0 and run == 0 else None).open()
+        torch.cuda.synchronize()
+        open_s = time.perf_counter() - t0
+        steps = []
+
+        class Record(RunHooks):
+            def on_step(self, session, event):
+                now = {k: v for k, v in read_launches().items() if k in TRAINING_KERNELS}
+                stats = dict(session.mesh.stats)
+                prev = steps[-1] if steps else {"_launches": dict.fromkeys(now, 0),
+                                                "_stats": dict.fromkeys(stats, 0)}
+                steps.append({"loss": event.loss, "wall_s": event.wall_s, "mode": event.mode,
+                              "launches": {k: now[k] - prev["_launches"][k] for k in now},
+                              **{k: stats[k] - prev["_stats"][k] for k in stats},
+                              "fingerprint": fingerprint((session.adapter, session.opt)),
+                              "_launches": now, "_stats": stats})
+
+        reset_launches()
+        reports = EpochRunner(s, hooks=[Record()]).run()
+        rec = {"open_s": open_s, "modes": [r.mode for r in reports],
+               "epoch_losses": [r.mean_loss for r in reports],
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "launches": {k: v for k, v in read_launches().items() if k in TRAINING_KERNELS},
+               "steps": [{k: v for k, v in st.items() if not k.startswith("_")}
+                         for st in steps]}
+        if rank == 0 and run == 0:
+            rec["codes"] = {int(k): s.cache.get(int(k), with_final=True, dtype=None,
+                                                compressed=True)
+                            for ids in s.pipe.epoch_order(0) for k in ids}
+        s.close()
+        del s
+        out["runs"].append(rec)
+    return out
+
+
+def code_moves(got, want) -> dict:
+    """Two int8 cache entries' codes: max |Δq|, the share that moved, and
+    the largest relative scale difference."""
+    dq = (got.q.int() - want.q.int()).abs()
+    ds = (got.scale - want.scale).abs().max() / want.scale.abs().max().clamp_min(1e-30)
+    return {"max_dq": int(dq.max()), "moved": int((dq > 0).sum()), "codes": dq.numel(),
+            "max_rel_dscale": float(ds)}
+
+
+def distributed_kernel_phase(timer: Timer, gen: torch.Generator) -> None:
+    """The six kernels of the distributed path against their plain
+    versions at the shapes one rank gives them (dp=2, stages=2, batch 4
+    x 512, 2 micro-batches): ``quant_matmul`` at M = 512 (a stage's
+    micro-batch, one row a dp rank) over the layer's (K, N), int8;
+    ``flash_attention`` at B·H = 1·16, S = 512; ``mix_fwd``/``mix_dw`` on
+    int8 entries and ``ce_fwd``/``ce_bwd`` at T = 1024 (the epoch-1 loss,
+    a dp row's two rows) and T = 512 (the cached step, one row a rank),
+    d = 2048, d_a = 256, V = 92544; each at the tolerance of its check
+    at the training shapes."""
+    from repro_torch.core.quantization import quantize
+    from repro_torch.kernels import cached_mix, lmhead_ce, ref
+
+    M = DIST_ROWS * 512
+    for K, N in QMM_SHAPES:
+        _, _, got, want = qmm_check(gen, M, K, N, 8)
+        emit({"check": "quant_matmul_distributed", "M": M, "K": K, "N": N, "bits": 8,
+              "max_abs_err": max_err(got, want),
+              "check_value": float(((got - want).abs() - 1e-4 * want.abs()).max()),
+              "tol": "atol 1e-3 + rtol 1e-4", "tol_reason": qmm_tol_reason(M)})
+    r = flash_case(timer, gen, DIST_ROWS, 16, 8, 512, 128, "distributed stage")[0]
+    emit(r)
+    d, da, V = TRAIN_D, TRAIN_DA, TRAIN_V
+    for T in (2 * DIST_ROWS * 512, DIST_ROWS * 512):
+        ent = quantize(torch.randn(T, d, generator=gen, device=DEV), 8, 128)
+        w = torch.randn(d, da, generator=gen, device=DEV) * d ** -0.5
+        a = torch.randn(T, da, generator=gen, device=DEV)
+        g = torch.randn(T, da, generator=gen, device=DEV)
+        lam = torch.tensor(0.7, device=DEV)
+        out, bw = cached_mix.mix_fwd(ent, w, a, lam)
+        want_out, want_bw = ref.mix_fwd_ref(ent, w, a, lam)
+        dw, want_dw = cached_mix.mix_dw(ent, g, lam, d), ref.mix_dw_ref(ent, g, lam, d)
+        e_fwd = mix_fwd_check(out, bw, want_out, want_bw)
+        e_dw = float(((dw - want_dw).abs() - 1e-3 * want_dw.abs()).max())
+        check(f"mix_fwd int8 T={T} (distributed)", e_fwd, 1e-4)
+        check(f"mix_dw int8 T={T} (distributed)", e_dw, 2e-4)
+        del ent, w, a, g, out, bw, want_out, want_bw, dw, want_dw
+        h = torch.randn(T, d, generator=gen, device=DEV)
+        wh = torch.randn(d, V, generator=gen, device=DEV) * d ** -0.5
+        lab = torch.randint(0, V, (T,), generator=gen, device=DEV)
+        gl = torch.randn(T, generator=gen, device=DEV)
+        nll, lse = lmhead_ce.ce_fwd(h, wh, lab)
+        want_nll, want_lse = ref.ce_fwd_ref(h, wh, lab)
+        dh, want_dh = (lmhead_ce.ce_bwd(h, wh, lab, want_lse, gl),
+                       ref.ce_bwd_ref(h, wh, lab, want_lse, gl))
+        e_f = max(float(((nll - want_nll).abs() - 1e-5 * want_nll.abs()).max()),
+                  float(((lse - want_lse).abs() - 1e-5 * want_lse.abs()).max()))
+        e_b = float(((dh - want_dh).abs() - 1e-4 * want_dh.abs()).max())
+        check(f"ce_fwd T={T} (distributed)", e_f, 2e-5)
+        check(f"ce_bwd T={T} (distributed)", e_b, 1e-5)
+        emit({"check": "training_kernels_distributed", "T": T, "d": d, "da": da, "V": V,
+              "storage": "int8", "mix_fwd_check": e_fwd, "mix_dw_check": e_dw,
+              "ce_fwd_max_abs_err": max(max_err(nll, want_nll), max_err(lse, want_lse)),
+              "ce_bwd_max_abs_err": max_err(dh, want_dh), "ce_fwd_check": e_f,
+              "ce_bwd_check": e_b,
+              "tol": "mix_fwd atol 1e-4 + rtol 1e-4; mix_dw atol 2e-4 + rtol 1e-3; ce_fwd "
+                     "atol 2e-5 + rtol 1e-5; ce_bwd atol 1e-5 + rtol 1e-4",
+              "tol_reason": "the tolerances of the checks at the training shapes"})
+        del h, wh, lab, gl, nll, lse, want_nll, want_lse, dh, want_dh
+
+
+def distributed_phase(single: dict) -> dict:
+    """The hybrid DP x PP trainer at full width: the training phase's spec
+    (internlm2-1.8b, 24 periods, INT8 backbone, int8 cache, r=8, pruning,
+    lr 3e-3, 3 epochs x 2 steps of 4 x 512 tokens) with dp=2, stages=2
+    (12 periods a stage, 2 micro-batches), as four ranks sharing the card
+    over gloo, run twice. Gates: the first step's loss within 1e-4, every
+    step's within 1e-5 and the epoch means within 5e-2 of the
+    single-process run; epoch 0's
+    cache entries: b0 codes bit-equal, tap and b_final codes within one
+    quantization step; every rank's adapter and optimizer bit-equal after
+    every step; the two runs' per-step losses bit-equal; the training
+    kernels launched on the ranks that run them. Returns the first run's
+    launches summed over the ranks."""
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.runtime import RunSpec
+
+    spec = RunSpec(arch="internlm2-1.8b", quant=8, cache_compress="int8", kernels="cuda",
+                   init="pruning", epochs=3, steps_per_epoch=2, batch=4, seq=512, seed=SEED,
+                   dp=DIST_DP, stages=DIST_STAGES)
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    t0 = time.perf_counter()
+    ranks = spawn(distributed_rank, DIST_DP, DIST_STAGES, "cuda", args=(spec, 2),
+                  timeout=300.0, deadline=600.0)
+    phase_s = time.perf_counter() - t0
+    first = [r["runs"][0] for r in ranks]
+    losses = [[st["loss"] for st in run["steps"]] for run in ranks[0]["runs"]]
+    codes = ranks[0]["runs"][0].pop("codes")
+    moves = {"b0": [], "taps": [], "b_final": []}
+    for k, want in single["codes"].items():
+        for name, g, w in zip(("b0", "taps", "b_final"), codes[k], want):
+            moves[name].append(code_moves(g, w))
+    b0_equal = all(torch.equal(g[0].q, w[0].q) and torch.equal(g[0].scale, w[0].scale)
+                   for g, w in ((codes[k], single["codes"][k]) for k in single["codes"]))
+    summary = {name: {"max_dq": max(m["max_dq"] for m in ms),
+                      "moved_share": sum(m["moved"] for m in ms) / sum(m["codes"] for m in ms),
+                      "max_rel_dscale": max(m["max_rel_dscale"] for m in ms)}
+               for name, ms in moves.items()}
+    fp_equal = [[len({str(r["runs"][i]["steps"][j]["fingerprint"]) for r in ranks}) == 1
+                 for j in range(len(ranks[0]["runs"][i]["steps"]))] for i in range(2)]
+    line = {"phase": "distributed", "arch": "internlm2-1.8b", "dp": DIST_DP,
+            "stages": DIST_STAGES, "ranks": len(ranks), "backend": "gloo",
+            "n_micro": spec.default_micro(), "batch": spec.batch, "seq": spec.seq,
+            "quant": spec.quant, "cache": spec.cache_compress, "r": spec.r,
+            "modes": first[0]["modes"],
+            "step_losses": losses, "single_step_losses": single["step_losses"],
+            "epoch_losses": first[0]["epoch_losses"],
+            "single_epoch_losses": single["epoch_losses"],
+            "abs_dloss_first_step": abs(losses[0][0] - single["step_losses"][0]),
+            "abs_dloss_steps": [abs(a - b) for a, b in zip(losses[0], single["step_losses"])],
+            "abs_depoch": [abs(a - b) for a, b in zip(first[0]["epoch_losses"],
+                                                       single["epoch_losses"])],
+            "ranks_equal_losses": all([st["loss"] for st in r["steps"]] == losses[0]
+                                      for r in first),
+            "reruns_bit_equal": losses[0] == losses[1],
+            "adapters_bit_equal": fp_equal, "b0_codes_equal": b0_equal, "codes": summary,
+            "open_s": [r["open_s"] for r in first],
+            "step_s": {r["rank"]: [st["wall_s"] for st in r["runs"][0]["steps"]] for r in ranks},
+            "step_modes": [st["mode"] for st in first[0]["steps"]],
+            "bytes_per_step": {r["rank"]: [{k: st[k] for k in ("p2p_bytes", "p2p_s",
+                                                                "allreduce_bytes", "allreduce_s")}
+                                           for st in r["runs"][0]["steps"]] for r in ranks},
+            "max_memory_allocated": [r["max_memory_allocated"] for r in first],
+            "launches_per_step": {r["rank"]: [st["launches"] for st in r["runs"][0]["steps"]]
+                                  for r in ranks},
+            "phase_s": phase_s,
+            "tol": {"first_step": 1e-4, "steps": DIST_STEP_TOL, "epoch": 5e-2, "tap_codes": 1},
+            "tol_reason": "the first step sums the same tokens' CE in another order (f32); "
+                          "every step: the same sums in another order, so the losses stay "
+                          "within a few f32 steps (9.5e-7 at 12) while a fault in the gradient "
+                          "sum moves a later step's loss by far more; epochs: the "
+                          "trainer_cuda_vs_ref gate; tap codes: a frozen forward on 1-row "
+                          "micro-batches may round a code the other way"}
+    emit(line)
+    launches = {k: sum(r["launches"][k] for r in first) for k in TRAINING_KERNELS}
+    modes = ["hybrid dp2xpp2", "cached pure-dp", "cached pure-dp"]
+    if any(r["modes"] != modes for r in first):
+        raise AssertionError(f"modes {[r['modes'] for r in first]}")
+    if not (line["ranks_equal_losses"] and line["reruns_bit_equal"]
+            and all(all(x) for x in fp_equal)):
+        raise AssertionError("ranks or reruns disagree: losses "
+                             f"{line['ranks_equal_losses']}, reruns {line['reruns_bit_equal']}, "
+                             f"adapters {fp_equal}")
+    if not (line["abs_dloss_first_step"] <= 1e-4
+            and len(losses[0]) == len(single["step_losses"])
+            and max(line["abs_dloss_steps"]) <= DIST_STEP_TOL
+            and max(line["abs_depoch"]) <= 5e-2):
+        raise AssertionError("distributed vs single-process losses: first step "
+                             f"{line['abs_dloss_first_step']}, steps {line['abs_dloss_steps']}, "
+                             f"epochs {line['abs_depoch']}")
+    if not all(np.isfinite(x) for x in losses[0]):
+        raise AssertionError(f"losses {losses[0]}")
+    if not b0_equal or summary["taps"]["max_dq"] > 1 or summary["b_final"]["max_dq"] > 1:
+        raise AssertionError(f"cache codes: b0 equal {b0_equal}, {summary}")
+    for r in ranks:
+        for st in r["runs"][0]["steps"]:
+            head = r["rank"] % DIST_STAGES == 0
+            want = (("quant_matmul", "flash_attention") + (TRAINING_KERNELS[2:] if head else ())
+                    if st["mode"].startswith("hybrid") else TRAINING_KERNELS[2:])
+            if any(st["launches"][k] <= 0 for k in want):
+                raise AssertionError(f"rank {r['rank']} {st['mode']}: launches {st['launches']}")
     return launches
 
 
@@ -1821,13 +2092,17 @@ def main() -> int:
     serving_done_s = time.perf_counter() - T_START  # the serving slice's phases
     rows.update(training_kernel_phase(Timer(), gen))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        training, backbone, ckpt = training_phase(Path(workdir))
+        training, backbone, ckpt, single = training_phase(Path(workdir))
         training_done_s = time.perf_counter() - T_START
         rows.update(personal_kernel_phase(Timer(), gen))
         personal = personal_phase(backbone, get_arch("internlm2-1.8b"), ckpt)
         del backbone
         personal_done_s = time.perf_counter() - T_START
         prefetch = prefetch_phase(Path(workdir))
+        prefetch_done_s = time.perf_counter() - T_START
+        distributed_kernel_phase(Timer(), gen)
+        distributed = distributed_phase(single)
+        del single
 
     sources = {"quant_matmul": ("src/repro_torch/kernels/csrc/quant_matmul.cu",
                                 "src/repro/kernels/quant_matmul.py:93"),
@@ -1846,7 +2121,7 @@ def main() -> int:
                "adapter_fuse": ("src/repro_torch/kernels/csrc/adapter_fuse.cu",
                                 "src/repro/kernels/adapter_fuse.py:83")}
     paths = {"serving": serving, "training": training, "personal": personal,
-             "prefetch": prefetch}
+             "prefetch": prefetch, "distributed": distributed}
     home = {"quant_matmul": "serving", "flash_attention": "serving",
             "paged_attention": "serving", "adapter_fuse": "personal"}
     # each kernel's launches on its own main path (serving for the first
@@ -1870,7 +2145,7 @@ def main() -> int:
         for name, (src, rep) in sources.items()]})
     emit({"phase": "done", "wall_s": time.perf_counter() - T_START,
           "through_serving_s": serving_done_s, "through_training_s": training_done_s,
-          "through_personal_s": personal_done_s})
+          "through_personal_s": personal_done_s, "through_prefetch_s": prefetch_done_s})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -5,6 +5,10 @@
   forward, then an adapter update; returns the activations for the cache.
 * :func:`pac_cached_train_step` — epoch ≥ 2: adapter-only, from cached
   activations.
+* :func:`pipeline_pac_train_step` — epoch 1 on a ``(dp, stage)`` mesh of
+  ranks: the frozen forward pipelined over the stages, the adapter loss
+  data-parallel over dp; :func:`dp_cached_train_step` — epoch ≥ 2 in pure
+  data parallelism over the whole pool.
 * :func:`prefill_step`, :func:`decode_step`, :func:`pac_decode_step` —
   serving one user's personal model against a linear KV cache (f32, or
   INT8 from ``init_cache(kv_quant=8)``), updated in place.
@@ -22,15 +26,25 @@ import torch
 
 from repro_torch.core.opset import get_opset
 from repro_torch.core.parallel_adapters import adapter_decode, pac_logits
-from repro_torch.core.quantization import tree_leaves, tree_map
+from repro_torch.core.pipeline import map_arrays, stack_stages, stack_stages_ragged
+from repro_torch.core.quantization import QTensor, index_tree, tree_leaves, tree_map
 from repro_torch.models.backbone import (
     backbone_decode,
     backbone_forward,
     cross_entropy,
+    cross_entropy_parts,
     decode_periods,
     logits_from_hidden,
+    run_periods,
+    stage_params,
 )
 from repro_torch.optim import adamw_update, clip_by_global_norm
+
+
+def _apply(adapter_params, grads, opt_state, lr, clip):
+    """Clip the gradients' global norm, then one AdamW update."""
+    grads, _ = clip_by_global_norm(grads, clip)
+    return adamw_update(adapter_params, grads, opt_state, lr=lr)
 
 
 def _update(loss_fn, adapter_params, opt_state, lr, clip):
@@ -40,8 +54,7 @@ def _update(loss_fn, adapter_params, opt_state, lr, clip):
     grads = torch.autograd.grad(loss, tree_leaves(leaves))
     it = iter(grads)
     grads = tree_map(lambda _: next(it), leaves)
-    grads, _ = clip_by_global_norm(grads, clip)
-    adapter_params, opt_state = adamw_update(leaves, grads, opt_state, lr=lr)
+    adapter_params, opt_state = _apply(leaves, grads, opt_state, lr, clip)
     return loss.detach(), adapter_params, opt_state
 
 
@@ -117,6 +130,264 @@ def pac_cached_train_step(backbone_params, adapter_params, opt_state, cached_bat
         return num / torch.clamp_min(den, 1)
 
     return _update(loss_fn, adapter_params, opt_state, lr, clip)
+
+
+# ---------------------------------------------------------------------------
+# Hybrid DP x PP PAC+ steps (paper Fig. 10/11: the edge pool's epochs)
+# ---------------------------------------------------------------------------
+
+
+def _backbone_stage_fn(cfg, masked: bool = False, ops=None):
+    """One pipeline stage of the frozen backbone: run the stage's periods,
+    emitting each period's hidden state (a PAC+ tap) through
+    ``ops.emit_tap`` (identity under the ref OpSet, the default).
+
+    ``masked=True`` is the ragged-partition variant: the stage params are
+    ``{"blocks": padded_slab, "mask": (max_pp,)}`` (see
+    ``pipeline.stack_stages_ragged``); periods whose mask is False run as
+    identity, and ``pipeline_apply`` drops their tap slots."""
+    ops = get_opset("ref") if ops is None else ops
+
+    def positions_of(h):
+        if cfg.rope == "mrope":
+            raise NotImplementedError("mrope (qwen2-vl) arrives with the other-families slice")
+        return torch.arange(h.shape[1], device=h.device).expand(h.shape[:2])
+
+    if masked:
+        def stage_fn(local, h):
+            return run_periods(local["blocks"], cfg, h, positions_of(h), ops=ops,
+                               collect_taps=True, active=local["mask"])
+
+        return stage_fn
+
+    def stage_fn(blocks, h):
+        return run_periods(blocks, cfg, h, positions_of(h), ops=ops, collect_taps=True)
+
+    return stage_fn
+
+
+def stage_backbone(backbone_params, cfg, mesh, *, partition=None, loss: bool = True,
+                   copy: bool = False) -> dict:
+    """This rank's stage of the whole backbone tree: its periods' slab
+    (``stack_stages``, or ``stack_stages_ragged`` with its ``"mask"``
+    along a ragged ``partition``), the embedding on stage 0, and the
+    final norm and head where ``loss`` runs; ``"periods"`` records the
+    range ``[a, b)``. ``copy=True`` copies the slab, so the whole tree
+    can be freed."""
+    S, s = mesh.stages, mesh.stage
+    blocks = backbone_params["blocks"]
+    mask = None
+    if partition is None or partition.is_uniform:
+        pp = cfg.n_periods // S
+        a, b = s * pp, (s + 1) * pp
+        slab = index_tree(stack_stages(blocks, S), s)
+    else:
+        a, b = partition.boundaries[s], partition.boundaries[s + 1]
+        slab = index_tree(stack_stages_ragged(blocks, partition.boundaries), s)
+        mask = tuple(bool(m) for m in partition.masks()[s])
+    if copy:
+        slab = map_arrays(torch.clone, slab)
+    out = stage_params(backbone_params, cfg, slab, first=s == 0, loss=loss)
+    out["periods"] = (a, b)
+    if mask is not None:
+        out["mask"] = mask
+    return out
+
+
+def _dp_loss_and_grads(parts_fn, adapter_params, mesh, *, group, counted: bool):
+    """The global mean CE and its gradient over the ranks of ``group``
+    (None: the world). Each rank's (summed NLL, token count) parts are
+    summed before the division (the exact global mean, not a mean of
+    local means); each rank takes the gradient of ``num_local /
+    max(den_global, 1)`` and the gradients are summed. A rank that is
+    not ``counted`` (its rows counted by another) adds zeros. Every
+    member ends with the same bits."""
+    leaves = tree_map(lambda t: t.detach().requires_grad_(True), adapter_params)
+    flat = tree_leaves(leaves)
+    if counted:
+        num, den = parts_fn(leaves)
+        local = torch.stack([num.detach().float(), den.detach().float()])
+    else:
+        local = torch.zeros(2, device=mesh.device)
+    total = mesh.all_reduce_tree(local, group=group)
+    den_g = torch.clamp_min(total[1], 1)
+    grads = (torch.autograd.grad(num / den_g, flat) if counted
+             else [torch.zeros_like(t) for t in flat])
+    it = iter(mesh.all_reduce_tree(list(grads), group=group))
+    return total[0] / den_g, tree_map(lambda _: next(it), adapter_params)
+
+
+def _sample_order(parts, n_micro: int, dim: int):
+    """dp rows' parts, each with its rows on axis ``dim`` micro-major
+    (micro m's q rows together), as one part in the single-process
+    sample order: row j of dp row r in micro m at ``m·dp·q + r·q + j``."""
+
+    def one(xs):
+        shape = tuple(xs[0].shape)
+        q = shape[dim] // n_micro
+        split = [x.reshape(shape[:dim] + (n_micro, q) + shape[dim + 1:]) for x in xs]
+        return torch.stack(split, dim + 1).reshape(
+            shape[:dim] + (n_micro * len(xs) * q,) + shape[dim + 1:])
+
+    first = parts[0]
+    if isinstance(first, QTensor):
+        return QTensor(one([p.q for p in parts]), one([p.scale for p in parts]), first.bits,
+                       first.block, first.orig_last)
+    return one(parts)
+
+
+def _gather_to_owner(acts, mesh, n_micro: int):
+    """Every dp row's activation triple (held by the row's first stage)
+    on the owner, rank 0, in the single-process sample order; None on
+    the other ranks."""
+    if mesh.stage != 0:
+        return None
+    if not mesh.owner:
+        mesh.send_tree(acts, 0)
+        return None
+    rows = [acts] + [mesh.recv_tree(r * mesh.stages) for r in range(1, mesh.dp)]
+    return tuple(_sample_order([row[i] for row in rows], n_micro, dim)
+                 for i, dim in enumerate((0, 1, 0)))
+
+
+def pipeline_pac_loss_and_grads(backbone_params, adapter_params, batch, *, cfg, mesh, n_micro,
+                                r: int = 8, partition=None, kernel_impl: str = "ref",
+                                tap_policy: str = "f32"):
+    """Distributed epoch-1 forward and gradients, run on every rank of
+    ``mesh`` (:class:`~repro_torch.launch.mesh.EdgeMesh`) with the same
+    ``batch`` (B, S) and adapter.
+
+    The frozen backbone runs staged over the mesh's stages:
+    ``DataPipeline.dp_microbatches`` splits the batch into ``n_micro``
+    micro-batches whose rows dp row ``r`` shares out; each row's stage 0
+    embeds its rows and :func:`~repro_torch.core.pipeline.pipeline_apply`
+    carries them through the stages, every stage emitting its periods'
+    taps (in ``tap_policy`` storage form under the ``cuda`` OpSet), which
+    reach the row's stage 0 with the last stage's output. There the
+    adapter loss runs on the row's rows (``kernel_impl="cuda"``: the
+    fused cached-step kernels on the storage-form activations), and the
+    CE parts and gradients are all-reduced over the world, the later
+    stages adding zeros.
+
+    ``backbone_params``: the whole tree, or this rank's
+    :func:`stage_backbone`. ``partition``: any object with ``n_stages``,
+    ``n_periods``, ``is_uniform``, ``boundaries``, ``masks()`` and
+    ``periods_per_stage`` (a planner ``StagePartition``): its period
+    boundaries choose each stage's periods; a uniform one is the even
+    split.
+
+    Returns (loss, adapter_grads, (b0, taps, b_final)) on every rank,
+    the same loss and gradients everywhere; the activation triple, what
+    the cache captures, is the whole batch's in the single-process
+    sample order on the owner (rank 0) and None elsewhere."""
+    from repro_torch.core.pipeline import pipeline_apply
+    from repro_torch.data import DataPipeline
+    from repro_torch.kernels.cached_step import cached_loss_parts
+
+    S, dp = mesh.stages, mesh.dp
+    if partition is not None:
+        if partition.n_stages != S:
+            raise ValueError(f"plan has {partition.n_stages} stages but the mesh's "
+                             f"'stage' axis has {S}")
+        if partition.n_periods != cfg.n_periods:
+            raise ValueError(f"plan partitions {partition.n_periods} periods but "
+                             f"{cfg.name} has {cfg.n_periods}")
+        if partition.is_uniform:
+            partition = None  # identical to the even split: take that path
+    if partition is None and cfg.n_periods % S:
+        raise ValueError(f"{cfg.n_periods} periods not divisible by {S} pipeline stages")
+    if "positions" in batch:
+        # the stage function rebuilds arange positions; custom ones would
+        # cache wrong activations for every later epoch
+        raise NotImplementedError(
+            "pipeline_pac_train_step supports implicit (arange) positions only")
+    micro = DataPipeline.dp_microbatches(
+        {"tokens": batch["tokens"], "labels": batch["labels"]}, n_micro, dp)
+    q = micro["tokens"].shape[1] // dp
+    mine = slice(mesh.dp_rank * q, (mesh.dp_rank + 1) * q)
+    ops = get_opset(kernel_impl, tap_policy)
+    local = (backbone_params if "periods" in backbone_params
+             else stage_backbone(backbone_params, cfg, mesh, partition=partition))
+    ragged = "mask" in local
+    n_rows = n_micro * q
+    with torch.no_grad():
+        if mesh.stage == 0:
+            x_micro = ops.embed_lookup(local["embed"], micro["tokens"][:, mine])
+        else:  # later stages read only the micro count
+            x_micro = torch.empty((n_micro, q, batch["tokens"].shape[1], cfg.d_model),
+                                  device="meta")
+        res = pipeline_apply(
+            _backbone_stage_fn(cfg, masked=ragged, ops=ops),
+            {"blocks": local["blocks"], "mask": local["mask"]} if ragged else local["blocks"],
+            x_micro, mesh, collect_taps=True,
+            periods_per_stage=partition.periods_per_stage if ragged else None)
+    acts, parts_fn = None, None
+    if mesh.stage == 0:
+        outs, taps = res
+        b0 = ops.emit_tap(x_micro.reshape((n_rows,) + tuple(x_micro.shape[2:])))
+        b_final = ops.emit_tap(outs.reshape((n_rows,) + tuple(outs.shape[2:])))
+        # (n_micro, n_p, q, ...) -> (n_p, n_micro·q, ...): micro-major rows
+        taps = map_arrays(lambda t: t.movedim(1, 0).reshape(
+            (t.shape[1], n_rows) + tuple(t.shape[3:])), taps)
+        labels = micro["labels"][:, mine].reshape(n_rows, -1)
+        positions = torch.arange(labels.shape[1], device=labels.device).expand(labels.shape)
+        acts = (b0, taps, b_final)
+
+        def parts_fn(ap):
+            if kernel_impl == "ref":
+                return cross_entropy_parts(
+                    pac_logits(local, ap, cfg, b0, taps, b_final, positions, r), labels)
+            cached = {"b0": b0, "taps": taps, "b_final": b_final, "labels": labels}
+            return cached_loss_parts(local, ap, cfg, cached, positions, r, impl=kernel_impl)
+
+    # one world all-reduce: the stage-0 ranks (one a dp row) count their
+    # rows, the later stages add zeros
+    loss, grads = _dp_loss_and_grads(parts_fn, adapter_params, mesh, group=None,
+                                     counted=mesh.stage == 0)
+    return loss, grads, _gather_to_owner(acts, mesh, n_micro)
+
+
+def pipeline_pac_train_step(backbone_params, adapter_params, opt_state, batch, *, cfg, mesh,
+                            n_micro, r: int = 8, lr=1e-3, clip=1.0, partition=None,
+                            kernel_impl: str = "ref", tap_policy: str = "f32"):
+    """Epoch-1 PAC+ step on a ``(dp, stage)`` mesh of ranks: the
+    distributed twin of :func:`pac_train_step`
+    (:func:`pipeline_pac_loss_and_grads`, then clip and AdamW, run alike
+    on every rank on the same all-reduced gradients, so every rank ends
+    with bit-equal adapter and optimizer state). Returns (loss,
+    adapter_params', opt_state', (b0, taps, b_final) on the owner, else
+    None)."""
+    loss, grads, acts = pipeline_pac_loss_and_grads(
+        backbone_params, adapter_params, batch, cfg=cfg, mesh=mesh, n_micro=n_micro, r=r,
+        partition=partition, kernel_impl=kernel_impl, tap_policy=tap_policy)
+    adapter_params, opt_state = _apply(adapter_params, grads, opt_state, lr, clip)
+    return loss, adapter_params, opt_state, acts
+
+
+def dp_cached_train_step(backbone_params, adapter_params, opt_state, cached_batch, *, cfg, mesh,
+                         batch_axes, r: int = 8, lr=1e-3, clip=1.0, kernel_impl: str = "cuda"):
+    """Epoch ≥ 2 cached step in pure data parallelism over the pool: the
+    distributed twin of :func:`pac_cached_train_step`, run on every rank.
+
+    ``cached_batch``: this rank's rows of the cached batch
+    (``launch.sharding.rank_rows`` over ``batch_axes``, from
+    ``launch.sharding.cached_batch_axes``), in the form
+    :func:`pac_cached_train_step` takes; a rank whose rows another rank
+    of its dp row counts (``rows_count`` False) may pass None. The CE
+    parts are summed over the world before the division, the gradients
+    summed, and the update runs alike on every rank. Returns (loss,
+    adapter_params', opt_state')."""
+    from repro_torch.kernels.cached_step import cached_loss_parts
+    from repro_torch.launch.sharding import rows_count
+
+    def parts_fn(ap):
+        return cached_loss_parts(backbone_params, ap, cfg, cached_batch,
+                                 _cached_positions(cached_batch, cfg), r, impl=kernel_impl)
+
+    loss, grads = _dp_loss_and_grads(parts_fn, adapter_params, mesh, group=None,
+                                     counted=rows_count(mesh, batch_axes))
+    adapter_params, opt_state = _apply(adapter_params, grads, opt_state, lr, clip)
+    return loss, adapter_params, opt_state
 
 
 # ---------------------------------------------------------------------------

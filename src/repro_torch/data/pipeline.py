@@ -88,3 +88,35 @@ class DataPipeline:
 
     def steps_per_epoch(self) -> int:
         return len(self.corpus) // self.global_batch
+
+    @staticmethod
+    def microbatches(batch: dict, n_micro: int) -> dict:
+        """(B, ...) -> (n_micro, B/n_micro, ...) for pipelined execution
+        (numpy arrays or tensors)."""
+
+        def f(x):
+            b = x.shape[0]
+            if b % n_micro:
+                raise ValueError(f"batch {b} not divisible by {n_micro} micro-batches")
+            return x.reshape((n_micro, b // n_micro) + tuple(x.shape[1:]))
+
+        return {k: f(v) for k, v in batch.items()}
+
+    @staticmethod
+    def dp_microbatches(batch: dict, n_micro: int, dp: int = 1) -> dict:
+        """Micro-batch layout of the hybrid DP x PP trainer.
+
+        (B, ...) -> (n_micro, mb, ...) with mb = B/n_micro, dim 1 split
+        in contiguous chunks over ``dp`` ranks: dp rank ``r`` of micro
+        ``m`` owns samples ``[m·mb + r·mb/dp, m·mb + (r+1)·mb/dp)``, the
+        order the activation cache's keys follow. Raises ``ValueError``
+        on indivisibility, before any compute."""
+        B = next(iter(batch.values())).shape[0]
+        if n_micro < 1 or dp < 1:
+            raise ValueError(f"n_micro={n_micro} and dp={dp} must be >= 1")
+        if B % (n_micro * dp):
+            raise ValueError(
+                f"global batch {B} must be divisible by n_micro×dp = "
+                f"{n_micro}×{dp}; adjust --batch/--micro/--dp"
+            )
+        return DataPipeline.microbatches(batch, n_micro)

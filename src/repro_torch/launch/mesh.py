@@ -1,0 +1,336 @@
+"""The (dp, stage) mesh of the hybrid DP x PP trainer on
+``torch.distributed`` (counterpart of ``repro.launch.mesh.make_edge_mesh``).
+
+Where the reference lays a 2-D device mesh out for ``shard_map``, the
+port runs ``dp·stages`` processes, one rank each, and moves tensors
+between them explicitly:
+
+* **layout** — rank ``i`` sits at ``(i // stages, i % stages)``, the
+  reference's device order: a dp row's ranks are consecutive;
+* **groups** — one per dp row (the stage hand-offs) and the world (the
+  adapter steps' all-reduce, in which ranks whose rows another rank
+  counts add zeros, and the owner's gather and scatter);
+* **device** — rank ``i`` computes on ``cuda:{i % device_count}``, or on
+  the CPU when asked, so several ranks may share one card;
+* **transfers** — :meth:`EdgeMesh.send_tree`, :meth:`EdgeMesh.recv_tree`,
+  :meth:`EdgeMesh.all_reduce_tree` move tensors and :class:`~repro_torch.core.quantization.QTensor`\\ s
+  (payload, scales and metadata). A point-to-point message carries a
+  fixed-size header first, so the receiver needs no shapes. The process
+  group is gloo: ranks sharing a card rule NCCL out, and gloo has no
+  point-to-point for CUDA tensors, so every tensor that leaves a card is
+  staged through pinned host buffers kept for the next message.
+
+:func:`spawn` runs a function on every rank: ``spawn`` start method (the
+parent may hold a CUDA context), a ``file://`` store in a temporary
+directory (no port), a gloo timeout, and a deadline on the parent's
+join. A rank that fails, or one still running at the deadline, fails
+the whole run; nothing falls back to one process.
+
+The reference's production mesh and its roofline constants
+(``repro/launch/mesh.py:18,71-77``) arrive with the cost-model slice.
+"""
+
+from __future__ import annotations
+
+import datetime
+import multiprocessing.connection
+import os
+import tempfile
+import time
+from typing import Callable, Dict, List, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.core.quantization import QTensor, tree_leaves, tree_map
+
+BACKEND = "gloo"
+#: int64 slots of a point-to-point header (:func:`_describe`)
+HEADER = 64
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int8, torch.int32, torch.int64,
+           torch.uint8, torch.bool)
+
+
+def rank_device(rank: int, device="cuda") -> torch.device:
+    """Rank ``rank``'s device: ``cuda:{rank % device_count}`` for the
+    card, or the CPU."""
+    kind = torch.device(device).type
+    if kind == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run the ranks on the CPU")
+    return torch.device("cuda", rank % torch.cuda.device_count())
+
+
+# ---------------------------------------------------------------------------
+# Point-to-point headers
+# ---------------------------------------------------------------------------
+
+
+def _arrays(x) -> list:
+    return [] if x is None else [x.q, x.scale] if isinstance(x, QTensor) else [x]
+
+
+def _describe(tree) -> List[int]:
+    """The header of ``tree``: a tensor, a QTensor, None, or a tuple of
+    those. Per item: kind (0 None, 1 tensor, 2 QTensor), the QTensor's
+    bits, block and orig_last, then each array's dtype, ndim and shape."""
+    items = tree if isinstance(tree, tuple) else (tree,)
+    head = [int(isinstance(tree, tuple)), len(items)]
+    for x in items:
+        head.append(0 if x is None else 2 if isinstance(x, QTensor) else 1)
+        if isinstance(x, QTensor):
+            head += [x.bits, x.block, x.orig_last]
+        for a in _arrays(x):
+            head += [_DTYPES.index(a.dtype), a.ndim, *a.shape]
+    if len(head) > HEADER:
+        raise ValueError(f"tree too deep for a {HEADER}-slot header: {len(head)} slots")
+    return head + [0] * (HEADER - len(head))
+
+
+def _parse(head: Sequence[int]):
+    """(is_tuple, [(kind, qtensor meta, [(dtype, shape), ...]), ...])."""
+    it = iter(head)
+    is_tuple, n = next(it), next(it)
+    items = []
+    for _ in range(n):
+        kind = next(it)
+        meta = (next(it), next(it), next(it)) if kind == 2 else None
+        specs = []
+        for _ in range(kind):  # kind counts the arrays: 0, 1 or 2
+            dtype, ndim = _DTYPES[next(it)], next(it)
+            specs.append((dtype, tuple(next(it) for _ in range(ndim))))
+        items.append((kind, meta, specs))
+    return bool(is_tuple), items
+
+
+class _Sends:
+    """The pending sends of one :meth:`EdgeMesh.send_tree`, holding their
+    host buffers until :meth:`wait`."""
+
+    def __init__(self, works, buffers):
+        self._works, self._buffers = works, buffers
+
+    def wait(self) -> None:
+        for w in self._works:
+            w.wait()
+        self._buffers = ()
+
+
+class EdgeMesh:
+    """One rank's view of the ``(dp, stage)`` mesh. Every rank constructs
+    it, in the same order as its peers (group creation is collective),
+    after ``torch.distributed`` is initialised with ``dp·stages`` ranks.
+
+    ``device``: this rank's device (default :func:`rank_device`).
+    ``stats`` counts the bytes this rank sent point to point and
+    all-reduced, and the host seconds spent in each."""
+
+    def __init__(self, dp: int, stages: int, *, device=None):
+        if not dist.is_initialized():
+            raise RuntimeError("EdgeMesh needs torch.distributed initialised (see spawn())")
+        world = dist.get_world_size()
+        if world != dp * stages:
+            raise ValueError(f"a {dp}×{stages} (dp, stage) mesh needs {dp * stages} ranks, "
+                             f"the process group has {world}")
+        self.dp, self.stages = dp, stages
+        self.rank = dist.get_rank()
+        self.dp_rank, self.stage = divmod(self.rank, stages)
+        self.device = rank_device(self.rank) if device is None else torch.device(device)
+        self.row_ranks = list(range(self.dp_rank * stages, (self.dp_rank + 1) * stages))
+        rows = [dist.new_group(list(range(r * stages, (r + 1) * stages))) for r in range(dp)]
+        self.row_group = rows[self.dp_rank]
+        self._groups = [self.row_group]
+        self._pinned: Dict[tuple, torch.Tensor] = {}
+        self.stats = {"p2p_bytes": 0, "p2p_s": 0.0, "allreduce_bytes": 0, "allreduce_s": 0.0}
+
+    @property
+    def world(self) -> int:
+        return self.dp * self.stages
+
+    @property
+    def owner(self) -> bool:
+        """Rank 0: the single controller that holds the activation cache."""
+        return self.rank == 0
+
+    def describe(self) -> str:
+        """Backend, ranks and the cards they share, for the ``mesh:`` line."""
+        if self.device.type == "cpu":
+            return f"{BACKEND}, {self.world} ranks on the CPU"
+        cards = min(self.world, torch.cuda.device_count())
+        return (f"{BACKEND}, {self.world} ranks on {cards} card{'s' if cards > 1 else ''} "
+                f"({torch.cuda.get_device_name(self.device)})")
+
+    def close(self) -> None:
+        """Destroy the row groups; the world group belongs to
+        whoever initialised the process group."""
+        for g in self._groups:
+            dist.destroy_process_group(g)
+        self._groups = []
+
+    # -- staging --------------------------------------------------------------
+
+    def _host(self, t: torch.Tensor, key) -> torch.Tensor:
+        """``t`` on the host, contiguous: a card's tensor copied into the
+        pinned buffer kept under ``key``."""
+        if t.device.type != "cuda":
+            return t.contiguous()
+        buf = self._buffer(key, t.shape, t.dtype)
+        buf.copy_(t)
+        return buf
+
+    def _buffer(self, key, shape, dtype) -> torch.Tensor:
+        buf = self._pinned.get(key)
+        if buf is None or buf.shape != tuple(shape) or buf.dtype != dtype:
+            buf = self._pinned[key] = torch.empty(shape, dtype=dtype, pin_memory=True)
+        return buf
+
+    # -- point to point -------------------------------------------------------
+
+    def send_tree(self, tree, dst: int, *, group=None, slot=0, wait: bool = True):
+        """Send ``tree`` (a tensor, a QTensor, None, or a tuple of those)
+        to global rank ``dst``: its header, then its arrays in order.
+        ``wait=False`` returns the pending sends (``.wait()``); ``slot``
+        then keeps concurrent sends to one peer in separate buffers."""
+        t0 = time.perf_counter()
+        head = torch.tensor(_describe(tree), dtype=torch.int64)
+        arrays = [a for x in (tree if isinstance(tree, tuple) else (tree,)) for a in _arrays(x)]
+        host = [self._host(a, ("send", dst, slot, i)) for i, a in enumerate(arrays)]
+        works = [dist.isend(t, dst, group=group) for t in [head] + host]
+        self.stats["p2p_bytes"] += sum(h.numel() * h.element_size() for h in host)
+        work = _Sends(works, [head] + host)
+        if wait:
+            work.wait()
+        self.stats["p2p_s"] += time.perf_counter() - t0
+        return None if wait else work
+
+    def recv_tree(self, src: int, *, group=None):
+        """Receive a :meth:`send_tree` from global rank ``src``, on this
+        rank's device."""
+        t0 = time.perf_counter()
+        head = torch.empty(HEADER, dtype=torch.int64)
+        dist.recv(head, src, group=group)
+        is_tuple, items = _parse(head.tolist())
+        card = self.device.type == "cuda"
+        out, i = [], 0
+        for kind, meta, specs in items:
+            arrays = []
+            for dtype, shape in specs:
+                buf = (self._buffer(("recv", src, i), shape, dtype) if card
+                       else torch.empty(shape, dtype=dtype))
+                dist.recv(buf, src, group=group)
+                arrays.append(buf.to(self.device) if card else buf)
+                i += 1
+            out.append(None if kind == 0 else arrays[0] if kind == 1
+                       else QTensor(arrays[0], arrays[1], *meta))
+        self.stats["p2p_s"] += time.perf_counter() - t0
+        return tuple(out) if is_tuple else out[0]
+
+    # -- collectives ----------------------------------------------------------
+
+    def _flat_collective(self, tree, op: Callable, key) -> list:
+        """Run ``op`` on the leaves of ``tree`` (f32 tensors, any nesting)
+        packed into one host buffer; returns the leaves' results in
+        tree order, on this rank's device."""
+        t0 = time.perf_counter()
+        leaves = tree_leaves(tree)
+        flat = torch.cat([t.detach().reshape(-1).float() for t in leaves])
+        host = self._host(flat, key)
+        op(host)
+        self.stats["allreduce_bytes"] += host.numel() * host.element_size()
+        out = host.to(self.device) if host is not flat else host
+        parts, at = [], 0
+        for t in leaves:
+            parts.append(out[at: at + t.numel()].view(t.shape))
+            at += t.numel()
+        self.stats["allreduce_s"] += time.perf_counter() - t0
+        return parts
+
+    def all_reduce_tree(self, tree, group=None):
+        """The elementwise sum of ``tree`` over ``group`` (default: the
+        world), every member getting the same bits."""
+        parts = iter(self._flat_collective(
+            tree, lambda h: dist.all_reduce(h, group=group), ("all_reduce", id(group), len(tree_leaves(tree)))))
+        return tree_map(lambda _: next(parts), tree)
+
+    def broadcast_flag(self, flag: bool) -> bool:
+        """The owner's ``flag`` on every rank."""
+        t = torch.tensor([int(flag)], dtype=torch.int64)
+        dist.broadcast(t, 0)
+        return bool(t.item())
+
+
+# ---------------------------------------------------------------------------
+# Spawning the ranks
+# ---------------------------------------------------------------------------
+
+
+def _rank_main(rank: int, world: int, device: str, timeout: float, tmp: str) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(rank_device(rank))  # before any allocation
+    else:
+        torch.set_num_threads(1)  # ranks share the host's cores
+    fn, args = torch.load(os.path.join(tmp, "call.pt"), weights_only=False)
+    dist.init_process_group(BACKEND, init_method="file://" + os.path.join(tmp, "store"),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=timeout))
+    try:
+        result = fn(*args)
+        path = os.path.join(tmp, f"rank{rank}.pt")
+        torch.save(result, path + ".tmp")
+        os.replace(path + ".tmp", path)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(fn: Callable, dp: int, stages: int, device: str = "cuda", *, args: tuple = (),
+          timeout: float = 300.0, deadline: Optional[float] = None) -> list:
+    """Run ``fn(*args)`` on ``dp·stages`` ranks, one process each, with
+    the process group initialised (gloo, ``timeout`` seconds for each
+    collective); ``fn`` builds its :class:`EdgeMesh`. ``device``:
+    ``"cuda"`` (rank ``i`` on ``cuda:{i % device_count}``, set before
+    ``fn`` runs) or ``"cpu"`` (one thread a rank). ``fn`` and ``args``
+    must pickle: a module-level function.
+
+    ``fn`` and ``args`` reach the ranks, and their return values come
+    back in rank order, through ``torch.save`` files in a private
+    temporary directory (never through the start pipe, whose write would
+    block on a rank that died before reading it). Raises
+    ``RuntimeError`` as soon as a rank exits non-zero, or when ranks are
+    still running ``deadline`` seconds after the start; every rank still
+    alive is then killed."""
+    world = dp * stages
+    if torch.device(device).type == "cuda":
+        rank_device(0)  # refuses without a card
+    ctx = torch.multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="edge-mesh-") as tmp:
+        torch.save((fn, args), os.path.join(tmp, "call.pt"))
+        procs = [ctx.Process(target=_rank_main, name=f"edge-rank-{r}",
+                             args=(r, world, device, timeout, tmp))
+                 for r in range(world)]
+        end = None if deadline is None else time.monotonic() + deadline
+        try:
+            for p in procs:
+                p.start()
+            while True:
+                failed = [(r, p.exitcode) for r, p in enumerate(procs)
+                          if p.exitcode not in (None, 0)]
+                if failed:
+                    raise RuntimeError("rank " + ", rank ".join(
+                        f"{r} exited with code {c}" for r, c in failed))
+                alive = [p.sentinel for p in procs if p.exitcode is None]
+                if not alive:
+                    break
+                left = None if end is None else end - time.monotonic()
+                if left is not None and left <= 0:
+                    raise RuntimeError(f"ranks still running after the {deadline} s deadline")
+                multiprocessing.connection.wait(alive, timeout=left)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+            for p in procs:
+                if p.pid is not None:
+                    p.join(timeout=30)
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                for r in range(world)]

@@ -1,5 +1,5 @@
 """PAC+ trainer CLI of the PyTorch port (counterpart of
-``repro.launch.train``, one device).
+``repro.launch.train``).
 
 Runs the paper's workflow (Fig. 4): quantize → init the adapter →
 epoch 1 (frozen backbone forward + adapter update, cache capture) →
@@ -26,6 +26,17 @@ cache's storage form, and trains every epoch through the fused adapter
 mix and blockwise LM-head cross-entropy kernels; ``--kernels ref`` is
 plain PyTorch. On CPU tensors every kernel wrapper computes its plain
 version.
+
+``--dp N --stages S`` (``dp·stages > 1``) runs the hybrid DP x PP
+trainer: the command spawns ``dp·stages`` ranks itself (gloo; on the
+card every rank on ``cuda:{rank % device_count}``, the kernels built
+once here first). Epoch 1 pipelines the frozen forward over each dp
+row's stages (``--micro`` micro-batches, default the stage count) with
+the adapter step data-parallel; later epochs run the cached step over
+the whole pool. Rank 0 prints the lines; a failing rank fails the run:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \\
+        --dp 2 --stages 2 --epochs 3 --steps-per-epoch 2 --batch 4 --seq 16
 """
 
 from __future__ import annotations
@@ -33,6 +44,29 @@ from __future__ import annotations
 import argparse
 
 from repro_torch.runtime import ConsoleHook, EdgeSession, RunSpec, RunSpecError
+
+
+def _train_rank(spec: RunSpec, device) -> None:
+    """One rank of a distributed run (``launch.mesh.spawn`` calls it)."""
+    import torch.distributed as dist
+
+    lead = dist.get_rank() == 0
+    EdgeSession(spec, device=device, log=print if lead else None).run(
+        hooks=(ConsoleHook(),) if lead else ())
+
+
+def _train_pool(spec: RunSpec, device) -> None:
+    """Spawn the ``dp·stages`` ranks of ``spec`` and wait for them."""
+    from repro_torch.core.device import resolve_device
+    from repro_torch.launch.mesh import spawn
+
+    kind = resolve_device(device).type  # refuses without a card unless asked for the CPU
+    if kind == "cuda" and spec.kernels == "cuda":
+        from repro_torch.kernels import _build
+
+        _build.build()  # once here, not in every rank at once
+    spawn(_train_rank, spec.dp, spec.stages, kind,
+          args=(spec, None if kind == "cuda" else "cpu"))
 
 
 def main(argv=None) -> None:
@@ -58,6 +92,10 @@ def main(argv=None) -> None:
                     help="RAM budget for cache entries (compressed bytes)")
     ap.add_argument("--ckpt", default=None,
                     help="write the trained adapter here (msgpack, the reference's format)")
+    ap.add_argument("--dp", type=int, default=1, help="data-parallel replicas (ranks a stage)")
+    ap.add_argument("--stages", type=int, default=1, help="pipeline stages of epoch 1")
+    ap.add_argument("--micro", type=int, default=None,
+                    help="micro-batches of epoch 1's pipeline (default: the stage count)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernels", default="cuda", choices=["cuda", "ref"],
                     help="'cuda' = the hand-written kernels; 'ref' = plain PyTorch")
@@ -65,8 +103,11 @@ def main(argv=None) -> None:
                     help="torch device (default: the current CUDA card; no silent CPU fallback)")
     args = ap.parse_args(argv)
     try:
-        spec = RunSpec.from_args(args)
-        EdgeSession(spec, device=args.device, log=print).run(hooks=(ConsoleHook(),))
+        spec = RunSpec.from_args(args).validate()
+        if spec.total_devices > 1:
+            _train_pool(spec, args.device)
+        else:
+            EdgeSession(spec, device=args.device, log=print).run(hooks=(ConsoleHook(),))
     except RunSpecError as e:
         raise SystemExit(str(e))
 

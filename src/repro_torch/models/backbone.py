@@ -21,6 +21,7 @@ from repro_torch.core.quantization import (
     quantize,
     should_quantize,
     stack,
+    tree_leaves,
 )
 from repro_torch.models.layers import (
     LeafMaker,
@@ -145,18 +146,46 @@ def backbone_forward(params, cfg, batch: dict, collect_taps: bool = False,
     periods), with bf16 a bf16 tensor — already the cache's storage form.
     """
     ops = ops if ops is not None else _REF_OPS
-    x, positions = embed_inputs(params, cfg, batch, ops=ops)
-    x0 = x
-    taps = []
-    for i in range(cfg.n_periods):
-        for spec, p in zip(cfg.pattern, period_slice(params["blocks"], i)):
-            x = apply_block(p, x, cfg, spec, positions, ops=ops)
-        if collect_taps:
-            taps.append(ops.emit_tap(x))
-    taps = stack(taps) if collect_taps else None
+    x0, positions = embed_inputs(params, cfg, batch, ops=ops)
+    x, taps = run_periods(params["blocks"], cfg, x0, positions, ops=ops,
+                          collect_taps=collect_taps)
     if return_inputs:
         return x, taps, x0, positions
     return x, taps
+
+
+def run_periods(blocks, cfg, x, positions, ops=None, collect_taps: bool = False,
+                active=None):
+    """``x`` through every period of ``blocks`` (leaves stacked over a
+    range of periods, e.g. one pipeline stage's). Returns (hidden, the
+    period outputs through ``ops.emit_tap`` stacked over periods, or
+    None). ``active`` (one bool a period) runs the False periods as
+    identity: the padding of a ragged stage's slab, whose tap slot
+    repeats the carry."""
+    ops = ops if ops is not None else _REF_OPS
+    n = tree_leaves(blocks)[0].shape[0]
+    taps = []
+    for i in range(n):
+        if active is None or active[i]:
+            for spec, p in zip(cfg.pattern, period_slice(blocks, i)):
+                x = apply_block(p, x, cfg, spec, positions, ops=ops)
+        if collect_taps:
+            taps.append(ops.emit_tap(x))
+    return x, (stack(taps) if collect_taps else None)
+
+
+def stage_params(params, cfg, blocks, *, first: bool, loss: bool) -> dict:
+    """What one pipeline stage keeps of ``params``: ``blocks`` (its
+    periods), the embedding on the first stage, and the final norm and
+    LM head where the loss runs."""
+    out = {"blocks": blocks}
+    if first or (loss and cfg.tie_embeddings):
+        out["embed"] = params["embed"]
+    if loss:
+        out["final_norm"] = params["final_norm"]
+        if not cfg.tie_embeddings:
+            out["lm_head"] = params["lm_head"]
+    return out
 
 
 def head_weight(params, cfg):

@@ -1,11 +1,25 @@
 """EdgeSession — one engine owning the model, the cache and the train
-steps of a run (counterpart of ``repro.runtime.session``, single device).
+steps of a run (counterpart of ``repro.runtime.session``).
 
 An :class:`EdgeSession` takes a validated
 :class:`~repro_torch.runtime.spec.RunSpec` and owns the run:
 
 * **device** — ``device=None`` means the card; with no card only an
   explicit ``device="cpu"`` runs (no silent fallback);
+* **mesh** — with ``dp·stages > 1`` the session is one rank of the
+  hybrid DP x PP trainer: every rank of an initialised process group
+  (:func:`repro_torch.launch.mesh.spawn`) opens its own session, and
+  ``open()`` builds the :class:`~repro_torch.launch.mesh.EdgeMesh`.
+  Each rank draws the same seeded backbone and keeps its stage's part
+  (:func:`~repro_torch.core.steps.stage_backbone`). Epoch 1 runs
+  :func:`~repro_torch.core.steps.pipeline_pac_train_step`, cached epochs
+  :func:`~repro_torch.core.steps.dp_cached_train_step` over the pool
+  (modes ``hybrid dp{dp}xpp{S}`` and ``cached pure-dp``). The owner,
+  rank 0, holds the activation cache, as the reference's single
+  controller does: filled from epoch 1's activations in the
+  single-process sample order, read on the host (its prefetcher stays
+  there) and scattered to the ranks at each cached step, each copying
+  its rows to its device. Only rank 0 writes the outputs;
 * **model** — the frozen backbone, drawn from a seeded generator leaf by
   leaf on the device and quantized as drawn (``quant``), so the f32 tree
   is never resident; the adapter (pruning or random init) and AdamW;
@@ -59,7 +73,7 @@ class StepEvent:
     index: int
     loss: float
     cache_hit: bool
-    mode: str          # "full" | "cached"
+    mode: str          # "full" | "cached" | "hybrid dp2xpp2" | "cached pure-dp"
     wall_s: float
 
 
@@ -86,6 +100,8 @@ class EdgeSession:
         self.warm = False
         self.meta = None      # the persistent cache's identity record
         self._prefetch = None  # the live epoch_scope's CachePrefetcher
+        self.mesh = None      # the EdgeMesh of a distributed run
+        self.n_micro = None
 
     def __enter__(self) -> "EdgeSession":
         return self.open()
@@ -112,14 +128,21 @@ class EdgeSession:
         spec, log, dev = self.spec, self._log, self.device
         cfg = self.cfg = spec.arch_config()
         log(f"arch={cfg.name} params≈{cfg.param_count()/1e6:.1f}M device={dev}")
+        if spec.total_devices > 1:
+            from repro_torch.launch.mesh import EdgeMesh
+
+            self.mesh = EdgeMesh(spec.dp, spec.stages, device=dev)
+            self.n_micro = spec.default_micro()
+            log(f"mesh: hybrid dp={spec.dp}×pp={spec.stages} on {spec.total_devices} devices, "
+                f"{self.n_micro} micro-batches ({self.mesh.describe()})")
         gen = torch.Generator(device=dev).manual_seed(spec.seed)
-        self.backbone = init_backbone(gen, cfg, device=dev, quant_bits=spec.quant)
+        backbone = init_backbone(gen, cfg, device=dev, quant_bits=spec.quant)
         if spec.quant:
             log(f"backbone quantized INT{spec.quant}: "
-                f"{tree_storage_bytes(self.backbone)/2**20:.1f} MB")
+                f"{tree_storage_bytes(backbone)/2**20:.1f} MB")
         agen = torch.Generator(device=dev).manual_seed(spec.seed + 1)
         if spec.init == "pruning":
-            self.adapter = pruning_init(agen, self.backbone, cfg, r=spec.r, device=dev)
+            self.adapter = pruning_init(agen, backbone, cfg, r=spec.r, device=dev)
         else:
             self.adapter = init_adapter(agen, cfg, r=spec.r, device=dev)
         n_train = sum(t.numel() for t in tree_leaves(self.adapter))
@@ -132,9 +155,10 @@ class EdgeSession:
         self.pipe = DataPipeline(self.corpus, global_batch=spec.batch, shuffle=True,
                                  seed=spec.seed)
         budget = spec.cache_budget_mb << 20
-        if self.persistent:
+        owner = self.mesh is None or self.mesh.owner  # the owner alone holds the cache
+        if owner and self.persistent:
             self.meta = manifest_for(cfg, reduced=spec.reduced, seq_len=spec.seq,
-                                     quant_bits=spec.quant, backbone=self.backbone,
+                                     quant_bits=spec.quant, backbone=backbone,
                                      corpus_tokens=self.corpus.tokens)
             self.cache, self.warm = open_persistent(spec.cache_dir, self.meta,
                                                     budget_bytes=budget,
@@ -143,8 +167,18 @@ class EdgeSession:
                 log(f"activation cache: warm manifest at {spec.cache_dir} "
                     f"({len(self.cache)} seqs, {spec.cache_compress}) — "
                     f"cached epochs skip the backbone forward entirely")
-        else:
+        elif owner:
             self.cache = ActivationCache(budget_bytes=budget, compress=spec.cache_compress)
+        if self.mesh is None:
+            self.backbone = backbone
+        else:
+            from repro_torch.core.steps import stage_backbone
+            from repro_torch.launch.sharding import cached_batch_axes, rows_count
+
+            # the cached step's loss runs on every rank whose rows count
+            loss = rows_count(self.mesh, cached_batch_axes(spec.batch, self.mesh))
+            self.backbone = stage_backbone(backbone, cfg, self.mesh, loss=loss, copy=True)
+        del backbone
         self._opened = True
         return self
 
@@ -154,15 +188,17 @@ class EdgeSession:
         return bool(self.spec.cache_dir and self.spec.use_cache)
 
     def close(self) -> None:
-        """Release per-run state: join a live prefetcher, and drop a
-        non-persistent cache's entries and spill files. Writes no
-        outputs; that is :meth:`finish`, which only a completed run
-        calls."""
+        """Release per-run state: join a live prefetcher, drop a
+        non-persistent cache's entries and spill files, and destroy the
+        mesh's groups. Writes no outputs; that is :meth:`finish`, which
+        only a completed run calls."""
         if self._prefetch is not None:  # defensive: epoch_scope owns it
             self._prefetch.close()
             self._prefetch = None
         if self.cache is not None and not self.persistent:
             self.cache.clear()
+        if self.mesh is not None:
+            self.mesh.close()
         self._opened = False
 
     def step(self, batch: dict, *, epoch: int = 0, index: int = 0) -> StepEvent:
@@ -179,6 +215,8 @@ class EdgeSession:
         t0 = time.perf_counter()
         ids = batch["seq_ids"]
         labels = torch.from_numpy(batch["labels"]).to(dev)
+        if self.mesh is not None:
+            return self._dist_step(batch, labels, epoch, index, t0)
         hit = self._next_hit(ids)
         if hit is None:
             tokens = torch.from_numpy(batch["tokens"]).to(dev)
@@ -201,6 +239,60 @@ class EdgeSession:
         return StepEvent(epoch=epoch, index=index, loss=loss, cache_hit=hit is not None,
                          mode=self.mode(hit is not None), wall_s=time.perf_counter() - t0)
 
+    def _dist_step(self, batch, labels, epoch, index, t0) -> StepEvent:
+        """One step of a distributed run, on every rank: the owner
+        decides hit or miss and tells the ranks, then the epoch-1 step
+        (and the owner's cache fill) or the cached step on the rows the
+        owner scatters."""
+        from repro_torch.core import steps
+        from repro_torch.launch.sharding import cached_batch_axes, rank_rows
+
+        spec, mesh = self.spec, self.mesh
+        ids = batch["seq_ids"]
+        hit = self._next_hit(ids) if mesh.owner else None
+        cache_hit = spec.use_cache and mesh.broadcast_flag(hit is not None)
+        if cache_hit:
+            axes = cached_batch_axes(spec.batch, mesh)
+            rows = rank_rows(spec.batch, mesh, axes)
+            local = self._scatter(hit, axes)
+            cached = None
+            if local is not None:
+                cached = dict(zip(("b0", "taps", "b_final"), local), labels=labels[rows])
+            loss, self.adapter, self.opt = steps.dp_cached_train_step(
+                self.backbone, self.adapter, self.opt, cached, cfg=self.cfg, mesh=mesh,
+                batch_axes=axes, r=spec.r, lr=spec.lr, kernel_impl=spec.kernels)
+        else:
+            tokens = torch.from_numpy(batch["tokens"]).to(self.device)
+            loss, self.adapter, self.opt, acts = steps.pipeline_pac_train_step(
+                self.backbone, self.adapter, self.opt, {"tokens": tokens, "labels": labels},
+                cfg=self.cfg, mesh=mesh, n_micro=self.n_micro, r=spec.r, lr=spec.lr,
+                kernel_impl=spec.kernels, tap_policy=spec.cache_compress)
+            if spec.use_cache and mesh.owner:
+                self.cache.put_batch(ids, *acts, orig_last=self.cfg.d_model)
+        return StepEvent(epoch=epoch, index=index, loss=float(loss), cache_hit=cache_hit,
+                         mode=self.mode(cache_hit), wall_s=time.perf_counter() - t0)
+
+    def _scatter(self, hit, axes):
+        """The owner's cached batch ``hit`` (host) split by
+        ``launch.sharding.rank_rows``: the owner sends each counted rank
+        its rows and keeps its own; each returns its rows on its device
+        (None on a rank whose rows do not count)."""
+        from repro_torch.launch.sharding import rank_rows, rows_count
+
+        mesh = self.mesh
+        if not mesh.owner:
+            return mesh.recv_tree(0) if rows_count(mesh, axes) else None
+
+        def rows_of(rank):
+            r = rank_rows(self.spec.batch, mesh, axes, rank)
+            b0, taps, bf = hit
+            return b0[r], taps[:, r], bf[r]
+
+        for rank in range(1, mesh.world):
+            if rows_count(mesh, axes, rank):
+                mesh.send_tree(rows_of(rank), rank)
+        return tuple(part.to(self.device) for part in rows_of(0))
+
     @contextlib.contextmanager
     def epoch_scope(self, epoch: int):
         """Bracket one epoch's prefetcher lifecycle. When the whole epoch
@@ -212,13 +304,16 @@ class EdgeSession:
         drains its queue instead of leaking a daemon holding device
         batches. Yields True iff the epoch trains straight from the cache."""
         pf = None
-        if self.spec.use_cache:
+        if self.spec.use_cache and self.cache is not None:
             from repro_torch.core.activation_cache import CachePrefetcher
 
             order = self.pipe.epoch_order(epoch)
             if order and self.cache.covers(np.concatenate(order), with_final=True):
-                pf = CachePrefetcher(self.cache, order, to_device=self.device, dtype=None,
-                                     compressed=self.spec.kernels == "cuda")
+                # a distributed owner scatters from the host: each rank
+                # copies its own rows to its device
+                pf = CachePrefetcher(self.cache, order,
+                                     to_device=self.device if self.mesh is None else False,
+                                     dtype=None, compressed=self.spec.kernels == "cuda")
         if pf is None:
             yield False
             return
@@ -240,8 +335,10 @@ class EdgeSession:
                                     compressed=self.spec.kernels == "cuda")
 
     def mode(self, cache_hit: bool) -> str:
-        """The run-mode label the trainer reports."""
-        return "cached" if cache_hit else "full"
+        """The run-mode label the trainer reports (the reference's)."""
+        if self.mesh is None:
+            return "cached" if cache_hit else "full"
+        return "cached pure-dp" if cache_hit else f"hybrid dp{self.spec.dp}xpp{self.spec.stages}"
 
     # -- preemption snapshots -------------------------------------------------
 
@@ -294,6 +391,9 @@ class EdgeSession:
         if self._finished:
             return
         spec, log = self.spec, self._log
+        if self.mesh is not None and not self.mesh.owner:
+            self._finished = True  # the owner writes the run's outputs
+            return
         if spec.ckpt:
             from repro_torch.checkpoint import save_checkpoint
 
@@ -314,6 +414,9 @@ class EdgeSession:
 
         if self.backbone is None:
             raise RunSpecError("serving_engine() needs an open()ed session")
+        if self.mesh is not None:
+            raise RunSpecError("serving_engine() needs a single-device session: a "
+                               "distributed rank holds one stage of the backbone")
         if adapters is None:
             adapters = {"local": self.adapter}
         kw.setdefault("r", self.spec.r)

@@ -2,12 +2,12 @@
 (counterpart of ``repro.runtime.spec``).
 
 The fields are the reference's, so a spec saved by either package loads
-in the other; the port runs on one device so far. Fields whose feature
-arrives with a later slice (data and pipeline parallelism, the planner)
-must keep their defaults, and
-:meth:`RunSpec.validate` names the slice when they do not. ``kernels``
-is the port's own: ``"cuda"`` (the default: the hand-written kernels)
-or ``"ref"`` (plain PyTorch).
+in the other. ``dp``, ``stages`` and ``micro`` lay out the hybrid DP x PP
+trainer (``dp·stages`` ranks on ``torch.distributed``). Fields whose
+feature arrives with a later slice (the planner) must keep their
+defaults, and :meth:`RunSpec.validate` names the slice when they do not.
+``kernels`` is the port's own: ``"cuda"`` (the default: the hand-written
+kernels) or ``"ref"`` (plain PyTorch).
 """
 
 from __future__ import annotations
@@ -24,9 +24,6 @@ COMPRESS_POLICIES = ("f32", "bf16", "int8")
 
 #: field -> (its only value in this slice, the slice of the port that lifts that)
 _LATER = {
-    "dp": (1, "distributed training (DP x PP on torch.distributed)"),
-    "stages": (1, "distributed training (DP x PP on torch.distributed)"),
-    "micro": (None, "distributed training (DP x PP on torch.distributed)"),
     "plan": (None, "cost models and the planner"),
     "pool": (None, "cost models and the planner"),
     "save_plan": (None, "cost models and the planner"),
@@ -61,7 +58,7 @@ class RunSpec:
     cache_dir: Optional[str] = None
     cache_compress: str = "f32"
     cache_budget_mb: int = 4096
-    # parallelism / planning (later slices)
+    # parallelism (dp x stages ranks) / planning (a later slice)
     dp: int = 1
     stages: int = 1
     micro: Optional[int] = None
@@ -73,6 +70,18 @@ class RunSpec:
     kernels: str = "cuda"
     # outputs: the adapter checkpoint written by EdgeSession.finish()
     ckpt: Optional[str] = None
+
+    @property
+    def total_devices(self) -> int:
+        """Ranks of the (dp, stage) mesh."""
+        return self.dp * self.stages
+
+    def default_micro(self) -> int:
+        """The micro-batch count: ``micro`` if set, else the stage count
+        when distributed, else the reference's planning-report default."""
+        if self.micro is not None:
+            return self.micro
+        return self.stages if self.total_devices > 1 else 4
 
     def arch_config(self):
         """The effective ArchConfig (``reduced`` applied)."""
@@ -101,12 +110,27 @@ class RunSpec:
             bad(f"cache_compress must be one of {COMPRESS_POLICIES}, got {self.cache_compress!r}")
         for name, (default, later) in _LATER.items():
             if getattr(self, name) != default:
-                bad(f"{name}={getattr(self, name)!r}: the PyTorch port runs on one device "
-                    f"without it so far; it arrives with the slice that ports {later}")
+                bad(f"{name}={getattr(self, name)!r}: the PyTorch port runs without it "
+                    f"so far; it arrives with the slice that ports {later}")
         try:
-            self.arch_config()
+            cfg = self.arch_config()
         except KeyError as e:
             bad(str(e))
+        if self.micro is not None:
+            if self.micro < 1:
+                bad(f"micro must be >= 1, got {self.micro}")
+            if self.batch % self.micro:
+                bad(f"batch {self.batch} must be divisible by micro={self.micro}")
+        if self.total_devices > 1:
+            n_micro = self.default_micro()
+            if self.batch % n_micro:
+                bad(f"batch {self.batch} must be divisible by the {n_micro} micro-batches")
+            if (self.batch // n_micro) % self.dp:
+                bad(f"micro-batch size {self.batch // n_micro} must be divisible by "
+                    f"dp={self.dp}")
+            if cfg.n_periods % self.stages:
+                bad(f"stages {self.stages} must divide n_periods={cfg.n_periods} of "
+                    f"{cfg.name} (uneven boundaries arrive with the planner slice)")
         return self
 
     def replace(self, **changes) -> "RunSpec":
@@ -139,4 +163,5 @@ class RunSpec:
                    seed=ns.seed, r=ns.r, init=ns.init, quant=ns.quant, lr=ns.lr,
                    use_cache=not ns.no_cache, cache_dir=ns.cache_dir,
                    cache_compress=ns.cache_compress, cache_budget_mb=ns.cache_budget_mb,
-                   kernels=ns.kernels, ckpt=ns.ckpt)
+                   dp=ns.dp, stages=ns.stages, micro=ns.micro, kernels=ns.kernels,
+                   ckpt=ns.ckpt)

@@ -46,9 +46,8 @@ def test_corpus_and_epoch_order_are_identical(vocab, seq, n, seed):
                 np.testing.assert_array_equal(a[k], b[k])
 
 
-@pytest.mark.parametrize("field,value", [("dp", 2), ("stages", 2), ("plan", "auto"),
-                                         ("pool", 4), ("calibrate", True),
-                                         ("micro", 2), ("save_plan", "p.json")])
+@pytest.mark.parametrize("field,value", [("plan", "auto"), ("pool", 4), ("calibrate", True),
+                                         ("save_plan", "p.json")])
 def test_runspec_refuses_later_slices(field, value):
     with pytest.raises(RunSpecError, match="arrives with the slice"):
         RunSpec(**{field: value}).validate()
