@@ -146,7 +146,28 @@ Phases, in order; any failure exits non-zero:
    each training kernel launched on the ranks that run it. Per rank and
    step: wall time, launches, bytes sent point to point and all-reduced
    with their host seconds; each rank's memory high-water mark.
-11. Summary: one JSON line ``{"kernels": [...]}`` (eight kernels, each
+11. Plan: the planner (Alg. 1) and plan-driven training. First
+   ``quant_matmul`` at M = 1024 and flash at B·H = 2·16 x 512, the shapes
+   a stage of the plan below gives them (``*_plan`` lines). The port's
+   planner makes a ragged 3-stage plan of full internlm2-1.8b over a
+   Jetson Nano (low power), a TX2 and a Nano (high), each holding half
+   the backbone's weights and adapter state (micro-batch 2, 2
+   micro-batches); its boundaries must be the JAX planner's (0, 5, 16,
+   24), and it is saved as JSON. The calibrated cost model counts the
+   full-width step's FLOPs on the meta device (``plan_calibration``).
+   The training phase's spec then replays the saved plan
+   (``plan=<file>, pool=3``), resolved once here and run as 3 gloo ranks
+   on the card, dp=1 x 3 ragged stages: modes ``plan-driven dp1xpp3``,
+   then ``cached pure-dp`` twice, the distributed phase's gates against
+   the training phase's run, and each stage launching ``quant_matmul``
+   7 x its periods x 2 micro-batches in epoch 1. Last ``plan="auto",
+   pool=4, micro=2``: Alg. 1 picks (12, 12) on dp=2 x pp=2, and every
+   step's loss and every rank's fingerprint equal the distributed
+   phase's first run bit for bit. The ``plan`` line carries per rank its
+   periods, step walls, launches, transfer bytes and host seconds and
+   memory, and the planner's latency and simulated bubble fraction,
+   estimates for the modelled Jetson devices, not times on the card.
+12. Summary: one JSON line ``{"kernels": [...]}`` (eight kernels, each
    with its launches on every path and its device kernels by name:
    ``skinny::gemv`` for ``quant_matmul`` at M <= 8 and ``adapter_fuse`` at
    T <= 8), the card's line, and last ``{"ok": true, "device": {...}}``.
@@ -1588,9 +1609,10 @@ def fingerprint(tree) -> list:
     return out
 
 
-def distributed_rank(spec, runs: int) -> dict:
-    """One rank of the distributed phase: ``runs`` runs of ``spec``
-    through ``EdgeSession``/``EpochRunner``, each step's loss, wall time,
+def distributed_rank(spec, runs: int, layout: str = None) -> dict:
+    """One rank of the distributed and plan phases: ``runs`` runs of
+    ``spec`` through ``EdgeSession``/``EpochRunner`` (``layout``: the
+    layout the parent resolved, as JSON), each step's loss, wall time,
     launches, mesh transfer counters and adapter/optimizer fingerprint;
     on the owner also epoch 0's cache entries (first run)."""
     import torch.distributed as dist
@@ -1602,7 +1624,8 @@ def distributed_rank(spec, runs: int) -> dict:
     for run in range(runs):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        s = EdgeSession(spec, log=print if rank == 0 and run == 0 else None).open()
+        s = EdgeSession(spec, log=print if rank == 0 and run == 0 else None,
+                        layout=layout).open()
         torch.cuda.synchronize()
         open_s = time.perf_counter() - t0
         steps = []
@@ -1622,6 +1645,7 @@ def distributed_rank(spec, runs: int) -> dict:
         reset_launches()
         reports = EpochRunner(s, hooks=[Record()]).run()
         rec = {"open_s": open_s, "modes": [r.mode for r in reports],
+               "periods": s.backbone["periods"],
                "epoch_losses": [r.mean_loss for r in reports],
                "max_memory_allocated": torch.cuda.max_memory_allocated(),
                "launches": {k: v for k, v in read_launches().items() if k in TRAINING_KERNELS},
@@ -1707,19 +1731,96 @@ def distributed_kernel_phase(timer: Timer, gen: torch.Generator) -> None:
         del h, wh, lab, gl, nll, lse, want_nll, want_lse, dh, want_dh
 
 
-def distributed_phase(single: dict) -> dict:
+def parity(ranks: list, single: dict) -> dict:
+    """The first run of a distributed run (``distributed_rank``'s records,
+    rank 0 holding epoch 0's cache entries) against the single-process
+    training run: per-step losses, their distance to the single
+    process's, ranks' losses and fingerprints equal after every step, and
+    epoch 0's cache codes (b0 bit-equal, taps and b_final moved codes)."""
+    first = [r["runs"][0] for r in ranks]
+    losses = [st["loss"] for st in first[0]["steps"]]
+    codes = first[0].pop("codes")
+    moves = {"b0": [], "taps": [], "b_final": []}
+    for k, want in single["codes"].items():
+        for name, g, w in zip(("b0", "taps", "b_final"), codes[k], want):
+            moves[name].append(code_moves(g, w))
+    b0_equal = all(torch.equal(g[0].q, w[0].q) and torch.equal(g[0].scale, w[0].scale)
+                   for g, w in ((codes[k], single["codes"][k]) for k in single["codes"]))
+    summary = {name: {"max_dq": max(m["max_dq"] for m in ms),
+                      "moved_share": sum(m["moved"] for m in ms) / sum(m["codes"] for m in ms),
+                      "max_rel_dscale": max(m["max_rel_dscale"] for m in ms)}
+               for name, ms in moves.items()}
+    return {"modes": first[0]["modes"], "step_losses": losses,
+            "single_step_losses": single["step_losses"],
+            "epoch_losses": first[0]["epoch_losses"],
+            "single_epoch_losses": single["epoch_losses"],
+            "abs_dloss_first_step": abs(losses[0] - single["step_losses"][0]),
+            "abs_dloss_steps": [abs(a - b) for a, b in zip(losses, single["step_losses"])],
+            "abs_depoch": [abs(a - b) for a, b in zip(first[0]["epoch_losses"],
+                                                       single["epoch_losses"])],
+            "ranks_equal_losses": all([st["loss"] for st in r["steps"]] == losses
+                                      for r in first),
+            "adapters_bit_equal": [len({str(r["steps"][j]["fingerprint"]) for r in first}) == 1
+                                   for j in range(len(first[0]["steps"]))],
+            "b0_codes_equal": b0_equal, "codes": summary}
+
+
+def check_parity(line: dict, modes: list) -> None:
+    """The distributed gates on a :func:`parity` line: the modes, ranks
+    agreeing, the first step's loss within 1e-4, every step's within
+    ``DIST_STEP_TOL`` and the epoch means within 5e-2 of the single
+    process's, b0 codes bit-equal, taps and b_final within one step."""
+    if line["modes"] != modes:
+        raise AssertionError(f"modes {line['modes']}, wanted {modes}")
+    if not (line["ranks_equal_losses"] and all(line["adapters_bit_equal"])):
+        raise AssertionError(f"ranks disagree: losses {line['ranks_equal_losses']}, "
+                             f"adapters {line['adapters_bit_equal']}")
+    if not (line["abs_dloss_first_step"] <= 1e-4
+            and len(line["step_losses"]) == len(line["single_step_losses"])
+            and max(line["abs_dloss_steps"]) <= DIST_STEP_TOL
+            and max(line["abs_depoch"]) <= 5e-2):
+        raise AssertionError("distributed vs single-process losses: first step "
+                             f"{line['abs_dloss_first_step']}, steps {line['abs_dloss_steps']}, "
+                             f"epochs {line['abs_depoch']}")
+    if not all(np.isfinite(x) for x in line["step_losses"]):
+        raise AssertionError(f"losses {line['step_losses']}")
+    summary = line["codes"]
+    if (not line["b0_codes_equal"] or summary["taps"]["max_dq"] > 1
+            or summary["b_final"]["max_dq"] > 1):
+        raise AssertionError(f"cache codes: b0 equal {line['b0_codes_equal']}, {summary}")
+
+
+DIST_TOL_REASON = ("the first step sums the same tokens' CE in another order (f32); every "
+                   "step: the same sums in another order, so the losses stay within a few f32 "
+                   "steps (9.5e-7 at 12) while a fault in the gradient sum moves a later step's "
+                   "loss by far more; epochs: the trainer_cuda_vs_ref gate; tap codes: a frozen "
+                   "forward on smaller micro-batches may round a code the other way")
+
+
+def rank_stats(ranks: list) -> dict:
+    """Per rank of a distributed run's first run: step walls, transfer
+    bytes and host seconds, launches, memory high-water mark."""
+    first = {r["rank"]: r["runs"][0] for r in ranks}
+    return {"open_s": [run["open_s"] for run in first.values()],
+            "step_s": {k: [st["wall_s"] for st in run["steps"]] for k, run in first.items()},
+            "step_modes": [st["mode"] for st in first[0]["steps"]],
+            "bytes_per_step": {k: [{x: st[x] for x in ("p2p_bytes", "p2p_s", "allreduce_bytes",
+                                                       "allreduce_s")}
+                                   for st in run["steps"]] for k, run in first.items()},
+            "max_memory_allocated": [run["max_memory_allocated"] for run in first.values()],
+            "launches_per_step": {k: [st["launches"] for st in run["steps"]]
+                                  for k, run in first.items()}}
+
+
+def distributed_phase(single: dict):
     """The hybrid DP x PP trainer at full width: the training phase's spec
     (internlm2-1.8b, 24 periods, INT8 backbone, int8 cache, r=8, pruning,
     lr 3e-3, 3 epochs x 2 steps of 4 x 512 tokens) with dp=2, stages=2
     (12 periods a stage, 2 micro-batches), as four ranks sharing the card
-    over gloo, run twice. Gates: the first step's loss within 1e-4, every
-    step's within 1e-5 and the epoch means within 5e-2 of the
-    single-process run; epoch 0's
-    cache entries: b0 codes bit-equal, tap and b_final codes within one
-    quantization step; every rank's adapter and optimizer bit-equal after
-    every step; the two runs' per-step losses bit-equal; the training
-    kernels launched on the ranks that run them. Returns the first run's
-    launches summed over the ranks."""
+    over gloo, run twice. Gates: :func:`check_parity` against the
+    single-process run; the two runs' per-step losses bit-equal; the
+    training kernels launched on the ranks that run them. Returns the
+    first run's launches summed over the ranks, and the ranks' records."""
     from repro_torch.launch.mesh import spawn
     from repro_torch.runtime import RunSpec
 
@@ -1731,75 +1832,32 @@ def distributed_phase(single: dict) -> dict:
     ranks = spawn(distributed_rank, DIST_DP, DIST_STAGES, "cuda", args=(spec, 2),
                   timeout=300.0, deadline=600.0)
     phase_s = time.perf_counter() - t0
-    first = [r["runs"][0] for r in ranks]
-    losses = [[st["loss"] for st in run["steps"]] for run in ranks[0]["runs"]]
-    codes = ranks[0]["runs"][0].pop("codes")
-    moves = {"b0": [], "taps": [], "b_final": []}
-    for k, want in single["codes"].items():
-        for name, g, w in zip(("b0", "taps", "b_final"), codes[k], want):
-            moves[name].append(code_moves(g, w))
-    b0_equal = all(torch.equal(g[0].q, w[0].q) and torch.equal(g[0].scale, w[0].scale)
-                   for g, w in ((codes[k], single["codes"][k]) for k in single["codes"]))
-    summary = {name: {"max_dq": max(m["max_dq"] for m in ms),
-                      "moved_share": sum(m["moved"] for m in ms) / sum(m["codes"] for m in ms),
-                      "max_rel_dscale": max(m["max_rel_dscale"] for m in ms)}
-               for name, ms in moves.items()}
-    fp_equal = [[len({str(r["runs"][i]["steps"][j]["fingerprint"]) for r in ranks}) == 1
-                 for j in range(len(ranks[0]["runs"][i]["steps"]))] for i in range(2)]
     line = {"phase": "distributed", "arch": "internlm2-1.8b", "dp": DIST_DP,
             "stages": DIST_STAGES, "ranks": len(ranks), "backend": "gloo",
             "n_micro": spec.default_micro(), "batch": spec.batch, "seq": spec.seq,
             "quant": spec.quant, "cache": spec.cache_compress, "r": spec.r,
-            "modes": first[0]["modes"],
-            "step_losses": losses, "single_step_losses": single["step_losses"],
-            "epoch_losses": first[0]["epoch_losses"],
-            "single_epoch_losses": single["epoch_losses"],
-            "abs_dloss_first_step": abs(losses[0][0] - single["step_losses"][0]),
-            "abs_dloss_steps": [abs(a - b) for a, b in zip(losses[0], single["step_losses"])],
-            "abs_depoch": [abs(a - b) for a, b in zip(first[0]["epoch_losses"],
-                                                       single["epoch_losses"])],
-            "ranks_equal_losses": all([st["loss"] for st in r["steps"]] == losses[0]
-                                      for r in first),
-            "reruns_bit_equal": losses[0] == losses[1],
-            "adapters_bit_equal": fp_equal, "b0_codes_equal": b0_equal, "codes": summary,
-            "open_s": [r["open_s"] for r in first],
-            "step_s": {r["rank"]: [st["wall_s"] for st in r["runs"][0]["steps"]] for r in ranks},
-            "step_modes": [st["mode"] for st in first[0]["steps"]],
-            "bytes_per_step": {r["rank"]: [{k: st[k] for k in ("p2p_bytes", "p2p_s",
-                                                                "allreduce_bytes", "allreduce_s")}
-                                           for st in r["runs"][0]["steps"]] for r in ranks},
-            "max_memory_allocated": [r["max_memory_allocated"] for r in first],
-            "launches_per_step": {r["rank"]: [st["launches"] for st in r["runs"][0]["steps"]]
-                                  for r in ranks},
-            "phase_s": phase_s,
-            "tol": {"first_step": 1e-4, "steps": DIST_STEP_TOL, "epoch": 5e-2, "tap_codes": 1},
-            "tol_reason": "the first step sums the same tokens' CE in another order (f32); "
-                          "every step: the same sums in another order, so the losses stay "
-                          "within a few f32 steps (9.5e-7 at 12) while a fault in the gradient "
-                          "sum moves a later step's loss by far more; epochs: the "
-                          "trainer_cuda_vs_ref gate; tap codes: a frozen forward on 1-row "
-                          "micro-batches may round a code the other way"}
+            **parity(ranks, single)}
+    rerun = [st["loss"] for st in ranks[0]["runs"][1]["steps"]]
+    line["step_losses"] = [line["step_losses"], rerun]
+    line["reruns_bit_equal"] = line["step_losses"][0] == rerun
+    line["rerun_ranks_equal_losses"] = all([st["loss"] for st in r["runs"][1]["steps"]] == rerun
+                                           for r in ranks)
+    line["rerun_adapters_bit_equal"] = [
+        len({str(r["runs"][1]["steps"][j]["fingerprint"]) for r in ranks}) == 1
+        for j in range(len(ranks[0]["runs"][1]["steps"]))]
+    line.update(rank_stats(ranks), phase_s=phase_s,
+                tol={"first_step": 1e-4, "steps": DIST_STEP_TOL, "epoch": 5e-2, "tap_codes": 1},
+                tol_reason=DIST_TOL_REASON)
     emit(line)
+    line["step_losses"] = line["step_losses"][0]
+    first = [r["runs"][0] for r in ranks]
     launches = {k: sum(r["launches"][k] for r in first) for k in TRAINING_KERNELS}
-    modes = ["hybrid dp2xpp2", "cached pure-dp", "cached pure-dp"]
-    if any(r["modes"] != modes for r in first):
-        raise AssertionError(f"modes {[r['modes'] for r in first]}")
-    if not (line["ranks_equal_losses"] and line["reruns_bit_equal"]
-            and all(all(x) for x in fp_equal)):
-        raise AssertionError("ranks or reruns disagree: losses "
-                             f"{line['ranks_equal_losses']}, reruns {line['reruns_bit_equal']}, "
-                             f"adapters {fp_equal}")
-    if not (line["abs_dloss_first_step"] <= 1e-4
-            and len(losses[0]) == len(single["step_losses"])
-            and max(line["abs_dloss_steps"]) <= DIST_STEP_TOL
-            and max(line["abs_depoch"]) <= 5e-2):
-        raise AssertionError("distributed vs single-process losses: first step "
-                             f"{line['abs_dloss_first_step']}, steps {line['abs_dloss_steps']}, "
-                             f"epochs {line['abs_depoch']}")
-    if not all(np.isfinite(x) for x in losses[0]):
-        raise AssertionError(f"losses {losses[0]}")
-    if not b0_equal or summary["taps"]["max_dq"] > 1 or summary["b_final"]["max_dq"] > 1:
-        raise AssertionError(f"cache codes: b0 equal {b0_equal}, {summary}")
+    check_parity(line, ["hybrid dp2xpp2", "cached pure-dp", "cached pure-dp"])
+    if not (line["reruns_bit_equal"] and line["rerun_ranks_equal_losses"]
+            and all(line["rerun_adapters_bit_equal"])):
+        raise AssertionError(f"reruns differ: {line['step_losses']} against {rerun}, ranks "
+                             f"{line['rerun_ranks_equal_losses']}, adapters "
+                             f"{line['rerun_adapters_bit_equal']}")
     for r in ranks:
         for st in r["runs"][0]["steps"]:
             head = r["rank"] % DIST_STAGES == 0
@@ -1807,7 +1865,203 @@ def distributed_phase(single: dict) -> dict:
                     if st["mode"].startswith("hybrid") else TRAINING_KERNELS[2:])
             if any(st["launches"][k] <= 0 for k in want):
                 raise AssertionError(f"rank {r['rank']} {st['mode']}: launches {st['launches']}")
-    return launches
+    return launches, ranks
+
+
+# ---------------------------------------------------------------- plan-driven training
+
+PLAN_REF_BOUNDARIES = (0, 5, 16, 24)  # the JAX planner's for the ragged plan's inputs
+PLAN_MEMORY_SHARE = 0.5  # each device holds half the backbone's weights and adapter state
+PLAN_MICRO_BATCH, PLAN_N_MICRO = 2, 2
+PROJECTIONS_PER_PERIOD = 7  # quant_matmul launches a period of internlm2-1.8b (168 / 24)
+
+
+def plan_kernel_phase(timer: Timer, gen: torch.Generator) -> None:
+    """The plan path's kernels at the shapes it gives them that no other
+    check covers: a stage runs one dp rank's micro-batch of 2 x 512, so
+    ``quant_matmul`` at M = 1024 over the layer's (K, N), int8, and
+    ``flash_attention`` at B·H = 2·16, S = 512. (The loss on stage 0 and
+    the cached step run at T = 2048, the training phase's checked
+    shape.) Each at the tolerance of its check at the training shapes."""
+    M = PLAN_MICRO_BATCH * 512
+    for K, N in QMM_SHAPES:
+        _, _, got, want = qmm_check(gen, M, K, N, 8)
+        emit({"check": "quant_matmul_plan", "M": M, "K": K, "N": N, "bits": 8,
+              "max_abs_err": max_err(got, want),
+              "check_value": float(((got - want).abs() - 1e-4 * want.abs()).max()),
+              "tol": "atol 1e-3 + rtol 1e-4", "tol_reason": qmm_tol_reason(M)})
+    r = flash_case(timer, gen, PLAN_MICRO_BATCH, 16, 8, 512, 128, "plan stage")[0]
+    emit(dict(r, check="flash_attention_plan"))
+
+
+def ragged_plan(cfg, workdir: Path):
+    """The ragged plan, made by the port's planner: Alg. 1 over
+    ``period_costs(cfg, "pac", 512, int8)`` and a pool of a Jetson Nano
+    (low power), a TX2 (high) and a Nano (high), each holding
+    ``PLAN_MEMORY_SHARE`` of the backbone's weights and adapter state,
+    micro-batch 2, 2 micro-batches, at most 3 stages; saved as JSON.
+    Returns (plan, its path, planner seconds)."""
+    import dataclasses
+
+    from repro_torch.core.planner import (JETSON_NANO_H, JETSON_NANO_L, JETSON_TX2_H,
+                                          HybridParallelismPlanner, period_costs)
+
+    t0 = time.perf_counter()
+    pc = period_costs(cfg, "pac", seq_len=512, quant_bits=8)
+    need = sum(c.param_bytes + 2 * c.trainable_bytes for c in pc)
+    pool = [dataclasses.replace(d, memory_bytes=need * PLAN_MEMORY_SHARE)
+            for d in (JETSON_NANO_L, JETSON_TX2_H, JETSON_NANO_H)]
+    plan = HybridParallelismPlanner(pc, pool, PLAN_MICRO_BATCH, PLAN_N_MICRO).plan(max_stages=3)
+    seconds = time.perf_counter() - t0
+    path = workdir / "ragged_plan.json"
+    plan.save(str(path))
+    return plan, path, seconds
+
+
+def plan_phase(single: dict, dist_ranks: list, workdir: Path):
+    """Plan-driven training at full width. The port's planner makes the
+    ragged plan (:func:`ragged_plan`; its boundaries must be the JAX
+    planner's, ``PLAN_REF_BOUNDARIES``), saved to JSON; the calibrated
+    cost model counts the full-width step on the meta device. Then the
+    training phase's spec replays the plan (``plan=<file>, pool=3``):
+    resolved once here (``resolve_layout``: dp=1 x 3 ragged stages) and
+    run as 3 gloo ranks through ``EdgeSession``/``EpochRunner``, gated
+    by :func:`check_parity` against the single-process run, each stage
+    launching ``quant_matmul`` 7 x its periods x 2 micro-batches (and
+    flash once a period and micro-batch) in epoch 1 and nothing in the
+    cached epochs but on the owner. Last ``plan="auto", pool=4,
+    micro=2``: Alg. 1 must pick (12, 12) on dp=2 x pp=2, and every
+    step's loss and every rank's fingerprint must equal the distributed
+    phase's first run bit for bit. Returns the launches of both runs,
+    summed over the ranks."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.pipeline import simulate_plan
+    from repro_torch.launch.costs import AnalyticCostModel, CalibratedCostModel
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.runtime import RunSpec
+    from repro_torch.runtime.session import resolve_layout
+
+    t_phase = time.perf_counter()
+    cfg = get_arch("internlm2-1.8b")
+    plan, path, plan_s = ragged_plan(cfg, workdir)
+    part = plan.stage_partition()
+    sim = simulate_plan(plan)
+    emit({"phase": "plan_made", "boundaries": list(part.boundaries),
+          "reference_boundaries": list(PLAN_REF_BOUNDARIES),
+          "samples_per_device": [list(x) for x in part.samples_per_device],
+          "devices": [[d.name for d in st.devices] for st in plan.stages],
+          "planner_s": plan_s, "describe": plan.describe().splitlines()})
+    print("plan boundaries:", part.boundaries, flush=True)
+    if part.boundaries != PLAN_REF_BOUNDARIES:
+        raise AssertionError(f"ragged plan boundaries {part.boundaries}, the reference "
+                             f"planner's {PLAN_REF_BOUNDARIES}")
+
+    t0 = time.perf_counter()
+    calibrated = CalibratedCostModel(micro_batch=PLAN_MICRO_BATCH, quant_bits=8).period_costs(
+        cfg, "pac", seq_len=512)
+    calibrate_s = time.perf_counter() - t0
+    analytic = AnalyticCostModel(quant_bits=8).period_costs(cfg, "pac", seq_len=512)
+    emit({"phase": "plan_calibration", "arch": cfg.name, "micro_batch": PLAN_MICRO_BATCH,
+          "seq": 512, "counted_on": "meta device, ref OpSet (FlopCounterMode)",
+          "period_fwd_flops": {"calibrated": calibrated[0].fwd_flops,
+                               "analytic": analytic[0].fwd_flops},
+          "period_bwd_flops": {"calibrated": calibrated[0].bwd_flops,
+                               "analytic": analytic[0].bwd_flops},
+          "fwd_ratio": calibrated[0].fwd_flops / analytic[0].fwd_flops,
+          "seconds": calibrate_s})
+
+    base = dict(arch="internlm2-1.8b", quant=8, cache_compress="int8", kernels="cuda",
+                init="pruning", epochs=3, steps_per_epoch=2, batch=4, seq=512, seed=SEED)
+    spec = RunSpec(**base, plan=str(path), pool=3)
+    layout = resolve_layout(spec)
+    if (layout.dp, layout.stages, layout.n_micro) != (1, 3, PLAN_N_MICRO):
+        raise AssertionError(f"ragged replay resolved to dp={layout.dp} x {layout.stages} "
+                             f"stages, {layout.n_micro} micro-batches")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn(distributed_rank, layout.dp, layout.stages, "cuda",
+                  args=(spec, 1, layout.to_json()), timeout=300.0, deadline=600.0)
+    ragged_s = time.perf_counter() - t0
+    line = {"phase": "plan", "arch": cfg.name, "plan": "saved ragged plan, replayed",
+            "boundaries": list(part.boundaries),
+            "rank_periods": {r["rank"]: list(r["runs"][0]["periods"]) for r in ranks},
+            "dp": layout.dp, "stages": layout.stages, "n_micro": layout.n_micro,
+            "pool": layout.pool, "ranks": len(ranks), "backend": "gloo",
+            "batch": spec.batch, "seq": spec.seq, "quant": spec.quant,
+            "cache": spec.cache_compress, "r": spec.r, **parity(ranks, single),
+            **rank_stats(ranks), "run_s": ragged_s,
+            "planner_estimate_jetson": {
+                "note": "the planner's model of the Jetson pool, not a time on this card",
+                "minibatch_latency_s": plan.minibatch_latency,
+                "simulated_minibatch_s": sim["minibatch_time"],
+                "simulated_bubble_fraction": sim["bubble_fraction"],
+                "stage_time_s": [st.stage_time for st in plan.stages]},
+            "tol": {"first_step": 1e-4, "steps": DIST_STEP_TOL, "epoch": 5e-2, "tap_codes": 1},
+            "tol_reason": DIST_TOL_REASON}
+    first = [r["runs"][0] for r in ranks]
+    launches = {k: sum(r["launches"][k] for r in first) for k in TRAINING_KERNELS}
+
+    # --plan auto: Alg. 1 on 4 Nano profiles must give the distributed phase's mesh
+    auto = RunSpec(**base, plan="auto", pool=4, micro=2)
+    auto_layout = resolve_layout(auto)
+    t0 = time.perf_counter()
+    auto_ranks = spawn(distributed_rank, auto_layout.dp, auto_layout.stages, "cuda",
+                       args=(auto, 1, auto_layout.to_json()), timeout=300.0, deadline=600.0)
+    auto_s = time.perf_counter() - t0
+    auto_first = [r["runs"][0] for r in auto_ranks]
+    dist_first = [r["runs"][0] for r in dist_ranks]
+    auto_losses = [st["loss"] for st in auto_first[0]["steps"]]
+    line["auto"] = {"boundaries": list(auto_layout.partition.boundaries),
+                    "dp": auto_layout.dp, "stages": auto_layout.stages,
+                    "modes": auto_first[0]["modes"], "step_losses": auto_losses,
+                    "distributed_step_losses": [st["loss"] for st in dist_first[0]["steps"]],
+                    "losses_bit_equal_distributed": auto_losses == [
+                        st["loss"] for st in dist_first[0]["steps"]],
+                    "fingerprints_bit_equal_distributed": all(
+                        [st["fingerprint"] for st in a["steps"]]
+                        == [st["fingerprint"] for st in d["steps"]]
+                        for a, d in zip(auto_first, dist_first)),
+                    "run_s": auto_s,
+                    "planner_estimate_jetson": {
+                        "note": "the planner's model of 4 Jetson Nano (high power), not a "
+                                "time on this card",
+                        "minibatch_latency_s": auto_layout.plan.minibatch_latency,
+                        "simulated_bubble_fraction":
+                            simulate_plan(auto_layout.plan)["bubble_fraction"]}}
+    auto_launches = {k: sum(r["launches"][k] for r in auto_first) for k in TRAINING_KERNELS}
+    line["phase_s"] = time.perf_counter() - t_phase
+    emit(line)
+
+    check_parity(line, ["plan-driven dp1xpp3", "cached pure-dp", "cached pure-dp"])
+    for r in ranks:
+        a, b = r["runs"][0]["periods"]
+        for st in r["runs"][0]["steps"]:
+            got = st["launches"]
+            if st["mode"].startswith("plan-driven"):
+                want = {"quant_matmul": PROJECTIONS_PER_PERIOD * (b - a) * PLAN_N_MICRO,
+                        "flash_attention": (b - a) * PLAN_N_MICRO}
+                head = r["rank"] == 0
+            else:
+                want = {"quant_matmul": 0, "flash_attention": 0}
+                head = r["rank"] == 0  # the cached rows shard over dp alone: the owner's
+            loss_ok = (all(got[k] > 0 for k in TRAINING_KERNELS[2:]) if head
+                       else all(got[k] == 0 for k in TRAINING_KERNELS[2:]))
+            if any(got[k] != v for k, v in want.items()) or not loss_ok:
+                raise AssertionError(f"rank {r['rank']} (periods [{a}, {b})) {st['mode']}: "
+                                     f"launches {got}, wanted {want}")
+    ragged_bounds = [r["runs"][0]["periods"] for r in ranks]
+    if [list(p) for p in ragged_bounds] != [[part.boundaries[i], part.boundaries[i + 1]]
+                                            for i in range(3)]:
+        raise AssertionError(f"ranks ran periods {ragged_bounds}, the plan {part.boundaries}")
+    want_auto = {"boundaries": [0, 12, 24], "dp": 2, "stages": 2,
+                 "modes": ["plan-driven dp2xpp2", "cached pure-dp", "cached pure-dp"]}
+    if any(line["auto"][k] != v for k, v in want_auto.items()):
+        raise AssertionError(f"--plan auto: {line['auto']}, wanted {want_auto}")
+    if not (line["auto"]["losses_bit_equal_distributed"]
+            and line["auto"]["fingerprints_bit_equal_distributed"]):
+        raise AssertionError("--plan auto differs from the distributed phase's run: "
+                             f"{auto_losses} against {line['auto']['distributed_step_losses']}")
+    return launches, auto_launches
 
 
 # ---------------------------------------------------------------- personal serving
@@ -2101,8 +2355,11 @@ def main() -> int:
         prefetch = prefetch_phase(Path(workdir))
         prefetch_done_s = time.perf_counter() - T_START
         distributed_kernel_phase(Timer(), gen)
-        distributed = distributed_phase(single)
-        del single
+        distributed, dist_ranks = distributed_phase(single)
+        distributed_done_s = time.perf_counter() - T_START
+        plan_kernel_phase(Timer(), gen)
+        plan, plan_auto = plan_phase(single, dist_ranks, Path(workdir))
+        del single, dist_ranks
 
     sources = {"quant_matmul": ("src/repro_torch/kernels/csrc/quant_matmul.cu",
                                 "src/repro/kernels/quant_matmul.py:93"),
@@ -2121,7 +2378,8 @@ def main() -> int:
                "adapter_fuse": ("src/repro_torch/kernels/csrc/adapter_fuse.cu",
                                 "src/repro/kernels/adapter_fuse.py:83")}
     paths = {"serving": serving, "training": training, "personal": personal,
-             "prefetch": prefetch, "distributed": distributed}
+             "prefetch": prefetch, "distributed": distributed, "plan": plan,
+             "plan_auto": plan_auto}
     home = {"quant_matmul": "serving", "flash_attention": "serving",
             "paged_attention": "serving", "adapter_fuse": "personal"}
     # each kernel's launches on its own main path (serving for the first
@@ -2145,7 +2403,8 @@ def main() -> int:
         for name, (src, rep) in sources.items()]})
     emit({"phase": "done", "wall_s": time.perf_counter() - T_START,
           "through_serving_s": serving_done_s, "through_training_s": training_done_s,
-          "through_personal_s": personal_done_s, "through_prefetch_s": prefetch_done_s})
+          "through_personal_s": personal_done_s, "through_prefetch_s": prefetch_done_s,
+          "through_distributed_s": distributed_done_s})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -15,10 +15,13 @@
   from stage ``s-1`` and handing its output on with a non-blocking send,
   so stages overlap across micro-batches.
 
-Waiting for later slices: ``simulate_plan`` (the planner's ``Plan``
-replayed through a discrete-event model) comes with the cost models,
-and ``pipeline_grads`` (backward through the pipeline, which no trainer
-path uses) is queued in the roadmap.
+* **Simulator** — :func:`simulate_plan` replays a planner
+  :class:`~repro_torch.core.planner.Plan` through a discrete-event model
+  of the 1F1B schedule over the plan's stage times (the planner's
+  estimate for its modelled devices, not a time on this machine).
+
+``pipeline_grads`` (backward through the pipeline, which no trainer path
+uses) is queued in the roadmap.
 """
 
 from __future__ import annotations
@@ -79,6 +82,76 @@ def validate_schedule(sched: List[List[Op]], n_micro: int) -> None:
             inflight += 1 if o.kind == "F" else -1
             if inflight > n_stages - s:
                 raise ValueError(f"stage {s}: {inflight} in flight")
+
+
+# ---------------------------------------------------------------------------
+# Discrete-event simulator
+# ---------------------------------------------------------------------------
+
+
+def simulate_plan(plan, comm_bytes_per_stage: Optional[Sequence[float]] = None) -> dict:
+    """Replay 1F1B through the plan's stage times (``comm_bytes_per_stage``:
+    bytes each stage hands on, over its slowest device's bandwidth).
+    Returns ``minibatch_time``, ``bubble_fraction`` and
+    ``per_stage_busy``, in the plan's units (modelled seconds)."""
+    S, M = plan.n_stages, plan.micro_batches
+    sched = build_1f1b_schedule(S, M)
+    # per-stage fwd/bwd split as recorded from LayerCost by the planner's
+    # _phase_latencies; hand-built stages without recorded times fall back
+    # to the historical tf:tb = 1:2 approximation
+    tf, tb = [], []
+    for st in plan.stages:
+        if getattr(st, "fwd_time", 0.0) or getattr(st, "bwd_time", 0.0):
+            tf.append(st.fwd_time)
+            tb.append(st.bwd_time)
+        else:
+            tf.append(st.stage_time / 3.0)
+            tb.append(2.0 * st.stage_time / 3.0)
+    if comm_bytes_per_stage is None:
+        comm = [0.0] * S
+    else:
+        comm = [
+            b / min(d.bandwidth for d in st.devices)
+            for b, st in zip(comm_bytes_per_stage, plan.stages)
+        ]
+    f_done = {}
+    b_done = {}
+    dev_free = [0.0] * S
+    idx = [0] * S
+    remaining = sum(len(x) for x in sched)
+    while remaining:
+        progressed = False
+        for s in range(S):
+            if idx[s] >= len(sched[s]):
+                continue
+            op = sched[s][idx[s]]
+            if op.kind == "F":
+                ready = 0.0 if s == 0 else f_done.get((s - 1, op.micro), None)
+                if ready is None:
+                    continue
+                start = max(dev_free[s], ready + (comm[s - 1] if s else 0.0))
+                f_done[(s, op.micro)] = start + tf[s]
+                dev_free[s] = start + tf[s]
+            else:
+                ready = f_done.get((s, op.micro))
+                up = 0.0 if s == S - 1 else b_done.get((s + 1, op.micro), None)
+                if up is None or ready is None:
+                    continue
+                start = max(dev_free[s], ready, up + (comm[s] if s < S - 1 else 0.0))
+                b_done[(s, op.micro)] = start + tb[s]
+                dev_free[s] = start + tb[s]
+            idx[s] += 1
+            remaining -= 1
+            progressed = True
+        if not progressed:
+            raise RuntimeError("schedule deadlock")
+    total = max(b_done.values())
+    busy = sum(M * (tf[s] + tb[s]) for s in range(S))
+    return {
+        "minibatch_time": total,
+        "bubble_fraction": 1.0 - busy / (total * S),
+        "per_stage_busy": [M * (tf[s] + tb[s]) for s in range(S)],
+    }
 
 
 # ---------------------------------------------------------------------------

@@ -26,8 +26,11 @@ directory (no port), a gloo timeout, and a deadline on the parent's
 join. A rank that fails, or one still running at the deadline, fails
 the whole run; nothing falls back to one process.
 
-The reference's production mesh and its roofline constants
-(``repro/launch/mesh.py:18,71-77``) arrive with the cost-model slice.
+:func:`plan_mesh_shape` is the twin of the reference's
+``make_plan_mesh``: the ``(dp, stages)`` a planner partition executes on
+over a device pool. The reference's production mesh and its roofline
+constants (``repro/launch/mesh.py:18,71-77``) are XLA-specific and have
+no twin yet.
 """
 
 from __future__ import annotations
@@ -102,6 +105,19 @@ def _parse(head: Sequence[int]):
             specs.append((dtype, tuple(next(it) for _ in range(ndim))))
         items.append((kind, meta, specs))
     return bool(is_tuple), items
+
+
+def plan_mesh_shape(partition, pool: int, micro_batch: int) -> tuple:
+    """The ``(dp, stages)`` mesh a planner
+    :class:`~repro_torch.core.planner.StagePartition` executes on over
+    ``pool`` devices: the plan's stage count, and the widest replica
+    count up to ``pool // stages`` that divides the micro-batch (the
+    uniform-mesh rendering of the plan's per-stage device groups)."""
+    stages = partition.n_stages
+    dp = max(1, pool // stages)
+    while dp > 1 and micro_batch % dp:
+        dp -= 1
+    return dp, stages
 
 
 class _Sends:

@@ -37,6 +37,23 @@ the whole pool. Rank 0 prints the lines; a failing rank fails the run:
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \\
         --dp 2 --stages 2 --epochs 3 --steps-per-epoch 2 --batch 4 --seq 16
+
+With ``--plan`` the planner's plan is the run's contract (paper §V-A,
+Alg. 1): ``--plan auto`` plans over a ``--pool`` of devices at period
+granularity and the winning plan chooses the stage count, the (possibly
+uneven) period boundaries and, without ``--micro``, the micro-batch
+count; ``--plan <file.json>`` replays a plan written earlier with
+``--save-plan`` (either package's). The plan is resolved once, here,
+before the ranks start: the command spawns the plan's ``dp x stages``
+ranks and hands each the one plan. ``--calibrate`` prices the periods by
+a FLOP count of the real step (on the ``meta`` device) instead of the
+closed form:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \\
+        --plan auto --pool 4 --epochs 2 --steps-per-epoch 2 --batch 4 --seq 16 \\
+        --save-plan plan.json
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \\
+        --plan plan.json --pool 4 --epochs 2 --steps-per-epoch 2 --batch 4 --seq 16
 """
 
 from __future__ import annotations
@@ -44,19 +61,21 @@ from __future__ import annotations
 import argparse
 
 from repro_torch.runtime import ConsoleHook, EdgeSession, RunSpec, RunSpecError
+from repro_torch.runtime.session import resolve_layout
 
 
-def _train_rank(spec: RunSpec, device) -> None:
-    """One rank of a distributed run (``launch.mesh.spawn`` calls it)."""
+def _train_rank(spec: RunSpec, layout: str, device) -> None:
+    """One rank of a distributed run (``launch.mesh.spawn`` calls it),
+    executing the layout the parent resolved (JSON)."""
     import torch.distributed as dist
 
     lead = dist.get_rank() == 0
-    EdgeSession(spec, device=device, log=print if lead else None).run(
+    EdgeSession(spec, device=device, log=print if lead else None, layout=layout).run(
         hooks=(ConsoleHook(),) if lead else ())
 
 
-def _train_pool(spec: RunSpec, device) -> None:
-    """Spawn the ``dp·stages`` ranks of ``spec`` and wait for them."""
+def _train_pool(spec: RunSpec, layout, device) -> None:
+    """Spawn the ``dp·stages`` ranks of ``layout`` and wait for them."""
     from repro_torch.core.device import resolve_device
     from repro_torch.launch.mesh import spawn
 
@@ -65,8 +84,8 @@ def _train_pool(spec: RunSpec, device) -> None:
         from repro_torch.kernels import _build
 
         _build.build()  # once here, not in every rank at once
-    spawn(_train_rank, spec.dp, spec.stages, kind,
-          args=(spec, None if kind == "cuda" else "cpu"))
+    spawn(_train_rank, layout.dp, layout.stages, kind,
+          args=(spec, layout.to_json(), None if kind == "cuda" else "cpu"))
 
 
 def main(argv=None) -> None:
@@ -95,7 +114,21 @@ def main(argv=None) -> None:
     ap.add_argument("--dp", type=int, default=1, help="data-parallel replicas (ranks a stage)")
     ap.add_argument("--stages", type=int, default=1, help="pipeline stages of epoch 1")
     ap.add_argument("--micro", type=int, default=None,
-                    help="micro-batches of epoch 1's pipeline (default: the stage count)")
+                    help="micro-batches per minibatch (default: --stages; a "
+                         "replayed plan's micro count with --plan <file>; "
+                         "swept and selected by the planner with --plan auto)")
+    ap.add_argument("--plan", default=None,
+                    help="'auto' (run Alg. 1 and execute its winning plan: "
+                         "stage count, layer boundaries, micro count) or a "
+                         "plan JSON saved with --save-plan")
+    ap.add_argument("--pool", type=int, default=None,
+                    help="device-pool size for --plan auto (default: "
+                         "max(dp*stages, 4); the mesh uses dp*stages <= pool)")
+    ap.add_argument("--save-plan", default=None,
+                    help="write the executed plan as JSON for later replay")
+    ap.add_argument("--calibrate", action="store_true",
+                    help="price the periods by a FLOP count of the real step "
+                         "(meta device) and plan from the counted LayerCosts")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernels", default="cuda", choices=["cuda", "ref"],
                     help="'cuda' = the hand-written kernels; 'ref' = plain PyTorch")
@@ -103,11 +136,13 @@ def main(argv=None) -> None:
                     help="torch device (default: the current CUDA card; no silent CPU fallback)")
     args = ap.parse_args(argv)
     try:
-        spec = RunSpec.from_args(args).validate()
-        if spec.total_devices > 1:
-            _train_pool(spec, args.device)
+        spec = RunSpec.from_args(args)
+        layout = resolve_layout(spec)  # validates; once, before any rank starts
+        if layout.ranks > 1:
+            _train_pool(spec, layout, args.device)
         else:
-            EdgeSession(spec, device=args.device, log=print).run(hooks=(ConsoleHook(),))
+            EdgeSession(spec, device=args.device, log=print, layout=layout).run(
+                hooks=(ConsoleHook(),))
     except RunSpecError as e:
         raise SystemExit(str(e))
 

@@ -6,7 +6,18 @@ An :class:`EdgeSession` takes a validated
 
 * **device** — ``device=None`` means the card; with no card only an
   explicit ``device="cpu"`` runs (no silent fallback);
-* **mesh** — with ``dp·stages > 1`` the session is one rank of the
+* **plan** — :func:`resolve_layout` turns the spec into the executed
+  layout: with ``plan=None`` the CLI-pinned ``dp x stages`` (the planner
+  runs as an offline report, the ``edge-pool plan:`` line); with
+  ``plan="auto"`` Alg. 1 (:mod:`repro_torch.core.planner`, over
+  :mod:`repro_torch.launch.costs`) picks the stage count, the period
+  boundaries and, without ``micro``, the micro count; a path replays a
+  saved plan. The plan's :class:`~repro_torch.core.planner.StagePartition`
+  is then the run's contract: the mesh is ``plan_mesh_shape``'s, each
+  stage runs its own periods (ragged ones too). A launcher resolves once
+  and hands every rank the one layout (``layout=``), so no rank plans
+  again;
+* **mesh** — with more than one rank the session is one rank of the
   hybrid DP x PP trainer: every rank of an initialised process group
   (:func:`repro_torch.launch.mesh.spawn`) opens its own session, and
   ``open()`` builds the :class:`~repro_torch.launch.mesh.EdgeMesh`.
@@ -14,7 +25,8 @@ An :class:`EdgeSession` takes a validated
   (:func:`~repro_torch.core.steps.stage_backbone`). Epoch 1 runs
   :func:`~repro_torch.core.steps.pipeline_pac_train_step`, cached epochs
   :func:`~repro_torch.core.steps.dp_cached_train_step` over the pool
-  (modes ``hybrid dp{dp}xpp{S}`` and ``cached pure-dp``). The owner,
+  (modes ``hybrid dp{dp}xpp{S}``, or ``plan-driven dp{dp}xpp{S}``
+  under a plan, and ``cached pure-dp``). The owner,
   rank 0, holds the activation cache, as the reference's single
   controller does: filled from epoch 1's activations in the
   single-process sample order, read on the host (its prefetcher stays
@@ -48,15 +60,17 @@ An :class:`EdgeSession` takes a validated
     reports = EdgeSession(spec, device="cpu").run()   # one EpochReport per epoch
 
 Observability attaches as hooks (:class:`~repro_torch.runtime.runner.RunHooks`);
-pass ``log=print`` for the CLI's informational lines. The planner's
-report line arrives with the cost-model slice of the port.
+pass ``log=print`` for the CLI's informational lines (the reference's
+``plan:`` and ``edge-pool plan:`` lines among them).
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import time
 from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -73,8 +87,133 @@ class StepEvent:
     index: int
     loss: float
     cache_hit: bool
-    mode: str          # "full" | "cached" | "hybrid dp2xpp2" | "cached pure-dp"
+    mode: str          # "full" | "cached" | "hybrid dp2xpp2" | "plan-driven dp1xpp3" | ...
     wall_s: float
+
+
+@dataclass(frozen=True)
+class Layout:
+    """What a run executes, resolved once from its spec
+    (:func:`resolve_layout`): the device ``pool``, the ``(dp, stages)``
+    mesh, the micro-batch count, the ``plan`` (the executed one in plan
+    mode, else the offline report), ``partition`` (the plan's
+    StagePartition in plan mode, else None) and the ``lines`` the
+    resolution reports. :meth:`to_json` carries it to the ranks."""
+
+    pool: int
+    dp: int
+    stages: int
+    n_micro: int
+    plan: object                 # repro_torch.core.planner.Plan
+    partition: object = None     # its StagePartition in plan mode
+    lines: Tuple[str, ...] = ()
+
+    @property
+    def ranks(self) -> int:
+        return self.dp * self.stages
+
+    def to_json(self) -> str:
+        return json.dumps({"pool": self.pool, "dp": self.dp, "stages": self.stages,
+                           "n_micro": self.n_micro, "plan": self.plan.to_json(indent=None),
+                           "executed": self.partition is not None, "lines": list(self.lines)})
+
+    @classmethod
+    def from_json(cls, text: str) -> "Layout":
+        from repro_torch.core.planner import Plan
+
+        d = json.loads(text)
+        plan = Plan.from_json(d["plan"])
+        return cls(d["pool"], d["dp"], d["stages"], d["n_micro"], plan,
+                   plan.stage_partition() if d["executed"] else None, tuple(d["lines"]))
+
+
+def _build_plan(spec: RunSpec, cfg, pool: int, planner_mb: int, n_micro: int, max_stages):
+    """One construction site for both the executed plan and the offline
+    report: period-granular costs (analytic or calibrated) through Alg. 1
+    over ``pool`` Jetson Nano (high-power) profiles, the reference's."""
+    from repro_torch.core.planner import JETSON_NANO_H, HybridParallelismPlanner
+    from repro_torch.launch.costs import resolve_cost_model
+
+    cost_model = resolve_cost_model(spec.calibrate, micro_batch=max(1, spec.batch // n_micro),
+                                    quant_bits=spec.quant)
+    return HybridParallelismPlanner(
+        cost_model.period_costs(cfg, "pac", seq_len=spec.seq),
+        [JETSON_NANO_H] * pool, planner_mb, n_micro,
+    ).plan(max_stages=max_stages)
+
+
+def resolve_layout(spec: RunSpec) -> Layout:
+    """The executed layout of ``spec`` (validated), as the reference's
+    session resolves it (``repro/runtime/session.py:113-261``). Pure
+    Python over the planner: no device, no process group.
+
+    * pool: ``spec.pool`` or ``max(dp·stages, 4)``, raised to a saved
+      plan's stage count;
+    * ``plan="auto"``: Alg. 1 over the pool (at most ``min(pool,
+      n_periods)`` stages); with no ``micro`` the batch's divisors are
+      swept for the least ``minibatch_latency``;
+    * a saved plan is replayed (``calibrate`` then only adds a note);
+    * plan mode checks the plan's period count against the arch and
+      executes its stage count at the widest dp that
+      :func:`~repro_torch.launch.mesh.plan_mesh_shape` allows;
+    * outside plan mode the mesh is ``dp x stages`` and the planner's
+      plan for it is an offline report (its σ-optimum noted).
+
+    Raises :class:`RunSpecError` on an impossible layout."""
+    from repro_torch.core.planner import Plan
+    from repro_torch.launch.mesh import plan_mesh_shape
+
+    spec.validate()
+    cfg = spec.arch_config()
+    pool = spec.pool or max(spec.total_devices, 4)
+    saved = None
+    if spec.plan_mode and spec.plan != "auto":
+        saved = Plan.load(spec.plan)  # validate() checked the pool against its stages
+        pool = max(pool, saved.n_stages)
+    lines = []
+    if not spec.plan_mode:
+        n_micro = spec.default_micro()
+        distributed = spec.total_devices > 1
+        plan = _build_plan(spec, cfg, pool, spec.batch, n_micro,
+                           spec.stages if distributed else None)
+        lines.append("edge-pool plan: " + plan.describe().splitlines()[0])
+        if distributed and plan.n_stages != spec.stages:
+            lines.append(f"note: planner's σ-optimal stage count is {plan.n_stages}; "
+                         f"executing --stages {spec.stages} (pass --plan auto to execute "
+                         f"the σ-optimum)")
+        return Layout(pool, spec.dp, spec.stages, n_micro, plan, None, tuple(lines))
+
+    n_micro = spec.micro or (saved.micro_batches if saved else None)
+    if n_micro is not None and spec.batch % n_micro:
+        raise RunSpecError(f"batch {spec.batch} must be divisible by the plan's "
+                           f"{n_micro} micro-batches (override with micro=)")
+    if saved is None:
+        smax = min(pool, cfg.n_periods)
+        if n_micro is None:
+            # the plan selects the micro count too: σ-optimal latency
+            # over the batch's divisors
+            cands = [m for m in range(1, spec.batch + 1) if spec.batch % m == 0]
+            n_micro, plan = min(((m, _build_plan(spec, cfg, pool, spec.batch // m, m, smax))
+                                 for m in cands), key=lambda t: t[1].minibatch_latency)
+        else:
+            plan = _build_plan(spec, cfg, pool, spec.batch // n_micro, n_micro, smax)
+    else:
+        if spec.calibrate:
+            lines.append("note: --calibrate has no effect when replaying a saved plan; "
+                         "re-run with --plan auto to replan")
+        plan = saved
+    mb = spec.batch // n_micro
+    partition = plan.stage_partition()
+    if partition.n_periods != cfg.n_periods:
+        raise RunSpecError(f"plan partitions {partition.n_periods} periods but "
+                           f"{cfg.name} has {cfg.n_periods} — replan for this arch")
+    dp, stages = plan_mesh_shape(partition, pool, mb)
+    lines.append("plan: " + plan.describe())
+    for s, split in enumerate(partition.samples_per_device):
+        if sum(split) != mb:
+            lines.append(f"note: stage {s} was planned for {sum(split)} samples per "
+                         f"micro-batch, executing {mb}")
+    return Layout(pool, dp, stages, n_micro, plan, partition, tuple(lines))
 
 
 class EdgeSession:
@@ -82,10 +221,14 @@ class EdgeSession:
     heavy state; :meth:`step` is the one dispatch the epoch loop calls;
     :meth:`finish` writes the run's durable outputs."""
 
-    def __init__(self, spec: RunSpec, *, device=None, log=None):
+    def __init__(self, spec: RunSpec, *, device=None, log=None, layout=None):
+        """``layout``: the run's :class:`Layout` (or its JSON), resolved
+        once by a launcher for every rank; None resolves it at ``open()``."""
         spec.validate()
         self.spec = spec
         self.device = resolve_device(device)
+        self.layout: Optional[Layout] = (Layout.from_json(layout) if isinstance(layout, str)
+                                         else layout)
         self._log = log if log is not None else (lambda *a: None)
         self._opened = False
         self._finished = False
@@ -102,6 +245,8 @@ class EdgeSession:
         self._prefetch = None  # the live epoch_scope's CachePrefetcher
         self.mesh = None      # the EdgeMesh of a distributed run
         self.n_micro = None
+        self.plan = None      # the executed plan (plan mode) or the offline report
+        self.partition = None  # the executed plan's StagePartition (plan mode)
 
     def __enter__(self) -> "EdgeSession":
         return self.open()
@@ -128,13 +273,26 @@ class EdgeSession:
         spec, log, dev = self.spec, self._log, self.device
         cfg = self.cfg = spec.arch_config()
         log(f"arch={cfg.name} params≈{cfg.param_count()/1e6:.1f}M device={dev}")
-        if spec.total_devices > 1:
+        if self.layout is None:
+            self.layout = resolve_layout(spec)
+        lay = self.layout
+        for line in lay.lines:
+            log(line)
+        self.plan, self.partition, self.n_micro = lay.plan, lay.partition, lay.n_micro
+        if lay.ranks > 1:
             from repro_torch.launch.mesh import EdgeMesh
 
-            self.mesh = EdgeMesh(spec.dp, spec.stages, device=dev)
-            self.n_micro = spec.default_micro()
-            log(f"mesh: hybrid dp={spec.dp}×pp={spec.stages} on {spec.total_devices} devices, "
-                f"{self.n_micro} micro-batches ({self.mesh.describe()})")
+            self.mesh = EdgeMesh(lay.dp, lay.stages, device=dev)
+            if spec.plan_mode:
+                ragged = ("" if self.partition.is_uniform
+                          else f", ragged periods {self.partition.periods_per_stage}")
+                log(f"mesh: plan-driven dp={lay.dp}×pp={lay.stages} on {lay.ranks} devices, "
+                    f"{self.n_micro} micro-batches{ragged} ({self.mesh.describe()})")
+            else:
+                log(f"mesh: hybrid dp={lay.dp}×pp={lay.stages} on {lay.ranks} devices, "
+                    f"{self.n_micro} micro-batches ({self.mesh.describe()})")
+        if spec.save_plan and (self.mesh is None or self.mesh.owner):
+            log(f"plan saved: {self.plan.save(spec.save_plan)}")
         gen = torch.Generator(device=dev).manual_seed(spec.seed)
         backbone = init_backbone(gen, cfg, device=dev, quant_bits=spec.quant)
         if spec.quant:
@@ -177,7 +335,8 @@ class EdgeSession:
 
             # the cached step's loss runs on every rank whose rows count
             loss = rows_count(self.mesh, cached_batch_axes(spec.batch, self.mesh))
-            self.backbone = stage_backbone(backbone, cfg, self.mesh, loss=loss, copy=True)
+            self.backbone = stage_backbone(backbone, cfg, self.mesh, partition=self.partition,
+                                           loss=loss, copy=True)
         del backbone
         self._opened = True
         return self
@@ -266,7 +425,8 @@ class EdgeSession:
             loss, self.adapter, self.opt, acts = steps.pipeline_pac_train_step(
                 self.backbone, self.adapter, self.opt, {"tokens": tokens, "labels": labels},
                 cfg=self.cfg, mesh=mesh, n_micro=self.n_micro, r=spec.r, lr=spec.lr,
-                kernel_impl=spec.kernels, tap_policy=spec.cache_compress)
+                partition=self.partition, kernel_impl=spec.kernels,
+                tap_policy=spec.cache_compress)
             if spec.use_cache and mesh.owner:
                 self.cache.put_batch(ids, *acts, orig_last=self.cfg.d_model)
         return StepEvent(epoch=epoch, index=index, loss=float(loss), cache_hit=cache_hit,
@@ -338,7 +498,10 @@ class EdgeSession:
         """The run-mode label the trainer reports (the reference's)."""
         if self.mesh is None:
             return "cached" if cache_hit else "full"
-        return "cached pure-dp" if cache_hit else f"hybrid dp{self.spec.dp}xpp{self.spec.stages}"
+        if cache_hit:
+            return "cached pure-dp"
+        kind = "plan-driven" if self.spec.plan_mode else "hybrid"
+        return f"{kind} dp{self.mesh.dp}xpp{self.mesh.stages}"
 
     # -- preemption snapshots -------------------------------------------------
 

@@ -3,9 +3,11 @@
 
 The fields are the reference's, so a spec saved by either package loads
 in the other. ``dp``, ``stages`` and ``micro`` lay out the hybrid DP x PP
-trainer (``dp·stages`` ranks on ``torch.distributed``). Fields whose
-feature arrives with a later slice (the planner) must keep their
-defaults, and :meth:`RunSpec.validate` names the slice when they do not.
+trainer (``dp·stages`` ranks on ``torch.distributed``); ``plan`` hands
+that layout to the planner instead: ``"auto"`` (Alg. 1 picks the stage
+count, the period boundaries and the micro count over a ``pool`` of
+devices) or a plan JSON saved with ``save_plan`` (replayed);
+``calibrate`` prices the periods by a FLOP count of the real step.
 ``kernels`` is the port's own: ``"cuda"`` (the default: the hand-written
 kernels) or ``"ref"`` (plain PyTorch).
 """
@@ -22,14 +24,6 @@ KERNEL_IMPLS = ("ref", "cuda")
 QUANT_BITS = (4, 8)
 COMPRESS_POLICIES = ("f32", "bf16", "int8")
 
-#: field -> (its only value in this slice, the slice of the port that lifts that)
-_LATER = {
-    "plan": (None, "cost models and the planner"),
-    "pool": (None, "cost models and the planner"),
-    "save_plan": (None, "cost models and the planner"),
-    "calibrate": (False, "cost models and the planner"),
-}
-
 
 class RunSpecError(ValueError):
     """An invalid or inconsistent RunSpec."""
@@ -38,7 +32,9 @@ class RunSpecError(ValueError):
 @dataclass(frozen=True)
 class RunSpec:
     """One run of the paper's workflow (Fig. 4), as data. Defaults match
-    the trainer CLI's; ``use_cache`` inverts ``--no-cache``."""
+    the trainer CLI's; ``use_cache`` inverts ``--no-cache``. ``plan`` is
+    ``None`` (the CLI-pinned dp x stages), ``"auto"`` or a saved plan's
+    path."""
 
     # model / workload
     arch: str = "internlm2-1.8b"
@@ -58,7 +54,7 @@ class RunSpec:
     cache_dir: Optional[str] = None
     cache_compress: str = "f32"
     cache_budget_mb: int = 4096
-    # parallelism (dp x stages ranks) / planning (a later slice)
+    # parallelism (dp x stages ranks) / planning
     dp: int = 1
     stages: int = 1
     micro: Optional[int] = None
@@ -72,15 +68,24 @@ class RunSpec:
     ckpt: Optional[str] = None
 
     @property
+    def plan_mode(self) -> bool:
+        return self.plan is not None
+
+    @property
     def total_devices(self) -> int:
-        """Ranks of the (dp, stage) mesh."""
+        """Ranks of the CLI-pinned (dp, stage) mesh (a plan may choose
+        another)."""
         return self.dp * self.stages
 
-    def default_micro(self) -> int:
-        """The micro-batch count: ``micro`` if set, else the stage count
-        when distributed, else the reference's planning-report default."""
+    def default_micro(self) -> Optional[int]:
+        """The micro-batch count when the spec pins one: ``micro`` if set,
+        else the stage count when distributed, else the reference's
+        planning-report default. ``None`` in plan mode with no ``micro``
+        (the plan supplies or sweeps it)."""
         if self.micro is not None:
             return self.micro
+        if self.plan_mode:
+            return None
         return self.stages if self.total_devices > 1 else 4
 
     def arch_config(self):
@@ -91,8 +96,10 @@ class RunSpec:
         return cfg.reduced() if self.reduced else cfg
 
     def validate(self) -> "RunSpec":
-        """Raise :class:`RunSpecError` on a bad value, or on a field this
-        slice of the port does not run yet. Returns self."""
+        """Raise :class:`RunSpecError` on a bad value or an impossible
+        layout; a saved plan is loaded (pure JSON) to check the pool
+        against its stages. The plan's period count is checked when the
+        session resolves it. Returns self."""
         def bad(msg):
             raise RunSpecError(msg)
 
@@ -108,10 +115,6 @@ class RunSpec:
             bad(f"quant must be one of {QUANT_BITS} or None, got {self.quant!r}")
         if self.cache_compress not in COMPRESS_POLICIES:
             bad(f"cache_compress must be one of {COMPRESS_POLICIES}, got {self.cache_compress!r}")
-        for name, (default, later) in _LATER.items():
-            if getattr(self, name) != default:
-                bad(f"{name}={getattr(self, name)!r}: the PyTorch port runs without it "
-                    f"so far; it arrives with the slice that ports {later}")
         try:
             cfg = self.arch_config()
         except KeyError as e:
@@ -121,7 +124,20 @@ class RunSpec:
                 bad(f"micro must be >= 1, got {self.micro}")
             if self.batch % self.micro:
                 bad(f"batch {self.batch} must be divisible by micro={self.micro}")
-        if self.total_devices > 1:
+        if self.pool is not None and self.pool < 1:
+            bad(f"pool must be >= 1, got {self.pool}")
+        if self.plan_mode and self.plan != "auto":
+            from repro_torch.core.planner import Plan
+
+            try:
+                saved = Plan.load(self.plan)
+            except (OSError, ValueError, KeyError) as e:
+                bad(f"cannot load plan file {self.plan!r}: {e}")
+            if self.pool is not None and self.pool < saved.n_stages:
+                bad(f"pool {self.pool} is smaller than the saved plan's "
+                    f"{saved.n_stages} stages; pass pool >= "
+                    f"{saved.n_stages} or replan with plan='auto'")
+        if not self.plan_mode and self.total_devices > 1:
             n_micro = self.default_micro()
             if self.batch % n_micro:
                 bad(f"batch {self.batch} must be divisible by the {n_micro} micro-batches")
@@ -130,7 +146,7 @@ class RunSpec:
                     f"dp={self.dp}")
             if cfg.n_periods % self.stages:
                 bad(f"stages {self.stages} must divide n_periods={cfg.n_periods} of "
-                    f"{cfg.name} (uneven boundaries arrive with the planner slice)")
+                    f"{cfg.name} (or use plan='auto' for uneven boundaries)")
         return self
 
     def replace(self, **changes) -> "RunSpec":
@@ -163,5 +179,6 @@ class RunSpec:
                    seed=ns.seed, r=ns.r, init=ns.init, quant=ns.quant, lr=ns.lr,
                    use_cache=not ns.no_cache, cache_dir=ns.cache_dir,
                    cache_compress=ns.cache_compress, cache_budget_mb=ns.cache_budget_mb,
-                   dp=ns.dp, stages=ns.stages, micro=ns.micro, kernels=ns.kernels,
+                   dp=ns.dp, stages=ns.stages, micro=ns.micro, plan=ns.plan, pool=ns.pool,
+                   save_plan=ns.save_plan, calibrate=ns.calibrate, kernels=ns.kernels,
                    ckpt=ns.ckpt)

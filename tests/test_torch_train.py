@@ -49,8 +49,13 @@ def test_corpus_and_epoch_order_are_identical(vocab, seq, n, seed):
 @pytest.mark.parametrize("field,value", [("plan", "auto"), ("pool", 4), ("calibrate", True),
                                          ("save_plan", "p.json")])
 def test_runspec_refuses_later_slices(field, value):
-    with pytest.raises(RunSpecError, match="arrives with the slice"):
-        RunSpec(**{field: value}).validate()
+    """The planner's four fields, refused until the planner slice, now
+    validate as the reference's do, with the same derived layout."""
+    spec, ref = RunSpec(**{field: value}).validate(), JaxSpec(**{field: value}).validate()
+    assert getattr(spec, field) == value
+    assert {k: v for k, v in spec.to_dict().items() if k != "kernels"} == {
+        k: v for k, v in ref.to_dict().items() if k != "kernels"}
+    assert (spec.plan_mode, spec.default_micro()) == (ref.plan_mode, ref.default_micro())
 
 
 @pytest.mark.parametrize("field,value", [("kernels", "pallas"), ("init", "lora"), ("quant", 3),
