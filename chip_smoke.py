@@ -167,7 +167,27 @@ Phases, in order; any failure exits non-zero:
    periods, step walls, launches, transfer bytes and host seconds and
    memory, and the planner's latency and simulated bubble fraction,
    estimates for the modelled Jetson devices, not times on the card.
-12. Summary: one JSON line ``{"kernels": [...]}`` (eight kernels, each
+12. Fleet: the training phase's spec (no checkpoint, no cache
+   directory) as ``SessionJob``s under ``FleetScheduler`` on a
+   ``SimClock`` (heartbeat timeout 1.5 s a tick), every member on the
+   one card (placement and resharding, not transfers between cards):
+   (a) ``alice`` alone on a bound pool of four members; (b) the same
+   with ``dev1`` killed at tick 3, inside the first cached epoch; (c)
+   ``alice`` and ``bob`` (seed 1) on one member with quantum 2,
+   preempted through snapshots on disk; (d) one elastic step of (a)'s
+   first cached batch under ``ref`` against ``cuda``. Capture steps run
+   ``EdgeSession.step``, each cached step four one-sequence chunks of
+   the mix and CE kernels summed in chunk order. Gates: (b) and (c)'s
+   ``alice`` equal (a) bit for bit (every loss and the adapter's
+   fingerprint), ``dev1`` detected lost and never placed after; (a)'s
+   capture steps equal the training phase's bit for bit, its cached
+   steps within 1e-5 and epochs within 5e-2; (d) loss within 2e-5,
+   gradients within 1e-4·max(1, |g|max); (a)'s launches a step: 168
+   ``quant_matmul``, 24 flash, 25 mix and 1 CE each in a capture step,
+   100 mix and 4 CE each in a cached step (``fleet`` line: per run the
+   ticks' placements, shares, lost and preempted, each step's wall time,
+   mode and launches; memory high-water mark, phase time).
+13. Summary: one JSON line ``{"kernels": [...]}`` (eight kernels, each
    with its launches on every path and its device kernels by name:
    ``skinny::gemv`` for ``quant_matmul`` at M <= 8 and ``adapter_fuse`` at
    T <= 8), the card's line, and last ``{"ok": true, "device": {...}}``.
@@ -2064,6 +2084,205 @@ def plan_phase(single: dict, dist_ranks: list, workdir: Path):
     return launches, auto_launches
 
 
+# ---------------------------------------------------------------- fleet
+
+FLEET_MEMBERS = 4
+FLEET_KILL = (3, "dev1")  # tick, member: a tick inside the first cached epoch
+#: launches a step of one job: (capture step, cached step of 4 chunks of one sequence)
+FLEET_STEP_LAUNCHES = ({"quant_matmul": 168, "flash_attention": 24, "mix_fwd": 25, "mix_dw": 25,
+                        "ce_fwd": 1, "ce_bwd": 1},
+                       {"quant_matmul": 0, "flash_attention": 0, "mix_fwd": 100, "mix_dw": 100,
+                        "ce_fwd": 4, "ce_bwd": 4})
+
+
+def fleet_run(spec, names, members: int, events=None, quantum=None, snapshot_dir=None):
+    """One ``FleetScheduler`` run of jobs ``names`` (job i on seed
+    ``spec.seed + i``) over a bound pool of ``members`` members on the
+    card (each slot past the card count maps to it: every member shares
+    the one H100). Returns the run's record and its jobs, left open."""
+    from repro_torch.checkpoint import tree_fingerprint
+    from repro_torch.fleet import DeviceMember, DevicePool, FleetScheduler, SessionJob, SimClock
+    from repro_torch.runtime import RunHooks
+
+    steps, last = [], {}
+
+    class Record(RunHooks):
+        """Each step's loss, mode, wall time and launches (since the
+        previous step of any job: jobs step one after another)."""
+
+        def __init__(self, name):
+            self.name = name
+
+        def on_step(self, session, event):
+            now = {k: v for k, v in read_launches().items() if k in TRAINING_KERNELS}
+            prev = last.get("launches", dict.fromkeys(now, 0))
+            last["launches"] = now
+            steps.append({"job": self.name, "epoch": event.epoch, "index": event.index,
+                          "loss": event.loss, "mode": event.mode, "wall_s": event.wall_s,
+                          "launches": {k: now[k] - prev[k] for k in now}})
+
+    pool = DevicePool([DeviceMember(f"dev{i}") for i in range(members)], clock=SimClock(),
+                      heartbeat_timeout=1.5, bind_devices=True)
+    sched = FleetScheduler(pool, events=events, quantum=quantum, snapshot_dir=snapshot_dir,
+                           log=print)
+    jobs = [SessionJob(name, spec.replace(seed=spec.seed + i), hooks=[Record(name)])
+            for i, name in enumerate(names)]
+    for job in jobs:
+        sched.submit(job)
+    reset_launches()
+    t0 = time.perf_counter()
+    report = sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rec = {"members": members, "devices": sorted({str(pool.torch_device(m)) for m in pool.alive()}),
+           "run_s": wall,
+           "launches": {k: v for k, v in read_launches().items() if k in TRAINING_KERNELS},
+           "ticks": [{"tick": r.tick, "placements": {k: list(v) for k, v in r.placements.items()},
+                      "shares": {k: list(v) for k, v in r.shares.items()}, "lost": r.lost,
+                      "preempted": r.preempted, "queued": r.queued} for r in report.ticks],
+           "steps": steps,
+           "jobs": {j.name: {"state": j.state, "losses": report.losses(j.name),
+                             "fingerprint": tree_fingerprint(j.session.adapter),
+                             "forward_steps": j.forward_steps, "cached_steps": j.cached_steps,
+                             "reshards": j.reshards} for j in jobs}}
+    return rec, jobs
+
+
+def release(jobs: list) -> None:
+    """Close finished jobs and drop them (the caller holds no other
+    reference), so that the next run does not share the card with them."""
+    for job in jobs:
+        job.close()
+    jobs.clear()
+
+
+def fleet_phase(single: dict, workdir: Path) -> dict:
+    """The fleet at full width: the training phase's spec (no checkpoint,
+    no cache directory) as ``SessionJob``s under ``FleetScheduler`` on a
+    ``SimClock``, every member on the one card. (a) ``alice`` alone on a
+    bound pool of four; (b) the same with ``dev1`` killed at tick 3,
+    inside the first cached epoch; (c) ``alice`` and ``bob`` (seed 1) on
+    one member with quantum 2, preempted through snapshots on disk; (d)
+    one elastic step of (a)'s first cached batch under the ``ref``
+    kernels against ``cuda``. Gates: (b) and (c)'s ``alice`` equal (a)
+    bit for bit (losses and adapter fingerprint); (a)'s capture steps
+    equal the training phase's bit for bit, its cached steps within
+    ``DIST_STEP_TOL`` and its epochs within 5e-2; (d) within the cached
+    step's tolerances; (a)'s launches per step as
+    ``FLEET_STEP_LAUNCHES``. Returns (a)'s launches."""
+    from repro_torch.core.quantization import tree_leaves
+    from repro_torch.fleet import ElasticDpRunner, FaultPlan, FleetEvent, ScriptedEvents
+    from repro_torch.runtime import RunSpec
+
+    spec = RunSpec(arch="internlm2-1.8b", quant=8, cache_compress="int8", kernels="cuda",
+                   init="pruning", epochs=3, steps_per_epoch=2, batch=4, seq=512, seed=SEED)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    free, (a_job,) = fleet_run(spec, ["alice"], FLEET_MEMBERS)
+    kill_tick, kill_dev = FLEET_KILL
+    killed, jobs = fleet_run(spec, ["alice"], FLEET_MEMBERS, events=ScriptedEvents(
+        FaultPlan([FleetEvent(kill_tick, "kill", device=kill_dev)])))
+    release(jobs)
+    snaps = workdir / "fleet_snapshots"
+    preempt, jobs = fleet_run(spec, ["alice", "bob"], 1, quantum=2, snapshot_dir=str(snaps))
+    release(jobs)
+
+    # (d) (a)'s first cached batch, the final adapter, one elastic step's
+    # loss and gradients under both kernel sets
+    s = a_job.session
+    ids = s.pipe.epoch_order(1)[0]
+    b0, taps, bf = s.cache.get_batch(ids, with_final=True, dtype=None, compressed=True)
+    cached = {"b0": b0, "taps": taps, "b_final": bf,
+              "labels": torch.from_numpy(s.corpus.batch(ids)["labels"]).to(s.device)}
+    first = next(t for t in free["ticks"] if t["tick"] == spec.steps_per_epoch)
+    placement = [(m, s.device, sh) for m, sh in zip(first["placements"]["alice"],
+                                                    first["shares"]["alice"])]
+    res = {}
+    for impl, runner in (("cuda", a_job._elastic),
+                         ("ref", ElasticDpRunner(s.backbone, s.cfg, r=spec.r, lr=spec.lr,
+                                                 kernel_impl="ref", device=s.device))):
+        runner.reshard([(m, d) for m, d, _ in placement])
+        loss, grads = runner.loss_and_grads(s.adapter, cached, placement)
+        res[impl] = (float(loss), tree_leaves(grads))
+    gmax = max(float(g.abs().max()) for g in res["ref"][1])
+    gerr = max(max_err(a, b) for a, b in zip(res["cuda"][1], res["ref"][1]))
+    dloss = abs(res["cuda"][0] - res["ref"][0])
+    ref_vs_cuda = {"placement": [[m, sh] for m, _, sh in placement],
+                   "loss": [res["cuda"][0], res["ref"][0]], "abs_dloss": dloss,
+                   "max_abs_dgrad": gerr, "grad_max": gmax}
+    release([a_job])
+    del a_job, s, res, cached, b0, taps, bf, runner, loss, grads
+    peak = torch.cuda.max_memory_allocated()
+    phase_s = time.perf_counter() - t_phase
+
+    want = free["jobs"]["alice"]
+    losses = want["losses"]
+    n_cap = spec.steps_per_epoch
+    epochs = [float(np.mean(losses[e * n_cap:(e + 1) * n_cap])) for e in range(spec.epochs)]
+    lost_at = next((t["tick"] for t in killed["ticks"] if kill_dev in t["lost"]), None)
+    alice_steps = [st for st in free["steps"] if st["job"] == "alice"]
+    line = {"phase": "fleet", "arch": "internlm2-1.8b", "batch": spec.batch, "seq": spec.seq,
+            "quant": spec.quant, "cache": spec.cache_compress, "r": spec.r, "chunk": 1,
+            "clock": "SimClock", "heartbeat_timeout": 1.5,
+            "note": "every member runs on the one card: placement and resharding are "
+                    "exercised, transfers between cards are not",
+            "runs": {"fault_free": free, "kill": killed, "preempt": preempt},
+            "kill": {"tick": kill_tick, "device": kill_dev, "detected_at": lost_at},
+            "step_losses": losses, "single_step_losses": single["step_losses"],
+            "capture_bit_equal_single": losses[:n_cap] == single["step_losses"][:n_cap],
+            "abs_dloss_steps": [abs(a - b) for a, b in zip(losses, single["step_losses"])],
+            "epoch_losses": epochs, "single_epoch_losses": single["epoch_losses"],
+            "abs_depoch": [abs(a - b) for a, b in zip(epochs, single["epoch_losses"])],
+            "kill_bit_equal": (killed["jobs"]["alice"]["losses"] == losses
+                               and killed["jobs"]["alice"]["fingerprint"] == want["fingerprint"]),
+            "preempted_bit_equal": (preempt["jobs"]["alice"]["losses"] == losses
+                                    and preempt["jobs"]["alice"]["fingerprint"]
+                                    == want["fingerprint"]),
+            "snapshot_on_disk": (snaps / "alice.ckpt").exists(),
+            "launches_per_capture_step": [st["launches"] for st in alice_steps
+                                          if "full" in st["mode"]],
+            "launches_per_cached_step": [st["launches"] for st in alice_steps
+                                         if st["mode"].startswith("elastic")],
+            "ref_vs_cuda": ref_vs_cuda,
+            "max_memory_allocated": peak, "phase_s": phase_s,
+            "tol": {"cached_steps": DIST_STEP_TOL, "epoch": 5e-2, "loss": 2e-5,
+                    "grads": 1e-4 * max(1.0, gmax)},
+            "tol_reason": "capture steps run the training phase's EdgeSession.step (bit for "
+                          "bit); a cached step sums the same tokens' CE and gradients a chunk "
+                          "at a time (f32 reordered), as the distributed phase; ref vs cuda: "
+                          "the cached_step_cuda_vs_ref tolerances"}
+    emit(line)
+
+    if not (free["jobs"]["alice"]["state"] == "done" and want["forward_steps"] == n_cap
+            and want["cached_steps"] == n_cap * (spec.epochs - 1)):
+        raise AssertionError(f"fault-free run: {want}")
+    if not (line["capture_bit_equal_single"] and max(line["abs_dloss_steps"]) <= DIST_STEP_TOL
+            and max(line["abs_depoch"]) <= 5e-2 and all(np.isfinite(losses))):
+        raise AssertionError(f"fleet vs single process: steps {line['abs_dloss_steps']}, "
+                             f"epochs {line['abs_depoch']}")
+    k = killed["jobs"]["alice"]
+    if not (line["kill_bit_equal"] and k["forward_steps"] == n_cap and k["reshards"] >= 1
+            and lost_at is not None):
+        raise AssertionError(f"kill run: {k}, detected at {lost_at}")
+    late = [t for t in killed["ticks"] if t["tick"] >= lost_at
+            and any(kill_dev in d for d in t["placements"].values())]
+    if late:
+        raise AssertionError(f"{kill_dev} placed after its loss was detected: {late}")
+    p = preempt["jobs"]
+    if not ("alice" in [n for t in preempt["ticks"] for n in t["preempted"]]
+            and line["snapshot_on_disk"] and line["preempted_bit_equal"]
+            and p["bob"]["state"] == "done" and p["bob"]["losses"] != losses):
+        raise AssertionError(f"preemption run: {p}, snapshot {line['snapshot_on_disk']}")
+    if not (dloss <= 2e-5 and gerr <= 1e-4 * max(1.0, gmax)):
+        raise AssertionError(f"elastic step cuda vs ref: dloss {dloss}, dgrad {gerr}")
+    want_steps = [FLEET_STEP_LAUNCHES[0]] * n_cap + [FLEET_STEP_LAUNCHES[1]] * (
+        n_cap * (spec.epochs - 1))
+    if [st["launches"] for st in alice_steps] != want_steps:
+        raise AssertionError(f"launches per step {[st['launches'] for st in alice_steps]}")
+    return free["launches"]
+
+
 # ---------------------------------------------------------------- personal serving
 
 PERSONAL_D, PERSONAL_DA = 2048, 256  # internlm2-1.8b, r=8
@@ -2359,7 +2578,10 @@ def main() -> int:
         distributed_done_s = time.perf_counter() - T_START
         plan_kernel_phase(Timer(), gen)
         plan, plan_auto = plan_phase(single, dist_ranks, Path(workdir))
-        del single, dist_ranks
+        del dist_ranks
+        plan_done_s = time.perf_counter() - T_START
+        fleet = fleet_phase(single, Path(workdir))
+        del single
 
     sources = {"quant_matmul": ("src/repro_torch/kernels/csrc/quant_matmul.cu",
                                 "src/repro/kernels/quant_matmul.py:93"),
@@ -2379,7 +2601,7 @@ def main() -> int:
                                 "src/repro/kernels/adapter_fuse.py:83")}
     paths = {"serving": serving, "training": training, "personal": personal,
              "prefetch": prefetch, "distributed": distributed, "plan": plan,
-             "plan_auto": plan_auto}
+             "plan_auto": plan_auto, "fleet": fleet}
     home = {"quant_matmul": "serving", "flash_attention": "serving",
             "paged_attention": "serving", "adapter_fuse": "personal"}
     # each kernel's launches on its own main path (serving for the first
@@ -2404,7 +2626,7 @@ def main() -> int:
     emit({"phase": "done", "wall_s": time.perf_counter() - T_START,
           "through_serving_s": serving_done_s, "through_training_s": training_done_s,
           "through_personal_s": personal_done_s, "through_prefetch_s": prefetch_done_s,
-          "through_distributed_s": distributed_done_s})
+          "through_distributed_s": distributed_done_s, "through_plan_s": plan_done_s})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

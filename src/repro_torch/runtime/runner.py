@@ -46,6 +46,16 @@ class RunHooks:
     def on_epoch_end(self, session: EdgeSession, report: EpochReport) -> None:
         pass
 
+    # -- fleet lifecycle (repro_torch.fleet) — no-ops for plain runs -----------
+
+    def on_reshard(self, session: EdgeSession, members: List[str]) -> None:
+        """Pool membership changed under a running job: the job now
+        executes on ``members`` (fleet member names, in placement order)."""
+
+    def on_preempt(self, session: EdgeSession, resumed: bool) -> None:
+        """The scheduler snapshotted this job off its devices
+        (``resumed=False``) or brought it back (``resumed=True``)."""
+
 
 class ConsoleHook(RunHooks):
     """The trainer CLI's per-epoch summary line."""
