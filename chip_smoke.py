@@ -187,10 +187,44 @@ Phases, in order; any failure exits non-zero:
    100 mix and 4 CE each in a cached step (``fleet`` line: per run the
    ticks' placements, shares, lost and preempted, each step's wall time,
    mode and launches; memory high-water mark, phase time).
-13. Summary: one JSON line ``{"kernels": [...]}`` (eight kernels, each
-   with its launches on every path and its device kernels by name:
-   ``skinny::gemv`` for ``quant_matmul`` at M <= 8 and ``adapter_fuse`` at
-   T <= 8), the card's line, and last ``{"ok": true, "device": {...}}``.
+13. Head width 256: flash attention at gemma2-2b's prefill (B·H = 8·8
+   over 4 kv heads, S = 512; soft-cap 50, and window 128 with it) and
+   epoch-1 (4·8) shapes, timed beside both bounds and SDPA, two calls
+   bit-equal, its ragged and keyless cases at hd 256, and granite-20b's
+   MQA (B·H = 1·48 over one kv head, hd 128); paged attention at B = 8,
+   Hkv = 4, n_rep = 2, hd 256, int8 pages of 16 (lengths <= 511 and <=
+   4095), its ragged cases at hd 256 (window 64 and soft-cap 30 among
+   them), bit-equal reruns and graph replays. Then gemma2's widths:
+   ``quant_matmul`` over a layer's seven projections (K = 2304 and 9216)
+   at M = 4096 and 8, ``mix_fwd``/``mix_dw`` at d = 2304, d_a = 288,
+   ``ce_fwd``/``ce_bwd`` over the 256000-token vocabulary with soft-cap
+   30, ``adapter_fuse`` at T = 1 and 8.
+14. gemma2-2b serving at full width (``gemma2_serving`` line): 26
+   layers, random seeded INT8 weights, 4 users with r = 8 adapters, INT8
+   KV pages of 16, the serving phase's 8 requests and a ninth of 4500
+   tokens (its own wave: flash prefill and paged decode cross the 4096
+   window), 32 new tokens each, through ``ServeEngine``; then each wave's
+   prefill and two decode steps under ``cuda`` and ``ref``: logits within
+   2e-2, greedy tokens equal.
+15. gemma2-2b training (``pac_run`` line): PAC+ through ``EdgeSession``/
+   ``EpochRunner``, 2 epochs x 2 steps of 4 x 512 tokens, INT8 backbone,
+   int8 cache, pruning init (d_a = 288, one head of 288); the cached step
+   ``cuda`` against ``ref`` (loss 2e-5, gradients 1e-4·max(1, |g|max))
+   and the trainer's epochs under both (5e-2).
+16. gemma2-2b personal (``gemma2_personal`` line): the trained adapter,
+   16 ``pac_decode_step``s at B = 1 over an f32 linear KV cache under both
+   OpSets: each step within 2e-4, greedy tokens equal, 13
+   ``adapter_fuse`` and 182 ``quant_matmul`` launches a step.
+17. The paper's Table III models (t5-base-pac, bart-large-pac,
+   t5-large-pac): each trained as in 15, with its gates.
+18. musicgen-large (``musicgen_prefill`` line): 48 layers at full width,
+   no rope, fed seeded frame embeddings (4 x 512): ``prefill_step`` under
+   ``cuda`` against ``ref``, last-position logits within 2e-2.
+19. Summary: one JSON line ``{"kernels": [...]}`` (eight kernels, each
+   with its launches on every path, the hd 256 and gemma2 rows beside
+   the first, and its device kernels by name: ``skinny::gemv`` for
+   ``quant_matmul`` at M <= 8 and ``adapter_fuse`` at T <= 8), the card's
+   line, and last ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card and the repository's ``src`` beside this file; it
 imports no JAX and nothing of the JAX package.
@@ -449,16 +483,16 @@ def device_kernels(fn) -> list:
                    if e.device_type == torch.autograd.DeviceType.CUDA})
 
 
-def flash_ragged(gen: torch.Generator) -> None:
+def flash_ragged(gen: torch.Generator, hds=(64, 128)) -> None:
     """``flash_attention`` at Sq = Sk = 37 and 1001 (partial query and key
-    tiles), hd 64 and 128, n_rep 1 and 2, each with causal on and off,
-    window 32 or none and soft-cap 30 or none, against its plain version:
-    one line per (S, hd, n_rep)."""
+    tiles), each head width of ``hds``, n_rep 1 and 2, each with causal on
+    and off, window 32 or none and soft-cap 30 or none, against its plain
+    version: one line per (S, hd, n_rep)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
 
     for S in (37, 1001):
-        for hd in (64, 128):
+        for hd in hds:
             for n_rep in (1, 2):
                 q = torch.randn(4 * n_rep, S, hd, generator=gen, device=DEV)
                 k, v = (torch.randn(4, S, hd, generator=gen, device=DEV) for _ in range(2))
@@ -480,16 +514,17 @@ def flash_ragged(gen: torch.Generator) -> None:
                       "tol": f"atol {FLASH_TOL}", "tol_reason": FLASH_TOL_REASON})
 
 
-def flash_keyless(gen: torch.Generator) -> None:
+def flash_keyless(gen: torch.Generator, hds=(64, 128)) -> None:
     """``flash_attention`` with Sq = 300 queries over Sk = 100 keys and
-    window 32 (B·H = 8 over 4 KV heads, hd 64 and 128, causal or not):
+    window 32 (B·H = 8 over 4 KV heads, each head width of ``hds``, causal
+    or not):
     rows q >= Sk + window - 1 = 131 have no key and get V's mean, as in
     the plain version and the reference."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import _keyless_from, flash_attention
 
     Sq, Sk, window = 300, 100, 32
-    for hd in (64, 128):
+    for hd in hds:
         q = torch.randn(8, Sq, hd, generator=gen, device=DEV)
         k, v = (torch.randn(4, Sk, hd, generator=gen, device=DEV) for _ in range(2))
         cases = []
@@ -546,16 +581,16 @@ def paged_bound(lengths_np: np.ndarray, Hkv: int, n_rep: int, hd: int, page: int
 
 
 def paged_timed(timer: Timer, gen: torch.Generator, lengths_np: np.ndarray, max_pages: int,
-                at: str) -> dict:
-    """``paged_attention`` at B = len(lengths), Hkv = 8, n_rep = 2,
-    hd = 128, int8 pages of 16 tokens, against its plain version; timed
-    beside the plain version and SDPA over the KV gathered to dense f32
-    beforehand (length mask), with the byte bound."""
+                at: str, Hkv: int = 8, n_rep: int = 2, hd: int = 128) -> dict:
+    """``paged_attention`` at B = len(lengths), int8 pages of 16 tokens
+    (internlm2-1.8b's Hkv = 8, n_rep = 2, hd = 128 unless given), against
+    its plain version; timed beside the plain version and SDPA over the KV
+    gathered to dense f32 beforehand (length mask), with the byte bound."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import paged_attention, plan_for
     from repro_torch.serve.paging import quantize_kv_pages
 
-    B, Hkv, n_rep, hd, page = len(lengths_np), 8, 2, 128, 16
+    B, page = len(lengths_np), 16
     rng = np.random.default_rng(SEED)
     qd, kf, vf, bt, lengths = paged_case(gen, rng, B, Hkv, n_rep, hd, page, max_pages, lengths_np)
     (kq, ks), (vq, vs) = quantize_kv_pages(kf), quantize_kv_pages(vf)
@@ -593,7 +628,7 @@ def paged_timed(timer: Timer, gen: torch.Generator, lengths_np: np.ndarray, max_
     return r
 
 
-def paged_ragged(gen: torch.Generator) -> None:
+def paged_ragged(gen: torch.Generator, shapes=None) -> None:
     """``paged_attention`` against its plain version at B 1, 3, 8 and 72
     (the last groups two kv heads a block, one rank: no cluster), Hkv 2
     and 8, n_rep 1, 2 and 8, hd 64 and 128, pages of 4 and 16 tokens,
@@ -601,13 +636,14 @@ def paged_ragged(gen: torch.Generator) -> None:
     padding rows (length 0 on the null page), f32, bf16 and int8 pages,
     each plain, with window 64 and soft-cap 30, and with window 20 (which
     leaves most ranks of a long row empty); and int8 and bf16 pools whose
-    base is not 16-byte aligned. One line per shape."""
+    base is not 16-byte aligned. One line per shape; ``shapes`` replaces
+    the shapes (B, Hkv, n_rep, hd, page, max_pages, lengths, padding rows)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import paged_attention, plan_for
     from repro_torch.serve.paging import quantize_kv_pages
 
     rng = np.random.default_rng(SEED + 1)
-    shapes = [  # B, Hkv, n_rep, hd, page, max_pages, lengths, padding rows
+    shapes = shapes or [  # B, Hkv, n_rep, hd, page, max_pages, lengths, padding rows
         (1, 2, 1, 64, 4, 136, [543], ()),
         (3, 8, 8, 128, 16, 34, [0, 16, 543], (0,)),
         (8, 2, 2, 64, 16, 34, [0, 15, 16, 17, 255, 256, 542, 543], ()),
@@ -652,15 +688,16 @@ def paged_ragged(gen: torch.Generator) -> None:
               "tol_reason": PAGED_TOL_REASON})
 
 
-def paged_deterministic(gen: torch.Generator, lengths_np: np.ndarray, max_pages: int) -> None:
+def paged_deterministic(gen: torch.Generator, lengths_np: np.ndarray, max_pages: int,
+                        Hkv: int = 8, n_rep: int = 2, hd: int = 128) -> None:
     """Two eager calls at the check's shape bit-equal, and the call
     captured in a CUDA graph and replayed three times, each bit-equal to
     the eager call."""
     from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.serve.paging import quantize_kv_pages
 
-    q, kf, vf, bt, lengths = paged_case(gen, np.random.default_rng(SEED), len(lengths_np), 8, 2,
-                                        128, 16, max_pages, lengths_np)
+    q, kf, vf, bt, lengths = paged_case(gen, np.random.default_rng(SEED), len(lengths_np), Hkv,
+                                        n_rep, hd, 16, max_pages, lengths_np)
     (kq, ks), (vq, vs) = quantize_kv_pages(kf), quantize_kv_pages(vf)
 
     def fn():
@@ -679,7 +716,8 @@ def paged_deterministic(gen: torch.Generator, lengths_np: np.ndarray, max_pages:
         replays.append(bool(torch.equal(static, eager)))
     del graph
     ok = bool(torch.equal(eager, again)) and all(replays)
-    emit({"check": "paged_attention_deterministic", "at": "B=8 Hkv=8 n_rep=2 hd=128 page=16 int8",
+    emit({"check": "paged_attention_deterministic",
+          "at": f"B={len(lengths_np)} Hkv={Hkv} n_rep={n_rep} hd={hd} page=16 int8",
           "calls_bit_equal": bool(torch.equal(eager, again)), "replays_equal_eager": replays,
           "bit_equal": ok})
     if not ok:
@@ -832,6 +870,51 @@ def profile_decode(eng, prompts, names) -> None:
     eng.drain()
 
 
+def paged_cuda_vs_ref(backbone, cfg, ab, prompts, page: int, max_len: int, r: int, s_pad: int,
+                      steps: int = 2) -> dict:
+    """The prompts' paged prefill (padded to ``s_pad``) and ``steps``
+    decode steps over INT8 KV pages, under the ``cuda`` and the ``ref``
+    OpSet, the cuda run's greedy tokens fed to both: per OpSet the (B, V)
+    logits of each step, the prefill's first."""
+    from repro_torch.serve import paging
+    from repro_torch.serve.decode import paged_pac_decode_step, paged_prefill
+
+    B = len(prompts)
+    max_pages = -(-max_len // page)
+    state = {}
+    for impl in ("cuda", "ref"):
+        table = paging.PageTable(paging.PageAllocator(B * max_pages + 1), page, max_pages)
+        for i, p in enumerate(prompts):
+            table.open(i, len(p))
+        pools = paging.init_pools(cfg, table.allocator.n_pages, page, "int8", DEV)
+        state[impl] = [table, pools, None]
+    toks = np.zeros((B, s_pad), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, : len(p)] = p
+    logits = {}
+    for impl, st in state.items():
+        bt, lengths = st[0].dense(range(B))
+        lg, st[1], st[2] = paged_prefill(
+            backbone, ab, torch.from_numpy(toks).to(DEV), torch.from_numpy(lengths).to(DEV),
+            st[1], torch.from_numpy(bt).to(DEV), cfg=cfg, max_len=max_len, r=r,
+            kernel_impl=impl)
+        logits[impl] = [lg[:, 0]]
+    for _ in range(steps):
+        tok = logits["cuda"][-1].argmax(-1).int()[:, None]
+        for impl, st in state.items():
+            table = st[0]
+            for i in range(B):
+                table.extend_to(i, table.length(i) + 1)
+            bt, lengths = table.dense(range(B))
+            lg, st[1], st[2] = paged_pac_decode_step(
+                backbone, ab, tok, st[1], torch.from_numpy(bt).to(DEV),
+                torch.from_numpy(lengths).to(DEV), st[2], cfg=cfg, r=r, kernel_impl=impl)
+            logits[impl].append(lg[:, 0])
+            for i in range(B):
+                table.append_token(i)
+    return logits
+
+
 def serving_phase(gen: torch.Generator):
     from repro_torch.configs import get_arch
     from repro_torch.core.parallel_adapters import gather_adapters, stack_adapters
@@ -839,8 +922,7 @@ def serving_phase(gen: torch.Generator):
     from repro_torch.core.quantization import tree_storage_bytes
     from repro_torch.kernels import flash_attention, paged_attention, quant_matmul
     from repro_torch.models.backbone import init_backbone
-    from repro_torch.serve import ServeEngine, paging
-    from repro_torch.serve.decode import paged_pac_decode_step, paged_prefill
+    from repro_torch.serve import ServeEngine
 
     kernels = {"quant_matmul": quant_matmul, "flash_attention": flash_attention,
                "paged_attention": paged_attention}
@@ -896,39 +978,8 @@ def serving_phase(gen: torch.Generator):
     # the first prefill and 2 decode steps again, cuda OpSet vs ref OpSet
     bank = stack_adapters([users[n] for n in names])
     ab = gather_adapters(bank, torch.arange(8, device="cuda") % 4)
-    max_pages = -(-max_len // page)
-    state = {}
-    for impl in ("cuda", "ref"):
-        table = paging.PageTable(paging.PageAllocator(max_batch * max_pages + 1), page, max_pages)
-        for i, p in enumerate(prompts):
-            table.open(i, len(p))
-        pools = paging.init_pools(cfg, table.allocator.n_pages, page, "int8", "cuda")
-        state[impl] = [table, pools, None]
     s_pad = 1 << (int(max(prompt_lens)) - 1).bit_length()
-    toks = np.zeros((8, s_pad), np.int32)
-    for i, p in enumerate(prompts):
-        toks[i, : len(p)] = p
-    logits = {}
-    for impl, st in state.items():
-        bt, lengths = st[0].dense(range(8))
-        lg, st[1], st[2] = paged_prefill(
-            backbone, ab, torch.from_numpy(toks).cuda(), torch.from_numpy(lengths).cuda(),
-            st[1], torch.from_numpy(bt).cuda(), cfg=cfg, max_len=max_len, r=r,
-            kernel_impl=impl)
-        logits[impl] = [lg[:, 0]]
-    for _ in range(2):
-        tok = logits["cuda"][-1].argmax(-1).int()[:, None]
-        for impl, st in state.items():
-            table = st[0]
-            for i in range(8):
-                table.extend_to(i, table.length(i) + 1)
-            bt, lengths = table.dense(range(8))
-            lg, st[1], st[2] = paged_pac_decode_step(
-                backbone, ab, tok, st[1], torch.from_numpy(bt).cuda(),
-                torch.from_numpy(lengths).cuda(), st[2], cfg=cfg, r=r, kernel_impl=impl)
-            logits[impl].append(lg[:, 0])
-            for i in range(8):
-                table.append_token(i)
+    logits = paged_cuda_vs_ref(backbone, cfg, ab, prompts, page, max_len, r, s_pad)
     tol = 2e-2
     diffs = [max_err(a, b) for a, b in zip(logits["cuda"], logits["ref"])]
     agree = [float((a.argmax(-1) == b.argmax(-1)).float().mean())
@@ -1272,13 +1323,90 @@ def read_launches() -> dict:
             for mod, key in kernel_counters()}
 
 
+def cached_step_gate(s, spec) -> None:
+    """Epoch 0's first batch, from the session's cache, through the cached
+    step's loss under ``cuda`` and ``ref``: loss and gradients compared
+    (``cached_step_cuda_vs_ref`` line)."""
+    from repro_torch.core.quantization import tree_leaves, tree_map
+    from repro_torch.kernels.cached_step import cached_loss_parts
+
+    ids = s.pipe.epoch_order(0)[0]
+    labels = torch.from_numpy(s.corpus.batch(ids)["labels"]).to(DEV)
+    hit = s.cache.get_batch(ids, with_final=True, dtype=None, compressed=True)
+    cached_b = {k: v.to(DEV) for k, v in zip(("b0", "taps", "b_final"), hit)}
+    cached_b["labels"] = labels
+    pos = torch.arange(spec.seq, device=DEV).expand(spec.batch, spec.seq)
+    res = {}
+    for impl in ("cuda", "ref"):
+        ap = tree_map(lambda t: t.clone().requires_grad_(), s.adapter)
+        num, den = cached_loss_parts(s.backbone, ap, s.cfg, cached_b, pos, spec.r, impl=impl)
+        loss = num / den.clamp_min(1)
+        res[impl] = (float(loss.detach()), torch.autograd.grad(loss, tree_leaves(ap)))
+    gmax = max(float(g.abs().max()) for g in res["ref"][1])
+    gerr = max(max_err(a, b) for a, b in zip(res["cuda"][1], res["ref"][1]))
+    dloss = abs(res["cuda"][0] - res["ref"][0])
+    loss_tol, grad_tol = 2e-5, 1e-4 * max(1.0, gmax)
+    emit({"phase": "cached_step_cuda_vs_ref", "arch": s.cfg.name,
+          "loss": [res["cuda"][0], res["ref"][0]],
+          "abs_dloss": dloss, "max_abs_dgrad": gerr, "grad_max": gmax,
+          "tol": {"loss": loss_tol, "grads": grad_tol},
+          "tol_reason": "the reference's pallas-vs-ref cached-step tolerances "
+                        "(tests/test_cached_step.py:163-190): f32 sums reorder"})
+    if not (dloss <= loss_tol and gerr <= grad_tol):
+        raise AssertionError(f"{s.cfg.name} cached step cuda vs ref: dloss {dloss}, "
+                             f"dgrad {gerr}")
+
+
+def trainer_gate(spec, cuda_losses: list) -> None:
+    """The same trainer under the ``ref`` kernels, in memory: per-epoch
+    losses against the ``cuda`` run's (``trainer_cuda_vs_ref`` line)."""
+    from repro_torch.runtime import EdgeSession, EpochReport, EpochRunner
+
+    s = EdgeSession(spec.replace(kernels="ref", ckpt=None, cache_dir=None), log=print,
+                    device=DEV).open()
+    events = list(EpochRunner(s).events())
+    s.close()
+    del s
+    ref_steps = [e for e in events if not isinstance(e, EpochReport)]
+    ref_reports = [e for e in events if isinstance(e, EpochReport)]
+    ref_losses = [r.mean_loss for r in ref_reports]
+    tol = 5e-2
+    diffs = [abs(a - b) for a, b in zip(cuda_losses, ref_losses)]
+    emit({"phase": "trainer_cuda_vs_ref", "arch": spec.arch, "cuda_epoch_losses": cuda_losses,
+          "ref_epoch_losses": ref_losses, "ref_modes": [r.mode for r in ref_reports],
+          "ref_full_step_s": [e.wall_s for e in ref_steps if not e.cache_hit],
+          "ref_cached_step_s": [e.wall_s for e in ref_steps if e.cache_hit],
+          "abs_diff": diffs, "tol": tol,
+          "tol_reason": "the reference's int8 pallas-vs-ref trainer tolerance "
+                        "(tests/test_cached_step.py:257): under cuda epoch 0 trains on taps "
+                        "quantized at the tap site, under ref on f32 taps"})
+    if len(diffs) != len(cuda_losses) or max(diffs) > tol:
+        raise AssertionError(f"{spec.arch} trainer cuda vs ref epoch losses differ by {diffs}")
+
+
+def profile_steps(s) -> None:
+    """Where a step's time goes: one full step (the cache emptied first)
+    and one cached step of epoch 0's first batch under the profiler
+    (``train_profile`` lines)."""
+    batch = s.corpus.batch(s.pipe.epoch_order(0)[0])
+    s.cache.clear()
+    for mode in ("full", "cached"):
+        events = []
+        prof = device_profile(lambda: events.append(s.step(dict(batch))),
+                              watch=("mix_dw_mma", "dw_reduce", "mix_fwd_mma",
+                                     "mix_fwd_reduce", "ce_split", "ce_fwd_mma", "ce_merge",
+                                     "ce_grad_mma", "ce_dh_mma", "flash_split",
+                                     "flash_fwd_mma", "qmm_mma"))
+        if events[0].mode != mode:
+            raise AssertionError(f"profiled a {events[0].mode} step, wanted {mode}")
+        emit({"phase": "train_profile", "arch": s.cfg.name, "step": mode, **prof})
+
+
 def training_phase(workdir: Path):
     """PAC+ at full width through the port's EdgeSession/EpochRunner,
     with its checkpoint and persistent cache in ``workdir``. Returns
     (launches, the session's backbone, the checkpoint's path, the run's
     per-step and per-epoch losses and epoch 0's cache entries)."""
-    from repro_torch.core.quantization import tree_leaves, tree_map
-    from repro_torch.kernels.cached_step import cached_loss_parts
     from repro_torch.runtime import (ConsoleHook, EdgeSession, EpochReport, EpochRunner,
                                      RunHooks, RunSpec)
 
@@ -1344,68 +1472,15 @@ def training_phase(workdir: Path):
         raise AssertionError(f"kernels never launched on the training path: {missing}")
     persistence_phase(s, spec, steps_, run)
 
-    # one cached batch through the cached step's loss, cuda against ref
-    ids = s.pipe.epoch_order(0)[0]
-    labels = torch.from_numpy(s.corpus.batch(ids)["labels"]).cuda()
-    hit = s.cache.get_batch(ids, with_final=True, dtype=None, compressed=True)
-    cached_b = {k: v.to("cuda") for k, v in zip(("b0", "taps", "b_final"), hit)}
-    cached_b["labels"] = labels
-    pos = torch.arange(spec.seq, device="cuda").expand(spec.batch, spec.seq)
-    res = {}
-    for impl in ("cuda", "ref"):
-        ap = tree_map(lambda t: t.clone().requires_grad_(), s.adapter)
-        num, den = cached_loss_parts(s.backbone, ap, s.cfg, cached_b, pos, spec.r, impl=impl)
-        loss = num / den.clamp_min(1)
-        res[impl] = (float(loss.detach()), torch.autograd.grad(loss, tree_leaves(ap)))
-    gmax = max(float(g.abs().max()) for g in res["ref"][1])
-    gerr = max(max_err(a, b) for a, b in zip(res["cuda"][1], res["ref"][1]))
-    dloss = abs(res["cuda"][0] - res["ref"][0])
-    loss_tol, grad_tol = 2e-5, 1e-4 * max(1.0, gmax)
-    emit({"phase": "cached_step_cuda_vs_ref", "loss": [res["cuda"][0], res["ref"][0]],
-          "abs_dloss": dloss, "max_abs_dgrad": gerr, "grad_max": gmax,
-          "tol": {"loss": loss_tol, "grads": grad_tol},
-          "tol_reason": "the reference's pallas-vs-ref cached-step tolerances "
-                        "(tests/test_cached_step.py:163-190): f32 sums reorder"})
-    if not (dloss <= loss_tol and gerr <= grad_tol):
-        raise AssertionError(f"cached step cuda vs ref: dloss {dloss}, dgrad {gerr}")
+    cached_step_gate(s, spec)
     cuda_losses = [r.mean_loss for r in reports]
 
-    # where the time goes: one full step (the cache emptied first) and one
-    # cached step of the same batch under the profiler
-    batch = s.corpus.batch(ids)
-    s.cache.clear()
-    for mode in ("full", "cached"):
-        events = []
-        prof = device_profile(lambda: events.append(s.step(dict(batch))),
-                              watch=("mix_dw_mma", "dw_reduce", "mix_fwd_mma",
-                                     "mix_fwd_reduce", "ce_split", "ce_fwd_mma", "ce_merge",
-                                     "ce_grad_mma", "ce_dh_mma", "flash_split",
-                                     "flash_fwd_mma"))
-        if events[0].mode != mode:
-            raise AssertionError(f"profiled a {events[0].mode} step, wanted {mode}")
-        emit({"phase": "train_profile", "step": mode, **prof})
+    profile_steps(s)
     backbone = s.backbone
     s.close()
-    del s, res, cached_b, hit
-
-    # the same trainer under the ref kernels, in memory: per-epoch losses
-    s = EdgeSession(spec.replace(kernels="ref", ckpt=None, cache_dir=None), log=print).open()
-    ref_steps, ref_reports = run(s)
-    s.close()
     del s
-    ref_losses = [r.mean_loss for r in ref_reports]
-    tol = 5e-2
-    diffs = [abs(a - b) for a, b in zip(cuda_losses, ref_losses)]
-    emit({"phase": "trainer_cuda_vs_ref", "cuda_epoch_losses": cuda_losses,
-          "ref_epoch_losses": ref_losses, "ref_modes": [r.mode for r in ref_reports],
-          "ref_full_step_s": [e.wall_s for e in ref_steps if not e.cache_hit],
-          "ref_cached_step_s": [e.wall_s for e in ref_steps if e.cache_hit],
-          "abs_diff": diffs, "tol": tol,
-          "tol_reason": "the reference's int8 pallas-vs-ref trainer tolerance "
-                        "(tests/test_cached_step.py:257): under cuda epoch 0 trains on taps "
-                        "quantized at the tap site, under ref on f32 taps"})
-    if max(diffs) > tol:
-        raise AssertionError(f"trainer cuda vs ref epoch losses differ by {diffs}")
+
+    trainer_gate(spec, cuda_losses)
     return launches, backbone, ckpt, single
 
 
@@ -2528,6 +2603,463 @@ def personal_phase(backbone, cfg, ckpt: Path, r: int = 8):
     return launches
 
 
+# ---------------------------------------------------------------- the other dense configs
+
+GEMMA2 = "gemma2-2b"
+#: gemma2-2b's seven projections of one layer, by (K, N): q, k, v, o, wi, wg, wo
+GEMMA2_PROJECTIONS = [(2304, 2048), (2304, 1024), (2304, 1024), (2048, 2304),
+                      (2304, 9216), (2304, 9216), (9216, 2304)]
+GEMMA2_T, GEMMA2_D, GEMMA2_DA, GEMMA2_V = 4 * 512, 2304, 288, 256000  # r = 8, B = 4, S = 512
+GEMMA2_LONG_PROMPT = 4500   # past the 4096 window of the local layers
+#: the engine pads a prompt to a power of two (8192 for the long one), and
+#: the adapter's prefill takes at most max_len positions
+GEMMA2_MAX_LEN = 8192
+PAPER_MODELS = ("t5-base-pac", "bart-large-pac", "t5-large-pac")
+#: the paged kernel at head width 256, B, Hkv, n_rep, hd, page, max_pages, lengths, padding rows
+HD256_PAGED_RAGGED = [
+    (1, 1, 2, 256, 16, 34, [543], ()),
+    (3, 4, 2, 256, 16, 34, [0, 16, 543], (0,)),
+    (8, 4, 2, 256, 4, 136, [3, 4, 5, 127, 128, 300, 542, 543], ()),
+    (3, 1, 8, 256, 4, 136, [0, 3, 543], (0,)),
+    (72, 4, 2, 256, 16, 34, list(np.random.default_rng(SEED + 3).integers(0, 544, size=72)), (5,)),
+]
+
+
+def hd256_kernel_phase(timer: Timer, gen: torch.Generator) -> dict:
+    """Flash and paged attention at gemma2-2b's head width 256 against
+    their plain versions, the shapes its paths give them: flash at the
+    prefill's B·H = 8·8 over 4 kv heads and the epoch-1 step's 4·8 (S =
+    512, causal; timed beside both bounds and SDPA; soft-cap 50, and
+    window 128 with it, checked), two calls bit-equal, the ragged and
+    keyless cases at hd 256, and granite-20b's MQA (B·H = 1·48 over one kv
+    head, hd 128); paged attention at B = 8, Hkv = 4, n_rep = 2, int8
+    pages of 16 (lengths <= 511 and <= 4095, timed beside its byte bound,
+    the plain version and SDPA on gathered KV), the ragged cases at hd 256
+    (window 64 with soft-cap 30 among them) and bit-equal reruns and
+    graph replays. Returns the flash and paged rows' ``hd256`` entries."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "bound_tc_ms",
+            "bound_f32_ms", "library_ms", "at")
+    r, (q, k, v), sdpa = flash_case(timer, gen, 8, 8, 4, 512, 256, "gemma2 prefill")
+    r["library_kernels"] = device_kernels(sdpa)
+    for label, kw in (("cap50", dict(attn_softcap=50.0)),
+                      ("window128_cap50", dict(window=128, attn_softcap=50.0))):
+        r[f"max_abs_err_{label}"] = max_err(flash_attention(q, k, v, **kw),
+                                            ref.flash_attention_ref(q, k, v, **kw))
+        check(f"flash_attention hd=256 {label}", r[f"max_abs_err_{label}"], FLASH_TOL)
+    emit(r)
+    got, again = (flash_attention(q, k, v, attn_softcap=50.0) for _ in range(2))
+    equal = bool(torch.equal(got, again))
+    emit({"check": "flash_attention_deterministic", "BH": 64, "BHkv": 32, "S": 512, "hd": 256,
+          "softcap": 50.0, "bit_equal": equal})
+    if not equal:
+        raise AssertionError("flash_attention: two calls at gemma2's prefill shape differ")
+    del q, k, v, got, again, sdpa
+    flash = {k_: r[k_] for k_ in keys}
+    train = flash_case(timer, gen, 4, 8, 4, 512, 256, "gemma2 training")[0]
+    emit(train)
+    flash["training"] = {k_: train[k_] for k_ in keys}
+    granite = flash_case(timer, gen, 1, 48, 1, 512, 128, "granite-20b MQA")[0]
+    emit(granite)
+    flash["granite_mqa"] = {k_: granite[k_] for k_ in keys}
+    flash_ragged(gen, hds=(256,))
+    flash_keyless(gen, hds=(256,))
+
+    pkeys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "at", "plan")
+    lengths = np.random.default_rng(SEED).integers(1, 512, size=8).astype(np.int32)
+    paged = {k_: v_ for k_, v_ in paged_timed(
+        timer, gen, lengths, 32, "decode B=8 Hkv=4 n_rep=2 hd=256 page=16 int8, lengths<=511",
+        Hkv=4, n_rep=2, hd=256).items() if k_ in pkeys}
+    long_lengths = np.random.default_rng(SEED + 2).integers(1, 4096, size=8).astype(np.int32)
+    long = paged_timed(timer, gen, long_lengths, 256, "long context B=8 Hkv=4 n_rep=2 hd=256 "
+                       "page=16 int8, lengths<=4095", Hkv=4, n_rep=2, hd=256)
+    paged["long"] = {k_: long[k_] for k_ in pkeys}
+    paged_ragged(gen, HD256_PAGED_RAGGED)
+    paged_deterministic(gen, lengths, 32, Hkv=4, n_rep=2, hd=256)
+    return {"flash_attention": flash, "paged_attention": paged}
+
+
+def gemma2_kernel_phase(timer: Timer, gen: torch.Generator) -> dict:
+    """The other kernels at gemma2-2b's widths, against their plain
+    versions and timed: ``quant_matmul`` over one layer's seven
+    projections (K = 2304 and 9216) at the prefill's M = 4096 and the
+    decode step's M = 8 (``quant_matmul_layer`` lines); ``mix_fwd`` and
+    ``mix_dw`` at T = 4·512, d = 2304, d_a = 288 over an int8 entry;
+    ``ce_fwd`` and ``ce_bwd`` at T = 4·512, d = 2304 and the 256000-token
+    vocabulary with the final soft-cap 30; ``adapter_fuse`` at T = 1 and
+    8. Returns each kernel's ``gemma2`` entry."""
+    from repro_torch.core.quantization import dequantize, quantize
+    from repro_torch.kernels import cached_mix, lmhead_ce, ref
+    from repro_torch.kernels.adapter_fuse import adapter_fuse
+
+    dev, rows = DEV, {}
+    qmm = {}
+    for M in (8, 4096):
+        for K, N in sorted(set(GEMMA2_PROJECTIONS)):
+            qmm[(M, K, N)] = qmm_case(timer, gen, M, K, N, 8)
+        layer = {key: sum(qmm[(M, K, N)][key] for K, N in GEMMA2_PROJECTIONS)
+                 for key in ("ms", "plain_ms", "bound_ms", "library_ms")
+                 + (("bound_tc_ms", "bound_f32_ms") if M > QMM_SKINNY_ROWS else ())}
+        layer.update(at=f"gemma2-2b's 7 projections of one layer at M={M}, int8 (times summed)",
+                     max_abs_err=max(qmm[(M, K, N)]["max_abs_err"] for K, N in GEMMA2_PROJECTIONS),
+                     bound_by=qmm[(M, 2304, 9216)]["bound_by"])
+        emit({"check": "quant_matmul_layer", "arch": GEMMA2, "M": M, **layer})
+        rows.setdefault("quant_matmul", {})[f"M{M}"] = layer
+
+    T, d, da = GEMMA2_T, GEMMA2_D, GEMMA2_DA
+    ents = [quantize(torch.randn(T, d, generator=gen, device=dev), 8, 128)
+            for _ in range(copies(T * d))]
+    w = torch.randn(d, da, generator=gen, device=dev) * d ** -0.5
+    a = torch.randn(T, da, generator=gen, device=dev)
+    g = torch.randn(T, da, generator=gen, device=dev)
+    lam = torch.tensor(0.7, device=dev)
+    out, bw = cached_mix.mix_fwd(ents[0], w, a, lam)
+    want_out, want_bw = ref.mix_fwd_ref(ents[0], w, a, lam)
+    check("mix_fwd gemma2", mix_fwd_check(out, bw, want_out, want_bw), 1e-4)
+    dw, want_dw = cached_mix.mix_dw(ents[0], g, lam, d), ref.mix_dw_ref(ents[0], g, lam, d)
+    check("mix_dw gemma2", float(((dw - want_dw).abs() - 1e-3 * want_dw.abs()).max()), 2e-4)
+    ent_bytes = T * d + T * (d // 128) * 4
+    deq = [dequantize(e) for e in ents[:2]]
+    for name, nbytes, fn, plain, lib, err in (
+            ("mix_fwd", ent_bytes + 4 * (d * da + 3 * T * da),
+             lambda e: cached_mix.mix_fwd(e, w, a, lam), lambda e: ref.mix_fwd_ref(e, w, a, lam),
+             [lambda e=e: torch.matmul(dequantize(e), w) for e in ents],
+             max(max_err(out, want_out), max_err(bw, want_bw))),
+            ("mix_dw", ent_bytes + 4 * (T * da + d * da),
+             lambda e: cached_mix.mix_dw(e, g, lam, d), lambda e: ref.mix_dw_ref(e, g, lam, d),
+             [lambda x=x: torch.matmul(x.T, g) for x in deq], max_err(dw, want_dw))):
+        b_ms, b_by = bound(nbytes, 3 * 2.0 * T * d * da, flop_per_s=BF16_FLOP_PER_S)
+        f32_ms, _ = bound(nbytes, 2.0 * T * d * da)
+        r = {"check": name, "arch": GEMMA2, "storage": "int8", "T": T, "d": d, "da": da,
+             "max_abs_err": err, "ms": timer([lambda e=e: fn(e) for e in ents]),
+             "plain_ms": timer([lambda e=e: plain(e) for e in ents]), "library_ms": timer(lib),
+             "bound_ms": b_ms, "bound_by": b_by, "bound_tc_ms": b_ms, "bound_f32_ms": f32_ms}
+        emit(r)
+        rows[name] = _row(r, f"one period, T=4*512, d={d}, d_a={da}, int8 entry")
+    del ents, deq, out, bw, want_out, want_bw, dw, want_dw
+
+    V, cap = GEMMA2_V, 30.0
+    h = torch.randn(T, d, generator=gen, device=dev)
+    w = torch.randn(d, V, generator=gen, device=dev) * d ** -0.5
+    lab = torch.randint(0, V, (T,), generator=gen, device=dev)
+    g = torch.randn(T, generator=gen, device=dev)
+    nll, lse = lmhead_ce.ce_fwd(h, w, lab, cap)
+    want_nll, want_lse = ref.ce_fwd_ref(h, w, lab, cap)
+    check("ce_fwd gemma2", max(float(((nll - want_nll).abs() - 1e-5 * want_nll.abs()).max()),
+                               float(((lse - want_lse).abs() - 1e-5 * want_lse.abs()).max())), 2e-5)
+    dh = lmhead_ce.ce_bwd(h, w, lab, want_lse, g, cap)
+    want_dh = ref.ce_bwd_ref(h, w, lab, want_lse, g, cap)
+    check("ce_bwd gemma2", float(((dh - want_dh).abs() - 1e-4 * want_dh.abs()).max()), 1e-5)
+    errs = {"ce_fwd": max(max_err(nll, want_nll), max_err(lse, want_lse)),
+            "ce_bwd": max_err(dh, want_dh)}
+    del nll, want_nll, dh, want_dh
+    hr = h.clone().requires_grad_()
+
+    def library_bwd():
+        logits = cap * torch.tanh(torch.matmul(hr, w) / cap)
+        return torch.autograd.grad(torch.nn.functional.cross_entropy(
+            logits, lab.long(), reduction="sum"), hr)
+
+    for name, products, nbytes, fn, plain, lib, library in (
+            ("ce_fwd", 6, 4.0 * (T * d + d * V + 3 * T), lambda: lmhead_ce.ce_fwd(h, w, lab, cap),
+             lambda: ref.ce_fwd_ref(h, w, lab, cap),
+             lambda: torch.logsumexp(cap * torch.tanh(torch.matmul(h, w) / cap), dim=-1),
+             "torch.matmul, the soft-cap, torch.logsumexp"),
+            ("ce_bwd", 12, 4.0 * (2 * T * d + d * V + 4 * T),
+             lambda: lmhead_ce.ce_bwd(h, w, lab, want_lse, g, cap),
+             lambda: ref.ce_bwd_ref(h, w, lab, want_lse, g, cap), library_bwd,
+             "autograd of F.cross_entropy(softcap(h @ W)) (its forward included)")):
+        b_ms, b_by = bound(nbytes, products * 2.0 * T * d * V, flop_per_s=BF16_FLOP_PER_S)
+        f32_ms, _ = bound(nbytes, products / 6 * 2.0 * T * d * V)  # 6 products a GEMM
+        r = {"check": name, "arch": GEMMA2, "T": T, "d": d, "V": V, "softcap": cap,
+             "max_abs_err": errs[name], "ms": timer(fn, calls=2, repeats=3),
+             "plain_ms": timer(plain, calls=2, repeats=3),
+             "library_ms": timer(lib, calls=2, repeats=3), "library": library,
+             "bound_ms": b_ms, "bound_by": b_by, "bound_tc_ms": b_ms, "bound_f32_ms": f32_ms}
+        emit(r)
+        rows[name] = _row(r, f"LM-head CE, T=4*512, d={d}, V={V}, soft-cap 30")
+    del h, w, hr, lse, want_lse
+
+    for T in (1, 8):
+        b = torch.randn(T, d, generator=gen, device=dev)
+        w = torch.randn(d, da, generator=gen, device=dev) * d ** -0.5
+        a = torch.randn(T, da, generator=gen, device=dev)
+        lam = torch.tensor(0.5, device=dev)
+        got, want = adapter_fuse(b, w, a, lam), ref.adapter_fuse_ref(b, w, a, lam)
+        check(f"adapter_fuse gemma2 T={T}", max_err(got, want), 1e-4)
+        ws = [w] + [torch.randn(d, da, generator=gen, device=dev) * d ** -0.5
+                    for _ in range(copies(w.numel() * 4) - 1)]
+        b_ms, b_by = bound(4.0 * (T * d + d * da + 2 * T * da), 2.0 * T * d * da + 3.0 * T * da)
+        r = {"check": "adapter_fuse", "arch": GEMMA2, "T": T, "d": d, "da": da,
+             "max_abs_err": max_err(got, want),
+             "ms": timer([lambda w_=w_: adapter_fuse(b, w_, a, lam) for w_ in ws]),
+             "plain_ms": timer([lambda w_=w_: ref.adapter_fuse_ref(b, w_, a, lam) for w_ in ws]),
+             "library_ms": timer([lambda w_=w_: torch.addmm(a, b, w_, beta=0.5, alpha=0.5)
+                                  for w_ in ws]),
+             "bound_ms": b_ms, "bound_by": b_by}
+        emit(r)
+        if T == 1:
+            rows["adapter_fuse"] = _row(r, f"one period's mix at decode, T=1, d={d}, d_a={da}")
+    return rows
+
+
+def gemma2_serving_phase(gen: torch.Generator) -> dict:
+    """gemma2-2b at full width (26 layers, d = 2304, 8 heads of 256 over 4
+    kv heads, d_ff 9216, V = 256000, window 4096 on every other layer,
+    soft-caps 50 and 30, tied embeddings), random seeded INT8 weights, 4
+    users with r = 8 adapters, INT8 KV pages of 16, through
+    ``ServeEngine``: the serving phase's 8 requests (64-480-token prompts)
+    and a ninth of 4500 tokens, 32 new tokens each. The long prompt runs
+    its own wave (bucket 1, padded to 8192): flash prefill and paged
+    decode both cross the window. Then the 8 requests' prefill and two
+    decode steps, and the long request's, under ``cuda`` and ``ref``:
+    logits within 2e-2, greedy tokens equal."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.parallel_adapters import gather_adapters, init_adapter, stack_adapters
+    from repro_torch.core.quantization import tree_storage_bytes
+    from repro_torch.models.backbone import init_backbone
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_arch(GEMMA2)
+    page, max_batch, n_new, r = 16, 8, 32, 8
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    backbone = init_backbone(gen, cfg, device=DEV, quant_bits=8)
+    users = {f"user{u}": init_adapter(gen, cfg, r=r, device=DEV) for u in range(4)}
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    prompt_lens = rng.integers(64, 481, size=8)
+    prompts = [rng.integers(0, cfg.vocab, size=int(n)).tolist() for n in prompt_lens]
+    prompts.append(rng.integers(0, cfg.vocab, size=GEMMA2_LONG_PROMPT).tolist())
+    names = list(users)
+
+    def engine():
+        return ServeEngine(backbone, cfg, users, r=r, kernel_impl="cuda", kv_policy="int8",
+                           page_size=page, max_len=GEMMA2_MAX_LEN, max_batch=max_batch)
+
+    warm = engine()  # warm-up: first launches at these widths, allocator growth
+    for i, p in enumerate(prompts[:8]):
+        warm.submit(p, names[i % 4], max_new_tokens=2)
+    warm.drain()
+    del warm
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eng = engine()
+    reset_launches()
+    handles = [eng.submit(p, names[i % 4], max_new_tokens=n_new) for i, p in enumerate(prompts)]
+    t = time.perf_counter()
+    eng.drain()
+    wall = time.perf_counter() - t
+    launches = {k: v for k, v in read_launches().items()
+                if k in ("quant_matmul", "flash_attention", "paged_attention")}
+    streams = [h.result() for h in handles]
+    for st in streams:
+        if len(st) != n_new or not all(0 <= tok < cfg.vocab for tok in st):
+            raise AssertionError(f"bad stream: {st}")
+    line = {"phase": "gemma2_serving", "arch": cfg.name, "params": cfg.param_count(),
+            "backbone_bytes": tree_storage_bytes(backbone), "init_s": init_s,
+            "requests": len(prompts), "users": len(users),
+            "prompt_lens": [len(p) for p in prompts], "new_tokens": n_new, "kv": "int8",
+            "page": page, "max_len": GEMMA2_MAX_LEN, "prefill_ms": eng.prefill_seconds * 1e3,
+            "decode_steps": eng.decode_steps,
+            "decode_ms_per_step": eng.decode_seconds * 1e3 / eng.decode_steps,
+            "decode_tokens_per_s": eng.decode_tokens / eng.decode_seconds, "wall_s": wall,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "init_max_memory_allocated": init_peak, "launches": launches,
+            "first_tokens": [st[:4] for st in streams]}
+    del eng
+    missing = [n for n, c in launches.items() if c <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on gemma2's serving path: {missing}")
+
+    bank = stack_adapters([users[n] for n in names])
+    waves = {"8 requests": (prompts[:8], torch.arange(8, device=DEV) % 4,
+                            1 << (int(max(prompt_lens)) - 1).bit_length()),
+             f"{GEMMA2_LONG_PROMPT}-token prompt": (prompts[8:], torch.tensor([0], device=DEV),
+                                                    GEMMA2_LONG_PROMPT)}
+    tol, checks = 2e-2, {}
+    for label, (wave, rows_, s_pad) in waves.items():
+        logits = paged_cuda_vs_ref(backbone, cfg, gather_adapters(bank, rows_), wave, page,
+                                   GEMMA2_MAX_LEN, r, s_pad)
+        checks[label] = {
+            "max_abs_dlogits": [max_err(a, b) for a, b in zip(logits["cuda"], logits["ref"])],
+            "greedy_equal": [bool(torch.equal(a.argmax(-1), b.argmax(-1)))
+                             for a, b in zip(logits["cuda"], logits["ref"])],
+            "finite": all(bool(torch.isfinite(x).all()) for x in logits["cuda"] + logits["ref"]),
+            "logits_shape": list(logits["cuda"][0].shape)}
+        del logits
+    line.update(cuda_vs_ref=checks, steps=["prefill", "decode1", "decode2"], tol=tol,
+                tol_reason="the serving gate (PERF.md section 2): f32 sums reorder through 26 "
+                           "layers, and an int8 KV code may move by one step")
+    emit(line)
+    for label, c in checks.items():
+        if not (c["finite"] and max(c["max_abs_dlogits"]) <= tol and all(c["greedy_equal"])):
+            raise AssertionError(f"gemma2 serving cuda vs ref ({label}): {c}")
+    return launches
+
+
+def pac_run(arch: str, epochs: int = 2, steps: int = 2, profile: bool = False):
+    """PAC+ on ``arch`` at full width through ``EdgeSession``/
+    ``EpochRunner``: INT8 backbone, int8 activation cache, pruning init,
+    ``epochs`` x ``steps`` steps of 4 x 512 tokens, each step's launches by
+    kernel; then the cached-step gate, with ``profile`` a full and a cached
+    step under the profiler, and the trainer gate. Returns (launches, the
+    session's backbone and adapter)."""
+    from repro_torch.runtime import EdgeSession, EpochReport, EpochRunner, RunHooks, RunSpec
+
+    spec = RunSpec(arch=arch, quant=8, cache_compress="int8", kernels="cuda", init="pruning",
+                   epochs=epochs, steps_per_epoch=steps, batch=4, seq=512, seed=SEED)
+    training_kernels = ("quant_matmul", "flash_attention", "mix_fwd", "mix_dw", "ce_fwd",
+                        "ce_bwd")
+    per_step = []
+
+    def read():
+        return {k: v for k, v in read_launches().items() if k in training_kernels}
+
+    class StepLaunches(RunHooks):
+        def on_step(self, session, event):
+            now = read()
+            before = per_step[-1][1] if per_step else dict.fromkeys(now, 0)
+            per_step.append(({k: now[k] - before[k] for k in now}, now))
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    s = EdgeSession(spec, log=print, device=DEV).open()
+    torch.cuda.synchronize()
+    open_s = time.perf_counter() - t0
+    reset_launches()
+    events = list(EpochRunner(s, hooks=[StepLaunches()]).events())
+    launches = read()
+    steps_ = [e for e in events if not isinstance(e, EpochReport)]
+    reports = [e for e in events if isinstance(e, EpochReport)]
+    emit({"phase": "pac_run", "arch": arch, "layers": s.cfg.n_layers, "d_model": s.cfg.d_model,
+          "heads": s.cfg.n_heads, "hd": s.cfg.hd, "vocab": s.cfg.vocab, "batch": spec.batch,
+          "seq": spec.seq, "quant": spec.quant, "cache": spec.cache_compress, "r": spec.r,
+          "modes": [r.mode for r in reports], "epoch_losses": [r.mean_loss for r in reports],
+          "step_losses": [e.loss for e in steps_], "open_s": open_s,
+          "full_step_s": [e.wall_s for e in steps_ if not e.cache_hit],
+          "cached_step_s": [e.wall_s for e in steps_ if e.cache_hit],
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "cache_bytes": s.cache.nbytes, "launches": launches,
+          "launches_per_step": [dl for dl, _ in per_step]})
+    if [r.mode for r in reports] != ["full"] + ["cached"] * (epochs - 1):
+        raise AssertionError(f"{arch} modes {[r.mode for r in reports]}")
+    if not all(np.isfinite(r.mean_loss) for r in reports):
+        raise AssertionError(f"{arch} epoch losses {[r.mean_loss for r in reports]}")
+    missing = [n for n, c in launches.items() if c <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on {arch}'s training path: {missing}")
+    cached_step_gate(s, spec)
+    if profile:
+        profile_steps(s)
+    backbone, adapter = s.backbone, s.adapter
+    s.close()
+    del s
+    trainer_gate(spec, [r.mean_loss for r in reports])
+    return launches, backbone, adapter
+
+
+def gemma2_personal_phase(backbone, adapter, cfg, r: int = 8) -> dict:
+    """The trained gemma2-2b adapter served to one user: 16
+    ``pac_decode_step``s at B = 1 over an f32 linear KV cache, 8
+    teacher-forced prompt tokens then 8 greedy, under ``cuda`` (launches
+    counted: ``adapter_fuse`` 13 and ``quant_matmul`` 182 a step) and
+    ``ref``: each step's logits within 2e-4 (the ``personal_gap``), the
+    greedy tokens equal."""
+    from repro_torch.core.parallel_adapters import init_adapter_cache
+    from repro_torch.core.steps import pac_decode_step
+    from repro_torch.models.backbone import init_cache
+
+    n_prompt, n_steps, max_len = 8, 16, 16
+    prompt = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, size=(1, n_prompt)).astype(np.int32)).to(DEV)
+
+    def serve(impl):
+        cache = init_cache(cfg, 1, max_len, device=DEV)
+        acache = init_adapter_cache(cfg, 1, max_len, r, device=DEV)
+        logits, greedy, tok = [], [], prompt[:, :1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for p in range(n_steps):
+            lg, cache, acache = pac_decode_step(
+                backbone, adapter, {"tokens": tok}, cache, acache,
+                torch.full((1,), p, dtype=torch.long, device=DEV), cfg=cfg, r=r,
+                kernel_impl=impl)
+            logits.append(lg[:, 0])
+            if p >= n_prompt - 1:
+                greedy.append(int(lg[0, 0].argmax()))
+            tok = (prompt[:, p + 1:p + 2] if p + 1 < n_prompt
+                   else torch.tensor([[greedy[-1]]], dtype=torch.int32, device=DEV))
+        torch.cuda.synchronize()
+        return torch.cat(logits), greedy, time.perf_counter() - t0
+
+    serve("cuda")  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    lc, tc, wall = serve("cuda")
+    launches = {k: v for k, v in read_launches().items()
+                if k in ("quant_matmul", "flash_attention", "adapter_fuse")}
+    peak = torch.cuda.max_memory_allocated()
+    lr, tr, wall_ref = serve("ref")
+    gap = (lc - lr).abs().amax(-1).tolist()
+    per_step = {k: v / n_steps for k, v in launches.items()}
+    tol = 2e-4
+    emit({"phase": "gemma2_personal", "arch": cfg.name, "batch": 1, "steps": n_steps,
+          "prompt_tokens": n_prompt, "kv": "f32 linear", "decode_ms_per_step": wall * 1e3 / n_steps,
+          "ref_decode_ms_per_step": wall_ref * 1e3 / n_steps, "max_memory_allocated": peak,
+          "launches": launches, "launches_per_step": per_step, "tokens_cuda": tc,
+          "tokens_equal": tc == tr, "personal_gap_per_step": gap, "max_abs_dlogits": max(gap),
+          "tol": tol, "tol_reason": "the reference's decode-parity ceiling over f32 KV "
+                                    "(tests/test_decode_parity.py:36)"})
+    if tc != tr or not max(gap) <= tol or not bool(torch.isfinite(lc).all()):
+        raise AssertionError(f"gemma2 personal cuda vs ref: tokens equal {tc == tr}, gap {gap}")
+    if per_step["adapter_fuse"] != cfg.n_periods or per_step["quant_matmul"] != 7 * cfg.n_layers:
+        raise AssertionError(f"gemma2 launches per decode step: {per_step}")
+    return launches
+
+
+def musicgen_phase(gen: torch.Generator) -> dict:
+    """musicgen-large at full width (48 layers, d = 2048, 32 heads of 64,
+    no rope, V = 2048), random seeded INT8 weights, fed seeded frame
+    embeddings (B = 4, S = 512, as the reference feeds its audio stub):
+    ``prefill_step`` under ``cuda`` (launches counted) against ``ref``,
+    the last position's logits within the serving gate 2e-2."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.steps import prefill_step
+    from repro_torch.models.backbone import init_backbone
+
+    cfg = get_arch("musicgen-large")
+    backbone = init_backbone(gen, cfg, device=DEV, quant_bits=8)
+    embeds = torch.randn(4, 512, cfg.d_model, generator=gen, device=DEV) * 0.3
+    prefill_step(backbone, {"embeds": embeds}, cfg=cfg, kernel_impl="cuda")  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    got = prefill_step(backbone, {"embeds": embeds}, cfg=cfg, kernel_impl="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in read_launches().items()
+                if k in ("quant_matmul", "flash_attention")}
+    want = prefill_step(backbone, {"embeds": embeds}, cfg=cfg, kernel_impl="ref")
+    err, tol = max_err(got, want), 2e-2
+    finite = bool(torch.isfinite(got).all())
+    emit({"phase": "musicgen_prefill", "arch": cfg.name, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "heads": cfg.n_heads, "hd": cfg.hd, "rope": cfg.rope,
+          "batch": 4, "frames": 512, "prefill_ms": wall * 1e3, "launches": launches,
+          "logits_shape": list(got.shape), "max_abs_dlogits": err, "finite": finite,
+          "greedy_equal": bool(torch.equal(got.argmax(-1), want.argmax(-1))), "tol": tol,
+          "tol_reason": "the serving gate (PERF.md section 2): f32 sums reorder through 48 "
+                        "layers"})
+    if not finite or err > tol or tuple(got.shape) != (4, 1, cfg.vocab):
+        raise AssertionError(f"musicgen prefill cuda vs ref: {err} (tol {tol}), finite {finite}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"kernels never launched on musicgen's prefill: {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2582,6 +3114,25 @@ def main() -> int:
         plan_done_s = time.perf_counter() - T_START
         fleet = fleet_phase(single, Path(workdir))
         del single
+    fleet_done_s = time.perf_counter() - T_START
+
+    # the other dense configs: gemma2-2b's head width 256 and widths, then
+    # its paths, the paper's Table III models, musicgen's audio frames
+    hd256 = hd256_kernel_phase(Timer(), gen)
+    for name in ("flash_attention", "paged_attention"):
+        rows[name]["hd256"] = hd256[name]
+    for name, row in gemma2_kernel_phase(Timer(), gen).items():
+        rows[name]["gemma2"] = row
+    gemma2_serving = gemma2_serving_phase(gen)
+    gemma2_training, g_backbone, g_adapter = pac_run(GEMMA2, profile=True)
+    gemma2_personal = gemma2_personal_phase(g_backbone, g_adapter, get_arch(GEMMA2))
+    del g_backbone, g_adapter
+    gemma2_done_s = time.perf_counter() - T_START
+    paper_models = {}
+    for arch in PAPER_MODELS:
+        for k, v in pac_run(arch)[0].items():
+            paper_models[k] = paper_models.get(k, 0) + v
+    musicgen = musicgen_phase(gen)
 
     sources = {"quant_matmul": ("src/repro_torch/kernels/csrc/quant_matmul.cu",
                                 "src/repro/kernels/quant_matmul.py:93"),
@@ -2601,7 +3152,9 @@ def main() -> int:
                                 "src/repro/kernels/adapter_fuse.py:83")}
     paths = {"serving": serving, "training": training, "personal": personal,
              "prefetch": prefetch, "distributed": distributed, "plan": plan,
-             "plan_auto": plan_auto, "fleet": fleet}
+             "plan_auto": plan_auto, "fleet": fleet, "gemma2_serving": gemma2_serving,
+             "gemma2_training": gemma2_training, "gemma2_personal": gemma2_personal,
+             "paper_models": paper_models, "musicgen_prefill": musicgen}
     home = {"quant_matmul": "serving", "flash_attention": "serving",
             "paged_attention": "serving", "adapter_fuse": "personal"}
     # each kernel's launches on its own main path (serving for the first
@@ -2626,7 +3179,8 @@ def main() -> int:
     emit({"phase": "done", "wall_s": time.perf_counter() - T_START,
           "through_serving_s": serving_done_s, "through_training_s": training_done_s,
           "through_personal_s": personal_done_s, "through_prefetch_s": prefetch_done_s,
-          "through_distributed_s": distributed_done_s, "through_plan_s": plan_done_s})
+          "through_distributed_s": distributed_done_s, "through_plan_s": plan_done_s,
+          "through_fleet_s": fleet_done_s, "through_gemma2_s": gemma2_done_s})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,4 +1,4 @@
-"""Architecture config registry (dense configs of this slice).
+"""Architecture config registry: the dense configs the port runs.
 
 Each architecture lives in its own module and registers an
 :class:`~repro_torch.configs.base.ArchConfig` with its published
@@ -12,10 +12,11 @@ from repro_torch.configs.base import (  # noqa: F401
     LayerSpec,
     MoESpec,
     get_arch,
+    list_archs,
     register,
 )
 
-_MODULES = ["internlm2_1_8b"]
+_MODULES = ["internlm2_1_8b", "paper_models", "gemma2_2b", "granite_20b", "musicgen_large"]
 
 _loaded = False
 

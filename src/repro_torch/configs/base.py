@@ -95,6 +95,18 @@ class ArchConfig:
     def layer_specs(self) -> Tuple[LayerSpec, ...]:
         return tuple(self.pattern) * self.n_periods
 
+    def with_window(self, window: int) -> "ArchConfig":
+        """Serving variant: force a sliding window on every attention layer."""
+        pat = tuple(
+            dataclasses.replace(s, window=window if s.kind == "attn" else s.window)
+            for s in self.pattern
+        )
+        return dataclasses.replace(self, pattern=pat, serve_window=window)
+
+    def is_subquadratic(self) -> bool:
+        """True if no layer attends over unbounded context."""
+        return all(s.kind != "attn" or s.window is not None for s in self.pattern)
+
     def reduced(self) -> "ArchConfig":
         """CPU-runnable variant of the same family: ≤2 periods, d≤256."""
         d_model = min(self.d_model, 256)
@@ -148,6 +160,18 @@ class ArchConfig:
 
 _REGISTRY: dict = {}
 
+#: the reference's configs that a later slice of the port brings, by the
+#: slice (ROADMAP A6) whose layers they need
+LATER_SLICES = {
+    "mixtral-8x7b": "MoE (A6.4)",
+    "moonshot-v1-16b-a3b": "MoE (A6.4)",
+    "grok-1-314b": "MoE (A6.4)",
+    "kimi-k2-1t-a32b": "MoE (A6.4)",
+    "xlstm-125m": "SSM (A6.5)",
+    "jamba-1.5-large-398b": "SSM (A6.5)",
+    "qwen2-vl-7b": "mrope (A6.6)",
+}
+
 
 def register(cfg: ArchConfig) -> ArchConfig:
     _REGISTRY[cfg.name] = cfg
@@ -158,6 +182,16 @@ def get_arch(name: str) -> ArchConfig:
     from repro_torch import configs as _c
 
     _c.load_all()
+    if name in LATER_SLICES:
+        raise KeyError(f"arch {name!r} is not ported yet: it arrives with the "
+                       f"{LATER_SLICES[name]} slice of the port; ported: {sorted(_REGISTRY)}")
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
+
+
+def list_archs() -> list:
+    from repro_torch import configs as _c
+
+    _c.load_all()
+    return sorted(_REGISTRY)

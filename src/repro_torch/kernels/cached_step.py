@@ -108,11 +108,12 @@ def ref_cached_loss_parts(backbone_params, adapter_params, cfg, cached, position
 def fused_cached_loss_parts(backbone_params, adapter_params, cfg, cached, positions,
                             r: int = 8):
     """The kernel path: storage-form entries feed :func:`dq_adapter_mix`
-    per period, the head runs through :func:`lmhead_ce`; the d/r-wide
+    per period, the head runs through :func:`lmhead_ce` (on the session's
+    one contiguous f32 head, ``loss_head``, tied or not); the d/r-wide
     adapter blocks, norms and the up projection are plain torch at
     1/r² the backbone's cost."""
     from repro_torch.core.parallel_adapters import adapter_config
-    from repro_torch.models.backbone import apply_block, head_weight, period_slice
+    from repro_torch.models.backbone import apply_block, loss_head, period_slice
     from repro_torch.models.layers import rms_norm
 
     labels = cached["labels"]
@@ -140,7 +141,7 @@ def fused_cached_loss_parts(backbone_params, adapter_params, cfg, cached, positi
     h = rms_norm(h, maybe_dequantize_tree(backbone_params["final_norm"]), cfg.norm_eps)
     mask = labels != -100
     lab = torch.where(mask, labels, torch.zeros_like(labels))
-    nll = lmhead_ce(h.reshape(B * S, d), head_weight(backbone_params, cfg), lab.reshape(B * S),
+    nll = lmhead_ce(h.reshape(B * S, d), loss_head(backbone_params, cfg), lab.reshape(B * S),
                     softcap=cfg.logit_softcap).reshape(B, S)
     return torch.sum(nll * mask), torch.sum(mask)
 

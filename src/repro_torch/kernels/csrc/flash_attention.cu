@@ -6,8 +6,8 @@
 // all f32 row-major — query row bh reads kv row bh / n_rep, i.e. grouped
 // GQA heads read directly instead of the repeated-KV copy the TPU path
 // builds. Options: causal mask, sliding window (window > 0), tanh softcap
-// (cap > 0). Positions are 0..S-1 for both queries and keys. HD is 64 or
-// 128.
+// (cap > 0). Positions are 0..S-1 for both queries and keys. HD is 64,
+// 128 or 256.
 //
 // What bounds it on the H100: at the prefill shape (BH = 8·16 over 8·8 KV
 // heads, S = 512, HD = 128, causal) the two products are 8.6 GFLOP on
@@ -24,11 +24,12 @@
 // split as staged would be repeated that often. Q is read by one block
 // only and is split as it is staged into shared memory.
 //
-// The loop (flash_fwd_mma): one block of 4 warps per (bh, 64-row query
-// tile), each warp 16 query rows, so the softmax state (m, l, O) is a
-// warp's own: a row's max and sum are quad shuffles over the C fragment,
-// with no shared-memory round trip and no cross-warp barrier. Key tiles of
-// BKV = 32 rows:
+// The loop (flash_fwd_mma): one block per (bh, 64-row query tile), each
+// warp 16 query rows, so the softmax state (m, l, O) is a warp's own: a
+// row's max and sum are quad shuffles over the C fragment, with no
+// shared-memory round trip and no cross-warp barrier. At HD = 64 and 128 a
+// block is 4 warps, one a 16-row group; at HD = 256 it is 8, two a group
+// (see "HD = 256" below). Key tiles of BKV = 32 rows:
 //  * S = Q·Kᵀ on mma.sync m16n8k16: Q's planes are the row-major A
 //    (ldmatrix); K stored (keys, HD) with HD contiguous is the MMA's
 //    column-major B as it lies (ldmatrix without .trans). Each k16 step's
@@ -54,6 +55,18 @@
 //    TPU they contribute zero after the alpha rescale, so the result is
 //    the same function. Query tiles launch longest first (the grid's slow
 //    index counts down), so the last wave is short.
+// HD = 256 (gemma2-2b's head width). O's accumulator a warp would be 128
+// f32 registers a thread on top of the ~190 the loop holds at HD = 128,
+// so each 16-row group gets two warps (CW = 2): both compute the group's
+// whole S = Q·Kᵀ and its softmax (the same instructions on the same
+// operands, so the same bits), and warp c accumulates O's columns
+// [128c, 128c + 128) only — O stays 64 registers a thread, as at HD = 128.
+// The cost is the redundant Q·Kᵀ: 1.5x the MMAs of a split S, traded for
+// no S exchange through shared memory and no extra barrier. Budget: 8
+// warps (256 threads) a block, one block an SM (__launch_bounds__(256, 1):
+// up to 255 registers a thread); shared memory 3·(64 + 2·32)·(256 + 8)·2 =
+// 202,752 B a block of the 232,448 an SM offers. K/V are staged 4 chunks a
+// thread a term, Q 16.
 // Each output row is owned by one block, summed in a fixed order with no
 // atomics: two calls give bit-equal results. A row with no key in its band
 // (only with a window and Sq > Sk: q >= Sk + window - 1) gets l = 0 and
@@ -71,7 +84,8 @@
 // query tile re-reads its K/V tiles' three planes from L2; 64-key tiles
 // (one block an SM) and 128-row query tiles of 8 warps measured 42 % and
 // 14 % slower. ptxas: 255 registers, 8 bytes of spill at HD = 128; 240
-// and none at HD = 64.
+// and none at HD = 64 (HD = 256's budget: chip_smoke.py prints ptxas's
+// report at every build, PERF.md keeps it).
 //
 // Tolerance: the reference's flash tolerance, atol 3e-5
 // (tests/test_kernels.py:105); the CPU model of this arithmetic
@@ -91,16 +105,25 @@ namespace flash {
 
 using namespace mix_tile;
 
-constexpr int WARPS = 4;            // each warp owns 16 query rows
-constexpr int BQ = 16 * WARPS;      // query rows per block
+constexpr int GROUPS = 4;           // 16-row query groups a block
+constexpr int BQ = 16 * GROUPS;     // query rows per block
 constexpr int BKV = 32;             // keys per tile
-constexpr int THREADS = 32 * WARPS;
-constexpr int MIN_BLOCKS = 2;       // per SM (102 KB of shared memory each at HD = 128)
 constexpr int TERMS = 3;            // bf16 terms of each f32 operand
 constexpr int NT = BKV / 8;         // S's n8 tiles a warp holds
 constexpr int NG = 8;               // P·V's n8 tiles summed together
 constexpr int SPLIT_THREADS = 256;
 static_assert(NT % 2 == 0, "whole k16 steps of P·V");
+
+// the block's shape at head width HD: CW warps share a 16-row group, each
+// accumulating HD / CW of O's columns
+template <int HD>
+struct Shape {
+  static constexpr int CW = HD > 128 ? 2 : 1;
+  static constexpr int WARPS = GROUPS * CW;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int MIN_BLOCKS = CW == 1 ? 2 : 1;  // per SM: 102 KB (HD = 128), 198 KB (256)
+  static constexpr int HDW = HD / CW;                 // O's columns a warp owns
+};
 
 // a staged row: HD bf16 values and 16 bytes of padding, so that the 8 rows
 // one ldmatrix matrix reads start in 8 different 16-byte bank groups, and
@@ -137,14 +160,15 @@ __global__ void flash_split(const float* __restrict__ k, const float* __restrict
 // One block per (bh, query tile): grid (BH, ceil(Sq / BQ)). kv is
 // flash_split's scratch.
 template <int HD>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+__global__ void __launch_bounds__(Shape<HD>::THREADS, Shape<HD>::MIN_BLOCKS)
 flash_fwd_mma(const float* __restrict__ q, const uint16_t* __restrict__ kv, float* __restrict__ o,
               int Sq, int Sk, int Skp, int n_rep, int causal, int window, float cap, float scale,
               long long plane) {
+  constexpr int THREADS = Shape<HD>::THREADS, HDW = Shape<HD>::HDW;
   constexpr int LD = row_ld<HD>();
   constexpr int Q_TILE = BQ * LD, KV_TILE = BKV * LD;  // bf16 values of one staged term
   constexpr int KSTEPS = HD / 16;                      // k16 steps of Q·Kᵀ
-  constexpr int NO = HD / 8;                           // O's n8 tiles
+  constexpr int NO = HDW / 8;                          // O's n8 tiles a warp holds
   constexpr int CPR = HD / 8;                          // 16-byte chunks of a row
   constexpr int CHUNKS = BKV * CPR / THREADS;          // a thread's chunks of a K/V term
   static_assert(NO % NG == 0 && BKV * CPR % THREADS == 0, "whole groups");
@@ -154,6 +178,11 @@ flash_fwd_mma(const float* __restrict__ q, const uint16_t* __restrict__ kv, floa
   uint16_t* vs = ks + TERMS * KV_TILE; // 3 x BKV x LD
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // rows 16·grp and O's columns from col0 (folded to warp and 0 at CW = 1,
+  // which keeps HD <= 128's registers as they were)
+  constexpr int CW = Shape<HD>::CW;
+  const int grp = CW == 1 ? warp : warp % GROUPS;
+  const int col0 = CW == 1 ? 0 : (warp / GROUPS) * HDW;
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest query tiles first
   const uint16_t* __restrict__ kg = kv + (size_t)(bh / n_rep) * Skp * HD;
@@ -199,13 +228,14 @@ flash_fwd_mma(const float* __restrict__ q, const uint16_t* __restrict__ kv, floa
   // V (B, [key][hd], transposed): (keys 0-7, hd 0-7), (8-15, 0-7),
   //   (0-7, 8-15), (8-15, 8-15): two n8 tiles' b0, b1.
   const int lj = lane >> 3, lr = lane & 7;
-  const uint32_t q_lane = smem_addr(qs + (16 * warp + ((lj & 1) << 3) + lr) * LD + ((lj >> 1) << 3));
+  const uint32_t q_lane = smem_addr(qs + (16 * grp + ((lj & 1) << 3) + lr) * LD + ((lj >> 1) << 3));
   const uint32_t k_lane = smem_addr(ks + (((lj >> 1) << 3) + lr) * LD + ((lj & 1) << 3));
-  const uint32_t v_lane = smem_addr(vs + (((lj & 1) << 3) + lr) * LD + ((lj >> 1) << 3));
+  const uint32_t v_lane =
+      smem_addr(vs + (((lj & 1) << 3) + lr) * LD + col0 + ((lj >> 1) << 3));
   constexpr int B = (int)sizeof(uint16_t);  // bytes of a staged value
   // C fragment: rows lane/4 (+8), columns 2·(lane%4) (+1) of each 16 x 8 tile
   const int gq = lane >> 2, tq = lane & 3;
-  const int row0 = q0 + 16 * warp + gq;
+  const int row0 = q0 + 16 * grp + gq;
 
   float acc[NO][4];
 #pragma unroll
@@ -374,7 +404,7 @@ flash_fwd_mma(const float* __restrict__ q, const uint16_t* __restrict__ kv, floa
     const int row = row0 + 8 * h;
     if (row >= Sq) continue;
     const float inv = 1.f / fmaxf(l, 1e-30f);
-    float* __restrict__ orow = o + ((size_t)bh * Sq + row) * HD + 2 * tq;
+    float* __restrict__ orow = o + ((size_t)bh * Sq + row) * HD + col0 + 2 * tq;
 #pragma unroll
     for (int n = 0; n < NO; ++n)
       *reinterpret_cast<float2*>(orow + 8 * n) =
@@ -406,7 +436,7 @@ int launch(const float* q, const float* k, const float* v, float* o, uint16_t* s
     if (e != cudaSuccess) return (int)e;
     opted = true;
   }
-  flash_fwd_mma<HD><<<dim3(BH, (Sq + BQ - 1) / BQ), THREADS, smem, s>>>(
+  flash_fwd_mma<HD><<<dim3(BH, (Sq + BQ - 1) / BQ), Shape<HD>::THREADS, smem, s>>>(
       q, scratch, o, Sq, Sk, Skp, n_rep, causal, window, cap, scale, plane);
   return (int)cudaGetLastError();
 }
@@ -432,6 +462,9 @@ int flash_launch(const void* q, const void* k, const void* v, void* o, void* scr
                              BH, Sq, Sk, n_rep, causal, window, cap, scale, s);
   if (hd == 128)
     return flash::launch<128>((const float*)q, (const float*)k, (const float*)v, (float*)o, kv,
+                              BH, Sq, Sk, n_rep, causal, window, cap, scale, s);
+  if (hd == 256)
+    return flash::launch<256>((const float*)q, (const float*)k, (const float*)v, (float*)o, kv,
                               BH, Sq, Sk, n_rep, causal, window, cap, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -56,9 +56,23 @@
 // A deeper ring and bulk copies measured no faster (so did, in probe runs,
 // a per-warp softmax without the stage's two block barriers).
 //
-// Limits: HD in {64, 128}, heads * n_rep <= 8 query rows a block, heads
-// in {1, 2, 4, 8} dividing Hkv; any page size and number of kv heads.
-// Page pools whose base is not 16-byte aligned are staged by plain loads.
+// HD = 256 (gemma2-2b): a stage holds STAGE_BYTES / (256 · sizeof(T))
+// rows (8 f32, 16 bf16, 32 int8), a scoring lane dots 32 dims (8 loads of
+// 16 bytes, f32) and a P·V lane 8, so the warps' P·V sums are 8 x 8 f32
+// registers a thread, twice HD = 128's. At two blocks an SM a thread may
+// hold 128 registers, which those sums and a scoring lane's 32 staged
+// values nearly fill; so HD = 256 runs one block an SM
+// (__launch_bounds__(256, 1)), and ../paged_attention.py's plan counts a
+// wave as one block an SM there (RESIDENT). Shared memory at HD = 256,
+// heads x n_rep = 8 query rows and 8 ranks: the ring or the warps' sums
+// 64 KB, q 8 KB, the cluster's recv buffer 8 · 8 · 258 · 4 = 66 KB, the
+// rest < 4 KB: ~141 KB of the 227 KB a block may take; at gemma2's serving
+// shape (n_rep 2, one head a block) ~74 KB.
+//
+// Limits: HD in {64, 128, 256}, heads * n_rep <= 8 query rows a block,
+// heads in {1, 2, 4, 8} dividing Hkv; any page size and number of kv
+// heads. Page pools whose base is not 16-byte aligned are staged by plain
+// loads.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,6 +88,10 @@ constexpr int STAGES = 3;           // the ring's depth
 constexpr bool BULK = false;        // stage rows by cp.async.bulk instead of cp.async
 constexpr int BT_CACHE = 512;       // block-table entries a block keeps in shared memory
 constexpr float NEG_INF = -1e30f;
+
+// blocks an SM holds at head width HD (the plan's RESIDENT)
+template <int HD>
+constexpr int min_blocks() { return HD > 128 ? 1 : 2; }
 
 template <typename T, int HD>
 struct Geo {
@@ -131,9 +149,12 @@ __device__ __forceinline__ void load_vals(const T* p, float (&v)[N]) {
     for (int e = 0; e < N; ++e) v[e] = to_f32(p[e]);
   } else {
     uint32_t w[BYTES / 4];
-    if constexpr (BYTES == 16) {
-      const uint4 u = *reinterpret_cast<const uint4*>(p);
-      w[0] = u.x; w[1] = u.y; w[2] = u.z; w[3] = u.w;
+    if constexpr (BYTES % 16 == 0) {  // 16 or 32 bytes
+#pragma unroll
+      for (int i = 0; i < BYTES / 16; ++i) {
+        const uint4 u = reinterpret_cast<const uint4*>(p)[i];
+        w[4 * i] = u.x; w[4 * i + 1] = u.y; w[4 * i + 2] = u.z; w[4 * i + 3] = u.w;
+      }
     } else if constexpr (BYTES == 8) {
       const uint2 u = *reinterpret_cast<const uint2*>(p);
       w[0] = u.x; w[1] = u.y;
@@ -212,7 +233,7 @@ __device__ __forceinline__ void push(float* dst, uint64_t* bar, float v) {
 }
 
 template <typename T, int HD, bool ALIGNED>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, min_blocks<HD>())
 paged_attn(const float* __restrict__ q, const T* __restrict__ kp, const T* __restrict__ vp,
            const float* __restrict__ ks, const float* __restrict__ vs,
            const int* __restrict__ block_tables, const int* __restrict__ lengths,
@@ -562,6 +583,7 @@ int launch_hd(int hd, const void* q, const void* kp, const void* vp, const void*
   }
   PAGED_LAUNCH(64)
   PAGED_LAUNCH(128)
+  PAGED_LAUNCH(256)
 #undef PAGED_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

@@ -28,6 +28,9 @@ reference's atol 3e-5 (``tests/test_kernels.py:105``); ``chip_smoke.py`` holds t
 at the prefill shape on an NVIDIA H100 80GB HBM3 at 700 W, against SDPA's
 0.276–0.278 and the 0.052 ms tensor-core bound (``PERF.md``).
 
+Head widths 64, 128 and 256 (gemma2-2b); at 256 two warps share each
+16-row group, each accumulating half of O's columns (the source's note).
+
 On CPU tensors the wrapper computes
 :func:`~repro_torch.kernels.ref.flash_attention_ref`; on CUDA tensors it
 launches the kernel or raises.
@@ -47,7 +50,7 @@ from repro_torch.kernels.ref import flash_attention_ref
 #: launches of the CUDA kernel in this process (the CPU path does not count)
 launches = 0
 
-HEAD_DIMS = (64, 128)  # the head widths the kernel is instantiated for
+HEAD_DIMS = (64, 128, 256)  # the head widths the kernel is instantiated for
 
 
 def _fn():
@@ -60,6 +63,12 @@ def _fn():
         lib.flash_scratch_elems.argtypes = [ctypes.c_int] * 4
         lib.flash_scratch_elems.restype = ctypes.c_longlong
     return lib, fn
+
+
+def require_head_dim(hd: int) -> None:
+    """The head widths the kernel is built for: any other is refused on the
+    card (the plain version on the CPU takes any)."""
+    require(hd in HEAD_DIMS, f"head dim {hd} not in {HEAD_DIMS}")
 
 
 def _keyless_from(Sq: int, Sk: int, window: Optional[int]) -> int:
@@ -109,7 +118,7 @@ def flash_attention(
                                    attn_softcap=attn_softcap)
     require(q.device.type == "cuda", f"unsupported device {q.device}")
     require(q.dtype == k.dtype == v.dtype == torch.float32, "q, k, v must be float32")
-    require(hd in HEAD_DIMS, f"head dim {hd} not in {HEAD_DIMS}")
+    require_head_dim(hd)
     require(all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (q, k, v)),
             "q, k, v must be contiguous and 16-byte aligned")
     lib, fn = _fn()

@@ -48,12 +48,12 @@ from repro_torch.kernels import _build, ref
 from repro_torch.kernels import flash_attention as fa
 
 KK_LOOP = "#pragma unroll\n    for (int kk = 0; kk < KSTEPS; ++kk) {"
+ONE_BLOCK = ("static constexpr int MIN_BLOCKS = CW == 1 ? 2 : 1;",
+             "static constexpr int MIN_BLOCKS = 1;")  # one block an SM at every HD
 VARIANTS = {
     "shipped": [],
-    "bkv64": [("constexpr int BKV = 32;", "constexpr int BKV = 64;"),
-              ("constexpr int MIN_BLOCKS = 2;", "constexpr int MIN_BLOCKS = 1;")],
-    "warps8": [("constexpr int WARPS = 4;", "constexpr int WARPS = 8;"),
-               ("constexpr int MIN_BLOCKS = 2;", "constexpr int MIN_BLOCKS = 1;")],
+    "bkv64": [("constexpr int BKV = 32;", "constexpr int BKV = 64;"), ONE_BLOCK],
+    "warps8": [("constexpr int GROUPS = 4;", "constexpr int GROUPS = 8;"), ONE_BLOCK],
     "rolled": [(KK_LOOP, KK_LOOP.replace("unroll", "unroll 1"))],
     "ng4": [("constexpr int NG = 8;", "constexpr int NG = 4;")],
     "ng2": [("constexpr int NG = 8;", "constexpr int NG = 2;")],
@@ -92,7 +92,7 @@ def build(out: Path) -> dict:
         entry, report = "", []
         for line in log.splitlines():
             if "Compiling entry function" in line:
-                entry = next((f"flash_fwd_mma<{hd}>" for hd in (64, 128)
+                entry = next((f"flash_fwd_mma<{hd}>" for hd in fa.HEAD_DIMS
                               if f"flash_fwd_mmaILi{hd}E" in line), "")
             elif entry and ("Used" in line or "spill" in line):
                 report.append(f"{entry}: {line.strip()}")

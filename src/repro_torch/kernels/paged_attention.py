@@ -18,7 +18,7 @@ a time, and merge their online-softmax states in rank order through
 distributed shared memory (the source's note has the design).
 :func:`plan` sets the grid. A padding row (length 0, null page) attends
 one finite slot, so its output is finite. Limits on the card: hd in (64,
-128), n_rep <= 8; page size and kv-head count are free.
+128, 256), n_rep <= 8; page size and kv-head count are free.
 
 On CPU tensors the wrapper computes
 :func:`~repro_torch.kernels.ref.paged_attention_ref`; on CUDA tensors it
@@ -40,7 +40,7 @@ from repro_torch.kernels.ref import paged_attention_ref
 #: launches of the CUDA kernel in this process (the CPU path does not count)
 launches = 0
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 _KIND = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
 KIND_BYTES = {0: 1, 1: 4, 2: 2}  # bytes an element of each page kind
 
@@ -50,7 +50,9 @@ MAX_ROWS = 8       # query rows a block: kv heads x n_rep
 MAX_RANKS = 8      # the portable cluster size
 STAGE_BYTES = 8192  # K (and V) bytes a ring stage holds at most
 MAX_CHUNK = 64     # (token, kv head) rows a stage at most
-RESIDENT = 2       # blocks an SM holds (__launch_bounds__(THREADS, 2))
+#: blocks an SM holds, by hd (``min_blocks<HD>()`` in the source's
+#: __launch_bounds__): one at 256, whose P·V sums need the registers
+RESIDENT = {64: 2, 128: 2, 256: 1}
 
 
 class Plan(NamedTuple):
@@ -61,7 +63,8 @@ class Plan(NamedTuple):
 
 
 def chunk_rows(hd: int, kind: int) -> int:
-    """(token, kv head) rows a ring stage holds: 8 KB of K, at most 64."""
+    """(token, kv head) rows a ring stage holds: 8 KB of K, at most 64
+    (at hd 256: 8 f32, 16 bf16 or 32 int8 rows)."""
     return min(MAX_CHUNK, STAGE_BYTES // (hd * KIND_BYTES[kind]))
 
 
@@ -72,7 +75,7 @@ def plan(B: int, Hkv: int, n_rep: int, hd: int, page: int, max_pages: int, kind:
     table of ``page``-token pages of ``kind`` (0 int8, 1 f32, 2 bf16) on a
     card of ``sms`` SMs, from shapes alone (lengths live on the card).
 
-    One wave is ``RESIDENT`` blocks an SM. kv heads are grouped in a
+    One wave is ``RESIDENT[hd]`` blocks an SM. kv heads are grouped in a
     block (a power of two dividing Hkv, with heads x n_rep <= 8 query
     rows) only while the (request, head group) pairs still fill that wave;
     then each pair's pages are split over as many ranks, up to 8, as the
@@ -80,13 +83,14 @@ def plan(B: int, Hkv: int, n_rep: int, hd: int, page: int, max_pages: int, kind:
     table, and every rank has at least one. At the serving shape (B = 8,
     Hkv = 8, n_rep = 2, max_pages 34) on 132 SMs: 4 ranks of 9 pages, one
     head a block, 256 blocks, which ``paged_variants.py`` measured fastest
-    there (PERF.md).
+    there (PERF.md). At gemma2-2b's (B = 8, Hkv = 4, n_rep = 2, hd = 256,
+    one block an SM): 4 ranks, one head a block, 128 blocks.
     """
     if not (B >= 1 and Hkv >= 1 and 1 <= n_rep <= MAX_ROWS and hd in HEAD_DIMS and page >= 1
             and max_pages >= 1 and kind in KIND_BYTES and sms >= 1):
         raise ValueError(f"no paged-attention plan for B={B} Hkv={Hkv} n_rep={n_rep} hd={hd} "
                          f"page={page} max_pages={max_pages} kind={kind}")
-    wave = RESIDENT * sms
+    wave = RESIDENT[hd] * sms
     heads = 1
     while (2 * heads <= WARPS and Hkv % (2 * heads) == 0 and 2 * heads * n_rep <= MAX_ROWS
            and B * Hkv // (2 * heads) >= wave):
@@ -105,6 +109,14 @@ def plan_for(t: torch.Tensor, B: int, Hkv: int, n_rep: int, hd: int, page: int, 
              kind: int) -> Plan:
     """:func:`plan` on ``t``'s card."""
     return plan(B, Hkv, n_rep, hd, page, max_pages, kind, _sms(t.device.index))
+
+
+def require_card_shape(hd: int, n_rep: int) -> None:
+    """The head widths the kernel is built for and the query rows a block
+    holds: any other is refused on the card (the plain version on the CPU
+    takes any)."""
+    require(hd in HEAD_DIMS, f"head dim {hd} not in {HEAD_DIMS}")
+    require(n_rep <= MAX_ROWS, f"n_rep {n_rep} > {MAX_ROWS}")
 
 
 def _fn():
@@ -169,8 +181,7 @@ def paged_attention(
     require(block_tables.dtype == torch.int32 and lengths.dtype == torch.int32,
             "block_tables and lengths must be int32")
     require(k_pages.dtype == v_pages.dtype, "k and v pages must share a dtype")
-    require(hd in HEAD_DIMS, f"head dim {hd} not in {HEAD_DIMS}")
-    require(n_rep <= MAX_ROWS, f"n_rep {n_rep} > {MAX_ROWS}")
+    require_card_shape(hd, n_rep)
     max_pages = block_tables.shape[1]
     kind = _KIND[k_pages.dtype]
     p = plan_for(q, B, hkv, n_rep, hd, k_pages.shape[1], max_pages, kind)

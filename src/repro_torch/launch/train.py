@@ -60,6 +60,7 @@ from __future__ import annotations
 
 import argparse
 
+from repro_torch.configs import list_archs
 from repro_torch.runtime import ConsoleHook, EdgeSession, RunSpec, RunSpecError
 from repro_torch.runtime.session import resolve_layout
 
@@ -91,7 +92,8 @@ def _train_pool(spec: RunSpec, layout, device) -> None:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--arch", default="internlm2-1.8b")
+    ap.add_argument("--arch", default="internlm2-1.8b",
+                    help=f"one of the ported configs: {', '.join(list_archs())}")
     ap.add_argument("--reduced", action="store_true", help="CPU-scale variant")
     ap.add_argument("--epochs", type=int, default=3)
     ap.add_argument("--steps-per-epoch", type=int, default=8)

@@ -10,6 +10,7 @@ mrope, raise ``NotImplementedError``.
 
 from __future__ import annotations
 
+import weakref
 from typing import Optional
 
 import torch
@@ -194,6 +195,27 @@ def head_weight(params, cfg):
     if cfg.tie_embeddings:
         return maybe_dequantize_tree(params["embed"]).T
     return maybe_dequantize_tree(params["lm_head"])
+
+
+#: id(head leaf) -> (a weak reference to the leaf, its contiguous (d, V) f32 head)
+_LOSS_HEADS: dict = {}
+
+
+def loss_head(params, cfg) -> torch.Tensor:
+    """:func:`head_weight` as one contiguous (d, V) f32 tensor, made once
+    for the life of the head's leaf (``lm_head``, or ``embed`` when tied)
+    and reused by every later step that holds the same leaf: the frozen
+    head of a session is dequantized, and a tied head transposed into
+    place, once rather than each step (at gemma2-2b's V = 256000 that is
+    2.36 GB written a step). The values are :func:`head_weight`'s."""
+    leaf = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    key = id(leaf)
+    hit = _LOSS_HEADS.get(key)
+    if hit is not None and hit[0]() is leaf:
+        return hit[1]
+    w = head_weight(params, cfg).contiguous()
+    _LOSS_HEADS[key] = (weakref.ref(leaf, lambda _, k=key: _LOSS_HEADS.pop(k, None)), w)
+    return w
 
 
 def logits_from_hidden(params, cfg, h):

@@ -118,7 +118,7 @@ class RunSpec:
         try:
             cfg = self.arch_config()
         except KeyError as e:
-            bad(str(e))
+            bad(e.args[0])
         if self.micro is not None:
             if self.micro < 1:
                 bad(f"micro must be >= 1, got {self.micro}")

@@ -1,0 +1,376 @@
+"""The dense configs of the port (the paper's Table III models, gemma2-2b,
+granite-20b, musicgen-large) at ``reduced()`` against the JAX package,
+and gemma2's head width 256 through the kernels' plain versions.
+
+For each config the inputs come from numpy with a fixed seed (musicgen is
+fed frame embeddings, ``{"embeds"}``, as tests/test_backbone_smoke.py
+feeds it), the parameters are the JAX tree's carried across with
+``repro_torch.bridge``, and the tolerances are the reference's own, the
+ones tests/test_torch_cached_step.py and tests/test_torch_serve.py use:
+backbone logits, one ``pac_train_step`` (loss, the updated adapter, the
+activations), one ``pac_cached_train_step`` over an int8 cache (loss and
+gradients, ``cuda`` and ``ref``), and the prefill/decode equivalence of
+tests/test_backbone_smoke.py:104-123 on both sides.
+
+``reduced()`` sets hd = d / n_heads = 64, so no reduced config reaches
+gemma2's 256: a variant with 2 heads of 256 over one kv head is built the
+same way in both packages, and its paged prefill and decode (window and
+soft-cap on, int8 and f32 pages) and the two attention kernels alone are
+held against the JAX Pallas kernels in interpret mode (flash 3e-5,
+tests/test_kernels.py:105; paged 2e-4, tests/test_decode_parity.py:36).
+"""
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from test_torch_cached_step import _assert_tree_close, _assert_update_close, _cached, _to_port
+
+from repro.configs import get_arch as jax_get_arch
+from repro.core import steps as jax_steps
+from repro.core.parallel_adapters import gather_adapters, init_adapter, stack_adapters
+from repro.core.quantization import quantize_tree
+from repro.kernels import cached_step as jax_cs
+from repro.kernels.flash_attention import flash_attention_tpu
+from repro.kernels.paged_attention import paged_attention as jax_paged_attention
+from repro.models import backbone as jbb
+from repro.optim import adamw_init as jax_adamw_init
+from repro.serve import paging as jax_paging
+from repro.serve.decode import paged_pac_decode_step as jax_decode_step
+from repro.serve.decode import paged_prefill as jax_prefill
+from repro.serve.paging import quantize_kv_pages as jax_quantize_kv_pages
+from repro_torch import bridge
+from repro_torch.configs import get_arch
+from repro_torch.core import steps
+from repro_torch.core.quantization import tree_leaves, tree_map
+from repro_torch.kernels.cached_step import cached_loss_parts
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.paged_attention import paged_attention
+from repro_torch.models import backbone as tbb
+from repro_torch.optim import adamw_init
+from repro_torch.serve import paging
+from repro_torch.serve.decode import paged_pac_decode_step, paged_prefill
+
+torch.set_num_threads(2)
+R = 4
+ARCHS = ["t5-base-pac", "bart-large-pac", "t5-large-pac", "gemma2-2b", "granite-20b",
+         "musicgen-large"]
+B, S = 2, 40  # S > gemma2's reduced window (32): its local layers mask
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _batch(cfg, seed=0, seq=S):
+    """The same seeded batch for both packages: (jax, torch)."""
+    rng = np.random.default_rng(seed)
+    batch = {"labels": rng.integers(0, cfg.vocab, size=(B, seq)).astype(np.int32)}
+    if cfg.frontend is not None:  # musicgen: frame embeddings, no token embedding
+        batch["embeds"] = (rng.standard_normal((B, seq, cfg.d_model)) * 0.3).astype(np.float32)
+    else:
+        batch["tokens"] = rng.integers(0, cfg.vocab, size=(B, seq)).astype(np.int32)
+    return ({k: jnp.asarray(v) for k, v in batch.items()},
+            {k: torch.from_numpy(v) for k, v in batch.items()})
+
+
+@functools.lru_cache(maxsize=None)
+def _model(arch):
+    """(the JAX reduced config, the port's, backbone, adapter), the JAX
+    trees drawn once per config."""
+    jcfg, tcfg = jax_get_arch(arch).reduced(), get_arch(arch).reduced()
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    backbone = jbb.init_backbone(jax.random.PRNGKey(0), jcfg)
+    adapter = init_adapter(jax.random.PRNGKey(1), jcfg, r=R)
+    return jcfg, tcfg, backbone, adapter
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_step(arch):
+    """The reference's epoch-1 step and its adapter gradients."""
+    jcfg, _, backbone, adapter = _model(arch)
+    jb, _ = _batch(jcfg)
+    out = jax_steps.pac_train_step(backbone, adapter, jax_adamw_init(adapter), jb, cfg=jcfg, r=R)
+    grads = jax.grad(lambda a: jax_steps.pac_loss_fn(a, backbone, jcfg, jb, R))(adapter)
+    return out, grads
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_backbone_logits_match_jax(arch):
+    jcfg, tcfg, backbone, _ = _model(arch)
+    jb, tb = _batch(jcfg)
+    want = np.asarray(jbb.backbone_logits(backbone, jcfg, jb))
+    got = tbb.backbone_logits(bridge.to_torch(_np(backbone)), tcfg, tb).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("kernel_impl", ["ref", "cuda"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_pac_train_step_matches_jax(arch, kernel_impl):
+    """One epoch-1 step (f32 backbone, f32 taps): the loss within 2e-5, the
+    updated adapter within 5e-5 (the clipped-gradient rule of
+    ``_assert_update_close``), the activations within 1e-4."""
+    jcfg, tcfg, backbone, adapter = _model(arch)
+    (loss, ap, _, acts), jgrads = _jax_step(arch)
+    _, tb = _batch(jcfg)
+    tap = bridge.to_torch(_np(adapter))
+    got = steps.pac_train_step(bridge.to_torch(_np(backbone)), tap, adamw_init(tap), tb,
+                               cfg=tcfg, r=R, kernel_impl=kernel_impl)
+    assert abs(float(got[0]) - float(loss)) < 2e-5
+    _assert_update_close(ap, got[1], jgrads)
+    for g, w in zip(got[3], acts):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_pac_cached_train_step_int8_matches_jax(arch):
+    """The epoch-1 activations in an int8 cache, then one cached step under
+    ``cuda`` and ``ref`` against JAX ``kernel_impl="ref"`` on the same
+    entries: loss 2e-5, gradients 1e-4·max(1, |g|max), the update 5e-5."""
+    jcfg, tcfg, backbone, adapter = _model(arch)
+    (_, _, _, (b0, taps, bf)), _ = _jax_step(arch)
+    jb, _ = _batch(jcfg)
+    jc = _cached("int8", b0, taps, bf, jb["labels"], True)
+    tc = _to_port(jc, jcfg.d_model)
+    jcj = jax.tree.map(jnp.asarray, jc)
+    opt = jax_adamw_init(adapter)
+    jloss, jap, _ = jax_steps.pac_cached_train_step(backbone, adapter, opt, jcj, cfg=jcfg, r=R,
+                                                    kernel_impl="ref")
+    jpos = jnp.broadcast_to(jnp.arange(S, dtype=jnp.int32), (B, S))
+
+    def jloss_fn(a):
+        num, den = jax_cs.cached_loss_parts(backbone, a, jcfg, jcj, jpos, R, impl="ref")
+        return num / jnp.maximum(den, 1)
+
+    jgrads = jax.grad(jloss_fn)(adapter)
+    gmax = max(float(jnp.max(jnp.abs(g))) for g in jax.tree.leaves(jgrads))
+    tbp, tap = bridge.to_torch(_np(backbone)), bridge.to_torch(_np(adapter))
+    tpos = torch.arange(S, dtype=torch.int32).expand(B, S)
+    for impl in ("cuda", "ref"):
+        loss, ap, _ = steps.pac_cached_train_step(tbp, tap, adamw_init(tap), tc, cfg=tcfg, r=R,
+                                                  kernel_impl=impl)
+        assert abs(float(loss) - float(jloss)) < 2e-5, impl
+        _assert_update_close(jap, ap, jgrads)
+        ta = tree_map(lambda t: t.clone().requires_grad_(), tap)
+        num, den = cached_loss_parts(tbp, ta, tcfg, tc, tpos, R, impl=impl)
+        grads = torch.autograd.grad(num / den.clamp_min(1), tree_leaves(ta))
+        it = iter(grads)
+        _assert_tree_close(jgrads, tree_map(lambda _: next(it), ta), atol=1e-4 * max(1.0, gmax))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_decode_equivalence_on_both_sides(arch):
+    """tests/test_backbone_smoke.py:104-123 on both sides: S = 10 tokens
+    (or frames) decoded one at a time against the linear cache give the
+    full forward's logits within 2e-3 of their scale, in each package;
+    and the port's ``prefill_step`` and ``decode_step`` logits equal the
+    reference's within 1e-4."""
+    jcfg, tcfg, backbone, _ = _model(arch)
+    seq = 10
+    jb, tb = _batch(jcfg, seed=3, seq=seq)
+    key = "embeds" if "embeds" in jb else "tokens"
+    tbp = bridge.to_torch(_np(backbone))
+    h, _ = jbb.backbone_forward(backbone, jcfg, jb)
+    jfull = np.asarray(jbb.logits_from_hidden(backbone, jcfg, h))
+    tfull = tbb.logits_from_hidden(tbp, tcfg, tbb.backbone_forward(tbp, tcfg, tb)[0]).numpy()
+    jcache, tcache = jbb.init_cache(jcfg, B, seq), tbb.init_cache(tcfg, B, seq)
+    jdec, tdec = [], []
+    for t in range(seq):
+        lg, jcache = jax_steps.decode_step(backbone, {key: jb[key][:, t:t + 1]}, jcache,
+                                           jnp.int32(t), cfg=jcfg)
+        jdec.append(np.asarray(lg))
+        lg, tcache = steps.decode_step(tbp, {key: tb[key][:, t:t + 1]}, tcache, t, cfg=tcfg,
+                                       kernel_impl="cuda")
+        tdec.append(lg.numpy())
+    jdec, tdec = np.concatenate(jdec, 1), np.concatenate(tdec, 1)
+    for full, dec in ((jfull, jdec), (tfull, tdec)):
+        assert np.abs(dec - full).max() / (np.abs(full).max() + 1e-6) < 2e-3
+    np.testing.assert_allclose(tdec, jdec, atol=1e-4, rtol=1e-4)
+    want = np.asarray(jax_steps.prefill_step(backbone, jb, cfg=jcfg))
+    got = steps.prefill_step(tbp, tb, cfg=tcfg, kernel_impl="cuda").numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_tied_head_loss_equals_the_untied_path():
+    """gemma2's tied head: the cached loss and the gradient of its hidden
+    state equal those of the same backbone untied, with ``lm_head`` set to
+    ``embed``ᵀ (a separate contiguous tensor); the loss head is made once
+    for the life of the head's leaf."""
+    jcfg, tcfg, backbone, adapter = _model("gemma2-2b")
+    (_, _, _, (b0, taps, bf)), _ = _jax_step("gemma2-2b")
+    jb, _ = _batch(jcfg)
+    tc = _to_port(_cached("int8", b0, taps, bf, jb["labels"], True), jcfg.d_model)
+    tied = bridge.to_torch(_np(quantize_tree(backbone, bits=8)))
+    untied = dict(tied, lm_head=tbb.head_weight(tied, tcfg).clone())
+    ucfg = dataclasses.replace(tcfg, tie_embeddings=False)
+    assert tbb.loss_head(tied, tcfg) is tbb.loss_head(tied, tcfg)
+    assert tbb.loss_head(tied, tcfg).is_contiguous()
+    tpos = torch.arange(S, dtype=torch.int32).expand(B, S)
+    out = {}
+    for name, (bp, cfg) in {"tied": (tied, tcfg), "untied": (untied, ucfg)}.items():
+        ta = tree_map(lambda t: t.clone().requires_grad_(), bridge.to_torch(_np(adapter)))
+        num, den = cached_loss_parts(bp, ta, cfg, tc, tpos, R, impl="cuda")
+        loss = num / den.clamp_min(1)
+        out[name] = (float(loss.detach()), torch.autograd.grad(loss, tree_leaves(ta)))
+    assert out["tied"][0] == out["untied"][0]
+    for a, b in zip(out["tied"][1], out["untied"][1]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# head width 256
+# ---------------------------------------------------------------------------
+
+PAGE, MAX_LEN, N_STEPS = 8, 96, 3
+PROMPTS = [list(range(3, 3 + 50)), [7, 1, 4], list(range(100, 100 + 37))]  # > window 32
+
+
+def _hd256(get):
+    return dataclasses.replace(get("gemma2-2b").reduced(), n_heads=2, n_kv_heads=1,
+                               head_dim=256)
+
+
+@functools.lru_cache(maxsize=None)
+def _model256():
+    jcfg, tcfg = _hd256(jax_get_arch), _hd256(get_arch)
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg) and tcfg.hd == 256
+    backbone = quantize_tree(jbb.init_backbone(jax.random.PRNGKey(5), jcfg), bits=8,
+                             min_size=1024)
+    bank = stack_adapters([init_adapter(jax.random.PRNGKey(6 + i), jcfg, r=R) for i in range(2)])
+    abatch = gather_adapters(bank, jnp.arange(len(PROMPTS)) % 2)
+    return jcfg, tcfg, backbone, abatch
+
+
+def _arr(t) -> np.ndarray:
+    return bridge.to_numpy(t) if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def _pool_f32(entry):
+    """A pool's K and V as f32 numpy (int8 dequantized), null page dropped."""
+    out = []
+    for name in ("k", "v"):
+        e = entry[name]
+        if isinstance(e, dict):
+            q, scale = (_arr(e[k]) for k in ("q", "scale"))
+            e = q.astype(np.float32) * scale[..., None]
+        out.append(_arr(e).astype(np.float32)[:, 1:])
+    return out
+
+
+@pytest.mark.parametrize("kernel_impl", ["ref", "cuda"])
+@pytest.mark.parametrize("policy", ["int8", "f32"])
+def test_hd256_paged_serving_matches_pallas(policy, kernel_impl):
+    """The hd = 256 variant (window 32 on its local layers, attention
+    soft-cap 50, final soft-cap 30; prompts of 50 and 37 tokens cross the
+    window) through the JAX ``pallas`` OpSet in interpret mode and the
+    port's OpSets (their kernel wrappers take the plain versions here).
+    Paged prefill: logits within the reference's paged tolerance, the page
+    pools equal once dequantized, an int8 code within one step of its scale
+    (a last-ulp K/V difference of the two packages' f32 sums may move it).
+    Then three decode steps from the reference's prefilled pools and
+    adapter caches, as tests/test_decode_parity.py:70 runs its two
+    OpSets from one prefill: logits within 2e-4 (both policies) and equal
+    greedy tokens at every step."""
+    jcfg, tcfg, backbone, abatch = _model256()
+    tb, ta = bridge.to_torch(_np(backbone)), bridge.to_torch(_np(abatch))
+    max_pages = MAX_LEN // PAGE
+    table = paging.PageTable(paging.PageAllocator(len(PROMPTS) * max_pages + 1), PAGE, max_pages)
+    for i, p in enumerate(PROMPTS):
+        table.open(i, len(p))
+    n_pages = table.allocator.n_pages
+    jpools = jax_paging.init_pools(jcfg, n_pages, PAGE, len(PROMPTS), policy)
+    tpools = paging.init_pools(tcfg, n_pages, PAGE, policy, "cpu")
+    bt, lengths = table.dense(range(len(PROMPTS)))
+    toks = np.zeros((len(PROMPTS), 64), np.int32)
+    for i, p in enumerate(PROMPTS):
+        toks[i, :len(p)] = p
+    jl, jpools, jac = jax_prefill(
+        backbone, abatch, jnp.asarray(toks), jnp.asarray(lengths), jpools, jnp.asarray(bt),
+        cfg=jcfg, max_len=MAX_LEN, r=R, kernel_impl="pallas", interpret=True)
+    tl, tpools, tac = paged_prefill(
+        tb, ta, torch.from_numpy(toks), torch.from_numpy(lengths), tpools, torch.from_numpy(bt),
+        cfg=tcfg, max_len=MAX_LEN, r=R, kernel_impl=kernel_impl)
+    assert np.max(np.abs(np.asarray(jl) - tl.numpy())) < 2e-4
+    for jp, tp in zip(jpools, tpools):
+        for want, got in zip(_pool_f32(jp), _pool_f32(tp)):
+            atol = 1e-5 + (np.abs(want).max() / 127 if policy == "int8" else 0.0)
+            np.testing.assert_allclose(got, want, atol=atol, rtol=0)
+    tpools, tac = bridge.to_torch(_np(jpools)), bridge.to_torch(_np(jac))
+    tok = np.argmax(np.asarray(jl[:, 0]), axis=-1).astype(np.int32)[:, None]
+    for _ in range(N_STEPS):
+        for i in range(len(PROMPTS)):
+            table.extend_to(i, table.length(i) + 1)
+        bt, lengths = table.dense(range(len(PROMPTS)))
+        jl, jpools, jac = jax_decode_step(
+            backbone, abatch, jnp.asarray(tok), jpools, jnp.asarray(bt), jnp.asarray(lengths),
+            jac, cfg=jcfg, r=R, kernel_impl="pallas", interpret=True)
+        tl, tpools, tac = paged_pac_decode_step(
+            tb, ta, torch.from_numpy(tok), tpools, torch.from_numpy(bt),
+            torch.from_numpy(lengths), tac, cfg=tcfg, r=R, kernel_impl=kernel_impl)
+        want, got = np.asarray(jl[:, 0]), tl[:, 0].numpy()
+        assert np.max(np.abs(want - got)) < 2e-4
+        np.testing.assert_array_equal(np.argmax(got, -1), np.argmax(want, -1))
+        tok = np.argmax(want, axis=-1).astype(np.int32)[:, None]
+        for i in range(len(PROMPTS)):
+            table.append_token(i)
+
+
+def _randn(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("window,cap", [(None, None), (32, 50.0), (None, 30.0)])
+def test_hd256_flash_matches_pallas(window, cap):
+    """``flash_attention`` alone at hd = 256 (B·H = 4 over 2 kv heads,
+    S = 128, causal) against the JAX Pallas kernel in interpret mode, KV
+    repeated for it: atol 3e-5."""
+    q, k, v = _randn((4, 128, 256), 31), _randn((2, 128, 256), 32), _randn((2, 128, 256), 33)
+    kr, vr = (np.repeat(t, 2, axis=0) for t in (k, v))
+    want = np.asarray(flash_attention_tpu(jnp.asarray(q), jnp.asarray(kr), jnp.asarray(vr),
+                                          window=window, attn_softcap=cap, bq=64, bk=64,
+                                          interpret=True))
+    got = flash_attention(*(torch.from_numpy(t) for t in (q, k, v)), window=window,
+                          attn_softcap=cap).numpy()
+    np.testing.assert_allclose(got, want, atol=3e-5, rtol=0)
+
+
+@pytest.mark.parametrize("policy", ["int8", "f32", "bf16"])
+def test_hd256_paged_attention_matches_pallas(policy):
+    """``paged_attention`` alone at hd = 256 (B = 3, Hkv = 4, n_rep = 2,
+    pages of 16, lengths 0 (a padding row), 40 and 75), window 32 and
+    soft-cap 50, against the JAX Pallas kernel in interpret mode: atol
+    2e-4 (bf16 3e-2)."""
+    rng = np.random.default_rng(9)
+    Bq, hkv, n_rep, hd, page, max_pages = 3, 4, 2, 256, 16, 5
+    lengths = np.array([0, 40, 75], np.int32)
+    n_pages = Bq * max_pages + 1
+    perm = rng.permutation(np.arange(1, n_pages)).astype(np.int32)
+    bt = np.zeros((Bq, max_pages), np.int32)
+    for b in (1, 2):
+        n = -(-(int(lengths[b]) + 1) // page)
+        bt[b, :n] = perm[b * max_pages:b * max_pages + n]
+    q = _randn((Bq, hkv, n_rep, hd), 41)
+    kf, vf = _randn((n_pages, page, hkv, hd), 42), _randn((n_pages, page, hkv, hd), 43)
+    kw = dict(window=32, attn_softcap=50.0)
+    if policy == "int8":
+        (kq, ks), (vq, vs) = (jax_quantize_kv_pages(jnp.asarray(t)) for t in (kf, vf))
+        jargs, jscales = (kq, vq), dict(k_scale=ks, v_scale=vs)
+        targs = tuple(torch.from_numpy(np.array(t)) for t in (kq, vq))
+        tscales = dict(k_scale=torch.from_numpy(np.array(ks)),
+                       v_scale=torch.from_numpy(np.array(vs)))
+    else:
+        jargs = tuple(jnp.asarray(t) for t in (kf, vf))
+        targs = tuple(torch.from_numpy(t) for t in (kf, vf))
+        if policy == "bf16":
+            jargs = tuple(t.astype(jnp.bfloat16) for t in jargs)
+            targs = tuple(t.bfloat16() for t in targs)
+        jscales, tscales = {}, {}
+    want = np.asarray(jax_paged_attention(jnp.asarray(q), *jargs, jnp.asarray(bt),
+                                          jnp.asarray(lengths), **jscales, **kw, interpret=True))
+    got = paged_attention(torch.from_numpy(q), *targs, torch.from_numpy(bt),
+                          torch.from_numpy(lengths), **tscales, **kw).numpy()
+    np.testing.assert_allclose(got, want, atol=3e-2 if policy == "bf16" else 2e-4, rtol=0)

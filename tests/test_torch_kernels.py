@@ -557,6 +557,30 @@ def test_flash_bf16_split_error_model(softcap):
     assert err1 > 3e-5, err1
 
 
+@pytest.mark.parametrize("softcap", [None, 50.0])
+def test_flash_bf16_split_error_model_hd256(softcap):
+    """The same split at gemma2-2b's head width (hd = 256, S = 256, its
+    attention soft-cap 50): the wider contraction still meets the
+    reference's flash tolerance against the Pallas kernel in interpret
+    mode with three terms, two err at least 10x more against float64
+    attention, and one misses the tolerance."""
+    BH, S, hd = 2, 256, 256
+    q, k, v = (_randn((BH, S, hd), seed) for seed in (24, 25, 26))
+    want = np.asarray(flash_attention_tpu(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                          attn_softcap=softcap, bq=64, bk=64, interpret=True))
+    qt, kt, vt = (torch.from_numpy(t) for t in (q, k, v))
+    s = torch.einsum("bqd,bkd->bqk", qt.double(), kt.double()) * hd ** -0.5
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    s = s.masked_fill(torch.ones(S, S, dtype=torch.bool).triu(1), -torch.inf)
+    exact = torch.softmax(s, dim=-1) @ vt.double()
+    three, two, one = (_flash_split(qt, kt, vt, softcap, n, bkv=32) for n in (3, 2, 1))
+    np.testing.assert_allclose(three.numpy(), want, atol=3e-5)
+    err3, err2, err1 = (float((x.double() - exact).abs().max()) for x in (three, two, one))
+    assert err2 >= 10 * err3, (err2, err3)
+    assert err1 > 3e-5, err1
+
+
 @pytest.mark.parametrize("harness,source", [("ce_fwd_variants", "lmhead_ce.cu"),
                                             ("qmm_variants", "quant_matmul.cu"),
                                             ("flash_variants", "flash_attention.cu"),

@@ -48,13 +48,13 @@ def _check_plan(B, Hkv, n_rep, hd, page, max_pages, kind, sms):
 
 @settings(max_examples=200)
 @given(B=st.integers(1, 64), Hkv=st.sampled_from([1, 2, 3, 4, 6, 8, 16, 32]),
-       n_rep=st.integers(1, 8), hd=st.sampled_from([64, 128]), page=st.sampled_from([1, 4, 16, 64]),
+       n_rep=st.integers(1, 8), hd=st.sampled_from([64, 128, 256]), page=st.sampled_from([1, 4, 16, 64]),
        max_pages=st.integers(1, 300), kind=st.sampled_from([0, 1, 2]),
        sms=st.sampled_from([1, 16, 78, 114, 132]))
 def test_paged_plan_covers_every_page_once(B, Hkv, n_rep, hd, page, max_pages, kind, sms):
     p = _check_plan(B, Hkv, n_rep, hd, page, max_pages, kind, sms)
     blocks = p.ranks * B * Hkv // p.heads
-    wave = pa.RESIDENT * sms
+    wave = pa.RESIDENT[hd] * sms
     # ranks only while the wave holds them; heads only while the pairs fill it
     assert p.ranks == 1 or blocks <= wave, p
     assert p.heads == 1 or B * Hkv // p.heads >= wave, p
@@ -66,7 +66,7 @@ def test_paged_plan_fills_the_card_at_the_serving_shape(max_pages):
     (max_len 512–544): at least 128 blocks in one wave."""
     p = _check_plan(8, 8, 2, 128, 16, max_pages, 0, SMS)
     blocks = p.ranks * 8 * 8 // p.heads
-    assert 128 <= blocks <= pa.RESIDENT * SMS, p
+    assert 128 <= blocks <= pa.RESIDENT[128] * SMS, p
     assert pa.plan(8, 8, 2, 128, 16, 34, 0, SMS) == pa.Plan(4, 9, 1, 64)
 
 
@@ -152,11 +152,11 @@ B, HKV, N_REP, HD, PAGE, MAX_PAGES = 6, 4, 2, 64, 4, 24
 LENGTHS = np.array([0, PAGE - 1, PAGE, MAX_PAGES * PAGE - 1, 57, MAX_PAGES * PAGE + 4], np.int32)
 
 
-def _case(policy):
+def _case(policy, hd=HD):
     rng = np.random.default_rng(7)
     n_pages = B * MAX_PAGES + 1
-    q = _randn((B, HKV, N_REP, HD), 1)
-    kf, vf = _randn((n_pages, PAGE, HKV, HD), 2), _randn((n_pages, PAGE, HKV, HD), 3)
+    q = _randn((B, HKV, N_REP, hd), 1)
+    kf, vf = _randn((n_pages, PAGE, HKV, hd), 2), _randn((n_pages, PAGE, HKV, hd), 3)
     perm = rng.permutation(np.arange(1, n_pages)).astype(np.int32)
     bt = np.zeros((B, MAX_PAGES), np.int32)
     for b in range(1, B):  # row 0 stays on the null page
@@ -177,8 +177,19 @@ OPTIONS = {"plain": (None, None), "window64_cap30": (64, 30.0),
 @pytest.mark.parametrize("option", list(OPTIONS))
 @pytest.mark.parametrize("policy", ["f32", "bf16", "int8"])
 def test_paged_kernel_order_matches_pallas(policy, option):
+    _order_matches_pallas(policy, option, HD)
+
+
+@pytest.mark.parametrize("policy", ["f32", "bf16", "int8"])
+def test_paged_kernel_order_matches_pallas_at_hd256(policy):
+    """The same model at gemma2-2b's head width, with its window and
+    soft-cap: the plan at hd 256 counts one block an SM."""
+    _order_matches_pallas(policy, "window64_cap30", 256)
+
+
+def _order_matches_pallas(policy, option, hd):
     window, cap = OPTIONS[option]
-    q, (k, v), (ks, vs), bt = _case(policy)
+    q, (k, v), (ks, vs), bt = _case(policy, hd)
     jk, jv = jnp.asarray(k), jnp.asarray(v)
     if policy == "bf16":
         jk, jv = jk.astype(jnp.bfloat16), jv.astype(jnp.bfloat16)
@@ -189,8 +200,8 @@ def test_paged_kernel_order_matches_pallas(policy, option):
         window=window, attn_softcap=cap, interpret=True))
     kf, vf = k.astype(np.float32), v.astype(np.float32)
     kind = KIND[policy]
-    chunk = pa.chunk_rows(HD, kind)
-    plans = [pa.plan(B, HKV, N_REP, HD, PAGE, MAX_PAGES, kind, SMS),  # 8 ranks of 3 pages
+    chunk = pa.chunk_rows(hd, kind)
+    plans = [pa.plan(B, HKV, N_REP, hd, PAGE, MAX_PAGES, kind, SMS),  # 8 ranks of 3 pages
              pa.Plan(2, 12, 2, chunk // 2),  # two heads a block, a stage of chunk / 2 tokens
              pa.Plan(1, MAX_PAGES, 4, chunk // 4),  # no cluster: several stages a rank
              pa.Plan(5, 5, 1, chunk)]  # a short last rank
