@@ -220,7 +220,28 @@ Phases, in order; any failure exits non-zero:
 18. musicgen-large (``musicgen_prefill`` line): 48 layers at full width,
    no rope, fed seeded frame embeddings (4 x 512): ``prefill_step`` under
    ``cuda`` against ``ref``, last-position logits within 2e-2.
-19. Summary: one JSON line ``{"kernels": [...]}`` (eight kernels, each
+19. Baselines (``baselines`` line): first the training kernels at
+   t5-base-pac's widths (``*_width`` lines). Then Table V's five
+   techniques (``benchmarks/bench_step_time.py``) on t5-base-pac and
+   internlm2-1.8b at full width, dense f32 backbones from the seed, 4 x
+   512 tokens, TF32 off: full fine-tuning, LoRA and Houlsby adapters
+   (plain ops and plain autograd, as in the reference), PAC+'s epoch-1
+   and cached steps under ``ref`` on the same backbone and under
+   ``cuda`` on its INT8 quantization; per row the median per-sample ms
+   of 3 steps after a warm-up, peak memory, trainable parameters,
+   losses and launches, per model the time and memory savings
+   (reported). Gates: LoRA's and Houlsby's logits at init bit-equal to
+   the backbone's; each baseline's losses falling; one step of each on
+   reduced internlm2 on the card against the CPU (loss 1e-5, parameters
+   5e-5 but for near-zero gradients).
+20. Distill (``distill`` line): ``quant_matmul`` at M = 1024 and flash at
+   B·H = 2·16 (``*_distill`` lines), then ``distillation_init``'s loop
+   on internlm2-1.8b at full width (INT8 backbone, pruning start, 8
+   steps over 2 batches of 2 x 512) with the teacher through ``cuda``
+   (launches a step counted) and ``ref``: the loss falls in both, the
+   runs agree per step within 1e-3 of the loss and in the adapter
+   (``DISTILL_TOL_REASON``).
+21. Summary: one JSON line ``{"kernels": [...]}`` (eight kernels, each
    with its launches on every path, the hd 256 and gemma2 rows beside
    the first, and its device kernels by name: ``skinny::gemv`` for
    ``quant_matmul`` at M <= 8 and ``adapter_fuse`` at T <= 8), the card's
@@ -1971,22 +1992,24 @@ PLAN_MICRO_BATCH, PLAN_N_MICRO = 2, 2
 PROJECTIONS_PER_PERIOD = 7  # quant_matmul launches a period of internlm2-1.8b (168 / 24)
 
 
-def plan_kernel_phase(timer: Timer, gen: torch.Generator) -> None:
+def plan_kernel_phase(timer: Timer, gen: torch.Generator, path: str = "plan",
+                      at: str = "plan stage") -> None:
     """The plan path's kernels at the shapes it gives them that no other
     check covers: a stage runs one dp rank's micro-batch of 2 x 512, so
     ``quant_matmul`` at M = 1024 over the layer's (K, N), int8, and
     ``flash_attention`` at B·H = 2·16, S = 512. (The loss on stage 0 and
     the cached step run at T = 2048, the training phase's checked
-    shape.) Each at the tolerance of its check at the training shapes."""
+    shape.) Each at the tolerance of its check at the training shapes.
+    The distill path's teacher runs the same shapes (``path="distill"``)."""
     M = PLAN_MICRO_BATCH * 512
     for K, N in QMM_SHAPES:
         _, _, got, want = qmm_check(gen, M, K, N, 8)
-        emit({"check": "quant_matmul_plan", "M": M, "K": K, "N": N, "bits": 8,
+        emit({"check": f"quant_matmul_{path}", "M": M, "K": K, "N": N, "bits": 8,
               "max_abs_err": max_err(got, want),
               "check_value": float(((got - want).abs() - 1e-4 * want.abs()).max()),
               "tol": "atol 1e-3 + rtol 1e-4", "tol_reason": qmm_tol_reason(M)})
-    r = flash_case(timer, gen, PLAN_MICRO_BATCH, 16, 8, 512, 128, "plan stage")[0]
-    emit(dict(r, check="flash_attention_plan"))
+    r = flash_case(timer, gen, PLAN_MICRO_BATCH, 16, 8, 512, 128, at)[0]
+    emit(dict(r, check=f"flash_attention_{path}"))
 
 
 def ragged_plan(cfg, workdir: Path):
@@ -3060,6 +3083,357 @@ def musicgen_phase(gen: torch.Generator) -> dict:
     return launches
 
 
+# ------------------------------------------------------- baselines, distill
+
+BASELINE_MODELS = ("t5-base-pac", "internlm2-1.8b")  # Table V's model; the training cell's
+BASELINE_B, BASELINE_S, BASELINE_STEPS = 4, 512, 3  # timed steps, after one warm-up
+BASELINES = ("full", "lora", "adapters")
+T5_PROJECTIONS = [(768, 768)] * 4 + [(768, 3072), (768, 3072), (3072, 768)]
+T5_DA, T5_V = 96, 32128  # adapter width at r = 8; vocabulary
+DISTILL_STEPS, DISTILL_B = 8, 2  # 8 steps over 2 calibration batches of 2 x 512
+DISTILL_KL_RTOL = 1e-3
+DISTILL_ADAPTER_SHARE = 1e-3  # elements allowed past 5e-5, each within AdamW's reach
+DISTILL_TOL_REASON = (
+    "the teacher's taps and logits differ by quant_matmul's and flash's rounding (the f32-KV "
+    "decode gap <= 2e-4 in logits): a logit moved by d moves the loss by at most "
+    "2d·E|log p| per position, so 1e-3 of the loss at every step leaves room for the rounding "
+    "and none for a kernel off by 1e-2. The adapters take 8 unclipped AdamW steps on those "
+    "gradients: an element whose gradient passes within a few eps of 0 moves by any fraction "
+    "of lr (ROADMAP C3), so all are held to 8 steps' reach (2·lr each) and at most 1e-3 of "
+    "them past 5e-5, ten times the CPU test's share against the reference over 2 layers")
+
+
+def width_kernel_phase(gen: torch.Generator, arch: str, projections, H: int, hd: int, d: int,
+                       da: int, V: int, T: int = BASELINE_B * BASELINE_S) -> None:
+    """The training kernels at ``arch``'s widths, the shapes its epoch-1
+    and cached steps give them at B x S = 4 x 512, held to their plain
+    versions at their training-shape tolerances (``*_width`` lines):
+    ``quant_matmul`` over one layer's projections at M = T, int8; flash at
+    B·H = 4·H, S = 512; ``mix_fwd``/``mix_dw`` over an int8 entry at
+    (T, d, d_a); ``ce_fwd``/``ce_bwd`` at (T, d, V)."""
+    from repro_torch.core.quantization import quantize
+    from repro_torch.kernels import cached_mix, lmhead_ce, ref
+
+    for K, N in sorted(set(projections)):
+        _, _, got, want = qmm_check(gen, T, K, N, 8)
+        emit({"check": "quant_matmul_width", "arch": arch, "M": T, "K": K, "N": N, "bits": 8,
+              "max_abs_err": max_err(got, want), "tol": "atol 1e-3 + rtol 1e-4",
+              "tol_reason": qmm_tol_reason(T)})
+    r = flash_case(Timer(), gen, BASELINE_B, H, H, BASELINE_S, hd, f"{arch} training")[0]
+    emit(dict(r, check="flash_attention_width", arch=arch))
+    ent = quantize(torch.randn(T, d, generator=gen, device=DEV), 8, 128)
+    w = torch.randn(d, da, generator=gen, device=DEV) * d ** -0.5
+    a, g = (torch.randn(T, da, generator=gen, device=DEV) for _ in range(2))
+    lam = torch.tensor(0.7, device=DEV)
+    out, bw = cached_mix.mix_fwd(ent, w, a, lam)
+    want_out, want_bw = ref.mix_fwd_ref(ent, w, a, lam)
+    check(f"mix_fwd {arch}", mix_fwd_check(out, bw, want_out, want_bw), 1e-4)
+    dw, want_dw = cached_mix.mix_dw(ent, g, lam, d), ref.mix_dw_ref(ent, g, lam, d)
+    check(f"mix_dw {arch}", float(((dw - want_dw).abs() - 1e-3 * want_dw.abs()).max()), 2e-4)
+    h = torch.randn(T, d, generator=gen, device=DEV)
+    wh = torch.randn(d, V, generator=gen, device=DEV) * d ** -0.5
+    lab = torch.randint(0, V, (T,), generator=gen, device=DEV)
+    gl = torch.randn(T, generator=gen, device=DEV)
+    nll, lse = lmhead_ce.ce_fwd(h, wh, lab, None)
+    want_nll, want_lse = ref.ce_fwd_ref(h, wh, lab, None)
+    check(f"ce_fwd {arch}", max(float(((nll - want_nll).abs() - 1e-5 * want_nll.abs()).max()),
+                                float(((lse - want_lse).abs() - 1e-5 * want_lse.abs()).max())),
+          2e-5)
+    dh = lmhead_ce.ce_bwd(h, wh, lab, want_lse, gl, None)
+    want_dh = ref.ce_bwd_ref(h, wh, lab, want_lse, gl, None)
+    check(f"ce_bwd {arch}", float(((dh - want_dh).abs() - 1e-4 * want_dh.abs()).max()), 1e-5)
+    emit({"check": "training_kernels_width", "arch": arch, "T": T, "d": d, "da": da, "V": V,
+          "mix_fwd_max_abs_err": max(max_err(out, want_out), max_err(bw, want_bw)),
+          "mix_dw_max_abs_err": max_err(dw, want_dw),
+          "ce_fwd_max_abs_err": max(max_err(nll, want_nll), max_err(lse, want_lse)),
+          "ce_bwd_max_abs_err": max_err(dh, want_dh),
+          "tol": "mix_fwd atol 1e-4 + rtol 1e-4; mix_dw atol 2e-4 + rtol 1e-3; ce_fwd atol "
+                 "2e-5 + rtol 1e-5; ce_bwd atol 1e-5 + rtol 1e-4 (the training shapes')"})
+
+
+def _timed_steps(step, tree, n: int = BASELINE_STEPS) -> dict:
+    """``step(tree, opt) -> (loss, tree', opt', ...)`` from ``tree`` and a
+    fresh AdamW state: one warm-up step, then ``n`` timed ones on the same
+    batch, each ending in a sync, then one more under the profiler.
+    Returns the per-step walls, the timed steps' losses, the peak memory
+    from the warm-up on, the kernels' launches a timed step and the
+    profiled step's device busy share, host ops and top kernels. The
+    caller keeps no reference to ``tree`` when the steps should replace
+    it (full fine-tuning's backbone)."""
+    from repro_torch.optim import adamw_init
+
+    torch.cuda.reset_peak_memory_stats()
+    opt = adamw_init(tree)
+    loss, tree, opt = step(tree, opt)[:3]
+    float(loss)
+    reset_launches()
+    walls, losses = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, tree, opt = step(tree, opt)[:3]
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    out = {"step_s": walls, "losses": losses,
+           "launches_per_step": {k: v / n for k, v in read_launches().items() if v},
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    state = [tree, opt]
+    del tree, opt
+    prof = device_profile(lambda: state.__setitem__(slice(None), step(*state)[1:3]))
+    out["profile"] = dict(prof, kernels_by_device_ms=prof["kernels_by_device_ms"][:5])
+    return out
+
+
+def _update_close(cpu_new, card_new, cpu_grads, clip: float, lr: float, atol: float = 5e-5):
+    """max |card − cpu| over the updated leaves, beside the bound the
+    elements whose clipped CPU gradient lies within 100·eps of 0 are held
+    to (one AdamW step's reach, 2·lr: ROADMAP C3). Returns (max over the
+    other elements, max over those, their count)."""
+    from repro_torch.core.quantization import tree_leaves
+
+    grads = tree_leaves(cpu_grads)
+    norm = float(torch.sqrt(sum(torch.sum(g * g) for g in grads)))
+    scale = min(1.0, clip / max(norm, 1e-12))
+    rest = steep = 0.0
+    n_steep = 0
+    for a, b, g in zip(tree_leaves(cpu_new), tree_leaves(card_new), grads):
+        diff = (b.cpu() - a).abs()
+        mask = g.abs() * scale < 100 * 1e-8
+        rest = max(rest, float(diff[~mask].max()) if (~mask).any() else 0.0)
+        steep = max(steep, float(diff[mask].max()) if mask.any() else 0.0)
+        n_steep += int(mask.sum())
+    if rest > atol or steep > 2 * lr:
+        raise AssertionError(f"updated parameters on the card vs the CPU: {rest} (tol {atol}), "
+                             f"near-zero-gradient elements {steep} (tol {2 * lr})")
+    return rest, steep, n_steep
+
+
+def baselines_card_vs_cpu() -> dict:
+    """Gate (c): one step of each baseline on reduced internlm2-1.8b
+    (seeded on the CPU, B and ``up`` non-zero) on ``cuda:0`` against the
+    same step on the CPU: loss within 1e-5, the updated tree within 5e-5
+    (elements whose clipped gradient is within 100·eps of 0: 2·lr)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import peft, steps
+    from repro_torch.core.quantization import tree_leaves, tree_map
+    from repro_torch.models.backbone import backbone_logits, cross_entropy, init_backbone
+    from repro_torch.optim import adamw_init
+
+    cfg = get_arch("internlm2-1.8b").reduced()
+    gen = torch.Generator().manual_seed(SEED)
+    backbone = init_backbone(gen, cfg, device="cpu")
+    lora, houlsby = peft.init_lora(gen, cfg), peft.init_houlsby(gen, cfg)
+    for layer in lora["layers"]:
+        for k in ("b_q", "b_v"):
+            layer[k] = torch.randn(layer[k].shape, generator=gen) * 0.05
+    for layer in houlsby["layers"]:
+        for k in ("up", "ln"):
+            layer[k] = torch.randn(layer[k].shape, generator=gen) * 0.1
+    batch = {k: torch.randint(0, cfg.vocab, (2, 64), generator=gen, dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    runs = {"full": (lambda bb, t, o, b: steps.full_train_step(t, o, b, cfg=cfg), backbone,
+                     lambda bb, t: backbone_logits(t, cfg, batch), 1e-4),
+            "lora": (lambda bb, t, o, b: steps.lora_train_step(bb, t, o, b, cfg=cfg), lora,
+                     lambda bb, t: peft.lora_logits(bb, t, cfg, batch), 1e-3),
+            "adapters": (lambda bb, t, o, b: steps.houlsby_train_step(bb, t, o, b, cfg=cfg),
+                         houlsby, lambda bb, t: peft.houlsby_logits(bb, t, cfg, batch), 1e-3)}
+    to_card = lambda tree: tree_map(lambda t: t.to(DEV), tree)  # noqa: E731
+    out = {}
+    for name, (step, tree, logits, lr) in runs.items():
+        cpu = step(backbone, tree, adamw_init(tree), batch)
+        card_tree = to_card(tree)
+        card = step(to_card(backbone), card_tree, adamw_init(card_tree), to_card(batch))
+        leaves = tree_map(lambda t: t.detach().requires_grad_(True), tree)
+        flat = torch.autograd.grad(cross_entropy(logits(backbone, leaves), batch["labels"]),
+                                   tree_leaves(leaves))
+        it = iter(flat)
+        grads = tree_map(lambda _: next(it), leaves)
+        dloss = abs(float(card[0]) - float(cpu[0]))
+        if not dloss <= 1e-5:
+            raise AssertionError(f"{name} step on the card vs the CPU: loss {dloss} > 1e-5")
+        rest, steep, n_steep = _update_close(cpu[1], card[1], grads, 1.0, lr)
+        out[name] = {"loss_cpu": float(cpu[0]), "abs_dloss": dloss, "max_abs_dparam": rest,
+                     "near_zero_grad_elements": n_steep, "near_zero_max_abs_dparam": steep}
+    return out
+
+
+def baselines_phase() -> dict:
+    """Table V / Fig. 13a at full width (``benchmarks/bench_step_time.py``'s
+    five techniques): on t5-base-pac and internlm2-1.8b, each a dense f32
+    backbone drawn from the seed, B x S = 4 x 512, TF32 off: ``full``,
+    ``lora`` (rank 8 on W_q, W_v), ``adapters`` (Houlsby, bottleneck 64),
+    ``pac`` and ``pac_cached`` (r = 8) under the ``ref`` OpSet on the same
+    backbone, and ``pac``/``pac_cached`` under ``cuda`` on its INT8
+    quantization (int8 taps), as the training cell runs them. Per row: the
+    median per-sample ms of 3 timed steps after a warm-up on one repeated
+    batch, the peak memory, the trainable parameters, the losses, the
+    kernels' launches a step; per model the savings of
+    ``bench_step_time.py:81-86`` (reported, not gated). Gates: (a) LoRA's
+    and Houlsby's logits at init equal ``backbone_logits`` bit for bit;
+    (b) each baseline's losses finite and falling; (c)
+    :func:`baselines_card_vs_cpu`. ``full`` runs last, consuming the
+    backbone: its AdamW update holds ~8 copies of the parameters
+    (internlm2: 1.89 G f32, 7.6 GB each). Returns the kernels' launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import peft, steps
+    from repro_torch.core.parallel_adapters import init_adapter
+    from repro_torch.models.backbone import backbone_logits, init_backbone
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    line = {"phase": "baselines", "batch": BASELINE_B, "seq": BASELINE_S,
+            "warmup_steps": 1, "timed_steps": BASELINE_STEPS,
+            "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "resident_at_start": torch.cuda.memory_allocated(), "models": {}}
+    launches: dict = {}
+    for arch in BASELINE_MODELS:
+        cfg = get_arch(arch)
+        gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
+        batch = {k: torch.randint(0, cfg.vocab, (BASELINE_B, BASELINE_S), generator=gen,
+                                  device=DEV, dtype=torch.int32) for k in ("tokens", "labels")}
+        lora = peft.init_lora(gen, cfg, device=DEV)
+        houlsby = peft.init_houlsby(gen, cfg, device=DEV)
+        adapter = init_adapter(gen, cfg, 8, device=DEV)
+        rows = {}
+        # the INT8 backbone first, drawn and quantized leaf by leaf (the f32
+        # tree is never resident), then the f32 one from the same seed: each
+        # row's peak holds only the backbone it trains on
+        for impl, suffix in (("cuda", "_cuda_int8"), ("ref", "")):
+            bb = init_backbone(torch.Generator(device=DEV).manual_seed(SEED), cfg, device=DEV,
+                               quant_bits=8 if impl == "cuda" else None)
+            cached = {"labels": batch["labels"]}
+
+            def pac(t, o, bb=bb, impl=impl, cached=cached):
+                out = steps.pac_train_step(bb, t, o, batch, cfg=cfg, r=8, kernel_impl=impl,
+                                           tap_policy="int8" if impl == "cuda" else "f32")
+                cached.update(zip(("b0", "taps", "b_final"), out[3]))
+                return out
+
+            rows["pac" + suffix] = _timed_steps(pac, adapter)
+            rows["pac_cached" + suffix] = _timed_steps(
+                lambda t, o, bb=bb, impl=impl, cached=cached: steps.pac_cached_train_step(
+                    bb, t, o, cached, cfg=cfg, r=8, kernel_impl=impl), adapter)
+            for name in ("pac" + suffix, "pac_cached" + suffix):
+                for k, v in rows[name]["launches_per_step"].items():
+                    launches[k] = launches.get(k, 0) + v * BASELINE_STEPS
+            del cached, pac
+            if impl == "cuda":
+                del bb
+                torch.cuda.empty_cache()
+        held = {"backbone": bb}
+        backbone = bb
+        del bb
+        want = backbone_logits(backbone, cfg, batch)
+        identity = {"lora": bool(torch.equal(peft.lora_logits(backbone, lora, cfg, batch), want)),
+                    "adapters": bool(torch.equal(peft.houlsby_logits(backbone, houlsby, cfg,
+                                                                     batch), want))}
+        del want
+        params = {"full": peft.peft_param_count(backbone), "lora": peft.peft_param_count(lora),
+                  "adapters": peft.peft_param_count(houlsby), "pac": peft.peft_param_count(adapter)}
+        rows["lora"] = _timed_steps(
+            lambda t, o: steps.lora_train_step(backbone, t, o, batch, cfg=cfg), lora)
+        rows["adapters"] = _timed_steps(
+            lambda t, o: steps.houlsby_train_step(backbone, t, o, batch, cfg=cfg), houlsby)
+        del lora, houlsby, adapter, backbone
+        torch.cuda.empty_cache()
+        # full fine-tuning last: its steps replace the backbone, of which no
+        # other reference is left
+        rows["full"] = _timed_steps(lambda t, o: steps.full_train_step(t, o, batch, cfg=cfg),
+                                    held.pop("backbone"))
+        torch.cuda.empty_cache()
+        for name, row in rows.items():
+            row["per_sample_ms"] = statistics.median(row["step_s"]) * 1e3 / BASELINE_B
+            row["params_trainable"] = params[name.split("_")[0]]
+        base = min(rows[n]["per_sample_ms"] for n in BASELINES)
+        falling = {n: bool(all(np.isfinite(rows[n]["losses"]))
+                           and rows[n]["losses"][-1] < rows[n]["losses"][0]) for n in BASELINES}
+        line["models"][arch] = {
+            "layers": cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab, "rows": rows,
+            "pac_time_saving": 1 - rows["pac"]["per_sample_ms"] / base,
+            "cached_saving": 1 - rows["pac_cached"]["per_sample_ms"] / base,
+            "pac_cuda_int8_time_saving": 1 - rows["pac_cuda_int8"]["per_sample_ms"] / base,
+            "cached_cuda_int8_saving": 1 - rows["pac_cached_cuda_int8"]["per_sample_ms"] / base,
+            "memory_saving_vs_full": {
+                n: 1 - rows[n]["max_memory_allocated"] / rows["full"]["max_memory_allocated"]
+                for n in rows if n != "full"},
+            "identity_start_bit_equal": identity, "losses_fall": falling}
+        if not (all(identity.values()) and all(falling.values())):
+            emit(line)
+            raise AssertionError(f"{arch}: identity start {identity}, losses finite and "
+                                 f"falling {falling}")
+    line["card_vs_cpu"] = baselines_card_vs_cpu()
+    line["card_vs_cpu_tol"] = {"loss": 1e-5, "params": 5e-5,
+                               "near_zero_grad_params": "2·lr (ROADMAP C3)"}
+    line["phase_s"] = time.perf_counter() - t_phase
+    emit(line)
+    return {k: int(round(v)) for k, v in launches.items()}
+
+
+def distill_phase(gen: torch.Generator) -> dict:
+    """``distillation_init`` at full width: internlm2-1.8b with an INT8
+    backbone, the pruning start (``distillation_init(steps=0)``: W_up
+    redrawn), 8 steps over 2 calibration batches of 2 x 512, run with the
+    teacher through ``cuda`` (``quant_matmul``, flash; launches counted)
+    and through ``ref``. Gates: the loss (the KL up to the teacher's
+    entropy) falls from step 1 to step 8 in both runs; the runs agree
+    (``DISTILL_TOL_REASON``). Returns the ``cuda`` run's launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.init_methods import _distill, distillation_init
+    from repro_torch.core.quantization import tree_leaves
+    from repro_torch.models.backbone import init_backbone
+
+    cfg = get_arch("internlm2-1.8b")
+    torch.cuda.empty_cache()
+    backbone = init_backbone(gen, cfg, device=DEV, quant_bits=8)
+    calib = [{"tokens": torch.randint(0, cfg.vocab, (DISTILL_B, 512), generator=gen,
+                                      device=DEV, dtype=torch.int32)} for _ in range(2)]
+    start = distillation_init(torch.Generator(device=DEV).manual_seed(SEED), backbone, cfg,
+                              calib, r=8, steps=0)
+    runs = {}
+    for impl in ("cuda", "ref"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        adapter, losses = _distill(start, backbone, cfg, calib, r=8, steps=DISTILL_STEPS,
+                                   kernel_impl=impl)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[impl] = {"adapter": adapter, "losses": [float(x) for x in losses],
+                      "ms_per_step": wall * 1e3 / DISTILL_STEPS,
+                      "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                      "launches": {k: v for k, v in read_launches().items() if v}}
+    cuda_launches = runs["cuda"]["launches"]
+    diffs = torch.cat([(a - b).abs().flatten() for a, b in zip(
+        tree_leaves(runs["cuda"]["adapter"]), tree_leaves(runs["ref"]["adapter"]))])
+    kl_gap = [abs(a - b) for a, b in zip(runs["cuda"]["losses"], runs["ref"]["losses"])]
+    share = float((diffs > 5e-5).float().mean())
+    line = {"phase": "distill", "arch": cfg.name, "backbone": "int8", "init": "pruning",
+            "r": 8, "steps": DISTILL_STEPS, "calib_batches": 2, "batch": DISTILL_B, "seq": 512,
+            "adapter_params": int(diffs.numel()),
+            **{f"{impl}_{k}": v for impl, run in runs.items() for k, v in run.items()
+               if k != "adapter"},
+            "cuda_launches_per_step": {k: v / DISTILL_STEPS for k, v in cuda_launches.items()},
+            "abs_dkl_per_step": kl_gap, "max_abs_dadapter": float(diffs.max()),
+            "share_dadapter_over_5e-5": share, "kl_rtol": DISTILL_KL_RTOL,
+            "adapter_tol": {"max": 2 * 1e-3 * DISTILL_STEPS, "share_over_5e-5":
+                            DISTILL_ADAPTER_SHARE}, "tol_reason": DISTILL_TOL_REASON}
+    emit(line)
+    for impl, run in runs.items():
+        kl = run["losses"]
+        if not (all(np.isfinite(kl)) and kl[-1] < kl[0]):
+            raise AssertionError(f"distill ({impl}): the loss does not fall: {kl}")
+    if any(g > DISTILL_KL_RTOL * max(1.0, abs(k)) for g, k in zip(kl_gap, runs["ref"]["losses"])):
+        raise AssertionError(f"distill cuda vs ref: per-step loss gaps {kl_gap}")
+    if float(diffs.max()) > 2 * 1e-3 * DISTILL_STEPS or share > DISTILL_ADAPTER_SHARE:
+        raise AssertionError(f"distill cuda vs ref adapters: max {float(diffs.max())}, "
+                             f"share past 5e-5 {share}")
+    if min(cuda_launches.get(k, 0) for k in ("quant_matmul", "flash_attention")) <= 0:
+        raise AssertionError(f"distill: frozen-forward kernels not launched: {cuda_launches}")
+    return cuda_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3133,6 +3507,14 @@ def main() -> int:
         for k, v in pac_run(arch)[0].items():
             paper_models[k] = paper_models.get(k, 0) + v
     musicgen = musicgen_phase(gen)
+    paper_done_s = time.perf_counter() - T_START
+
+    # the paper's baselines beside PAC+ (Table V), then distillation_init
+    width_kernel_phase(gen, "t5-base-pac", T5_PROJECTIONS, 12, 64, 768, T5_DA, T5_V)
+    baselines = baselines_phase()
+    baselines_done_s = time.perf_counter() - T_START
+    plan_kernel_phase(Timer(), gen, "distill", "distill teacher")
+    distill = distill_phase(gen)
 
     sources = {"quant_matmul": ("src/repro_torch/kernels/csrc/quant_matmul.cu",
                                 "src/repro/kernels/quant_matmul.py:93"),
@@ -3154,7 +3536,8 @@ def main() -> int:
              "prefetch": prefetch, "distributed": distributed, "plan": plan,
              "plan_auto": plan_auto, "fleet": fleet, "gemma2_serving": gemma2_serving,
              "gemma2_training": gemma2_training, "gemma2_personal": gemma2_personal,
-             "paper_models": paper_models, "musicgen_prefill": musicgen}
+             "paper_models": paper_models, "musicgen_prefill": musicgen,
+             "baselines": baselines, "distill": distill}
     home = {"quant_matmul": "serving", "flash_attention": "serving",
             "paged_attention": "serving", "adapter_fuse": "personal"}
     # each kernel's launches on its own main path (serving for the first
@@ -3180,7 +3563,8 @@ def main() -> int:
           "through_serving_s": serving_done_s, "through_training_s": training_done_s,
           "through_personal_s": personal_done_s, "through_prefetch_s": prefetch_done_s,
           "through_distributed_s": distributed_done_s, "through_plan_s": plan_done_s,
-          "through_fleet_s": fleet_done_s, "through_gemma2_s": gemma2_done_s})
+          "through_fleet_s": fleet_done_s, "through_gemma2_s": gemma2_done_s,
+          "through_paper_models_s": paper_done_s, "through_baselines_s": baselines_done_s})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,22 +1,35 @@
 """Weight initialisation of the Parallel Adapters (paper §IV-C).
 
-Counterpart of ``repro.core.init_methods``: **structural pruning** — the
-adapter inherits the backbone's top-norm channels (the L2 norm
-criterion): per-matrix row/column selection by importance, with W_down
-set to the channel-selection matrix, so the side network starts as a
-pruned functional copy of the backbone, and ``W_up`` zero, so the PAC+
-model's first output equals the backbone's (the smooth start).
+Counterpart of ``repro.core.init_methods``, its two initialisers:
 
-Dense attention backbones only; the knowledge-distillation initialiser
-arrives with a later slice of the port.
+* **Structural pruning** — the adapter inherits the backbone's top-norm
+  channels (the L2 norm criterion): per-matrix row/column selection by
+  importance, with W_down set to the channel-selection matrix, so the
+  side network starts as a pruned functional copy of the backbone, and
+  ``W_up`` zero, so the PAC+ model's first output equals the backbone's
+  (the smooth start).
+* **Knowledge distillation** — from the pruned (or a random) start with
+  ``W_up`` redrawn, the side network alone is trained on public
+  calibration batches to reproduce the frozen backbone's next-token
+  distribution from its taps (the paper runs this in the cloud; no
+  private data). The teacher's forward runs under ``torch.no_grad()``
+  through the ``kernel_impl`` OpSet: ``"cuda"`` takes a quantized
+  backbone's projections through ``quant_matmul`` and its attention
+  through the flash kernel; the function is the same under ``"ref"``.
+
+Dense attention backbones only.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.parallel_adapters import adapter_config, init_adapter
-from repro_torch.core.quantization import maybe_dequantize_tree
+from repro_torch.core.opset import get_opset
+from repro_torch.core.parallel_adapters import adapter_config, adapter_forward, init_adapter
+from repro_torch.core.quantization import QTensor, maybe_dequantize_tree
+from repro_torch.core.steps import _update
+from repro_torch.models.backbone import backbone_forward, logits_from_hidden
+from repro_torch.optim import adamw_init
 
 
 def _l2(w, dim):
@@ -110,3 +123,68 @@ def pruning_init(gen: torch.Generator, backbone_params, cfg, r: int = 8, *, devi
             dst["ffn"]["wg"] = _prune_rows_cols(wg, keep_d, keep_ff)
             dst["ffn"]["wo"] = _prune_rows_cols(wo, keep_ff, keep_d)
     return params
+
+
+# ---------------------------------------------------------------------------
+# Knowledge-distillation init
+# ---------------------------------------------------------------------------
+
+
+def distillation_init(gen: torch.Generator, backbone_params, cfg, calib_batches, r: int = 8,
+                      steps: int = 50, lr: float = 1e-3, from_pruning: bool = True, *,
+                      kernel_impl: str = "ref") -> dict:
+    """Train the side network to mimic the frozen backbone's predictions.
+
+    calib_batches: {"tokens": (B,S)} (or {"embeds"}) public-data batches,
+    cycled over ``steps`` AdamW steps (no clipping, as in the reference).
+    The student's logits come from the adapter path alone,
+    ``lm_head(W_up a_L)``, against the teacher's ``lm_head(b_final)``, so
+    the side network becomes a functional mini-replica of the backbone.
+    The start is :func:`pruning_init` (or a random adapter) with ``W_up``
+    redrawn N(0, 1)·d_a^-0.5 from ``gen``, which lives on the backbone's
+    device, where the adapter is made."""
+    embed = backbone_params["embed"]
+    device = (embed.q if isinstance(embed, QTensor) else embed).device
+    if from_pruning:
+        adapter = pruning_init(gen, backbone_params, cfg, r, device=device)
+    else:
+        adapter = init_adapter(gen, cfg, r, device=device)
+    # distillation needs a non-zero output path: break W_up's symmetry
+    up = adapter["up"]
+    adapter["up"] = (torch.randn(up.shape, generator=gen, device=up.device) *
+                     up.shape[0] ** -0.5).to(up.dtype)
+    adapter, _ = _distill(adapter, backbone_params, cfg, calib_batches, r=r, steps=steps, lr=lr,
+                         kernel_impl=kernel_impl)
+    return adapter
+
+
+def _distill(adapter, backbone_params, cfg, calib_batches, *, r: int = 8, steps: int = 50,
+            lr: float = 1e-3, kernel_impl: str = "ref"):
+    """:func:`distillation_init`'s loop from a given start ``adapter``.
+
+    Each step: the teacher's frozen forward and softmax under no grad,
+    then the cross-entropy of the student's log-softmax against it (the
+    KL up to the teacher's entropy, which has no gradient), all in f32,
+    and one unclipped AdamW update. Returns (adapter', the per-step
+    losses as device tensors, each taken before its update)."""
+    ops = get_opset(kernel_impl, "f32")
+    batches = list(calib_batches)
+    opt = adamw_init(adapter)
+    losses = []
+    for i in range(steps):
+        batch = batches[i % len(batches)]
+        with torch.no_grad():
+            b_final, taps, x, positions = backbone_forward(
+                backbone_params, cfg, batch, collect_taps=True, return_inputs=True, ops=ops)
+            teacher = torch.softmax(logits_from_hidden(backbone_params, cfg, b_final).float(),
+                                    dim=-1)
+
+        def kl_loss(ap):
+            side = adapter_forward(ap, cfg, x, taps, positions, r)
+            ls = torch.log_softmax(logits_from_hidden(backbone_params, cfg, side).float(),
+                                   dim=-1)
+            return -torch.mean(torch.sum(teacher * ls, dim=-1))
+
+        loss, adapter, opt = _update(kl_loss, adapter, opt, lr, None)
+        losses.append(loss)
+    return adapter, losses

@@ -1,0 +1,144 @@
+"""The baseline fine-tuning techniques the paper compares PAC+ against
+(§II, §VI; counterpart of ``repro.core.peft``):
+
+* **Full fine-tuning**: every backbone parameter trainable
+  (``core/steps.py`` ``full_train_step``; nothing to initialise).
+* **LoRA** (Hu et al.): a low-rank ΔW = A·B on W_q and W_v, A Gaussian,
+  B zero (the start PAC+'s §IV-C analysis builds on).
+* **Adapters** (Houlsby et al.): a bottleneck MLP after each layer, a
+  residual around it.
+
+LoRA and Adapters keep their trainable parts *inside* the backbone, so
+the gradient backpropagates through the whole frozen model: the cost
+PAC+ removes. As in the reference, both run on plain PyTorch ops
+outside any kernel (each block dequantized first), and their steps take
+the gradient with plain autograd: neither package has a backward kernel
+for ``quant_matmul`` or flash attention.
+
+Dense attention blocks only: SSM and MoE layer kinds raise
+``NotImplementedError`` naming the slice that brings them. Parameters
+are drawn from an explicit ``torch.Generator`` on the caller's device;
+block leaves are stacked over periods, as the reference's are, so trees
+bridge over unchanged.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.quantization import QTensor, index_tree, maybe_dequantize_tree, tree_leaves
+from repro_torch.models.backbone import apply_block, embed_inputs, logits_from_hidden
+from repro_torch.models.layers import LeafMaker, attention_forward, mlp_forward, rms_norm
+
+LORA_TARGETS = ("wq", "wv")  # the paper follows Hu et al.: the q and v projections
+
+
+def _dense_only(cfg) -> None:
+    for spec in cfg.pattern:
+        if spec.moe:
+            raise NotImplementedError(
+                f"{cfg.name}: MoE blocks arrive with the MoE (A6.4) slice of the port; "
+                "the baselines cover dense attention blocks")
+        if spec.kind != "attn":
+            raise NotImplementedError(
+                f"{cfg.name}: layer kind {spec.kind!r} arrives with the SSM (A6.5) slice of "
+                "the port; the baselines cover dense attention blocks")
+
+
+# ---------------------------------------------------------------------------
+# LoRA
+# ---------------------------------------------------------------------------
+
+
+def init_lora(gen: torch.Generator, cfg, rank: int = 8, *, device=None,
+              dtype=torch.float32) -> dict:
+    """One (A, B) pair each for W_q and W_v per layer position, stacked
+    over periods: A ~ N(0, 1)·d^-0.5, B zero; ``alpha`` = 2·rank (a
+    trainable leaf, as in the reference), so the rank scale starts at 2."""
+    _dense_only(cfg)
+    d, n_p = cfg.d_model, cfg.n_periods
+    leaf = LeafMaker(gen, device=device, dtype=dtype, lead=(n_p,))
+    layers = []
+    for _ in cfg.pattern:
+        a_q = leaf.normal((d, rank), d ** -0.5)
+        a_v = leaf.normal((d, rank), d ** -0.5)
+        layers.append({"a_q": a_q, "b_q": leaf.zeros((rank, cfg.n_heads * cfg.hd)),
+                       "a_v": a_v, "b_v": leaf.zeros((rank, cfg.n_kv_heads * cfg.hd))})
+    return {"layers": layers,
+            "alpha": torch.tensor(2.0 * rank, dtype=torch.float32, device=device)}
+
+
+def lora_delta(lp, x, which: str, rank_scale):
+    a, b = lp[f"a_{which}"], lp[f"b_{which}"]
+    return ((x @ a) @ b) * rank_scale
+
+
+def apply_block_lora(p, lp, x, cfg, spec, positions, rank_scale):
+    """One block with the LoRA ΔW materialised on W_q and W_v
+    (``W + (A @ B)·scale``), the rest the plain block: the block is
+    dequantized first, then norm, attention, residual, norm, MLP."""
+    p = maybe_dequantize_tree(p)
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    mixer = dict(p["mixer"])
+    mixer["wq"] = mixer["wq"] + (lp["a_q"] @ lp["b_q"]) * rank_scale
+    mixer["wv"] = mixer["wv"] + (lp["a_v"] @ lp["b_v"]) * rank_scale
+    x = x + attention_forward(mixer, h, cfg, spec, positions)
+    if "ffn" in p:
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        x = x + mlp_forward(p["ffn"], h)
+    return x
+
+
+def lora_logits(backbone_params, lora_params, cfg, batch):
+    """The backbone's logits with LoRA on every block. batch:
+    {"tokens"} or {"embeds"}, optional {"positions"}."""
+    _dense_only(cfg)
+    x, positions = embed_inputs(backbone_params, cfg, batch)
+    rank = lora_params["layers"][0]["a_q"].shape[-1]
+    rank_scale = lora_params["alpha"] / rank
+    blocks, layers = backbone_params["blocks"], lora_params["layers"]
+    for i in range(cfg.n_periods):
+        for spec, p, lp in zip(cfg.pattern, index_tree(blocks, i), index_tree(layers, i)):
+            x = apply_block_lora(p, lp, x, cfg, spec, positions, rank_scale)
+    return logits_from_hidden(backbone_params, cfg, x)
+
+
+# ---------------------------------------------------------------------------
+# Houlsby Adapters (a serial bottleneck inside the backbone)
+# ---------------------------------------------------------------------------
+
+
+def init_houlsby(gen: torch.Generator, cfg, bottleneck: int = 64, *, device=None,
+                 dtype=torch.float32) -> dict:
+    """Per layer position, stacked over periods: ``down`` ~ N(0, 1)·d^-0.5,
+    ``up`` and the norm gain ``ln`` zero (the identity start)."""
+    _dense_only(cfg)
+    d, n_p = cfg.d_model, cfg.n_periods
+    leaf = LeafMaker(gen, device=device, dtype=dtype, lead=(n_p,))
+    return {"layers": [{"down": leaf.normal((d, bottleneck), d ** -0.5),
+                        "up": leaf.zeros((bottleneck, d)),
+                        "ln": leaf.zeros((d,))} for _ in cfg.pattern]}
+
+
+def houlsby_logits(backbone_params, adapters, cfg, batch):
+    """The backbone's logits with a bottleneck after each layer:
+    ``h + gelu(rms_norm(h) @ down) @ up``. The gelu is the reference's
+    ``jax.nn.gelu`` default, the tanh approximation (not PyTorch's
+    default erf)."""
+    _dense_only(cfg)
+    x, positions = embed_inputs(backbone_params, cfg, batch)
+    blocks, layers = backbone_params["blocks"], adapters["layers"]
+    for i in range(cfg.n_periods):
+        for spec, p, ad in zip(cfg.pattern, index_tree(blocks, i), index_tree(layers, i)):
+            x = apply_block(p, x, cfg, spec, positions)
+            a = rms_norm(x, ad["ln"], cfg.norm_eps)
+            x = x + F.gelu(a @ ad["down"], approximate="tanh") @ ad["up"]
+    return logits_from_hidden(backbone_params, cfg, x)
+
+
+def peft_param_count(params) -> int:
+    """Elements over a tree's leaves, as the reference counts them
+    (``alpha`` counts one; a QTensor its codes and scales)."""
+    return sum(int(t.q.numel() + t.scale.numel()) if isinstance(t, QTensor) else int(t.numel())
+               for t in tree_leaves(params) if isinstance(t, (torch.Tensor, QTensor)))

@@ -9,6 +9,10 @@
   ranks: the frozen forward pipelined over the stages, the adapter loss
   data-parallel over dp; :func:`dp_cached_train_step` — epoch ≥ 2 in pure
   data parallelism over the whole pool.
+* :func:`full_train_step`, :func:`lora_train_step`,
+  :func:`houlsby_train_step` — the paper's baselines (``core/peft.py``):
+  plain ops and plain autograd through the whole backbone, as in the
+  reference.
 * :func:`prefill_step`, :func:`decode_step`, :func:`pac_decode_step` —
   serving one user's personal model against a linear KV cache (f32, or
   INT8 from ``init_cache(kv_quant=8)``), updated in place.
@@ -24,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import peft
 from repro_torch.core.opset import get_opset
 from repro_torch.core.parallel_adapters import adapter_decode, pac_logits
 from repro_torch.core.pipeline import map_arrays, stack_stages, stack_stages_ragged
@@ -31,6 +36,7 @@ from repro_torch.core.quantization import QTensor, index_tree, tree_leaves, tree
 from repro_torch.models.backbone import (
     backbone_decode,
     backbone_forward,
+    backbone_logits,
     cross_entropy,
     cross_entropy_parts,
     decode_periods,
@@ -42,13 +48,16 @@ from repro_torch.optim import adamw_update, clip_by_global_norm
 
 
 def _apply(adapter_params, grads, opt_state, lr, clip):
-    """Clip the gradients' global norm, then one AdamW update."""
-    grads, _ = clip_by_global_norm(grads, clip)
+    """Clip the gradients' global norm (``clip=None``: no clipping), then
+    one AdamW update."""
+    if clip is not None:
+        grads, _ = clip_by_global_norm(grads, clip)
     return adamw_update(adapter_params, grads, opt_state, lr=lr)
 
 
 def _update(loss_fn, adapter_params, opt_state, lr, clip):
-    """Loss, gradients over the adapter's leaves, clip, AdamW."""
+    """Loss, gradients over the leaves of ``adapter_params`` (whatever
+    tree is trained), clip, AdamW."""
     leaves = tree_map(lambda t: t.detach().requires_grad_(True), adapter_params)
     loss = loss_fn(leaves)
     grads = torch.autograd.grad(loss, tree_leaves(leaves))
@@ -388,6 +397,49 @@ def dp_cached_train_step(backbone_params, adapter_params, opt_state, cached_batc
                                      counted=rows_count(mesh, batch_axes))
     adapter_params, opt_state = _apply(adapter_params, grads, opt_state, lr, clip)
     return loss, adapter_params, opt_state
+
+
+# ---------------------------------------------------------------------------
+# Baseline fine-tuning steps (the paper's comparisons)
+# ---------------------------------------------------------------------------
+
+
+def full_train_step(params, opt_state, batch, *, cfg, lr=1e-4, clip=1.0):
+    """Full fine-tuning: the gradient of every backbone leaf, clip, AdamW.
+    With a tied head the embedding gets both gradients (lookup and head).
+
+    The logits come through ``logits_from_hidden`` (the head read from
+    ``params`` each step), never the session's cached ``loss_head``: the
+    head changes every step here. Returns (loss, params', opt_state')."""
+    if any(isinstance(t, QTensor) for t in tree_leaves(params)):
+        raise TypeError("full_train_step differentiates every backbone leaf, and a quantized "
+                        "(QTensor) leaf's integer codes have no gradient: pass a dense backbone")
+
+    def loss_fn(p):
+        return cross_entropy(backbone_logits(p, cfg, batch), batch["labels"])
+
+    return _update(loss_fn, params, opt_state, lr, clip)
+
+
+def lora_train_step(backbone_params, lora_params, opt_state, batch, *, cfg, lr=1e-3, clip=1.0):
+    """LoRA: the gradient of the (A, B) pairs and ``alpha`` through the
+    frozen backbone, clip, AdamW. Returns (loss, lora_params', opt_state')."""
+
+    def loss_fn(lp):
+        return cross_entropy(peft.lora_logits(backbone_params, lp, cfg, batch), batch["labels"])
+
+    return _update(loss_fn, lora_params, opt_state, lr, clip)
+
+
+def houlsby_train_step(backbone_params, ad_params, opt_state, batch, *, cfg, lr=1e-3, clip=1.0):
+    """Houlsby adapters: the gradient of the bottlenecks through the frozen
+    backbone, clip, AdamW. Returns (loss, ad_params', opt_state')."""
+
+    def loss_fn(ap):
+        return cross_entropy(peft.houlsby_logits(backbone_params, ap, cfg, batch),
+                             batch["labels"])
+
+    return _update(loss_fn, ad_params, opt_state, lr, clip)
 
 
 # ---------------------------------------------------------------------------
