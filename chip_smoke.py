@@ -241,11 +241,51 @@ Phases, in order; any failure exits non-zero:
    (launches a step counted) and ``ref``: the loss falls in both, the
    runs agree per step within 1e-3 of the loss and in the adapter
    (``DISTILL_TOL_REASON``).
-21. Summary: one JSON line ``{"kernels": [...]}`` (eight kernels, each
-   with its launches on every path, the hd 256 and gemma2 rows beside
-   the first, and its device kernels by name: ``skinny::gemv`` for
-   ``quant_matmul`` at M <= 8 and ``adapter_fuse`` at T <= 8), the card's
-   line, and last ``{"ok": true, "device": {...}}``.
+21. Head width 112 (kimi-k2): flash attention at kimi's layout, B·H =
+   4·64 over 8 kv heads a sequence (n_rep 8), S = 512, causal, timed
+   beside both bounds and SDPA (soft-cap 30, and window 128 with it,
+   checked), two calls bit-equal, its ragged and keyless cases at hd 112;
+   paged attention at B = 8, Hkv = 8, n_rep = 8, hd 112, int8 pages of
+   16 (lengths <= 511 and <= 4095), its ragged cases at hd 112 (f32, bf16
+   and int8 pages; window 64 with soft-cap 30, window 20), bit-equal
+   reruns and graph replays.
+22. One MoE layer (``moe_layer`` line): mixtral-8x7b's FFN at full width
+   (d 4096, 8 experts of 14336, top-2), INT8 experts dequantized as the
+   OpSets do, T = 4 x 512 tokens sharing a common direction, capacity
+   factor 1.25: two calls bit-equal (routes too), ``dropped_frac`` > 0,
+   the layer's and the dequantization's device times; at capacity factor
+   E within 1e-4 of ``moe_forward_dense``. No kernel: the MoE runs
+   outside any kernel in both packages.
+23. mixtral-8x7b's widths: ``quant_matmul`` over a layer's four attention
+   projections (K = 4096, N = 4096 and 1024) at M = 8 and 4096, flash at
+   B·H = 4·32 over 8 kv heads, paged at Hkv = 8, n_rep = 4, ``mix_fwd``/
+   ``mix_dw`` at d = 4096, d_a = 512, ``ce_fwd``/``ce_bwd`` over V =
+   32000, ``adapter_fuse`` at T = 1 and 8.
+24. mixtral-8x7b serving (``mixtral_serving`` line): 32 layers at full
+   width, random seeded INT8 weights (46.7 B parameters), 4 users with
+   r = 8 adapters, INT8 KV pages of 16, the serving phase's 8 requests,
+   32 new tokens each, through ``ServeEngine``; then their prefill and
+   two decode steps under ``cuda`` and ``ref`` with every MoE layer's
+   routes recorded: at least 99.9 % of tokens routed alike in every
+   layer, and where a request's tokens routed alike in every layer so
+   far, logits within 2e-2 and greedy tokens equal (the rows compared
+   and excluded printed).
+25. mixtral-8x7b training (``pac_run`` line): as 15, 2 epochs x 2 steps
+   of 4 x 512, with one full and one cached step profiled. The card holds
+   one 48 GB backbone: the ``cuda`` session's is released before the
+   ``ref`` trainer opens its own, the same seeded draw (fingerprints
+   equal), which 26 then serves.
+26. mixtral-8x7b personal (``mixtral_personal`` line): 16
+   ``pac_decode_step``s at B = 1 over an f32 linear KV cache under both
+   OpSets, routes recorded: every layer's routes alike, each step within
+   2e-4, greedy tokens equal, 32 ``adapter_fuse`` and 128
+   ``quant_matmul`` launches a step.
+27. Summary: one JSON line ``{"kernels": [...]}`` (eight kernels, each
+   with its launches on every path, the hd 256, gemma2, hd 112 and
+   mixtral rows beside the first, and its device kernels by name:
+   ``skinny::gemv`` for ``quant_matmul`` at M <= 8 and ``adapter_fuse``
+   at T <= 8), the card's line, and last ``{"ok": true, "device":
+   {...}}``.
 
 Needs one CUDA card and the repository's ``src`` beside this file; it
 imports no JAX and nothing of the JAX package.
@@ -892,11 +932,14 @@ def profile_decode(eng, prompts, names) -> None:
 
 
 def paged_cuda_vs_ref(backbone, cfg, ab, prompts, page: int, max_len: int, r: int, s_pad: int,
-                      steps: int = 2) -> dict:
+                      steps: int = 2, routes: dict = None) -> dict:
     """The prompts' paged prefill (padded to ``s_pad``) and ``steps``
     decode steps over INT8 KV pages, under the ``cuda`` and the ``ref``
     OpSet, the cuda run's greedy tokens fed to both: per OpSet the (B, V)
-    logits of each step, the prefill's first."""
+    logits of each step, the prefill's first. ``routes`` (a dict) gets per
+    OpSet each step's MoE route records, one a layer
+    (``models.moe.record_routes``)."""
+    from repro_torch.models.moe import record_routes
     from repro_torch.serve import paging
     from repro_torch.serve.decode import paged_pac_decode_step, paged_prefill
 
@@ -912,14 +955,16 @@ def paged_cuda_vs_ref(backbone, cfg, ab, prompts, page: int, max_len: int, r: in
     toks = np.zeros((B, s_pad), np.int32)
     for i, p in enumerate(prompts):
         toks[i, : len(p)] = p
-    logits = {}
+    logits, recs = {}, {impl: [] for impl in state}
     for impl, st in state.items():
         bt, lengths = st[0].dense(range(B))
-        lg, st[1], st[2] = paged_prefill(
-            backbone, ab, torch.from_numpy(toks).to(DEV), torch.from_numpy(lengths).to(DEV),
-            st[1], torch.from_numpy(bt).to(DEV), cfg=cfg, max_len=max_len, r=r,
-            kernel_impl=impl)
+        with record_routes() as rec:
+            lg, st[1], st[2] = paged_prefill(
+                backbone, ab, torch.from_numpy(toks).to(DEV), torch.from_numpy(lengths).to(DEV),
+                st[1], torch.from_numpy(bt).to(DEV), cfg=cfg, max_len=max_len, r=r,
+                kernel_impl=impl)
         logits[impl] = [lg[:, 0]]
+        recs[impl].append(rec)
     for _ in range(steps):
         tok = logits["cuda"][-1].argmax(-1).int()[:, None]
         for impl, st in state.items():
@@ -927,12 +972,16 @@ def paged_cuda_vs_ref(backbone, cfg, ab, prompts, page: int, max_len: int, r: in
             for i in range(B):
                 table.extend_to(i, table.length(i) + 1)
             bt, lengths = table.dense(range(B))
-            lg, st[1], st[2] = paged_pac_decode_step(
-                backbone, ab, tok, st[1], torch.from_numpy(bt).to(DEV),
-                torch.from_numpy(lengths).to(DEV), st[2], cfg=cfg, r=r, kernel_impl=impl)
+            with record_routes() as rec:
+                lg, st[1], st[2] = paged_pac_decode_step(
+                    backbone, ab, tok, st[1], torch.from_numpy(bt).to(DEV),
+                    torch.from_numpy(lengths).to(DEV), st[2], cfg=cfg, r=r, kernel_impl=impl)
             logits[impl].append(lg[:, 0])
+            recs[impl].append(rec)
             for i in range(B):
                 table.append_token(i)
+    if routes is not None:
+        routes.update(recs)
     return logits
 
 
@@ -1378,15 +1427,18 @@ def cached_step_gate(s, spec) -> None:
                              f"dgrad {gerr}")
 
 
-def trainer_gate(spec, cuda_losses: list) -> None:
+def trainer_gate(spec, cuda_losses: list, keep_backbone: bool = False):
     """The same trainer under the ``ref`` kernels, in memory: per-epoch
-    losses against the ``cuda`` run's (``trainer_cuda_vs_ref`` line)."""
+    losses against the ``cuda`` run's (``trainer_cuda_vs_ref`` line).
+    Returns its session's backbone with ``keep_backbone`` (the same seeded
+    draw as the ``cuda`` run's), else None."""
     from repro_torch.runtime import EdgeSession, EpochReport, EpochRunner
 
     s = EdgeSession(spec.replace(kernels="ref", ckpt=None, cache_dir=None), log=print,
                     device=DEV).open()
     events = list(EpochRunner(s).events())
     s.close()
+    backbone = s.backbone if keep_backbone else None
     del s
     ref_steps = [e for e in events if not isinstance(e, EpochReport)]
     ref_reports = [e for e in events if isinstance(e, EpochReport)]
@@ -1403,6 +1455,7 @@ def trainer_gate(spec, cuda_losses: list) -> None:
                         "quantized at the tap site, under ref on f32 taps"})
     if len(diffs) != len(cuda_losses) or max(diffs) > tol:
         raise AssertionError(f"{spec.arch} trainer cuda vs ref epoch losses differ by {diffs}")
+    return backbone
 
 
 def profile_steps(s) -> None:
@@ -1711,17 +1764,26 @@ DIST_STEP_TOL = 1e-5  # per-step |Δloss| against the single process
 TRAINING_KERNELS = ("quant_matmul", "flash_attention", "mix_fwd", "mix_dw", "ce_fwd", "ce_bwd")
 
 
-def fingerprint(tree) -> list:
+def fingerprint(tree, chunk: int = 1 << 26) -> list:
     """Two int64 sums a leaf over its 16-bit words (plain, and weighted
-    by position mod 1021): equal bits give equal sums; the card computes
-    them, so comparing ranks costs no copy of the state."""
-    from repro_torch.core.quantization import tree_leaves
+    by position mod 1021), ``chunk`` words at a time so that a 48 GB
+    backbone is never widened at once (a QTensor counts its codes and
+    scales): equal bits give equal sums; the card computes them, so
+    comparing ranks costs no copy of the state."""
+    from repro_torch.core.quantization import QTensor, tree_leaves
 
     out = []
-    for t in tree_leaves(tree):
-        w = t.detach().reshape(-1).contiguous().view(torch.int16).to(torch.int64)
-        pos = torch.arange(w.numel(), device=w.device) % 1021 + 1
-        out += [int(w.sum()), int((w * pos).sum())]
+    for leaf in tree_leaves(tree):
+        for t in ((leaf.q, leaf.scale) if isinstance(leaf, QTensor) else (leaf,)):
+            w = t.detach().reshape(-1).contiguous().view(torch.uint8)
+            w = w[: w.numel() // 2 * 2].view(torch.int16)
+            plain = weighted = 0
+            for i in range(0, w.numel(), chunk):
+                part = w[i:i + chunk].to(torch.int64)
+                pos = (torch.arange(i, i + part.numel(), device=w.device) % 1021) + 1
+                plain += int(part.sum())
+                weighted += int((part * pos).sum())
+            out += [plain, weighted]
     return out
 
 
@@ -2704,8 +2766,150 @@ def hd256_kernel_phase(timer: Timer, gen: torch.Generator) -> dict:
     return {"flash_attention": flash, "paged_attention": paged}
 
 
-def gemma2_kernel_phase(timer: Timer, gen: torch.Generator) -> dict:
-    """The other kernels at gemma2-2b's widths, against their plain
+#: the paged kernel at head width 112 (kimi-k2): B, Hkv, n_rep, hd, page, max_pages, lengths,
+#: padding rows
+HD112_PAGED_RAGGED = [
+    (1, 1, 8, 112, 16, 34, [543], ()),
+    (3, 8, 8, 112, 16, 34, [0, 16, 543], (0,)),
+    (8, 2, 4, 112, 4, 136, [3, 4, 5, 127, 128, 300, 542, 543], ()),
+    (3, 1, 8, 112, 4, 136, [0, 3, 543], (0,)),
+    (72, 8, 2, 112, 16, 34, list(np.random.default_rng(SEED + 4).integers(0, 544, size=72)), (5,)),
+]
+KIMI = "kimi-k2-1t-a32b"
+
+
+def hd112_kernel_phase(timer: Timer, gen: torch.Generator) -> dict:
+    """Flash and paged attention at kimi-k2's head width 112 against their
+    plain versions: flash at kimi's layout, B·H = 4·64 over 8 kv heads a
+    sequence (n_rep 8), S = 512, causal (timed beside both bounds and
+    SDPA; soft-cap 30, and window 128 with it, checked), two calls
+    bit-equal, the ragged and keyless cases at hd 112; paged attention at
+    B = 8, Hkv = 8, n_rep = 8, int8 pages of 16 (lengths <= 511 and
+    <= 4095, timed beside its byte bound, the plain version and SDPA on
+    gathered KV), the ragged cases at hd 112 (f32, bf16 and int8 pages;
+    window 64 with soft-cap 30 among them) and bit-equal reruns and graph
+    replays. Returns the flash and paged rows' ``hd112`` entries."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "bound_tc_ms",
+            "bound_f32_ms", "library_ms", "at")
+    r, (q, k, v), sdpa = flash_case(timer, gen, 4, 64, 8, 512, 112, "kimi-k2 prefill")
+    r["library_kernels"] = device_kernels(sdpa)
+    for label, kw in (("cap30", dict(attn_softcap=30.0)),
+                      ("window128_cap30", dict(window=128, attn_softcap=30.0))):
+        r[f"max_abs_err_{label}"] = max_err(flash_attention(q, k, v, **kw),
+                                            ref.flash_attention_ref(q, k, v, **kw))
+        check(f"flash_attention hd=112 {label}", r[f"max_abs_err_{label}"], FLASH_TOL)
+    emit(r)
+    got, again = (flash_attention(q, k, v) for _ in range(2))
+    equal = bool(torch.equal(got, again))
+    emit({"check": "flash_attention_deterministic", "BH": 256, "BHkv": 32, "S": 512, "hd": 112,
+          "bit_equal": equal})
+    if not equal:
+        raise AssertionError("flash_attention: two calls at kimi-k2's layout differ")
+    del q, k, v, got, again, sdpa
+    flash = {k_: r[k_] for k_ in keys}
+    flash_ragged(gen, hds=(112,))
+    flash_keyless(gen, hds=(112,))
+
+    pkeys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "at", "plan")
+    lengths = np.random.default_rng(SEED).integers(1, 512, size=8).astype(np.int32)
+    paged = {k_: v_ for k_, v_ in paged_timed(
+        timer, gen, lengths, 32, "decode B=8 Hkv=8 n_rep=8 hd=112 page=16 int8, lengths<=511",
+        Hkv=8, n_rep=8, hd=112).items() if k_ in pkeys}
+    long_lengths = np.random.default_rng(SEED + 2).integers(1, 4096, size=8).astype(np.int32)
+    long = paged_timed(timer, gen, long_lengths, 256, "long context B=8 Hkv=8 n_rep=8 hd=112 "
+                       "page=16 int8, lengths<=4095", Hkv=8, n_rep=8, hd=112)
+    paged["long"] = {k_: long[k_] for k_ in pkeys}
+    paged_ragged(gen, HD112_PAGED_RAGGED)
+    paged_deterministic(gen, lengths, 32, Hkv=8, n_rep=8, hd=112)
+    return {"flash_attention": flash, "paged_attention": paged}
+
+
+MIXTRAL = "mixtral-8x7b"
+MOE_DENSE_TOL = 1e-4  # moe_forward at capacity factor E against moe_forward_dense
+
+
+def moe_layer_phase(gen: torch.Generator) -> dict:
+    """One mixtral-8x7b MoE FFN at full width (d 4096, 8 experts of d_e
+    14336, top-2), experts drawn f32 and quantized INT8 one leaf at a time,
+    then dequantized as the OpSets do, on T = 4 x 512 tokens at the
+    config's capacity factor 1.25: two calls bit-equal, the
+    share of dropped routes, the layer's device time beside the
+    dequantization's; at capacity factor E (nothing drops) within 1e-4 of
+    ``moe_forward_dense``. No kernel: the reference computes its MoE
+    outside any Pallas kernel, and so does the port."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.quantization import maybe_dequantize_tree, quantize
+    from repro_torch.models.moe import moe_forward, moe_forward_dense, record_routes
+
+    cfg = get_arch(MIXTRAL)
+    spec, d, de, E = cfg.moe, cfg.d_model, cfg.moe.d_expert, cfg.moe.n_experts
+    torch.cuda.reset_peak_memory_stats()
+    qp = {"router": torch.randn(d, E, generator=gen, device=DEV) * d ** -0.5}
+    for name, shape, std in (("wi", (E, d, de), d ** -0.5), ("wg", (E, d, de), d ** -0.5),
+                             ("wo", (E, de, d), de ** -0.5)):
+        qp[name] = quantize(torch.randn(shape, generator=gen, device=DEV) * std, 8)
+    # tokens share a common direction, as a layer's hidden states do, so
+    # the router favours some experts and the capacity drops tokens (on
+    # independent Gaussian tokens the eight loads stay under it)
+    common = torch.randn(d, generator=gen, device=DEV)
+    x = torch.randn(4, 512, d, generator=gen, device=DEV) + common
+
+    def dense():
+        return maybe_dequantize_tree(qp)
+
+    def timed(fn, n=3):
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            out = fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / n, out
+
+    p = dense()
+    with record_routes() as routes:
+        out, aux = moe_forward(p, x, spec, return_aux=True)
+        again = moe_forward(p, x, spec)
+    equal = bool(torch.equal(out, again))
+    first, second = routes
+    routes_equal = all(torch.equal(first[k], second[k]) for k in first)
+    dequant_ms, _ = timed(dense)
+    layer_ms, _ = timed(lambda: moe_forward(p, x, spec))
+    nodrop = moe_forward(p, x, spec, capacity_factor=float(E))
+    want = moe_forward_dense(p, x, spec)
+    err = max_err(nodrop, want)
+    C = -(-max(1, int(spec.top_k * x.shape[0] * x.shape[1] * spec.capacity_factor / E)) // 8) * 8
+    flops = 3 * 2.0 * E * min(C, 2048) * d * de
+    line = {"phase": "moe_layer", "arch": cfg.name, "d": d, "d_expert": de, "experts": E,
+            "top_k": spec.top_k, "T": x.shape[0] * x.shape[1],
+            "capacity_factor": spec.capacity_factor, "capacity": min(C, 2048),
+            "dropped_frac": float(aux["dropped_frac"]),
+            "load_balance": float(aux["load_balance"]), "router_z": float(aux["router_z"]),
+            "bit_equal": equal, "routes_bit_equal": routes_equal,
+            "layer_ms": layer_ms, "dequantize_ms": dequant_ms,
+            "expert_gemm_tflop": flops / 1e12,
+            "f32_bound_ms": bound(0.0, flops)[0],
+            "no_drop_vs_dense_max_abs_err": err, "tol": MOE_DENSE_TOL,
+            "tol_reason": "the same f32 products summed in another order: the dense "
+                          "reference contracts over all experts with zero weights",
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    emit(line)
+    if not (equal and routes_equal and err <= MOE_DENSE_TOL and line["dropped_frac"] > 0.0
+            and bool(torch.isfinite(out).all())):
+        raise AssertionError(f"moe layer: {line}")
+    return line
+
+
+def gemma2_kernel_phase(timer: Timer, gen: torch.Generator, arch: str = GEMMA2,
+                        projections=None, d: int = GEMMA2_D, da: int = GEMMA2_DA,
+                        V: int = GEMMA2_V, cap=30.0) -> dict:
+    """The other kernels at gemma2-2b's widths (or ``arch``'s, given its
+    projections, d, d_a, V and final soft-cap), against their plain
     versions and timed: ``quant_matmul`` over one layer's seven
     projections (K = 2304 and 9216) at the prefill's M = 4096 and the
     decode step's M = 8 (``quant_matmul_layer`` lines); ``mix_fwd`` and
@@ -2718,20 +2922,23 @@ def gemma2_kernel_phase(timer: Timer, gen: torch.Generator) -> dict:
     from repro_torch.kernels.adapter_fuse import adapter_fuse
 
     dev, rows = DEV, {}
+    projections = projections or GEMMA2_PROJECTIONS
     qmm = {}
     for M in (8, 4096):
-        for K, N in sorted(set(GEMMA2_PROJECTIONS)):
+        for K, N in sorted(set(projections)):
             qmm[(M, K, N)] = qmm_case(timer, gen, M, K, N, 8)
-        layer = {key: sum(qmm[(M, K, N)][key] for K, N in GEMMA2_PROJECTIONS)
+        layer = {key: sum(qmm[(M, K, N)][key] for K, N in projections)
                  for key in ("ms", "plain_ms", "bound_ms", "library_ms")
                  + (("bound_tc_ms", "bound_f32_ms") if M > QMM_SKINNY_ROWS else ())}
-        layer.update(at=f"gemma2-2b's 7 projections of one layer at M={M}, int8 (times summed)",
-                     max_abs_err=max(qmm[(M, K, N)]["max_abs_err"] for K, N in GEMMA2_PROJECTIONS),
-                     bound_by=qmm[(M, 2304, 9216)]["bound_by"])
-        emit({"check": "quant_matmul_layer", "arch": GEMMA2, "M": M, **layer})
+        layer.update(at=f"{arch}'s {len(projections)} projections of one layer at M={M}, int8 "
+                        "(times summed)",
+                     max_abs_err=max(qmm[(M, K, N)]["max_abs_err"] for K, N in projections),
+                     bound_by=qmm[(M,) + max(projections, key=lambda kn: kn[0] * kn[1])][
+                         "bound_by"])
+        emit({"check": "quant_matmul_layer", "arch": arch, "M": M, **layer})
         rows.setdefault("quant_matmul", {})[f"M{M}"] = layer
 
-    T, d, da = GEMMA2_T, GEMMA2_D, GEMMA2_DA
+    T = GEMMA2_T
     ents = [quantize(torch.randn(T, d, generator=gen, device=dev), 8, 128)
             for _ in range(copies(T * d))]
     w = torch.randn(d, da, generator=gen, device=dev) * d ** -0.5
@@ -2740,9 +2947,9 @@ def gemma2_kernel_phase(timer: Timer, gen: torch.Generator) -> dict:
     lam = torch.tensor(0.7, device=dev)
     out, bw = cached_mix.mix_fwd(ents[0], w, a, lam)
     want_out, want_bw = ref.mix_fwd_ref(ents[0], w, a, lam)
-    check("mix_fwd gemma2", mix_fwd_check(out, bw, want_out, want_bw), 1e-4)
+    check(f"mix_fwd {arch}", mix_fwd_check(out, bw, want_out, want_bw), 1e-4)
     dw, want_dw = cached_mix.mix_dw(ents[0], g, lam, d), ref.mix_dw_ref(ents[0], g, lam, d)
-    check("mix_dw gemma2", float(((dw - want_dw).abs() - 1e-3 * want_dw.abs()).max()), 2e-4)
+    check(f"mix_dw {arch}", float(((dw - want_dw).abs() - 1e-3 * want_dw.abs()).max()), 2e-4)
     ent_bytes = T * d + T * (d // 128) * 4
     deq = [dequantize(e) for e in ents[:2]]
     for name, nbytes, fn, plain, lib, err in (
@@ -2755,7 +2962,7 @@ def gemma2_kernel_phase(timer: Timer, gen: torch.Generator) -> dict:
              [lambda x=x: torch.matmul(x.T, g) for x in deq], max_err(dw, want_dw))):
         b_ms, b_by = bound(nbytes, 3 * 2.0 * T * d * da, flop_per_s=BF16_FLOP_PER_S)
         f32_ms, _ = bound(nbytes, 2.0 * T * d * da)
-        r = {"check": name, "arch": GEMMA2, "storage": "int8", "T": T, "d": d, "da": da,
+        r = {"check": name, "arch": arch, "storage": "int8", "T": T, "d": d, "da": da,
              "max_abs_err": err, "ms": timer([lambda e=e: fn(e) for e in ents]),
              "plain_ms": timer([lambda e=e: plain(e) for e in ents]), "library_ms": timer(lib),
              "bound_ms": b_ms, "bound_by": b_by, "bound_tc_ms": b_ms, "bound_f32_ms": f32_ms}
@@ -2763,32 +2970,34 @@ def gemma2_kernel_phase(timer: Timer, gen: torch.Generator) -> dict:
         rows[name] = _row(r, f"one period, T=4*512, d={d}, d_a={da}, int8 entry")
     del ents, deq, out, bw, want_out, want_bw, dw, want_dw
 
-    V, cap = GEMMA2_V, 30.0
     h = torch.randn(T, d, generator=gen, device=dev)
     w = torch.randn(d, V, generator=gen, device=dev) * d ** -0.5
     lab = torch.randint(0, V, (T,), generator=gen, device=dev)
     g = torch.randn(T, generator=gen, device=dev)
     nll, lse = lmhead_ce.ce_fwd(h, w, lab, cap)
     want_nll, want_lse = ref.ce_fwd_ref(h, w, lab, cap)
-    check("ce_fwd gemma2", max(float(((nll - want_nll).abs() - 1e-5 * want_nll.abs()).max()),
+    check(f"ce_fwd {arch}", max(float(((nll - want_nll).abs() - 1e-5 * want_nll.abs()).max()),
                                float(((lse - want_lse).abs() - 1e-5 * want_lse.abs()).max())), 2e-5)
     dh = lmhead_ce.ce_bwd(h, w, lab, want_lse, g, cap)
     want_dh = ref.ce_bwd_ref(h, w, lab, want_lse, g, cap)
-    check("ce_bwd gemma2", float(((dh - want_dh).abs() - 1e-4 * want_dh.abs()).max()), 1e-5)
+    check(f"ce_bwd {arch}", float(((dh - want_dh).abs() - 1e-4 * want_dh.abs()).max()), 1e-5)
     errs = {"ce_fwd": max(max_err(nll, want_nll), max_err(lse, want_lse)),
             "ce_bwd": max_err(dh, want_dh)}
     del nll, want_nll, dh, want_dh
     hr = h.clone().requires_grad_()
 
+    def softcapped(x):
+        return x if cap is None else cap * torch.tanh(x / cap)
+
     def library_bwd():
-        logits = cap * torch.tanh(torch.matmul(hr, w) / cap)
+        logits = softcapped(torch.matmul(hr, w))
         return torch.autograd.grad(torch.nn.functional.cross_entropy(
             logits, lab.long(), reduction="sum"), hr)
 
     for name, products, nbytes, fn, plain, lib, library in (
             ("ce_fwd", 6, 4.0 * (T * d + d * V + 3 * T), lambda: lmhead_ce.ce_fwd(h, w, lab, cap),
              lambda: ref.ce_fwd_ref(h, w, lab, cap),
-             lambda: torch.logsumexp(cap * torch.tanh(torch.matmul(h, w) / cap), dim=-1),
+             lambda: torch.logsumexp(softcapped(torch.matmul(h, w)), dim=-1),
              "torch.matmul, the soft-cap, torch.logsumexp"),
             ("ce_bwd", 12, 4.0 * (2 * T * d + d * V + 4 * T),
              lambda: lmhead_ce.ce_bwd(h, w, lab, want_lse, g, cap),
@@ -2796,13 +3005,13 @@ def gemma2_kernel_phase(timer: Timer, gen: torch.Generator) -> dict:
              "autograd of F.cross_entropy(softcap(h @ W)) (its forward included)")):
         b_ms, b_by = bound(nbytes, products * 2.0 * T * d * V, flop_per_s=BF16_FLOP_PER_S)
         f32_ms, _ = bound(nbytes, products / 6 * 2.0 * T * d * V)  # 6 products a GEMM
-        r = {"check": name, "arch": GEMMA2, "T": T, "d": d, "V": V, "softcap": cap,
+        r = {"check": name, "arch": arch, "T": T, "d": d, "V": V, "softcap": cap,
              "max_abs_err": errs[name], "ms": timer(fn, calls=2, repeats=3),
              "plain_ms": timer(plain, calls=2, repeats=3),
              "library_ms": timer(lib, calls=2, repeats=3), "library": library,
              "bound_ms": b_ms, "bound_by": b_by, "bound_tc_ms": b_ms, "bound_f32_ms": f32_ms}
         emit(r)
-        rows[name] = _row(r, f"LM-head CE, T=4*512, d={d}, V={V}, soft-cap 30")
+        rows[name] = _row(r, f"LM-head CE, T=4*512, d={d}, V={V}, soft-cap {cap}")
     del h, w, hr, lse, want_lse
 
     for T in (1, 8):
@@ -2811,11 +3020,11 @@ def gemma2_kernel_phase(timer: Timer, gen: torch.Generator) -> dict:
         a = torch.randn(T, da, generator=gen, device=dev)
         lam = torch.tensor(0.5, device=dev)
         got, want = adapter_fuse(b, w, a, lam), ref.adapter_fuse_ref(b, w, a, lam)
-        check(f"adapter_fuse gemma2 T={T}", max_err(got, want), 1e-4)
+        check(f"adapter_fuse {arch} T={T}", max_err(got, want), 1e-4)
         ws = [w] + [torch.randn(d, da, generator=gen, device=dev) * d ** -0.5
                     for _ in range(copies(w.numel() * 4) - 1)]
         b_ms, b_by = bound(4.0 * (T * d + d * da + 2 * T * da), 2.0 * T * d * da + 3.0 * T * da)
-        r = {"check": "adapter_fuse", "arch": GEMMA2, "T": T, "d": d, "da": da,
+        r = {"check": "adapter_fuse", "arch": arch, "T": T, "d": d, "da": da,
              "max_abs_err": max_err(got, want),
              "ms": timer([lambda w_=w_: adapter_fuse(b, w_, a, lam) for w_ in ws]),
              "plain_ms": timer([lambda w_=w_: ref.adapter_fuse_ref(b, w_, a, lam) for w_ in ws]),
@@ -2826,6 +3035,237 @@ def gemma2_kernel_phase(timer: Timer, gen: torch.Generator) -> dict:
         if T == 1:
             rows["adapter_fuse"] = _row(r, f"one period's mix at decode, T=1, d={d}, d_a={da}")
     return rows
+
+
+MIXTRAL_PROJECTIONS = [(4096, 4096), (4096, 1024), (4096, 1024), (4096, 4096)]  # wq wk wv wo
+MIXTRAL_D, MIXTRAL_DA, MIXTRAL_V = 4096, 512, 32000  # r = 8
+MIXTRAL_MAX_LEN = 544
+MIXTRAL_POOL = 16  # Jetson Nano-H profiles whose memory holds the INT8 model (the plan report)
+ROUTE_SHARE_MIN = 0.999  # tokens whose routes must agree, cuda against ref, in every layer
+
+
+def route_compare(cuda_recs: list, ref_recs: list, real=None):
+    """Two runs' route records of one call (one a MoE layer, in order):
+    the share of tokens whose experts and kept flags are equal, per
+    layer; the (B,) rows all of whose counted tokens (``real``, (B, S)
+    bool; None: every token) have equal routes in every layer; and per
+    layer the unequal tokens counted (``real``/``padding``, and
+    ``experts``: another top-k, ``kept``: the same experts, another
+    capacity cut)."""
+    if len(cuda_recs) != len(ref_recs) or not cuda_recs:
+        raise AssertionError(f"route records: {len(cuda_recs)} against {len(ref_recs)}")
+    shares, agree, counts = [], None, []
+    for a, b in zip(cuda_recs, ref_recs):
+        same_e = (a["top_e"] == b["top_e"]).all(-1)
+        eq = same_e & (a["kept"] == b["kept"]).all(-1)
+        shares.append(float(eq.float().mean()))
+        ok = (eq | ~real).all(-1) if real is not None else eq.all(-1)
+        agree = ok if agree is None else agree & ok
+        counted = real if real is not None else torch.ones_like(eq)
+        counts.append({"real": int((~eq & counted).sum()), "padding": int((~eq & ~counted).sum()),
+                       "experts": int((~same_e).sum()), "kept": int((same_e & ~eq).sum())})
+    return shares, agree, counts
+
+
+def mixtral_kernel_phase(timer: Timer, gen: torch.Generator) -> dict:
+    """The kernels at mixtral-8x7b's widths against their plain versions,
+    timed: ``quant_matmul`` over a layer's four attention projections
+    (K = 4096, N = 4096 and 1024; the experts are dequantized, not sent
+    through it) at M = 8 and 4096; flash at the epoch-1 step's B·H = 4·32
+    over 8 kv heads, hd 128 (the 4096 window spans S = 512); paged at
+    B = 8, Hkv = 8, n_rep = 4, int8 pages of 16, lengths <= 511;
+    ``mix_fwd``/``mix_dw`` at d = 4096, d_a = 512; ``ce_fwd``/``ce_bwd``
+    over V = 32000 with no soft-cap; ``adapter_fuse`` at T = 1 and 8.
+    Returns each kernel's ``mixtral`` entry."""
+    rows = gemma2_kernel_phase(timer, gen, MIXTRAL, MIXTRAL_PROJECTIONS, MIXTRAL_D, MIXTRAL_DA,
+                               MIXTRAL_V, None)
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "bound_tc_ms",
+            "bound_f32_ms", "library_ms", "at")
+    r = flash_case(timer, gen, 4, 32, 8, 512, 128, "mixtral training")[0]
+    emit(r)
+    rows["flash_attention"] = {k: r[k] for k in keys}
+    lengths = np.random.default_rng(SEED).integers(1, 512, size=8).astype(np.int32)
+    pkeys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "at", "plan")
+    rows["paged_attention"] = {k: v for k, v in paged_timed(
+        timer, gen, lengths, 32, "mixtral decode B=8 Hkv=8 n_rep=4 hd=128 page=16 int8, "
+        "lengths<=511", Hkv=8, n_rep=4, hd=128).items() if k in pkeys}
+    return rows
+
+
+def mixtral_serving_phase(gen: torch.Generator) -> dict:
+    """mixtral-8x7b at full width and depth (32 layers, d = 4096, 32 heads
+    over 8 kv heads, 8 experts of 14336 top-2, window 4096, V = 32000),
+    random seeded INT8 weights (46.7 B parameters), 4 users with r = 8
+    adapters, INT8 KV pages of 16, through ``ServeEngine``: the serving
+    phase's 8 requests (64-480-token prompts), 32 new tokens each. Then
+    their prefill and two decode steps under ``cuda`` and ``ref`` with
+    every layer's routes recorded: in every layer at least 99.9 % of the
+    tokens routed alike; where a request's tokens routed alike in every
+    layer so far, logits within 2e-2 and greedy tokens equal."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.parallel_adapters import gather_adapters, init_adapter
+    from repro_torch.core.quantization import tree_storage_bytes
+    from repro_torch.models.backbone import init_backbone
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_arch(MIXTRAL)
+    page, max_batch, n_new, r = 16, 8, 32, 8
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    backbone = init_backbone(gen, cfg, device=DEV, quant_bits=8)
+    users = {f"user{u}": init_adapter(gen, cfg, r=r, device=DEV) for u in range(4)}
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    rng = np.random.default_rng(SEED)
+    prompt_lens = rng.integers(64, 481, size=8)
+    prompts = [rng.integers(0, cfg.vocab, size=int(n)).tolist() for n in prompt_lens]
+    names = list(users)
+    eng = ServeEngine(backbone, cfg, users, r=r, kernel_impl="cuda", kv_policy="int8",
+                      page_size=page, max_len=MIXTRAL_MAX_LEN, max_batch=max_batch)
+    bank = eng.bank
+    del users
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    handles = [eng.submit(p, names[i % 4], max_new_tokens=n_new) for i, p in enumerate(prompts)]
+    t = time.perf_counter()
+    eng.drain()
+    wall = time.perf_counter() - t
+    launches = {k: v for k, v in read_launches().items()
+                if k in ("quant_matmul", "flash_attention", "paged_attention")}
+    streams = [h.result() for h in handles]
+    for st in streams:
+        if len(st) != n_new or not all(0 <= tok < cfg.vocab for tok in st):
+            raise AssertionError(f"bad stream: {st}")
+    line = {"phase": "mixtral_serving", "arch": cfg.name, "layers": cfg.n_layers,
+            "params": cfg.param_count(), "active_params": cfg.active_param_count(),
+            "backbone_bytes": tree_storage_bytes(backbone), "init_s": init_s,
+            "init_max_memory_allocated": init_peak, "requests": len(prompts),
+            "users": len(names), "prompt_lens": [len(p) for p in prompts], "new_tokens": n_new,
+            "kv": "int8", "page": page, "max_len": MIXTRAL_MAX_LEN,
+            "prefill_ms": eng.prefill_seconds * 1e3, "decode_steps": eng.decode_steps,
+            "decode_ms_per_step": eng.decode_seconds * 1e3 / eng.decode_steps,
+            "decode_tokens_per_s": eng.decode_tokens / eng.decode_seconds, "wall_s": wall,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(), "launches": launches,
+            "launches_per_decode_step": {"quant_matmul": 4 * cfg.n_layers,
+                                         "paged_attention": cfg.n_layers},
+            "first_tokens": [st[:4] for st in streams]}
+    del eng
+    missing = [n for n, c in launches.items() if c <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on mixtral's serving path: {missing}")
+
+    s_pad = 1 << (int(max(prompt_lens)) - 1).bit_length()
+    routes = {}
+    logits = paged_cuda_vs_ref(backbone, cfg, gather_adapters(bank, torch.arange(8, device=DEV)
+                                                              % 4),
+                               prompts, page, MIXTRAL_MAX_LEN, r, s_pad, routes=routes)
+    lengths = torch.tensor([len(p) for p in prompts], device=DEV)
+    real = torch.arange(s_pad, device=DEV)[None, :] < lengths[:, None]
+    agree = torch.ones(len(prompts), dtype=torch.bool, device=DEV)
+    tol, steps = 2e-2, []
+    for i, (rc, rr) in enumerate(zip(routes["cuda"], routes["ref"])):
+        shares, ok, counts = route_compare(rc, rr, real if i == 0 else None)
+        agree &= ok
+        a, b = logits["cuda"][i][agree], logits["ref"][i][agree]
+        steps.append({"step": ["prefill", "decode1", "decode2"][i], "route_share_min": min(shares),
+                      "route_share_per_layer": shares, "unequal_per_layer": counts,
+                      "rows_compared": int(agree.sum()),
+                      "rows_excluded": int((~agree).sum()),
+                      "max_abs_dlogits": max_err(a, b) if len(a) else None,
+                      "greedy_equal": bool(torch.equal(a.argmax(-1), b.argmax(-1))),
+                      "finite": bool(torch.isfinite(logits["cuda"][i]).all()
+                                     and torch.isfinite(logits["ref"][i]).all())})
+    del backbone, bank
+    line.update(cuda_vs_ref=steps, tol=tol, route_share_min=ROUTE_SHARE_MIN,
+                logits_shape=list(logits["cuda"][0].shape),
+                tol_reason="the serving gate (PERF.md section 2) where every layer routed a "
+                           "request's tokens alike; routing is discontinuous, so a token whose "
+                           "top-2 or capacity cut sits on a near-tie may route otherwise under "
+                           "the other OpSet's f32 sums, and its request is then not compared")
+    emit(line)
+    for st in steps:
+        if not (st["finite"] and st["route_share_min"] >= ROUTE_SHARE_MIN
+                and st["rows_compared"] > 0 and st["max_abs_dlogits"] <= tol
+                and st["greedy_equal"]):
+            raise AssertionError(f"mixtral serving cuda vs ref: {st}")
+    return launches
+
+
+def mixtral_personal_phase(backbone, adapter, cfg, r: int = 8) -> dict:
+    """The trained mixtral-8x7b adapter served to one user: 16
+    ``pac_decode_step``s at B = 1 over an f32 linear KV cache, 8
+    teacher-forced prompt tokens then 8 greedy, under ``cuda`` (launches
+    counted: ``adapter_fuse`` 32 and ``quant_matmul`` 128 a step) and
+    ``ref``, every layer's routes recorded: where the routes agree in
+    every layer of every step so far, the step's logits within 2e-4 (the
+    ``personal_gap``) and the greedy tokens equal."""
+    from repro_torch.core.parallel_adapters import init_adapter_cache
+    from repro_torch.core.steps import pac_decode_step
+    from repro_torch.models.backbone import init_cache
+    from repro_torch.models.moe import record_routes
+
+    n_prompt, n_steps, max_len = 8, 16, 16
+    prompt = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, size=(1, n_prompt)).astype(np.int32)).to(DEV)
+
+    def serve(impl):
+        cache = init_cache(cfg, 1, max_len, device=DEV)
+        acache = init_adapter_cache(cfg, 1, max_len, r, device=DEV)
+        logits, greedy, recs, tok = [], [], [], prompt[:, :1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for p in range(n_steps):
+            with record_routes() as rec:
+                lg, cache, acache = pac_decode_step(
+                    backbone, adapter, {"tokens": tok}, cache, acache,
+                    torch.full((1,), p, dtype=torch.long, device=DEV), cfg=cfg, r=r,
+                    kernel_impl=impl)
+            logits.append(lg[:, 0])
+            recs.append(rec)
+            if p >= n_prompt - 1:
+                greedy.append(int(lg[0, 0].argmax()))
+            tok = (prompt[:, p + 1:p + 2] if p + 1 < n_prompt
+                   else torch.tensor([[greedy[-1]]], dtype=torch.int32, device=DEV))
+        torch.cuda.synchronize()
+        return logits, greedy, recs, time.perf_counter() - t0
+
+    serve("cuda")  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    lc, tc, rc, wall = serve("cuda")
+    launches = {k: v for k, v in read_launches().items()
+                if k in ("quant_matmul", "flash_attention", "adapter_fuse")}
+    peak = torch.cuda.max_memory_allocated()
+    lr, tr, rr, wall_ref = serve("ref")
+    gaps, shares, agree = [], [], True
+    for p in range(n_steps):
+        sh, ok, _ = route_compare(rc[p], rr[p])
+        shares.append(min(sh))
+        agree = agree and bool(ok.all())
+        gaps.append(max_err(lc[p], lr[p]) if agree else None)
+    compared = [g for g in gaps if g is not None]
+    per_step = {k: v / n_steps for k, v in launches.items()}
+    tol = 2e-4
+    emit({"phase": "mixtral_personal", "arch": cfg.name, "layers": cfg.n_layers, "batch": 1,
+          "steps": n_steps, "prompt_tokens": n_prompt, "kv": "f32 linear",
+          "decode_ms_per_step": wall * 1e3 / n_steps,
+          "ref_decode_ms_per_step": wall_ref * 1e3 / n_steps, "max_memory_allocated": peak,
+          "launches": launches, "launches_per_step": per_step, "tokens_cuda": tc,
+          "tokens_equal": tc == tr, "route_share_min_per_step": shares,
+          "steps_compared": len(compared), "personal_gap_per_step": gaps,
+          "max_abs_dlogits": max(compared) if compared else None, "tol": tol,
+          "tol_reason": "the reference's decode-parity ceiling over f32 KV "
+                        "(tests/test_decode_parity.py:36), at the steps whose routes agree in "
+                        "every layer so far"})
+    if not (compared and max(compared) <= tol and min(shares) >= ROUTE_SHARE_MIN and tc == tr
+            and all(bool(torch.isfinite(x).all()) for x in lc)):
+        raise AssertionError(f"mixtral personal cuda vs ref: tokens equal {tc == tr}, "
+                             f"gaps {gaps}, route shares {shares}")
+    if per_step["adapter_fuse"] != cfg.n_periods or per_step["quant_matmul"] != 4 * cfg.n_layers:
+        raise AssertionError(f"mixtral launches per decode step: {per_step}")
+    return launches
 
 
 def gemma2_serving_phase(gen: torch.Generator) -> dict:
@@ -2924,17 +3364,25 @@ def gemma2_serving_phase(gen: torch.Generator) -> dict:
     return launches
 
 
-def pac_run(arch: str, epochs: int = 2, steps: int = 2, profile: bool = False):
+def pac_run(arch: str, epochs: int = 2, steps: int = 2, profile: bool = False,
+            one_backbone: bool = False, pool=None):
     """PAC+ on ``arch`` at full width through ``EdgeSession``/
     ``EpochRunner``: INT8 backbone, int8 activation cache, pruning init,
     ``epochs`` x ``steps`` steps of 4 x 512 tokens, each step's launches by
     kernel; then the cached-step gate, with ``profile`` a full and a cached
     step under the profiler, and the trainer gate. Returns (launches, the
-    session's backbone and adapter)."""
+    session's backbone and adapter). With ``one_backbone`` (a backbone the
+    card holds once only: mixtral-8x7b's 48 GB) the ``cuda`` session's
+    backbone is released before the trainer gate opens its ``ref``
+    session, and the backbone returned is that session's, the same seeded
+    draw (its fingerprint must equal the first's). ``pool``: the Jetson
+    pool of the session's offline edge-pool plan (its default of 4 cannot
+    hold mixtral-8x7b, and the planner then refuses, as the reference's
+    does)."""
     from repro_torch.runtime import EdgeSession, EpochReport, EpochRunner, RunHooks, RunSpec
 
     spec = RunSpec(arch=arch, quant=8, cache_compress="int8", kernels="cuda", init="pruning",
-                   epochs=epochs, steps_per_epoch=steps, batch=4, seq=512, seed=SEED)
+                   epochs=epochs, steps_per_epoch=steps, batch=4, seq=512, seed=SEED, pool=pool)
     training_kernels = ("quant_matmul", "flash_attention", "mix_fwd", "mix_dw", "ce_fwd",
                         "ce_bwd")
     per_step = []
@@ -2981,7 +3429,15 @@ def pac_run(arch: str, epochs: int = 2, steps: int = 2, profile: bool = False):
     backbone, adapter = s.backbone, s.adapter
     s.close()
     del s
-    trainer_gate(spec, [r.mean_loss for r in reports])
+    if not one_backbone:
+        trainer_gate(spec, [r.mean_loss for r in reports])
+        return launches, backbone, adapter
+    prints = fingerprint(backbone)
+    del backbone
+    torch.cuda.empty_cache()
+    backbone = trainer_gate(spec, [r.mean_loss for r in reports], keep_backbone=True)
+    if fingerprint(backbone) != prints:
+        raise AssertionError(f"{arch}: the ref session drew another backbone")
     return launches, backbone, adapter
 
 
@@ -3515,6 +3971,23 @@ def main() -> int:
     baselines_done_s = time.perf_counter() - T_START
     plan_kernel_phase(Timer(), gen, "distill", "distill teacher")
     distill = distill_phase(gen)
+    distill_done_s = time.perf_counter() - T_START
+
+    # MoE: kimi-k2's head width 112, one mixtral-8x7b layer, mixtral's
+    # widths, then mixtral served, trained and personal-served at full
+    # width and depth (its 48 GB INT8 backbone held once at a time)
+    hd112 = hd112_kernel_phase(Timer(), gen)
+    for name in ("flash_attention", "paged_attention"):
+        rows[name]["hd112"] = hd112[name]
+    moe_layer_phase(gen)
+    for name, row in mixtral_kernel_phase(Timer(), gen).items():
+        rows[name]["mixtral"] = row
+    mixtral_serving = mixtral_serving_phase(gen)
+    torch.cuda.empty_cache()
+    mixtral_training, m_backbone, m_adapter = pac_run(MIXTRAL, profile=True, one_backbone=True,
+                                                      pool=MIXTRAL_POOL)
+    mixtral_personal = mixtral_personal_phase(m_backbone, m_adapter, get_arch(MIXTRAL))
+    del m_backbone, m_adapter
 
     sources = {"quant_matmul": ("src/repro_torch/kernels/csrc/quant_matmul.cu",
                                 "src/repro/kernels/quant_matmul.py:93"),
@@ -3537,7 +4010,8 @@ def main() -> int:
              "plan_auto": plan_auto, "fleet": fleet, "gemma2_serving": gemma2_serving,
              "gemma2_training": gemma2_training, "gemma2_personal": gemma2_personal,
              "paper_models": paper_models, "musicgen_prefill": musicgen,
-             "baselines": baselines, "distill": distill}
+             "baselines": baselines, "distill": distill, "mixtral_serving": mixtral_serving,
+             "mixtral_training": mixtral_training, "mixtral_personal": mixtral_personal}
     home = {"quant_matmul": "serving", "flash_attention": "serving",
             "paged_attention": "serving", "adapter_fuse": "personal"}
     # each kernel's launches on its own main path (serving for the first
@@ -3564,7 +4038,8 @@ def main() -> int:
           "through_personal_s": personal_done_s, "through_prefetch_s": prefetch_done_s,
           "through_distributed_s": distributed_done_s, "through_plan_s": plan_done_s,
           "through_fleet_s": fleet_done_s, "through_gemma2_s": gemma2_done_s,
-          "through_paper_models_s": paper_done_s, "through_baselines_s": baselines_done_s})
+          "through_paper_models_s": paper_done_s, "through_baselines_s": baselines_done_s,
+          "through_distill_s": distill_done_s})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -18,8 +18,7 @@ from typing import Optional, Tuple
 
 @dataclass(frozen=True)
 class MoESpec:
-    """Mixture-of-experts settings (carried for config parity; the MoE
-    layers themselves arrive with a later slice of the port)."""
+    """Mixture-of-experts settings for layers whose ``LayerSpec.moe`` is True."""
 
     n_experts: int
     top_k: int
@@ -140,21 +139,35 @@ class ArchConfig:
         )
 
     def param_count(self) -> int:
-        """Analytic parameter count of a dense attention backbone
+        """Analytic parameter count of an attention backbone, dense or MoE
         (embeddings + blocks + head)."""
         d, hd = self.d_model, self.hd
         n = self.vocab * d
         if not self.tie_embeddings:
             n += self.vocab * d
         for s in self.layer_specs():
-            if s.kind != "attn" or s.moe:
+            if s.kind != "attn":
                 raise NotImplementedError(
-                    "param_count covers dense attention layers; other kinds "
-                    "arrive with the SSM/MoE slice of the port")
+                    f"param_count covers attention layers; kind {s.kind!r} arrives with "
+                    "the SSM (A6.5) slice of the port")
             n += 2 * d
             n += d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd) + (self.n_heads * hd) * d
-            if s.ffn and self.d_ff:
-                n += 3 * d * self.d_ff
+            if s.ffn:
+                if s.moe and self.moe is not None:
+                    n += d * self.moe.n_experts  # router
+                    n += self.moe.n_experts * 3 * d * self.moe.d_expert
+                elif self.d_ff:
+                    n += 3 * d * self.d_ff
+        return n
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top_k experts only)."""
+        n = self.param_count()
+        if self.moe is None:
+            return n
+        for s in self.layer_specs():
+            if s.moe:
+                n -= (self.moe.n_experts - self.moe.top_k) * 3 * self.d_model * self.moe.d_expert
         return n
 
 
@@ -163,10 +176,6 @@ _REGISTRY: dict = {}
 #: the reference's configs that a later slice of the port brings, by the
 #: slice (ROADMAP A6) whose layers they need
 LATER_SLICES = {
-    "mixtral-8x7b": "MoE (A6.4)",
-    "moonshot-v1-16b-a3b": "MoE (A6.4)",
-    "grok-1-314b": "MoE (A6.4)",
-    "kimi-k2-1t-a32b": "MoE (A6.4)",
     "xlstm-125m": "SSM (A6.5)",
     "jamba-1.5-large-398b": "SSM (A6.5)",
     "qwen2-vl-7b": "mrope (A6.6)",

@@ -17,7 +17,8 @@ Counterpart of ``repro.core.init_methods``, its two initialisers:
   backbone's projections through ``quant_matmul`` and its attention
   through the flash kernel; the function is the same under ``"ref"``.
 
-Dense attention backbones only.
+Attention backbones with dense or MoE FFNs (an MoE FFN is pruned from
+its experts' mean, as in the reference); SSM kinds raise.
 """
 
 from __future__ import annotations
@@ -64,6 +65,29 @@ def _prune_rows_cols(w, row_idx=None, col_idx=None):
     return w
 
 
+def _expert_mean_pruned(ffn, keep_d, n_ff: int):
+    """The reference's MoE branch: each of ``wi``, ``wg``, ``wo`` averaged
+    over its experts, then pruned to ``keep_d`` and the ``n_ff`` d_e
+    channels whose mean ``wi`` columns have the top L2 norm over periods
+    and rows. Each period is dequantized and averaged on its own (twice:
+    once for the norms, once to prune), so no (n_p, d, d_e) f32 mean and
+    no whole stacked expert leaf is ever resident (mixtral's ``wi`` alone
+    is 60 GB in f32)."""
+    n_p = ffn["wi"].shape[0]
+
+    def mean(name, i):
+        return torch.mean(_dense(ffn[name][i]), dim=0)
+
+    sq = sum(torch.sum(torch.square(mean("wi", i)), dim=0) for i in range(n_p))
+    keep_ff = _topk_idx(torch.sqrt(sq), n_ff)
+    out = {}
+    for name, rows, cols in (("wi", keep_d, keep_ff), ("wg", keep_d, keep_ff),
+                             ("wo", keep_ff, keep_d)):
+        out[name] = torch.stack([_prune_rows_cols(mean(name, i), rows, cols)
+                                 for i in range(n_p)])
+    return out
+
+
 def _prune_heads(w, keep_d, n_heads, hd, n_heads_a, hd_a, transpose=False):
     """(n_p, d, H·hd) -> (n_p, d_a, H_a·hd_a) by head and width norm selection."""
     w = _dense(w)
@@ -101,10 +125,10 @@ def pruning_init(gen: torch.Generator, backbone_params, cfg, r: int = 8, *, devi
     params["up"] = torch.zeros_like(params["up"])
 
     for pos_i, spec in enumerate(cfg.pattern):
-        if spec.kind != "attn" or spec.moe:
+        if spec.kind != "attn":
             raise NotImplementedError(
-                f"pruning_init covers dense attention blocks; kind {spec.kind!r} "
-                f"(moe={spec.moe}) arrives with the SSM/MoE slice of the port")
+                f"pruning_init covers attention blocks; kind {spec.kind!r} arrives with "
+                "the SSM (A6.5) slice of the port")
         src, dst = backbone_params["blocks"][pos_i], params["blocks"][pos_i]
         dst["ln1"] = torch.index_select(_dense(src["ln1"]), -1, keep_d)
         if "ln2" in dst and "ln2" in src:
@@ -116,7 +140,9 @@ def pruning_init(gen: torch.Generator, backbone_params, cfg, r: int = 8, *, devi
             dm[nm] = _prune_heads(sm[nm], keep_d, cfg.n_kv_heads if kv else H, hd,
                                   acfg.n_kv_heads if kv else Ha, hda)
         dm["wo"] = _prune_heads(sm["wo"], keep_d, H, hd, Ha, hda, transpose=True)
-        if "ffn" in dst:
+        if "ffn" in dst and spec.moe and cfg.moe is not None:
+            dst["ffn"] = _expert_mean_pruned(src["ffn"], keep_d, dst["ffn"]["wi"].shape[-1])
+        elif "ffn" in dst:
             wi, wg, wo = (_dense(src["ffn"][n]) for n in ("wi", "wg", "wo"))
             keep_ff = _topk_idx(_l2(wi, dim=(0, 1)), dst["ffn"]["wi"].shape[-1])
             dst["ffn"]["wi"] = _prune_rows_cols(wi, keep_d, keep_ff)

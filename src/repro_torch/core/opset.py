@@ -147,16 +147,18 @@ class CudaOpSet(OpSet):
 
     def prepare_block(self, p, spec):
         """Keep the projection weights quantized; dequantize only the
-        leaves no kernel takes (the norm gains, which ``quantize_tree``
-        quantizes too when they are period-stacked)."""
-        if spec.kind != "attn" or spec.moe:
+        leaves no kernel takes: the norm gains (which ``quantize_tree``
+        quantizes too when they are period-stacked) and an MoE FFN's
+        experts, whose batched products run dense, as the reference's
+        pallas OpSet dequantizes them."""
+        if spec.kind != "attn":
             raise NotImplementedError(
-                "the cuda OpSet covers dense attention blocks; SSM and MoE blocks "
-                "arrive with the other-families slice of the port")
+                "the cuda OpSet covers attention blocks; SSM blocks arrive with the "
+                "SSM (A6.5) slice of the port")
         out = {"ln1": maybe_dequantize_tree(p["ln1"]), "mixer": p["mixer"]}
         if "ffn" in p:
             out["ln2"] = maybe_dequantize_tree(p["ln2"])
-            out["ffn"] = p["ffn"]
+            out["ffn"] = maybe_dequantize_tree(p["ffn"]) if spec.moe else p["ffn"]
         return out
 
     def matmul(self, x, w):

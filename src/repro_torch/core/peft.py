@@ -15,8 +15,9 @@ outside any kernel (each block dequantized first), and their steps take
 the gradient with plain autograd: neither package has a backward kernel
 for ``quant_matmul`` or flash attention.
 
-Dense attention blocks only: SSM and MoE layer kinds raise
-``NotImplementedError`` naming the slice that brings them. Parameters
+Attention blocks with a dense or an MoE FFN (the MoE one routed as in
+the backbone); SSM layer kinds raise ``NotImplementedError`` naming the
+slice that brings them. Parameters
 are drawn from an explicit ``torch.Generator`` on the caller's device;
 block leaves are stacked over periods, as the reference's are, so trees
 bridge over unchanged.
@@ -30,20 +31,17 @@ import torch.nn.functional as F
 from repro_torch.core.quantization import QTensor, index_tree, maybe_dequantize_tree, tree_leaves
 from repro_torch.models.backbone import apply_block, embed_inputs, logits_from_hidden
 from repro_torch.models.layers import LeafMaker, attention_forward, mlp_forward, rms_norm
+from repro_torch.models.moe import moe_forward
 
 LORA_TARGETS = ("wq", "wv")  # the paper follows Hu et al.: the q and v projections
 
 
-def _dense_only(cfg) -> None:
+def _attention_only(cfg) -> None:
     for spec in cfg.pattern:
-        if spec.moe:
-            raise NotImplementedError(
-                f"{cfg.name}: MoE blocks arrive with the MoE (A6.4) slice of the port; "
-                "the baselines cover dense attention blocks")
         if spec.kind != "attn":
             raise NotImplementedError(
                 f"{cfg.name}: layer kind {spec.kind!r} arrives with the SSM (A6.5) slice of "
-                "the port; the baselines cover dense attention blocks")
+                "the port; the baselines cover attention blocks")
 
 
 # ---------------------------------------------------------------------------
@@ -56,7 +54,7 @@ def init_lora(gen: torch.Generator, cfg, rank: int = 8, *, device=None,
     """One (A, B) pair each for W_q and W_v per layer position, stacked
     over periods: A ~ N(0, 1)·d^-0.5, B zero; ``alpha`` = 2·rank (a
     trainable leaf, as in the reference), so the rank scale starts at 2."""
-    _dense_only(cfg)
+    _attention_only(cfg)
     d, n_p = cfg.d_model, cfg.n_periods
     leaf = LeafMaker(gen, device=device, dtype=dtype, lead=(n_p,))
     layers = []
@@ -77,7 +75,7 @@ def lora_delta(lp, x, which: str, rank_scale):
 def apply_block_lora(p, lp, x, cfg, spec, positions, rank_scale):
     """One block with the LoRA ΔW materialised on W_q and W_v
     (``W + (A @ B)·scale``), the rest the plain block: the block is
-    dequantized first, then norm, attention, residual, norm, MLP."""
+    dequantized first, then norm, attention, residual, norm, MLP (or MoE)."""
     p = maybe_dequantize_tree(p)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     mixer = dict(p["mixer"])
@@ -86,14 +84,17 @@ def apply_block_lora(p, lp, x, cfg, spec, positions, rank_scale):
     x = x + attention_forward(mixer, h, cfg, spec, positions)
     if "ffn" in p:
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + mlp_forward(p["ffn"], h)
+        if spec.moe and cfg.moe is not None:
+            x = x + moe_forward(p["ffn"], h, cfg.moe)
+        else:
+            x = x + mlp_forward(p["ffn"], h)
     return x
 
 
 def lora_logits(backbone_params, lora_params, cfg, batch):
     """The backbone's logits with LoRA on every block. batch:
     {"tokens"} or {"embeds"}, optional {"positions"}."""
-    _dense_only(cfg)
+    _attention_only(cfg)
     x, positions = embed_inputs(backbone_params, cfg, batch)
     rank = lora_params["layers"][0]["a_q"].shape[-1]
     rank_scale = lora_params["alpha"] / rank
@@ -113,7 +114,7 @@ def init_houlsby(gen: torch.Generator, cfg, bottleneck: int = 64, *, device=None
                  dtype=torch.float32) -> dict:
     """Per layer position, stacked over periods: ``down`` ~ N(0, 1)·d^-0.5,
     ``up`` and the norm gain ``ln`` zero (the identity start)."""
-    _dense_only(cfg)
+    _attention_only(cfg)
     d, n_p = cfg.d_model, cfg.n_periods
     leaf = LeafMaker(gen, device=device, dtype=dtype, lead=(n_p,))
     return {"layers": [{"down": leaf.normal((d, bottleneck), d ** -0.5),
@@ -126,7 +127,7 @@ def houlsby_logits(backbone_params, adapters, cfg, batch):
     ``h + gelu(rms_norm(h) @ down) @ up``. The gelu is the reference's
     ``jax.nn.gelu`` default, the tanh approximation (not PyTorch's
     default erf)."""
-    _dense_only(cfg)
+    _attention_only(cfg)
     x, positions = embed_inputs(backbone_params, cfg, batch)
     blocks, layers = backbone_params["blocks"], adapters["layers"]
     for i in range(cfg.n_periods):

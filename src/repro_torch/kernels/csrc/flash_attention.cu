@@ -7,7 +7,7 @@
 // GQA heads read directly instead of the repeated-KV copy the TPU path
 // builds. Options: causal mask, sliding window (window > 0), tanh softcap
 // (cap > 0). Positions are 0..S-1 for both queries and keys. HD is 64,
-// 128 or 256.
+// 112, 128 or 256.
 //
 // What bounds it on the H100: at the prefill shape (BH = 8·16 over 8·8 KV
 // heads, S = 512, HD = 128, causal) the two products are 8.6 GFLOP on
@@ -67,6 +67,15 @@
 // up to 255 registers a thread); shared memory 3·(64 + 2·32)·(256 + 8)·2 =
 // 202,752 B a block of the 232,448 an SM offers. K/V are staged 4 chunks a
 // thread a term, Q 16.
+// HD = 112 (kimi-k2's head width, 7168 / 64). Q·Kᵀ takes 7 k16 steps, which
+// the loop takes one at a time anyway; O's 14 n8 tiles a warp are summed in
+// P·V as one group of 8 and a remainder group of 6 (NG's multiple and the
+// rest, each an even count for ldmatrix.x4's pairs of tiles); a K/V term's
+// 32 x 14 16-byte chunks are 3.5 a thread, so the last round of the load
+// takes the first 64 threads only. A staged row is 120 bf16 (240 B): its 8
+// ldmatrix rows start at 240·r mod 128 = 0, 112, 96, ..., 16, 8 distinct
+// 16-byte bank groups, and every row stays 16-byte aligned. CW = 1, two
+// blocks an SM, 92,160 B of shared memory a block; O is 56 f32 a thread.
 // Each output row is owned by one block, summed in a fixed order with no
 // atomics: two calls give bit-equal results. A row with no key in its band
 // (only with a window and Sq > Sk: q >= Sk + window - 1) gets l = 0 and
@@ -96,6 +105,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "mix_tile.cuh"
 
@@ -170,8 +181,9 @@ flash_fwd_mma(const float* __restrict__ q, const uint16_t* __restrict__ kv, floa
   constexpr int KSTEPS = HD / 16;                      // k16 steps of Q·Kᵀ
   constexpr int NO = HDW / 8;                          // O's n8 tiles a warp holds
   constexpr int CPR = HD / 8;                          // 16-byte chunks of a row
-  constexpr int CHUNKS = BKV * CPR / THREADS;          // a thread's chunks of a K/V term
-  static_assert(NO % NG == 0 && BKV * CPR % THREADS == 0, "whole groups");
+  constexpr int KV_CHUNKS = BKV * CPR;                 // chunks of a K/V term's tile
+  constexpr int CHUNKS = (KV_CHUNKS + THREADS - 1) / THREADS;  // a thread's, at most
+  static_assert(NO % NG % 2 == 0, "P·V's groups take n8 tiles in pairs");
   extern __shared__ __align__(16) uint16_t smem[];
   uint16_t* qs = smem;                 // 3 x BQ x LD
   uint16_t* ks = qs + TERMS * Q_TILE;  // 3 x BKV x LD
@@ -200,7 +212,8 @@ flash_fwd_mma(const float* __restrict__ q, const uint16_t* __restrict__ kv, floa
 #pragma unroll
       for (int i = 0; i < CHUNKS; ++i) {
         const int c = tid + i * THREADS, r = c / CPR, m = (c % CPR) * 8;
-        cp_async16(dst + j * KV_TILE + r * LD + m, src + j * plane + (size_t)(k0 + r) * HD + m);
+        if (KV_CHUNKS % THREADS == 0 || c < KV_CHUNKS)
+          cp_async16(dst + j * KV_TILE + r * LD + m, src + j * plane + (size_t)(k0 + r) * HD + m);
       }
   };
 
@@ -334,8 +347,41 @@ flash_fwd_mma(const float* __restrict__ q, const uint16_t* __restrict__ kv, floa
       for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
   };
 
+  // O's n8 tiles [n0, n0 + G) += P·V for k16 step kc, pa P's three terms
+  auto pv_group = [&](const uint32_t (&pa)[TERMS][4], int kc, int n0, auto g) {
+    constexpr int G = decltype(g)::value;
+    uint32_t vb[TERMS][G][2];
+#pragma unroll
+    for (int np = 0; np < G / 2; ++np)
+#pragma unroll
+      for (int j = 0; j < TERMS; ++j) {
+        uint32_t r[4];
+        ldsm_x4_t(r, v_lane + B * (j * KV_TILE + 16 * kc * LD + 8 * n0 + 16 * np));
+        vb[j][2 * np][0] = r[0];
+        vb[j][2 * np][1] = r[1];
+        vb[j][2 * np + 1][0] = r[2];
+        vb[j][2 * np + 1][1] = r[3];
+      }
+    float part[G][4];
+#pragma unroll
+    for (int nt = 0; nt < G; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[nt][e] = 0.f;
+#pragma unroll
+    for (int ord = 2; ord >= 0; --ord)
+#pragma unroll
+      for (int i = 0; i <= ord; ++i)
+#pragma unroll
+        for (int nt = 0; nt < G; ++nt) mma_bf16(part[nt], pa[i], vb[ord - i][nt]);
+#pragma unroll
+    for (int nt = 0; nt < G; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n0 + nt][e] += part[nt][e];
+  };
+
   // O += P·V: the C fragments of S's n8 tiles 2kc, 2kc + 1 are the A
-  // fragment of k16 step kc, split in three bf16 terms in registers
+  // fragment of k16 step kc, split in three bf16 terms in registers; O's
+  // tiles go NG at a time, then the rest (HD = 112: 8, then 6)
   auto add_pv = [&](const float (&p)[NT][4]) {
 #pragma unroll
     for (int kc = 0; kc < NT / 2; ++kc) {
@@ -347,35 +393,10 @@ flash_fwd_mma(const float* __restrict__ q, const uint16_t* __restrict__ kv, floa
         for (int j = 0; j < TERMS; ++j) pa[j][x] = w[j];
       }
 #pragma unroll
-      for (int ng = 0; ng < NO / NG; ++ng) {
-        uint32_t vb[TERMS][NG][2];
-#pragma unroll
-        for (int np = 0; np < NG / 2; ++np)
-#pragma unroll
-          for (int j = 0; j < TERMS; ++j) {
-            uint32_t r[4];
-            ldsm_x4_t(r, v_lane + B * (j * KV_TILE + 16 * kc * LD + 8 * NG * ng + 16 * np));
-            vb[j][2 * np][0] = r[0];
-            vb[j][2 * np][1] = r[1];
-            vb[j][2 * np + 1][0] = r[2];
-            vb[j][2 * np + 1][1] = r[3];
-          }
-        float part[NG][4];
-#pragma unroll
-        for (int nt = 0; nt < NG; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) part[nt][e] = 0.f;
-#pragma unroll
-        for (int ord = 2; ord >= 0; --ord)
-#pragma unroll
-          for (int i = 0; i <= ord; ++i)
-#pragma unroll
-            for (int nt = 0; nt < NG; ++nt) mma_bf16(part[nt], pa[i], vb[ord - i][nt]);
-#pragma unroll
-        for (int nt = 0; nt < NG; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[NG * ng + nt][e] += part[nt][e];
-      }
+      for (int ng = 0; ng < NO / NG; ++ng)
+        pv_group(pa, kc, NG * ng, std::integral_constant<int, NG>{});
+      if constexpr (NO % NG != 0)
+        pv_group(pa, kc, NO - NO % NG, std::integral_constant<int, NO % NG>{});
     }
   };
 
@@ -460,6 +481,9 @@ int flash_launch(const void* q, const void* k, const void* v, void* o, void* scr
   if (hd == 64)
     return flash::launch<64>((const float*)q, (const float*)k, (const float*)v, (float*)o, kv,
                              BH, Sq, Sk, n_rep, causal, window, cap, scale, s);
+  if (hd == 112)
+    return flash::launch<112>((const float*)q, (const float*)k, (const float*)v, (float*)o, kv,
+                              BH, Sq, Sk, n_rep, causal, window, cap, scale, s);
   if (hd == 128)
     return flash::launch<128>((const float*)q, (const float*)k, (const float*)v, (float*)o, kv,
                               BH, Sq, Sk, n_rep, causal, window, cap, scale, s);

@@ -69,7 +69,19 @@
 // rest < 4 KB: ~141 KB of the 227 KB a block may take; at gemma2's serving
 // shape (n_rep 2, one head a block) ~74 KB.
 //
-// Limits: HD in {64, 128, 256}, heads * n_rep <= 8 query rows a block,
+// HD = 112 (kimi-k2): a row is 112 int8 (7 16-byte chunks), 224 bf16 B
+// (14) or 448 f32 B (28), which 8 scoring lanes cannot split evenly into
+// loads of one size. So at 112 a scoring lane takes the row's 16-byte
+// chunks sub, sub + 8, ... (int8: lanes 0-6 one chunk, lane 7 none; bf16:
+// two or one; f32: four or three), and the permuted query rows are padded
+// to 8 lanes x the most chunks a lane takes (128 floats), zeros in the
+// padding. P·V: HD / 32 = 3.5 dims a lane would not be whole, so 28 lanes
+// take 4 dims each (one 4-, 8- or 16-byte load a row) and lanes 28-31 sit
+// P·V out. Two blocks an SM, as at 64 and 128. Other widths keep their
+// geometry: HD * sizeof(T) / 8 bytes a scoring lane in equal loads, HD / 32
+// dims a P·V lane.
+//
+// Limits: HD in {64, 112, 128, 256}, heads * n_rep <= 8 query rows a block,
 // heads in {1, 2, 4, 8} dividing Hkv; any page size and number of kv
 // heads. Page pools whose base is not 16-byte aligned are staged by plain
 // loads.
@@ -98,12 +110,20 @@ struct Geo {
   static constexpr int ROW_BYTES = HD * (int)sizeof(T);  // one (token, kv head) row
   static constexpr int CHUNK =                            // rows a stage
       STAGE_BYTES / ROW_BYTES < MAX_CHUNK ? STAGE_BYTES / ROW_BYTES : MAX_CHUNK;
-  static constexpr int TB = ROW_BYTES / 8;  // bytes of a row a scoring lane reads
-  static constexpr int LU = TB < 16 ? TB : 16;  // in loads of LU bytes
-  static constexpr int NV = TB / LU;            // loads a lane
-  static constexpr int EU = LU / (int)sizeof(T);  // elements a load
-  static constexpr int DPL = HD / 32;             // dims a lane accumulates in P·V
+  static constexpr int TB = ROW_BYTES / 8;  // bytes of a row a scoring lane reads, if even
+  // whether 8 scoring lanes split a row into equal loads (not at HD = 112)
+  static constexpr bool EVEN =
+      ROW_BYTES % 8 == 0 && (TB >= 16 ? TB % 16 == 0 : (TB / (int)sizeof(T)) % 4 == 0);
+  static constexpr int LU = EVEN ? (TB < 16 ? TB : 16) : 16;  // bytes a load
+  static constexpr int EU = LU / (int)sizeof(T);              // elements a load
+  static constexpr int CH = ROW_BYTES / LU;                   // loads of a row
+  static constexpr int NV = (CH + 7) / 8;                     // loads a lane, at most
+  static constexpr int QLD = NV * 8 * EU;  // a permuted query row's floats (HD where EVEN)
+  static constexpr int DPL = HD % 32 == 0 ? HD / 32 : 4;      // dims a lane in P·V
+  static constexpr int PV_LANES = HD / DPL;                   // lanes in P·V
   static constexpr bool SCALED = sizeof(T) == 1;
+  static_assert(EVEN || ROW_BYTES % 16 == 0, "whole 16-byte chunks");
+  static_assert(HD % DPL == 0 && PV_LANES <= 32, "P·V's lanes");
 };
 
 // Byte offsets into the dynamic shared memory, for the kernel and its
@@ -122,7 +142,7 @@ __host__ __device__ inline Layout layout(int n_rep, int heads, int ranks, int pa
   L.kscale = ((ring > red ? ring : red) + 15) / 16 * 16;
   L.vscale = L.kscale + STAGES * G::CHUNK * 4;
   L.qs = L.vscale + STAGES * G::CHUNK * 4;
-  L.sc = L.qs + MAX_ROWS * HD * 4;
+  L.sc = L.qs + MAX_ROWS * G::QLD * 4;
   L.state = L.sc + MAX_ROWS * G::CHUNK * 4;     // m, l, alpha of each query row
   L.bt = L.state + 3 * MAX_ROWS * 4;
   L.recv = L.bt + ((pages < BT_CACHE ? pages : BT_CACHE) * 4 + 15) / 16 * 16;
@@ -240,7 +260,7 @@ paged_attn(const float* __restrict__ q, const T* __restrict__ kp, const T* __res
            float* __restrict__ out, int Hkv, int n_rep, int page, int max_pages, int window,
            float cap, float scale, int ranks, int pages, int heads) {
   using G = Geo<T, HD>;
-  constexpr int CHUNK = G::CHUNK, EU = G::EU, NV = G::NV, DPL = G::DPL;
+  constexpr int CHUNK = G::CHUNK, EU = G::EU, NV = G::NV, DPL = G::DPL, QLD = G::QLD;
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout L = layout<T, HD>(n_rep, heads, ranks, pages);
   T* kring = reinterpret_cast<T*>(smem);  // [STAGES][CHUNK][HD]
@@ -286,10 +306,19 @@ paged_attn(const float* __restrict__ q, const T* __restrict__ kp, const T* __res
   // lanes of a scored row read 128 contiguous bytes
   const int pos = __ldg(lengths + b);
   for (int i = tid; i < min(np, BT_CACHE); i += THREADS) bts[i] = __ldg(btrow + i);
-  for (int i = tid; i < qr * HD; i += THREADS) {
-    const int row = i / HD, d = i % HD;
-    const int u = d / (8 * EU), rem = d % (8 * EU), sub = rem / EU, e = rem % EU;
-    qs[row * HD + ((u * (EU / 4) + e / 4) * 8 + sub) * 4 + e % 4] = __ldg(q + obase + i);
+  if constexpr (G::EVEN) {
+    for (int i = tid; i < qr * HD; i += THREADS) {
+      const int row = i / HD, d = i % HD;
+      const int u = d / (8 * EU), rem = d % (8 * EU), sub = rem / EU, e = rem % EU;
+      qs[row * HD + ((u * (EU / 4) + e / 4) * 8 + sub) * 4 + e % 4] = __ldg(q + obase + i);
+    }
+  } else {  // each padded slot from its dim, zero past HD
+    for (int i = tid; i < qr * QLD; i += THREADS) {
+      const int row = i / QLD, x = i % QLD, t = x / 4;
+      const int sub = t % 8, e = (t / 8) % (EU / 4) * 4 + x % 4, u = t / 8 / (EU / 4);
+      const int d = u * 8 * EU + sub * EU + e;
+      qs[i] = d < HD ? __ldg(q + obase + row * HD + d) : 0.f;
+    }
   }
   if (tid < MAX_ROWS) {
     st_m[tid] = NEG_INF;
@@ -389,7 +418,7 @@ paged_attn(const float* __restrict__ q, const T* __restrict__ kp, const T* __res
         float kv[NV][EU];
 #pragma unroll
         for (int i = 0; i < NV; ++i) {
-          if (ok) {
+          if (ok && (G::EVEN || i * 8 + sub < G::CH)) {
             load_vals<T, EU>(kc + j * HD + (i * 8 + sub) * EU, kv[i]);
             if constexpr (G::SCALED) {
               const float sk = kss[s * CHUNK + j];
@@ -404,7 +433,7 @@ paged_attn(const float* __restrict__ q, const T* __restrict__ kp, const T* __res
 #pragma unroll
         for (int r = 0; r < MAX_ROWS; ++r) {
           if (r >= n_rep) break;
-          const float* qrow = qs + (gq * n_rep + r) * HD;
+          const float* qrow = qs + (gq * n_rep + r) * QLD;
           float d = 0.f;
 #pragma unroll
           for (int i = 0; i < NV; ++i)
@@ -473,6 +502,7 @@ paged_attn(const float* __restrict__ q, const T* __restrict__ kp, const T* __res
 #pragma unroll
       for (int e = 0; e < DPL; ++e) acc[r][e] *= a;
     }
+    if (G::PV_LANES == 32 || lane < G::PV_LANES)
     for (int j = warp; j < rows; j += WARPS) {
       float v[DPL];
       load_vals<T, DPL>(vc + j * HD + lane * DPL, v);
@@ -496,7 +526,7 @@ paged_attn(const float* __restrict__ q, const T* __restrict__ kp, const T* __res
   float* red = reinterpret_cast<float*>(smem);  // [WARPS][n_rep][HD]
 #pragma unroll
   for (int r = 0; r < MAX_ROWS; ++r) {
-    if (r >= n_rep) break;
+    if (r >= n_rep || (G::PV_LANES < 32 && lane >= G::PV_LANES)) break;
 #pragma unroll
     for (int e = 0; e < DPL; ++e) red[(warp * n_rep + r) * HD + lane * DPL + e] = acc[r][e];
   }
@@ -582,6 +612,7 @@ int launch_hd(int hd, const void* q, const void* kp, const void* vp, const void*
                                            heads, stream);                                     \
   }
   PAGED_LAUNCH(64)
+  PAGED_LAUNCH(112)
   PAGED_LAUNCH(128)
   PAGED_LAUNCH(256)
 #undef PAGED_LAUNCH

@@ -28,8 +28,9 @@ reference's atol 3e-5 (``tests/test_kernels.py:105``); ``chip_smoke.py`` holds t
 at the prefill shape on an NVIDIA H100 80GB HBM3 at 700 W, against SDPA's
 0.276–0.278 and the 0.052 ms tensor-core bound (``PERF.md``).
 
-Head widths 64, 128 and 256 (gemma2-2b); at 256 two warps share each
-16-row group, each accumulating half of O's columns (the source's note).
+Head widths 64, 112 (kimi-k2), 128 and 256 (gemma2-2b); at 256 two warps
+share each 16-row group, each accumulating half of O's columns; at 112
+O's 14 column tiles a warp are summed 8 then 6 (the source's notes).
 
 On CPU tensors the wrapper computes
 :func:`~repro_torch.kernels.ref.flash_attention_ref`; on CUDA tensors it
@@ -50,7 +51,7 @@ from repro_torch.kernels.ref import flash_attention_ref
 #: launches of the CUDA kernel in this process (the CPU path does not count)
 launches = 0
 
-HEAD_DIMS = (64, 128, 256)  # the head widths the kernel is instantiated for
+HEAD_DIMS = (64, 112, 128, 256)  # the head widths the kernel is instantiated for
 
 
 def _fn():

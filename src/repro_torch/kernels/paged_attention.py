@@ -18,7 +18,9 @@ a time, and merge their online-softmax states in rank order through
 distributed shared memory (the source's note has the design).
 :func:`plan` sets the grid. A padding row (length 0, null page) attends
 one finite slot, so its output is finite. Limits on the card: hd in (64,
-128, 256), n_rep <= 8; page size and kv-head count are free.
+112, 128, 256), n_rep <= 8; page size and kv-head count are free. At
+112 (kimi-k2) a row does not split into 8 equal loads, so its scoring
+lanes take 16-byte chunks in turn (the source's note).
 
 On CPU tensors the wrapper computes
 :func:`~repro_torch.kernels.ref.paged_attention_ref`; on CUDA tensors it
@@ -40,7 +42,7 @@ from repro_torch.kernels.ref import paged_attention_ref
 #: launches of the CUDA kernel in this process (the CPU path does not count)
 launches = 0
 
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 112, 128, 256)
 _KIND = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
 KIND_BYTES = {0: 1, 1: 4, 2: 2}  # bytes an element of each page kind
 
@@ -52,7 +54,7 @@ STAGE_BYTES = 8192  # K (and V) bytes a ring stage holds at most
 MAX_CHUNK = 64     # (token, kv head) rows a stage at most
 #: blocks an SM holds, by hd (``min_blocks<HD>()`` in the source's
 #: __launch_bounds__): one at 256, whose P·V sums need the registers
-RESIDENT = {64: 2, 128: 2, 256: 1}
+RESIDENT = {64: 2, 112: 2, 128: 2, 256: 1}
 
 
 class Plan(NamedTuple):

@@ -4,8 +4,8 @@ An :class:`~repro_torch.configs.base.ArchConfig` declares a period of
 layers tiled ``n_periods`` times. Block parameters are stacked over
 periods (leaves ``(n_p, ...)``, as in the reference, so parameters bridge
 over unchanged); the forward is a Python loop over periods where the
-reference scans. Dense attention blocks only: SSM and MoE kinds, and
-mrope, raise ``NotImplementedError``.
+reference scans. Attention blocks with a dense or an MoE FFN
+(``models/moe.py``); SSM kinds and mrope raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,15 +35,16 @@ from repro_torch.models.layers import (
     rms_norm,
     softcap,
 )
+from repro_torch.models.moe import init_moe, moe_forward
 
 _REF_OPS = get_opset("ref")
 
 
-def _dense_only(spec) -> None:
-    if spec.kind != "attn" or spec.moe:
+def _attention_only(spec) -> None:
+    if spec.kind != "attn":
         raise NotImplementedError(
-            f"layer kind {spec.kind!r} (moe={spec.moe}) arrives with the SSM/MoE "
-            "slice of the port; this slice covers dense attention blocks")
+            f"layer kind {spec.kind!r} arrives with the SSM (A6.5) slice of the port; "
+            "the port covers attention blocks with a dense or an MoE FFN")
 
 
 # ---------------------------------------------------------------------------
@@ -53,12 +54,15 @@ def _dense_only(spec) -> None:
 
 def init_block(leaf: LeafMaker, cfg, spec) -> dict:
     """Parameters for one layer position (leaves get ``leaf.lead`` in front)."""
-    _dense_only(spec)
+    _attention_only(spec)
     d = cfg.d_model
     p = {"ln1": leaf.zeros((d,)), "mixer": init_attention(leaf, cfg)}
-    if spec.ffn and cfg.d_ff:
+    if spec.ffn and (cfg.d_ff or (spec.moe and cfg.moe)):
         p["ln2"] = leaf.zeros((d,))
-        p["ffn"] = init_mlp(leaf, d, cfg.d_ff)
+        if spec.moe and cfg.moe is not None:
+            p["ffn"] = init_moe(leaf, d, cfg.moe)
+        else:
+            p["ffn"] = init_mlp(leaf, d, cfg.d_ff)
     return p
 
 
@@ -67,11 +71,12 @@ def init_backbone(gen: torch.Generator, cfg, *, device=None, dtype=torch.float32
     """Random backbone with block leaves stacked over periods.
 
     ``quant_bits`` (8 or 4) quantizes each leaf the moment it is drawn,
-    by the rule of ``quantize_tree(bits)``, so at full width the f32 tree
-    is never resident at once."""
+    by the rule of ``quantize_tree(bits)`` (an MoE router stays f32), so
+    at full width the f32 tree is never resident at once; an MoE expert
+    leaf is drawn and quantized one period at a time."""
 
-    def finish(t):
-        if quant_bits is not None and should_quantize((), t):
+    def finish(t, name=""):
+        if quant_bits is not None and should_quantize((name,), t):
             return quantize(t, quant_bits)
         return t
 
@@ -101,7 +106,7 @@ def period_slice(blocks, i: int):
 
 def apply_block(p, x, cfg, spec, positions, ops=None, return_kv: bool = False):
     ops = ops if ops is not None else _REF_OPS
-    _dense_only(spec)
+    _attention_only(spec)
     p = ops.prepare_block(p, spec)
     h = ops.rms_norm(x, p["ln1"], cfg.norm_eps)
     if return_kv:
@@ -111,7 +116,10 @@ def apply_block(p, x, cfg, spec, positions, ops=None, return_kv: bool = False):
     x = x + mix
     if "ffn" in p:
         h = ops.rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + mlp_forward(p["ffn"], h, ops=ops)
+        if spec.moe and cfg.moe is not None:
+            x = x + moe_forward(p["ffn"], h, cfg.moe)
+        else:
+            x = x + mlp_forward(p["ffn"], h, ops=ops)
     if return_kv:
         return x, kv
     return x
@@ -259,7 +267,7 @@ def init_cache(cfg, B: int, max_len: int, dtype=torch.float32, device=None, kv_q
     kv head), as the reference does."""
     caches = []
     for spec in cfg.pattern:
-        _dense_only(spec)
+        _attention_only(spec)
         shape = (cfg.n_periods, B, max_len, cfg.n_kv_heads, cfg.hd)
         if kv_quant == 8:
             caches.append({
@@ -281,7 +289,7 @@ def apply_block_decode(p, x, cfg, spec, cache, pos, ops=None):
     (B, max_len, ...) leaves, updated in place (INT8 when it holds
     ``k_scale``); pos: (B,)."""
     ops = ops if ops is not None else _REF_OPS
-    _dense_only(spec)
+    _attention_only(spec)
     p = ops.prepare_block(p, spec)
     h = ops.rms_norm(x, p["ln1"], cfg.norm_eps)
     if "k_scale" in cache:
@@ -293,7 +301,13 @@ def apply_block_decode(p, x, cfg, spec, cache, pos, ops=None):
     x = x + mix
     if "ffn" in p:
         h = ops.rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + mlp_forward(p["ffn"], h, ops=ops)
+        if spec.moe and cfg.moe is not None:
+            # decode: T = B tokens; capacity widened, as the reference does,
+            # so that drops are rare
+            x = x + moe_forward(p["ffn"], h, cfg.moe,
+                                capacity_factor=2.0 * cfg.moe.capacity_factor)
+        else:
+            x = x + mlp_forward(p["ffn"], h, ops=ops)
     return x, cache
 
 

@@ -27,8 +27,9 @@ class LeafMaker:
     """Draws parameter leaves from one ``torch.Generator``.
 
     ``lead`` is prepended to every shape (the period-stacking axis);
-    ``finish`` maps each new leaf (e.g. quantizes it as soon as it is
-    drawn, so a full f32 tree is never resident)."""
+    ``finish(t, name)`` maps each new leaf (e.g. quantizes it as soon as it
+    is drawn, so a full f32 tree is never resident; ``name`` lets it skip
+    leaves such as an MoE router)."""
 
     def __init__(self, gen: torch.Generator, *, device=None, dtype=torch.float32,
                  lead: tuple = (), finish=None):
@@ -38,13 +39,40 @@ class LeafMaker:
         self.lead = tuple(lead)
         self.finish = finish
 
-    def _out(self, t):
-        return self.finish(t) if self.finish is not None else t
+    def _out(self, t, name: str = ""):
+        return self.finish(t, name) if self.finish is not None else t
 
-    def normal(self, shape, std: float):
-        t = torch.randn(self.lead + tuple(shape), generator=self.gen, device=self.device,
+    def _draw(self, shape, std: float, name: str):
+        t = torch.randn(tuple(shape), generator=self.gen, device=self.device,
                         dtype=torch.float32)
-        return self._out((t * std).to(self.dtype))
+        return self._out((t * std).to(self.dtype), name)
+
+    def normal(self, shape, std: float, name: str = "", by_period: bool = False):
+        """N(0, std²) of shape ``lead + shape``. ``by_period`` draws and
+        finishes one slice of the first lead axis at a time into the
+        stacked leaf, so at most one slice is resident before ``finish``
+        (an MoE expert leaf: ``finish`` quantizes along the last axis, so
+        the codes are those of the stacked leaf quantized whole)."""
+        if not (by_period and self.lead):
+            return self._draw(self.lead + tuple(shape), std, name)
+        from repro_torch.core.quantization import QTensor
+
+        n, out = self.lead[0], None
+        for i in range(n):
+            t = self._draw(self.lead[1:] + tuple(shape), std, name)
+            if out is None:
+                if isinstance(t, QTensor):
+                    out = QTensor(t.q.new_empty((n,) + tuple(t.q.shape)),
+                                  t.scale.new_empty((n,) + tuple(t.scale.shape)),
+                                  t.bits, t.block, t.orig_last)
+                else:
+                    out = t.new_empty((n,) + tuple(t.shape))
+            if isinstance(t, QTensor):
+                out.q[i], out.scale[i] = t.q, t.scale
+            else:
+                out[i] = t
+            del t
+        return out
 
     def zeros(self, shape):
         return self._out(torch.zeros(self.lead + tuple(shape), device=self.device,

@@ -10,7 +10,9 @@ dequantized inside those ops only.
 
 :func:`paged_prefill` ingests whole prompts in one batched forward whose
 per-layer K/V is scattered into the pages, plus the adapter-side
-prefill. Attention-only patterns (SSM/hybrid archs arrive later).
+prefill. Attention patterns, with dense or MoE FFNs (SSM/hybrid archs
+arrive later); an MoE FFN at decode routes the step's B tokens at twice
+the config's capacity factor, as the reference does.
 
 Pools and adapter caches are updated **in place**; the functions return
 them too, mirroring the reference's signatures.
@@ -26,14 +28,15 @@ from repro_torch.core.opset import get_opset
 from repro_torch.core.parallel_adapters import batched_adapter_decode, batched_adapter_prefill
 from repro_torch.models.backbone import apply_block, embed_inputs, logits_from_hidden, period_slice
 from repro_torch.models.layers import _project_qkv, mlp_forward
+from repro_torch.models.moe import moe_forward
 from repro_torch.serve.paging import period_entry, write_prompt_kv, write_token_kv
 
 
 def _require_attention(cfg) -> None:
-    if any(s.kind != "attn" or s.moe for s in cfg.pattern):
+    if any(s.kind != "attn" for s in cfg.pattern):
         raise NotImplementedError(
-            f"{cfg.name}: paged serving in this slice covers dense attention "
-            "patterns; SSM/MoE layers arrive with a later slice of the port")
+            f"{cfg.name}: paged serving covers attention patterns; SSM layers arrive "
+            "with the SSM (A6.5) slice of the port")
 
 
 def _paged_attention_block(p, h, cfg, spec, entry, block_tables, lengths, ops):
@@ -61,7 +64,11 @@ def _apply_block_paged(p, x, cfg, spec, entry, block_tables, lengths, ops):
     x = x + _paged_attention_block(p["mixer"], h, cfg, spec, entry, block_tables, lengths, ops)
     if "ffn" in p:
         h = ops.rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + mlp_forward(p["ffn"], h, ops=ops)
+        if spec.moe and cfg.moe is not None:
+            x = x + moe_forward(p["ffn"], h, cfg.moe,
+                                capacity_factor=2.0 * cfg.moe.capacity_factor)
+        else:
+            x = x + mlp_forward(p["ffn"], h, ops=ops)
     return x
 
 

@@ -1,5 +1,6 @@
 """The port's config registry against the JAX package's: the seven dense
-configs field for field (with their analytic counts, ``reduced()``, the
+and four MoE configs field for field (with their analytic and active
+parameter counts, ``reduced()``, the
 serving window variant and the adapter's widths), ``pruning_init`` at each
 reduced config, the refusal of a config a later slice brings, the
 trainer's ``--arch`` on the CPU, and the attention kernels' guards."""
@@ -39,7 +40,8 @@ from repro_torch.runtime import EdgeSession, EpochRunner, RunSpec, RunSpecError
 torch.set_num_threads(2)
 REPO = Path(__file__).resolve().parents[1]
 PORTED = ["internlm2-1.8b", "t5-base-pac", "bart-large-pac", "t5-large-pac", "gemma2-2b",
-          "granite-20b", "musicgen-large"]
+          "granite-20b", "musicgen-large", "mixtral-8x7b", "moonshot-v1-16b-a3b", "grok-1-314b",
+          "kimi-k2-1t-a32b"]
 #: the adapter's widths (d_a, heads, hd) at r = 8 (ROADMAP A6.1)
 ADAPTER_WIDTHS = {"gemma2-2b": (288, 1, 288), "t5-base-pac": (96, 1, 96),
                   "bart-large-pac": (128, 2, 64), "t5-large-pac": (128, 2, 64)}
@@ -61,6 +63,8 @@ def test_config_equals_the_reference_field_for_field(arch):
     assert dataclasses.asdict(cfg.reduced()) == dataclasses.asdict(ref.reduced())
     assert cfg.param_count() == ref.param_count()
     assert cfg.reduced().param_count() == ref.reduced().param_count()
+    assert cfg.active_param_count() == ref.active_param_count()
+    assert cfg.reduced().active_param_count() == ref.reduced().active_param_count()
     assert cfg.hd == ref.hd and cfg.n_periods == ref.n_periods
     assert cfg.is_subquadratic() == ref.is_subquadratic()
     assert dataclasses.asdict(cfg.with_window(4096)) == dataclasses.asdict(ref.with_window(4096))
@@ -159,20 +163,43 @@ def test_session_on_a_paper_model_matches_the_jax_trainer():
 
 
 def test_cli_refuses_a_config_of_a_later_slice():
-    out = _cli("--arch", "mixtral-8x7b", "--reduced", "--device", "cpu")
+    out = _cli("--arch", "xlstm-125m", "--reduced", "--device", "cpu")
     assert out.returncode != 0
-    assert "MoE (A6.4)" in out.stderr and "gemma2-2b" in out.stderr
+    assert "SSM (A6.5)" in out.stderr and "mixtral-8x7b" in out.stderr
+
+
+def test_cli_trains_an_moe_config_on_the_cpu():
+    """``--arch mixtral-8x7b --reduced --device cpu``: epoch 0 full, then
+    cached, loss falling, the MoE backbone's parameter count printed."""
+    out = _cli("--arch", "mixtral-8x7b", "--reduced", "--device", "cpu", "--epochs", "3",
+               "--steps-per-epoch", "2", "--batch", "2", "--seq", "16")
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "arch=mixtral-8x7b-reduced" in out.stdout
+    assert f"params≈{get_arch('mixtral-8x7b').reduced().param_count() / 1e6:.1f}M" in out.stdout
+    losses = [float(m) for m in re.findall(r"epoch \d+: loss=([0-9.]+)", out.stdout)]
+    assert re.findall(r"\((full|cached)\)", out.stdout) == ["full", "cached", "cached"]
+    assert losses[-1] < losses[0]
+
+
+def test_moe_active_parameters():
+    """The active count drops the experts a token does not use: mixtral's
+    46.7 B parameters, 12.9 B active (top 2 of 8)."""
+    cfg = get_arch("mixtral-8x7b")
+    assert cfg.param_count() == 46_702_788_608
+    assert cfg.active_param_count() == 12_879_921_152
+    for arch in PORTED[:7]:
+        assert get_arch(arch).active_param_count() == get_arch(arch).param_count()
 
 
 def test_kernel_guards_keep_their_envelope():
-    """On the card flash takes hd 64, 128 and 256 only, and paged attention
-    those widths with at most 8 query rows a kv head; the plan refuses the
-    rest too."""
+    """On the card flash takes hd 64, 112, 128 and 256 only, and paged
+    attention those widths with at most 8 query rows a kv head; the plan
+    refuses the rest too."""
     for hd in fa.HEAD_DIMS:
         fa.require_head_dim(hd)
         pa.require_card_shape(hd, pa.MAX_ROWS)
-    assert fa.HEAD_DIMS == pa.HEAD_DIMS == (64, 128, 256)
-    for hd in (32, 96, 112, 192, 512):
+    assert fa.HEAD_DIMS == pa.HEAD_DIMS == (64, 112, 128, 256)
+    for hd in (32, 96, 120, 192, 512):
         with pytest.raises(ValueError, match="head dim"):
             fa.require_head_dim(hd)
         with pytest.raises(ValueError, match="head dim"):

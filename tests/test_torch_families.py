@@ -1,6 +1,8 @@
-"""The dense configs of the port (the paper's Table III models, gemma2-2b,
-granite-20b, musicgen-large) at ``reduced()`` against the JAX package,
-and gemma2's head width 256 through the kernels' plain versions.
+"""The configs of the port beside internlm2-1.8b (the paper's Table III
+models, gemma2-2b, granite-20b, musicgen-large, and the four MoE configs:
+mixtral-8x7b, moonshot-v1-16b-a3b, grok-1-314b, kimi-k2-1t-a32b) at
+``reduced()`` against the JAX package, and the head widths 256 (gemma2)
+and 112 (kimi-k2) through the kernels' plain versions.
 
 For each config the inputs come from numpy with a fixed seed (musicgen is
 fed frame embeddings, ``{"embeds"}``, as tests/test_backbone_smoke.py
@@ -12,12 +14,17 @@ activations), one ``pac_cached_train_step`` over an int8 cache (loss and
 gradients, ``cuda`` and ``ref``), and the prefill/decode equivalence of
 tests/test_backbone_smoke.py:104-123 on both sides.
 
+A reduced MoE config routes with capacity factor E (the reference's
+``reduced()``), so no token drops and the two packages' routes agree.
+
 ``reduced()`` sets hd = d / n_heads = 64, so no reduced config reaches
-gemma2's 256: a variant with 2 heads of 256 over one kv head is built the
-same way in both packages, and its paged prefill and decode (window and
-soft-cap on, int8 and f32 pages) and the two attention kernels alone are
-held against the JAX Pallas kernels in interpret mode (flash 3e-5,
-tests/test_kernels.py:105; paged 2e-4, tests/test_decode_parity.py:36).
+gemma2's 256 or kimi-k2's 112: a variant of each is built the same way in
+both packages (gemma2 with 2 heads of 256 over one kv head; kimi reduced,
+an MoE model, with 8 heads of 112 over 2 kv heads), and its
+paged prefill and decode (int8 and f32 pages; gemma2's with window and
+soft-cap on) and the two attention kernels alone are held against the JAX
+Pallas kernels in interpret mode (flash 3e-5, tests/test_kernels.py:105;
+paged 2e-4, tests/test_decode_parity.py:36).
 """
 
 import dataclasses
@@ -58,7 +65,8 @@ from repro_torch.serve.decode import paged_pac_decode_step, paged_prefill
 torch.set_num_threads(2)
 R = 4
 ARCHS = ["t5-base-pac", "bart-large-pac", "t5-large-pac", "gemma2-2b", "granite-20b",
-         "musicgen-large"]
+         "musicgen-large", "mixtral-8x7b", "moonshot-v1-16b-a3b", "grok-1-314b",
+         "kimi-k2-1t-a32b"]
 B, S = 2, 40  # S > gemma2's reduced window (32): its local layers mask
 
 
@@ -222,22 +230,29 @@ def test_tied_head_loss_equals_the_untied_path():
 
 
 # ---------------------------------------------------------------------------
-# head width 256
+# head widths 256 and 112
 # ---------------------------------------------------------------------------
 
 PAGE, MAX_LEN, N_STEPS = 8, 96, 3
 PROMPTS = [list(range(3, 3 + 50)), [7, 1, 4], list(range(100, 100 + 37))]  # > window 32
 
 
-def _hd256(get):
-    return dataclasses.replace(get("gemma2-2b").reduced(), n_heads=2, n_kv_heads=1,
-                               head_dim=256)
+def _wide(get, hd):
+    """gemma2-2b reduced with 2 heads of 256 over one kv head, or kimi-k2
+    reduced (MoE) with 8 heads of 112 over 2 kv heads (one kv head would
+    make W_k and W_v 112 wide, under ``quant_matmul``'s 128-wide
+    quantization blocks; kimi's own are 8 x 112 = 896)."""
+    if hd == 256:
+        return dataclasses.replace(get("gemma2-2b").reduced(), n_heads=2, n_kv_heads=1,
+                                   head_dim=256)
+    return dataclasses.replace(get("kimi-k2-1t-a32b").reduced(), n_heads=8, n_kv_heads=2,
+                               head_dim=112)
 
 
 @functools.lru_cache(maxsize=None)
-def _model256():
-    jcfg, tcfg = _hd256(jax_get_arch), _hd256(get_arch)
-    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg) and tcfg.hd == 256
+def _model_wide(hd):
+    jcfg, tcfg = _wide(jax_get_arch, hd), _wide(get_arch, hd)
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg) and tcfg.hd == hd
     backbone = quantize_tree(jbb.init_backbone(jax.random.PRNGKey(5), jcfg), bits=8,
                              min_size=1024)
     bank = stack_adapters([init_adapter(jax.random.PRNGKey(6 + i), jcfg, r=R) for i in range(2)])
@@ -261,21 +276,8 @@ def _pool_f32(entry):
     return out
 
 
-@pytest.mark.parametrize("kernel_impl", ["ref", "cuda"])
-@pytest.mark.parametrize("policy", ["int8", "f32"])
-def test_hd256_paged_serving_matches_pallas(policy, kernel_impl):
-    """The hd = 256 variant (window 32 on its local layers, attention
-    soft-cap 50, final soft-cap 30; prompts of 50 and 37 tokens cross the
-    window) through the JAX ``pallas`` OpSet in interpret mode and the
-    port's OpSets (their kernel wrappers take the plain versions here).
-    Paged prefill: logits within the reference's paged tolerance, the page
-    pools equal once dequantized, an int8 code within one step of its scale
-    (a last-ulp K/V difference of the two packages' f32 sums may move it).
-    Then three decode steps from the reference's prefilled pools and
-    adapter caches, as tests/test_decode_parity.py:70 runs its two
-    OpSets from one prefill: logits within 2e-4 (both policies) and equal
-    greedy tokens at every step."""
-    jcfg, tcfg, backbone, abatch = _model256()
+def _paged_serving_matches_pallas(hd, policy, kernel_impl):
+    jcfg, tcfg, backbone, abatch = _model_wide(hd)
     tb, ta = bridge.to_torch(_np(backbone)), bridge.to_torch(_np(abatch))
     max_pages = MAX_LEN // PAGE
     table = paging.PageTable(paging.PageAllocator(len(PROMPTS) * max_pages + 1), PAGE, max_pages)
@@ -319,16 +321,39 @@ def test_hd256_paged_serving_matches_pallas(policy, kernel_impl):
             table.append_token(i)
 
 
+@pytest.mark.parametrize("kernel_impl", ["ref", "cuda"])
+@pytest.mark.parametrize("policy", ["int8", "f32"])
+def test_hd256_paged_serving_matches_pallas(policy, kernel_impl):
+    """The hd = 256 variant (window 32 on its local layers, attention
+    soft-cap 50, final soft-cap 30; prompts of 50 and 37 tokens cross the
+    window) through the JAX ``pallas`` OpSet in interpret mode and the
+    port's OpSets (their kernel wrappers take the plain versions here).
+    Paged prefill: logits within the reference's paged tolerance, the page
+    pools equal once dequantized, an int8 code within one step of its scale
+    (a last-ulp K/V difference of the two packages' f32 sums may move it).
+    Then three decode steps from the reference's prefilled pools and
+    adapter caches, as tests/test_decode_parity.py:70 runs its two
+    OpSets from one prefill: logits within 2e-4 (both policies) and equal
+    greedy tokens at every step."""
+    _paged_serving_matches_pallas(256, policy, kernel_impl)
+
+
+@pytest.mark.parametrize("kernel_impl", ["ref", "cuda"])
+@pytest.mark.parametrize("policy", ["int8", "f32"])
+def test_hd112_paged_serving_matches_pallas(policy, kernel_impl):
+    """The same at kimi-k2's head width 112 on its reduced MoE model (8
+    heads over 2 kv heads, n_rep 4): prefill routes the 3 x 64 padded
+    tokens, each decode step the 3 new ones at twice the capacity factor,
+    through the MoE FFN of both packages."""
+    _paged_serving_matches_pallas(112, policy, kernel_impl)
+
+
 def _randn(shape, seed):
     return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
 
 
-@pytest.mark.parametrize("window,cap", [(None, None), (32, 50.0), (None, 30.0)])
-def test_hd256_flash_matches_pallas(window, cap):
-    """``flash_attention`` alone at hd = 256 (B·H = 4 over 2 kv heads,
-    S = 128, causal) against the JAX Pallas kernel in interpret mode, KV
-    repeated for it: atol 3e-5."""
-    q, k, v = _randn((4, 128, 256), 31), _randn((2, 128, 256), 32), _randn((2, 128, 256), 33)
+def _flash_matches_pallas(hd, window, cap):
+    q, k, v = _randn((4, 128, hd), 31), _randn((2, 128, hd), 32), _randn((2, 128, hd), 33)
     kr, vr = (np.repeat(t, 2, axis=0) for t in (k, v))
     want = np.asarray(flash_attention_tpu(jnp.asarray(q), jnp.asarray(kr), jnp.asarray(vr),
                                           window=window, attn_softcap=cap, bq=64, bk=64,
@@ -338,14 +363,23 @@ def test_hd256_flash_matches_pallas(window, cap):
     np.testing.assert_allclose(got, want, atol=3e-5, rtol=0)
 
 
-@pytest.mark.parametrize("policy", ["int8", "f32", "bf16"])
-def test_hd256_paged_attention_matches_pallas(policy):
-    """``paged_attention`` alone at hd = 256 (B = 3, Hkv = 4, n_rep = 2,
-    pages of 16, lengths 0 (a padding row), 40 and 75), window 32 and
-    soft-cap 50, against the JAX Pallas kernel in interpret mode: atol
-    2e-4 (bf16 3e-2)."""
+@pytest.mark.parametrize("window,cap", [(None, None), (32, 50.0), (None, 30.0)])
+def test_hd256_flash_matches_pallas(window, cap):
+    """``flash_attention`` alone at hd = 256 (B·H = 4 over 2 kv heads,
+    S = 128, causal) against the JAX Pallas kernel in interpret mode, KV
+    repeated for it: atol 3e-5."""
+    _flash_matches_pallas(256, window, cap)
+
+
+@pytest.mark.parametrize("window,cap", [(None, None), (32, 50.0), (None, 30.0)])
+def test_hd112_flash_matches_pallas(window, cap):
+    """The same at hd = 112."""
+    _flash_matches_pallas(112, window, cap)
+
+
+def _paged_attention_matches_pallas(hd, policy):
     rng = np.random.default_rng(9)
-    Bq, hkv, n_rep, hd, page, max_pages = 3, 4, 2, 256, 16, 5
+    Bq, hkv, n_rep, page, max_pages = 3, 4, 2, 16, 5
     lengths = np.array([0, 40, 75], np.int32)
     n_pages = Bq * max_pages + 1
     perm = rng.permutation(np.arange(1, n_pages)).astype(np.int32)
@@ -374,3 +408,18 @@ def test_hd256_paged_attention_matches_pallas(policy):
     got = paged_attention(torch.from_numpy(q), *targs, torch.from_numpy(bt),
                           torch.from_numpy(lengths), **tscales, **kw).numpy()
     np.testing.assert_allclose(got, want, atol=3e-2 if policy == "bf16" else 2e-4, rtol=0)
+
+
+@pytest.mark.parametrize("policy", ["int8", "f32", "bf16"])
+def test_hd256_paged_attention_matches_pallas(policy):
+    """``paged_attention`` alone at hd = 256 (B = 3, Hkv = 4, n_rep = 2,
+    pages of 16, lengths 0 (a padding row), 40 and 75), window 32 and
+    soft-cap 50, against the JAX Pallas kernel in interpret mode: atol
+    2e-4 (bf16 3e-2)."""
+    _paged_attention_matches_pallas(256, policy)
+
+
+@pytest.mark.parametrize("policy", ["int8", "f32", "bf16"])
+def test_hd112_paged_attention_matches_pallas(policy):
+    """The same at hd = 112."""
+    _paged_attention_matches_pallas(112, policy)

@@ -187,6 +187,16 @@ def test_paged_kernel_order_matches_pallas_at_hd256(policy):
     _order_matches_pallas(policy, "window64_cap30", 256)
 
 
+@pytest.mark.parametrize("policy", ["f32", "bf16", "int8"])
+def test_paged_kernel_order_matches_pallas_at_hd112(policy):
+    """The same model at kimi-k2's head width 112, whose rows split into
+    16-byte chunks taken by the scoring lanes in turn (the sum over a
+    row's dims is the model's either way), and whose plan counts two
+    blocks an SM."""
+    _order_matches_pallas(policy, "window64_cap30", 112)
+    assert pa.RESIDENT[112] == 2 and pa.chunk_rows(112, 0) == 64
+
+
 def _order_matches_pallas(policy, option, hd):
     window, cap = OPTIONS[option]
     q, (k, v), (ks, vs), bt = _case(policy, hd)

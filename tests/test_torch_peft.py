@@ -44,7 +44,7 @@ from repro_torch.optim import adamw_init
 
 torch.set_num_threads(2)
 REPO = Path(__file__).resolve().parents[1]
-ARCHS = ["internlm2-1.8b", "gemma2-2b", "t5-base-pac", "musicgen-large"]
+ARCHS = ["internlm2-1.8b", "gemma2-2b", "t5-base-pac", "musicgen-large", "mixtral-8x7b"]
 B, S = 2, 40  # S > gemma2's reduced window (32): its local layers mask
 R = 4  # the distilled adapter's reduction, as tests/test_parallel_adapters.py:124
 
@@ -199,13 +199,18 @@ def _jax_loss(technique, backbone, cfg, batch):
 @pytest.mark.parametrize("arch,technique", [("internlm2-1.8b", "full"),
                                             ("internlm2-1.8b", "lora"),
                                             ("internlm2-1.8b", "adapters"),
-                                            ("gemma2-2b", "full")])
+                                            ("gemma2-2b", "full"),
+                                            ("mixtral-8x7b", "full"),
+                                            ("mixtral-8x7b", "lora"),
+                                            ("mixtral-8x7b", "adapters")])
 def test_baseline_step_matches_jax(arch, technique):
     """One step of each baseline against the reference's (jitted, with its
     gradients for the update rule): loss 2e-5, the updated tree 5e-5. On
     gemma2-2b (tied head) the embedding's gradient is the reference's
     within 1e-4·max|g|, and it is the sum of the lookup's and the head's
-    (full fine-tuning updates both through the one leaf)."""
+    (full fine-tuning updates both through the one leaf). On mixtral-8x7b
+    reduced (MoE, capacity factor E: no token drops) the gradient runs
+    through the router and the experts, as ``jax.grad``'s does."""
     jcfg, tcfg, backbone = _model(arch)
     jb, tb = _batch(jcfg, seq=16)
     tbp = bridge.to_torch(_np(backbone))
@@ -274,9 +279,21 @@ def test_full_train_step_never_takes_the_cached_loss_head():
 @pytest.mark.parametrize("kind,slice_", [("mamba", "A6.5"), ("mlstm", "A6.5"),
                                          ("slstm", "A6.5"), ("moe", "A6.4")])
 def test_non_dense_kinds_name_their_slice(kind, slice_):
+    """SSM kinds are refused naming their slice (A6.5). MoE blocks, whose
+    slice (A6.4) has landed, run: on mixtral reduced both baselines give
+    finite logits of the batch's shape."""
+    if kind == "moe":
+        _, tcfg, backbone = _model("mixtral-8x7b")
+        assert all(s.moe for s in tcfg.pattern)
+        tbp = bridge.to_torch(_np(backbone))
+        _, tb = _batch(tcfg, seq=8)
+        gen = torch.Generator().manual_seed(0)
+        for got in (peft.lora_logits(tbp, peft.init_lora(gen, tcfg), tcfg, tb),
+                    peft.houlsby_logits(tbp, peft.init_houlsby(gen, tcfg), tcfg, tb)):
+            assert got.shape == (B, 8, tcfg.vocab) and bool(torch.isfinite(got).all())
+        return
     _, tcfg, backbone = _model("internlm2-1.8b")
-    spec = LayerSpec(moe=True) if kind == "moe" else LayerSpec(kind=kind)
-    cfg = dataclasses.replace(tcfg, pattern=(spec,))
+    cfg = dataclasses.replace(tcfg, pattern=(LayerSpec(kind=kind),))
     tbp = bridge.to_torch(_np(backbone))
     _, tb = _batch(tcfg, seq=8)
     gen = torch.Generator().manual_seed(0)
@@ -377,3 +394,22 @@ def test_importing_the_baselines_leaves_jax_unloaded():
     proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("quant", ["dense", "int8"])
+def test_pruning_init_on_moe_matches_jax(quant):
+    """``pruning_init`` on mixtral reduced: each MoE FFN pruned from its
+    experts' mean, one period at a time in the port, the whole stacked
+    leaf in the reference; on the dense and the int8 backbone, bit for
+    bit."""
+    from test_torch_cached_step import _assert_tree_close
+
+    from repro_torch.core.init_methods import pruning_init
+
+    jcfg, tcfg, backbone = _model("mixtral-8x7b")
+    if quant == "int8":
+        backbone = jax_quantize_tree(backbone, bits=8)
+    want = jax_pruning_init(jax.random.PRNGKey(1), backbone, jcfg, r=4)
+    got = pruning_init(torch.Generator().manual_seed(1), bridge.to_torch(_np(backbone)), tcfg,
+                       r=4)
+    _assert_tree_close(want, got, atol=0.0)

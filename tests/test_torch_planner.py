@@ -317,3 +317,53 @@ def test_layer_costs_reflect_techniques():
     assert pac < 0.15 * full  # ~92% backward reduction in the paper
     assert lora <= full
     assert cached < 0.2 * pac_total  # cache removes the backbone forward
+
+
+# ---------------------------------------------------------------------------
+# MoE configs
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "moonshot-v1-16b-a3b"])
+def test_moe_plans_equal_the_reference(arch):
+    """An MoE config's analytic costs (the experts priced at top_k of E
+    for compute, all E for memory) and its plans on 4 Nano (high power)
+    and the heterogeneous pool equal the reference's with ``==``."""
+    mine, ref = _cfgs(arch)
+    for technique in TECHNIQUES:
+        got = P.period_costs(mine, technique, seq_len=512, quant_bits=8)
+        want = J.period_costs(ref, technique, seq_len=512, quant_bits=8)
+        assert [dataclasses.astuple(c) for c in got] == [dataclasses.astuple(c) for c in want]
+    pc = P.period_costs(mine, "pac", seq_len=512, quant_bits=8)
+    jpc = J.period_costs(ref, "pac", seq_len=512, quant_bits=8)
+    big = [dataclasses.replace(d, memory_bytes=d.memory_bytes * 64) for d in ENV_B]
+    for devs in (ENV_A, ENV_B, big):
+        try:
+            want = J.HybridParallelismPlanner(jpc, to_jax(devs), 2, 2).plan(max_stages=4)
+        except RuntimeError as e:  # the model does not fit the pool: both refuse
+            with pytest.raises(RuntimeError, match=str(e)):
+                P.HybridParallelismPlanner(pc, devs, 2, 2).plan(max_stages=4)
+            assert devs is not big
+            continue
+        same_plan(P.HybridParallelismPlanner(pc, devs, 2, 2).plan(max_stages=4), want)
+
+
+def test_calibrated_model_counts_an_moe_step_on_meta():
+    """``CalibratedCostModel`` counts mixtral reduced's PAC+ steps on the
+    meta device (the stable top-k, the scatter and the dispatch gather run
+    there): the counted forward of a period is within 2x of the analytic
+    one, and the experts' three products are counted at their capacity
+    (every expert over all T tokens at reduced()'s capacity factor E)."""
+    from repro_torch.launch.costs import CalibratedCostModel, count_step_flops
+
+    cfg = get_arch("mixtral-8x7b").reduced()
+    base = P.period_costs(cfg, "pac", seq_len=32)
+    got = CalibratedCostModel(micro_batch=2).period_costs(cfg, "pac", seq_len=32)
+    assert len(got) == len(base) and all(c.fwd_flops > 0 and c.bwd_flops > 0 for c in got)
+    assert 0.5 <= got[0].fwd_flops / base[0].fwd_flops <= 2.0
+    one = dataclasses.replace(cfg, n_layers=cfg.period)
+    no_ffn = dataclasses.replace(one, pattern=tuple(dataclasses.replace(s, ffn=False)
+                                                    for s in one.pattern))
+    experts = count_step_flops(one, "pac", 2, 32) - count_step_flops(no_ffn, "pac", 2, 32)
+    E, C = cfg.moe.n_experts, 2 * 32  # capacity factor E: C = T
+    assert experts >= 3 * 2 * E * C * cfg.d_model * cfg.moe.d_expert

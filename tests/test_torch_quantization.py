@@ -103,3 +103,67 @@ def test_bridge_round_trip_qtensor_and_bf16():
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(jtree)):
         assert np.asarray(a).dtype == np.asarray(b).dtype
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+# ---------------------------------------------------------------------------
+# MoE leaves: twins of tests/test_quantization.py:173-220, and the
+# period-stacked 4-D expert leaves against the reference
+# ---------------------------------------------------------------------------
+
+
+def test_quantize_tree_skips_router_by_name():
+    """A ``router`` leaf stays f32 whatever its size while its sibling
+    expert weights of the same size quantize; dequantizing leaves the
+    router bit for bit."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.layers import LeafMaker
+    from repro_torch.models.moe import init_moe
+
+    spec = get_arch("mixtral-8x7b").reduced().moe
+    p = init_moe(LeafMaker(torch.Generator().manual_seed(0)), 128, spec)
+    assert p["router"].numel() >= 256
+    qt = tq.quantize_tree(p, bits=8, min_size=256)
+    assert not isinstance(qt["router"], tq.QTensor) and qt["router"].dtype == torch.float32
+    assert isinstance(qt["wi"], tq.QTensor) and isinstance(qt["wo"], tq.QTensor)
+    assert torch.equal(tq.maybe_dequantize_tree(qt)["router"], p["router"])
+
+
+def test_quantize_tree_skip_applies_at_any_depth():
+    tree = {"blocks": [{"router": torch.ones(64, 64), "w": torch.ones(64, 64)},
+                       {"router": torch.ones(64, 64), "w": torch.ones(64, 64)}]}
+    qt = tq.quantize_tree(tree, min_size=1024)
+    for blk in qt["blocks"]:
+        assert not isinstance(blk["router"], tq.QTensor)
+        assert isinstance(blk["w"], tq.QTensor)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantize_tree_on_full_moe_backbone_matches_reference(bits):
+    """The reference's mixtral reduced backbone, quantized by each package:
+    every router f32, every period-stacked (n_p, E, d, d_e) expert leaf's
+    codes and scales bit-equal, and the trees bridge both ways unchanged."""
+    from repro.configs import get_arch as jax_get_arch
+    from repro.models import backbone as jbb
+
+    cfg = jax_get_arch("mixtral-8x7b").reduced()
+    bp = jbb.init_backbone(jax.random.PRNGKey(0), cfg)
+    want = jq.quantize_tree(bp, bits=bits, min_size=1024)
+    got = tq.quantize_tree(bridge.to_torch(jax.tree.map(np.asarray, bp)), bits=bits,
+                           min_size=1024)
+    for jblk, tblk in zip(want["blocks"], got["blocks"]):
+        assert not isinstance(jblk["ffn"]["router"], jq.QTensor)
+        assert not isinstance(tblk["ffn"]["router"], tq.QTensor)
+        np.testing.assert_array_equal(tblk["ffn"]["router"].numpy(),
+                                      np.asarray(jblk["ffn"]["router"]))
+        for name in ("wi", "wg", "wo"):
+            j, t = jblk["ffn"][name], tblk["ffn"][name]
+            assert t.q.ndim == 4 and t.shape == tuple(j.shape)
+            np.testing.assert_array_equal(t.q.numpy(), np.asarray(j.q))
+            np.testing.assert_array_equal(t.scale.numpy(), np.asarray(j.scale))
+    back = bridge.to_numpy(got, qtensor=jq.QTensor)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(want)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    again = bridge.to_torch(jax.tree.map(np.asarray, want))
+    for a, b in zip(tq.tree_leaves(again), tq.tree_leaves(got)):
+        for x, y in ((a.q, b.q), (a.scale, b.scale)) if isinstance(a, tq.QTensor) else ((a, b),):
+            assert torch.equal(x, y)
