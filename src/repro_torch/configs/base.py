@@ -91,6 +91,11 @@ class ArchConfig:
                 f"pattern period {self.period}")
         return self.n_layers // self.period
 
+    @property
+    def d_inner(self) -> int:
+        """Mamba inner dim."""
+        return self.ssm_expand * self.d_model
+
     def layer_specs(self) -> Tuple[LayerSpec, ...]:
         return tuple(self.pattern) * self.n_periods
 
@@ -139,19 +144,21 @@ class ArchConfig:
         )
 
     def param_count(self) -> int:
-        """Analytic parameter count of an attention backbone, dense or MoE
-        (embeddings + blocks + head)."""
+        """Analytic parameter count (embeddings + blocks + head)."""
         d, hd = self.d_model, self.hd
         n = self.vocab * d
         if not self.tie_embeddings:
             n += self.vocab * d
         for s in self.layer_specs():
-            if s.kind != "attn":
-                raise NotImplementedError(
-                    f"param_count covers attention layers; kind {s.kind!r} arrives with "
-                    "the SSM (A6.5) slice of the port")
-            n += 2 * d
-            n += d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd) + (self.n_heads * hd) * d
+            n += 2 * d  # norms
+            if s.kind == "attn":
+                n += (d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd)
+                      + (self.n_heads * hd) * d)
+            elif s.kind == "mamba":
+                di, ds = self.d_inner, self.ssm_d_state
+                n += d * 2 * di + di * self.ssm_d_conv + di * (2 * ds + 1) + di + di * d
+            elif s.kind in ("mlstm", "slstm"):
+                n += 4 * d * (self.n_heads * hd) + 2 * d * self.n_heads  # q,k,v,o + gates
             if s.ffn:
                 if s.moe and self.moe is not None:
                     n += d * self.moe.n_experts  # router
@@ -176,8 +183,6 @@ _REGISTRY: dict = {}
 #: the reference's configs that a later slice of the port brings, by the
 #: slice (ROADMAP A6) whose layers they need
 LATER_SLICES = {
-    "xlstm-125m": "SSM (A6.5)",
-    "jamba-1.5-large-398b": "SSM (A6.5)",
     "qwen2-vl-7b": "mrope (A6.6)",
 }
 

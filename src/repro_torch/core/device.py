@@ -7,9 +7,12 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` means the card; with no card, only an explicit CPU runs."""
-    if device is None:
+    """``None`` means the card; with no card, only an explicit CPU runs.
+    ``"cuda"`` without an index means the current card, as a tensor made
+    there records it (``cuda:0``)."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and device.index is None:
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
         return torch.device("cuda", torch.cuda.current_device())
-    return torch.device(device)
+    return device

@@ -17,8 +17,9 @@ Counterpart of ``repro.core.init_methods``, its two initialisers:
   backbone's projections through ``quant_matmul`` and its attention
   through the flash kernel; the function is the same under ``"ref"``.
 
-Attention backbones with dense or MoE FFNs (an MoE FFN is pruned from
-its experts' mean, as in the reference); SSM kinds raise.
+Every layer kind: attention and mLSTM blocks prune by heads, sLSTM
+blocks by channels and head blocks, Mamba blocks by inner channels; an
+MoE FFN is pruned from its experts' mean, as in the reference.
 """
 
 from __future__ import annotations
@@ -52,7 +53,8 @@ def channel_importance(backbone_params, cfg) -> torch.Tensor:
     """L2 importance of each d_model channel (norm criterion)."""
     imp = _l2(_dense(backbone_params["embed"]), dim=0)
     for pos in backbone_params["blocks"]:
-        imp = imp + _l2(_dense(pos["mixer"]["wq"]), dim=(0, 2))
+        name = next(n for n in ("wq", "wz", "in_proj") if n in pos["mixer"])
+        imp = imp + _l2(_dense(pos["mixer"][name]), dim=(0, 2))
     return imp
 
 
@@ -109,6 +111,57 @@ def _prune_heads(w, keep_d, n_heads, hd, n_heads_a, hd_a, transpose=False):
     return w.contiguous()
 
 
+def _prune_attention_like(sm, dm, cfg, acfg, keep_d, grouped: bool) -> None:
+    """Attention (``grouped``: K/V over the kv heads) or mLSTM mixers:
+    q/k/v/o by head and width norm; an mLSTM's output gate like q, its
+    gate columns (and ``f_bias``) by the top-norm heads of ``wi``."""
+    H, hd, Ha, hda = cfg.n_heads, cfg.hd, acfg.n_heads, acfg.hd
+    for nm in ("wq", "wk", "wv"):
+        kv = grouped and nm in ("wk", "wv")
+        dm[nm] = _prune_heads(sm[nm], keep_d, cfg.n_kv_heads if kv else H, hd,
+                              acfg.n_kv_heads if kv else Ha, hda)
+    dm["wo"] = _prune_heads(sm["wo"], keep_d, H, hd, Ha, hda, transpose=True)
+    if grouped:
+        return
+    dm["ogate"] = _prune_heads(sm["ogate"], keep_d, H, hd, Ha, hda)
+    gate_heads = _topk_idx(_l2(_dense(sm["wi"]), dim=(0, 1)), Ha)
+    dm["wi"] = _prune_rows_cols(sm["wi"], keep_d, gate_heads)
+    dm["wf"] = _prune_rows_cols(sm["wf"], keep_d, gate_heads)
+    dm["f_bias"] = torch.index_select(_dense(sm["f_bias"]), -1, gate_heads)
+
+
+def _prune_slstm(sm, dm, acfg, keep_d) -> None:
+    """sLSTM: every d x d matrix and ``f_bias`` at the kept channels; each
+    block-diagonal recurrence keeps its first adapter-width head blocks."""
+    for nm in ("wz", "wi", "wf", "wog", "wo"):
+        dm[nm] = _prune_rows_cols(sm[nm], keep_d, keep_d)
+    dm["f_bias"] = torch.index_select(_dense(sm["f_bias"]), -1, keep_d)
+    Ha = acfg.n_heads
+    hda = acfg.d_model // Ha
+    for nm in ("rz", "ri", "rf"):
+        dm[nm] = _dense(sm[nm])[:, :Ha, :hda, :hda].contiguous()
+
+
+def _prune_mamba(sm, dm, cfg, acfg, keep_d) -> None:
+    """Mamba: the inner channels (x and gate halves of ``in_proj`` apart)
+    by the L2 norm of their ``in_proj`` columns, every inner-dim leaf at
+    those; the first adapter-width state and ``dt`` ranks."""
+    di, di_a, ds = cfg.d_inner, acfg.d_inner, acfg.ssm_d_state
+    imp = _l2(_dense(sm["in_proj"]), dim=(0, 1))
+    keep_x = _topk_idx(imp[:di], di_a)
+    keep_z = _topk_idx(imp[di:], di_a) + di
+    dm["in_proj"] = _prune_rows_cols(sm["in_proj"], keep_d, torch.cat([keep_x, keep_z]))
+    for nm in ("conv_w", "conv_b", "dt_bias", "d_skip"):
+        dm[nm] = torch.index_select(_dense(sm[nm]), -1, keep_x)
+    bc = _prune_rows_cols(sm["w_bc"], keep_x)
+    dm["w_bc"] = torch.cat([bc[..., :ds], bc[..., cfg.ssm_d_state:cfg.ssm_d_state + ds]], dim=-1)
+    rk = dm["w_dt1"].shape[-1]
+    dm["w_dt1"] = _prune_rows_cols(sm["w_dt1"], keep_x)[..., :rk].contiguous()
+    dm["w_dt2"] = _prune_rows_cols(sm["w_dt2"], None, keep_x)[..., :rk, :].contiguous()
+    dm["a_log"] = torch.index_select(_dense(sm["a_log"]), -2, keep_x)[..., :ds].contiguous()
+    dm["out_proj"] = _prune_rows_cols(sm["out_proj"], keep_x, keep_d)
+
+
 @torch.no_grad()
 def pruning_init(gen: torch.Generator, backbone_params, cfg, r: int = 8, *, device=None,
                  dtype=torch.float32) -> dict:
@@ -125,21 +178,19 @@ def pruning_init(gen: torch.Generator, backbone_params, cfg, r: int = 8, *, devi
     params["up"] = torch.zeros_like(params["up"])
 
     for pos_i, spec in enumerate(cfg.pattern):
-        if spec.kind != "attn":
-            raise NotImplementedError(
-                f"pruning_init covers attention blocks; kind {spec.kind!r} arrives with "
-                "the SSM (A6.5) slice of the port")
         src, dst = backbone_params["blocks"][pos_i], params["blocks"][pos_i]
         dst["ln1"] = torch.index_select(_dense(src["ln1"]), -1, keep_d)
         if "ln2" in dst and "ln2" in src:
             dst["ln2"] = torch.index_select(_dense(src["ln2"]), -1, keep_d)
         sm, dm = src["mixer"], dst["mixer"]
-        H, hd, Ha, hda = cfg.n_heads, cfg.hd, acfg.n_heads, acfg.hd
-        for nm in ("wq", "wk", "wv"):
-            kv = nm in ("wk", "wv")
-            dm[nm] = _prune_heads(sm[nm], keep_d, cfg.n_kv_heads if kv else H, hd,
-                                  acfg.n_kv_heads if kv else Ha, hda)
-        dm["wo"] = _prune_heads(sm["wo"], keep_d, H, hd, Ha, hda, transpose=True)
+        if spec.kind in ("attn", "mlstm"):
+            _prune_attention_like(sm, dm, cfg, acfg, keep_d, grouped=spec.kind == "attn")
+        elif spec.kind == "slstm":
+            _prune_slstm(sm, dm, acfg, keep_d)
+        elif spec.kind == "mamba":
+            _prune_mamba(sm, dm, cfg, acfg, keep_d)
+        else:
+            raise ValueError(f"unknown layer kind {spec.kind!r}")
         if "ffn" in dst and spec.moe and cfg.moe is not None:
             dst["ffn"] = _expert_mean_pruned(src["ffn"], keep_d, dst["ffn"]["wi"].shape[-1])
         elif "ffn" in dst:

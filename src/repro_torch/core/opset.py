@@ -12,7 +12,8 @@ paged decode attention, the embedding gather, norms and rope); an
 * ``cuda`` — the storage-width path, the counterpart of the reference's
   ``PallasOpSet``: INT8/INT4 weights stay :class:`QTensor` and feed the
   ``quant_matmul`` kernel, prefill attention runs the flash kernel,
-  decode attention the paged kernel, and the embedding gathers int8 rows
+  decode attention the paged kernel, an SSM block's mixer is dequantized
+  and runs dense (as in the reference), and the embedding gathers int8 rows
   and dequantizes only the gathered slice; the adapter's per-period
   λ-mix with one adapter's weight runs the ``adapter_fuse`` kernel. The
   ops go through ``repro_torch.kernels.ops``. The CUDA kernels mask their
@@ -148,14 +149,12 @@ class CudaOpSet(OpSet):
     def prepare_block(self, p, spec):
         """Keep the projection weights quantized; dequantize only the
         leaves no kernel takes: the norm gains (which ``quantize_tree``
-        quantizes too when they are period-stacked) and an MoE FFN's
-        experts, whose batched products run dense, as the reference's
-        pallas OpSet dequantizes them."""
-        if spec.kind != "attn":
-            raise NotImplementedError(
-                "the cuda OpSet covers attention blocks; SSM blocks arrive with the "
-                "SSM (A6.5) slice of the port")
-        out = {"ln1": maybe_dequantize_tree(p["ln1"]), "mixer": p["mixer"]}
+        quantizes too when they are period-stacked), an SSM block's mixer
+        (its scans and gates run dense) and an MoE FFN's experts, whose
+        batched products run dense, as the reference's pallas OpSet
+        dequantizes them. A dense FFN beside an SSM mixer stays quantized."""
+        mixer = p["mixer"] if spec.kind == "attn" else maybe_dequantize_tree(p["mixer"])
+        out = {"ln1": maybe_dequantize_tree(p["ln1"]), "mixer": mixer}
         if "ffn" in p:
             out["ln2"] = maybe_dequantize_tree(p["ln2"])
             out["ffn"] = maybe_dequantize_tree(p["ffn"]) if spec.moe else p["ffn"]

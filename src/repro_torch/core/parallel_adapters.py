@@ -23,7 +23,7 @@ import dataclasses
 import torch
 
 from repro_torch.core.opset import get_opset
-from repro_torch.core.quantization import tree_map
+from repro_torch.core.quantization import tree_leaves, tree_map
 from repro_torch.models.backbone import (
     apply_block,
     apply_block_decode,
@@ -80,16 +80,16 @@ def init_adapter(gen: torch.Generator, cfg, r: int = 8, *, device=None,
 
 
 def adapter_param_count(cfg, r: int = 8) -> int:
-    """Trainable parameters of one adapter (counted from the shapes)."""
-    acfg = adapter_config(cfg, r)
-    n_p, d, d_a = cfg.n_periods, cfg.d_model, acfg.d_model
-    embed_and_head = acfg.vocab * d_a * (1 if acfg.tie_embeddings else 2)
-    blocks = acfg.param_count() - embed_and_head
-    return (n_p + 1) * d * d_a + n_p + blocks + d_a * d + d_a
+    """Trainable parameters of one adapter, counted over its leaves (drawn
+    on the meta device: shapes only), as the reference counts them."""
+    params = init_adapter(torch.Generator(), cfg, r, device="meta")
+    return sum(t.numel() for t in tree_leaves(params))
 
 
 def init_adapter_cache(cfg, B: int, max_len: int, r: int = 8, dtype=torch.float32,
                        device=None):
+    """The adapter's decode cache: :func:`init_cache` of its config (K/V
+    per attention block, the recurrent state per SSM block)."""
     return init_cache(adapter_config(cfg, r), B, max_len, dtype, device)
 
 
@@ -180,8 +180,9 @@ def rows(adapter_batch):
 
 def adapter_decode(adapter_params, cfg, b0_t, taps_t, cache, pos, r: int = 8, ops=None):
     """One-token adapter step. b0_t: (B,1,d); taps_t: (n_p,B,1,d); cache:
-    the :func:`init_adapter_cache` layout, updated in place; pos: (B,)
-    per-row write index. ``adapter_params`` is one adapter or a
+    the :func:`init_adapter_cache` layout (K/V for attention blocks, the
+    recurrent state for SSM ones), updated in place; pos: (B,) per-row
+    write index. ``adapter_params`` is one adapter or a
     :func:`rows` batch. Each period's λ-mix runs ``ops.adapter_mix``
     (the ``cuda`` OpSet's ``adapter_fuse`` kernel for one adapter); the
     adapter's blocks stay on the plain ops, as in the reference.
@@ -195,7 +196,7 @@ def adapter_decode(adapter_params, cfg, b0_t, taps_t, cache, pos, r: int = 8, op
     for i in range(cfg.n_periods):
         h = ops.adapter_mix(taps_t[i], downs[i + 1], a, lambdas[i]).to(a.dtype)
         for j, (spec, p) in enumerate(zip(acfg.pattern, period_slice(blocks, i))):
-            entry = {"k": cache[j]["k"][i], "v": cache[j]["v"][i]}
+            entry = {name: t[i] for name, t in cache[j].items()}
             h, _ = apply_block_decode(p, h, acfg, spec, entry, pos)
         a = h
     a = rms_norm(a, adapter_params["out_norm"], acfg.norm_eps)
@@ -218,8 +219,13 @@ def adapter_prefill(adapter_params, cfg, b0, taps, positions, max_len: int, r: i
     b0: (B,S,d); taps: (n_p,B,S,d) or a list of n_p (B,S,d); positions
     (B,S). Returns (side (B,S,d), caches) with caches in the
     :func:`init_adapter_cache` layout, the first S slots holding the
-    prompt KV."""
+    prompt KV. Attention-pattern adapters only, as in the reference: an
+    SSM block's forward keeps no final state, and SSM and hybrid archs
+    take the engine's stepwise prompt path instead."""
     acfg = adapter_config(cfg, r)
+    if any(s.kind != "attn" for s in acfg.pattern):
+        raise ValueError("adapter_prefill supports attention-pattern adapters only; got "
+                         f"{tuple(s.kind for s in acfg.pattern)}")
     S = b0.shape[1]
     if S > max_len:
         raise ValueError(f"prompt length {S} exceeds max_len {max_len}")

@@ -4,7 +4,9 @@
 * **Full fine-tuning**: every backbone parameter trainable
   (``core/steps.py`` ``full_train_step``; nothing to initialise).
 * **LoRA** (Hu et al.): a low-rank ΔW = A·B on W_q and W_v, A Gaussian,
-  B zero (the start PAC+'s §IV-C analysis builds on).
+  B zero (the start PAC+'s §IV-C analysis builds on). An mLSTM adapts
+  its q and v, an sLSTM its ``wz``, a Mamba block its ``in_proj``, as in
+  the reference.
 * **Adapters** (Houlsby et al.): a bottleneck MLP after each layer, a
   residual around it.
 
@@ -15,9 +17,8 @@ outside any kernel (each block dequantized first), and their steps take
 the gradient with plain autograd: neither package has a backward kernel
 for ``quant_matmul`` or flash attention.
 
-Attention blocks with a dense or an MoE FFN (the MoE one routed as in
-the backbone); SSM layer kinds raise ``NotImplementedError`` naming the
-slice that brings them. Parameters
+Every layer kind: attention and the SSM kinds, with a dense or an MoE
+FFN (the MoE one routed as in the backbone). Parameters
 are drawn from an explicit ``torch.Generator`` on the caller's device;
 block leaves are stacked over periods, as the reference's are, so trees
 bridge over unchanged.
@@ -32,16 +33,23 @@ from repro_torch.core.quantization import QTensor, index_tree, maybe_dequantize_
 from repro_torch.models.backbone import apply_block, embed_inputs, logits_from_hidden
 from repro_torch.models.layers import LeafMaker, attention_forward, mlp_forward, rms_norm
 from repro_torch.models.moe import moe_forward
+from repro_torch.models.ssm import MIXERS
 
 LORA_TARGETS = ("wq", "wv")  # the paper follows Hu et al.: the q and v projections
 
 
-def _attention_only(cfg) -> None:
-    for spec in cfg.pattern:
-        if spec.kind != "attn":
-            raise NotImplementedError(
-                f"{cfg.name}: layer kind {spec.kind!r} arrives with the SSM (A6.5) slice of "
-                "the port; the baselines cover attention blocks")
+def _lora_widths(cfg, spec) -> tuple:
+    """(out width of the q-side ΔW, of the v-side ΔW) for a layer kind;
+    the v side of an sLSTM and a Mamba block is drawn but unused, as in
+    the reference."""
+    d = cfg.d_model
+    if spec.kind == "attn":
+        return cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    if spec.kind == "mlstm":
+        return cfg.n_heads * cfg.hd, cfg.n_heads * cfg.hd
+    if spec.kind == "slstm":
+        return d, d
+    return 2 * cfg.d_inner, d  # mamba: in_proj
 
 
 # ---------------------------------------------------------------------------
@@ -51,18 +59,19 @@ def _attention_only(cfg) -> None:
 
 def init_lora(gen: torch.Generator, cfg, rank: int = 8, *, device=None,
               dtype=torch.float32) -> dict:
-    """One (A, B) pair each for W_q and W_v per layer position, stacked
-    over periods: A ~ N(0, 1)·d^-0.5, B zero; ``alpha`` = 2·rank (a
-    trainable leaf, as in the reference), so the rank scale starts at 2."""
-    _attention_only(cfg)
+    """One (A, B) pair each for W_q and W_v (or the kind's counterparts)
+    per layer position, stacked over periods: A ~ N(0, 1)·d^-0.5, B zero;
+    ``alpha`` = 2·rank (a trainable leaf, as in the reference), so the
+    rank scale starts at 2."""
     d, n_p = cfg.d_model, cfg.n_periods
     leaf = LeafMaker(gen, device=device, dtype=dtype, lead=(n_p,))
     layers = []
-    for _ in cfg.pattern:
+    for spec in cfg.pattern:
+        dq, dv = _lora_widths(cfg, spec)
         a_q = leaf.normal((d, rank), d ** -0.5)
         a_v = leaf.normal((d, rank), d ** -0.5)
-        layers.append({"a_q": a_q, "b_q": leaf.zeros((rank, cfg.n_heads * cfg.hd)),
-                       "a_v": a_v, "b_v": leaf.zeros((rank, cfg.n_kv_heads * cfg.hd))})
+        layers.append({"a_q": a_q, "b_q": leaf.zeros((rank, dq)),
+                       "a_v": a_v, "b_v": leaf.zeros((rank, dv))})
     return {"layers": layers,
             "alpha": torch.tensor(2.0 * rank, dtype=torch.float32, device=device)}
 
@@ -72,16 +81,26 @@ def lora_delta(lp, x, which: str, rank_scale):
     return ((x @ a) @ b) * rank_scale
 
 
+#: per layer kind, the mixer leaves the q-side and v-side ΔW go to
+_LORA_LEAVES = {"attn": ("wq", "wv"), "mlstm": ("wq", "wv"), "slstm": ("wz", None),
+                "mamba": ("in_proj", None)}
+
+
 def apply_block_lora(p, lp, x, cfg, spec, positions, rank_scale):
-    """One block with the LoRA ΔW materialised on W_q and W_v
-    (``W + (A @ B)·scale``), the rest the plain block: the block is
-    dequantized first, then norm, attention, residual, norm, MLP (or MoE)."""
+    """One block with the LoRA ΔW materialised on its targets
+    (``W + (A @ B)·scale``: W_q and W_v, an sLSTM's ``wz``, a Mamba
+    block's ``in_proj``), the rest the plain block: the block is
+    dequantized first, then norm, mixer, residual, norm, MLP (or MoE)."""
     p = maybe_dequantize_tree(p)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     mixer = dict(p["mixer"])
-    mixer["wq"] = mixer["wq"] + (lp["a_q"] @ lp["b_q"]) * rank_scale
-    mixer["wv"] = mixer["wv"] + (lp["a_v"] @ lp["b_v"]) * rank_scale
-    x = x + attention_forward(mixer, h, cfg, spec, positions)
+    for side, name in zip("qv", _LORA_LEAVES[spec.kind]):
+        if name is not None:
+            mixer[name] = mixer[name] + (lp[f"a_{side}"] @ lp[f"b_{side}"]) * rank_scale
+    if spec.kind == "attn":
+        x = x + attention_forward(mixer, h, cfg, spec, positions)
+    else:
+        x = x + MIXERS[spec.kind][1](mixer, h, cfg)
     if "ffn" in p:
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
         if spec.moe and cfg.moe is not None:
@@ -94,7 +113,6 @@ def apply_block_lora(p, lp, x, cfg, spec, positions, rank_scale):
 def lora_logits(backbone_params, lora_params, cfg, batch):
     """The backbone's logits with LoRA on every block. batch:
     {"tokens"} or {"embeds"}, optional {"positions"}."""
-    _attention_only(cfg)
     x, positions = embed_inputs(backbone_params, cfg, batch)
     rank = lora_params["layers"][0]["a_q"].shape[-1]
     rank_scale = lora_params["alpha"] / rank
@@ -114,7 +132,6 @@ def init_houlsby(gen: torch.Generator, cfg, bottleneck: int = 64, *, device=None
                  dtype=torch.float32) -> dict:
     """Per layer position, stacked over periods: ``down`` ~ N(0, 1)·d^-0.5,
     ``up`` and the norm gain ``ln`` zero (the identity start)."""
-    _attention_only(cfg)
     d, n_p = cfg.d_model, cfg.n_periods
     leaf = LeafMaker(gen, device=device, dtype=dtype, lead=(n_p,))
     return {"layers": [{"down": leaf.normal((d, bottleneck), d ** -0.5),
@@ -127,7 +144,6 @@ def houlsby_logits(backbone_params, adapters, cfg, batch):
     ``h + gelu(rms_norm(h) @ down) @ up``. The gelu is the reference's
     ``jax.nn.gelu`` default, the tanh approximation (not PyTorch's
     default erf)."""
-    _attention_only(cfg)
     x, positions = embed_inputs(backbone_params, cfg, batch)
     blocks, layers = backbone_params["blocks"], adapters["layers"]
     for i in range(cfg.n_periods):

@@ -57,10 +57,13 @@ def _apply(adapter_params, grads, opt_state, lr, clip):
 
 def _update(loss_fn, adapter_params, opt_state, lr, clip):
     """Loss, gradients over the leaves of ``adapter_params`` (whatever
-    tree is trained), clip, AdamW."""
+    tree is trained), clip, AdamW. A leaf the loss does not read (LoRA's
+    v side on an sLSTM or Mamba block) gets a zero gradient, as
+    ``jax.grad`` gives it."""
     leaves = tree_map(lambda t: t.detach().requires_grad_(True), adapter_params)
     loss = loss_fn(leaves)
-    grads = torch.autograd.grad(loss, tree_leaves(leaves))
+    grads = torch.autograd.grad(loss, tree_leaves(leaves), allow_unused=True,
+                                materialize_grads=True)
     it = iter(grads)
     grads = tree_map(lambda _: next(it), leaves)
     adapter_params, opt_state = _apply(leaves, grads, opt_state, lr, clip)

@@ -24,11 +24,17 @@ from repro_torch.kernels import quant_matmul as _qmm
 
 def quant_matmul(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     """``x @ dequant(w)`` with the dequantization on chip. x (…, K);
-    w a 2-D QTensor in blocks of 128 -> (…, w.orig_last) f32."""
-    if w.block != _qmm.QBLOCK or w.q.ndim != 2:
+    w a 2-D QTensor in blocks of 128, or narrower than 128 columns (one
+    block a row: its codes are padded with zeros to the kernel's 128)
+    -> (…, w.orig_last) f32."""
+    single = w.block < _qmm.QBLOCK and w.scale.shape[-1] == 1
+    if w.q.ndim != 2 or not (w.block == _qmm.QBLOCK or single):
         raise ValueError(f"quant_matmul takes 2-D weights in blocks of {_qmm.QBLOCK}, got {w}")
+    q = w.q
+    if single:
+        q = torch.nn.functional.pad(q, (0, _qmm.QBLOCK * w.bits // 8 - q.shape[-1]))
     lead, K = x.shape[:-1], x.shape[-1]
-    out = _qmm.quant_matmul(x.reshape(-1, K).contiguous(), w.q, w.scale, bits=w.bits)
+    out = _qmm.quant_matmul(x.reshape(-1, K).contiguous(), q, w.scale, bits=w.bits)
     if out.shape[1] != w.orig_last:
         out = out[:, : w.orig_last]
     return out.reshape(lead + (w.orig_last,))

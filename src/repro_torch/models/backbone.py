@@ -5,7 +5,12 @@ layers tiled ``n_periods`` times. Block parameters are stacked over
 periods (leaves ``(n_p, ...)``, as in the reference, so parameters bridge
 over unchanged); the forward is a Python loop over periods where the
 reference scans. Attention blocks with a dense or an MoE FFN
-(``models/moe.py``); SSM kinds and mrope raise ``NotImplementedError``.
+(``models/moe.py``), and the SSM kinds of ``models/ssm.py`` (Mamba,
+mLSTM, sLSTM); mrope raises ``NotImplementedError``.
+
+Decode runs one token against a per-kind cache: K/V for attention,
+(h, conv) for Mamba, (C, n, m) for mLSTM, (c, n, h, m) for sLSTM, each
+updated in place.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from repro_torch.core.quantization import (
     stack,
     tree_leaves,
 )
+from repro_torch.models import ssm
 from repro_torch.models.layers import (
     LeafMaker,
     attention_decode,
@@ -40,13 +46,6 @@ from repro_torch.models.moe import init_moe, moe_forward
 _REF_OPS = get_opset("ref")
 
 
-def _attention_only(spec) -> None:
-    if spec.kind != "attn":
-        raise NotImplementedError(
-            f"layer kind {spec.kind!r} arrives with the SSM (A6.5) slice of the port; "
-            "the port covers attention blocks with a dense or an MoE FFN")
-
-
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
@@ -54,9 +53,9 @@ def _attention_only(spec) -> None:
 
 def init_block(leaf: LeafMaker, cfg, spec) -> dict:
     """Parameters for one layer position (leaves get ``leaf.lead`` in front)."""
-    _attention_only(spec)
     d = cfg.d_model
-    p = {"ln1": leaf.zeros((d,)), "mixer": init_attention(leaf, cfg)}
+    init_mixer = init_attention if spec.kind == "attn" else ssm.MIXERS[spec.kind][0]
+    p = {"ln1": leaf.zeros((d,)), "mixer": init_mixer(leaf, cfg)}
     if spec.ffn and (cfg.d_ff or (spec.moe and cfg.moe)):
         p["ln2"] = leaf.zeros((d,))
         if spec.moe and cfg.moe is not None:
@@ -105,11 +104,15 @@ def period_slice(blocks, i: int):
 
 
 def apply_block(p, x, cfg, spec, positions, ops=None, return_kv: bool = False):
+    """One block over a whole sequence. ``return_kv`` also returns the
+    post-rope (k, v) of an attention block, None for an SSM block."""
     ops = ops if ops is not None else _REF_OPS
-    _attention_only(spec)
     p = ops.prepare_block(p, spec)
     h = ops.rms_norm(x, p["ln1"], cfg.norm_eps)
-    if return_kv:
+    kv = None
+    if spec.kind != "attn":
+        mix = ssm.MIXERS[spec.kind][1](p["mixer"], h, cfg)
+    elif return_kv:
         mix, kv = attention_forward(p["mixer"], h, cfg, spec, positions, ops=ops, return_kv=True)
     else:
         mix = attention_forward(p["mixer"], h, cfg, spec, positions, ops=ops)
@@ -261,13 +264,16 @@ def cross_entropy_parts(logits: torch.Tensor, labels: torch.Tensor, ignore: int 
 
 
 def init_cache(cfg, B: int, max_len: int, dtype=torch.float32, device=None, kv_quant=None):
-    """Linear KV cache: one entry per pattern position, leaves
-    (n_p, B, max_len, Hkv, hd). ``kv_quant=8`` stores K/V as int8 with
-    f32 ``k_scale``/``v_scale`` (n_p, B, max_len, Hkv), one per (token,
-    kv head), as the reference does."""
+    """Decode cache: one entry per pattern position, leaves stacked over
+    periods. Attention: linear K/V (n_p, B, max_len, Hkv, hd);
+    ``kv_quant=8`` stores them as int8 with f32 ``k_scale``/``v_scale``
+    (n_p, B, max_len, Hkv), one per (token, kv head), as the reference
+    does. SSM kinds: their recurrent state (n_p, B, ...)."""
     caches = []
     for spec in cfg.pattern:
-        _attention_only(spec)
+        if spec.kind != "attn":
+            caches.append(ssm.init_state(cfg, spec.kind, B, dtype, device, lead=cfg.n_periods))
+            continue
         shape = (cfg.n_periods, B, max_len, cfg.n_kv_heads, cfg.hd)
         if kv_quant == 8:
             caches.append({
@@ -286,13 +292,14 @@ def init_cache(cfg, B: int, max_len: int, dtype=torch.float32, device=None, kv_q
 
 def apply_block_decode(p, x, cfg, spec, cache, pos, ops=None):
     """One token through one block; ``cache`` is one period's entry,
-    (B, max_len, ...) leaves, updated in place (INT8 when it holds
-    ``k_scale``); pos: (B,)."""
+    (B, ...) leaves, updated in place (INT8 K/V when it holds
+    ``k_scale``; an SSM block's state written back); pos: (B,)."""
     ops = ops if ops is not None else _REF_OPS
-    _attention_only(spec)
     p = ops.prepare_block(p, spec)
     h = ops.rms_norm(x, p["ln1"], cfg.norm_eps)
-    if "k_scale" in cache:
+    if spec.kind != "attn":
+        mix = ssm.decode_into(spec.kind, p["mixer"], h, cfg, cache)
+    elif "k_scale" in cache:
         mix, cache = attention_decode_quant(p["mixer"], h, cfg, spec, cache, pos, ops=ops)
     else:
         mix, ck, cv = attention_decode(p["mixer"], h, cfg, spec, cache["k"], cache["v"], pos,

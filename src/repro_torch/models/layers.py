@@ -42,19 +42,20 @@ class LeafMaker:
     def _out(self, t, name: str = ""):
         return self.finish(t, name) if self.finish is not None else t
 
-    def _draw(self, shape, std: float, name: str):
+    def _draw(self, shape, std: float, name: str, dtype=None):
         t = torch.randn(tuple(shape), generator=self.gen, device=self.device,
                         dtype=torch.float32)
-        return self._out((t * std).to(self.dtype), name)
+        return self._out((t * std).to(dtype or self.dtype), name)
 
-    def normal(self, shape, std: float, name: str = "", by_period: bool = False):
-        """N(0, std²) of shape ``lead + shape``. ``by_period`` draws and
+    def normal(self, shape, std: float, name: str = "", by_period: bool = False, dtype=None):
+        """N(0, std²) of shape ``lead + shape`` (in ``dtype``, default the
+        maker's). ``by_period`` draws and
         finishes one slice of the first lead axis at a time into the
         stacked leaf, so at most one slice is resident before ``finish``
         (an MoE expert leaf: ``finish`` quantizes along the last axis, so
         the codes are those of the stacked leaf quantized whole)."""
         if not (by_period and self.lead):
-            return self._draw(self.lead + tuple(shape), std, name)
+            return self._draw(self.lead + tuple(shape), std, name, dtype)
         from repro_torch.core.quantization import QTensor
 
         n, out = self.lead[0], None
@@ -74,9 +75,14 @@ class LeafMaker:
             del t
         return out
 
-    def zeros(self, shape):
-        return self._out(torch.zeros(self.lead + tuple(shape), device=self.device,
-                                     dtype=self.dtype))
+    def zeros(self, shape, dtype=None):
+        return self.full(shape, 0.0, dtype)
+
+    def full(self, shape, value, dtype=None):
+        """``value`` everywhere (a float, or a tensor broadcast to
+        ``lead + shape``)."""
+        t = torch.empty(self.lead + tuple(shape), device=self.device, dtype=dtype or self.dtype)
+        return self._out(t.copy_(value) if isinstance(value, torch.Tensor) else t.fill_(value))
 
 
 def init_attention(leaf: LeafMaker, cfg) -> dict:

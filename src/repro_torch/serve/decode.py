@@ -10,9 +10,11 @@ dequantized inside those ops only.
 
 :func:`paged_prefill` ingests whole prompts in one batched forward whose
 per-layer K/V is scattered into the pages, plus the adapter-side
-prefill. Attention patterns, with dense or MoE FFNs (SSM/hybrid archs
-arrive later); an MoE FFN at decode routes the step's B tokens at twice
-the config's capacity factor, as the reference does.
+prefill, for attention patterns (dense or MoE FFNs). An SSM block of the
+decode step runs its mixer's decode on the per-slot state rows (SSM and
+hybrid archs take the engine's stepwise prompt path: prompt tokens fed
+through the decode step). An MoE FFN at decode routes the step's B
+tokens at twice the config's capacity factor, as the reference does.
 
 Pools and adapter caches are updated **in place**; the functions return
 them too, mirroring the reference's signatures.
@@ -26,17 +28,11 @@ import torch
 
 from repro_torch.core.opset import get_opset
 from repro_torch.core.parallel_adapters import batched_adapter_decode, batched_adapter_prefill
+from repro_torch.models import ssm
 from repro_torch.models.backbone import apply_block, embed_inputs, logits_from_hidden, period_slice
 from repro_torch.models.layers import _project_qkv, mlp_forward
 from repro_torch.models.moe import moe_forward
 from repro_torch.serve.paging import period_entry, write_prompt_kv, write_token_kv
-
-
-def _require_attention(cfg) -> None:
-    if any(s.kind != "attn" for s in cfg.pattern):
-        raise NotImplementedError(
-            f"{cfg.name}: paged serving covers attention patterns; SSM layers arrive "
-            "with the SSM (A6.5) slice of the port")
 
 
 def _paged_attention_block(p, h, cfg, spec, entry, block_tables, lengths, ops):
@@ -59,9 +55,16 @@ def _paged_attention_block(p, h, cfg, spec, entry, block_tables, lengths, ops):
 
 
 def _apply_block_paged(p, x, cfg, spec, entry, block_tables, lengths, ops):
+    """``apply_block_decode`` with the attention cache paged; an SSM
+    kind runs on its per-slot state rows (``entry``: (B, ...) leaves,
+    written in place)."""
     p = ops.prepare_block(p, spec)
     h = ops.rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + _paged_attention_block(p["mixer"], h, cfg, spec, entry, block_tables, lengths, ops)
+    if spec.kind == "attn":
+        mix = _paged_attention_block(p["mixer"], h, cfg, spec, entry, block_tables, lengths, ops)
+    else:
+        mix = ssm.decode_into(spec.kind, p["mixer"], h, cfg, entry)
+    x = x + mix
     if "ffn" in p:
         h = ops.rms_norm(x, p["ln2"], cfg.norm_eps)
         if spec.moe and cfg.moe is not None:
@@ -87,14 +90,15 @@ def paged_pac_decode_step(
 ):
     """One continuous-batching decode step: B requests, B adapters.
 
-    tokens: (B,1) int; pools: one page pool per pattern position;
-    block_tables: (B, max_pages) int32; lengths: (B,) int32 write index;
+    tokens: (B,1) int; pools: one entry per pattern position, a whole
+    page pool for attention, the per-slot state rows sliced to the B rows
+    for an SSM kind; block_tables: (B, max_pages) int32; lengths: (B,)
+    int32 write index;
     adapter_batch / adapter_cache: ``None`` to serve the bare backbone,
     else a gathered (B, ...) adapter tree + its (n_p, B, L, ...) cache.
     Returns (logits (B,1,V), pools, adapter_cache) — the last two updated
     in place. Row b equals a B=1 call for request b alone.
     """
-    _require_attention(cfg)
     ops = get_opset(kernel_impl)
     block_tables = block_tables.to(torch.int32)
     lengths = lengths.to(torch.int32)
@@ -136,8 +140,14 @@ def paged_prefill(
     ``ceil(lengths/page)`` pages per row. Returns (last-token logits
     (B,1,V), pools (written in place), adapter caches in the
     ``init_adapter_cache`` layout, or ``None`` when ``adapter_batch`` is).
+    Attention patterns only: SSM and hybrid archs take the engine's
+    stepwise path.
     """
-    _require_attention(cfg)
+    if any(s.kind != "attn" for s in cfg.pattern):
+        raise ValueError(
+            f"one-shot paged prefill needs an all-attention pattern; {cfg.name} has "
+            f"{tuple(s.kind for s in cfg.pattern)}: the engine's stepwise prompt path covers "
+            "SSM and hybrid archs")
     ops = get_opset(kernel_impl)
     block_tables = block_tables.to(torch.int32)
     lengths = lengths.to(torch.int32)

@@ -7,17 +7,20 @@ shared KV page pool (``repro_torch.serve.paging``) and one frozen
 
 * **Continuous batching** — requests join and leave the running decode
   batch between steps. A request's cache is its page-table row; only the
-  per-slot adapter-cache rows live at fixed indices, kept compacted to a
-  prefix by swap-remove on completion.
+  per-slot rows (the adapter cache, SSM states) live at fixed indices,
+  kept compacted to a prefix by swap-remove on completion, and zeroed
+  when a stepwise request is admitted into one.
 * **Power-of-two buckets** — each decode step runs at the smallest
   power of two ≥ the active count (capped at ``max_batch``) and prompts
   pad to a power-of-two length, exactly as the reference does, so shapes
   and therefore numerics match it. (The reference counts jit traces per
   bucket; eager PyTorch has none to count.)
-* **One-shot prefill** — all-attention archs ingest the whole prompt in
-  one batched forward (``repro_torch.serve.decode.paged_prefill``). The
-  reference's stepwise prompt path for SSM/hybrid archs arrives with the
-  SSM slice.
+* **Two prompt paths** (``prefill_mode``) — all-attention archs ingest
+  the whole prompt in one batched forward
+  (``repro_torch.serve.decode.paged_prefill``): ``"oneshot"``; SSM and
+  hybrid archs feed the prompt through the decode step one token a step,
+  in the same batch as the other requests' generated tokens:
+  ``"stepwise"``.
 
 The engine runs on the card unless asked for the CPU: ``device=None``
 means ``cuda`` and raises when there is none.
@@ -97,9 +100,9 @@ class RequestHandle:
 
 class _Request:
     __slots__ = ("rid", "prompt", "max_new", "adapter_idx", "handle", "last_token",
-                 "n_generated", "finished")
+                 "n_generated", "n_consumed", "finished")
 
-    def __init__(self, rid, prompt, max_new, adapter_idx):
+    def __init__(self, rid, prompt, max_new, adapter_idx, n_consumed):
         self.rid = rid
         self.prompt = list(prompt)
         self.max_new = max_new
@@ -107,7 +110,21 @@ class _Request:
         self.handle = RequestHandle(rid, prompt)
         self.last_token = self.prompt[-1]
         self.n_generated = 0
+        self.n_consumed = n_consumed  # prompt tokens already in the cache
         self.finished = False
+
+    def next_input(self) -> int:
+        if self.n_consumed < len(self.prompt):
+            return self.prompt[self.n_consumed]
+        return self.last_token
+
+    def advance(self) -> bool:
+        """Account one step. True while the step only consumed a prompt
+        token (stepwise prefill: nothing to emit yet)."""
+        if self.n_consumed < len(self.prompt):
+            self.n_consumed += 1
+            return self.n_consumed < len(self.prompt)
+        return False
 
 
 class ServeEngine:
@@ -119,11 +136,14 @@ class ServeEngine:
     maps user name → adapter tree, stacked once into a resident bank and
     gathered per request row at each step. ``kv_policy``: "int8", "bf16"
     or "f32". ``n_pages`` defaults to enough for ``max_batch``
-    full-length requests (+ the null page).
+    full-length requests (+ the null page). ``prefill_mode`` is
+    ``"oneshot"`` for an all-attention pattern, else ``"stepwise"``.
 
     Timing counters (host clock; each step ends by reading its tokens
     back, which waits for the device): ``prefill_seconds``,
-    ``decode_seconds``, ``decode_steps``, ``decode_tokens``.
+    ``decode_seconds``, ``decode_steps``, ``decode_tokens`` (rows run by
+    the decode steps), ``stepwise_prompt_tokens`` (of those, the prompt
+    tokens a stepwise step consumed without emitting).
     """
 
     def __init__(
@@ -142,9 +162,6 @@ class ServeEngine:
         eos_id: Optional[int] = None,
         device=None,
     ):
-        if any(s.kind != "attn" for s in cfg.pattern):
-            raise NotImplementedError(
-                "stepwise prefill for SSM/hybrid archs arrives with the SSM slice of the port")
         self.device = resolve_device(device)
         for leaf in tree_leaves(backbone_params):
             t = getattr(leaf, "q", leaf)
@@ -162,7 +179,10 @@ class ServeEngine:
         self.max_pages = -(-max_len // page_size)
         if n_pages is None:
             n_pages = max_batch * self.max_pages + 1
-        self.pools = paging.init_pools(cfg, n_pages, page_size, kv_policy, self.device)
+        self.pools = paging.init_pools(cfg, n_pages, page_size, kv_policy, self.device,
+                                       n_slots=max_batch)
+        self._paged = [s.kind == "attn" for s in cfg.pattern]
+        self.prefill_mode = "oneshot" if all(self._paged) else "stepwise"
         self.allocator = paging.PageAllocator(n_pages)
         self.table = paging.PageTable(self.allocator, page_size, self.max_pages)
         if adapters:
@@ -184,6 +204,7 @@ class ServeEngine:
         self.decode_seconds = 0.0
         self.decode_steps = 0
         self.decode_tokens = 0
+        self.stepwise_prompt_tokens = 0
 
     # -- submission -----------------------------------------------------
 
@@ -207,7 +228,8 @@ class ServeEngine:
                 raise ValueError("engine was built without adapters")
             adapter_idx = 0
         with self._lock:
-            req = _Request(self._next_rid, prompt, max_new_tokens, adapter_idx)
+            n_consumed = len(prompt) if self.prefill_mode == "oneshot" else 0
+            req = _Request(self._next_rid, prompt, max_new_tokens, adapter_idx, n_consumed)
             self._next_rid += 1
             self._pending.append(req)
         return req.handle
@@ -227,12 +249,26 @@ class ServeEngine:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
-    # -- row-state bookkeeping (adapter cache) --------------------------
+    # -- row-state bookkeeping (adapter cache + SSM states) -------------
+
+    def _row_leaves(self) -> list:
+        """Every per-slot leaf, (n_p, max_batch, ...): the adapter cache's
+        and the SSM state rows'."""
+        rows = [e for e, paged in zip(self.pools, self._paged) if not paged]
+        if self.acache is not None:
+            rows.append(self.acache)
+        return tree_leaves(rows)
 
     def _move_row(self, src: int, dst: int) -> None:
-        if self.acache is not None:
-            for t in tree_leaves(self.acache):
-                t[:, dst] = t[:, src]
+        for t in self._row_leaves():
+            t[:, dst] = t[:, src]
+
+    def _zero_row(self, row: int) -> None:
+        """A fresh slot for a stepwise request: zeros, as the reference
+        writes them (an sLSTM's stabiliser m too), so that no state of the
+        slot's last request is inherited."""
+        for t in self._row_leaves():
+            t[:, row] = 0
 
     # -- admission ------------------------------------------------------
 
@@ -243,14 +279,21 @@ class ServeEngine:
             req = self._pop_pending()
             if req is None:
                 break
-            need = -(-len(req.prompt) // self.page)
-            if need > self.allocator.free_pages:
-                self._push_front(req)  # not enough pages yet
-                break
-            self.table.open(req.rid, len(req.prompt))
+            if self.prefill_mode == "oneshot":
+                need = -(-len(req.prompt) // self.page)
+                if need > self.allocator.free_pages:
+                    self._push_front(req)  # not enough pages yet
+                    break
+                self.table.open(req.rid, len(req.prompt))
+            else:
+                if self.allocator.free_pages < 1:
+                    self._push_front(req)
+                    break
+                self.table.open(req.rid, 0)
+                self._zero_row(len(self._active))
             self._active.append(req)
             new_reqs.append(req)
-        if new_reqs:
+        if new_reqs and self.prefill_mode == "oneshot":
             self._run_prefill(new_reqs, row0)
 
     def _run_prefill(self, reqs: List[_Request], row0: int) -> None:
@@ -318,15 +361,19 @@ class ServeEngine:
         tokens = np.zeros((bucket, 1), np.int32)
         user_idx = np.zeros(bucket, np.int32)
         for i, req in enumerate(self._active):
-            tokens[i, 0] = req.last_token
+            tokens[i, 0] = req.next_input()
             user_idx[i] = req.adapter_idx
+        def first(tree):  # the per-slot rows' first ``bucket`` slots, as views
+            return tree_map(lambda t: t[:, :bucket], tree)
+
         if self.bank is not None:
             ab = gather_adapters(self.bank, self._tensor(user_idx))
-            ac_b = tree_map(lambda t: t[:, :bucket], self.acache)  # views: written in place
+            ac_b = first(self.acache)
         else:
             ab, ac_b = None, None
-        logits, self.pools, _ = paged_pac_decode_step(
-            self.backbone, ab, self._tensor(tokens), self.pools, self._tensor(bt),
+        pools_b = [e if paged else first(e) for e, paged in zip(self.pools, self._paged)]
+        logits, _, _ = paged_pac_decode_step(
+            self.backbone, ab, self._tensor(tokens), pools_b, self._tensor(bt),
             self._tensor(lengths), ac_b, cfg=self.cfg, r=self.r, kernel_impl=self.kernel_impl)
         toks = logits[:, 0].argmax(dim=-1).cpu().numpy()
         self.decode_seconds += time.perf_counter() - t0
@@ -334,6 +381,9 @@ class ServeEngine:
         self.decode_tokens += n
         for i, req in enumerate(self._active):
             self.table.append_token(req.rid)
+            if req.advance():  # stepwise prefill: a prompt token consumed
+                self.stepwise_prompt_tokens += 1
+                continue
             self._accept_token(req, int(toks[i]))
         for req in self._active:  # out of cache room → forced completion
             if not req.finished and self.table.length(req.rid) >= self.max_len:

@@ -1,14 +1,18 @@
 """Paged KV cache: page pools, free-list allocator, page tables.
 
-Counterpart of ``repro.serve.paging`` (attention pools only in this
-slice). Every request's KV lives in fixed-size **pages** drawn from one
-pool per attention pattern position, stacked over periods:
+Counterpart of ``repro.serve.paging``. Every request's KV lives in
+fixed-size **pages** drawn from one pool per attention pattern position,
+stacked over periods:
 
 * ``int8`` — ``{"q": int8 (n_p, n_pages, page, Hkv, hd),
   "scale": f32 (n_p, n_pages, page, Hkv)}`` per K and V: absmax
   quantization per (token, kv head). Pages are dequantized only inside
   the attention ops; this module writes pages and never reads them back.
 * ``f32`` / ``bf16`` — plain tensors of the same page geometry.
+
+An SSM pattern position holds per-slot **state rows** instead, (n_p,
+n_slots, ...) leaves: one row per engine slot, kept compact by the
+engine.
 
 Page id **0 is the null page**: allocators never hand it out, padded
 prompt positions and padding rows write their garbage there, and
@@ -25,6 +29,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.models import ssm
 
 KV_POLICIES = ("f32", "bf16", "int8")
 
@@ -60,22 +66,32 @@ def _attn_pool(cfg, n_pages: int, page: int, policy: str, device):
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def init_pools(cfg, n_pages: int, page: int, policy: str = "int8", device=None):
-    """One page pool per pattern position. ``n_pages`` includes the
-    null page (usable pages = n_pages - 1)."""
+def init_state_rows(cfg, spec, n_slots: int, device=None) -> dict:
+    """Per-slot recurrent state rows for one non-attention pattern
+    position, stacked over periods: (n_p, n_slots, ...) leaves."""
+    return ssm.init_state(cfg, spec.kind, n_slots, device=device, lead=cfg.n_periods)
+
+
+def init_pools(cfg, n_pages: int, page: int, policy: str = "int8", device=None,
+               n_slots: int = 0):
+    """One entry per pattern position: a page pool for attention
+    (``n_pages`` includes the null page, so usable pages = n_pages - 1),
+    ``n_slots`` per-slot state rows for an SSM kind."""
     if policy not in KV_POLICIES:
         raise ValueError(f"kv policy must be one of {KV_POLICIES}, got {policy!r}")
-    pools = []
-    for spec in cfg.pattern:
-        if spec.kind != "attn":
-            raise NotImplementedError(
-                "per-slot state rows for SSM layers arrive with the SSM slice of the port")
-        pools.append(_attn_pool(cfg, n_pages, page, policy, device))
-    return pools
+    return [_attn_pool(cfg, n_pages, page, policy, device) if spec.kind == "attn"
+            else init_state_rows(cfg, spec, n_slots, device) for spec in cfg.pattern]
+
+
+def is_paged_entry(entry) -> bool:
+    """True for an attention page pool ({"k": ..., "v": ...})."""
+    return isinstance(entry, dict) and set(entry) == {"k", "v"}
 
 
 def period_entry(entry, i: int):
-    """Period ``i`` of an attention pool (views: writes land in the pool)."""
+    """Period ``i`` of a pool entry (views: writes land in the pool)."""
+    if not is_paged_entry(entry):
+        return {name: t[i] for name, t in entry.items()}
     if isinstance(entry["k"], dict):
         return {kv: {f: entry[kv][f][i] for f in ("q", "scale")} for kv in ("k", "v")}
     return {"k": entry["k"][i], "v": entry["v"][i]}

@@ -1,8 +1,10 @@
 """The configs of the port beside internlm2-1.8b (the paper's Table III
-models, gemma2-2b, granite-20b, musicgen-large, and the four MoE configs:
-mixtral-8x7b, moonshot-v1-16b-a3b, grok-1-314b, kimi-k2-1t-a32b) at
-``reduced()`` against the JAX package, and the head widths 256 (gemma2)
-and 112 (kimi-k2) through the kernels' plain versions.
+models, gemma2-2b, granite-20b, musicgen-large, the four MoE configs:
+mixtral-8x7b, moonshot-v1-16b-a3b, grok-1-314b, kimi-k2-1t-a32b, and the
+SSM family: xlstm-125m and the hybrid jamba-1.5-large-398b) at
+``reduced()`` against the JAX package (the SSM configs' stepwise
+serving: tests/test_torch_ssm.py), and the head widths 256 (gemma2) and
+112 (kimi-k2) through the kernels' plain versions.
 
 For each config the inputs come from numpy with a fixed seed (musicgen is
 fed frame embeddings, ``{"embeds"}``, as tests/test_backbone_smoke.py
@@ -17,6 +19,17 @@ tests/test_backbone_smoke.py:104-123 on both sides.
 A reduced MoE config routes with capacity factor E (the reference's
 ``reduced()``), so no token drops and the two packages' routes agree.
 
+xlstm's mLSTM divides by max(|n·q|, e^-m): where n·q nears that floor a
+last-bit change of a sum moves the quotient by many ulps, and 12 such
+blocks compound it. The reference's own results move so when only the
+order of its f32 sums changes (the mLSTM chunk halved, an equal
+function: tests/test_ssm.py:36): its logits by ~8e-4, its taps by
+~3e-3, its adapter gradients by ~2e-4 (a gradient that near 0 flips
+sign, so its AdamW update by 2·lr), its cached-step gradients by
+~1e-4. :func:`_ref_noise` measures that move, and a config with mLSTM
+blocks is held to ``NOISE`` (8) times it where that exceeds the
+tolerance the others are held to.
+
 ``reduced()`` sets hd = d / n_heads = 64, so no reduced config reaches
 gemma2's 256 or kimi-k2's 112: a variant of each is built the same way in
 both packages (gemma2 with 2 heads of 256 over one kv head; kimi reduced,
@@ -29,6 +42,7 @@ paged 2e-4, tests/test_decode_parity.py:36).
 
 import dataclasses
 import functools
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -66,7 +80,10 @@ torch.set_num_threads(2)
 R = 4
 ARCHS = ["t5-base-pac", "bart-large-pac", "t5-large-pac", "gemma2-2b", "granite-20b",
          "musicgen-large", "mixtral-8x7b", "moonshot-v1-16b-a3b", "grok-1-314b",
-         "kimi-k2-1t-a32b"]
+         "kimi-k2-1t-a32b", "xlstm-125m", "jamba-1.5-large-398b"]
+#: a tolerance's multiple of the reference's own f32 move (_ref_noise): the
+#: twins reorder the mLSTM's sums only, the port every op's
+NOISE = 8
 B, S = 2, 40  # S > gemma2's reduced window (32): its local layers mask
 
 
@@ -107,13 +124,83 @@ def _jax_step(arch):
     return out, grads
 
 
+MAPS_CLEAR_AT = 30000  # of the kernel's default vm.max_map_count, 65530
+
+
+@pytest.fixture(autouse=True)
+def _programs_released():
+    """The compiled JAX programs dropped after a test once the process
+    holds ``MAPS_CLEAR_AT`` memory maps. Each XLA:CPU executable holds a
+    few, and this module, run in one process, compiles more than
+    ``vm.max_map_count`` allows: past it the next compile, load or run
+    aborts the process."""
+    yield
+    maps = Path("/proc/self/maps")
+    if maps.exists() and len(maps.read_bytes().splitlines()) > MAPS_CLEAR_AT:
+        jax.clear_caches()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _first_config_drawn():
+    """The first config's trees drawn and its JAX logits computed before
+    any test of the module runs, so that no test depends on being the one
+    that draws and compiles first; after the module, its compiled JAX
+    programs dropped, so that the next module in the process starts with
+    few memory maps (``_programs_released``)."""
+    jcfg, _, backbone, _ = _model(ARCHS[0])
+    jbb.backbone_logits(backbone, jcfg, _batch(jcfg)[0])
+    yield
+    jax.clear_caches()
+
+
+def _max_diff(a, b) -> float:
+    return max(float(np.abs(np.asarray(x) - np.asarray(y)).max())
+               for x, y in zip(jax.tree.leaves(a), jax.tree.leaves(b)))
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_noise(arch) -> dict:
+    """How far the reference's own logits, taps, adapter gradients and
+    cached-step gradients move, at most, when its mLSTM chunk is cut to a
+    half or a quarter (the same function, its f32 sums in other orders);
+    all 0 without mLSTM blocks."""
+    jcfg, _, backbone, adapter = _model(arch)
+    noise = dict(logits=0.0, acts=0.0, grads=0.0, cached_grads=0.0)
+    if not any(s.kind == "mlstm" for s in jcfg.pattern):
+        return noise
+    jb, _ = _batch(jcfg)
+    (_, _, _, acts), grads = _jax_step(arch)
+    jcj = jax.tree.map(jnp.asarray, _cached("int8", *acts, jb["labels"], True))
+    jpos = jnp.broadcast_to(jnp.arange(S, dtype=jnp.int32), (B, S))
+
+    def cached_grads(cfg):
+        def loss(a):
+            num, den = jax_cs.cached_loss_parts(backbone, a, cfg, jcj, jpos, R, impl="ref")
+            return num / jnp.maximum(den, 1)
+        return jax.grad(loss)(adapter)
+
+    logits, c_grads = jbb.backbone_logits(backbone, jcfg, jb), cached_grads(jcfg)
+    for div in (2, 4):
+        twin = dataclasses.replace(jcfg, mlstm_chunk=jcfg.mlstm_chunk // div)
+        t_acts = jax_steps.pac_train_step(backbone, adapter, jax_adamw_init(adapter), jb,
+                                          cfg=twin, r=R)[3]
+        t_grads = jax.grad(lambda a: jax_steps.pac_loss_fn(a, backbone, twin, jb, R))(adapter)
+        moved = dict(logits=_max_diff(logits, jbb.backbone_logits(backbone, twin, jb)),
+                     acts=_max_diff(acts, t_acts), grads=_max_diff(grads, t_grads),
+                     cached_grads=_max_diff(c_grads, cached_grads(twin)))
+        noise = {k: max(v, moved[k]) for k, v in noise.items()}
+    return noise
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_backbone_logits_match_jax(arch):
+    """1e-4, or ``NOISE`` times the reference's own move (:func:`_ref_noise`)."""
     jcfg, tcfg, backbone, _ = _model(arch)
     jb, tb = _batch(jcfg)
     want = np.asarray(jbb.backbone_logits(backbone, jcfg, jb))
     got = tbb.backbone_logits(bridge.to_torch(_np(backbone)), tcfg, tb).numpy()
-    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+    atol = max(1e-4, NOISE * _ref_noise(arch)["logits"])
+    np.testing.assert_allclose(got, want, atol=atol, rtol=1e-4)
 
 
 @pytest.mark.parametrize("kernel_impl", ["ref", "cuda"])
@@ -121,24 +208,31 @@ def test_backbone_logits_match_jax(arch):
 def test_pac_train_step_matches_jax(arch, kernel_impl):
     """One epoch-1 step (f32 backbone, f32 taps): the loss within 2e-5, the
     updated adapter within 5e-5 (the clipped-gradient rule of
-    ``_assert_update_close``), the activations within 1e-4."""
+    ``_assert_update_close``), the activations within 1e-4; where the
+    reference's own move (:func:`_ref_noise`) is larger, ``NOISE`` times
+    it, and the update of an element whose gradient lies within ``NOISE``
+    times the gradients' move of 0 within one step's reach."""
     jcfg, tcfg, backbone, adapter = _model(arch)
     (loss, ap, _, acts), jgrads = _jax_step(arch)
+    noise = _ref_noise(arch)
     _, tb = _batch(jcfg)
     tap = bridge.to_torch(_np(adapter))
     got = steps.pac_train_step(bridge.to_torch(_np(backbone)), tap, adamw_init(tap), tb,
                                cfg=tcfg, r=R, kernel_impl=kernel_impl)
     assert abs(float(got[0]) - float(loss)) < 2e-5
-    _assert_update_close(ap, got[1], jgrads)
+    _assert_update_close(ap, got[1], jgrads, flip=max(1e-6, NOISE * noise["grads"]))
     for g, w in zip(got[3], acts):
-        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4, rtol=1e-4)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=max(1e-4, NOISE * noise["acts"]),
+                                   rtol=1e-4)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_pac_cached_train_step_int8_matches_jax(arch):
     """The epoch-1 activations in an int8 cache, then one cached step under
     ``cuda`` and ``ref`` against JAX ``kernel_impl="ref"`` on the same
-    entries: loss 2e-5, gradients 1e-4·max(1, |g|max), the update 5e-5."""
+    entries: loss 2e-5, gradients 1e-4·max(1, |g|max), the update 5e-5
+    (or ``NOISE`` times the reference's own move, :func:`_ref_noise`,
+    where that is larger, as in :func:`test_pac_train_step_matches_jax`)."""
     jcfg, tcfg, backbone, adapter = _model(arch)
     (_, _, _, (b0, taps, bf)), _ = _jax_step(arch)
     jb, _ = _batch(jcfg)
@@ -156,18 +250,20 @@ def test_pac_cached_train_step_int8_matches_jax(arch):
 
     jgrads = jax.grad(jloss_fn)(adapter)
     gmax = max(float(jnp.max(jnp.abs(g))) for g in jax.tree.leaves(jgrads))
+    noise = _ref_noise(arch)["cached_grads"]
     tbp, tap = bridge.to_torch(_np(backbone)), bridge.to_torch(_np(adapter))
     tpos = torch.arange(S, dtype=torch.int32).expand(B, S)
     for impl in ("cuda", "ref"):
         loss, ap, _ = steps.pac_cached_train_step(tbp, tap, adamw_init(tap), tc, cfg=tcfg, r=R,
                                                   kernel_impl=impl)
         assert abs(float(loss) - float(jloss)) < 2e-5, impl
-        _assert_update_close(jap, ap, jgrads)
+        _assert_update_close(jap, ap, jgrads, flip=max(1e-6, NOISE * noise))
         ta = tree_map(lambda t: t.clone().requires_grad_(), tap)
         num, den = cached_loss_parts(tbp, ta, tcfg, tc, tpos, R, impl=impl)
         grads = torch.autograd.grad(num / den.clamp_min(1), tree_leaves(ta))
         it = iter(grads)
-        _assert_tree_close(jgrads, tree_map(lambda _: next(it), ta), atol=1e-4 * max(1.0, gmax))
+        _assert_tree_close(jgrads, tree_map(lambda _: next(it), ta),
+                           atol=max(1e-4 * max(1.0, gmax), NOISE * noise))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
