@@ -312,9 +312,32 @@ Phases, in order; any failure exits non-zero:
    beside Mamba state rows, MoE) under ``cuda`` and ``ref``, streams
    equal, and a PAC+ session (full, then cached) with its gates, with
    ``quant_matmul``, flash and paged attention launched and counted.
-32. Summary: one JSON line ``{"kernels": [...]}`` (eight kernels, each
+32. qwen2-vl-7b's widths: ``quant_matmul`` over a layer's seven
+   projections (K = 3584 and 18944) at M = 8 and 4096, ``mix_fwd``/
+   ``mix_dw`` at d = 3584 and the adapter's ragged d_a = 444,
+   ``ce_fwd``/``ce_bwd`` over V = 152064, ``adapter_fuse`` at T = 1
+   and 8, flash at B·H = 8·28 over 8·4 (n_rep 7) and ragged at n_rep 7,
+   paged at B = 8, Hkv = 4, n_rep = 7 (lengths <= 511 and <= 4095),
+   ragged at n_rep 7, reruns and graph replays bit-equal.
+33. qwen2-vl-7b serving (``qwen2vl_serving`` line): 28 layers at full
+   width, random seeded INT8 weights (7.62 G parameters), 4 users with
+   r = 8 adapters, 8 requests of 64-480 prompt tokens and 32 new through
+   ``ServeEngine``, then prefill and two decode steps under ``cuda`` and
+   ``ref``: logits within 2e-2, greedy equal; ``quant_matmul``, flash
+   and paged attention launched.
+34. qwen2-vl-7b training (``pac_run`` line, as 15) with its cached-step
+   and trainer gates, then ``qwen2vl_personal`` (as 29: 16 steps over
+   f32 KV within 2e-4, tokens equal, 196 ``quant_matmul`` and 28
+   ``adapter_fuse`` a step).
+35. mrope with distinct streams (``qwen2vl_mrope`` line): one batch of
+   4 x 512 tokens laid out as text, an image grid and text (three
+   position streams that differ): the PAC+ logits ``cuda`` against
+   ``ref`` within 2e-2, one epoch-1 and one cached step (its batch
+   carrying the positions) within 2e-5 in loss and 1e-4·max(1, |g|max)
+   in gradients, and the logits with equal streams more than 0.2 away.
+36. Summary: one JSON line ``{"kernels": [...]}`` (eight kernels, each
    with its launches on every path, the hd 256, gemma2, hd 112,
-   mixtral, xlstm and jamba_reduced rows beside the first, and its
+   mixtral, xlstm, jamba_reduced and qwen2vl rows beside the first, and its
    device kernels by name:
    ``skinny::gemv`` for ``quant_matmul`` at M <= 8 and ``adapter_fuse``
    at T <= 8), the card's line, and last ``{"ok": true, "device":
@@ -578,17 +601,18 @@ def device_kernels(fn) -> list:
                    if e.device_type == torch.autograd.DeviceType.CUDA})
 
 
-def flash_ragged(gen: torch.Generator, hds=(64, 128)) -> None:
+def flash_ragged(gen: torch.Generator, hds=(64, 128), n_reps=(1, 2)) -> None:
     """``flash_attention`` at Sq = Sk = 37 and 1001 (partial query and key
-    tiles), each head width of ``hds``, n_rep 1 and 2, each with causal on
-    and off, window 32 or none and soft-cap 30 or none, against its plain
-    version: one line per (S, hd, n_rep)."""
+    tiles), each head width of ``hds``, each n_rep of ``n_reps`` (query
+    heads a kv head), each with causal on and off, window 32 or none and
+    soft-cap 30 or none, against its plain version: one line per (S, hd,
+    n_rep)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
 
     for S in (37, 1001):
         for hd in hds:
-            for n_rep in (1, 2):
+            for n_rep in n_reps:
                 q = torch.randn(4 * n_rep, S, hd, generator=gen, device=DEV)
                 k, v = (torch.randn(4, S, hd, generator=gen, device=DEV) for _ in range(2))
                 cases = []
@@ -1433,13 +1457,14 @@ def cached_step_gate(s, spec) -> None:
     (``cached_step_cuda_vs_ref`` line)."""
     from repro_torch.core.quantization import tree_leaves, tree_map
     from repro_torch.kernels.cached_step import cached_loss_parts
+    from repro_torch.models.backbone import arange_positions
 
     ids = s.pipe.epoch_order(0)[0]
     labels = torch.from_numpy(s.corpus.batch(ids)["labels"]).to(DEV)
     hit = s.cache.get_batch(ids, with_final=True, dtype=None, compressed=True)
     cached_b = {k: v.to(DEV) for k, v in zip(("b0", "taps", "b_final"), hit)}
     cached_b["labels"] = labels
-    pos = torch.arange(spec.seq, device=DEV).expand(spec.batch, spec.seq)
+    pos = arange_positions(s.cfg, spec.batch, spec.seq, DEV)  # (3, B, S) under mrope
     res = {}
     for impl in ("cuda", "ref"):
         ap = tree_map(lambda t: t.clone().requires_grad_(), s.adapter)
@@ -3320,7 +3345,9 @@ def mixtral_personal_phase(backbone, adapter, cfg, r: int = 8) -> dict:
     return launches
 
 
-def gemma2_serving_phase(gen: torch.Generator) -> dict:
+def gemma2_serving_phase(gen: torch.Generator, arch: str = GEMMA2,
+                         max_len: int = GEMMA2_MAX_LEN, long_prompt=GEMMA2_LONG_PROMPT,
+                         phase: str = "gemma2_serving") -> dict:
     """gemma2-2b at full width (26 layers, d = 2304, 8 heads of 256 over 4
     kv heads, d_ff 9216, V = 256000, window 4096 on every other layer,
     soft-caps 50 and 30, tied embeddings), random seeded INT8 weights, 4
@@ -3330,15 +3357,18 @@ def gemma2_serving_phase(gen: torch.Generator) -> dict:
     its own wave (bucket 1, padded to 8192): flash prefill and paged
     decode both cross the window. Then the 8 requests' prefill and two
     decode steps, and the long request's, under ``cuda`` and ``ref``:
-    logits within 2e-2, greedy tokens equal."""
+    logits within 2e-2, greedy tokens equal. Another config likewise, as
+    ``phase``, with its ``max_len`` (``long_prompt`` None: the 8 requests
+    only)."""
     from repro_torch.configs import get_arch
     from repro_torch.core.parallel_adapters import gather_adapters, init_adapter, stack_adapters
     from repro_torch.core.quantization import tree_storage_bytes
     from repro_torch.models.backbone import init_backbone
     from repro_torch.serve import ServeEngine
 
-    cfg = get_arch(GEMMA2)
+    cfg = get_arch(arch)
     page, max_batch, n_new, r = 16, 8, 32, 8
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     backbone = init_backbone(gen, cfg, device=DEV, quant_bits=8)
@@ -3348,12 +3378,13 @@ def gemma2_serving_phase(gen: torch.Generator) -> dict:
     rng = np.random.default_rng(SEED)
     prompt_lens = rng.integers(64, 481, size=8)
     prompts = [rng.integers(0, cfg.vocab, size=int(n)).tolist() for n in prompt_lens]
-    prompts.append(rng.integers(0, cfg.vocab, size=GEMMA2_LONG_PROMPT).tolist())
+    if long_prompt:
+        prompts.append(rng.integers(0, cfg.vocab, size=long_prompt).tolist())
     names = list(users)
 
     def engine():
         return ServeEngine(backbone, cfg, users, r=r, kernel_impl="cuda", kv_policy="int8",
-                           page_size=page, max_len=GEMMA2_MAX_LEN, max_batch=max_batch)
+                           page_size=page, max_len=max_len, max_batch=max_batch)
 
     warm = engine()  # warm-up: first launches at these widths, allocator growth
     for i, p in enumerate(prompts[:8]):
@@ -3374,11 +3405,11 @@ def gemma2_serving_phase(gen: torch.Generator) -> dict:
     for st in streams:
         if len(st) != n_new or not all(0 <= tok < cfg.vocab for tok in st):
             raise AssertionError(f"bad stream: {st}")
-    line = {"phase": "gemma2_serving", "arch": cfg.name, "params": cfg.param_count(),
+    line = {"phase": phase, "arch": cfg.name, "layers": cfg.n_layers, "params": cfg.param_count(),
             "backbone_bytes": tree_storage_bytes(backbone), "init_s": init_s,
             "requests": len(prompts), "users": len(users),
             "prompt_lens": [len(p) for p in prompts], "new_tokens": n_new, "kv": "int8",
-            "page": page, "max_len": GEMMA2_MAX_LEN, "prefill_ms": eng.prefill_seconds * 1e3,
+            "page": page, "max_len": max_len, "prefill_ms": eng.prefill_seconds * 1e3,
             "decode_steps": eng.decode_steps,
             "decode_ms_per_step": eng.decode_seconds * 1e3 / eng.decode_steps,
             "decode_tokens_per_s": eng.decode_tokens / eng.decode_seconds, "wall_s": wall,
@@ -3388,17 +3419,18 @@ def gemma2_serving_phase(gen: torch.Generator) -> dict:
     del eng
     missing = [n for n, c in launches.items() if c <= 0]
     if missing:
-        raise AssertionError(f"kernels never launched on gemma2's serving path: {missing}")
+        raise AssertionError(f"kernels never launched on {arch}'s serving path: {missing}")
 
     bank = stack_adapters([users[n] for n in names])
     waves = {"8 requests": (prompts[:8], torch.arange(8, device=DEV) % 4,
-                            1 << (int(max(prompt_lens)) - 1).bit_length()),
-             f"{GEMMA2_LONG_PROMPT}-token prompt": (prompts[8:], torch.tensor([0], device=DEV),
-                                                    GEMMA2_LONG_PROMPT)}
+                            1 << (int(max(prompt_lens)) - 1).bit_length())}
+    if long_prompt:
+        waves[f"{long_prompt}-token prompt"] = (prompts[8:], torch.tensor([0], device=DEV),
+                                                long_prompt)
     tol, checks = 2e-2, {}
     for label, (wave, rows_, s_pad) in waves.items():
         logits = paged_cuda_vs_ref(backbone, cfg, gather_adapters(bank, rows_), wave, page,
-                                   GEMMA2_MAX_LEN, r, s_pad)
+                                   max_len, r, s_pad)
         checks[label] = {
             "max_abs_dlogits": [max_err(a, b) for a, b in zip(logits["cuda"], logits["ref"])],
             "greedy_equal": [bool(torch.equal(a.argmax(-1), b.argmax(-1)))
@@ -3407,12 +3439,12 @@ def gemma2_serving_phase(gen: torch.Generator) -> dict:
             "logits_shape": list(logits["cuda"][0].shape)}
         del logits
     line.update(cuda_vs_ref=checks, steps=["prefill", "decode1", "decode2"], tol=tol,
-                tol_reason="the serving gate (PERF.md section 2): f32 sums reorder through 26 "
-                           "layers, and an int8 KV code may move by one step")
+                tol_reason=f"the serving gate (PERF.md section 2): f32 sums reorder through "
+                           f"{cfg.n_layers} layers, and an int8 KV code may move by one step")
     emit(line)
     for label, c in checks.items():
         if not (c["finite"] and max(c["max_abs_dlogits"]) <= tol and all(c["greedy_equal"])):
-            raise AssertionError(f"gemma2 serving cuda vs ref ({label}): {c}")
+            raise AssertionError(f"{phase} cuda vs ref ({label}): {c}")
     return launches
 
 
@@ -4202,25 +4234,50 @@ def jamba_kernel_phase(timer: Timer, gen: torch.Generator) -> dict:
     M = 2; flash at B·H = 4·4 over one kv head, S = 64; paged at B = 2,
     Hkv = 1, n_rep = 4, hd 64; ``mix_fwd``/``mix_dw`` at d = 256, d_a = 32,
     ``ce_fwd``/``ce_bwd`` at V = 512 (both at T = 4 x 64), ``adapter_fuse``
-    at T = 1 and 8. Returns each kernel's ``jamba_reduced`` entry."""
+    at T = 1 and 8; each timed beside its plain version, its bound and its
+    library call. Returns each kernel's ``jamba_reduced`` entry."""
     from repro_torch.core.quantization import dequantize, quantize
     from repro_torch.kernels import ops
 
     label = "jamba-1.5-large-398b reduced"
+    qmm = {}
+    shapes = ((256, 256), (256, 64), (256, 1024), (1024, 256))
     for M in (2, 256):
-        for K, N in ((256, 256), (256, 64), (256, 1024), (1024, 256)):
+        for K, N in shapes:
             x = torch.randn(M, K, generator=gen, device=DEV)
             w = quantize(torch.randn(K, N, generator=gen, device=DEV) * K ** -0.5, 8)
             got, want = ops.quant_matmul(x, w), x @ dequantize(w)
             err = float(((got - want).abs() - 1e-4 * want.abs()).max())
             check(f"quant_matmul {label} M={M} K={K} N={N} block={w.block}", err, 1e-3)
-            emit({"check": "quant_matmul_jamba", "config": label, "M": M, "K": K, "N": N,
-                  "block": w.block, "max_abs_err": max_err(got, want),
-                  "tol": "atol 1e-3 + rtol 1e-4", "tol_reason": qmm_tol_reason(M)})
+            ws = [w] + [quantize(torch.randn(K, N, generator=gen, device=DEV) * K ** -0.5, 8)
+                        for _ in range(copies(w.q.numel()) - 1)]
+            wfs = [dequantize(c) for c in ws[:copies(4 * K * N)]]
+            nbytes = M * K * 4 + w.q.numel() + w.scale.numel() * 4 + M * N * 4
+            b_ms, b_by = (bound(nbytes, 2.0 * M * N * K) if M <= QMM_SKINNY_ROWS
+                          else bound(nbytes, 3 * 2.0 * M * N * K, BF16_FLOP_PER_S))
+            r = {"check": "quant_matmul_jamba", "config": label, "M": M, "K": K, "N": N,
+                 "block": w.block, "max_abs_err": max_err(got, want),
+                 "tol": "atol 1e-3 + rtol 1e-4", "tol_reason": qmm_tol_reason(M),
+                 "ms": timer([lambda c=c: ops.quant_matmul(x, c) for c in ws]),
+                 "plain_ms": timer([lambda c=c: x @ dequantize(c) for c in ws]),
+                 "library_ms": timer([lambda c=c: torch.matmul(x, c) for c in wfs]),
+                 "library": "torch.matmul on the pre-dequantized f32 weight",
+                 "bound_ms": b_ms, "bound_by": b_by}
+            emit(r)
+            qmm[(M, K, N)] = r
+    rows = {"quant_matmul": {}}
+    for M in (2, 256):  # the four distinct projection shapes, times summed
+        rows["quant_matmul"][f"M{M}"] = {
+            **{k: sum(qmm[(M, K, N)][k] for K, N in shapes)
+               for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            "max_abs_err": max(qmm[(M, K, N)]["max_abs_err"] for K, N in shapes),
+            "bound_by": qmm[(M, 256, 1024)]["bound_by"],
+            "at": f"{label}'s 4 projection shapes at M={M} (W_k 64 wide, padded), int8 "
+                  "(times summed)"}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "at")
     r = flash_case(timer, gen, 4, 4, 1, 64, 64, f"{label} training")[0]
     emit(r)
-    rows = gemma2_kernel_phase(timer, gen, label, (), 256, 32, 512, None, T=256)
+    rows.update(gemma2_kernel_phase(timer, gen, label, (), 256, 32, 512, None, T=256))
     rows["flash_attention"] = {k: r[k] for k in keys}
     lengths = np.random.default_rng(SEED).integers(1, 64, size=2).astype(np.int32)
     rows["paged_attention"] = {k: v for k, v in paged_timed(
@@ -4293,6 +4350,186 @@ def jamba_hybrid_phase(gen: torch.Generator) -> dict:
                                                                                  "cached"]:
         raise AssertionError(f"jamba hybrid ({label}): missing launches {missing}: {line}")
     return {k: serve_launches[k] + train_launches[k] for k in serve_launches}
+
+# ---------------------------------------------------------------- qwen2-vl-7b (mrope)
+
+QWEN2VL = "qwen2-vl-7b"
+#: one qwen2-vl-7b layer's seven projections (K, N): wq, wk, wv, wo, wi, wg, the FFN's wo
+QWEN2VL_PROJECTIONS = [(3584, 3584), (3584, 512), (3584, 512), (3584, 3584),
+                       (3584, 18944), (3584, 18944), (18944, 3584)]
+QWEN2VL_D, QWEN2VL_DA, QWEN2VL_V = 3584, 444, 152064  # r = 8: 3 adapter heads of 148
+QWEN2VL_MAX_LEN = 544
+#: the paged kernel at n_rep 7 (28 query heads over 4 kv heads): B, Hkv, n_rep, hd, page,
+#: max_pages, lengths, padding rows
+QWEN2VL_PAGED_RAGGED = [
+    (1, 1, 7, 128, 16, 34, [543], ()),
+    (3, 4, 7, 128, 16, 34, [0, 16, 543], (0,)),
+    (8, 4, 7, 128, 4, 136, [3, 4, 5, 127, 128, 300, 542, 543], ()),
+    (72, 4, 7, 128, 16, 34, list(np.random.default_rng(SEED + 5).integers(0, 544, size=72)),
+     (5,)),
+]
+MROPE_SANITY = 10  # distinct streams must move the logits by this many serving gates
+
+
+def qwen2vl_kernel_phase(timer: Timer, gen: torch.Generator) -> dict:
+    """The kernels at qwen2-vl-7b's widths against their plain versions,
+    timed beside their bounds and library calls: ``quant_matmul`` over a
+    layer's seven projections (K = 3584 and 18944) at M = 8 and 4096;
+    ``mix_fwd``/``mix_dw`` at d = 3584 and the adapter's ragged d_a = 444
+    (the last 64-column tile 60 wide); ``ce_fwd``/``ce_bwd`` over
+    V = 152064, no soft-cap; ``adapter_fuse`` at T = 1 and 8; flash at the
+    prefill's B·H = 8·28 over 8·4 (n_rep 7, hd 128, S = 512, causal: a
+    tile of query heads spans two kv heads) and at the ragged shapes with
+    n_rep 7; paged attention at B = 8, Hkv = 4, n_rep = 7 (7 of a block's
+    8 query rows live), int8 pages of 16, lengths <= 511 and <= 4095,
+    the ragged cases at n_rep 7 and bit-equal reruns and graph replays.
+    Returns each kernel's ``qwen2vl`` entry."""
+    rows = gemma2_kernel_phase(timer, gen, QWEN2VL, QWEN2VL_PROJECTIONS, QWEN2VL_D, QWEN2VL_DA,
+                               QWEN2VL_V, None)
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "bound_tc_ms",
+            "bound_f32_ms", "library_ms", "at")
+    r, _, sdpa = flash_case(timer, gen, 8, 28, 4, 512, 128, "qwen2-vl-7b prefill")
+    r["library_kernels"] = device_kernels(sdpa)
+    emit(r)
+    del sdpa
+    rows["flash_attention"] = {k: r[k] for k in keys}
+    flash_ragged(gen, hds=(128,), n_reps=(7,))
+    pkeys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "at", "plan")
+    lengths = np.random.default_rng(SEED).integers(1, 512, size=8).astype(np.int32)
+    rows["paged_attention"] = {k: v for k, v in paged_timed(
+        timer, gen, lengths, 32, "qwen2-vl-7b decode B=8 Hkv=4 n_rep=7 hd=128 page=16 int8, "
+        "lengths<=511", Hkv=4, n_rep=7, hd=128).items() if k in pkeys}
+    long_lengths = np.random.default_rng(SEED + 2).integers(1, 4096, size=8).astype(np.int32)
+    long = paged_timed(timer, gen, long_lengths, 256, "qwen2-vl-7b long context B=8 Hkv=4 "
+                       "n_rep=7 hd=128 page=16 int8, lengths<=4095", Hkv=4, n_rep=7, hd=128)
+    rows["paged_attention"]["long"] = {k: long[k] for k in pkeys}
+    paged_ragged(gen, QWEN2VL_PAGED_RAGGED)
+    paged_deterministic(gen, lengths, 32, Hkv=4, n_rep=7, hd=128)
+    return rows
+
+
+def vl_batch(cfg, B: int, S: int, seed: int) -> dict:
+    """A seeded batch laid out as Qwen2-VL lays a text-image-text prompt
+    (``models.layers.vision_positions``): per row a text prefix of 16-63
+    tokens, an image of 1 x h x w patches (h, w in 12-19; one row a video
+    of 2 frames of 10 x w), then text continuing from the largest id + 1
+    on all three streams. Tokens and labels random (the vision
+    frontend is stubbed, as in the reference). {"tokens", "labels",
+    "positions" (3, B, S)} on the card."""
+    from repro_torch.models.layers import vision_positions
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for b in range(B):
+        grid = ((2, 10, int(rng.integers(12, 20))) if b == B - 1
+                else (1, int(rng.integers(12, 20)), int(rng.integers(12, 20))))
+        n_before = int(rng.integers(16, 64))
+        rows.append(vision_positions(n_before, grid, S - n_before - int(np.prod(grid))))
+    return {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, size=(B, S)).astype(
+                np.int32)).to(DEV),
+            "labels": torch.from_numpy(rng.integers(0, cfg.vocab, size=(B, S)).astype(
+                np.int32)).to(DEV),
+            "positions": torch.stack(rows, dim=1).to(DEV)}
+
+
+def qwen2vl_mrope_phase(backbone, adapter, cfg, r: int = 8) -> dict:
+    """The trained qwen2-vl-7b model on one batch of 4 x 512 tokens whose
+    three mrope streams differ (:func:`vl_batch`), at full width and
+    depth: the PAC+ logits (backbone, adapter, head) under ``cuda`` and
+    ``ref`` within the serving gate 2e-2; one epoch-1 step
+    (``pac_train_step``, f32 taps) and one cached step
+    (``pac_cached_train_step`` over int8 entries whose batch carries the
+    ``positions``) under both, loss within 2e-5 and gradients within
+    1e-4·max(1, |g|max) (the cached step's gates; each step at lr 0 and
+    no clip, its gradient read back from AdamW's first moment); and the
+    logits with equal streams (the default positions) differing from
+    those with distinct streams by more than ``MROPE_SANITY`` serving
+    gates, so the streams reach the attention. Decode is not compared
+    after such a prompt: the reference gives a decode token the same
+    position on every stream, and so does the port."""
+    from repro_torch.core.opset import get_opset
+    from repro_torch.core.parallel_adapters import pac_logits
+    from repro_torch.core.quantization import tree_leaves
+    from repro_torch.core.steps import pac_cached_train_step, pac_train_step
+    from repro_torch.models.backbone import backbone_forward
+    from repro_torch.optim import adamw_init
+
+    B, S, b1 = 4, 512, 0.9
+    batch = vl_batch(cfg, B, S, SEED + 7)
+    pos = batch["positions"]
+
+    def logits(impl, with_positions=True):
+        b = batch if with_positions else {"tokens": batch["tokens"]}
+        with torch.no_grad():
+            bf, taps, x, p = backbone_forward(backbone, cfg, b, collect_taps=True,
+                                              return_inputs=True, ops=get_opset(impl))
+            return pac_logits(backbone, adapter, cfg, x, taps, bf, p, r)
+
+    def grads_of(opt):  # lr 0, no clip: AdamW's first moment is (1 - b1)·g
+        return [m / (1 - b1) for m in tree_leaves(opt["mu"])]
+
+    reset_launches()
+    lc = logits("cuda")
+    launches = {k: v for k, v in read_launches().items() if v}
+    lr_ = logits("ref")
+    plain = logits("cuda", with_positions=False)
+    dlogits = max_err(lc, lr_)
+    moved = max_err(lc, plain)
+    greedy = float((lc.argmax(-1) == lr_.argmax(-1)).float().mean())
+    finite = bool(torch.isfinite(lc).all() and torch.isfinite(lr_).all())
+    del lc, lr_, plain
+
+    epoch1 = {}
+    for impl in ("cuda", "ref"):
+        loss, _, opt, _ = pac_train_step(backbone, adapter, adamw_init(adapter), batch, cfg=cfg,
+                                         r=r, lr=0.0, clip=None, kernel_impl=impl)
+        epoch1[impl] = (float(loss), grads_of(opt))
+    reset_launches()
+    _, _, _, (b0q, tapsq, bfq) = pac_train_step(backbone, adapter, adamw_init(adapter), batch,
+                                                cfg=cfg, r=r, lr=0.0, clip=None,
+                                                kernel_impl="cuda", tap_policy="int8")
+    launches_epoch1 = {k: v for k, v in read_launches().items() if v}
+    cached_b = {"b0": b0q, "taps": tapsq, "b_final": bfq, "labels": batch["labels"],
+                "positions": pos}
+    cached = {}
+    reset_launches()
+    for impl in ("cuda", "ref"):
+        loss, _, opt = pac_cached_train_step(backbone, adapter, adamw_init(adapter), cached_b,
+                                             cfg=cfg, r=r, lr=0.0, clip=None, kernel_impl=impl)
+        cached[impl] = (float(loss), grads_of(opt))
+        if impl == "cuda":
+            launches_cached = {k: v for k, v in read_launches().items() if v}
+
+    def gate(res):
+        gmax = max(float(g.abs().max()) for g in res["ref"][1])
+        return {"loss": [res["cuda"][0], res["ref"][0]],
+                "abs_dloss": abs(res["cuda"][0] - res["ref"][0]),
+                "max_abs_dgrad": max(max_err(a, b) for a, b in zip(res["cuda"][1], res["ref"][1])),
+                "grad_max": gmax, "tol": {"loss": 2e-5, "grads": 1e-4 * max(1.0, gmax)}}
+
+    steps = {"epoch1_f32_taps": gate(epoch1), "cached_int8": gate(cached)}
+    tol = 2e-2
+    line = {"phase": "qwen2vl_mrope", "arch": cfg.name, "batch": B, "seq": S,
+            "positions": "(3, B, S): text, an image grid (one row a 2-frame video), text",
+            "streams_distinct": bool((pos[0] != pos[1]).any() and (pos[1] != pos[2]).any()),
+            "max_position": [int(pos[i].max()) for i in range(3)],
+            "logits": {"max_abs_dlogits": dlogits, "greedy_agreement": greedy,
+                       "finite": finite, "tol": tol},
+            "equal_streams_max_abs_dlogits": moved, "sanity_min": MROPE_SANITY * tol,
+            "steps": steps, "launches_logits": launches, "launches_epoch1": launches_epoch1,
+            "launches_cached": launches_cached,
+            "tol_reason": "the serving gate for logits; the reference's pallas-vs-ref "
+                          "cached-step tolerances (tests/test_cached_step.py:163-190) for "
+                          "both steps: f32 sums reorder, the taps f32 in the epoch-1 step"}
+    emit(line)
+    bad = [k for k, g in steps.items()
+           if not (g["abs_dloss"] <= g["tol"]["loss"] and g["max_abs_dgrad"] <= g["tol"]["grads"])]
+    if bad or not (finite and dlogits <= tol and moved > MROPE_SANITY * tol
+                   and line["streams_distinct"]):
+        raise AssertionError(f"qwen2-vl mrope: steps {bad} or logits {line['logits']}, "
+                             f"equal streams moved {moved}")
+    return {k: launches.get(k, 0) + launches_epoch1.get(k, 0) + launches_cached.get(k, 0)
+            for k in set(launches) | set(launches_epoch1) | set(launches_cached)}
 
 
 def main() -> int:
@@ -4408,10 +4645,28 @@ def main() -> int:
     xlstm_personal = gemma2_personal_phase(x_backbone, x_adapter, get_arch(XLSTM),
                                            phase="xlstm_personal", qmm_per_layer=0)
     del x_backbone, x_adapter
+    xlstm_done_s = time.perf_counter() - T_START
     mamba_layer_phase(gen)
     for name, row in jamba_kernel_phase(Timer(), gen).items():
         rows[name]["jamba_reduced"] = row
     jamba_hybrid = jamba_hybrid_phase(gen)
+    jamba_done_s = time.perf_counter() - T_START
+
+    # mrope: qwen2-vl-7b's widths (n_rep 7, the adapter's d_a 444), then
+    # qwen2-vl-7b served, trained and personal-served at full width and
+    # depth, and one batch whose three position streams differ
+    for name, row in qwen2vl_kernel_phase(Timer(), gen).items():
+        rows[name]["qwen2vl"] = row
+    qwen2vl_serving = gemma2_serving_phase(gen, QWEN2VL, QWEN2VL_MAX_LEN, None,
+                                           "qwen2vl_serving")
+    torch.cuda.empty_cache()
+    qwen2vl_training, q_backbone, q_adapter = pac_run(QWEN2VL)
+    qwen2vl_personal = gemma2_personal_phase(q_backbone, q_adapter, get_arch(QWEN2VL),
+                                             phase="qwen2vl_personal")
+    qwen2vl_mrope = qwen2vl_mrope_phase(q_backbone, q_adapter, get_arch(QWEN2VL))
+    del q_backbone, q_adapter
+    torch.cuda.empty_cache()
+    qwen2vl_done_s = time.perf_counter() - T_START
 
     sources = {"quant_matmul": ("src/repro_torch/kernels/csrc/quant_matmul.cu",
                                 "src/repro/kernels/quant_matmul.py:93"),
@@ -4437,7 +4692,9 @@ def main() -> int:
              "baselines": baselines, "distill": distill, "mixtral_serving": mixtral_serving,
              "mixtral_training": mixtral_training, "mixtral_personal": mixtral_personal,
              "xlstm_serving": xlstm_serving, "xlstm_training": xlstm_training,
-             "xlstm_personal": xlstm_personal, "jamba_hybrid": jamba_hybrid}
+             "xlstm_personal": xlstm_personal, "jamba_hybrid": jamba_hybrid,
+             "qwen2vl_serving": qwen2vl_serving, "qwen2vl_training": qwen2vl_training,
+             "qwen2vl_personal": qwen2vl_personal, "qwen2vl_mrope": qwen2vl_mrope}
     home = {"quant_matmul": "serving", "flash_attention": "serving",
             "paged_attention": "serving", "adapter_fuse": "personal"}
     # each kernel's launches on its own main path (serving for the first
@@ -4465,7 +4722,9 @@ def main() -> int:
           "through_distributed_s": distributed_done_s, "through_plan_s": plan_done_s,
           "through_fleet_s": fleet_done_s, "through_gemma2_s": gemma2_done_s,
           "through_paper_models_s": paper_done_s, "through_baselines_s": baselines_done_s,
-          "through_distill_s": distill_done_s, "through_mixtral_s": mixtral_done_s})
+          "through_distill_s": distill_done_s, "through_mixtral_s": mixtral_done_s,
+          "through_xlstm_s": xlstm_done_s, "through_jamba_s": jamba_done_s,
+          "through_qwen2vl_s": qwen2vl_done_s})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,5 +1,5 @@
-"""Architecture config registry: the dense, MoE, SSM and hybrid configs the
-port runs.
+"""Architecture config registry: the dense, MoE, SSM, hybrid and
+vision-language configs the port runs.
 
 Each architecture lives in its own module and registers an
 :class:`~repro_torch.configs.base.ArchConfig` with its published
@@ -19,7 +19,7 @@ from repro_torch.configs.base import (  # noqa: F401
 
 _MODULES = ["internlm2_1_8b", "paper_models", "gemma2_2b", "granite_20b", "musicgen_large",
             "mixtral_8x7b", "moonshot_v1_16b_a3b", "grok_1_314b", "kimi_k2_1t_a32b",
-            "xlstm_125m", "jamba_1_5_large_398b"]
+            "xlstm_125m", "jamba_1_5_large_398b", "qwen2_vl_7b"]
 
 _loaded = False
 

@@ -180,13 +180,6 @@ class ArchConfig:
 
 _REGISTRY: dict = {}
 
-#: the reference's configs that a later slice of the port brings, by the
-#: slice (ROADMAP A6) whose layers they need
-LATER_SLICES = {
-    "qwen2-vl-7b": "mrope (A6.6)",
-}
-
-
 def register(cfg: ArchConfig) -> ArchConfig:
     _REGISTRY[cfg.name] = cfg
     return cfg
@@ -196,9 +189,6 @@ def get_arch(name: str) -> ArchConfig:
     from repro_torch import configs as _c
 
     _c.load_all()
-    if name in LATER_SLICES:
-        raise KeyError(f"arch {name!r} is not ported yet: it arrives with the "
-                       f"{LATER_SLICES[name]} slice of the port; ported: {sorted(_REGISTRY)}")
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]

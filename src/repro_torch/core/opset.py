@@ -94,6 +94,11 @@ class OpSet:
 
         return apply_rope(x, positions, theta)
 
+    def apply_mrope(self, x, positions, theta: float = 1_000_000.0):
+        from repro_torch.models.layers import apply_mrope
+
+        return apply_mrope(x, positions, theta)
+
 
 class RefOpSet(OpSet):
     """Dequantize-then-dense plain PyTorch ops."""

@@ -34,6 +34,7 @@ from repro_torch.core.parallel_adapters import adapter_decode, pac_logits
 from repro_torch.core.pipeline import map_arrays, stack_stages, stack_stages_ragged
 from repro_torch.core.quantization import QTensor, index_tree, tree_leaves, tree_map
 from repro_torch.models.backbone import (
+    arange_positions,
     backbone_decode,
     backbone_forward,
     backbone_logits,
@@ -112,10 +113,7 @@ def _cached_positions(cached_batch, cfg):
     if "positions" in cached_batch:
         return cached_batch["positions"]
     labels = cached_batch["labels"]
-    B, S = labels.shape
-    if cfg.rope == "mrope":
-        raise NotImplementedError("mrope (qwen2-vl) arrives with the other-families slice")
-    return torch.arange(S, dtype=torch.int32, device=labels.device).expand(B, S)
+    return arange_positions(cfg, *labels.shape, labels.device)
 
 
 def pac_cached_train_step(backbone_params, adapter_params, opt_state, cached_batch, *, cfg,
@@ -161,9 +159,7 @@ def _backbone_stage_fn(cfg, masked: bool = False, ops=None):
     ops = get_opset("ref") if ops is None else ops
 
     def positions_of(h):
-        if cfg.rope == "mrope":
-            raise NotImplementedError("mrope (qwen2-vl) arrives with the other-families slice")
-        return torch.arange(h.shape[1], device=h.device).expand(h.shape[:2])
+        return arange_positions(cfg, *h.shape[:2], h.device)
 
     if masked:
         def stage_fn(local, h):
@@ -342,7 +338,7 @@ def pipeline_pac_loss_and_grads(backbone_params, adapter_params, batch, *, cfg, 
         taps = map_arrays(lambda t: t.movedim(1, 0).reshape(
             (t.shape[1], n_rows) + tuple(t.shape[3:])), taps)
         labels = micro["labels"][:, mine].reshape(n_rows, -1)
-        positions = torch.arange(labels.shape[1], device=labels.device).expand(labels.shape)
+        positions = arange_positions(cfg, *labels.shape, labels.device)
         acts = (b0, taps, b_final)
 
         def parts_fn(ap):

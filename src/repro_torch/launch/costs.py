@@ -74,13 +74,14 @@ def count_step_flops(cfg, technique: str, micro_batch: int, seq_len: int,
     from repro_torch.core.parallel_adapters import init_adapter, pac_logits
     from repro_torch.core.quantization import tree_leaves, tree_map
     from repro_torch.kernels.cached_step import cached_loss_parts
-    from repro_torch.models.backbone import backbone_forward, cross_entropy, init_backbone
+    from repro_torch.models.backbone import (arange_positions, backbone_forward, cross_entropy,
+                                             init_backbone)
 
     meta = torch.device("meta")
     bp = init_backbone(None, cfg, device=meta, quant_bits=quant_bits)
     ap = tree_map(lambda t: t.requires_grad_(True), init_adapter(None, cfg, r=r, device=meta))
     tokens = torch.zeros((micro_batch, seq_len), dtype=torch.int64, device=meta)
-    positions = torch.zeros((micro_batch, seq_len), dtype=torch.int64, device=meta)
+    positions = arange_positions(cfg, micro_batch, seq_len, meta)
     with FlopCounterMode(display=False) as counter:
         if technique == "pac":
             with torch.no_grad():

@@ -6,7 +6,8 @@ periods (leaves ``(n_p, ...)``, as in the reference, so parameters bridge
 over unchanged); the forward is a Python loop over periods where the
 reference scans. Attention blocks with a dense or an MoE FFN
 (``models/moe.py``), and the SSM kinds of ``models/ssm.py`` (Mamba,
-mLSTM, sLSTM); mrope raises ``NotImplementedError``.
+mLSTM, sLSTM); rope, Qwen2-VL's mrope over (3, B, S) position streams, or
+no rope.
 
 Decode runs one token against a per-kind cache: K/V for attention,
 (h, conv) for Mamba, (C, n, m) for mLSTM, (c, n, h, m) for sLSTM, each
@@ -130,10 +131,10 @@ def apply_block(p, x, cfg, spec, positions, ops=None, return_kv: bool = False):
 
 def embed_inputs(params, cfg, batch: dict, ops=None):
     """Token embedding. batch: {"tokens": (B,S) int} or {"embeds": (B,S,d)};
-    optional {"positions": (B,S)}. Returns (x, positions)."""
+    optional {"positions": (B,S), or (3,B,S) under mrope}; by default
+    arange positions, on all three streams under mrope. Returns
+    (x, positions)."""
     ops = ops if ops is not None else _REF_OPS
-    if cfg.rope == "mrope":
-        raise NotImplementedError("mrope (qwen2-vl) arrives with the other-families slice")
     if "embeds" in batch:
         x = batch["embeds"]
     else:
@@ -142,8 +143,15 @@ def embed_inputs(params, cfg, batch: dict, ops=None):
     if "positions" in batch:
         positions = batch["positions"]
     else:
-        positions = torch.arange(S, device=x.device).expand(B, S)
+        positions = arange_positions(cfg, B, S, x.device)
     return x, positions
+
+
+def arange_positions(cfg, B: int, S: int, device=None) -> torch.Tensor:
+    """Implicit positions 0..S-1 for B rows: (B, S), or (3, B, S) under
+    mrope (a text-only sequence: every stream alike)."""
+    lead = (3,) if cfg.rope == "mrope" else ()
+    return torch.arange(S, device=device).expand(*lead, B, S)
 
 
 def backbone_forward(params, cfg, batch: dict, collect_taps: bool = False,

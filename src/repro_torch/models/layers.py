@@ -139,6 +139,57 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10_000.0
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1_000_000.0,
+                sections=(2, 3, 3)) -> torch.Tensor:
+    """Qwen2-VL multimodal rope. x: (B, S, H, hd); positions: (3, B, S)
+    int, the temporal/height/width ids. The hd/2 frequency slots go to
+    the three streams in the ratio ``sections`` (t:h:w), slot bounds
+    ``half·acc // sum(sections)`` as in the reference (arXiv:2409.12191)."""
+    if positions.ndim != 3 or positions.shape[0] != len(sections):
+        raise ValueError(f"mrope takes ({len(sections)}, B, S) positions, got "
+                         f"{tuple(positions.shape)}")
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = rope_freqs(hd, theta, x.device)  # (half,)
+    bounds = [half * sum(sections[:i + 1]) // sum(sections) for i in range(len(sections) - 1)]
+    slot = torch.arange(half, device=x.device)
+    stream = sum((slot >= b).long() for b in bounds)  # (half,) in 0..2
+    # each frequency slot reads its stream's position: (B, S, half)
+    pos_per_slot = positions.float().movedim(0, -1)[..., stream]
+    angles = pos_per_slot * freqs
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def vision_positions(n_before: int, grid, n_after: int) -> torch.Tensor:
+    """The (3, S) mrope position ids of one sequence laid out as Qwen2-VL
+    lays a text-image-text prompt (arXiv:2409.12191 §2.1): ``n_before``
+    text tokens with equal ids on the three streams, then an image of
+    ``grid`` = (t, h, w) patches whose ids are the start offset plus the
+    patch's (t, h, w) index, then ``n_after`` text tokens continuing from
+    the largest id so far + 1 on every stream. S = n_before + t·h·w +
+    n_after. What the vision frontend hands the backbone, stubbed here as
+    in the reference."""
+    t, h, w = grid
+    before = torch.arange(n_before).expand(3, n_before)
+    idx = torch.meshgrid(torch.arange(t), torch.arange(h), torch.arange(w), indexing="ij")
+    image = torch.stack(idx).reshape(3, t * h * w) + n_before
+    start = int(image.max()) + 1 if image.numel() else n_before
+    after = (start + torch.arange(n_after)).expand(3, n_after)
+    return torch.cat([before, image, after], dim=1)
+
+
+def decode_positions(cfg, pos: torch.Tensor) -> torch.Tensor:
+    """The rope positions of one decode token from the per-row write
+    index ``pos`` (B,): (B, 1), or (3, B, 1) under mrope, every stream
+    at ``pos`` (as the reference's decode paths broadcast it)."""
+    pos = pos.long()[:, None]
+    return pos.expand(3, *pos.shape) if cfg.rope == "mrope" else pos
+
+
 # ---------------------------------------------------------------------------
 # Attention
 # ---------------------------------------------------------------------------
@@ -156,7 +207,9 @@ def _project_qkv(p, x, cfg, positions, ops=None):
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     elif cfg.rope == "mrope":
-        raise NotImplementedError("mrope (qwen2-vl) arrives with the other-families slice")
+        mrope = ops.apply_mrope if ops is not None else apply_mrope
+        q = mrope(q, positions, cfg.rope_theta)
+        k = mrope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -189,7 +242,8 @@ def ref_attention_core(q, k, v, cfg, spec) -> torch.Tensor:
 
 
 def attention_forward(p, x, cfg, spec, positions, ops=None, return_kv: bool = False):
-    """Full-sequence (prefill) attention. x: (B,S,d); positions: (B,S).
+    """Full-sequence (prefill) attention. x: (B,S,d); positions: (B,S),
+    or (3,B,S) under mrope.
 
     ``return_kv=True`` also returns the post-rope ``(k, v)`` pair
     ((B,S,Hkv,hd) each), which paged prefill scatters into the pages."""
@@ -216,7 +270,7 @@ def attention_decode(p, x, cfg, spec, cache_k, cache_v, pos, ops=None):
     B = x.shape[0]
     Smax = cache_k.shape[1]
     pos = torch.as_tensor(pos, device=x.device).long().expand(B)
-    q, k, v = _project_qkv(p, x, cfg, pos[:, None], ops)
+    q, k, v = _project_qkv(p, x, cfg, decode_positions(cfg, pos), ops)
     rows = torch.arange(B, device=x.device)
     cache_k[rows, pos] = k[:, 0].to(cache_k.dtype)
     cache_v[rows, pos] = v[:, 0].to(cache_v.dtype)
@@ -260,7 +314,7 @@ def attention_decode_quant(p, x, cfg, spec, cache, pos, ops=None):
     B = x.shape[0]
     Smax = cache["k"].shape[1]
     pos = torch.as_tensor(pos, device=x.device).long().expand(B)
-    q, k, v = _project_qkv(p, x, cfg, pos[:, None], ops)
+    q, k, v = _project_qkv(p, x, cfg, decode_positions(cfg, pos), ops)
     rows = torch.arange(B, device=x.device)
     for name, t in (("k", k), ("v", v)):
         tq, ts = quantize_kv_token(t)

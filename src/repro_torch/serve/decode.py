@@ -30,7 +30,7 @@ from repro_torch.core.opset import get_opset
 from repro_torch.core.parallel_adapters import batched_adapter_decode, batched_adapter_prefill
 from repro_torch.models import ssm
 from repro_torch.models.backbone import apply_block, embed_inputs, logits_from_hidden, period_slice
-from repro_torch.models.layers import _project_qkv, mlp_forward
+from repro_torch.models.layers import _project_qkv, decode_positions, mlp_forward
 from repro_torch.models.moe import moe_forward
 from repro_torch.serve.paging import period_entry, write_prompt_kv, write_token_kv
 
@@ -39,7 +39,7 @@ def _paged_attention_block(p, h, cfg, spec, entry, block_tables, lengths, ops):
     """One attention mixer against the page pool. h: (B,1,d); entry: one
     period slice of an attention pool (written in place). Returns mix."""
     B = h.shape[0]
-    q, k, v = _project_qkv(p, h, cfg, lengths[:, None].long(), ops)
+    q, k, v = _project_qkv(p, h, cfg, decode_positions(cfg, lengths), ops)
     write_token_kv(entry, k, v, block_tables, lengths)
     n_rep = cfg.n_heads // cfg.n_kv_heads
     qh = q[:, 0].reshape(B, cfg.n_kv_heads, n_rep, cfg.hd)

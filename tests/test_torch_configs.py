@@ -1,9 +1,10 @@
-"""The port's config registry against the JAX package's: the seven dense,
-four MoE and two SSM configs (xlstm-125m, the hybrid jamba) field for
-field (with their analytic and active parameter counts, ``reduced()``,
-the serving window variant and the adapter's widths), ``pruning_init`` at
-each reduced config, the refusal of the config a later slice brings
-(qwen2-vl-7b), the trainer's ``--arch`` on the CPU, and the attention
+"""The port's config registry against the JAX package's: all 14 of the
+reference's configs — seven dense, four MoE, two SSM (xlstm-125m, the
+hybrid jamba) and the vision-language qwen2-vl-7b — field for field
+(with their analytic and active parameter counts, ``reduced()``, the
+serving window variant and the adapter's widths), ``pruning_init`` at
+each reduced config, the configs once refused as a later slice's now
+accepted, the trainer's ``--arch`` on the CPU, and the attention
 kernels' guards."""
 
 import dataclasses
@@ -30,7 +31,6 @@ from repro.runtime import EpochRunner as JaxRunner
 from repro.runtime import RunSpec as JaxSpec
 from repro_torch import bridge
 from repro_torch.configs import get_arch, list_archs
-from repro_torch.configs.base import LATER_SLICES
 from repro_torch.core.init_methods import pruning_init
 from repro_torch.core.parallel_adapters import adapter_config, adapter_param_count
 from repro_torch.kernels import flash_attention as fa
@@ -42,12 +42,14 @@ torch.set_num_threads(2)
 REPO = Path(__file__).resolve().parents[1]
 PORTED = ["internlm2-1.8b", "t5-base-pac", "bart-large-pac", "t5-large-pac", "gemma2-2b",
           "granite-20b", "musicgen-large", "mixtral-8x7b", "moonshot-v1-16b-a3b", "grok-1-314b",
-          "kimi-k2-1t-a32b", "xlstm-125m", "jamba-1.5-large-398b"]
-#: the configs the later-slice refusal named before the SSM slice (A6.5) landed
+          "kimi-k2-1t-a32b", "xlstm-125m", "jamba-1.5-large-398b", "qwen2-vl-7b"]
+#: the configs the later-slice refusal named before the SSM (A6.5) and
+#: mrope (A6.6) slices landed
 FORMERLY_LATER = ["jamba-1.5-large-398b", "qwen2-vl-7b", "xlstm-125m"]
 #: the adapter's widths (d_a, heads, hd) at r = 8 (ROADMAP A6.1)
 ADAPTER_WIDTHS = {"gemma2-2b": (288, 1, 288), "t5-base-pac": (96, 1, 96),
-                  "bart-large-pac": (128, 2, 64), "t5-large-pac": (128, 2, 64)}
+                  "bart-large-pac": (128, 2, 64), "t5-large-pac": (128, 2, 64),
+                  "qwen2-vl-7b": (444, 3, 148)}
 
 
 def _np(tree):
@@ -99,26 +101,28 @@ def test_pruning_init_matches_the_reference(arch):
 
 
 def test_later_slices_name_exactly_the_configs_still_to_port():
-    assert set(LATER_SLICES) == set(jax_list_archs()) - set(PORTED)
-    assert LATER_SLICES == {"qwen2-vl-7b": "mrope (A6.6)"}
-    assert len(PORTED) == 13 and len(jax_list_archs()) == 14
+    """None is left: the port lists all 14 of the reference's configs and
+    keeps no table of configs still to come."""
+    from repro_torch.configs import base
+
+    assert list_archs() == sorted(jax_list_archs())
+    assert len(PORTED) == 14 and len(jax_list_archs()) == 14
+    assert not hasattr(base, "LATER_SLICES")
 
 
 @pytest.mark.parametrize("arch", FORMERLY_LATER)
 def test_a_config_of_a_later_slice_is_refused_with_its_slice(arch):
-    """qwen2-vl-7b is refused naming its slice (mrope, A6.6); the SSM
-    configs, refused until their slice landed, are accepted."""
-    with pytest.raises(KeyError, match="unknown arch"):
+    """The configs refused until their slice landed (the SSM configs,
+    A6.5; qwen2-vl-7b, mrope, A6.6) are accepted; an unknown name is
+    still refused, naming the 14 known."""
+    with pytest.raises(KeyError, match="unknown arch") as e:
         get_arch("no-such-arch")
-    if arch not in LATER_SLICES:
-        assert get_arch(arch).name == arch
-        assert RunSpec(arch=arch, reduced=True).validate().arch_config() == get_arch(arch).reduced()
-        return
-    with pytest.raises(KeyError, match=re.escape(LATER_SLICES[arch])) as e:
-        get_arch(arch)
-    assert "gemma2-2b" in str(e.value) and "xlstm-125m" in str(e.value)  # names the ported
-    with pytest.raises(RunSpecError, match="not ported yet"):
-        RunSpec(arch=arch).validate()
+    assert all(a in str(e.value) for a in PORTED)
+    with pytest.raises(RunSpecError, match="unknown arch"):
+        RunSpec(arch="no-such-arch").validate()
+    assert get_arch(arch).name == arch
+    assert RunSpec(arch=arch).validate().arch_config() == get_arch(arch)
+    assert RunSpec(arch=arch, reduced=True).validate().arch_config() == get_arch(arch).reduced()
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -174,16 +178,25 @@ def test_session_on_a_paper_model_matches_the_jax_trainer():
 
 
 def test_cli_refuses_a_config_of_a_later_slice():
-    out = _cli("--arch", "qwen2-vl-7b", "--reduced", "--device", "cpu")
-    assert out.returncode != 0
-    assert "mrope (A6.6)" in out.stderr and "xlstm-125m" in out.stderr
-    assert "SSM (A6.5)" not in out.stderr
+    """The config the CLI refused until the mrope slice (A6.6) landed now
+    trains: ``--arch qwen2-vl-7b --reduced --device cpu``, epoch 0 full,
+    then cached, loss falling; ``--help`` lists it."""
+    out = _cli("--arch", "qwen2-vl-7b", "--reduced", "--device", "cpu", "--epochs", "3",
+               "--steps-per-epoch", "2", "--batch", "2", "--seq", "16")
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "arch=qwen2-vl-7b-reduced" in out.stdout
+    assert f"params≈{get_arch('qwen2-vl-7b').reduced().param_count() / 1e6:.1f}M" in out.stdout
+    losses = [float(m) for m in re.findall(r"epoch \d+: loss=([0-9.]+)", out.stdout)]
+    assert re.findall(r"\((full|cached)\)", out.stdout) == ["full", "cached", "cached"]
+    assert losses[-1] < losses[0]
+    assert "not ported" not in out.stderr
+    assert "qwen2-vl-7b" in _cli("--help").stdout.replace("\n", " ")
 
 
 def test_cli_trains_an_ssm_config_on_the_cpu():
     """``--arch xlstm-125m --reduced --device cpu``: epoch 0 full, then
     cached, loss falling, the analytic parameter count printed; and the
-    help lists the 13 ported configs."""
+    help lists the 14 ported configs."""
     out = _cli("--arch", "xlstm-125m", "--reduced", "--device", "cpu", "--epochs", "3",
                "--steps-per-epoch", "2", "--batch", "2", "--seq", "16")
     assert out.returncode == 0, out.stderr[-3000:]
@@ -193,7 +206,7 @@ def test_cli_trains_an_ssm_config_on_the_cpu():
     assert re.findall(r"\((full|cached)\)", out.stdout) == ["full", "cached", "cached"]
     assert losses[-1] < losses[0]
     helped = _cli("--help").stdout.replace("\n", " ")
-    assert all(a in helped for a in PORTED) and "qwen2-vl-7b" not in helped
+    assert all(a in helped for a in PORTED)
 
 
 def test_cli_trains_an_moe_config_on_the_cpu():

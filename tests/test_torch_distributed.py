@@ -11,6 +11,8 @@ The reference runs in a subprocess on four forced host devices (its
   cached step, and with rows a dp row's ranks share;
 * a ragged 3-stage partition of a 5-period config (the reference's
   ``StagePartition``);
+* reduced qwen2-vl-7b (mrope: (3, B, S) positions in the stages, in the
+  loss and in the cached step) on the (2, 2) mesh;
 * the ``cuda`` OpSet (plain versions on the CPU) with int8 taps against
   the port's own single-process step;
 * every rank's adapter and optimizer bit-equal after every step; the
@@ -70,7 +72,7 @@ _REFERENCE = textwrap.dedent(
     from repro.optim import adamw_init, adamw_update, clip_by_global_norm
 
     kind, B, S, R = sys.argv[2], {B}, {S}, {R}
-    cfg = get_arch("internlm2-1.8b").reduced()
+    cfg = get_arch("qwen2-vl-7b" if kind == "mrope" else "internlm2-1.8b").reduced()
     if kind == "ragged":
         cfg = dataclasses.replace(cfg, name="plan5p", n_layers=5 * cfg.period)
     bp = bb.init_backbone(jax.random.PRNGKey(0), cfg)
@@ -99,7 +101,7 @@ _REFERENCE = textwrap.dedent(
 ).format(B=B, S=S, R=R, N_MICRO=N_MICRO, RAGGED_FIELDS=repr(dataclasses.asdict(RAGGED)))
 
 
-def _inputs(ragged: bool) -> dict:
+def _inputs(ragged: bool, arch: str = "internlm2-1.8b") -> dict:
     """The reference scripts' parameters and batch, drawn here too (the
     same keys), as numpy trees."""
     import jax
@@ -108,7 +110,7 @@ def _inputs(ragged: bool) -> dict:
     from repro.core.parallel_adapters import init_adapter
     from repro.models import backbone as bb
 
-    cfg = jax_arch("internlm2-1.8b").reduced()
+    cfg = jax_arch(arch).reduced()
     if ragged:
         cfg = dataclasses.replace(cfg, name="plan5p", n_layers=5 * cfg.period)
     batch = {"tokens": jax.random.randint(jax.random.PRNGKey(2), (B, S), 0, cfg.vocab),
@@ -210,6 +212,29 @@ def _ragged_rank(inp, partition):
     return {"loss": float(loss), "grads": bridge.to_numpy(grads), "acts": bridge.to_numpy(acts)}
 
 
+def _mrope_rank(inp):
+    """qwen2-vl reduced on the (2, 2) mesh: the epoch-1 loss, gradients,
+    activations and update, and the cached step over the pool."""
+    cfg = get_arch("qwen2-vl-7b").reduced()
+    mesh = EdgeMesh(2, 2, device="cpu")
+    bp, ap = bridge.to_torch(inp["bp"]), bridge.to_torch(inp["ap"])
+    opt, batch = adamw_init(ap), _batch(inp)
+    kw = dict(cfg=cfg, mesh=mesh, n_micro=N_MICRO, r=R)
+    loss, grads, acts = steps.pipeline_pac_loss_and_grads(bp, ap, batch, **kw)
+    out = {"loss": float(loss), "grads": bridge.to_numpy(grads), "acts": bridge.to_numpy(acts)}
+    out["ap1"] = bridge.to_numpy(steps.pipeline_pac_train_step(bp, ap, opt, batch, **kw)[1])
+    with torch.no_grad():
+        bf, taps, b0, _ = backbone_forward(bp, cfg, batch, collect_taps=True, return_inputs=True)
+    axes = cached_batch_axes(B, mesh)
+    r = rank_rows(B, mesh, axes)
+    mine = {"b0": b0[r], "taps": taps[:, r], "b_final": bf[r], "labels": batch["labels"][r]}
+    lossN, apN, _ = steps.dp_cached_train_step(bp, ap, opt, mine, cfg=cfg, mesh=mesh,
+                                               batch_axes=axes, r=R, kernel_impl="ref")
+    out["lossN"], out["apN"] = float(lossN), bridge.to_numpy(apN)
+    mesh.close()
+    return out
+
+
 def _failing_rank(bad_rank):
     mesh = EdgeMesh(2, 2, device="cpu")
     if mesh.rank == bad_rank:
@@ -227,9 +252,10 @@ def _hung_rank():
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    """(reference, inputs, port uniform ranks, port ragged ranks): the two
-    JAX subprocesses run while the port's ranks do."""
+def all_runs(tmp_path_factory):
+    """(reference, inputs, port uniform ranks, port ragged ranks, port
+    mrope ranks): the three JAX subprocesses run while the port's ranks
+    do."""
     import pickle
 
     tmp = tmp_path_factory.mktemp("dist")
@@ -237,13 +263,16 @@ def runs(tmp_path_factory):
     procs = {kind: subprocess.Popen([sys.executable, "-c", _REFERENCE, str(tmp / kind), kind],
                                     env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                     text=True)
-             for kind in ("uniform", "ragged")}
+             for kind in ("uniform", "ragged", "mrope")}
     try:
-        inp = {"uniform": _inputs(False), "ragged": _inputs(True)}
+        inp = {"uniform": _inputs(False), "ragged": _inputs(True),
+               "mrope": _inputs(False, "qwen2-vl-7b")}
         uniform = spawn(_uniform_rank, 2, 2, "cpu", args=(inp["uniform"],),
                         timeout=GLOO_TIMEOUT, deadline=DEADLINE)
         ragged = spawn(_ragged_rank, 1, 3, "cpu", args=(inp["ragged"], RAGGED),
                        timeout=GLOO_TIMEOUT, deadline=DEADLINE)
+        mrope = spawn(_mrope_rank, 2, 2, "cpu", args=(inp["mrope"],),
+                      timeout=GLOO_TIMEOUT, deadline=DEADLINE)
         ref = {}
         for kind, proc in procs.items():
             _, err = proc.communicate(timeout=300)
@@ -254,7 +283,13 @@ def runs(tmp_path_factory):
         for proc in procs.values():
             proc.kill()
             proc.communicate()
-    return ref, inp, uniform, ragged
+    return ref, inp, uniform, ragged, mrope
+
+
+@pytest.fixture(scope="module")
+def runs(all_runs):
+    """(reference, inputs, port uniform ranks, port ragged ranks)."""
+    return all_runs[:4]
 
 
 def _max_diff(a, b) -> float:
@@ -326,6 +361,26 @@ def test_ragged_partition_matches_the_reference(runs):
     assert np.abs(bf - want["acts"][2]).max() < 1e-4
     assert np.abs(b0 - want["acts"][0]).max() < 1e-6
     assert all(r["loss"] == ranks[0]["loss"] for r in ranks)
+
+
+def test_mrope_pipeline_and_cached_pool_match_the_reference(all_runs):
+    """qwen2-vl reduced (mrope) at dp 2 x pp 2: every rank's epoch-1 loss
+    and gradients, the owner's activations, the update, and the cached
+    step over the pool against the reference's, at the bounds above."""
+    ref, _, _, _, ranks = all_runs
+    want = ref["mrope"]
+    for got in ranks:
+        assert abs(got["loss"] - float(want["loss"])) < 1e-4
+        assert _max_diff(got["grads"], want["grads"]) < 1e-4
+        assert _max_diff(got["ap1"], want["ap1"]) < 1e-3
+        assert abs(got["lossN"] - float(want["lossN"])) < 1e-4
+        assert _max_diff(got["apN"], want["apN"]) < 1e-3
+    b0, taps, bf = ranks[0]["acts"]
+    assert taps.shape == want["acts"][1].shape == (2, B, S, 256)
+    assert np.abs(taps - want["acts"][1]).max() < 1e-4
+    assert np.abs(bf - want["acts"][2]).max() < 1e-4
+    assert np.abs(b0 - want["acts"][0]).max() < 1e-6
+    assert all(r["acts"] is None for r in ranks[1:])
 
 
 # ---------------------------------------------------------------------------

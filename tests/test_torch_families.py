@@ -1,20 +1,24 @@
 """The configs of the port beside internlm2-1.8b (the paper's Table III
 models, gemma2-2b, granite-20b, musicgen-large, the four MoE configs:
-mixtral-8x7b, moonshot-v1-16b-a3b, grok-1-314b, kimi-k2-1t-a32b, and the
-SSM family: xlstm-125m and the hybrid jamba-1.5-large-398b) at
-``reduced()`` against the JAX package (the SSM configs' stepwise
-serving: tests/test_torch_ssm.py), and the head widths 256 (gemma2) and
-112 (kimi-k2) through the kernels' plain versions.
+mixtral-8x7b, moonshot-v1-16b-a3b, grok-1-314b, kimi-k2-1t-a32b, the
+SSM family: xlstm-125m and the hybrid jamba-1.5-large-398b, and the
+vision-language qwen2-vl-7b with mrope) at ``reduced()`` against the JAX
+package (the SSM configs' stepwise serving: tests/test_torch_ssm.py),
+and the head widths 256 (gemma2) and 112 (kimi-k2) through the kernels'
+plain versions.
 
-For each config the inputs come from numpy with a fixed seed (musicgen is
-fed frame embeddings, ``{"embeds"}``, as tests/test_backbone_smoke.py
-feeds it), the parameters are the JAX tree's carried across with
+For each config the inputs come from numpy with a fixed seed (musicgen
+and qwen2-vl, whose frontends are stubs, are fed embeddings,
+``{"embeds"}``, as tests/test_backbone_smoke.py feeds musicgen), the
+parameters are the JAX tree's carried across with
 ``repro_torch.bridge``, and the tolerances are the reference's own, the
 ones tests/test_torch_cached_step.py and tests/test_torch_serve.py use:
 backbone logits, one ``pac_train_step`` (loss, the updated adapter, the
 activations), one ``pac_cached_train_step`` over an int8 cache (loss and
 gradients, ``cuda`` and ``ref``), and the prefill/decode equivalence of
-tests/test_backbone_smoke.py:104-123 on both sides.
+tests/test_backbone_smoke.py:104-123 on both sides. qwen2-vl runs them on
+the default positions (every mrope stream alike), and once more with
+distinct t/h/w streams in the batch (:func:`test_mrope_streams_match_jax`).
 
 A reduced MoE config routes with capacity factor E (the reference's
 ``reduced()``), so no token drops and the two packages' routes agree.
@@ -50,6 +54,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_cached_step import _assert_tree_close, _assert_update_close, _cached, _to_port
+from test_torch_mrope import _streams
 
 from repro.configs import get_arch as jax_get_arch
 from repro.core import steps as jax_steps
@@ -80,7 +85,7 @@ torch.set_num_threads(2)
 R = 4
 ARCHS = ["t5-base-pac", "bart-large-pac", "t5-large-pac", "gemma2-2b", "granite-20b",
          "musicgen-large", "mixtral-8x7b", "moonshot-v1-16b-a3b", "grok-1-314b",
-         "kimi-k2-1t-a32b", "xlstm-125m", "jamba-1.5-large-398b"]
+         "kimi-k2-1t-a32b", "xlstm-125m", "jamba-1.5-large-398b", "qwen2-vl-7b"]
 #: a tolerance's multiple of the reference's own f32 move (_ref_noise): the
 #: twins reorder the mLSTM's sums only, the port every op's
 NOISE = 8
@@ -95,7 +100,7 @@ def _batch(cfg, seed=0, seq=S):
     """The same seeded batch for both packages: (jax, torch)."""
     rng = np.random.default_rng(seed)
     batch = {"labels": rng.integers(0, cfg.vocab, size=(B, seq)).astype(np.int32)}
-    if cfg.frontend is not None:  # musicgen: frame embeddings, no token embedding
+    if cfg.frontend is not None:  # musicgen, qwen2-vl: the stub frontend's embeddings
         batch["embeds"] = (rng.standard_normal((B, seq, cfg.d_model)) * 0.3).astype(np.float32)
     else:
         batch["tokens"] = rng.integers(0, cfg.vocab, size=(B, seq)).astype(np.int32)
@@ -153,6 +158,14 @@ def _first_config_drawn():
     jax.clear_caches()
 
 
+def _positions(cfg):
+    """The implicit positions of a (B, S) batch: (B, S), or (3, B, S)
+    under mrope; (jax, torch)."""
+    lead = (3,) if cfg.rope == "mrope" else ()
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), lead + (B, S))
+    return jnp.asarray(pos), torch.from_numpy(pos.copy())
+
+
 def _max_diff(a, b) -> float:
     return max(float(np.abs(np.asarray(x) - np.asarray(y)).max())
                for x, y in zip(jax.tree.leaves(a), jax.tree.leaves(b)))
@@ -171,7 +184,7 @@ def _ref_noise(arch) -> dict:
     jb, _ = _batch(jcfg)
     (_, _, _, acts), grads = _jax_step(arch)
     jcj = jax.tree.map(jnp.asarray, _cached("int8", *acts, jb["labels"], True))
-    jpos = jnp.broadcast_to(jnp.arange(S, dtype=jnp.int32), (B, S))
+    jpos = _positions(jcfg)[0]
 
     def cached_grads(cfg):
         def loss(a):
@@ -242,7 +255,7 @@ def test_pac_cached_train_step_int8_matches_jax(arch):
     opt = jax_adamw_init(adapter)
     jloss, jap, _ = jax_steps.pac_cached_train_step(backbone, adapter, opt, jcj, cfg=jcfg, r=R,
                                                     kernel_impl="ref")
-    jpos = jnp.broadcast_to(jnp.arange(S, dtype=jnp.int32), (B, S))
+    jpos, tpos = _positions(jcfg)
 
     def jloss_fn(a):
         num, den = jax_cs.cached_loss_parts(backbone, a, jcfg, jcj, jpos, R, impl="ref")
@@ -252,7 +265,6 @@ def test_pac_cached_train_step_int8_matches_jax(arch):
     gmax = max(float(jnp.max(jnp.abs(g))) for g in jax.tree.leaves(jgrads))
     noise = _ref_noise(arch)["cached_grads"]
     tbp, tap = bridge.to_torch(_np(backbone)), bridge.to_torch(_np(adapter))
-    tpos = torch.arange(S, dtype=torch.int32).expand(B, S)
     for impl in ("cuda", "ref"):
         loss, ap, _ = steps.pac_cached_train_step(tbp, tap, adamw_init(tap), tc, cfg=tcfg, r=R,
                                                   kernel_impl=impl)
@@ -323,6 +335,62 @@ def test_tied_head_loss_equals_the_untied_path():
     assert out["tied"][0] == out["untied"][0]
     for a, b in zip(out["tied"][1], out["untied"][1]):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kernel_impl", ["ref", "cuda"])
+def test_mrope_streams_match_jax(kernel_impl):
+    """qwen2-vl reduced with distinct t/h/w position streams in the batch
+    (each row a text prefix, an image grid and text after it): the
+    backbone logits within 1e-4; one ``pac_train_step``, loss 2e-5, the
+    update 5e-5, the activations 1e-4; the int8 cached step whose cached
+    batch carries the same ``positions``, loss 2e-5 and gradients
+    1e-4·max(1, |g|max) — the tolerances of the tests above. The logits
+    differ from those of the default (equal-stream) positions by far more
+    than 1e-4, so the streams reach the attention."""
+    arch = "qwen2-vl-7b"
+    jcfg, tcfg, backbone, adapter = _model(arch)
+    pos = _streams(B, S, seed=11).to(torch.int32)
+    jb, tb = _batch(jcfg)
+    jb, tb = dict(jb, positions=jnp.asarray(pos.numpy())), dict(tb, positions=pos)
+    tbp, tap = bridge.to_torch(_np(backbone)), bridge.to_torch(_np(adapter))
+    want = np.asarray(jbb.backbone_logits(backbone, jcfg, jb))
+    got = tbb.backbone_logits(tbp, tcfg, tb).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+    plain = np.asarray(jbb.backbone_logits(backbone, jcfg, _batch(jcfg)[0]))
+    assert np.abs(want - plain).max() > 1e-2
+
+    loss, ap, _, acts = jax_steps.pac_train_step(backbone, adapter, jax_adamw_init(adapter), jb,
+                                                 cfg=jcfg, r=R)
+    jgrads = jax.grad(lambda a: jax_steps.pac_loss_fn(a, backbone, jcfg, jb, R))(adapter)
+    out = steps.pac_train_step(tbp, tap, adamw_init(tap), tb, cfg=tcfg, r=R,
+                               kernel_impl=kernel_impl)
+    assert abs(float(out[0]) - float(loss)) < 2e-5
+    _assert_update_close(ap, out[1], jgrads)
+    for g, w in zip(out[3], acts):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4, rtol=1e-4)
+
+    jc = dict(_cached("int8", *acts, jb["labels"], True), positions=pos.numpy())
+    tc = _to_port(jc, jcfg.d_model)
+    jcj = jax.tree.map(jnp.asarray, jc)
+    jloss, jap, _ = jax_steps.pac_cached_train_step(backbone, adapter, jax_adamw_init(adapter),
+                                                    jcj, cfg=jcfg, r=R, kernel_impl="ref")
+
+    def jloss_fn(a):
+        num, den = jax_cs.cached_loss_parts(backbone, a, jcfg, jcj, jcj["positions"], R,
+                                            impl="ref")
+        return num / jnp.maximum(den, 1)
+
+    jgrads = jax.grad(jloss_fn)(adapter)
+    gmax = max(float(jnp.max(jnp.abs(g))) for g in jax.tree.leaves(jgrads))
+    closs, cap, _ = steps.pac_cached_train_step(tbp, tap, adamw_init(tap), tc, cfg=tcfg, r=R,
+                                                kernel_impl=kernel_impl)
+    assert abs(float(closs) - float(jloss)) < 2e-5
+    _assert_update_close(jap, cap, jgrads)
+    ta = tree_map(lambda t: t.clone().requires_grad_(), tap)
+    num, den = cached_loss_parts(tbp, ta, tcfg, tc, tc["positions"], R, impl=kernel_impl)
+    grads = torch.autograd.grad(num / den.clamp_min(1), tree_leaves(ta))
+    it = iter(grads)
+    _assert_tree_close(jgrads, tree_map(lambda _: next(it), ta), atol=1e-4 * max(1.0, gmax))
 
 
 # ---------------------------------------------------------------------------

@@ -152,11 +152,11 @@ B, HKV, N_REP, HD, PAGE, MAX_PAGES = 6, 4, 2, 64, 4, 24
 LENGTHS = np.array([0, PAGE - 1, PAGE, MAX_PAGES * PAGE - 1, 57, MAX_PAGES * PAGE + 4], np.int32)
 
 
-def _case(policy, hd=HD):
+def _case(policy, hd=HD, hkv=HKV, n_rep=N_REP):
     rng = np.random.default_rng(7)
     n_pages = B * MAX_PAGES + 1
-    q = _randn((B, HKV, N_REP, hd), 1)
-    kf, vf = _randn((n_pages, PAGE, HKV, hd), 2), _randn((n_pages, PAGE, HKV, hd), 3)
+    q = _randn((B, hkv, n_rep, hd), 1)
+    kf, vf = _randn((n_pages, PAGE, hkv, hd), 2), _randn((n_pages, PAGE, hkv, hd), 3)
     perm = rng.permutation(np.arange(1, n_pages)).astype(np.int32)
     bt = np.zeros((B, MAX_PAGES), np.int32)
     for b in range(1, B):  # row 0 stays on the null page
@@ -197,9 +197,19 @@ def test_paged_kernel_order_matches_pallas_at_hd112(policy):
     assert pa.RESIDENT[112] == 2 and pa.chunk_rows(112, 0) == 64
 
 
-def _order_matches_pallas(policy, option, hd):
+@pytest.mark.parametrize("policy", ["f32", "bf16", "int8"])
+def test_paged_kernel_order_matches_pallas_at_n_rep7(policy):
+    """The same model at qwen2-vl-7b's grouping, 7 query heads a kv head
+    (28 over 4 kv heads, as here) at hd 128: the first odd count of query
+    rows, 7 of a block's 8 live."""
+    _order_matches_pallas(policy, "window64_cap30", 128, hkv=4, n_rep=7)
+    _order_matches_pallas(policy, "plain", 128, hkv=4, n_rep=7)
+    pa.require_card_shape(128, 7)
+
+
+def _order_matches_pallas(policy, option, hd, hkv=HKV, n_rep=N_REP):
     window, cap = OPTIONS[option]
-    q, (k, v), (ks, vs), bt = _case(policy, hd)
+    q, (k, v), (ks, vs), bt = _case(policy, hd, hkv, n_rep)
     jk, jv = jnp.asarray(k), jnp.asarray(v)
     if policy == "bf16":
         jk, jv = jk.astype(jnp.bfloat16), jv.astype(jnp.bfloat16)
@@ -211,7 +221,7 @@ def _order_matches_pallas(policy, option, hd):
     kf, vf = k.astype(np.float32), v.astype(np.float32)
     kind = KIND[policy]
     chunk = pa.chunk_rows(hd, kind)
-    plans = [pa.plan(B, HKV, N_REP, hd, PAGE, MAX_PAGES, kind, SMS),  # 8 ranks of 3 pages
+    plans = [pa.plan(B, hkv, n_rep, hd, PAGE, MAX_PAGES, kind, SMS),  # 8 ranks of 3 pages
              pa.Plan(2, 12, 2, chunk // 2),  # two heads a block, a stage of chunk / 2 tokens
              pa.Plan(1, MAX_PAGES, 4, chunk // 4),  # no cluster: several stages a rank
              pa.Plan(5, 5, 1, chunk)]  # a short last rank

@@ -45,7 +45,7 @@ from repro_torch.optim import adamw_init
 torch.set_num_threads(2)
 REPO = Path(__file__).resolve().parents[1]
 ARCHS = ["internlm2-1.8b", "gemma2-2b", "t5-base-pac", "musicgen-large", "mixtral-8x7b",
-         "xlstm-125m", "jamba-1.5-large-398b"]
+         "xlstm-125m", "jamba-1.5-large-398b", "qwen2-vl-7b"]
 B, S = 2, 40  # S > gemma2's reduced window (32): its local layers mask
 R = 4  # the distilled adapter's reduction, as tests/test_parallel_adapters.py:124
 
@@ -231,7 +231,10 @@ def _jax_loss(technique, backbone, cfg, batch):
                                             ("xlstm-125m", "lora"),
                                             ("xlstm-125m", "adapters"),
                                             ("jamba-1.5-large-398b", "lora"),
-                                            ("jamba-1.5-large-398b", "adapters")])
+                                            ("jamba-1.5-large-398b", "adapters"),
+                                            ("qwen2-vl-7b", "full"),
+                                            ("qwen2-vl-7b", "lora"),
+                                            ("qwen2-vl-7b", "adapters")])
 def test_baseline_step_matches_jax(arch, technique):
     """One step of each baseline against the reference's (jitted, with its
     gradients for the update rule): loss 2e-5, the updated tree 5e-5. On
@@ -398,6 +401,27 @@ def test_distillation_on_ssm_configs_matches_jax(arch):
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
 
 
+@pytest.mark.parametrize("from_pruning", [True, False])
+def test_distillation_on_qwen2_vl_matches_jax(from_pruning):
+    """``distillation_init``'s loop on qwen2-vl reduced (mrope: teacher and
+    student on (3, B, S) positions), 4 steps from the reference's pruned or
+    random start, at the rule of
+    ``test_distillation_on_ssm_configs_matches_jax``."""
+    jcfg, tcfg, backbone = _model("qwen2-vl-7b")
+    jcal, tcal = _calib(jcfg)
+    key = jax.random.PRNGKey(5)
+    want = jax_distillation_init(key, backbone, jcfg, jcal, r=R, steps=4,
+                                 from_pruning=from_pruning)
+    start = bridge.to_torch(_np(_reference_start(key, backbone, jcfg, from_pruning)))
+    got, losses = _distill(start, bridge.to_torch(_np(backbone)), tcfg, tcal, r=R, steps=4)
+    diffs = np.concatenate([np.abs(t - np.asarray(j)).ravel() for j, t in
+                            zip(jax.tree.leaves(want), jax.tree.leaves(bridge.to_numpy(got)))])
+    assert diffs.max() <= 4 * 2 * 1e-3
+    assert (diffs > 5e-5).mean() <= 1e-4, (diffs > 5e-5).sum()
+    losses = [float(x) for x in losses]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
 def test_distillation_init_reduces_kl():
     """Twin of tests/test_parallel_adapters.py:124 (random start, 8 steps,
     finite leaves), and the loss of the distilled adapter on the first
@@ -472,6 +496,23 @@ def test_pruning_init_on_moe_matches_jax(quant):
     from repro_torch.core.init_methods import pruning_init
 
     jcfg, tcfg, backbone = _model("mixtral-8x7b")
+    if quant == "int8":
+        backbone = jax_quantize_tree(backbone, bits=8)
+    want = jax_pruning_init(jax.random.PRNGKey(1), backbone, jcfg, r=4)
+    got = pruning_init(torch.Generator().manual_seed(1), bridge.to_torch(_np(backbone)), tcfg,
+                       r=4)
+    _assert_tree_close(want, got, atol=0.0)
+
+
+@pytest.mark.parametrize("quant", ["dense", "int8"])
+def test_pruning_init_on_qwen2_vl_matches_jax(quant):
+    """``pruning_init`` on qwen2-vl reduced (4 heads over one kv head),
+    on the dense and the int8 backbone, bit for bit."""
+    from test_torch_cached_step import _assert_tree_close
+
+    from repro_torch.core.init_methods import pruning_init
+
+    jcfg, tcfg, backbone = _model("qwen2-vl-7b")
     if quant == "int8":
         backbone = jax_quantize_tree(backbone, bits=8)
     want = jax_pruning_init(jax.random.PRNGKey(1), backbone, jcfg, r=4)

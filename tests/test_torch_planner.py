@@ -367,3 +367,17 @@ def test_calibrated_model_counts_an_moe_step_on_meta():
     experts = count_step_flops(one, "pac", 2, 32) - count_step_flops(no_ffn, "pac", 2, 32)
     E, C = cfg.moe.n_experts, 2 * 32  # capacity factor E: C = T
     assert experts >= 3 * 2 * E * C * cfg.d_model * cfg.moe.d_expert
+
+
+def test_calibrated_model_counts_an_mrope_step_on_meta():
+    """``CalibratedCostModel`` counts qwen2-vl reduced's PAC+ steps (mrope:
+    (3, B, S) positions on the meta device): the counted forward of a
+    period within 2x of the analytic one, both techniques counted."""
+    from repro_torch.launch.costs import CalibratedCostModel, count_step_flops
+
+    cfg = get_arch("qwen2-vl-7b").reduced()
+    base = P.period_costs(cfg, "pac", seq_len=32)
+    got = CalibratedCostModel(micro_batch=2).period_costs(cfg, "pac", seq_len=32)
+    assert len(got) == len(base) and all(c.fwd_flops > 0 and c.bwd_flops > 0 for c in got)
+    assert 0.5 <= got[0].fwd_flops / base[0].fwd_flops <= 2.0
+    assert count_step_flops(cfg, "pac_cached", 2, 32) > 0
