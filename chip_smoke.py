@@ -145,7 +145,18 @@ Phases, in order; any failure exits non-zero:
    optimizer bit-equal after every step, and the losses of the two runs;
    each training kernel launched on the ranks that run it. Per rank and
    step: wall time, launches, bytes sent point to point and all-reduced
-   with their host seconds; each rank's memory high-water mark.
+   with their host seconds; each rank's memory high-water mark. A third
+   run in the same ranks reshards from an ``on_step`` hook
+   (``EdgeSession.reshard``): dp 1 over ranks 0-1 after epoch 0 (ranks
+   2-3 parked), dp 2 again after epoch 1, when the owner broadcasts its
+   adapter and optimizer to the returning ranks (``reshard`` line).
+   Gates: epoch 0 bit-equal to the first run, every later step within
+   1e-5 of it; the members bit-equal in adapter and optimizer after every
+   step; the parked ranks launching no kernel and moving no byte; each
+   member's mix and CE kernels at T = 1024 (two rows) in epoch 1 and 512
+   in epoch 2. Per rank and step the mode, wall time, launches, token
+   counts and bytes; each reshard's seconds and bytes broadcast; each
+   rank's memory high-water mark and the run's seconds.
 11. Plan: the planner (Alg. 1) and plan-driven training. First
    ``quant_matmul`` at M = 1024 and flash at B·H = 2·16 x 512, the shapes
    a stage of the plan below gives them (``*_plan`` lines). The port's
@@ -336,8 +347,9 @@ Phases, in order; any failure exits non-zero:
    carrying the positions) within 2e-5 in loss and 1e-4·max(1, |g|max)
    in gradients, and the logits with equal streams more than 0.2 away.
 36. Summary: one JSON line ``{"kernels": [...]}`` (eight kernels, each
-   with its launches on every path, the hd 256, gemma2, hd 112,
-   mixtral, xlstm, jamba_reduced and qwen2vl rows beside the first, and its
+   with its launches on every path, the ``reshard`` run's among them,
+   the hd 256, gemma2, hd 112, mixtral, xlstm, jamba_reduced and qwen2vl
+   rows beside the first, and its
    device kernels by name:
    ``skinny::gemv`` for ``quant_matmul`` at M <= 8 and ``adapter_fuse``
    at T <= 8), the card's line, and last ``{"ok": true, "device":
@@ -349,6 +361,7 @@ imports no JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -1863,12 +1876,43 @@ def fingerprint(tree, chunk: int = 1 << 26) -> list:
     return out
 
 
-def distributed_rank(spec, runs: int, layout: str = None) -> dict:
+@contextlib.contextmanager
+def token_counts(seen: list):
+    """While the block runs, append ``(kernel, T)`` to ``seen`` for each
+    call of the mix and CE kernels' wrappers (T: the rows of its
+    activations), through the module attributes their autograd
+    Functions call."""
+    from repro_torch.kernels import cached_mix, lmhead_ce
+
+    originals = []
+    for mod, name, arg in ((cached_mix, "mix_fwd", 2), (cached_mix, "mix_dw", 1),
+                           (lmhead_ce, "ce_fwd", 0), (lmhead_ce, "ce_bwd", 0)):
+        fn = getattr(mod, name)
+        originals.append((mod, name, fn))
+
+        def probe(*a, _fn=fn, _name=name, _arg=arg, **kw):
+            seen.append((_name, int(a[_arg].shape[0])))
+            return _fn(*a, **kw)
+
+        setattr(mod, name, probe)
+    try:
+        yield
+    finally:
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+
+
+def distributed_rank(spec, runs: int, layout: str = None, reshards: dict = None) -> dict:
     """One rank of the distributed and plan phases: ``runs`` runs of
     ``spec`` through ``EdgeSession``/``EpochRunner`` (``layout``: the
     layout the parent resolved, as JSON), each step's loss, wall time,
     launches, mesh transfer counters and adapter/optimizer fingerprint;
-    on the owner also epoch 0's cache entries (first run)."""
+    on the owner also epoch 0's cache entries (first run). ``reshards``
+    (``{(epoch, step): dp}``) reshards the last run's session after
+    those steps, from an ``on_step`` hook: its seconds (the group and
+    the state broadcast, ending in a sync) and bytes broadcast are kept
+    apart from the steps'. Only that run records the token counts of
+    the mix and CE calls (:func:`token_counts`)."""
     import torch.distributed as dist
 
     from repro_torch.runtime import EdgeSession, EpochRunner, RunHooks
@@ -1876,28 +1920,46 @@ def distributed_rank(spec, runs: int, layout: str = None) -> dict:
     rank = dist.get_rank()
     out = {"rank": rank, "runs": []}
     for run in range(runs):
+        schedule = (reshards or {}) if run == runs - 1 else {}
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         s = EdgeSession(spec, log=print if rank == 0 and run == 0 else None,
                         layout=layout).open()
         torch.cuda.synchronize()
         open_s = time.perf_counter() - t0
-        steps = []
+        steps, seen = [], []
 
         class Record(RunHooks):
             def on_step(self, session, event):
                 now = {k: v for k, v in read_launches().items() if k in TRAINING_KERNELS}
                 stats = dict(session.mesh.stats)
                 prev = steps[-1] if steps else {"_launches": dict.fromkeys(now, 0),
-                                                "_stats": dict.fromkeys(stats, 0)}
+                                                "_stats": dict.fromkeys(stats, 0), "_seen": 0}
+                tokens = {}
+                for name, T in seen[prev["_seen"]:]:
+                    tokens.setdefault(name, set()).add(T)
                 steps.append({"loss": event.loss, "wall_s": event.wall_s, "mode": event.mode,
                               "launches": {k: now[k] - prev["_launches"][k] for k in now},
+                              "tokens": {k: sorted(v) for k, v in tokens.items()},
                               **{k: stats[k] - prev["_stats"][k] for k in stats},
                               "fingerprint": fingerprint((session.adapter, session.opt)),
-                              "_launches": now, "_stats": stats})
+                              "_launches": now, "_stats": stats, "_seen": len(seen)})
+                dp = schedule.get((event.epoch, event.index))
+                if dp is not None:
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    session.reshard(dp)
+                    torch.cuda.synchronize()
+                    after = dict(session.mesh.stats)
+                    steps[-1]["reshard"] = {
+                        "dp": dp, "s": time.perf_counter() - t, "active": session.mesh.active,
+                        "members": list(session.mesh.members),
+                        **{k: after[k] - stats[k] for k in stats}}
+                    steps[-1]["_stats"] = after
 
         reset_launches()
-        reports = EpochRunner(s, hooks=[Record()]).run()
+        with token_counts(seen) if schedule else contextlib.nullcontext():
+            reports = EpochRunner(s, hooks=[Record()]).run()
         rec = {"open_s": open_s, "modes": [r.mode for r in reports],
                "periods": s.backbone["periods"],
                "epoch_losses": [r.mean_loss for r in reports],
@@ -1911,6 +1973,7 @@ def distributed_rank(spec, runs: int, layout: str = None) -> dict:
                             for ids in s.pipe.epoch_order(0) for k in ids}
         s.close()
         del s
+        rec["run_s"] = time.perf_counter() - t0
         out["runs"].append(rec)
     return out
 
@@ -2066,15 +2129,114 @@ def rank_stats(ranks: list) -> dict:
                                   for k, run in first.items()}}
 
 
+#: the distributed phase's third run: dp 2 -> 1 after epoch 0, back to 2 after epoch 1
+RESHARDS = {(0, 1): 1, (1, 1): 2}
+CACHED_KERNELS = TRAINING_KERNELS[2:]
+BYTE_COUNTERS = ("p2p_bytes", "allreduce_bytes", "broadcast_bytes")
+
+
+def _leaves_differing(a: list, b: list) -> int:
+    """How many arrays two :func:`fingerprint` lists disagree on."""
+    return sum(a[i:i + 2] != b[i:i + 2] for i in range(0, len(a), 2))
+
+
+def reshard_line(ranks: list) -> dict:
+    """The distributed phase's third run (``RESHARDS``) against its first:
+    per rank each step's mode, wall, launches, token counts and bytes,
+    each reshard's seconds and bytes broadcast, the memory high-water
+    mark and the run's seconds; the gates' values; and, leaf by leaf,
+    how many of the owner's adapter and optimizer arrays differ from the
+    unchanged run's after each step (epoch 1's first step starts from
+    equal state, so there it counts the update's leaves that differ)."""
+    first = {r["rank"]: r["runs"][0] for r in ranks}
+    last = {r["rank"]: r["runs"][2] for r in ranks}
+    owner = [st["loss"] for st in last[0]["steps"]]
+    want = [st["loss"] for st in first[0]["steps"]]
+    n = len(owner)
+    members = {j: [k for k in last if last[k]["steps"][j]["mode"] != "parked"]
+               for j in range(n)}
+    return {
+        "phase": "reshard", "arch": "internlm2-1.8b", "spawned": [DIST_DP, DIST_STAGES],
+        "schedule": {f"after epoch {e} step {i}": dp for (e, i), dp in RESHARDS.items()},
+        "step_losses": owner, "unchanged_step_losses": want,
+        "epoch0_bit_equal": all(
+            [st["loss"] for st in last[k]["steps"][:2]] == [st["loss"] for st in
+                                                            first[k]["steps"][:2]]
+            and [st["fingerprint"] for st in last[k]["steps"][:2]]
+            == [st["fingerprint"] for st in first[k]["steps"][:2]] for k in last),
+        "abs_dloss_steps": [abs(a - b) for a, b in zip(owner, want)],
+        "members": [members[j] for j in range(n)],
+        "members_bit_equal": [len({str(last[k]["steps"][j]["fingerprint"])
+                                   for k in members[j]}) == 1
+                              and len({last[k]["steps"][j]["loss"] for k in members[j]}) == 1
+                              for j in range(n)],
+        "leaves": len(last[0]["steps"][0]["fingerprint"]) // 2,
+        "leaves_differing_from_unchanged": [
+            _leaves_differing(a["fingerprint"], b["fingerprint"])
+            for a, b in zip(last[0]["steps"], first[0]["steps"])],
+        "modes": {k: [st["mode"] for st in run["steps"]] for k, run in last.items()},
+        "step_s": {k: [st["wall_s"] for st in run["steps"]] for k, run in last.items()},
+        "launches_per_step": {k: [st["launches"] for st in run["steps"]]
+                              for k, run in last.items()},
+        "tokens_per_step": {k: [st["tokens"] for st in run["steps"]] for k, run in last.items()},
+        "bytes_per_step": {k: [{x: st[x] for x in BYTE_COUNTERS} for st in run["steps"]]
+                           for k, run in last.items()},
+        "reshards": {k: [st["reshard"] for st in run["steps"] if "reshard" in st]
+                     for k, run in last.items()},
+        "max_memory_allocated": [run["max_memory_allocated"] for run in last.values()],
+        "run_s": [run["run_s"] for run in last.values()]}
+
+
+def check_reshard(line: dict) -> None:
+    """The third run's gates: epoch 0 bit-equal to the first run, every
+    later step within ``DIST_STEP_TOL`` of it, the members bit-equal in
+    adapter and optimizer after every step (epoch 1: ranks 0-1, epoch 2:
+    all four), the parked ranks launching nothing and moving no bytes,
+    each member's mix and CE kernels at T = 1024 in epoch 1 and 512 in
+    epoch 2, and no frozen-forward kernel after epoch 0."""
+    want_members = [[0, 1, 2, 3]] * 2 + [[0, 1]] * 2 + [[0, 1, 2, 3]] * 2
+    if line["members"] != want_members:
+        raise AssertionError(f"reshard members {line['members']}, wanted {want_members}")
+    if not (line["epoch0_bit_equal"] and all(line["members_bit_equal"])):
+        raise AssertionError(f"reshard: epoch 0 bit-equal {line['epoch0_bit_equal']}, "
+                             f"members {line['members_bit_equal']}")
+    if not (max(line["abs_dloss_steps"]) <= DIST_STEP_TOL
+            and all(np.isfinite(x) for x in line["step_losses"])):
+        raise AssertionError(f"reshard losses {line['step_losses']} against "
+                             f"{line['unchanged_step_losses']}")
+    for k, modes in line["modes"].items():
+        for j, mode in enumerate(modes):
+            launched = line["launches_per_step"][k][j]
+            if mode == "parked":
+                moved = line["bytes_per_step"][k][j]
+                if any(launched.values()) or any(moved.values()) or line["tokens_per_step"][k][j]:
+                    raise AssertionError(f"parked rank {k} step {j}: launches {launched}, "
+                                         f"bytes {moved}")
+            elif j >= 2:
+                T = 1024 if j < 4 else 512
+                tokens = line["tokens_per_step"][k][j]
+                if (any(launched[x] <= 0 for x in CACHED_KERNELS)
+                        or launched["quant_matmul"] or launched["flash_attention"]
+                        or any(tokens.get(x) != [T] for x in CACHED_KERNELS)):
+                    raise AssertionError(f"rank {k} step {j} ({mode}): launches {launched}, "
+                                         f"tokens {tokens}, wanted T = {T}")
+    for k in (2, 3):
+        if line["modes"][k][2:4] != ["parked", "parked"]:
+            raise AssertionError(f"rank {k} modes {line['modes'][k]}")
+
+
 def distributed_phase(single: dict):
     """The hybrid DP x PP trainer at full width: the training phase's spec
     (internlm2-1.8b, 24 periods, INT8 backbone, int8 cache, r=8, pruning,
     lr 3e-3, 3 epochs x 2 steps of 4 x 512 tokens) with dp=2, stages=2
     (12 periods a stage, 2 micro-batches), as four ranks sharing the card
-    over gloo, run twice. Gates: :func:`check_parity` against the
-    single-process run; the two runs' per-step losses bit-equal; the
-    training kernels launched on the ranks that run them. Returns the
-    first run's launches summed over the ranks, and the ranks' records."""
+    over gloo, run three times, the third resharding (``RESHARDS``: dp 1
+    over ranks 0-1 for epoch 1, ranks 2-3 parked; dp 2 again for epoch
+    2). Gates: :func:`check_parity` against the single-process run; the
+    first two runs' per-step losses bit-equal; the training kernels
+    launched on the ranks that run them; :func:`check_reshard` on the
+    third (``reshard`` line). Returns the first run's launches and the
+    third's, each summed over the ranks, and the ranks' records."""
     from repro_torch.launch.mesh import spawn
     from repro_torch.runtime import RunSpec
 
@@ -2083,8 +2245,8 @@ def distributed_phase(single: dict):
                    dp=DIST_DP, stages=DIST_STAGES)
     torch.cuda.empty_cache()  # the ranks share the card with this process
     t0 = time.perf_counter()
-    ranks = spawn(distributed_rank, DIST_DP, DIST_STAGES, "cuda", args=(spec, 2),
-                  timeout=300.0, deadline=600.0)
+    ranks = spawn(distributed_rank, DIST_DP, DIST_STAGES, "cuda", args=(spec, 3, None, RESHARDS),
+                  timeout=300.0, deadline=700.0)
     phase_s = time.perf_counter() - t0
     line = {"phase": "distributed", "arch": "internlm2-1.8b", "dp": DIST_DP,
             "stages": DIST_STAGES, "ranks": len(ranks), "backend": "gloo",
@@ -2115,11 +2277,17 @@ def distributed_phase(single: dict):
     for r in ranks:
         for st in r["runs"][0]["steps"]:
             head = r["rank"] % DIST_STAGES == 0
-            want = (("quant_matmul", "flash_attention") + (TRAINING_KERNELS[2:] if head else ())
-                    if st["mode"].startswith("hybrid") else TRAINING_KERNELS[2:])
+            want = (("quant_matmul", "flash_attention") + (CACHED_KERNELS if head else ())
+                    if st["mode"].startswith("hybrid") else CACHED_KERNELS)
             if any(st["launches"][k] <= 0 for k in want):
                 raise AssertionError(f"rank {r['rank']} {st['mode']}: launches {st['launches']}")
-    return launches, ranks
+    resharded = reshard_line(ranks)
+    resharded["phase_s"] = max(resharded["run_s"])
+    emit(resharded)
+    check_reshard(resharded)
+    reshard_launches = {k: sum(r["runs"][2]["launches"][k] for r in ranks)
+                        for k in TRAINING_KERNELS}
+    return launches, reshard_launches, ranks
 
 
 # ---------------------------------------------------------------- plan-driven training
@@ -4578,7 +4746,7 @@ def main() -> int:
         prefetch = prefetch_phase(Path(workdir))
         prefetch_done_s = time.perf_counter() - T_START
         distributed_kernel_phase(Timer(), gen)
-        distributed, dist_ranks = distributed_phase(single)
+        distributed, reshard, dist_ranks = distributed_phase(single)
         distributed_done_s = time.perf_counter() - T_START
         plan_kernel_phase(Timer(), gen)
         plan, plan_auto = plan_phase(single, dist_ranks, Path(workdir))
@@ -4685,7 +4853,8 @@ def main() -> int:
                "adapter_fuse": ("src/repro_torch/kernels/csrc/adapter_fuse.cu",
                                 "src/repro/kernels/adapter_fuse.py:83")}
     paths = {"serving": serving, "training": training, "personal": personal,
-             "prefetch": prefetch, "distributed": distributed, "plan": plan,
+             "prefetch": prefetch, "distributed": distributed, "reshard": reshard,
+             "plan": plan,
              "plan_auto": plan_auto, "fleet": fleet, "gemma2_serving": gemma2_serving,
              "gemma2_training": gemma2_training, "gemma2_personal": gemma2_personal,
              "paper_models": paper_models, "musicgen_prefill": musicgen,

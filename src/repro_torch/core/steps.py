@@ -8,7 +8,7 @@
 * :func:`pipeline_pac_train_step` — epoch 1 on a ``(dp, stage)`` mesh of
   ranks: the frozen forward pipelined over the stages, the adapter loss
   data-parallel over dp; :func:`dp_cached_train_step` — epoch ≥ 2 in pure
-  data parallelism over the whole pool.
+  data parallelism over the pool's active mesh.
 * :func:`full_train_step`, :func:`lora_train_step`,
   :func:`houlsby_train_step` — the paper's baselines (``core/peft.py``):
   plain ops and plain autograd through the whole backbone, as in the
@@ -202,9 +202,9 @@ def stage_backbone(backbone_params, cfg, mesh, *, partition=None, loss: bool = T
     return out
 
 
-def _dp_loss_and_grads(parts_fn, adapter_params, mesh, *, group, counted: bool):
-    """The global mean CE and its gradient over the ranks of ``group``
-    (None: the world). Each rank's (summed NLL, token count) parts are
+def _dp_loss_and_grads(parts_fn, adapter_params, mesh, *, counted: bool):
+    """The global mean CE and its gradient over the ranks of ``mesh``'s
+    active mesh. Each rank's (summed NLL, token count) parts are
     summed before the division (the exact global mean, not a mean of
     local means); each rank takes the gradient of ``num_local /
     max(den_global, 1)`` and the gradients are summed. A rank that is
@@ -217,11 +217,11 @@ def _dp_loss_and_grads(parts_fn, adapter_params, mesh, *, group, counted: bool):
         local = torch.stack([num.detach().float(), den.detach().float()])
     else:
         local = torch.zeros(2, device=mesh.device)
-    total = mesh.all_reduce_tree(local, group=group)
+    total = mesh.all_reduce_tree(local)
     den_g = torch.clamp_min(total[1], 1)
     grads = (torch.autograd.grad(num / den_g, flat) if counted
              else [torch.zeros_like(t) for t in flat])
-    it = iter(mesh.all_reduce_tree(list(grads), group=group))
+    it = iter(mesh.all_reduce_tree(list(grads)))
     return total[0] / den_g, tree_map(lambda _: next(it), adapter_params)
 
 
@@ -275,7 +275,9 @@ def pipeline_pac_loss_and_grads(backbone_params, adapter_params, batch, *, cfg, 
     adapter loss runs on the row's rows (``kernel_impl="cuda"``: the
     fused cached-step kernels on the storage-form activations), and the
     CE parts and gradients are all-reduced over the world, the later
-    stages adding zeros.
+    stages adding zeros. The step runs on the mesh as spawned
+    (``mesh.spawned``), whatever sub-mesh :meth:`EdgeMesh.reshard` made
+    active: each rank holds its spawned stage's periods.
 
     ``backbone_params``: the whole tree, or this rank's
     :func:`stage_backbone`. ``partition``: any object with ``n_stages``,
@@ -292,6 +294,7 @@ def pipeline_pac_loss_and_grads(backbone_params, adapter_params, batch, *, cfg, 
     from repro_torch.data import DataPipeline
     from repro_torch.kernels.cached_step import cached_loss_parts
 
+    mesh = mesh.spawned
     S, dp = mesh.stages, mesh.dp
     if partition is not None:
         if partition.n_stages != S:
@@ -350,8 +353,7 @@ def pipeline_pac_loss_and_grads(backbone_params, adapter_params, batch, *, cfg, 
 
     # one world all-reduce: the stage-0 ranks (one a dp row) count their
     # rows, the later stages add zeros
-    loss, grads = _dp_loss_and_grads(parts_fn, adapter_params, mesh, group=None,
-                                     counted=mesh.stage == 0)
+    loss, grads = _dp_loss_and_grads(parts_fn, adapter_params, mesh, counted=mesh.stage == 0)
     return loss, grads, _gather_to_owner(acts, mesh, n_micro)
 
 
@@ -382,9 +384,11 @@ def dp_cached_train_step(backbone_params, adapter_params, opt_state, cached_batc
     ``launch.sharding.cached_batch_axes``), in the form
     :func:`pac_cached_train_step` takes; a rank whose rows another rank
     of its dp row counts (``rows_count`` False) may pass None. The CE
-    parts are summed over the world before the division, the gradients
-    summed, and the update runs alike on every rank. Returns (loss,
-    adapter_params', opt_state')."""
+    parts are summed over the active mesh (the spawned one, or the
+    sub-mesh of :meth:`~repro_torch.launch.mesh.EdgeMesh.reshard`)
+    before the division, the gradients summed, and the update runs
+    alike on every member; a parked rank does not call it. Returns
+    (loss, adapter_params', opt_state')."""
     from repro_torch.kernels.cached_step import cached_loss_parts
     from repro_torch.launch.sharding import rows_count
 
@@ -392,7 +396,7 @@ def dp_cached_train_step(backbone_params, adapter_params, opt_state, cached_batc
         return cached_loss_parts(backbone_params, ap, cfg, cached_batch,
                                  _cached_positions(cached_batch, cfg), r, impl=kernel_impl)
 
-    loss, grads = _dp_loss_and_grads(parts_fn, adapter_params, mesh, group=None,
+    loss, grads = _dp_loss_and_grads(parts_fn, adapter_params, mesh,
                                      counted=rows_count(mesh, batch_axes))
     adapter_params, opt_state = _apply(adapter_params, grads, opt_state, lr, clip)
     return loss, adapter_params, opt_state

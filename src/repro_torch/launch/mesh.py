@@ -8,8 +8,15 @@ between them explicitly:
 * **layout** — rank ``i`` sits at ``(i // stages, i % stages)``, the
   reference's device order: a dp row's ranks are consecutive;
 * **groups** — one per dp row (the stage hand-offs) and the world (the
-  adapter steps' all-reduce, in which ranks whose rows another rank
-  counts add zeros, and the owner's gather and scatter);
+  epoch-1 step's all-reduce, in which ranks whose rows another rank
+  counts add zeros, the owner's gather and scatter, and its hit/miss
+  flag). :meth:`EdgeMesh.reshard` makes a sub-mesh of the world's ranks
+  active, at another dp: a gloo group over its ranks (none when they
+  are the whole world) then carries the cached step's all-reduce and
+  the owner's state broadcast, while the epoch-1 step keeps the spawned
+  layout (:attr:`EdgeMesh.spawned`). A rank outside the active mesh is
+  parked and joins only the world's flag. Each reshard destroys the
+  sub-group it replaces, and :meth:`EdgeMesh.close` the rest;
 * **device** — rank ``i`` computes on ``cuda:{i % device_count}``, or on
   the CPU when asked, so several ranks may share one card;
 * **transfers** — :meth:`EdgeMesh.send_tree`, :meth:`EdgeMesh.recv_tree`,
@@ -138,9 +145,16 @@ class EdgeMesh:
     it, in the same order as its peers (group creation is collective),
     after ``torch.distributed`` is initialised with ``dp·stages`` ranks.
 
+    ``dp``, ``world``, ``rank`` (the position in the active mesh),
+    ``dp_rank``, ``stage`` and ``owner`` describe the active mesh: the
+    spawned one until :meth:`reshard`. ``members`` are the world ranks of
+    the active mesh in position order; ``world_rank`` is this process's
+    rank in the world; ``spawned`` (:class:`SpawnedMesh`) is the mesh as
+    spawned, the epoch-1 step's fixed layout over this one's transfers.
+
     ``device``: this rank's device (default :func:`rank_device`).
-    ``stats`` counts the bytes this rank sent point to point and
-    all-reduced, and the host seconds spent in each."""
+    ``stats`` counts the bytes this rank sent point to point,
+    all-reduced and broadcast, and the host seconds spent in each."""
 
     def __init__(self, dp: int, stages: int, *, device=None):
         if not dist.is_initialized():
@@ -149,20 +163,35 @@ class EdgeMesh:
         if world != dp * stages:
             raise ValueError(f"a {dp}×{stages} (dp, stage) mesh needs {dp * stages} ranks, "
                              f"the process group has {world}")
-        self.dp, self.stages = dp, stages
-        self.rank = dist.get_rank()
-        self.dp_rank, self.stage = divmod(self.rank, stages)
-        self.device = rank_device(self.rank) if device is None else torch.device(device)
-        self.row_ranks = list(range(self.dp_rank * stages, (self.dp_rank + 1) * stages))
+        self.stages = stages
+        self.world_rank = dist.get_rank()
+        self.device = rank_device(self.world_rank) if device is None else torch.device(device)
+        row = self.world_rank // stages
+        self.row_ranks = list(range(row * stages, (row + 1) * stages))
         rows = [dist.new_group(list(range(r * stages, (r + 1) * stages))) for r in range(dp)]
-        self.row_group = rows[self.dp_rank]
+        self.row_group = rows[row]
         self._groups = [self.row_group]
         self._pinned: Dict[tuple, torch.Tensor] = {}
-        self.stats = {"p2p_bytes": 0, "p2p_s": 0.0, "allreduce_bytes": 0, "allreduce_s": 0.0}
+        self.stats = {"p2p_bytes": 0, "p2p_s": 0.0, "allreduce_bytes": 0, "allreduce_s": 0.0,
+                      "broadcast_bytes": 0, "broadcast_s": 0.0}
+        self._activate(dp, tuple(range(world)), None)
+        self.spawned = SpawnedMesh(self, dp)
+
+    def _activate(self, dp: int, members: tuple, group) -> None:
+        self.dp, self.members, self.group = dp, members, group
+        self.rank = members.index(self.world_rank) if self.world_rank in members else None
+        self.dp_rank, self.stage = (None, None) if self.rank is None else divmod(self.rank,
+                                                                               self.stages)
 
     @property
     def world(self) -> int:
+        """The active mesh's rank count, ``dp·stages``."""
         return self.dp * self.stages
+
+    @property
+    def active(self) -> bool:
+        """False on a rank that the last :meth:`reshard` parked."""
+        return self.rank is not None
 
     @property
     def owner(self) -> bool:
@@ -177,12 +206,54 @@ class EdgeMesh:
         return (f"{BACKEND}, {self.world} ranks on {cards} card{'s' if cards > 1 else ''} "
                 f"({torch.cuda.get_device_name(self.device)})")
 
+    def reshard(self, dp: int, ranks: Optional[Sequence[int]] = None) -> None:
+        """Make ``ranks`` (world ranks in position order; default the first
+        ``dp·stages``) the active mesh at ``dp``, keeping the stage count.
+        Every rank of the world calls it, in the same order (a new group
+        is collective over the world, members or not). The checks run
+        first, alike on every rank: ``ValueError`` for dp < 1, more ranks
+        than the world, a rank out of range or repeated, or rank 0 (the
+        cache's owner) not at position 0. A rank outside ``ranks`` is
+        parked (``active`` False) until a later reshard takes it back."""
+        world = self.spawned.world
+        n = dp * self.stages
+        if dp < 1:
+            raise ValueError(f"dp must be >= 1, got {dp}")
+        if n > world:
+            raise ValueError(f"a {dp}×{self.stages} (dp, stage) mesh needs {n} ranks, "
+                             f"the world has {world}")
+        members = tuple(range(n)) if ranks is None else tuple(int(r) for r in ranks)
+        if len(members) != n:
+            raise ValueError(f"a {dp}×{self.stages} (dp, stage) mesh needs {n} ranks, "
+                             f"got {len(members)}")
+        if len(set(members)) != n or not all(0 <= r < world for r in members):
+            raise ValueError(f"ranks {list(members)} must be distinct ranks of the "
+                             f"{world}-rank world")
+        if members[0] != 0:
+            raise ValueError(f"rank 0 owns the cache and must come first, got {list(members)}")
+        group = None if n == world else dist.new_group(sorted(members))
+        if self.group is not None:
+            self._destroy(self.group)
+        mine = self.world_rank in members
+        if mine and group is not None:
+            self._groups.append(group)
+        self._activate(dp, members, group if mine else None)
+
+    def _destroy(self, group) -> None:
+        """Destroy ``group`` and drop the pinned buffers kept for it."""
+        dist.destroy_process_group(group)
+        self._groups.remove(group)
+        for key in [k for k in self._pinned if k[0] in ("all_reduce", "broadcast")
+                    and k[1] == id(group)]:
+            del self._pinned[key]
+
     def close(self) -> None:
-        """Destroy the row groups; the world group belongs to
-        whoever initialised the process group."""
-        for g in self._groups:
-            dist.destroy_process_group(g)
-        self._groups = []
+        """Destroy the groups this mesh made (the row group and the active
+        sub-group) and drop its pinned buffers; the world group belongs
+        to whoever initialised the process group."""
+        for g in list(self._groups):
+            self._destroy(g)
+        self._pinned.clear()
 
     # -- staging --------------------------------------------------------------
 
@@ -262,18 +333,84 @@ class EdgeMesh:
         self.stats["allreduce_s"] += time.perf_counter() - t0
         return parts
 
-    def all_reduce_tree(self, tree, group=None):
-        """The elementwise sum of ``tree`` over ``group`` (default: the
-        world), every member getting the same bits."""
+    def _active_group(self):
+        """The active mesh's group (None: the world); a parked rank joins
+        no collective of the active mesh."""
+        if not self.active:
+            raise RuntimeError(f"rank {self.world_rank} is parked: it joins no collective "
+                               f"of the active mesh {list(self.members)}")
+        return self.group
+
+    def all_reduce_tree(self, tree):
+        """The elementwise sum of ``tree`` over the active mesh, every
+        member getting the same bits."""
+        return self._all_reduce(tree, self._active_group())
+
+    def broadcast_tree(self, tree):
+        """The owner's ``tree`` (tensors of any dtype, in a structure every
+        member shares) on every member of the active mesh, bit for bit,
+        on this rank's device."""
+        return self._broadcast(tree, self._active_group())
+
+    def _all_reduce(self, tree, group):
         parts = iter(self._flat_collective(
-            tree, lambda h: dist.all_reduce(h, group=group), ("all_reduce", id(group), len(tree_leaves(tree)))))
+            tree, lambda h: dist.all_reduce(h, group=group),
+            ("all_reduce", id(group), len(tree_leaves(tree)))))
         return tree_map(lambda _: next(parts), tree)
+
+    def _broadcast(self, tree, group):
+        t0 = time.perf_counter()
+        leaves = tree_leaves(tree)
+        flat = torch.cat([t.detach().contiguous().reshape(-1).view(torch.uint8) for t in leaves])
+        host = self._host(flat, ("broadcast", id(group)))
+        dist.broadcast(host, 0, group=group)
+        self.stats["broadcast_bytes"] += host.numel()
+        out = host.to(self.device)
+        parts, at = [], 0
+        for t in leaves:
+            n = t.numel() * t.element_size()
+            parts.append(out[at: at + n].clone().view(t.dtype).view(t.shape))
+            at += n
+        self.stats["broadcast_s"] += time.perf_counter() - t0
+        it = iter(parts)
+        return tree_map(lambda _: next(it), tree)
 
     def broadcast_flag(self, flag: bool) -> bool:
         """The owner's ``flag`` on every rank."""
         t = torch.tensor([int(flag)], dtype=torch.int64)
         dist.broadcast(t, 0)
         return bool(t.item())
+
+
+class SpawnedMesh:
+    """The mesh as spawned, which the epoch-1 step runs on whatever
+    sub-mesh :meth:`EdgeMesh.reshard` made active: the world's fixed
+    layout (``dp``, ``stages``, ``rank``, ``dp_rank``, ``stage``,
+    ``owner``, ``members``, this rank's ``row_ranks`` and ``row_group``)
+    over its :class:`EdgeMesh`'s transfers and ``stats``, its collectives
+    over the world. It neither reshards nor closes."""
+
+    def __init__(self, mesh: EdgeMesh, dp: int):
+        self._mesh = mesh
+        self.dp, self.stages, self.device = dp, mesh.stages, mesh.device
+        self.rank = mesh.world_rank
+        self.dp_rank, self.stage = divmod(self.rank, self.stages)
+        self.owner = self.rank == 0
+        self.members = tuple(range(dp * self.stages))
+        self.row_ranks, self.row_group = mesh.row_ranks, mesh.row_group
+        self.send_tree, self.recv_tree = mesh.send_tree, mesh.recv_tree
+
+    @property
+    def world(self) -> int:
+        return self.dp * self.stages
+
+    def all_reduce_tree(self, tree):
+        """:meth:`EdgeMesh.all_reduce_tree` over the world."""
+        return self._mesh._all_reduce(tree, None)
+
+    def broadcast_tree(self, tree):
+        """:meth:`EdgeMesh.broadcast_tree` over the world."""
+        return self._mesh._broadcast(tree, None)
 
 
 # ---------------------------------------------------------------------------

@@ -5,6 +5,10 @@ From epoch 2 the backbone no longer runs, so the whole pool trains the
 adapter data-parallel: the cached batch shards over ``dp`` and, when
 the batch divides the pool, over ``stage`` too. Otherwise a dp row's
 ranks hold the same rows and :func:`rows_count` lets one of them count.
+The pool is the mesh's active one (``mesh.dp``, ``mesh.world``,
+``mesh.rank``): after ``EdgeMesh.reshard`` a sub-mesh of the spawned
+ranks, in which a rank is named by its position (``mesh.members`` maps
+positions to world ranks).
 
 The reference's other placement helpers (``param_specs``,
 ``batch_specs``, ``cache_specs``, ``replicated``, ``to_named``,

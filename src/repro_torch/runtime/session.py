@@ -32,6 +32,15 @@ An :class:`EdgeSession` takes a validated
   single-process sample order, read on the host (its prefetcher stays
   there) and scattered to the ranks at each cached step, each copying
   its rows to its device. Only rank 0 writes the outputs;
+* **reshard** — :meth:`reshard` moves a distributed run's cached steps
+  onto a sub-mesh of the spawned ranks at another dp (elastic DP),
+  shrinking or growing it again between steps. A rank outside it is
+  parked: it keeps its process and its stage, joins the owner's
+  hit/miss flag each step, and on a hit runs nothing (``mode``
+  ``"parked"``, a NaN loss). A miss runs the epoch-1 step on the
+  spawned mesh, after the owner broadcasts its adapter and optimizer
+  to the ranks whose state lags; a rank that rejoins gets them at the
+  reshard;
 * **model** — the frozen backbone, drawn from a seeded generator leaf by
   leaf on the device and quantized as drawn (``quant``), so the f32 tree
   is never resident; the adapter (pruning or random init) and AdamW;
@@ -247,6 +256,7 @@ class EdgeSession:
         self.n_micro = None
         self.plan = None      # the executed plan (plan mode) or the offline report
         self.partition = None  # the executed plan's StagePartition (plan mode)
+        self._synced = set()  # world ranks whose adapter and optimizer are the owner's
 
     def __enter__(self) -> "EdgeSession":
         return self.open()
@@ -331,12 +341,13 @@ class EdgeSession:
             self.backbone = backbone
         else:
             from repro_torch.core.steps import stage_backbone
-            from repro_torch.launch.sharding import cached_batch_axes, rows_count
 
-            # the cached step's loss runs on every rank whose rows count
-            loss = rows_count(self.mesh, cached_batch_axes(spec.batch, self.mesh))
+            # every rank keeps the final norm and head, since a reshard may
+            # make any rank count rows (INT8 internlm2-1.8b: 0.19 GB of head
+            # codes; its f32 loss head is made at the rank's first loss)
             self.backbone = stage_backbone(backbone, cfg, self.mesh, partition=self.partition,
-                                           loss=loss, copy=True)
+                                           loss=True, copy=True)
+            self._synced = set(self.mesh.members)
         del backbone
         self._opened = True
         return self
@@ -401,8 +412,9 @@ class EdgeSession:
     def _dist_step(self, batch, labels, epoch, index, t0) -> StepEvent:
         """One step of a distributed run, on every rank: the owner
         decides hit or miss and tells the ranks, then the epoch-1 step
-        (and the owner's cache fill) or the cached step on the rows the
-        owner scatters."""
+        (and the owner's cache fill) on the spawned mesh, or the cached
+        step on the rows the owner scatters over the active mesh; a
+        parked rank sits a hit out."""
         from repro_torch.core import steps
         from repro_torch.launch.sharding import cached_batch_axes, rank_rows
 
@@ -411,6 +423,10 @@ class EdgeSession:
         hit = self._next_hit(ids) if mesh.owner else None
         cache_hit = spec.use_cache and mesh.broadcast_flag(hit is not None)
         if cache_hit:
+            self._synced &= set(mesh.members)  # a hit moves the members' state alone
+            if not mesh.active:
+                return StepEvent(epoch=epoch, index=index, loss=float("nan"), cache_hit=True,
+                                 mode=self.mode(True), wall_s=time.perf_counter() - t0)
             axes = cached_batch_axes(spec.batch, mesh)
             rows = rank_rows(spec.batch, mesh, axes)
             local = self._scatter(hit, axes)
@@ -421,6 +437,10 @@ class EdgeSession:
                 self.backbone, self.adapter, self.opt, cached, cfg=self.cfg, mesh=mesh,
                 batch_axes=axes, r=spec.r, lr=spec.lr, kernel_impl=spec.kernels)
         else:
+            world = mesh.spawned.members
+            if self._synced != set(world):  # the parked ranks take the owner's state first
+                self.adapter, self.opt = mesh.spawned.broadcast_tree((self.adapter, self.opt))
+                self._synced = set(world)
             tokens = torch.from_numpy(batch["tokens"]).to(self.device)
             loss, self.adapter, self.opt, acts = steps.pipeline_pac_train_step(
                 self.backbone, self.adapter, self.opt, {"tokens": tokens, "labels": labels},
@@ -433,10 +453,10 @@ class EdgeSession:
                          mode=self.mode(cache_hit), wall_s=time.perf_counter() - t0)
 
     def _scatter(self, hit, axes):
-        """The owner's cached batch ``hit`` (host) split by
-        ``launch.sharding.rank_rows``: the owner sends each counted rank
-        its rows and keeps its own; each returns its rows on its device
-        (None on a rank whose rows do not count)."""
+        """The owner's cached batch ``hit`` (host) split over the active
+        mesh by ``launch.sharding.rank_rows``: the owner sends each
+        counted position's rank its rows and keeps its own; each returns
+        its rows on its device (None on a rank whose rows do not count)."""
         from repro_torch.launch.sharding import rank_rows, rows_count
 
         mesh = self.mesh
@@ -448,9 +468,9 @@ class EdgeSession:
             b0, taps, bf = hit
             return b0[r], taps[:, r], bf[r]
 
-        for rank in range(1, mesh.world):
-            if rows_count(mesh, axes, rank):
-                mesh.send_tree(rows_of(rank), rank)
+        for pos in range(1, mesh.world):
+            if rows_count(mesh, axes, pos):
+                mesh.send_tree(rows_of(pos), mesh.members[pos])
         return tuple(part.to(self.device) for part in rows_of(0))
 
     @contextlib.contextmanager
@@ -495,13 +515,47 @@ class EdgeSession:
                                     compressed=self.spec.kernels == "cuda")
 
     def mode(self, cache_hit: bool) -> str:
-        """The run-mode label the trainer reports (the reference's)."""
+        """The run-mode label the trainer reports (the reference's), or
+        ``"parked"`` for a hit on a rank outside the active mesh. A miss
+        names the spawned mesh, on which the epoch-1 step runs."""
         if self.mesh is None:
             return "cached" if cache_hit else "full"
         if cache_hit:
-            return "cached pure-dp"
+            return "cached pure-dp" if self.mesh.active else "parked"
         kind = "plan-driven" if self.spec.plan_mode else "hybrid"
-        return f"{kind} dp{self.mesh.dp}xpp{self.mesh.stages}"
+        return f"{kind} dp{self.mesh.spawned.dp}xpp{self.mesh.stages}"
+
+    # -- elastic DP -----------------------------------------------------------
+
+    def reshard(self, dp: int, devices=None) -> None:
+        """Elastic DP for a distributed session's cached epochs: make
+        ``devices`` (world ranks in position order, rank 0 first;
+        default the first ``dp·stages``) the active mesh at ``dp``, so
+        the next cached steps run there. Every rank of the run calls it
+        between the same two steps. The epoch-1 step keeps the spawned
+        mesh, as the reference's does. Ranks outside the new mesh park;
+        when it takes in a rank whose state lags the owner's, the owner
+        broadcasts its adapter and optimizer over the new mesh first, so
+        every member ends bit-equal to it. Single-process sessions
+        reshard through :class:`repro_torch.fleet.ElasticDpRunner`.
+
+        Raises ``RuntimeError`` before ``open()``, and
+        :class:`RunSpecError` on a single-process session or an
+        impossible layout, alike on every rank before any transfer."""
+        if not self._opened:
+            raise RuntimeError("reshard() needs an open()ed session")
+        if self.mesh is None:
+            raise RunSpecError("reshard() applies to multi-device sessions; single-device "
+                               "jobs reshard via repro_torch.fleet.ElasticDpRunner")
+        mesh = self.mesh
+        try:
+            mesh.reshard(int(dp), devices)
+        except ValueError as e:
+            raise RunSpecError(str(e)) from e
+        joined = set(mesh.members)
+        if mesh.active and not joined <= self._synced:
+            self.adapter, self.opt = mesh.broadcast_tree((self.adapter, self.opt))
+        self._synced |= joined
 
     # -- preemption snapshots -------------------------------------------------
 

@@ -8,7 +8,8 @@ The reference runs in a subprocess on four forced host devices (its
 * the epoch-1 step's loss, gradients and activations, and its update,
   at the reference's bounds (``tests/test_train_distributed.py``);
 * the cached step over the pool against the reference's single-device
-  cached step, and with rows a dp row's ranks share;
+  cached step, also on the pool shrunk to dp 1 (``EdgeMesh.reshard``),
+  and with rows a dp row's ranks share;
 * a ragged 3-stage partition of a 5-period config (the reference's
   ``StagePartition``);
 * reduced qwen2-vl-7b (mrope: (3, B, S) positions in the stages, in the
@@ -163,6 +164,19 @@ def _uniform_rank(inp):
 
     lossN, apN, _ = cached_step(ap, opt, B)
     out["lossN"], out["apN"] = float(lossN), bridge.to_numpy(apN)
+    # the same step on the mesh shrunk to dp 1 (ranks 0 and 1); the parked
+    # ranks sit it out and join no collective of the sub-mesh
+    mesh.reshard(1)
+    out["shrunk"] = None
+    if mesh.active:
+        loss1, ap1N, _ = cached_step(ap, opt, B)
+        out["shrunk"] = (float(loss1), bridge.to_numpy(ap1N))
+    else:
+        try:
+            mesh.all_reduce_tree(torch.zeros(1))
+        except RuntimeError as e:
+            out["shrunk"] = str(e)
+    mesh.reshard(2)
     # 2 rows over dp only: both ranks of a dp row hold the row, one counts it
     loss2, ap2, _ = cached_step(ap, opt, 2)
     out["axes2"] = cached_batch_axes(2, mesh)
@@ -332,6 +346,20 @@ def test_cached_step_over_the_pool_matches_single_device(runs):
     for got in ranks:
         assert abs(got["lossN"] - float(ref["uniform"]["lossN"])) < 1e-4
         assert _max_diff(got["apN"], ref["uniform"]["apN"]) < 1e-3
+
+
+def test_cached_step_on_a_shrunk_mesh_matches_single_device(runs):
+    """After ``EdgeMesh.reshard(1)``, the two ranks of the sub-mesh run the
+    pool's cached step from the same state: loss and update against the
+    reference's single-device step, at the bounds above; the parked ranks
+    return no result and refuse the sub-mesh's all-reduce."""
+    ref, _, ranks, _ = runs
+    for got in ranks[:2]:
+        loss, ap = got["shrunk"]
+        assert abs(loss - float(ref["uniform"]["lossN"])) < 1e-4
+        assert _max_diff(ap, ref["uniform"]["apN"]) < 1e-3
+    for got in ranks[2:]:
+        assert "is parked" in got["shrunk"]
 
 
 def test_rows_a_dp_row_shares_count_once(runs):
