@@ -198,6 +198,20 @@ Phases, in order; any failure exits non-zero:
    100 mix and 4 CE each in a cached step (``fleet`` line: per run the
    ticks' placements, shares, lost and preempted, each step's wall time,
    mode and launches; memory high-water mark, phase time).
+12b. Roofline (``roofline`` line): the five internlm2-1.8b cells timed
+   above (the serving engine's 8 x 512 prefill wave and a decode step at
+   B = 8 over INT8 pages, the personal decode step at B = 1, the epoch-1
+   and the cached step at 4 x 512) priced on the meta device at those
+   shapes by ``repro_torch.launch`` (the ``cuda`` OpSet's program, each
+   kernel call a unit): the three roofline terms on the card's constants
+   and ``t_compute_f32``, the bottleneck, model FLOPs and useful-compute
+   ratio, the phase's wall (no new timed run) and ``share``, the largest
+   term over the wall, which must lie in (0, 1.05]. Then the dry run
+   (``dryrun`` line): internlm2-1.8b at the four input shapes through
+   ``launch.dryrun.run_case``. The distributed line (10) also carries
+   the dry run's per-rank point-to-point and all-reduce bytes of an
+   epoch-1 and a cached step at dp 2 x stages 2, which must equal what
+   ``EdgeMesh.stats`` counted for each rank and step.
 13. Head width 256: flash attention at gemma2-2b's prefill (B·H = 8·8
    over 4 kv heads, S = 512; soft-cap 50, and window 128 with it) and
    epoch-1 (4·8) shapes, timed beside both bounds and SDPA, two calls
@@ -377,9 +391,13 @@ import torch
 SEED = 0
 DEV = "cuda"
 T_START = time.perf_counter()
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
-F32_FLOP_PER_S = 67e12     # H100 SXM f32 on the CUDA cores (NVIDIA data sheet)
-BF16_FLOP_PER_S = 989e12   # H100 SXM bf16 on the tensor cores, dense (NVIDIA data sheet)
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+# the card's peaks, one source for every bound: the port's roofline
+# constants (NVIDIA H100 SXM data sheet)
+from repro_torch.launch.mesh import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.launch.mesh import PEAK_FLOPS_BF16 as BF16_FLOP_PER_S  # noqa: E402
+from repro_torch.launch.mesh import PEAK_FLOPS_F32 as F32_FLOP_PER_S  # noqa: E402
+
 REPEATS = 15
 
 QMM_SHAPES = [(2048, 2048), (2048, 1024), (2048, 8192), (8192, 2048)]  # (K, N)
@@ -1056,7 +1074,9 @@ def paged_cuda_vs_ref(backbone, cfg, ab, prompts, page: int, max_len: int, r: in
     return logits
 
 
-def serving_phase(gen: torch.Generator):
+def serving_phase(gen: torch.Generator, walls: dict):
+    """The serving path (phase 4 above). ``walls`` gets the prefill
+    wave's and a decode step's wall, at their shapes, for the roofline."""
     from repro_torch.configs import get_arch
     from repro_torch.core.parallel_adapters import gather_adapters, stack_adapters
     from repro_torch.core.parallel_adapters import init_adapter
@@ -1111,6 +1131,12 @@ def serving_phase(gen: torch.Generator):
     missing = [n for n, c in launches.items() if c <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the serving path: {missing}")
+    s_pad = 1 << (int(max(prompt_lens)) - 1).bit_length()  # the engine's prompt bucket
+    walls["prefill"] = {"s": eng.prefill_seconds, "batch": len(prompts), "prompt_pad": s_pad,
+                        "page": page, "max_len": max_len, "users": len(users)}
+    walls["decode"] = {"s": eng.decode_seconds / eng.decode_steps, "batch": max_batch,
+                       "steps": eng.decode_steps, "page": page, "max_len": max_len,
+                       "users": len(users)}
     del eng
     profile_decode(ServeEngine(backbone, cfg, users, r=r, kernel_impl="cuda", kv_policy="int8",
                                page_size=page, max_len=max_len, max_batch=max_batch),
@@ -1119,7 +1145,6 @@ def serving_phase(gen: torch.Generator):
     # the first prefill and 2 decode steps again, cuda OpSet vs ref OpSet
     bank = stack_adapters([users[n] for n in names])
     ab = gather_adapters(bank, torch.arange(8, device="cuda") % 4)
-    s_pad = 1 << (int(max(prompt_lens)) - 1).bit_length()
     logits = paged_cuda_vs_ref(backbone, cfg, ab, prompts, page, max_len, r, s_pad)
     tol = 2e-2
     diffs = [max_err(a, b) for a, b in zip(logits["cuda"], logits["ref"])]
@@ -1565,11 +1590,12 @@ def profile_steps(s) -> None:
         emit({"phase": "train_profile", "arch": s.cfg.name, "step": mode, **prof})
 
 
-def training_phase(workdir: Path):
+def training_phase(workdir: Path, walls: dict):
     """PAC+ at full width through the port's EdgeSession/EpochRunner,
     with its checkpoint and persistent cache in ``workdir``. Returns
     (launches, the session's backbone, the checkpoint's path, the run's
-    per-step and per-epoch losses and epoch 0's cache entries)."""
+    per-step and per-epoch losses and epoch 0's cache entries); ``walls``
+    gets the epoch-1 and cached steps' walls for the roofline."""
     from repro_torch.runtime import (ConsoleHook, EdgeSession, EpochReport, EpochRunner,
                                      RunHooks, RunSpec)
 
@@ -1616,6 +1642,9 @@ def training_phase(workdir: Path):
     s.finish()
     full = [e.wall_s for e in steps_ if not e.cache_hit]
     cached = [e.wall_s for e in steps_ if e.cache_hit]
+    for name, ws in (("epoch1", full), ("cached", cached)):
+        walls[name] = {"s": min(ws), "all_s": ws, "batch": spec.batch, "seq": spec.seq,
+                       "quant": spec.quant, "cache": spec.cache_compress, "r": spec.r}
     emit({"phase": "training", "arch": s.cfg.name, "layers": s.cfg.n_layers,
           "d_model": s.cfg.d_model, "vocab": s.cfg.vocab, "batch": spec.batch, "seq": spec.seq,
           "quant": spec.quant, "cache": spec.cache_compress, "r": spec.r,
@@ -2264,7 +2293,11 @@ def distributed_phase(single: dict):
     line.update(rank_stats(ranks), phase_s=phase_s,
                 tol={"first_step": 1e-4, "steps": DIST_STEP_TOL, "epoch": 5e-2, "tap_codes": 1},
                 tol_reason=DIST_TOL_REASON)
+    line.update(priced_mesh_bytes(spec, {r["rank"]: r["runs"][0] for r in ranks}))
     emit(line)
+    if not line["priced_bytes_equal"]:
+        raise AssertionError(f"priced mesh bytes {line['priced_bytes_per_step']} differ from "
+                             f"the counted {line['bytes_per_step']}")
     line["step_losses"] = line["step_losses"][0]
     first = [r["runs"][0] for r in ranks]
     launches = {k: sum(r["launches"][k] for r in first) for k in TRAINING_KERNELS}
@@ -2822,7 +2855,7 @@ def skinny_reruns(gen: torch.Generator) -> None:
         raise AssertionError(f"skinny GEMV: graph replays differ from eager: {got}")
 
 
-def personal_phase(backbone, cfg, ckpt: Path, r: int = 8):
+def personal_phase(backbone, cfg, ckpt: Path, walls: dict, r: int = 8):
     """Serve the trained adapter, loaded from its checkpoint, with the
     reference's one-request loop: ``pac_decode_step`` at B=1 over an
     INT8 linear KV cache, 32 teacher-forced prompt tokens then 32 greedy
@@ -2902,6 +2935,8 @@ def personal_phase(backbone, cfg, ckpt: Path, r: int = 8):
     rel_prefill = max_err(dec32, pre) / float(pre.abs().max())
     rel_kv = max_err(dec8, dec32) / float(dec32.abs().max())
     per_step = {k: v / n_steps for k, v in launches.items()}
+    walls["personal"] = {"s": wall / n_steps, "steps": n_steps, "max_len": PERSONAL_MAX_LEN,
+                         "r": r, "kv": 8}
     finite = bool(torch.isfinite(logits_cuda).all() and torch.isfinite(logits_ref).all())
     tol = {"dlogits": 2e-2, "dlogits_f32_kv": 2e-4, "prefill_rel": 2e-3, "int8_kv_rel": 5e-2}
     emit({"phase": "personal", "arch": cfg.name, "batch": 1, "prompt_tokens": PROMPT_LEN,
@@ -4700,11 +4735,167 @@ def qwen2vl_mrope_phase(backbone, adapter, cfg, r: int = 8) -> dict:
             for k in set(launches) | set(launches_epoch1) | set(launches_cached)}
 
 
+# ---------------------------------------------------------------- the roofline
+
+ROOFLINE_SHARE_MAX = 1.05  # a larger share means the pricer under-counts the step
+
+
+def roofline_phase(walls: dict) -> dict:
+    """The five internlm2-1.8b cells this run timed, priced on the meta
+    device at the shapes they ran (``repro_torch.launch.specs``, the
+    ``cuda`` OpSet's program, kernels as units): the serving engine's
+    prefill wave and decode step, the personal decode step, the epoch-1
+    and the cached step. Per cell the three roofline terms on the card's
+    constants and ``t_compute_f32``, the bottleneck, the model FLOPs and
+    the useful-compute ratio, the wall the phase measured (no new timed
+    run; the fastest of a training phase's steps) and ``share`` = the
+    largest term over that wall, which must lie in (0, 1.05]."""
+    from repro_torch.configs import InputShape, get_arch
+    from repro_torch.core.parallel_adapters import adapter_param_count
+    from repro_torch.launch.roofline import analyze
+    from repro_torch.launch.specs import (build_case, engine_decode_case, engine_prefill_case,
+                                          personal_decode_case)
+
+    cfg = get_arch("internlm2-1.8b")
+    pre, dec, per, ep1 = walls["prefill"], walls["decode"], walls["personal"], walls["epoch1"]
+    cells = {
+        "serving_prefill": (engine_prefill_case(
+            cfg, batch=pre["batch"], prompt_pad=pre["prompt_pad"], page=pre["page"],
+            max_len=pre["max_len"], n_users=pre["users"]), "pac", pre),
+        "serving_decode": (engine_decode_case(
+            cfg, batch=dec["batch"], page=dec["page"], max_len=dec["max_len"],
+            n_users=dec["users"]), "pac", dec),
+        "personal_decode": (personal_decode_case(cfg, max_len=per["max_len"], r=per["r"],
+                                                 kv_quant=per["kv"]), "pac", per),
+    }
+    for name, technique in (("epoch1", "pac"), ("cached", "pac_cached")):
+        w = walls[name]
+        cells[name] = (build_case(cfg, InputShape(name, w["seq"], w["batch"], "train"),
+                                  technique=technique, quant_bits=w["quant"], r=w["r"],
+                                  tap_policy=w["cache"]), technique, w)
+    out = {}
+    for name, (case, technique, wall) in cells.items():
+        t0 = time.perf_counter()
+        pricer = case.price()[0]
+        terms = analyze(pricer.cost, arch=cfg.name, shape=case.shape, technique=technique,
+                        note=case.note, n_active_params=cfg.active_param_count(),
+                        n_adapter_params=adapter_param_count(cfg, ep1["r"]),
+                        argument_bytes=case.argument_bytes())
+        longest = max(terms.t_compute, terms.t_memory, terms.t_collective)
+        out[name] = {"shape": [case.shape.global_batch, case.shape.seq_len], "note": case.note,
+                     "flops": terms.flops_per_device, "bytes": terms.bytes_per_device,
+                     "t_compute_ms": terms.t_compute * 1e3,
+                     "t_compute_f32_ms": terms.t_compute_f32 * 1e3,
+                     "t_memory_ms": terms.t_memory * 1e3,
+                     "t_collective_ms": terms.t_collective * 1e3,
+                     "bottleneck": terms.bottleneck,
+                     "model_flops_total": terms.model_flops_total,
+                     "useful_compute_ratio": terms.useful_compute_ratio,
+                     "units": {k: {"calls": pricer.unit_calls[k], "flops": u.flops,
+                                   "bytes": u.bytes} for k, u in pricer.units.items()},
+                     "wall_ms": wall["s"] * 1e3, "share": longest / wall["s"],
+                     "price_s": time.perf_counter() - t0}
+    line = {"phase": "roofline", "arch": cfg.name, "cells": out,
+            "share_max": ROOFLINE_SHARE_MAX, "kernel_bounds": priced_kernel_bounds(),
+            "constants": {"PEAK_FLOPS_BF16": BF16_FLOP_PER_S, "PEAK_FLOPS_F32": F32_FLOP_PER_S,
+                          "HBM_BW": HBM_BYTES_PER_S}}
+    emit(line)
+    bad = {k: c["share"] for k, c in out.items() if not 0 < c["share"] <= ROOFLINE_SHARE_MAX}
+    if bad:
+        raise AssertionError(f"roofline shares outside (0, {ROOFLINE_SHARE_MAX}]: {bad}")
+    return line
+
+
+def priced_kernel_bounds() -> dict:
+    """Bounds of kernel shapes the kernel table lacked one for, with the
+    bytes of the pricer's unit (``launch.op_cost``, on meta) and the
+    FLOPs by each row's rule: int4 ``quant_matmul`` at M = 8 (f32) and
+    4096 (3 bf16 products), flash at the distill teacher's B·H = 2·16
+    (12 bf16 products of the causal pairs, and f32), ``adapter_fuse`` at
+    qwen2-vl's T = 8 (f32)."""
+    from repro_torch.core.quantization import QTensor
+    from repro_torch.kernels import ops
+    from repro_torch.launch.op_cost import price
+
+    def m(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    def unit_bytes(fn, *args):
+        return sum(u.bytes for u in price(fn, *args)[2].units.values())
+
+    out = {}
+    K = N = 2048
+    w4 = QTensor(m(K, N // 2, dtype=torch.int8), m(K, N // 128), 4, 128, N)
+    for M in (8, 4096):
+        nbytes = unit_bytes(ops.quant_matmul, m(M, K), w4)
+        f32 = bound(nbytes, 2.0 * M * K * N)
+        row = {"at": f"int4 M={M} K={K} N={N}", "bytes": nbytes, "bound_f32_ms": f32[0],
+               "bound_f32_by": f32[1]}
+        if M > QMM_SKINNY_ROWS:
+            tc = bound(nbytes, 3 * 2.0 * M * K * N, BF16_FLOP_PER_S)
+            row.update(bound_tc_ms=tc[0], bound_tc_by=tc[1])
+        out[f"quant_matmul_int4_M{M}"] = row
+    B, H, Hkv, S, hd = PLAN_MICRO_BATCH, 16, 8, 512, 128
+    nbytes = unit_bytes(ops.flash_attention, m(B, H, S, hd), m(B, Hkv, S, hd), m(B, Hkv, S, hd))
+    flops = 4.0 * hd * (S * (S + 1) // 2) * B * H
+    tc, f32 = bound(nbytes, 6 * flops, BF16_FLOP_PER_S), bound(nbytes, flops)
+    out["flash_attention_distill"] = {"at": f"B·H={B}·{H} over {B}·{Hkv}, S={S}, hd={hd}",
+                                      "bytes": nbytes, "bound_tc_ms": tc[0],
+                                      "bound_tc_by": tc[1], "bound_f32_ms": f32[0],
+                                      "bound_f32_by": f32[1]}
+    T, d, da = 8, 3584, 444
+    nbytes = unit_bytes(ops.adapter_fuse, m(T, d), m(d, da), m(T, da), m())
+    f32 = bound(nbytes, 2.0 * T * d * da)
+    out["adapter_fuse_qwen2vl_T8"] = {"at": f"T={T}, d={d}, d_a={da}, f32", "bytes": nbytes,
+                                      "bound_ms": f32[0], "bound_by": f32[1]}
+    return out
+
+
+def dryrun_phase() -> dict:
+    """``repro_torch.launch.dryrun.run_case`` for internlm2-1.8b at the
+    four input shapes (the reference's dry-run cells, on meta)."""
+    from repro_torch.configs import INPUT_SHAPES
+    from repro_torch.launch.dryrun import run_case
+
+    t0 = time.perf_counter()
+    recs = {shape: run_case("internlm2-1.8b", shape, verbose=False) for shape in INPUT_SHAPES}
+    keep = ("note", "flops_per_device", "bytes_per_device", "t_compute", "t_compute_f32",
+            "t_memory", "t_collective", "bottleneck", "model_flops_total",
+            "useful_compute_ratio", "price_s")
+    line = {"phase": "dryrun", "arch": "internlm2-1.8b", "technique": "pac",
+            "cases": {k: {f: r[f] for f in keep} for k, r in recs.items()},
+            "seconds": time.perf_counter() - t0}
+    emit(line)
+    if any(r["status"] != "ok" or not r["flops_per_device"] > 0 for r in recs.values()):
+        raise AssertionError(f"dry run: {recs}")
+    return line
+
+
+def priced_mesh_bytes(spec, first_runs: dict) -> dict:
+    """The dry run's per-rank point-to-point and all-reduce bytes of one
+    epoch-1 step and one cached step of ``spec``'s layout, against what
+    ``EdgeMesh.stats`` counted for each rank and step of the run
+    (``first_runs``: rank -> its first run's record)."""
+    from repro_torch.configs import InputShape
+    from repro_torch.launch.specs import build_case
+
+    cfg = spec.arch_config()
+    shape = InputShape("distributed", spec.seq, spec.batch, "train")
+    kinds = {"p2p_bytes": "p2p", "allreduce_bytes": "all-reduce"}
+    priced = {t: [{k: p.cost.collectives[kind] for k, kind in kinds.items()} for p in build_case(
+        cfg, shape, (spec.dp, spec.stages), technique=t, quant_bits=spec.quant, r=spec.r,
+        tap_policy=spec.cache_compress).price()] for t in ("pac", "pac_cached")}
+    equal = all(
+        st[k] == priced["pac" if st["mode"].startswith("hybrid") else "pac_cached"][rank][k]
+        for rank, run in first_runs.items() for st in run["steps"]
+        for k in ("p2p_bytes", "allreduce_bytes"))
+    return {"priced_bytes_per_step": priced, "priced_bytes_equal": equal}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.configs import get_arch
     from repro_torch.kernels import _build
 
@@ -4733,14 +4924,15 @@ def main() -> int:
     # each path's kernels are checked just before the path runs, so that
     # no path's measurements carry another's leftovers
     rows = kernel_phase(Timer(), gen)
-    serving = serving_phase(gen)
+    walls = {}  # the internlm2 cells' walls, for the roofline line
+    serving = serving_phase(gen, walls)
     serving_done_s = time.perf_counter() - T_START  # the serving slice's phases
     rows.update(training_kernel_phase(Timer(), gen))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        training, backbone, ckpt, single = training_phase(Path(workdir))
+        training, backbone, ckpt, single = training_phase(Path(workdir), walls)
         training_done_s = time.perf_counter() - T_START
         rows.update(personal_kernel_phase(Timer(), gen))
-        personal = personal_phase(backbone, get_arch("internlm2-1.8b"), ckpt)
+        personal = personal_phase(backbone, get_arch("internlm2-1.8b"), ckpt, walls)
         del backbone
         personal_done_s = time.perf_counter() - T_START
         prefetch = prefetch_phase(Path(workdir))
@@ -4755,6 +4947,10 @@ def main() -> int:
         fleet = fleet_phase(single, Path(workdir))
         del single
     fleet_done_s = time.perf_counter() - T_START
+    # the internlm2 cells priced on meta against their walls, then the dry run
+    roofline_phase(walls)
+    dryrun_phase()
+    roofline_done_s = time.perf_counter() - T_START
 
     # the other dense configs: gemma2-2b's head width 256 and widths, then
     # its paths, the paper's Table III models, musicgen's audio frames
@@ -4889,7 +5085,8 @@ def main() -> int:
           "through_serving_s": serving_done_s, "through_training_s": training_done_s,
           "through_personal_s": personal_done_s, "through_prefetch_s": prefetch_done_s,
           "through_distributed_s": distributed_done_s, "through_plan_s": plan_done_s,
-          "through_fleet_s": fleet_done_s, "through_gemma2_s": gemma2_done_s,
+          "through_fleet_s": fleet_done_s, "through_roofline_s": roofline_done_s,
+          "through_gemma2_s": gemma2_done_s,
           "through_paper_models_s": paper_done_s, "through_baselines_s": baselines_done_s,
           "through_distill_s": distill_done_s, "through_mixtral_s": mixtral_done_s,
           "through_xlstm_s": xlstm_done_s, "through_jamba_s": jamba_done_s,

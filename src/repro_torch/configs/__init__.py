@@ -9,7 +9,9 @@ hyper-parameters.
 import importlib
 
 from repro_torch.configs.base import (  # noqa: F401
+    INPUT_SHAPES,
     ArchConfig,
+    InputShape,
     LayerSpec,
     MoESpec,
     get_arch,

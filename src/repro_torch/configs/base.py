@@ -178,6 +178,27 @@ class ArchConfig:
         return n
 
 
+# ---------------------------------------------------------------------------
+# Input shapes of the dry run (twin of ``repro.configs.base.INPUT_SHAPES``)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+
 _REGISTRY: dict = {}
 
 def register(cfg: ArchConfig) -> ArchConfig:

@@ -11,6 +11,13 @@ starts one ``nvcc`` per source, all at once.
 
 Each C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises on a non-zero code.
+
+:func:`plain_path` and :func:`run_plain` are the wrappers' one seam
+between a kernel and its plain version: CPU tensors and meta tensors
+(shapes only) take the plain version, and a tensor on the card never
+does. Under the op-level pricer (:class:`repro_torch.launch.op_cost.OpPricer`,
+a dispatch mode with a ``kernel_unit`` method) the plain version's call
+is priced as one unit, as the kernel would move and compute it.
 """
 
 from __future__ import annotations
@@ -127,6 +134,26 @@ def stream_of(t) -> int:
         raise KernelError(
             f"tensor on {t.device}, current device is cuda:{torch.cuda.current_device()}")
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def plain_path(t: torch.Tensor) -> bool:
+    """True where a wrapper takes its plain version: ``t`` on the CPU, or
+    on the meta device (the pricer's shapes). False on the card."""
+    return t.device.type in ("cpu", "meta")
+
+
+def run_plain(name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, the plain version of kernel ``name``, on
+    tensors :func:`plain_path` admits. When a dispatch mode of this thread
+    has a ``kernel_unit`` method (the op-level pricer), the call goes
+    through it, so that it is charged as one unit of kernel ``name``."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+    for mode in reversed(_get_current_dispatch_mode_stack()):
+        unit = getattr(mode, "kernel_unit", None)
+        if unit is not None:
+            return unit(name, fn, args, kwargs)
+    return fn(*args, **kwargs)
 
 
 def require(cond: bool, msg: str) -> None:

@@ -25,9 +25,10 @@ summed in a fixed order too.
 
 There is no gradient (the TPU kernel has none): inputs that require
 grad are refused; training's mix is
-:class:`~repro_torch.kernels.cached_mix.MixFn`. On CPU tensors the
-wrapper computes :func:`~repro_torch.kernels.ref.adapter_fuse_ref`; on
-CUDA tensors it launches the kernel or raises.
+:class:`~repro_torch.kernels.cached_mix.MixFn`. On CPU and meta tensors
+(``_build.plain_path``) the wrapper computes
+:func:`~repro_torch.kernels.ref.adapter_fuse_ref`; on CUDA tensors it
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -76,8 +77,8 @@ def adapter_fuse(b: torch.Tensor, w_down: torch.Tensor, a: torch.Tensor, lam) ->
     grads = [t for t in (b, w_down, a, lam) if isinstance(t, torch.Tensor) and t.requires_grad]
     require(not grads, "adapter_fuse has no gradient (nor has the TPU kernel); "
                        "train through cached_mix.MixFn")
-    if b.device.type == "cpu":
-        return adapter_fuse_ref(b, w_down, a, lam)
+    if _build.plain_path(b):
+        return _build.run_plain("adapter_fuse", adapter_fuse_ref, b, w_down, a, lam)
     require(b.device.type == "cuda", f"unsupported device {b.device}")
     require(isinstance(lam, torch.Tensor) and lam.numel() == 1 and lam.dtype == torch.float32
             and lam.device == b.device, "λ must be a one-element f32 tensor on b's device")

@@ -43,8 +43,8 @@ the dequantized tap; the backward returns ``dW`` from ``mix_dw``,
 ``da = (1−λ)·g`` and ``dλ = Σ g·(bw − a)``, and no gradient for the
 frozen entry.
 
-On CPU tensors the wrappers compute the plain versions
-(:func:`~repro_torch.kernels.ref.mix_fwd_ref`,
+On CPU and meta tensors (``_build.plain_path``) the wrappers compute the
+plain versions (:func:`~repro_torch.kernels.ref.mix_fwd_ref`,
 :func:`~repro_torch.kernels.ref.mix_dw_ref`); on CUDA tensors they launch
 the kernels or raise.
 """
@@ -117,8 +117,8 @@ def mix_fwd(b, w_down: torch.Tensor, a: torch.Tensor, lam):
     require(a.shape == (T, da), f"a {tuple(a.shape)} does not match ({T}, {da})")
     require(a.dtype in (torch.float32, torch.bfloat16), f"a must be f32 or bf16, got {a.dtype}")
     require(payload.device == w_down.device == a.device, "entry, W_down, a on different devices")
-    if payload.device.type == "cpu":
-        return mix_fwd_ref(b, w_down, a, lam)
+    if _build.plain_path(payload):
+        return _build.run_plain("mix_fwd", mix_fwd_ref, b, w_down, a, lam)
     require(w_down.dtype == torch.float32, "W_down must be float32")
     lam = _lam_on(lam, a.device)
     _check_cuda(payload, scale, w_down, a, lam)
@@ -148,8 +148,8 @@ def mix_dw(b, g: torch.Tensor, lam, d: int) -> torch.Tensor:
     require(0 < d <= ld, f"d={d} outside the entry's {ld} columns")
     require(g.ndim == 2 and g.shape[0] == T, f"g {tuple(g.shape)} does not have {T} rows")
     require(payload.device == g.device, "entry and g on different devices")
-    if payload.device.type == "cpu":
-        return mix_dw_ref(b, g, lam, d)
+    if _build.plain_path(payload):
+        return _build.run_plain("mix_dw", mix_dw_ref, b, g, lam, d)
     g = g.float().contiguous()
     lam = _lam_on(lam, g.device)
     _check_cuda(payload, scale, g, lam)

@@ -32,7 +32,7 @@ Head widths 64, 112 (kimi-k2), 128 and 256 (gemma2-2b); at 256 two warps
 share each 16-row group, each accumulating half of O's columns; at 112
 O's 14 column tiles a warp are summed 8 then 6 (the source's notes).
 
-On CPU tensors the wrapper computes
+On CPU and meta tensors (``_build.plain_path``) the wrapper computes
 :func:`~repro_torch.kernels.ref.flash_attention_ref`; on CUDA tensors it
 launches the kernel or raises.
 """
@@ -114,9 +114,9 @@ def flash_attention(
     require(window is None or window > 0, "window must be positive")
     require(attn_softcap is None or attn_softcap > 0, "attn_softcap must be positive")
     require(q.device == k.device == v.device, "q, k, v on different devices")
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   attn_softcap=attn_softcap)
+    if _build.plain_path(q):
+        return _build.run_plain("flash_attention", flash_attention_ref, q, k, v, causal=causal,
+                                window=window, attn_softcap=attn_softcap)
     require(q.device.type == "cuda", f"unsupported device {q.device}")
     require(q.dtype == k.dtype == v.dtype == torch.float32, "q, k, v must be float32")
     require_head_dim(hd)

@@ -24,8 +24,8 @@ V are taken (ragged edges are padded with zero terms or masked).
 ``_ce_op``: it saves ``lse`` and its backward is ``ce_bwd``; the head is
 frozen and the labels are integers, so neither gets a gradient.
 
-On CPU tensors the wrappers compute the plain versions
-(:func:`~repro_torch.kernels.ref.ce_fwd_ref`,
+On CPU and meta tensors (``_build.plain_path``) the wrappers compute the
+plain versions (:func:`~repro_torch.kernels.ref.ce_fwd_ref`,
 :func:`~repro_torch.kernels.ref.ce_bwd_ref`); on CUDA tensors they
 launch the kernels or raise.
 """
@@ -104,8 +104,8 @@ def ce_fwd(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
            softcap: Optional[float] = None):
     """(nll, lse), each (T,) f32. h (T, d); W (d, V); labels (T,) in [0, V)."""
     _validate(h, w, labels, softcap)
-    if h.device.type == "cpu":
-        return ce_fwd_ref(h, w, labels, softcap)
+    if _build.plain_path(h):
+        return _build.run_plain("ce_fwd", ce_fwd_ref, h, w, labels, softcap)
     _check_cuda(h, w)
     lib = _lib()
     T, d = h.shape
@@ -136,8 +136,8 @@ def ce_bwd(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, lse: torch.Te
     ``h``'s dtype; lse and g (T,) f32."""
     _validate(h, w, labels, softcap)
     require(lse.shape == g.shape == (h.shape[0],), "lse and g must be (T,)")
-    if h.device.type == "cpu":
-        return ce_bwd_ref(h, w, labels, lse, g, softcap)
+    if _build.plain_path(h):
+        return _build.run_plain("ce_bwd", ce_bwd_ref, h, w, labels, lse, g, softcap)
     g = g.float().contiguous()
     _check_cuda(h, w, lse, g)
     lib = _lib()

@@ -6,7 +6,7 @@ kernel's, as the reference does: a (…, d) activation becomes 2-D for
 ``quant_matmul`` and ``adapter_fuse``, and (B, H, S, hd) attention
 becomes (B·H, S, hd). Where the reference routes between its Pallas
 kernel and the jnp oracle by backend, each kernel wrapper here routes
-by the tensors' device: the plain version on CPU tensors, the CUDA
+by the tensors' device: the plain version on CPU and meta tensors, the CUDA
 kernel on the card (or an error). The ``cuda`` OpSet calls these.
 """
 

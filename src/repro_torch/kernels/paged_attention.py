@@ -22,7 +22,7 @@ one finite slot, so its output is finite. Limits on the card: hd in (64,
 112 (kimi-k2) a row does not split into 8 equal loads, so its scoring
 lanes take 16-byte chunks in turn (the source's note).
 
-On CPU tensors the wrapper computes
+On CPU and meta tensors (``_build.plain_path``) the wrapper computes
 :func:`~repro_torch.kernels.ref.paged_attention_ref`; on CUDA tensors it
 launches the kernel or raises.
 """
@@ -171,10 +171,10 @@ def paged_attention(
                 "unscaled pages must be float32 or bfloat16")
     require(window is None or window > 0, "window must be positive")
     require(attn_softcap is None or attn_softcap > 0, "attn_softcap must be positive")
-    if q.device.type == "cpu":
-        return paged_attention_ref(q, k_pages, v_pages, block_tables, lengths,
-                                   k_scale=k_scale, v_scale=v_scale, window=window,
-                                   attn_softcap=attn_softcap)
+    if _build.plain_path(q):
+        return _build.run_plain("paged_attention", paged_attention_ref, q, k_pages, v_pages,
+                                block_tables, lengths, k_scale=k_scale, v_scale=v_scale,
+                                window=window, attn_softcap=attn_softcap)
     require(q.device.type == "cuda", f"unsupported device {q.device}")
     tensors = [q, k_pages, v_pages, block_tables, lengths] + ([k_scale, v_scale] if quantized else [])
     require(all(t.device == q.device for t in tensors), "arguments on different devices")

@@ -26,8 +26,9 @@ rounds ``x * scale`` where the reference rounds ``q * scale``; the three
 terms keep that f32 value whole, and the result stays within the
 reference's f32 tolerance (atol 1e-3 + rtol 1e-4).
 
-On CPU tensors the wrapper computes :func:`~repro_torch.kernels.ref.quant_matmul_ref`;
-on CUDA tensors it launches the kernel or raises.
+On CPU and meta tensors (``_build.plain_path``) the wrapper computes
+:func:`~repro_torch.kernels.ref.quant_matmul_ref`; on CUDA tensors it
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -76,8 +77,8 @@ def quant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, bits: in
     require(x.dtype == torch.float32, f"x must be float32, got {x.dtype}")
     require(q.dtype == torch.int8 and scale.dtype == torch.float32, "q int8, scale float32")
     require(x.device == q.device == scale.device, "x, q, scale on different devices")
-    if x.device.type == "cpu":
-        return quant_matmul_ref(x, q, scale, bits)
+    if _build.plain_path(x):
+        return _build.run_plain("quant_matmul", quant_matmul_ref, x, q, scale, bits)
     require(x.device.type == "cuda", f"unsupported device {x.device}")
     require(x.is_contiguous() and q.is_contiguous() and scale.is_contiguous(),
             "x, q, scale must be contiguous")

@@ -19,8 +19,12 @@ pipeline cuts on. Two backends answer :class:`CostModel`:
   reference's HLO count holds elementwise ops too, so the calibrated
   FLOPs are the port's own numbers. Memory stays analytic.
 
-The reference's ``price_lowered`` prices a lowered XLA module and has no
-twin here.
+* :func:`price_case` — the twin of the reference's ``price_lowered``:
+  the :class:`~repro_torch.launch.op_cost.Cost` of a
+  :class:`~repro_torch.launch.specs.Case` priced on the meta device
+  (the ``cuda`` OpSet's program, kernels as units), the one entry point
+  the roofline and the dry run share. The calibrated model keeps its
+  ``FlopCounterMode`` count, so its numbers are unchanged.
 """
 
 from __future__ import annotations
@@ -154,6 +158,23 @@ class CalibratedCostModel:
         return [dataclasses.replace(c, fwd_flops=c.fwd_flops * s_fwd,
                                     bwd_flops=c.bwd_flops * s_bwd + extra_bwd)
                 for c in base]
+
+
+def price_case(case):
+    """The :class:`~repro_torch.launch.op_cost.Cost` of ``case``
+    (:func:`repro_torch.launch.specs.build_case`): one rank's, or for a
+    layout the rank's whose largest roofline term is the largest (the
+    rank that bounds the step)."""
+    from repro_torch.launch.roofline import analyze
+
+    costs = [p.cost for p in case.price()]
+
+    def longest(cost):
+        t = analyze(cost, arch=case.cfg.name, shape=case.shape, layout=case.layout,
+                    technique="")
+        return max(t.t_compute, t.t_memory, t.t_collective)
+
+    return max(costs, key=longest)
 
 
 def resolve_cost_model(calibrate: bool, micro_batch: int = 4,

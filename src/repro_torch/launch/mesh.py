@@ -35,9 +35,13 @@ the whole run; nothing falls back to one process.
 
 :func:`plan_mesh_shape` is the twin of the reference's
 ``make_plan_mesh``: the ``(dp, stages)`` a planner partition executes on
-over a device pool. The reference's production mesh and its roofline
-constants (``repro/launch/mesh.py:18,71-77``) are XLA-specific and have
-no twin yet.
+over a device pool. The reference's production mesh
+(``repro/launch/mesh.py:18``) lays one XLA program over 256–512 devices
+and has no twin: the dry run prices one rank of an :class:`EdgeMesh`
+layout instead (:mod:`repro_torch.launch.dryrun`). The roofline's
+constants (``repro/launch/mesh.py:74-77``) have their twins here, the
+card's own: ``PEAK_FLOPS_BF16``, ``PEAK_FLOPS_F32``, ``HBM_BW`` and
+``LINK_BW``.
 """
 
 from __future__ import annotations
@@ -55,6 +59,14 @@ import torch.distributed as dist
 from repro_torch.core.quantization import QTensor, tree_leaves, tree_map
 
 BACKEND = "gloo"
+
+# The card's peaks for the roofline (:mod:`repro_torch.launch.roofline`)
+# and every bound ``chip_smoke.py`` writes: NVIDIA H100 SXM5 data sheet, the
+# card the smoke reports as ``NVIDIA H100 80GB HBM3, 700.00 W``.
+PEAK_FLOPS_BF16 = 989e12  # dense bf16 on the tensor cores, FLOP/s
+PEAK_FLOPS_F32 = 67e12  # f32 on the CUDA cores, FLOP/s
+HBM_BW = 3.35e12  # HBM3, bytes/s
+LINK_BW = 450e9  # NVLink 4, bytes/s one direction (900 GB/s both ways)
 #: int64 slots of a point-to-point header (:func:`_describe`)
 HEADER = 64
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int8, torch.int32, torch.int64,

@@ -225,6 +225,27 @@ def resolve_layout(spec: RunSpec) -> Layout:
     return Layout(pool, dp, stages, n_micro, plan, partition, tuple(lines))
 
 
+def scatter_hit(mesh, hit, batch: int, axes, device):
+    """The owner's cached batch ``hit`` (host; ``batch`` rows) split over
+    the active mesh by ``launch.sharding.rank_rows``: the owner sends
+    each counted position's rank its rows and keeps its own; each returns
+    its rows on ``device`` (None on a rank whose rows do not count)."""
+    from repro_torch.launch.sharding import rank_rows, rows_count
+
+    if not mesh.owner:
+        return mesh.recv_tree(0) if rows_count(mesh, axes) else None
+
+    def rows_of(rank):
+        r = rank_rows(batch, mesh, axes, rank)
+        b0, taps, bf = hit
+        return b0[r], taps[:, r], bf[r]
+
+    for pos in range(1, mesh.world):
+        if rows_count(mesh, axes, pos):
+            mesh.send_tree(rows_of(pos), mesh.members[pos])
+    return tuple(part.to(device) for part in rows_of(0))
+
+
 class EdgeSession:
     """The run engine. ``open()``/``close()`` (or ``with``) bracket the
     heavy state; :meth:`step` is the one dispatch the epoch loop calls;
@@ -429,7 +450,7 @@ class EdgeSession:
                                  mode=self.mode(True), wall_s=time.perf_counter() - t0)
             axes = cached_batch_axes(spec.batch, mesh)
             rows = rank_rows(spec.batch, mesh, axes)
-            local = self._scatter(hit, axes)
+            local = scatter_hit(mesh, hit, spec.batch, axes, self.device)
             cached = None
             if local is not None:
                 cached = dict(zip(("b0", "taps", "b_final"), local), labels=labels[rows])
@@ -451,27 +472,6 @@ class EdgeSession:
                 self.cache.put_batch(ids, *acts, orig_last=self.cfg.d_model)
         return StepEvent(epoch=epoch, index=index, loss=float(loss), cache_hit=cache_hit,
                          mode=self.mode(cache_hit), wall_s=time.perf_counter() - t0)
-
-    def _scatter(self, hit, axes):
-        """The owner's cached batch ``hit`` (host) split over the active
-        mesh by ``launch.sharding.rank_rows``: the owner sends each
-        counted position's rank its rows and keeps its own; each returns
-        its rows on its device (None on a rank whose rows do not count)."""
-        from repro_torch.launch.sharding import rank_rows, rows_count
-
-        mesh = self.mesh
-        if not mesh.owner:
-            return mesh.recv_tree(0) if rows_count(mesh, axes) else None
-
-        def rows_of(rank):
-            r = rank_rows(self.spec.batch, mesh, axes, rank)
-            b0, taps, bf = hit
-            return b0[r], taps[:, r], bf[r]
-
-        for pos in range(1, mesh.world):
-            if rows_count(mesh, axes, pos):
-                mesh.send_tree(rows_of(pos), mesh.members[pos])
-        return tuple(part.to(self.device) for part in rows_of(0))
 
     @contextlib.contextmanager
     def epoch_scope(self, epoch: int):

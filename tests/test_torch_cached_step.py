@@ -226,19 +226,37 @@ def test_kernel_wrappers_validate():
 
 def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():
     """A tensor on any device but the CPU goes to the kernel path, which
-    refuses what is not a CUDA tensor: no silent fallback."""
-    meta = dict(device="meta")
-    b, g = torch.zeros(8, 256, **meta), torch.zeros(8, 16, **meta)
-    with pytest.raises(ValueError, match="unsupported device"):
-        cached_mix.mix_fwd(b, torch.zeros(256, 16, **meta), g, 0.5)
-    with pytest.raises(ValueError, match="unsupported device"):
-        cached_mix.mix_dw(b, g, 0.5, 256)
-    h, w, lab = torch.zeros(8, 64, **meta), torch.zeros(64, 100, **meta), torch.zeros(
-        8, dtype=torch.int32, **meta)
-    with pytest.raises(ValueError, match="unsupported device"):
-        lmhead_ce.ce_fwd(h, w, lab)
-    with pytest.raises(ValueError, match="unsupported device"):
-        lmhead_ce.ce_bwd(h, w, lab, torch.zeros(8, **meta), torch.zeros(8, **meta))
+    refuses what is not a CUDA tensor: no silent fallback. The one other
+    device with a plain path is ``meta``, the pricer's shapes
+    (``repro_torch.launch.op_cost``): nothing is computed there, the
+    plain version only gives the output's shape. Fake tensors stand for
+    a card this machine has not (``xpu``)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    def inputs(device):
+        dev = dict(device=device)
+        return (torch.zeros(8, 256, **dev), torch.zeros(8, 16, **dev),
+                torch.zeros(256, 16, **dev), torch.zeros(8, 64, **dev),
+                torch.zeros(64, 100, **dev), torch.zeros(8, dtype=torch.int32, **dev),
+                torch.zeros(8, **dev))
+
+    with FakeTensorMode():
+        b, g, wd, h, w, lab, vec = inputs("xpu")
+        with pytest.raises(ValueError, match="unsupported device"):
+            cached_mix.mix_fwd(b, wd, g, 0.5)
+        with pytest.raises(ValueError, match="unsupported device"):
+            cached_mix.mix_dw(b, g, 0.5, 256)
+        with pytest.raises(ValueError, match="unsupported device"):
+            lmhead_ce.ce_fwd(h, w, lab)
+        with pytest.raises(ValueError, match="unsupported device"):
+            lmhead_ce.ce_bwd(h, w, lab, vec, vec)
+    b, g, wd, h, w, lab, vec = inputs("meta")
+    out, bw = cached_mix.mix_fwd(b, wd, g, 0.5)
+    assert out.shape == bw.shape == (8, 16) and out.device.type == "meta"
+    assert cached_mix.mix_dw(b, g, 0.5, 256).shape == (256, 16)
+    nll, lse = lmhead_ce.ce_fwd(h, w, lab)
+    assert nll.shape == lse.shape == (8,) and nll.device.type == "meta"
+    assert lmhead_ce.ce_bwd(h, w, lab, vec, vec).shape == (8, 64)
 
 
 # ---------------------------------------------------------------------------

@@ -15,7 +15,10 @@ The reference runs in a subprocess on four forced host devices (its
 * reduced qwen2-vl-7b (mrope: (3, B, S) positions in the stages, in the
   loss and in the cached step) on the (2, 2) mesh;
 * the ``cuda`` OpSet (plain versions on the CPU) with int8 taps against
-  the port's own single-process step;
+  the port's own single-process step, then a cached step from the
+  owner's scatter of those taps; each step's point-to-point and
+  all-reduce bytes (``EdgeMesh.stats``) against the dry run's priced
+  dp 2 x stages 2 layout (``repro_torch.launch.dryrun``);
 * every rank's adapter and optimizer bit-equal after every step; the
   layout errors; the CLI; a failing or hung rank failing the run.
 
@@ -47,6 +50,7 @@ from repro_torch.launch.sharding import cached_batch_axes, rank_rows
 from repro_torch.models.backbone import backbone_forward
 from repro_torch.optim import adamw_init
 from repro_torch.runtime import RunSpec, RunSpecError
+from repro_torch.runtime.session import scatter_hit
 
 REPO = Path(__file__).resolve().parents[1]
 GLOO_TIMEOUT, DEADLINE = 60.0, 120.0
@@ -192,10 +196,25 @@ def _uniform_rank(inp):
         out["digests"].append(_digest(a, o))
 
     # the cuda OpSet (its plain versions here) with int8 taps on an INT8 backbone
+    bq = quantize_tree(bp, bits=8)
+    stats0 = dict(mesh.stats)
     loss8, a8, o8, acts8 = steps.pipeline_pac_train_step(
-        quantize_tree(bp, bits=8), ap, opt, batch, kernel_impl="cuda", tap_policy="int8", **kw)
+        bq, ap, opt, batch, kernel_impl="cuda", tap_policy="int8", **kw)
+    stats1 = dict(mesh.stats)
     out["loss8"], out["acts8"] = float(loss8), bridge.to_numpy(acts8)
     out["digest8"] = _digest(a8, o8)
+    # then a cached step as the session runs it: the owner scatters the
+    # int8 activations it gathered, every rank steps on its rows
+    axes = cached_batch_axes(B, mesh)
+    mine = scatter_hit(mesh, acts8, B, axes, "cpu")
+    cached = dict(zip(("b0", "taps", "b_final"), mine), labels=batch["labels"][rank_rows(
+        B, mesh, axes)])
+    steps.dp_cached_train_step(bq, a8, o8, cached, cfg=cfg, mesh=mesh, batch_axes=axes, r=R,
+                               kernel_impl="cuda")
+    stats2 = dict(mesh.stats)
+    out["bytes8"] = {step: {k: after[k] - before[k] for k in ("p2p_bytes", "allreduce_bytes")}
+                     for step, before, after in (("pac", stats0, stats1),
+                                                 ("pac_cached", stats1, stats2))}
 
     # layout errors, raised alike on every rank before any transfer
     out["errors"] = []
@@ -441,6 +460,25 @@ def test_int8_taps_match_the_single_process_step(runs):
         assert int((a.q.int() - b.q.int()).abs().max()) <= 1
         assert float((a.scale - b.scale).abs().max()) <= 1e-5 * float(b.scale.abs().max())
     assert abs(ranks[0]["loss8"] - float(loss)) < 1e-4
+
+
+@pytest.mark.parametrize("technique", ["pac", "pac_cached"])
+def test_priced_layout_bytes_equal_the_mesh_stats(runs, technique):
+    """The dry run's dp 2 x stages 2 layout (``repro_torch.launch.dryrun``,
+    threads on meta) prices each rank's point-to-point and all-reduce
+    bytes of the epoch-1 step and of the cached step as the gloo ranks'
+    ``EdgeMesh.stats`` count them."""
+    from repro_torch.configs import InputShape
+    from repro_torch.launch.specs import build_case
+
+    _, _, ranks, _ = runs
+    case = build_case(get_arch("internlm2-1.8b").reduced(), InputShape("t", S, B, "train"),
+                      (2, 2), technique=technique, quant_bits=8, r=R, tap_policy="int8")
+    priced = [p.cost.collectives for p in case.price()]
+    for rank, (want, got) in enumerate(zip(ranks, priced)):
+        assert want["bytes8"][technique]["p2p_bytes"] == got["p2p"], rank
+        assert want["bytes8"][technique]["allreduce_bytes"] == got["all-reduce"], rank
+    assert sum(r["bytes8"][technique]["p2p_bytes"] for r in ranks) > 0
 
 
 def test_layout_errors_are_raised_on_every_rank(runs):
