@@ -198,6 +198,22 @@ Phases, in order; any failure exits non-zero:
    100 mix and 4 CE each in a cached step (``fleet`` line: per run the
    ticks' placements, shares, lost and preempted, each step's wall time,
    mode and launches; memory high-water mark, phase time).
+12a. Pipeline gradients (``pipeline_grads`` line): first the distributed
+   path's kernel checks again at its shapes (``*_pipeline_grads`` lines),
+   then four gloo ranks on the card. (a) internlm2-1.8b as a dense f32
+   backbone under ``ref``, dp 1 x 4 stages of 6 periods, 4 x 512 tokens
+   in 4 micro-batches: each stage's slab trained through
+   ``pipeline_grads`` (the backbone's CE on stage 0), held to one
+   process's autograd of the same loss (each rank runs it in turn on
+   the whole backbone): loss within 1e-5, gradients within
+   1e-4·max(1, |g|max) (``PG_TOL_REASON``); each rank's F/B ops its
+   stage's 1F1B list with at most S − s graphs alive, and its backward's
+   bytes those of its forward; per rank the step's wall, forward and
+   backward seconds, bytes and peak memory. (b) PAC+ on the INT8
+   backbone under ``cuda`` with int8 taps, dp 2 x stages 2, through
+   ``pipeline_grads`` with the adapter trainable: loss and gradients
+   bit-equal to ``pipeline_pac_loss_and_grads``, no bytes beyond the
+   forward's, and a ``distributed`` epoch-1 step's launches a rank.
 12b. Roofline (``roofline`` line): the five internlm2-1.8b cells timed
    above (the serving engine's 8 x 512 prefill wave and a decode step at
    B = 8 over INT8 pages, the personal decode step at B = 1, the epoch-1
@@ -250,7 +266,8 @@ Phases, in order; any failure exits non-zero:
    techniques (``benchmarks/bench_step_time.py``) on t5-base-pac and
    internlm2-1.8b at full width, dense f32 backbones from the seed, 4 x
    512 tokens, TF32 off: full fine-tuning, LoRA and Houlsby adapters
-   (plain ops and plain autograd, as in the reference), PAC+'s epoch-1
+   (plain ops and plain autograd, as in the reference: the ``ref``
+   attention's blocked backward recomputes its scores), PAC+'s epoch-1
    and cached steps under ``ref`` on the same backbone and under
    ``cuda`` on its INT8 quantization; per row the median per-sample ms
    of 3 steps after a warm-up, peak memory, trainable parameters,
@@ -2016,7 +2033,8 @@ def code_moves(got, want) -> dict:
             "max_rel_dscale": float(ds)}
 
 
-def distributed_kernel_phase(timer: Timer, gen: torch.Generator) -> None:
+def distributed_kernel_phase(timer: Timer, gen: torch.Generator,
+                             path: str = "distributed") -> None:
     """The six kernels of the distributed path against their plain
     versions at the shapes one rank gives them (dp=2, stages=2, batch 4
     x 512, 2 micro-batches): ``quant_matmul`` at M = 512 (a stage's
@@ -2025,18 +2043,19 @@ def distributed_kernel_phase(timer: Timer, gen: torch.Generator) -> None:
     int8 entries and ``ce_fwd``/``ce_bwd`` at T = 1024 (the epoch-1 loss,
     a dp row's two rows) and T = 512 (the cached step, one row a rank),
     d = 2048, d_a = 256, V = 92544; each at the tolerance of its check
-    at the training shapes."""
+    at the training shapes. ``path`` names the lines of another path of
+    the same shapes (PAC+ through ``pipeline_grads``)."""
     from repro_torch.core.quantization import quantize
     from repro_torch.kernels import cached_mix, lmhead_ce, ref
 
     M = DIST_ROWS * 512
     for K, N in QMM_SHAPES:
         _, _, got, want = qmm_check(gen, M, K, N, 8)
-        emit({"check": "quant_matmul_distributed", "M": M, "K": K, "N": N, "bits": 8,
+        emit({"check": f"quant_matmul_{path}", "M": M, "K": K, "N": N, "bits": 8,
               "max_abs_err": max_err(got, want),
               "check_value": float(((got - want).abs() - 1e-4 * want.abs()).max()),
               "tol": "atol 1e-3 + rtol 1e-4", "tol_reason": qmm_tol_reason(M)})
-    r = flash_case(timer, gen, DIST_ROWS, 16, 8, 512, 128, "distributed stage")[0]
+    r = flash_case(timer, gen, DIST_ROWS, 16, 8, 512, 128, f"{path} stage")[0]
     emit(r)
     d, da, V = TRAIN_D, TRAIN_DA, TRAIN_V
     for T in (2 * DIST_ROWS * 512, DIST_ROWS * 512):
@@ -2050,8 +2069,8 @@ def distributed_kernel_phase(timer: Timer, gen: torch.Generator) -> None:
         dw, want_dw = cached_mix.mix_dw(ent, g, lam, d), ref.mix_dw_ref(ent, g, lam, d)
         e_fwd = mix_fwd_check(out, bw, want_out, want_bw)
         e_dw = float(((dw - want_dw).abs() - 1e-3 * want_dw.abs()).max())
-        check(f"mix_fwd int8 T={T} (distributed)", e_fwd, 1e-4)
-        check(f"mix_dw int8 T={T} (distributed)", e_dw, 2e-4)
+        check(f"mix_fwd int8 T={T} ({path})", e_fwd, 1e-4)
+        check(f"mix_dw int8 T={T} ({path})", e_dw, 2e-4)
         del ent, w, a, g, out, bw, want_out, want_bw, dw, want_dw
         h = torch.randn(T, d, generator=gen, device=DEV)
         wh = torch.randn(d, V, generator=gen, device=DEV) * d ** -0.5
@@ -2064,9 +2083,9 @@ def distributed_kernel_phase(timer: Timer, gen: torch.Generator) -> None:
         e_f = max(float(((nll - want_nll).abs() - 1e-5 * want_nll.abs()).max()),
                   float(((lse - want_lse).abs() - 1e-5 * want_lse.abs()).max()))
         e_b = float(((dh - want_dh).abs() - 1e-4 * want_dh.abs()).max())
-        check(f"ce_fwd T={T} (distributed)", e_f, 2e-5)
-        check(f"ce_bwd T={T} (distributed)", e_b, 1e-5)
-        emit({"check": "training_kernels_distributed", "T": T, "d": d, "da": da, "V": V,
+        check(f"ce_fwd T={T} ({path})", e_f, 2e-5)
+        check(f"ce_bwd T={T} ({path})", e_b, 1e-5)
+        emit({"check": f"training_kernels_{path}", "T": T, "d": d, "da": da, "V": V,
               "storage": "int8", "mix_fwd_check": e_fwd, "mix_dw_check": e_dw,
               "ce_fwd_max_abs_err": max(max_err(nll, want_nll), max_err(lse, want_lse)),
               "ce_bwd_max_abs_err": max_err(dh, want_dh), "ce_fwd_check": e_f,
@@ -2718,6 +2737,217 @@ def fleet_phase(single: dict, workdir: Path) -> dict:
     if [st["launches"] for st in alice_steps] != want_steps:
         raise AssertionError(f"launches per step {[st['launches'] for st in alice_steps]}")
     return free["launches"]
+
+
+# ---------------------------------------------------------------- the backward through the pipeline
+
+PG_STAGES, PG_MICRO = 4, 4  # (a): dp 1 x 4 stages of 6 periods, 4 micro-batches of 1 x 512
+PG_LOSS_TOL, PG_GRAD_TOL = 1e-5, 1e-4  # the gradient's x max(1, |g|max)
+PG_TOL_REASON = (
+    "the pipeline sums the same tokens' CE and each slab's gradient over 4 micro-batches in "
+    "micro order, the single process over the batch at once: the same f32 ops in another "
+    "order, so 1e-5 on the loss and 1e-4·max(1, |g|max) on the gradients, the bounds of the "
+    "distributed step's gate and of the cached step's gradients")
+
+
+def _inflight_max(ops) -> int:
+    n = top = 0
+    for op in ops:
+        n += 1 if op.kind == "F" else -1
+        top = max(top, n)
+    return top
+
+
+def pipeline_grads_rank(cfg=None, device=None) -> dict:
+    """One of the four ranks of the ``pipeline_grads`` phase (``cfg``:
+    internlm2-1.8b by default; ``device``: this rank's card by default).
+
+    (a) dp 1 x 4 stages: internlm2-1.8b as a dense f32 backbone from the
+    seed under ``ref``, each rank's stage slab trained through
+    ``pipeline_grads(steps.pipeline_lm_loss)`` on 4 x 512 tokens in 4
+    micro-batches, held to the single-process autograd of the same CE,
+    which each rank runs in turn on the whole backbone (drawn again from
+    the seed) and keeps its stage's periods of. Two runs; the second is
+    compared and its wall, bytes, trace and peak memory reported.
+    (b) dp 2 x stages 2: PAC+ on the INT8 backbone under ``cuda`` with
+    int8 taps through ``pipeline_grads(steps.pipeline_pac_loss,
+    shared="world")`` against ``pipeline_pac_loss_and_grads`` on the same
+    adapter and batch, with the kernels' launches counted around the
+    ``pipeline_grads`` call alone."""
+    import functools
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import pipeline, steps
+    from repro_torch.core.parallel_adapters import init_adapter
+    from repro_torch.core.quantization import tree_leaves, tree_map
+    from repro_torch.launch.mesh import EdgeMesh
+    from repro_torch.models.backbone import backbone_logits, cross_entropy, init_backbone
+
+    cfg = get_arch("internlm2-1.8b") if cfg is None else cfg
+    rank = dist.get_rank()
+    dev = torch.device("cuda", torch.cuda.current_device()) if device is None else device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    batch = {k: torch.randint(0, cfg.vocab, (BASELINE_B, BASELINE_S), generator=gen, device=dev,
+                              dtype=torch.int32) for k in ("tokens", "labels")}
+
+    def draw(bits=None):
+        return init_backbone(torch.Generator(device=dev).manual_seed(SEED), cfg, device=dev,
+                             quant_bits=bits)
+
+    out = {"rank": rank}
+    # (a) the backward across four real stages
+    mesh = EdgeMesh(1, PG_STAGES, device=dev)
+    full = draw()
+    local = steps.stage_backbone(full, cfg, mesh, copy=True)
+    del full
+    torch.cuda.empty_cache()
+    a, b = local["periods"]
+    for turn in range(PG_STAGES):  # the single process's autograd, one rank at a time
+        if turn == rank:
+            full = draw()
+            blocks = tree_leaves(tree_map(lambda t: t.requires_grad_(True), full["blocks"]))
+            out["single_s"] = []
+            for _ in range(2):  # the second one timed warm
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss = cross_entropy(backbone_logits(full, cfg, batch), batch["labels"])
+                grads = torch.autograd.grad(loss, blocks)
+                torch.cuda.synchronize()
+                out["single_s"].append(time.perf_counter() - t0)
+            want_loss, want = float(loss.detach()), [g[a:b].clone() for g in grads]
+            del full, blocks, loss, grads
+            torch.cuda.empty_cache()
+        dist.barrier()
+    loss_fn = functools.partial(steps.pipeline_lm_loss, cfg=cfg, n_micro=PG_MICRO)
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        fwd, trace = {}, []
+
+        def counted(*args):
+            value = loss_fn(*args)
+            torch.cuda.synchronize()
+            fwd.update(p2p=mesh.stats["p2p_bytes"], t=time.perf_counter(),
+                       held=torch.cuda.memory_allocated())
+            return value
+
+        p0 = mesh.stats["p2p_bytes"]
+        t0 = time.perf_counter()
+        loss, grads = pipeline.pipeline_grads(counted, local["blocks"], local, batch, mesh,
+                                              trace=trace)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        runs.append({"wall_s": t1 - t0, "forward_s": fwd["t"] - t0, "backward_s": t1 - fwd["t"],
+                     "fwd_p2p_bytes": fwd["p2p"] - p0,
+                     "bwd_p2p_bytes": mesh.stats["p2p_bytes"] - fwd["p2p"],
+                     "resident_before": resident, "held_after_forward": fwd["held"] - resident,
+                     "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                     "step_peak_bytes": torch.cuda.max_memory_allocated() - resident,
+                     "trace": [[op.micro, op.kind] for op in trace],
+                     "in_flight_max": _inflight_max(trace), "loss": float(loss)})
+    g = tree_leaves(grads)
+    gmax = max(float(w.abs().max()) for w in want)
+    out["a"] = dict(runs[-1], first_run=runs[0], stage=mesh.stage, periods=[a, b],
+                    in_flight_bound=PG_STAGES - mesh.stage, keeps=min(PG_STAGES - mesh.stage,
+                                                                     PG_MICRO),
+                    single_loss=want_loss, abs_dloss=abs(float(loss) - want_loss),
+                    max_abs_dgrad=max(float((x - w).abs().max()) for x, w in zip(g, want)),
+                    grad_max=gmax, runs_bit_equal=runs[0]["loss"] == runs[1]["loss"])
+    mesh.close()
+    del local, grads, g, want
+    torch.cuda.empty_cache()
+
+    # (b) PAC+ through pipeline_grads under cuda, dp 2 x stages 2
+    mesh = EdgeMesh(2, 2, device=dev)
+    full = draw(8)
+    local = steps.stage_backbone(full, cfg, mesh, copy=True)
+    del full
+    torch.cuda.empty_cache()
+    adapter = init_adapter(torch.Generator(device=dev).manual_seed(SEED + 1), cfg, 8, device=dev)
+    kw = dict(cfg=cfg, n_micro=2, r=8, kernel_impl="cuda", tap_policy="int8")
+    want_loss, want_g, _ = steps.pipeline_pac_loss_and_grads(local, adapter, batch, mesh=mesh,
+                                                             **kw)
+    p0 = mesh.stats["p2p_bytes"]
+    with torch.no_grad():
+        steps.pipeline_pac_loss(adapter, local, batch, mesh, **kw)
+    fwd_bytes = mesh.stats["p2p_bytes"] - p0
+    torch.cuda.synchronize()
+    reset_launches()
+    p0 = mesh.stats["p2p_bytes"]
+    t0 = time.perf_counter()
+    loss, grads = pipeline.pipeline_grads(functools.partial(steps.pipeline_pac_loss, **kw),
+                                          adapter, local, batch, mesh, shared="world")
+    torch.cuda.synchronize()
+    out["b"] = {"wall_s": time.perf_counter() - t0, "stage": mesh.stage,
+                "launches": {k: v for k, v in read_launches().items() if k in TRAINING_KERNELS},
+                "p2p_bytes": mesh.stats["p2p_bytes"] - p0, "forward_p2p_bytes": fwd_bytes,
+                "loss": float(loss),
+                "loss_bit_equal": bool(torch.equal(loss.reshape(()), want_loss.reshape(()))),
+                "grads_bit_equal": all(torch.equal(x, w) for x, w in
+                                       zip(tree_leaves(grads), tree_leaves(want_g)))}
+    mesh.close()
+    return out
+
+
+def pipeline_grads_phase() -> dict:
+    """The backward through the pipeline on the card (``pipeline_grads``
+    line): four gloo ranks sharing it run :func:`pipeline_grads_rank`.
+    Gates: (a) each rank's loss within ``PG_LOSS_TOL`` and its slab's
+    gradient within ``PG_GRAD_TOL``·max(1, |g|max) of the single
+    process's; each rank ran its stage's ``build_1f1b_schedule`` ops with
+    at most S − s graphs alive; each rank's backward sent as many bytes
+    as its forward. (b) loss and gradients bit-equal to
+    ``pipeline_pac_loss_and_grads``; the call's point-to-point bytes
+    those of the loss's forward alone (nothing crosses back); each
+    rank's launches those of a ``distributed`` epoch-1 step: 168
+    ``quant_matmul`` and 24 flash, and on the stage-0 ranks 25 of each
+    mix kernel and one of each CE kernel. Returns (b)'s launches summed
+    over the ranks."""
+    from repro_torch.core.pipeline import build_1f1b_schedule
+    from repro_torch.launch.mesh import spawn
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn(pipeline_grads_rank, 1, PG_STAGES, "cuda", timeout=300.0, deadline=600.0)
+    line = {"phase": "pipeline_grads", "arch": "internlm2-1.8b", "card": card_line(),
+            "batch": BASELINE_B, "seq": BASELINE_S, "phase_s": time.perf_counter() - t0,
+            "a": {"layout": "dp 1 x stages 4, gloo, 4 ranks on one card", "opset": "ref",
+                  "dtype": "f32", "n_micro": PG_MICRO, "ranks": [r["a"] for r in ranks],
+                  "single_s": [r["single_s"] for r in ranks],
+                  "tol": {"loss": PG_LOSS_TOL, "grads": f"{PG_GRAD_TOL}·max(1, |g|max)"},
+                  "tol_reason": PG_TOL_REASON},
+            "b": {"layout": "dp 2 x stages 2", "opset": "cuda", "taps": "int8", "n_micro": 2,
+                  "ranks": [r["b"] for r in ranks]}}
+    emit(line)
+    sched = build_1f1b_schedule(PG_STAGES, PG_MICRO)
+    for r in ranks:
+        a = r["a"]
+        if not (a["abs_dloss"] <= PG_LOSS_TOL
+                and a["max_abs_dgrad"] <= PG_GRAD_TOL * max(1.0, a["grad_max"])):
+            raise AssertionError(f"rank {r['rank']}: pipelined vs single process: dloss "
+                                 f"{a['abs_dloss']}, dgrad {a['max_abs_dgrad']} (|g|max "
+                                 f"{a['grad_max']})")
+        if a["trace"] != [[op.micro, op.kind] for op in sched[a["stage"]]] or \
+                a["in_flight_max"] > a["in_flight_bound"]:
+            raise AssertionError(f"rank {r['rank']}: ran {a['trace']}, "
+                                 f"{a['in_flight_max']} graphs alive")
+        if a["bwd_p2p_bytes"] != a["fwd_p2p_bytes"] or a["fwd_p2p_bytes"] <= 0:
+            raise AssertionError(f"rank {r['rank']}: backward bytes {a['bwd_p2p_bytes']}, "
+                                 f"forward {a['fwd_p2p_bytes']}")
+        b = r["b"]
+        want = {"quant_matmul": 168, "flash_attention": 24, "mix_fwd": 0, "mix_dw": 0,
+                "ce_fwd": 0, "ce_bwd": 0}
+        if b["stage"] == 0:
+            want.update(mix_fwd=25, mix_dw=25, ce_fwd=1, ce_bwd=1)
+        if not (b["loss_bit_equal"] and b["grads_bit_equal"]
+                and b["p2p_bytes"] == b["forward_p2p_bytes"] and b["launches"] == want):
+            raise AssertionError(f"rank {r['rank']} PAC+ through pipeline_grads: {b}, "
+                                 f"launches wanted {want}")
+    return {k: sum(r["b"]["launches"][k] for r in ranks) for k in TRAINING_KERNELS}
 
 
 # ---------------------------------------------------------------- personal serving
@@ -4947,6 +5177,12 @@ def main() -> int:
         fleet = fleet_phase(single, Path(workdir))
         del single
     fleet_done_s = time.perf_counter() - T_START
+    # the backward through the pipeline: (a) across four f32 stages under
+    # ref, (b) PAC+ through pipeline_grads under cuda at the distributed
+    # path's shapes, whose kernels are checked first
+    distributed_kernel_phase(Timer(), gen, "pipeline_grads")
+    pipeline_grads = pipeline_grads_phase()
+    pipeline_grads_done_s = time.perf_counter() - T_START
     # the internlm2 cells priced on meta against their walls, then the dry run
     roofline_phase(walls)
     dryrun_phase()
@@ -5051,7 +5287,8 @@ def main() -> int:
     paths = {"serving": serving, "training": training, "personal": personal,
              "prefetch": prefetch, "distributed": distributed, "reshard": reshard,
              "plan": plan,
-             "plan_auto": plan_auto, "fleet": fleet, "gemma2_serving": gemma2_serving,
+             "plan_auto": plan_auto, "fleet": fleet, "pipeline_grads": pipeline_grads,
+             "gemma2_serving": gemma2_serving,
              "gemma2_training": gemma2_training, "gemma2_personal": gemma2_personal,
              "paper_models": paper_models, "musicgen_prefill": musicgen,
              "baselines": baselines, "distill": distill, "mixtral_serving": mixtral_serving,
@@ -5085,7 +5322,8 @@ def main() -> int:
           "through_serving_s": serving_done_s, "through_training_s": training_done_s,
           "through_personal_s": personal_done_s, "through_prefetch_s": prefetch_done_s,
           "through_distributed_s": distributed_done_s, "through_plan_s": plan_done_s,
-          "through_fleet_s": fleet_done_s, "through_roofline_s": roofline_done_s,
+          "through_fleet_s": fleet_done_s, "through_pipeline_grads_s": pipeline_grads_done_s,
+          "through_roofline_s": roofline_done_s,
           "through_gemma2_s": gemma2_done_s,
           "through_paper_models_s": paper_done_s, "through_baselines_s": baselines_done_s,
           "through_distill_s": distill_done_s, "through_mixtral_s": mixtral_done_s,

@@ -1,18 +1,24 @@
 """PAC+ training and single-user serving steps (counterpart of
 ``repro.core.steps``).
 
-* :func:`pac_train_step` — epoch 1: frozen (possibly quantized) backbone
+* :func:`pac_loss_fn` — the epoch-1 loss of the adapter (the frozen
+  forward under no grad, the reference's ``stop_gradient``);
+  :func:`pac_train_step` — epoch 1: frozen (possibly quantized) backbone
   forward, then an adapter update; returns the activations for the cache.
 * :func:`pac_cached_train_step` — epoch ≥ 2: adapter-only, from cached
   activations.
 * :func:`pipeline_pac_train_step` — epoch 1 on a ``(dp, stage)`` mesh of
   ranks: the frozen forward pipelined over the stages, the adapter loss
   data-parallel over dp; :func:`dp_cached_train_step` — epoch ≥ 2 in pure
-  data parallelism over the pool's active mesh.
+  data parallelism over the pool's active mesh; :func:`pipeline_pac_loss`
+  and :func:`pipeline_lm_loss` — loss functions for
+  :func:`~repro_torch.core.pipeline.pipeline_grads` (the adapter's loss
+  over the frozen pipeline, and the backbone's own CE with its blocks
+  trained through the pipeline's backward).
 * :func:`full_train_step`, :func:`lora_train_step`,
   :func:`houlsby_train_step` — the paper's baselines (``core/peft.py``):
-  plain ops and plain autograd through the whole backbone, as in the
-  reference.
+  plain ops and plain autograd through the whole backbone (the ``ref``
+  attention's blocked backward), as in the reference.
 * :func:`prefill_step`, :func:`decode_step`, :func:`pac_decode_step` —
   serving one user's personal model against a linear KV cache (f32, or
   INT8 from ``init_cache(kv_quant=8)``), updated in place.
@@ -31,7 +37,7 @@ import torch
 from repro_torch.core import peft
 from repro_torch.core.opset import get_opset
 from repro_torch.core.parallel_adapters import adapter_decode, pac_logits
-from repro_torch.core.pipeline import map_arrays, stack_stages, stack_stages_ragged
+from repro_torch.core.pipeline import carry_grad, map_arrays, stack_stages, stack_stages_ragged
 from repro_torch.core.quantization import QTensor, index_tree, tree_leaves, tree_map
 from repro_torch.models.backbone import (
     arange_positions,
@@ -69,6 +75,19 @@ def _update(loss_fn, adapter_params, opt_state, lr, clip):
     grads = tree_map(lambda _: next(it), leaves)
     adapter_params, opt_state = _apply(leaves, grads, opt_state, lr, clip)
     return loss.detach(), adapter_params, opt_state
+
+
+def pac_loss_fn(adapter_params, backbone_params, cfg, batch, r: int = 8):
+    """The epoch-1 PAC+ loss of ``adapter_params``: the frozen backbone
+    forward under no grad (the gradient highway: nothing upstream of the
+    activations is differentiated), then the adapter's logits and the
+    mean CE. The head and final norm sit after the side network's sum,
+    so a gradient reaches them; no block and no embedding gets one."""
+    with torch.no_grad():
+        b_final, taps, x, positions = backbone_forward(backbone_params, cfg, batch,
+                                                       collect_taps=True, return_inputs=True)
+    logits = pac_logits(backbone_params, adapter_params, cfg, x, taps, b_final, positions, r)
+    return cross_entropy(logits, batch["labels"])
 
 
 def pac_train_step(backbone_params, adapter_params, opt_state, batch, *, cfg, r: int = 8,
@@ -147,10 +166,11 @@ def pac_cached_train_step(backbone_params, adapter_params, opt_state, cached_bat
 # ---------------------------------------------------------------------------
 
 
-def _backbone_stage_fn(cfg, masked: bool = False, ops=None):
-    """One pipeline stage of the frozen backbone: run the stage's periods,
+def _backbone_stage_fn(cfg, masked: bool = False, ops=None, collect_taps: bool = True):
+    """One pipeline stage of the backbone: run the stage's periods,
     emitting each period's hidden state (a PAC+ tap) through
-    ``ops.emit_tap`` (identity under the ref OpSet, the default).
+    ``ops.emit_tap`` (identity under the ref OpSet, the default);
+    ``collect_taps=False`` returns the hidden state alone.
 
     ``masked=True`` is the ragged-partition variant: the stage params are
     ``{"blocks": padded_slab, "mask": (max_pp,)}`` (see
@@ -161,15 +181,11 @@ def _backbone_stage_fn(cfg, masked: bool = False, ops=None):
     def positions_of(h):
         return arange_positions(cfg, *h.shape[:2], h.device)
 
-    if masked:
-        def stage_fn(local, h):
-            return run_periods(local["blocks"], cfg, h, positions_of(h), ops=ops,
-                               collect_taps=True, active=local["mask"])
-
-        return stage_fn
-
-    def stage_fn(blocks, h):
-        return run_periods(blocks, cfg, h, positions_of(h), ops=ops, collect_taps=True)
+    def stage_fn(local, h):
+        blocks, active = (local["blocks"], local["mask"]) if masked else (local, None)
+        out = run_periods(blocks, cfg, h, positions_of(h), ops=ops, collect_taps=collect_taps,
+                          active=active)
+        return out if collect_taps else out[0]
 
     return stage_fn
 
@@ -202,6 +218,22 @@ def stage_backbone(backbone_params, cfg, mesh, *, partition=None, loss: bool = T
     return out
 
 
+def _dp_mean(parts, mesh):
+    """The global mean CE from this rank's (num, den) parts (None on a rank
+    that counts no rows): the value ``Σnum / max(Σden, 1)`` summed by
+    ``mesh.all_reduce_tree``, carrying the gradient of ``num_local /
+    max(Σden, 1)``, this rank's share."""
+    if parts is None:
+        local = torch.zeros(2, device=mesh.device)
+    else:
+        num, den = parts
+        local = torch.stack([num.detach().float(), den.detach().float()])
+    total = mesh.all_reduce_tree(local)
+    den_g = torch.clamp_min(total[1], 1)
+    value = total[0] / den_g
+    return value if parts is None else carry_grad(value, num / den_g)
+
+
 def _dp_loss_and_grads(parts_fn, adapter_params, mesh, *, counted: bool):
     """The global mean CE and its gradient over the ranks of ``mesh``'s
     active mesh. Each rank's (summed NLL, token count) parts are
@@ -212,17 +244,11 @@ def _dp_loss_and_grads(parts_fn, adapter_params, mesh, *, counted: bool):
     member ends with the same bits."""
     leaves = tree_map(lambda t: t.detach().requires_grad_(True), adapter_params)
     flat = tree_leaves(leaves)
-    if counted:
-        num, den = parts_fn(leaves)
-        local = torch.stack([num.detach().float(), den.detach().float()])
-    else:
-        local = torch.zeros(2, device=mesh.device)
-    total = mesh.all_reduce_tree(local)
-    den_g = torch.clamp_min(total[1], 1)
-    grads = (torch.autograd.grad(num / den_g, flat) if counted
+    loss = _dp_mean(parts_fn(leaves) if counted else None, mesh)
+    grads = (torch.autograd.grad(loss, flat) if counted
              else [torch.zeros_like(t) for t in flat])
     it = iter(mesh.all_reduce_tree(list(grads)))
-    return total[0] / den_g, tree_map(lambda _: next(it), adapter_params)
+    return loss.detach(), tree_map(lambda _: next(it), adapter_params)
 
 
 def _sample_order(parts, n_micro: int, dim: int):
@@ -258,6 +284,89 @@ def _gather_to_owner(acts, mesh, n_micro: int):
                  for i, dim in enumerate((0, 1, 0)))
 
 
+def _check_layout(cfg, mesh, partition, batch):
+    """``partition`` checked against the mesh and ``cfg`` (None when it is
+    the even split), the even split's divisibility, and implicit
+    positions; raised alike on every rank before any transfer."""
+    S = mesh.stages
+    if partition is not None:
+        if partition.n_stages != S:
+            raise ValueError(f"plan has {partition.n_stages} stages but the mesh's "
+                             f"'stage' axis has {S}")
+        if partition.n_periods != cfg.n_periods:
+            raise ValueError(f"plan partitions {partition.n_periods} periods but "
+                             f"{cfg.name} has {cfg.n_periods}")
+        if partition.is_uniform:
+            partition = None  # identical to the even split: take that path
+    if partition is None and cfg.n_periods % S:
+        raise ValueError(f"{cfg.n_periods} periods not divisible by {S} pipeline stages")
+    if "positions" in batch:
+        # the stage function rebuilds arange positions; custom ones would
+        # cache wrong activations for every later epoch
+        raise NotImplementedError(
+            "pipeline_pac_train_step supports implicit (arange) positions only")
+    return partition
+
+
+def _row_micro(batch, mesh, n_micro: int):
+    """The batch's tokens and labels as ``DataPipeline.dp_microbatches``
+    lays them out, and this rank's dp row's slice of dim 1."""
+    from repro_torch.data import DataPipeline
+
+    micro = DataPipeline.dp_microbatches(
+        {"tokens": batch["tokens"], "labels": batch["labels"]}, n_micro, mesh.dp)
+    q = micro["tokens"].shape[1] // mesh.dp
+    return micro, slice(mesh.dp_rank * q, (mesh.dp_rank + 1) * q), q
+
+
+def _pipeline_pac_forward(backbone_params, batch, *, cfg, mesh, n_micro, r, partition,
+                          kernel_impl, tap_policy):
+    """The frozen staged forward of :func:`pipeline_pac_loss_and_grads` on
+    ``mesh`` (the spawned layout). Returns (the row's CE parts of an
+    adapter, ``parts_fn(adapter) -> (num, den)``, on a row's first stage,
+    else None; the row's activation triple there, else None)."""
+    from repro_torch.core.pipeline import pipeline_apply
+    from repro_torch.kernels.cached_step import cached_loss_parts
+
+    partition = _check_layout(cfg, mesh, partition, batch)
+    micro, mine, q = _row_micro(batch, mesh, n_micro)
+    ops = get_opset(kernel_impl, tap_policy)
+    local = (backbone_params if "periods" in backbone_params
+             else stage_backbone(backbone_params, cfg, mesh, partition=partition))
+    ragged = "mask" in local
+    n_rows = n_micro * q
+    with torch.no_grad():
+        if mesh.stage == 0:
+            x_micro = ops.embed_lookup(local["embed"], micro["tokens"][:, mine])
+        else:  # later stages read only the micro count
+            x_micro = torch.empty((n_micro, q, batch["tokens"].shape[1], cfg.d_model),
+                                  device="meta")
+        res = pipeline_apply(
+            _backbone_stage_fn(cfg, masked=ragged, ops=ops),
+            {"blocks": local["blocks"], "mask": local["mask"]} if ragged else local["blocks"],
+            x_micro, mesh, collect_taps=True,
+            periods_per_stage=partition.periods_per_stage if ragged else None)
+    if mesh.stage != 0:
+        return None, None
+    outs, taps = res
+    b0 = ops.emit_tap(x_micro.reshape((n_rows,) + tuple(x_micro.shape[2:])))
+    b_final = ops.emit_tap(outs.reshape((n_rows,) + tuple(outs.shape[2:])))
+    # (n_micro, n_p, q, ...) -> (n_p, n_micro·q, ...): micro-major rows
+    taps = map_arrays(lambda t: t.movedim(1, 0).reshape(
+        (t.shape[1], n_rows) + tuple(t.shape[3:])), taps)
+    labels = micro["labels"][:, mine].reshape(n_rows, -1)
+    positions = arange_positions(cfg, *labels.shape, labels.device)
+
+    def parts_fn(ap):
+        if kernel_impl == "ref":
+            return cross_entropy_parts(
+                pac_logits(local, ap, cfg, b0, taps, b_final, positions, r), labels)
+        cached = {"b0": b0, "taps": taps, "b_final": b_final, "labels": labels}
+        return cached_loss_parts(local, ap, cfg, cached, positions, r, impl=kernel_impl)
+
+    return parts_fn, (b0, taps, b_final)
+
+
 def pipeline_pac_loss_and_grads(backbone_params, adapter_params, batch, *, cfg, mesh, n_micro,
                                 r: int = 8, partition=None, kernel_impl: str = "ref",
                                 tap_policy: str = "f32"):
@@ -290,71 +399,71 @@ def pipeline_pac_loss_and_grads(backbone_params, adapter_params, batch, *, cfg, 
     the same loss and gradients everywhere; the activation triple, what
     the cache captures, is the whole batch's in the single-process
     sample order on the owner (rank 0) and None elsewhere."""
-    from repro_torch.core.pipeline import pipeline_apply
-    from repro_torch.data import DataPipeline
-    from repro_torch.kernels.cached_step import cached_loss_parts
-
     mesh = mesh.spawned
-    S, dp = mesh.stages, mesh.dp
-    if partition is not None:
-        if partition.n_stages != S:
-            raise ValueError(f"plan has {partition.n_stages} stages but the mesh's "
-                             f"'stage' axis has {S}")
-        if partition.n_periods != cfg.n_periods:
-            raise ValueError(f"plan partitions {partition.n_periods} periods but "
-                             f"{cfg.name} has {cfg.n_periods}")
-        if partition.is_uniform:
-            partition = None  # identical to the even split: take that path
-    if partition is None and cfg.n_periods % S:
-        raise ValueError(f"{cfg.n_periods} periods not divisible by {S} pipeline stages")
-    if "positions" in batch:
-        # the stage function rebuilds arange positions; custom ones would
-        # cache wrong activations for every later epoch
-        raise NotImplementedError(
-            "pipeline_pac_train_step supports implicit (arange) positions only")
-    micro = DataPipeline.dp_microbatches(
-        {"tokens": batch["tokens"], "labels": batch["labels"]}, n_micro, dp)
-    q = micro["tokens"].shape[1] // dp
-    mine = slice(mesh.dp_rank * q, (mesh.dp_rank + 1) * q)
-    ops = get_opset(kernel_impl, tap_policy)
-    local = (backbone_params if "periods" in backbone_params
-             else stage_backbone(backbone_params, cfg, mesh, partition=partition))
-    ragged = "mask" in local
-    n_rows = n_micro * q
-    with torch.no_grad():
-        if mesh.stage == 0:
-            x_micro = ops.embed_lookup(local["embed"], micro["tokens"][:, mine])
-        else:  # later stages read only the micro count
-            x_micro = torch.empty((n_micro, q, batch["tokens"].shape[1], cfg.d_model),
-                                  device="meta")
-        res = pipeline_apply(
-            _backbone_stage_fn(cfg, masked=ragged, ops=ops),
-            {"blocks": local["blocks"], "mask": local["mask"]} if ragged else local["blocks"],
-            x_micro, mesh, collect_taps=True,
-            periods_per_stage=partition.periods_per_stage if ragged else None)
-    acts, parts_fn = None, None
-    if mesh.stage == 0:
-        outs, taps = res
-        b0 = ops.emit_tap(x_micro.reshape((n_rows,) + tuple(x_micro.shape[2:])))
-        b_final = ops.emit_tap(outs.reshape((n_rows,) + tuple(outs.shape[2:])))
-        # (n_micro, n_p, q, ...) -> (n_p, n_micro·q, ...): micro-major rows
-        taps = map_arrays(lambda t: t.movedim(1, 0).reshape(
-            (t.shape[1], n_rows) + tuple(t.shape[3:])), taps)
-        labels = micro["labels"][:, mine].reshape(n_rows, -1)
-        positions = arange_positions(cfg, *labels.shape, labels.device)
-        acts = (b0, taps, b_final)
-
-        def parts_fn(ap):
-            if kernel_impl == "ref":
-                return cross_entropy_parts(
-                    pac_logits(local, ap, cfg, b0, taps, b_final, positions, r), labels)
-            cached = {"b0": b0, "taps": taps, "b_final": b_final, "labels": labels}
-            return cached_loss_parts(local, ap, cfg, cached, positions, r, impl=kernel_impl)
-
+    parts_fn, acts = _pipeline_pac_forward(
+        backbone_params, batch, cfg=cfg, mesh=mesh, n_micro=n_micro, r=r, partition=partition,
+        kernel_impl=kernel_impl, tap_policy=tap_policy)
     # one world all-reduce: the stage-0 ranks (one a dp row) count their
     # rows, the later stages add zeros
     loss, grads = _dp_loss_and_grads(parts_fn, adapter_params, mesh, counted=mesh.stage == 0)
     return loss, grads, _gather_to_owner(acts, mesh, n_micro)
+
+
+def pipeline_pac_loss(adapter_params, backbone_params, batch, mesh, *, cfg, n_micro,
+                      r: int = 8, partition=None, kernel_impl: str = "ref",
+                      tap_policy: str = "f32"):
+    """The epoch-1 PAC+ loss as a ``loss_fn`` of
+    :func:`~repro_torch.core.pipeline.pipeline_grads` (trainable: the
+    adapter; frozen: the backbone, whole or this rank's
+    :func:`stage_backbone`): :func:`pipeline_pac_loss_and_grads`'s frozen
+    staged forward and adapter loss. Its value on every rank is the
+    global mean CE; its gradient on a row's first stage that of the row's
+    part. No stage requires grad, so no gradient crosses the stages, and
+    ``pipeline_grads(..., shared="world")`` returns
+    :func:`pipeline_pac_loss_and_grads`'s loss and gradients bit for bit."""
+    mesh = getattr(mesh, "spawned", mesh)
+    parts_fn, _ = _pipeline_pac_forward(
+        backbone_params, batch, cfg=cfg, mesh=mesh, n_micro=n_micro, r=r, partition=partition,
+        kernel_impl=kernel_impl, tap_policy=tap_policy)
+    return _dp_mean(None if parts_fn is None else parts_fn(adapter_params), mesh)
+
+
+def pipeline_lm_loss(blocks, frozen, batch, mesh, *, cfg, n_micro, partition=None,
+                     kernel_impl: str = "ref"):
+    """The backbone's own mean CE as a ``loss_fn`` of
+    :func:`~repro_torch.core.pipeline.pipeline_grads`, with the blocks
+    trained: ``blocks`` is this rank's stage slab (trainable), ``frozen``
+    its :func:`stage_backbone` (the embedding and the final norm and head
+    on a row's first stage, a ragged slab's ``"mask"``). The batch (B, S)
+    is micro-batched as :func:`pipeline_pac_loss_and_grads` does; each
+    row's first stage embeds its rows, :func:`pipeline_apply` carries
+    them through the stages (which require grad, so the backward crosses
+    them), and the final norm, LM head and CE run there on the last
+    stage's outputs. Value: the global mean CE on every rank; gradient:
+    the row's part (``pipeline_grads(..., shared="stage")`` sums the
+    rows)."""
+    from repro_torch.core.pipeline import pipeline_apply
+
+    mesh = getattr(mesh, "spawned", mesh)
+    partition = _check_layout(cfg, mesh, partition, batch)
+    micro, mine, q = _row_micro(batch, mesh, n_micro)
+    ops = get_opset(kernel_impl)
+    ragged = "mask" in frozen
+    if mesh.stage == 0:
+        with torch.no_grad():
+            x_micro = ops.embed_lookup(frozen["embed"], micro["tokens"][:, mine])
+    else:
+        x_micro = torch.empty((n_micro, q, batch["tokens"].shape[1], cfg.d_model), device="meta")
+    outs = pipeline_apply(
+        _backbone_stage_fn(cfg, masked=ragged, ops=ops, collect_taps=False),
+        {"blocks": blocks, "mask": frozen["mask"]} if ragged else blocks, x_micro, mesh,
+        periods_per_stage=partition.periods_per_stage if ragged else None)
+    parts = None
+    if mesh.stage == 0:
+        h = outs.reshape((n_micro * q,) + tuple(outs.shape[2:]))
+        parts = cross_entropy_parts(logits_from_hidden(frozen, cfg, h),
+                                    micro["labels"][:, mine].reshape(n_micro * q, -1))
+    return _dp_mean(parts, mesh)
 
 
 def pipeline_pac_train_step(backbone_params, adapter_params, opt_state, batch, *, cfg, mesh,

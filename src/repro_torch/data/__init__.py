@@ -1,3 +1,7 @@
 """Data pipeline (counterpart of ``repro.data``)."""
 
-from repro_torch.data.pipeline import DataPipeline, SyntheticPersonalCorpus  # noqa: F401
+from repro_torch.data.pipeline import (  # noqa: F401
+    DataPipeline,
+    SyntheticPersonalCorpus,
+    glue_like_task,
+)

@@ -4,7 +4,8 @@
 The paper's setting is a small personal corpus iterated for several
 epochs — what makes the activation cache pay off.
 :class:`SyntheticPersonalCorpus` is a deterministic synthetic next-token
-corpus with class structure, and :class:`DataPipeline` shuffles it into
+corpus with class structure (:func:`glue_like_task` sizes one as the
+paper's GLUE subsets), and :class:`DataPipeline` shuffles it into
 batches keyed by stable sequence ids (the activation cache's keys). Both
 are numpy, drawn exactly as the reference draws them, so the two
 packages see the same tokens in the same order for the same seed.
@@ -56,6 +57,19 @@ class SyntheticPersonalCorpus:
         toks = self.tokens[ids]
         return {"seq_ids": ids.astype(np.int32), "tokens": toks[:, :-1].copy(),
                 "labels": toks[:, 1:].copy()}
+
+
+# the paper's GLUE subsets (approximate train sizes)
+_GLUE_SIZES = {"mrpc": 3_668, "stsb": 5_749, "sst2": 67_349, "qnli": 104_743}
+
+
+def glue_like_task(name: str, vocab: int, seq_len: int, scale: float = 1.0, seed: int = 0):
+    """A :class:`SyntheticPersonalCorpus` of the named GLUE subset's size
+    (``mrpc``, ``stsb``/``sts-b``, ``sst2``/``sst-2``, ``qnli``) times
+    ``scale``, at least 8 sequences, 4 classes."""
+    name = name.lower().replace("-", "")
+    n = max(8, int(_GLUE_SIZES[name] * scale))
+    return SyntheticPersonalCorpus(vocab, seq_len, n, n_classes=4, seed=seed)
 
 
 @dataclass

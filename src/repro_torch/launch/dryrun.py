@@ -116,7 +116,10 @@ class PricedMesh:
     def world(self) -> int:
         return self.dp * self.stages
 
-    def send_tree(self, tree, dst: int, *, group=None, slot=0, wait: bool = True):
+    def send_tree(self, tree, dst: int, *, group=None, slot=0, wait: bool = True,
+                  grad: bool = False):
+        # ``grad`` is a header flag on the card: it moves no byte, and the
+        # priced steps' stages never require grad
         items = tree if isinstance(tree, tuple) else (tree,)
         arrays = [a for x in items if x is not None
                   for a in ((x.q, x.scale) if isinstance(x, QTensor) else (x,))]

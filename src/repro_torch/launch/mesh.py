@@ -10,7 +10,9 @@ between them explicitly:
 * **groups** — one per dp row (the stage hand-offs) and the world (the
   epoch-1 step's all-reduce, in which ranks whose rows another rank
   counts add zeros, the owner's gather and scatter, and its hit/miss
-  flag). :meth:`EdgeMesh.reshard` makes a sub-mesh of the world's ranks
+  flag); one per stage across the dp rows, made at the first
+  :meth:`EdgeMesh.all_reduce_stage_tree` (the sum of a stage's
+  parameter gradients over the rows). :meth:`EdgeMesh.reshard` makes a sub-mesh of the world's ranks
   active, at another dp: a gloo group over its ranks (none when they
   are the whole world) then carries the cached step's all-reduce and
   the owner's state broadcast, while the epoch-1 step keeps the spawned
@@ -22,7 +24,8 @@ between them explicitly:
 * **transfers** — :meth:`EdgeMesh.send_tree`, :meth:`EdgeMesh.recv_tree`,
   :meth:`EdgeMesh.all_reduce_tree` move tensors and :class:`~repro_torch.core.quantization.QTensor`\\ s
   (payload, scales and metadata). A point-to-point message carries a
-  fixed-size header first, so the receiver needs no shapes. The process
+  fixed-size header first, so the receiver needs no shapes, nor whether
+  a float tensor requires grad (a flag the backward pipeline reads). The process
   group is gloo: ranks sharing a card rule NCCL out, and gloo has no
   point-to-point for CUDA tensors, so every tensor that leaves a card is
   staged through pinned host buffers kept for the next message.
@@ -69,6 +72,8 @@ HBM_BW = 3.35e12  # HBM3, bytes/s
 LINK_BW = 450e9  # NVLink 4, bytes/s one direction (900 GB/s both ways)
 #: int64 slots of a point-to-point header (:func:`_describe`)
 HEADER = 64
+#: added to a header's dtype slot: the float tensor requires grad
+GRAD_FLAG = 1 << 8
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int8, torch.int32, torch.int64,
            torch.uint8, torch.bool)
 
@@ -93,25 +98,28 @@ def _arrays(x) -> list:
     return [] if x is None else [x.q, x.scale] if isinstance(x, QTensor) else [x]
 
 
-def _describe(tree) -> List[int]:
+def _describe(tree, grad: bool = False) -> List[int]:
     """The header of ``tree``: a tensor, a QTensor, None, or a tuple of
     those. Per item: kind (0 None, 1 tensor, 2 QTensor), the QTensor's
-    bits, block and orig_last, then each array's dtype, ndim and shape."""
+    bits, block and orig_last, then each array's dtype, ndim and shape.
+    ``grad`` adds :data:`GRAD_FLAG` to the dtype of every float tensor
+    item (not a QTensor's arrays)."""
     items = tree if isinstance(tree, tuple) else (tree,)
     head = [int(isinstance(tree, tuple)), len(items)]
     for x in items:
         head.append(0 if x is None else 2 if isinstance(x, QTensor) else 1)
         if isinstance(x, QTensor):
             head += [x.bits, x.block, x.orig_last]
+        flag = GRAD_FLAG if grad and isinstance(x, torch.Tensor) and x.is_floating_point() else 0
         for a in _arrays(x):
-            head += [_DTYPES.index(a.dtype), a.ndim, *a.shape]
+            head += [_DTYPES.index(a.dtype) + flag, a.ndim, *a.shape]
     if len(head) > HEADER:
         raise ValueError(f"tree too deep for a {HEADER}-slot header: {len(head)} slots")
     return head + [0] * (HEADER - len(head))
 
 
 def _parse(head: Sequence[int]):
-    """(is_tuple, [(kind, qtensor meta, [(dtype, shape), ...]), ...])."""
+    """(is_tuple, [(kind, qtensor meta, [(dtype, shape, grad), ...]), ...])."""
     it = iter(head)
     is_tuple, n = next(it), next(it)
     items = []
@@ -120,8 +128,9 @@ def _parse(head: Sequence[int]):
         meta = (next(it), next(it), next(it)) if kind == 2 else None
         specs = []
         for _ in range(kind):  # kind counts the arrays: 0, 1 or 2
-            dtype, ndim = _DTYPES[next(it)], next(it)
-            specs.append((dtype, tuple(next(it) for _ in range(ndim))))
+            code, ndim = next(it), next(it)
+            specs.append((_DTYPES[code % GRAD_FLAG], tuple(next(it) for _ in range(ndim)),
+                          code >= GRAD_FLAG))
         items.append((kind, meta, specs))
     return bool(is_tuple), items
 
@@ -183,6 +192,8 @@ class EdgeMesh:
         rows = [dist.new_group(list(range(r * stages, (r + 1) * stages))) for r in range(dp)]
         self.row_group = rows[row]
         self._groups = [self.row_group]
+        self._dp0 = dp
+        self._stage_group = None  # made at the first all_reduce_stage_tree
         self._pinned: Dict[tuple, torch.Tensor] = {}
         self.stats = {"p2p_bytes": 0, "p2p_s": 0.0, "allreduce_bytes": 0, "allreduce_s": 0.0,
                       "broadcast_bytes": 0, "broadcast_s": 0.0}
@@ -286,14 +297,18 @@ class EdgeMesh:
 
     # -- point to point -------------------------------------------------------
 
-    def send_tree(self, tree, dst: int, *, group=None, slot=0, wait: bool = True):
+    def send_tree(self, tree, dst: int, *, group=None, slot=0, wait: bool = True,
+                  grad: bool = False):
         """Send ``tree`` (a tensor, a QTensor, None, or a tuple of those)
         to global rank ``dst``: its header, then its arrays in order.
         ``wait=False`` returns the pending sends (``.wait()``); ``slot``
-        then keeps concurrent sends to one peer in separate buffers."""
+        then keeps concurrent sends to one peer in separate buffers.
+        ``grad=True`` makes its float tensors arrive requiring grad (the
+        header's flag; the bytes sent are the same)."""
         t0 = time.perf_counter()
-        head = torch.tensor(_describe(tree), dtype=torch.int64)
-        arrays = [a for x in (tree if isinstance(tree, tuple) else (tree,)) for a in _arrays(x)]
+        head = torch.tensor(_describe(tree, grad), dtype=torch.int64)
+        arrays = [a.detach() for x in (tree if isinstance(tree, tuple) else (tree,))
+                  for a in _arrays(x)]
         host = [self._host(a, ("send", dst, slot, i)) for i, a in enumerate(arrays)]
         works = [dist.isend(t, dst, group=group) for t in [head] + host]
         self.stats["p2p_bytes"] += sum(h.numel() * h.element_size() for h in host)
@@ -305,7 +320,8 @@ class EdgeMesh:
 
     def recv_tree(self, src: int, *, group=None):
         """Receive a :meth:`send_tree` from global rank ``src``, on this
-        rank's device."""
+        rank's device; a tensor sent with ``grad=True`` arrives as a leaf
+        that requires grad."""
         t0 = time.perf_counter()
         head = torch.empty(HEADER, dtype=torch.int64)
         dist.recv(head, src, group=group)
@@ -314,11 +330,11 @@ class EdgeMesh:
         out, i = [], 0
         for kind, meta, specs in items:
             arrays = []
-            for dtype, shape in specs:
+            for dtype, shape, grad in specs:
                 buf = (self._buffer(("recv", src, i), shape, dtype) if card
                        else torch.empty(shape, dtype=dtype))
                 dist.recv(buf, src, group=group)
-                arrays.append(buf.to(self.device) if card else buf)
+                arrays.append((buf.to(self.device) if card else buf).requires_grad_(grad))
                 i += 1
             out.append(None if kind == 0 else arrays[0] if kind == 1
                        else QTensor(arrays[0], arrays[1], *meta))
@@ -393,6 +409,36 @@ class EdgeMesh:
         dist.broadcast(t, 0)
         return bool(t.item())
 
+    # -- the spawned layout's rows and stages ---------------------------------
+
+    def all_reduce_stage_tree(self, tree):
+        """The elementwise sum of ``tree`` over the ranks that hold this
+        rank's stage of the spawned layout, one a dp row (every member
+        getting the same bits); ``tree`` itself when dp is 1. The first
+        call makes one gloo group per stage, which is collective: every
+        rank of the world calls it, in the same order."""
+        if self._dp0 == 1:
+            return tree
+        if self._stage_group is None:
+            S = self.stages
+            # a rank outside a group gets a sentinel that holds nothing
+            groups = [dist.new_group([r * S + s for r in range(self._dp0)]) for s in range(S)]
+            self._stage_group = groups[self.world_rank % S]
+            self._groups.append(self._stage_group)
+        return self._all_reduce(tree, self._stage_group)
+
+    def row_broadcast(self, value: torch.Tensor) -> torch.Tensor:
+        """The spawned dp row's first stage's ``value`` (a 0-d float
+        tensor; its shape and dtype on the other stages are ignored) as a
+        0-d f32 tensor on every rank of the row, on this rank's device."""
+        t0 = time.perf_counter()
+        buf = value.detach().float().reshape(1).cpu() if self.world_rank == self.row_ranks[0] \
+            else torch.zeros(1)
+        dist.broadcast(buf, self.row_ranks[0], group=self.row_group)
+        self.stats["broadcast_bytes"] += buf.numel() * buf.element_size()
+        self.stats["broadcast_s"] += time.perf_counter() - t0
+        return buf.to(self.device)[0]
+
 
 class SpawnedMesh:
     """The mesh as spawned, which the epoch-1 step runs on whatever
@@ -411,6 +457,8 @@ class SpawnedMesh:
         self.members = tuple(range(dp * self.stages))
         self.row_ranks, self.row_group = mesh.row_ranks, mesh.row_group
         self.send_tree, self.recv_tree = mesh.send_tree, mesh.recv_tree
+        self.all_reduce_stage_tree = mesh.all_reduce_stage_tree
+        self.row_broadcast = mesh.row_broadcast
 
     @property
     def world(self) -> int:

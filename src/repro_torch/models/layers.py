@@ -1,6 +1,10 @@
 """Core transformer layers: norms, rotary embeddings, GQA attention, MLP.
 
-Counterpart of ``repro.models.layers``. Shapes follow the reference:
+Counterpart of ``repro.models.layers``. The ``ref`` OpSet's attention is
+the reference's blocked online-softmax attention with its own backward
+(:func:`flash_attention`): keys in blocks, and a backward that recomputes
+each block's scores from the saved log-sum-exp, so neither pass keeps an
+(S x S) score matrix. Shapes follow the reference:
 activations (B, S, d), heads (B, S, H, hd). Every weight may carry a
 leading request axis — ``x @ w`` with x (B, S, d_in) and w (B, d_in,
 d_out) applies row b's own weight, and a norm gain (B, 1, d) broadcasts
@@ -117,6 +121,18 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.
     return (x * (1.0 + weight)).to(dtype)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """Mean-and-variance norm over the last axis in f32 (the population
+    variance, as ``jnp.var``), then ``x·weight + bias``, in x's dtype."""
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, keepdim=True, correction=0)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * weight + bias).to(dtype)
+
+
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     if cap is None:
         return x
@@ -213,32 +229,141 @@ def _project_qkv(p, x, cfg, positions, ops=None):
     return q, k, v
 
 
-def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
-    """(B, S, Hkv, hd) -> (B, S, Hkv·n_rep, hd); head g·n_rep+r reads kv head g."""
-    if n_rep == 1:
-        return k
-    B, S, Hkv, hd = k.shape
-    return k[:, :, :, None, :].expand(B, S, Hkv, n_rep, hd).reshape(B, S, Hkv * n_rep, hd)
+_PAD_POS = 2 ** 30  # the position of a padded key slot, which no query attends
 
 
-def ref_attention_core(q, k, v, cfg, spec) -> torch.Tensor:
-    """Dense grouped-head causal attention on projected/rope'd q, k, v —
-    the ``ref`` OpSet's attention. q: (B,S,H,hd); k,v: (B,S,Hkv,hd)
-    -> (B,S,H·hd). Query head g·n_rep+r reads kv head g."""
+def _block_mask(q_pos, k_pos, causal: bool, window: Optional[int]) -> torch.Tensor:
+    """(Sq, blk) bool, True where a query attends a key: padded slots never,
+    later keys not when ``causal``, keys ``window`` or more back not."""
+    m = (k_pos[None, :] < _PAD_POS).expand(q_pos.shape[0], -1)
+    d = q_pos[:, None] - k_pos[None, :]
+    if causal:
+        m = m & (d >= 0)
+    if window is not None:
+        m = m & (d < window)
+    return m
+
+
+def _pad_keys(k, v, k_pos, block_k: int):
+    """K, V and their positions padded to whole blocks of ``block_k`` (the
+    padded slots at ``_PAD_POS``); returns them and the block count."""
+    Sk = k.shape[2]
+    nb = max(1, -(-Sk // block_k))
+    pad = nb * block_k - Sk
+    if pad:
+        k = F.pad(k, (0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, pad))
+        k_pos = F.pad(k_pos, (0, pad), value=_PAD_POS)
+    return k, v, k_pos, nb
+
+
+def _block_scores(q, kj, scale: float, cap: Optional[float]):
+    """(pre-cap scores, capped scores) of one key block, f32."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kj.float()) * scale
+    return s, softcap(s, cap)
+
+
+def _flash_fwd(q, k, v, q_pos, k_pos, causal, window, cap, block_k):
+    """The online-softmax forward over key blocks: (o in q's dtype, lse
+    f32 (B, H, Sq)). A query with no key gets V's mean, as in the
+    reference (every masked score is the same -1e30)."""
+    B, H, Sq, hd = q.shape
+    scale = 1.0 / (hd ** 0.5)
+    k, v, k_pos, nb = _pad_keys(k, v, k_pos, block_k)
+    o = torch.zeros((B, H, Sq, hd), dtype=torch.float32, device=q.device)
+    m = torch.full((B, H, Sq), _NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, H, Sq), dtype=torch.float32, device=q.device)
+    for j in range(nb):
+        blk = slice(j * block_k, (j + 1) * block_k)
+        s = _block_scores(q, k[:, :, blk], scale, cap)[1]
+        s = torch.where(_block_mask(q_pos, k_pos[blk], causal, window), s, _NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        o = o * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, v[:, :, blk].float())
+        m = m_new
+    l = torch.clamp_min(l, 1e-30)
+    return (o / l[..., None]).to(q.dtype), m + torch.log(l)
+
+
+def _flash_bwd(q, k, v, q_pos, k_pos, o, lse, do, causal, window, cap, block_k):
+    """dq, dk, dv of :func:`_flash_fwd`, each key block's probabilities
+    recomputed from ``lse`` (``ds = p·(dp − Σ dO·O)`` through the
+    soft-cap's slope), in the inputs' dtypes."""
+    B, H, Sq, hd = q.shape
+    Sk = k.shape[2]
+    scale = 1.0 / (hd ** 0.5)
+    do_f = do.float()
+    delta = (do_f * o.float()).sum(dim=-1)  # (B, H, Sq)
+    k, v, k_pos, nb = _pad_keys(k, v, k_pos, block_k)
+    q_f = q.float()
+    dq = torch.zeros((B, H, Sq, hd), dtype=torch.float32, device=q.device)
+    dks, dvs = [], []
+    for j in range(nb):
+        blk = slice(j * block_k, (j + 1) * block_k)
+        kj, vj = k[:, :, blk].float(), v[:, :, blk].float()
+        s_pre, s = _block_scores(q, kj, scale, cap)
+        mask = _block_mask(q_pos, k_pos[blk], causal, window)
+        s = torch.where(mask, s, _NEG_INF)
+        p = torch.exp(s - lse[..., None])  # (B, H, Sq, blk)
+        dvs.append(torch.einsum("bhqk,bhqd->bhkd", p, do_f))
+        ds = p * (torch.einsum("bhqd,bhkd->bhqk", do_f, vj) - delta[..., None])
+        if cap is not None:
+            ds = ds * (1.0 - torch.square(torch.tanh(s_pre / cap)))
+        ds = torch.where(mask, ds * scale, 0.0)
+        dq = dq + torch.einsum("bhqk,bhkd->bhqd", ds, kj)
+        dks.append(torch.einsum("bhqk,bhqd->bhkd", ds, q_f))
+    dk = torch.cat(dks, dim=2)[:, :, :Sk]
+    dv = torch.cat(dvs, dim=2)[:, :, :Sk]
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class BlockedAttention(torch.autograd.Function):
+    """:func:`flash_attention` as an autograd Function: the forward keeps
+    (q, k, v, o, lse) and the two position vectors, never a score block,
+    and the backward recomputes each block's probabilities."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, causal, window, cap, block_k):
+        o, lse = _flash_fwd(q, k, v, q_pos, k_pos, causal, window, cap, block_k)
+        ctx.save_for_backward(q, k, v, q_pos, k_pos, o, lse)
+        ctx.args = (causal, window, cap, block_k)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, q_pos, k_pos, o, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, q_pos, k_pos, o, lse, do, *ctx.args)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def flash_attention(q, k, v, q_pos, k_pos, causal: bool = True, window: Optional[int] = None,
+                    attn_softcap: Optional[float] = None, block_k: int = 512) -> torch.Tensor:
+    """Memory-bounded attention (the reference's ``flash_attention``).
+    q: (B, H, Sq, hd); k, v: (B, H, Sk, hd), heads already matched (or
+    grouped upstream); q_pos (Sq,), k_pos (Sk,) int. Keys run in blocks of
+    ``block_k``; the backward saves (q, k, v, o, lse) and recomputes each
+    block's scores. Returns (B, H, Sq, hd) in q's dtype."""
+    return BlockedAttention.apply(q, k, v, q_pos, k_pos, causal, window, attn_softcap, block_k)
+
+
+def ref_attention_core(q, k, v, cfg, spec, block_k: int = 1024) -> torch.Tensor:
+    """Grouped-head causal attention on projected/rope'd q, k, v — the
+    ``ref`` OpSet's attention, the reference's layout: the n_rep query
+    heads that share a kv head are folded into the query-row axis (row
+    ``r·S + s`` of kv head g is query head g·n_rep+r at position s), so
+    K/V are never repeated, and :func:`flash_attention` runs over keys in
+    blocks of ``min(block_k, S)``. q: (B,S,H,hd); k,v: (B,S,Hkv,hd) ->
+    (B,S,H·hd)."""
     B, S, H, hd = q.shape
     hkv = cfg.n_kv_heads
     n_rep = H // hkv
-    qg = q.float().reshape(B, S, hkv, n_rep, hd)
-    s = torch.einsum("bsgrd,btgd->bgrst", qg, k.float()) * (hd ** -0.5)
-    s = softcap(s, cfg.attn_softcap)
     pos = torch.arange(S, device=q.device)
-    mask = pos[:, None] >= pos[None, :]
-    if spec.window is not None:
-        mask &= (pos[:, None] - pos[None, :]) < spec.window
-    s = torch.where(mask, s, torch.full_like(s, _NEG_INF))
-    w = torch.softmax(s, dim=-1)
-    o = torch.einsum("bgrst,btgd->bsgrd", w, v.float())
-    return o.reshape(B, S, H * hd).to(q.dtype)
+    qg = q.reshape(B, S, hkv, n_rep, hd).permute(0, 2, 3, 1, 4).reshape(B, hkv, n_rep * S, hd)
+    o = flash_attention(qg, k.transpose(1, 2), v.transpose(1, 2), pos.repeat(n_rep), pos, True,
+                        spec.window, cfg.attn_softcap, min(block_k, S))
+    return o.reshape(B, hkv, n_rep, S, hd).permute(0, 3, 1, 2, 4).reshape(B, S, H * hd)
 
 
 def attention_forward(p, x, cfg, spec, positions, ops=None, return_kv: bool = False):
