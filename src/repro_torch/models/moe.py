@@ -28,7 +28,11 @@ reference does without one.
 
 :func:`record_routes` collects each call's routes (the experts each token
 picked and whether each was kept) so that two runs can be compared route
-by route.
+by route. :func:`replay_routes` makes each call take the routes another
+run recorded, in call order (each chosen expert's gate is this call's own
+probability), so that two runs whose inputs differ by f32 noise follow
+one set of routes; the records then hold each call's own choice, so a
+layer's flips can be counted without those of the layers before it.
 """
 
 from __future__ import annotations
@@ -43,6 +47,8 @@ from repro_torch.models.layers import LeafMaker
 
 #: the list of route records while :func:`record_routes` is active
 _ROUTES: Optional[list] = None
+#: the records :func:`replay_routes` hands out, in call order
+_REPLAY: Optional[list] = None
 
 
 @contextlib.contextmanager
@@ -58,6 +64,26 @@ def record_routes():
         yield _ROUTES
     finally:
         _ROUTES = prev
+
+
+@contextlib.contextmanager
+def replay_routes(records: list):
+    """Within the block, the i-th :func:`moe_forward` call routes as
+    ``records[i]`` says (a :func:`record_routes` record of a call on the
+    same (B, S) tokens): each token goes to the recorded experts, and each
+    expert keeps exactly the recorded tokens, its dispatch ordered and
+    gated by this call's own probabilities. A record :func:`record_routes`
+    takes meanwhile is the call's own routing, before the replay. Raises
+    when the calls outnumber the records or a shape differs, and at the
+    block's end when records are left over."""
+    global _REPLAY
+    prev, _REPLAY = _REPLAY, list(records)
+    try:
+        yield
+        if _REPLAY:
+            raise ValueError(f"{len(_REPLAY)} route records not replayed")
+    finally:
+        _REPLAY = prev
 
 
 def init_moe(leaf: LeafMaker, d: int, spec) -> dict:
@@ -117,6 +143,25 @@ def route(p, x: torch.Tensor, spec, capacity_factor=None, n_groups: Optional[int
             "idx": idx, "valid": gate > 0.0, "G": G, "C": C}
 
 
+def _replayed(r, rec: dict, B: int, S: int):
+    """``route``'s dict ``r`` made to follow the record ``rec``: the
+    recorded experts, gated by ``r``'s probabilities, each expert keeping
+    the recorded tokens (at most C: the record came from a call on as many
+    tokens) in this call's priority order."""
+    G, C, (Tg, E) = r["G"], r["C"], r["probs"].shape[1:]
+    K = r["top_e"].shape[-1]
+    if tuple(rec["top_e"].shape) != (B, S, K) or tuple(rec["kept"].shape) != (B, S, K):
+        raise ValueError(f"route record {tuple(rec['top_e'].shape)} does not match the call's "
+                         f"{(B, S, K)}")
+    top_e = rec["top_e"].reshape(G, Tg, K).to(r["top_e"].device)
+    kept = rec["kept"].reshape(G, Tg, K).to(top_e.device)
+    top_p = torch.gather(r["probs"], 2, top_e)
+    prio = torch.zeros(G, Tg, E, dtype=torch.float32, device=top_e.device)
+    prio = prio.scatter(2, top_e, torch.where(kept, top_p, torch.zeros_like(top_p)))
+    gate, idx = _topk(prio.transpose(1, 2), C)
+    return dict(r, top_p=top_p, top_e=top_e, gate=gate, idx=idx, valid=gate > 0.0)
+
+
 def _kept(r, Tg: int) -> torch.Tensor:
     """(G, Tg, K) bool: whether each of a token's K experts took it."""
     G, E, _ = r["idx"].shape
@@ -135,6 +180,13 @@ def moe_forward(p, x: torch.Tensor, spec, return_aux: bool = False, capacity_fac
     r = route(p, x, spec, capacity_factor, n_groups)
     G, C = r["G"], r["C"]
     Tg = (B // G) * S
+    if _ROUTES is not None:  # the call's own routing, before any replay
+        _ROUTES.append({"top_e": r["top_e"].reshape(B, S, K),
+                        "kept": _kept(r, Tg).reshape(B, S, K)})
+    if _REPLAY is not None:
+        if not _REPLAY:
+            raise ValueError("more MoE calls than route records to replay")
+        r = _replayed(r, _REPLAY.pop(0), B, S)
     xg = x.reshape(G, Tg, d)
     gate, idx, valid = r["gate"], r["idx"], r["valid"]
 
@@ -162,9 +214,6 @@ def moe_forward(p, x: torch.Tensor, spec, return_aux: bool = False, capacity_fac
         out = out + yw[gi, e, slot[gi, e, ti]]
     out = out.reshape(B, S, d).to(x.dtype)
 
-    if _ROUTES is not None:
-        _ROUTES.append({"top_e": r["top_e"].reshape(B, S, K),
-                        "kept": _kept(r, Tg).reshape(B, S, K)})
     if not return_aux:
         return out
     me = r["probs"].mean(dim=(0, 1))
