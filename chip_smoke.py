@@ -58,6 +58,35 @@ Phases, in order; any failure exits non-zero:
    under ``torch.profiler`` for the device's busy share and kernel time
    by name. Then the first prefill and two decode steps run again under
    the ``ref`` OpSet, and the logits are compared.
+4a. Other KV pages (``f32_kv_serving``, ``bf16_kv_serving``): paged
+   attention over f32 and bf16 pages at the check's shape (its unscaled
+   branch), timed; then the same backbone, users and prompts served over
+   each, 16 new tokens, paged attention launched; the prefill and two
+   decode steps under ``cuda`` and ``ref`` within 2e-4 (f32) and 2e-2
+   (bf16; ``KV_TOL_REASON``), greedy equal; KV bytes a token and the
+   walls beside the int8 cell's.
+4b. A bound pool (``page_bound_serving``): the largest pool below what
+   the prompts need at once on which the host replay of the page table
+   (:func:`admission_replay`) waits, prefills in waves of different
+   buckets and never runs out (:func:`tight_pool`); 8 new tokens under
+   ``cuda`` and ``ref``: each run's admissions equal the replay's, the
+   streams are equal, no more than ``n_pages`` - 1 pages are held, all
+   are free at the end.
+4c. INT4 kernels: ``quant_matmul`` at int4 over internlm2's four
+   projection shapes at M = 1, 8, 2048 and 4096 (skinny and tiled), each
+   against its plain version, timed beside its bound and ``torch.matmul``
+   on the dequantized weight; a layer's seven summed.
+4d. An INT4 backbone (``int4_serving``, ``pac_run`` with ``quant: 4``,
+   ``int4_personal``): drawn once, served to the int8 cell's users and
+   prompts (16 new tokens; the serving gate; token agreement with the
+   INT8 backbone's streams printed), trained (2 epochs x 2 steps of 4 x
+   512, its checkpoint and persistent cache written; the cached-step and
+   trainer gates) and its checkpoint personal-served (the prompt's
+   prefill, then 16 ``pac_decode_step``s over INT8 and f32 KV; 2e-2 and
+   2e-4, greedy equal). ``quant_matmul``'s launches are counted by
+   branch: the tiled path must run in the serving prefill, the epoch-1
+   step and the personal prefill, the skinny GEMV in the serving and
+   personal decode steps.
 5. Training kernels: flash attention timed at the epoch-1 step's
    B·H = 4·16; ``mix_fwd``/``mix_dw`` and ``ce_fwd``/``ce_bwd`` the
    same way at the training path's shapes (ragged and soft-capped cases
@@ -409,7 +438,9 @@ Phases, in order; any failure exits non-zero:
 40. Summary: one JSON line ``{"kernels": [...]}`` (eight kernels, each
    with its launches on every path, the ``reshard`` run's among them,
    the hd 256, gemma2, hd 112, mixtral, xlstm, jamba_reduced, qwen2vl,
-   moonshot and grok rows beside the first, and its
+   moonshot and grok rows beside the first, paged attention's
+   ``unscaled`` and ``quant_matmul``'s ``int4`` rows (with its int4
+   launches by path and branch), and its
    device kernels by name:
    ``skinny::gemv`` for ``quant_matmul`` at M <= 8 and ``adapter_fuse``
    at T <= 8), the card's line, and last ``{"ok": true, "device":
@@ -448,6 +479,7 @@ REPEATS = 15
 
 QMM_SHAPES = [(2048, 2048), (2048, 1024), (2048, 8192), (8192, 2048)]  # (K, N)
 QMM_SKINNY_ROWS = 8  # quant_matmul's tiled path runs above this M (csrc/quant_matmul.cu)
+PATH_QMM_ROWS = (1, 8, 2048, 4096)  # personal decode, serving decode, epoch-1 step, prefill
 #: the seven projections of one internlm2-1.8b layer, by (K, N)
 #: the decode path's kernels, by name in a profile: the GEMV (quant_matmul
 #: at M <= 8, adapter_fuse at T <= 8), paged attention
@@ -602,13 +634,13 @@ def qmm_check(gen: torch.Generator, M: int, K: int, N: int, bits: int):
     return x, w, got, want
 
 
-def layer_row(qmm: dict, M: int) -> dict:
-    """The 7 int8 projections of one layer at ``M`` rows, times summed."""
+def layer_row(qmm: dict, M: int, bits: int = 8) -> dict:
+    """The 7 projections of one layer at ``M`` rows and ``bits``, times summed."""
     def layer_sum(key):
-        return sum(qmm[(M, K, N, 8)][key] for K, N in LAYER_PROJECTIONS)
+        return sum(qmm[(M, K, N, bits)][key] for K, N in LAYER_PROJECTIONS)
 
-    rows = [qmm[(M, K, N, 8)] for K, N in QMM_SHAPES]
-    r = {"at": f"the 7 projections of one layer at M={M}, int8 (times summed)",
+    rows = [qmm[(M, K, N, bits)] for K, N in QMM_SHAPES]
+    r = {"at": f"the 7 projections of one layer at M={M}, int{bits} (times summed)",
          "max_abs_err": max(r_["max_abs_err"] for r_ in rows),
          "ms": layer_sum("ms"), "plain_ms": layer_sum("plain_ms"),
          "bound_ms": layer_sum("bound_ms"), "bound_by": rows[0]["bound_by"],
@@ -769,55 +801,73 @@ def paged_case(gen: torch.Generator, rng: np.random.Generator, B: int, Hkv: int,
             torch.from_numpy(lengths_np.astype(np.int32)).to(DEV))
 
 
-def paged_bound(lengths_np: np.ndarray, Hkv: int, n_rep: int, hd: int, page: int):
-    """The least time of one int8 call: each attended K/V row and its scale
-    read once, q read and the output written once, the block-table entries
-    and lengths read once; 4 * n_rep * hd f32 FLOPs a token and kv head."""
+#: device bytes of one K or V row of hd values, by page type (int8: codes and an f32 scale)
+PAGE_ROW_BYTES = {"int8": lambda hd: hd + 4, "bf16": lambda hd: 2 * hd, "f32": lambda hd: 4 * hd}
+
+
+def paged_bound(lengths_np: np.ndarray, Hkv: int, n_rep: int, hd: int, page: int,
+                pages: str = "int8"):
+    """The least time of one call over ``pages``: each attended K/V row
+    (and an int8 row's scale) read once, q read and the output written
+    once, the block-table entries and lengths read once; 4 * n_rep * hd
+    f32 FLOPs a token and kv head."""
     tokens = int((lengths_np.astype(np.int64) + 1).sum())
     B = len(lengths_np)
-    nbytes = (tokens * Hkv * 2 * (hd + 4) + 2 * B * Hkv * n_rep * hd * 4
+    nbytes = (tokens * Hkv * 2 * PAGE_ROW_BYTES[pages](hd) + 2 * B * Hkv * n_rep * hd * 4
               + 4 * int(sum(-(-(int(n) + 1) // page) for n in lengths_np)) + 4 * B)
     return bound(nbytes, 4.0 * n_rep * hd * Hkv * tokens)
 
 
 def paged_timed(timer: Timer, gen: torch.Generator, lengths_np: np.ndarray, max_pages: int,
-                at: str, Hkv: int = 8, n_rep: int = 2, hd: int = 128, cap: float = None) -> dict:
-    """``paged_attention`` at B = len(lengths), int8 pages of 16 tokens
-    (internlm2-1.8b's Hkv = 8, n_rep = 2, hd = 128 unless given), against
+                at: str, Hkv: int = 8, n_rep: int = 2, hd: int = 128, cap: float = None,
+                pages: str = "int8") -> dict:
+    """``paged_attention`` at B = len(lengths), pages of 16 tokens (int8
+    unless ``pages`` says "f32" or "bf16", which have no scales;
+    internlm2-1.8b's Hkv = 8, n_rep = 2, hd = 128 unless given), against
     its plain version; timed beside the plain version and SDPA over the KV
     gathered to dense f32 beforehand (length mask), with the byte bound.
     ``cap``: the attention soft-cap of the kernel and its plain version
     (SDPA has none, and runs without)."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.paged_attention import paged_attention, plan_for
+    from repro_torch.kernels.paged_attention import _KIND, paged_attention, plan_for
     from repro_torch.serve.paging import quantize_kv_pages
 
     B, page = len(lengths_np), 16
     rng = np.random.default_rng(SEED)
     qd, kf, vf, bt, lengths = paged_case(gen, rng, B, Hkv, n_rep, hd, page, max_pages, lengths_np)
-    (kq, ks), (vq, vs) = quantize_kv_pages(kf), quantize_kv_pages(vf)
+    if pages == "int8":
+        (kq, ks), (vq, vs) = quantize_kv_pages(kf), quantize_kv_pages(vf)
+    else:  # unscaled pages: the kernel's other branch
+        kq, vq = (t.to(torch.bfloat16) if pages == "bf16" else t for t in (kf, vf))
+        ks = vs = None
     del kf, vf
     got = paged_attention(qd, kq, vq, bt, lengths, k_scale=ks, v_scale=vs, attn_softcap=cap)
     want = ref.paged_attention_ref(qd, kq, vq, bt, lengths, k_scale=ks, v_scale=vs,
                                    attn_softcap=cap)
     if not torch.isfinite(got).all():
         raise AssertionError(f"paged_attention {at}: non-finite output")
-    check(f"paged_attention {at}", max_err(got, want), PAGED_TOL["int8"])
-    b_ms, b_by = paged_bound(lengths_np, Hkv, n_rep, hd, page)
+    check(f"paged_attention {at}", max_err(got, want), PAGED_TOL[pages])
+    b_ms, b_by = paged_bound(lengths_np, Hkv, n_rep, hd, page, pages)
     S = max_pages * page
     idx = bt.long()
-    kd = (kq[idx].float() * ks[idx][..., None]).reshape(B, S, Hkv, hd)
-    vd = (vq[idx].float() * vs[idx][..., None]).reshape(B, S, Hkv, hd)
-    kd = kd.transpose(1, 2).repeat_interleave(n_rep, dim=1)
-    vd = vd.transpose(1, 2).repeat_interleave(n_rep, dim=1)
+
+    def dense(t, sc):
+        t = t[idx].float() if sc is None else t[idx].float() * sc[idx][..., None]
+        return t.reshape(B, S, Hkv, hd).transpose(1, 2).repeat_interleave(n_rep, dim=1)
+
+    kd, vd = dense(kq, ks), dense(vq, vs)
     qsd = qd.reshape(B, Hkv * n_rep, 1, hd)
     mask = (torch.arange(S, device=DEV)[None, :] <= lengths[:, None])[:, None, None, :]
-    pools = [(kq, vq, ks, vs)] + [(kq.clone(), vq.clone(), ks.clone(), vs.clone())
-                                  for _ in range(copies(2 * (kq.numel() + 4 * ks.numel())) - 1)]
+    scaled = ks is not None
+    pool_bytes = 2 * (kq.numel() * kq.element_size() + (4 * ks.numel() if scaled else 0))
+    pools = [(kq, vq, ks, vs)] + [
+        (kq.clone(), vq.clone(), ks.clone() if scaled else None, vs.clone() if scaled else None)
+        for _ in range(copies(pool_bytes) - 1)]
     r = {"check": "paged_attention", "at": at, "B": B, "Hkv": Hkv, "n_rep": n_rep, "hd": hd,
-         "page": page, "max_pages": max_pages, "lengths": lengths_np.tolist(), "pages": "int8",
-         "softcap": cap, "plan": plan_for(qd, B, Hkv, n_rep, hd, page, max_pages, 0)._asdict(),
-         "max_abs_err": max_err(got, want), "tol": f"atol {PAGED_TOL['int8']}",
+         "page": page, "max_pages": max_pages, "lengths": lengths_np.tolist(), "pages": pages,
+         "softcap": cap,
+         "plan": plan_for(qd, B, Hkv, n_rep, hd, page, max_pages, _KIND[kq.dtype])._asdict(),
+         "max_abs_err": max_err(got, want), "tol": f"atol {PAGED_TOL[pages]}",
          "tol_reason": PAGED_TOL_REASON,
          "ms": timer([lambda p=p: paged_attention(qd, p[0], p[1], bt, lengths, k_scale=p[2],
                                                   v_scale=p[3], attn_softcap=cap) for p in pools]),
@@ -1068,21 +1118,22 @@ def device_profile(fn, watch=(), trace: Path = None) -> dict:
             **streams}
 
 
-def profile_decode(eng, prompts, names) -> None:
+def profile_decode(eng, prompts, names, phase: str = "decode_profile") -> None:
     """Two steady decode steps at batch 8 under ``torch.profiler``."""
     for i, p in enumerate(prompts):
         eng.submit(p, names[i % len(names)], max_new_tokens=8)
     eng.step()  # prefill + first decode step
     eng.step()
-    emit({"phase": "decode_profile", "steps": 2, "batch": 8,
+    emit({"phase": phase, "steps": 2, "batch": 8,
           **device_profile(lambda: (eng.step(), eng.step()), watch=SKINNY_WATCH)})
     eng.drain()
 
 
 def paged_cuda_vs_ref(backbone, cfg, ab, prompts, page: int, max_len: int, r: int, s_pad: int,
-                      steps: int = 2, routes: dict = None, forced: bool = False) -> dict:
+                      steps: int = 2, routes: dict = None, forced: bool = False,
+                      kv_policy: str = "int8") -> dict:
     """The prompts' paged prefill (padded to ``s_pad``) and ``steps``
-    decode steps over INT8 KV pages, under the ``cuda`` and the ``ref``
+    decode steps over ``kv_policy`` KV pages, under the ``cuda`` and the ``ref``
     OpSet, the cuda run's greedy tokens fed to both: per OpSet the (B, V)
     logits of each step, the prefill's first. ``routes`` (a dict) gets per
     OpSet each step's MoE route records, one a layer
@@ -1102,7 +1153,7 @@ def paged_cuda_vs_ref(backbone, cfg, ab, prompts, page: int, max_len: int, r: in
         table = paging.PageTable(paging.PageAllocator(B * max_pages + 1), page, max_pages)
         for i, p in enumerate(prompts):
             table.open(i, len(p))
-        pools = paging.init_pools(cfg, table.allocator.n_pages, page, "int8", DEV, n_slots=B)
+        pools = paging.init_pools(cfg, table.allocator.n_pages, page, kv_policy, DEV, n_slots=B)
         state[name] = [table, pools, None]
     toks = np.zeros((B, s_pad), np.int32)
     for i, p in enumerate(prompts):
@@ -1143,9 +1194,16 @@ def paged_cuda_vs_ref(backbone, cfg, ab, prompts, page: int, max_len: int, r: in
     return logits
 
 
-def serving_phase(gen: torch.Generator, walls: dict):
+#: the serving cells' config, pages of 16 tokens, max_len, batch and adapter rank
+SERVING_ARCH = "internlm2-1.8b"
+SERVING_PAGE, SERVING_MAX_LEN, SERVING_BATCH, SERVING_R = 16, 544, 8, 8
+
+
+def serving_phase(gen: torch.Generator, walls: dict, keep: dict = None):
     """The serving path (phase 4 above). ``walls`` gets the prefill
-    wave's and a decode step's wall, at their shapes, for the roofline."""
+    wave's and a decode step's wall, at their shapes, for the roofline;
+    ``keep`` (a dict) the INT8 backbone, users, prompts, streams and the
+    ``serving`` line, for the serving phases over other pages and pools."""
     from repro_torch.configs import get_arch
     from repro_torch.core.parallel_adapters import gather_adapters, stack_adapters
     from repro_torch.core.parallel_adapters import init_adapter
@@ -1156,8 +1214,9 @@ def serving_phase(gen: torch.Generator, walls: dict):
 
     kernels = {"quant_matmul": quant_matmul, "flash_attention": flash_attention,
                "paged_attention": paged_attention}
-    cfg = get_arch("internlm2-1.8b")
-    page, max_len, max_batch, n_new, r = 16, 544, 8, 32, 8
+    cfg = get_arch(SERVING_ARCH)
+    page, max_len, max_batch, n_new, r = (SERVING_PAGE, SERVING_MAX_LEN, SERVING_BATCH, 32,
+                                          SERVING_R)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     backbone = init_backbone(gen, cfg, device="cuda", quant_bits=8)
@@ -1171,13 +1230,8 @@ def serving_phase(gen: torch.Generator, walls: dict):
     names = list(users)
 
     def serve(n_tokens):
-        eng = ServeEngine(backbone, cfg, users, r=r, kernel_impl="cuda", kv_policy="int8",
-                          page_size=page, max_len=max_len, max_batch=max_batch)
-        handles = [eng.submit(p, names[i % 4], max_new_tokens=n_tokens)
-                   for i, p in enumerate(prompts)]
-        t = time.perf_counter()
-        eng.drain()
-        return eng, [h.result() for h in handles], time.perf_counter() - t
+        return serve_streams(backbone, cfg, users, prompts, "cuda", n_tokens, page, max_len,
+                             max_batch, r)
 
     serve(2)  # warm-up: first launches, allocator growth
     init_peak = torch.cuda.max_memory_allocated()
@@ -1189,14 +1243,19 @@ def serving_phase(gen: torch.Generator, walls: dict):
     for s in streams:
         if len(s) != n_new or not all(0 <= t < cfg.vocab for t in s):
             raise AssertionError(f"bad stream: {s}")
-    emit({"phase": "serving", "requests": len(prompts), "users": len(users),
-          "prompt_lens": prompt_lens.tolist(), "new_tokens": n_new, "kv": "int8", "page": page,
-          "prefill_ms": eng.prefill_seconds * 1e3, "decode_steps": eng.decode_steps,
-          "decode_ms_per_step": eng.decode_seconds * 1e3 / eng.decode_steps,
-          "decode_tokens_per_s": eng.decode_tokens / eng.decode_seconds,
-          "wall_s": wall, "max_memory_allocated": torch.cuda.max_memory_allocated(),
-          "init_max_memory_allocated": init_peak,
-          "launches": launches, "first_tokens": [s[:4] for s in streams]})
+    line = {"phase": "serving", "requests": len(prompts), "users": len(users),
+            "prompt_lens": prompt_lens.tolist(), "new_tokens": n_new, "kv": "int8",
+            "page": page, "prefill_ms": eng.prefill_seconds * 1e3,
+            "decode_steps": eng.decode_steps,
+            "decode_ms_per_step": eng.decode_seconds * 1e3 / eng.decode_steps,
+            "decode_tokens_per_s": eng.decode_tokens / eng.decode_seconds,
+            "wall_s": wall, "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "init_max_memory_allocated": init_peak,
+            "launches": launches, "first_tokens": [s[:4] for s in streams]}
+    emit(line)
+    if keep is not None:
+        keep.update(backbone=backbone, users=users, prompts=prompts, streams=streams,
+                    line=line)
     missing = [n for n, c in launches.items() if c <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the serving path: {missing}")
@@ -1228,6 +1287,473 @@ def serving_phase(gen: torch.Generator, walls: dict):
     if not finite or max(diffs) > tol or logits["cuda"][0].shape != (8, cfg.vocab):
         raise AssertionError(f"cuda vs ref logits: {diffs} (tol {tol}), finite={finite}")
     return launches
+
+
+# ---------------------------------------------------------------- other pages, a bound pool, INT4
+
+#: new tokens a request of the f32/bf16-page and INT4 serving cells (the int8 cell's 32, cut
+#: for the smoke's time)
+SHORT_NEW_TOKENS = 16
+#: new tokens a request of the page-bound cell
+POOL_NEW_TOKENS = 8
+#: the serving gate by KV page type: max |Δlogits| of the prefill and two decode steps,
+#: ``cuda`` OpSet against ``ref`` on the same greedy tokens
+KV_TOL = {"int8": 2e-2, "bf16": 2e-2, "f32": 2e-4}
+KV_TOL_REASON = {
+    "int8": "f32 sums reorder through 24 layers, and an int8 KV code may move by one step where "
+            "the two paths' K/V differ in the last ulp",
+    "bf16": "f32 sums reorder through 24 layers, and a K/V value whose two f32 values differ "
+            "in the last ulp may round to neighbouring bf16 values: one bf16 step, at most "
+            "2^-7 of |v| and so of its block's absmax, the size of one int8 code step "
+            "(absmax/127); a flipped bf16 value moves the attention no further than a flipped "
+            "int8 code, so bf16 pages take the int8 gate (the reference's own bf16 decode "
+            "tolerance, tests/test_decode_parity.py:36, is 3e-2)",
+    "f32": "the reference's decode-parity ceiling over f32 KV (tests/test_decode_parity.py:36), "
+           "which the personal path meets over f32 KV (personal_gap)",
+}
+
+
+def _bucket(n: int, cap: int) -> int:
+    """The engine's power-of-two bucket of ``n``, at most ``cap``."""
+    b = 1
+    while b < n:
+        b *= 2
+    return min(b, cap)
+
+
+def watch_schedule(eng, rec: dict) -> dict:
+    """Record ``eng``'s admissions into ``rec`` as they happen: this
+    package's ``ServeEngine`` and the reference's alike (each admits
+    through ``_run_prefill(reqs, row0)`` inside ``step()`` and takes pages
+    with ``allocator.alloc``). ``rec``: ``waves``, one [step (from 1),
+    request ids, batch bucket, prompt bucket] a prefill wave; ``steps``;
+    ``max_in_use``, the most pages held at once (the null page aside)."""
+    rec.update(waves=[], steps=0, max_in_use=0)
+    step, prefill, alloc = eng.step, eng._run_prefill, eng.allocator.alloc
+
+    def stepped():
+        rec["steps"] += 1
+        return step()
+
+    def prefilled(reqs, row0):
+        rec["waves"].append([rec["steps"], [r.rid for r in reqs],
+                             _bucket(len(reqs), eng.max_batch),
+                             _bucket(max(len(r.prompt) for r in reqs), 1 << 30)])
+        return prefill(reqs, row0)
+
+    def allocated(n):
+        pages = alloc(n)
+        rec["max_in_use"] = max(rec["max_in_use"],
+                                eng.allocator.n_pages - 1 - eng.allocator.free_pages)
+        return pages
+
+    eng.step, eng._run_prefill, eng.allocator.alloc = stepped, prefilled, allocated
+    return rec
+
+
+def admission_replay(lens, n_new: int, page: int, max_len: int, max_batch: int,
+                     n_pages: int, rec: dict = None) -> dict:
+    """What ``ServeEngine`` does with prompts of ``lens`` tokens (request
+    ids in order) and ``n_new`` greedy tokens each, no end token, on a
+    pool of ``n_pages`` pages, replayed on the page table alone: no model
+    runs, for the schedule depends on the lengths alone. Each step admits
+    pending requests in order while a slot is free and the prompt's pages
+    are free (the first that does not fit waits, and all behind it),
+    prefills them in one wave (their first token), retires the finished,
+    then extends every active request by one token (a page on a boundary,
+    as the reference's ``step``), accounts the token and retires again,
+    swap-removing. Returns :func:`watch_schedule`'s record plus
+    ``waits``, the steps whose admission stopped on pages (filled into
+    ``rec`` where given); raises ``OutOfPagesError`` where the engine
+    would, ``rec`` then holding the schedule up to that step."""
+    from repro_torch.serve import paging
+
+    table = paging.PageTable(paging.PageAllocator(n_pages), page, -(-max_len // page))
+    free = table.allocator
+    rec = {} if rec is None else rec
+    rec.update(waves=[], steps=0, max_in_use=0, waits=0)
+    pending, active = list(range(len(lens))), []  # active: [request id, tokens emitted]
+
+    def held():
+        rec["max_in_use"] = max(rec["max_in_use"], n_pages - 1 - free.free_pages)
+
+    def retire():
+        for idx in range(len(active) - 1, -1, -1):
+            if active[idx][1] >= n_new:
+                table.close(active[idx][0])
+                active[idx] = active[-1]
+                active.pop()
+
+    while pending or active:
+        rec["steps"] += 1
+        wave = []
+        while len(active) < max_batch and pending:
+            rid = pending[0]
+            if -(-lens[rid] // page) > free.free_pages:
+                rec["waits"] += 1
+                break
+            table.open(pending.pop(0), lens[rid])
+            active.append([rid, 1])
+            wave.append(rid)
+        held()
+        if wave:
+            rec["waves"].append([rec["steps"], wave, _bucket(len(wave), max_batch),
+                                 _bucket(max(lens[i] for i in wave), 1 << 30)])
+        elif not active:
+            raise paging.OutOfPagesError(f"prompt {pending[0]} needs more pages than the pool")
+        retire()
+        for rid, _ in active:
+            table.extend_to(rid, table.length(rid) + 1)
+        held()
+        for a in active:
+            table.append_token(a[0])
+            a[1] += 1
+        retire()
+    return rec
+
+
+def tight_pool(lens, n_new: int, page: int, max_len: int, max_batch: int):
+    """The largest pool, by host arithmetic on the lengths alone, below
+    what the prompts need at once (their pages and the null page) on
+    which :func:`admission_replay` waits at least once, prefills in at
+    least two waves of different batch buckets and never runs out of
+    pages: the reference's engine has no eviction, so a decode step that
+    finds no page raises. Returns (n_pages, the replay)."""
+    from repro_torch.serve.paging import OutOfPagesError
+
+    at_once = sum(-(-n // page) for n in lens) + 1
+    for n_pages in range(at_once - 1, 1, -1):
+        try:
+            rec = admission_replay(lens, n_new, page, max_len, max_batch, n_pages)
+        except OutOfPagesError:
+            continue
+        if rec["waits"] and len({w[2] for w in rec["waves"]}) >= 2:
+            return n_pages, rec
+    raise AssertionError(f"no pool below {at_once} pages admits {lens} in waves")
+
+
+def serving_adapters(users: dict, n: int):
+    """The serving cells' adapter rows: ``users`` in turn over ``n`` requests."""
+    from repro_torch.core.parallel_adapters import gather_adapters, stack_adapters
+
+    names = list(users)
+    return gather_adapters(stack_adapters([users[u] for u in names]),
+                           torch.arange(n, device=DEV) % len(names))
+
+
+def serving_gate(backbone, cfg, users, prompts, kv_policy: str, phase: str) -> dict:
+    """The prompts' prefill and two decode steps over ``kv_policy`` pages
+    under ``cuda`` and ``ref`` (:func:`paged_cuda_vs_ref`), held to
+    ``KV_TOL`` with equal greedy tokens at every step: the figures."""
+    s_pad = _bucket(max(map(len, prompts)), 1 << 30)
+    logits = paged_cuda_vs_ref(backbone, cfg, serving_adapters(users, len(prompts)), prompts,
+                               SERVING_PAGE, SERVING_MAX_LEN, SERVING_R, s_pad,
+                               kv_policy=kv_policy)
+    diffs = [max_err(a, b) for a, b in zip(logits["cuda"], logits["ref"])]
+    equal = [bool(torch.equal(a.argmax(-1), b.argmax(-1)))
+             for a, b in zip(logits["cuda"], logits["ref"])]
+    finite = all(bool(torch.isfinite(t).all()) for t in logits["cuda"] + logits["ref"])
+    tol = KV_TOL[kv_policy]
+    if not (finite and max(diffs) <= tol and all(equal)):
+        raise AssertionError(f"{phase} cuda vs ref over {kv_policy} pages: |dlogits| {diffs} "
+                             f"(tol {tol}), greedy equal {equal}, finite {finite}")
+    return {"steps": ["prefill", "decode1", "decode2"], "max_abs_dlogits": diffs,
+            "greedy_equal": equal, "tol": tol, "tol_reason": KV_TOL_REASON[kv_policy]}
+
+
+def kv_pages_phase(timer: Timer, gen: torch.Generator, keep: dict):
+    """Paged attention over f32 and over bf16 pages at the check's shape
+    (:func:`paged_phase`'s first), timed; then the serving cell over each:
+    the int8 cell's backbone, users and prompts (not drawn again),
+    ``SHORT_NEW_TOKENS`` new
+    tokens a request through ``ServeEngine(kv_policy=)`` with launches
+    counted (paged attention's unscaled branch), then the prefill and two
+    decode steps under ``cuda`` and ``ref`` (:func:`serving_gate`). Prints
+    each cell's times and KV bytes a token beside the int8 cell's.
+    Returns (each cell's launches, the kernel rows by page type)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.serve import paging
+
+    lengths_np = np.random.default_rng(SEED).integers(1, 512, size=8).astype(np.int32)
+    rows = {}
+    for policy in ("f32", "bf16"):
+        r = paged_timed(timer, gen, lengths_np, 32, f"decode B=8 Hkv=8 n_rep=2 hd=128 page=16 "
+                        f"{policy}, lengths<=511", pages=policy)
+        rows[policy] = {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms", "at", "plan")}
+    cfg = get_arch(SERVING_ARCH)
+    backbone, users, prompts, int8 = keep["backbone"], keep["users"], keep["prompts"], keep["line"]
+    paths = {}
+    for policy in ("f32", "bf16"):
+        t0 = time.perf_counter()
+        serve_streams(backbone, cfg, users, prompts, "cuda", 2, SERVING_PAGE, SERVING_MAX_LEN,
+                      SERVING_BATCH, SERVING_R, kv_policy=policy)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        eng, streams, wall = serve_streams(backbone, cfg, users, prompts, "cuda", SHORT_NEW_TOKENS,
+                                           SERVING_PAGE, SERVING_MAX_LEN, SERVING_BATCH,
+                                           SERVING_R, kv_policy=policy)
+        launches = {k: v for k, v in read_launches().items()
+                    if k in ("quant_matmul", "flash_attention", "paged_attention")}
+        peak = torch.cuda.max_memory_allocated()
+        missing = [n for n, c in launches.items() if c <= 0]
+        if missing:
+            raise AssertionError(f"kernels never launched over {policy} pages: {missing}")
+        gate = serving_gate(backbone, cfg, users, prompts, policy, f"{policy}_kv_serving")
+        emit({"phase": f"{policy}_kv_serving", "arch": cfg.name, "kv": policy,
+              "requests": len(prompts), "new_tokens": SHORT_NEW_TOKENS, "page": SERVING_PAGE,
+              "n_pages": eng.allocator.n_pages,
+              "kv_bytes_per_token": paging.kv_bytes_per_token(cfg, policy),
+              "prefill_ms": eng.prefill_seconds * 1e3, "decode_steps": eng.decode_steps,
+              "decode_ms_per_step": eng.decode_seconds * 1e3 / eng.decode_steps,
+              "decode_tokens_per_s": eng.decode_tokens / eng.decode_seconds, "wall_s": wall,
+              "max_memory_allocated": peak, "launches": launches,
+              "streams_equal_int8_kv": [s == t[:SHORT_NEW_TOKENS]
+                                        for s, t in zip(streams, keep["streams"])],
+              "int8_cell": {"kv_bytes_per_token": paging.kv_bytes_per_token(cfg, "int8"),
+                            **{k: int8[k] for k in ("prefill_ms", "decode_ms_per_step",
+                                                    "decode_tokens_per_s", "new_tokens")}},
+              "cuda_vs_ref": gate, "seconds": time.perf_counter() - t0})
+        paths[f"{policy}_kv_serving"] = launches
+    return paths, rows
+
+
+def page_bound_phase(keep: dict) -> dict:
+    """The serving cell on a pool too small for all its prompts at once
+    (:func:`tight_pool`): admission waits, and prefill runs in waves of
+    different buckets. The int8 cell's backbone, users and prompts,
+    ``POOL_NEW_TOKENS`` new tokens a request, under ``cuda`` (launches
+    counted) and ``ref`` at the same pool. Gates: each run's schedule
+    (which request each step admits, each wave's buckets) equals the host
+    replay's, the streams are equal, no more than ``n_pages`` - 1 pages
+    are ever held, and every page is free once the engine drains. Prints
+    whether the streams equal the ample pool's (the int8 cell's)."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(SERVING_ARCH)
+    backbone, users, prompts = keep["backbone"], keep["users"], keep["prompts"]
+    t0 = time.perf_counter()
+    lens = [len(p) for p in prompts]
+    n_pages, replay = tight_pool(lens, POOL_NEW_TOKENS, SERVING_PAGE, SERVING_MAX_LEN,
+                                 SERVING_BATCH)
+    runs = {}
+    for impl in ("cuda", "ref"):
+        schedule = {}
+        reset_launches()
+        eng, streams, wall = serve_streams(backbone, cfg, users, prompts, impl, POOL_NEW_TOKENS,
+                                           SERVING_PAGE, SERVING_MAX_LEN, SERVING_BATCH,
+                                           SERVING_R, n_pages=n_pages, schedule=schedule)
+        runs[impl] = {"streams": streams, "schedule": schedule, "wall_s": wall,
+                      "free_at_end": eng.allocator.free_pages,
+                      "prefill_ms": eng.prefill_seconds * 1e3, "decode_steps": eng.decode_steps,
+                      "decode_ms_per_step": eng.decode_seconds * 1e3 / eng.decode_steps,
+                      "launches": {k: v for k, v in read_launches().items()
+                                   if k in ("quant_matmul", "flash_attention",
+                                            "paged_attention")}}
+        del eng
+    cuda, ref = runs["cuda"], runs["ref"]
+    line = {"phase": "page_bound_serving", "arch": cfg.name, "kv": "int8",
+            "requests": len(prompts), "prompt_lens": lens, "new_tokens": POOL_NEW_TOKENS,
+            "page": SERVING_PAGE, "n_pages": n_pages,
+            "pages_at_once": sum(-(-n // SERVING_PAGE) for n in lens) + 1,
+            "replay": replay, "schedule": cuda["schedule"], "ref_schedule": ref["schedule"],
+            "schedule_equal_replay": [runs[i]["schedule"]["waves"] == replay["waves"]
+                                      for i in runs],
+            "streams_equal": cuda["streams"] == ref["streams"],
+            "max_pages_in_use": [runs[i]["schedule"]["max_in_use"] for i in runs],
+            "free_at_end": [runs[i]["free_at_end"] for i in runs],
+            "streams_equal_ample_pool": [s == t[:POOL_NEW_TOKENS]
+                                         for s, t in zip(cuda["streams"], keep["streams"])],
+            **{k: cuda[k] for k in ("prefill_ms", "decode_steps", "decode_ms_per_step",
+                                    "wall_s", "launches")},
+            "ref_wall_s": ref["wall_s"], "seconds": time.perf_counter() - t0}
+    emit(line)
+    waves = cuda["schedule"]["waves"]
+    if not (all(line["schedule_equal_replay"]) and len(waves) >= 2
+            and len({w[2] for w in waves}) >= 2 and replay["waits"] > 0):
+        raise AssertionError(f"page-bound schedule {waves} against the replay {replay}")
+    if not line["streams_equal"]:
+        raise AssertionError("page-bound streams differ between cuda and ref")
+    if max(line["max_pages_in_use"]) > n_pages - 1 or line["free_at_end"] != [n_pages - 1] * 2:
+        raise AssertionError(f"pages held {line['max_pages_in_use']}, free at the end "
+                             f"{line['free_at_end']} of {n_pages - 1}")
+    missing = [n for n, c in cuda["launches"].items() if c <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the page-bound path: {missing}")
+    return cuda["launches"]
+
+
+def int4_kernel_phase(timer: Timer, gen: torch.Generator) -> dict:
+    """int4 ``quant_matmul`` at each projection shape of an internlm2-1.8b
+    layer, (K, N) in ``QMM_SHAPES``, at M = 1 and 8 (the skinny GEMV) and
+    2048 and 4096 (the tiled ``qmm_mma``), each held to its plain version
+    and timed beside its bound and ``torch.matmul`` on the dequantized
+    weight; one layer's seven projections summed at each M."""
+    qmm = {}
+    for M in PATH_QMM_ROWS:
+        for K, N in QMM_SHAPES:
+            qmm[(M, K, N, 4)] = qmm_case(timer, gen, M, K, N, 4)
+    rows = {}
+    for M in PATH_QMM_ROWS:
+        rows[f"M={M}"] = layer_row(qmm, M, bits=4)
+        emit({"check": "quant_matmul_layer", "M": M, "bits": 4, **rows[f"M={M}"]})
+    return rows
+
+
+def branch_counts() -> dict:
+    from repro_torch.kernels import quant_matmul
+
+    return dict(quant_matmul.branch_launches)
+
+
+def require_branches(path: str, branches: dict, want) -> None:
+    missing = [b for b in want if branches.get(b, 0) <= 0]
+    if missing:
+        raise AssertionError(f"quant_matmul never took {missing} on the {path} path: "
+                             f"{branches}")
+
+
+def int4_serving_phase(gen: torch.Generator, keep: dict) -> dict:
+    """An INT4 backbone drawn once from the seeded generator, served to
+    the int8 cell's users and prompts: ``SHORT_NEW_TOKENS`` new tokens a
+    request through ``ServeEngine`` over int8 pages (launches counted by
+    branch: the tiled ``qmm_mma`` in the prefill wave, M = 8 x 512, and the
+    skinny GEMV at the decode's M = 8), then the prefill and two decode
+    steps under ``cuda`` and ``ref`` (:func:`serving_gate`), and two decode
+    steps under the profiler (``int4_decode_profile``). The streams'
+    agreement with the INT8 backbone's is printed, not gated: the weights
+    differ. Returns (launches, the backbone)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.quantization import tree_storage_bytes
+    from repro_torch.models.backbone import init_backbone
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_arch(SERVING_ARCH)
+    users, prompts = keep["users"], keep["prompts"]
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    backbone = init_backbone(gen, cfg, device="cuda", quant_bits=4)
+    torch.cuda.synchronize()
+    emit({"phase": "serving_init", "arch": cfg.name, "quant": 4,
+          "backbone_bytes": tree_storage_bytes(backbone), "seconds": time.perf_counter() - t0})
+    serve_streams(backbone, cfg, users, prompts, "cuda", 2, SERVING_PAGE, SERVING_MAX_LEN,
+                  SERVING_BATCH, SERVING_R)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    eng, streams, wall = serve_streams(backbone, cfg, users, prompts, "cuda", SHORT_NEW_TOKENS,
+                                       SERVING_PAGE, SERVING_MAX_LEN, SERVING_BATCH, SERVING_R)
+    launches = {k: v for k, v in read_launches().items()
+                if k in ("quant_matmul", "flash_attention", "paged_attention")}
+    branches = branch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    gate = serving_gate(backbone, cfg, users, prompts, "int8", "int4_serving")
+    emit({"phase": "int4_serving", "arch": cfg.name, "quant": 4, "kv": "int8",
+          "requests": len(prompts), "new_tokens": SHORT_NEW_TOKENS, "page": SERVING_PAGE,
+          "prefill_ms": eng.prefill_seconds * 1e3, "decode_steps": eng.decode_steps,
+          "decode_ms_per_step": eng.decode_seconds * 1e3 / eng.decode_steps,
+          "decode_tokens_per_s": eng.decode_tokens / eng.decode_seconds, "wall_s": wall,
+          "max_memory_allocated": peak, "launches": launches,
+          "quant_matmul_branches": branches,
+          "token_agreement_int8_backbone": [
+              float(np.mean([a == b for a, b in zip(s, t)]))
+              for s, t in zip(streams, keep["streams"])],
+          "cuda_vs_ref": gate, "seconds": time.perf_counter() - t0})
+    require_branches("int4 serving", branches, ("int4 tiled", "int4 skinny"))
+    missing = [n for n, c in launches.items() if c <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the int4 serving path: {missing}")
+    profile_decode(ServeEngine(backbone, cfg, users, r=SERVING_R, kernel_impl="cuda",
+                               kv_policy="int8", page_size=SERVING_PAGE,
+                               max_len=SERVING_MAX_LEN, max_batch=SERVING_BATCH,
+                               device=DEV),
+                   prompts, list(users), phase="int4_decode_profile")
+    return {**launches, "quant_matmul_branches": branches}, backbone
+
+
+def int4_personal_phase(backbone, cfg, ckpt: Path, r: int = 8) -> dict:
+    """The INT4 run's checkpoint served to one user: the prompt's prefill
+    (``prefill_step``, M = ``PROMPT_LEN``: the tiled path) under ``cuda``
+    and ``ref`` (the serving gate), then 16 ``pac_decode_step``s at B = 1
+    (8 teacher-forced prompt tokens, then 8 greedy; M = 1: the skinny GEMV)
+    over an INT8 and an f32 linear KV cache, each under ``cuda`` (launches
+    counted) and ``ref``: ``personal_phase``'s gates, 2e-2 over INT8 KV
+    and 2e-4 over f32 KV (the ``personal_gap``), greedy tokens equal."""
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.core.parallel_adapters import init_adapter_cache
+    from repro_torch.core.steps import pac_decode_step, prefill_step
+    from repro_torch.models.backbone import init_cache
+
+    t0 = time.perf_counter()
+    adapter = load_checkpoint(str(ckpt), device=DEV)["adapter"]
+    n_prompt, n_steps, max_len = 8, 16, 16
+    prompt = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, size=(1, PROMPT_LEN)).astype(np.int32)).to(DEV)
+    reset_launches()
+    pre = {impl: prefill_step(backbone, {"tokens": prompt}, cfg=cfg, kernel_impl=impl)
+           for impl in ("cuda", "ref")}
+    prefill_branches = branch_counts()
+    prefill_err = max_err(pre["cuda"], pre["ref"])
+
+    def serve(impl, kv_quant):
+        cache = init_cache(cfg, 1, max_len, device=DEV, kv_quant=kv_quant)
+        acache = init_adapter_cache(cfg, 1, max_len, r, device=DEV)
+        logits, greedy, tok = [], [], prompt[:, :1]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for p in range(n_steps):
+            lg, cache, acache = pac_decode_step(
+                backbone, adapter, {"tokens": tok}, cache, acache,
+                torch.full((1,), p, dtype=torch.long, device=DEV), cfg=cfg, r=r,
+                kernel_impl=impl)
+            logits.append(lg[:, 0])
+            if p >= n_prompt - 1:
+                greedy.append(int(lg[0, 0].argmax()))
+            tok = (prompt[:, p + 1:p + 2] if p + 1 < n_prompt
+                   else torch.tensor([[greedy[-1]]], dtype=torch.int32, device=DEV))
+        torch.cuda.synchronize()
+        return torch.cat(logits), greedy, time.perf_counter() - t
+
+    serve("cuda", 8)  # warm-up
+    reset_launches()
+    runs = {(impl, kv): serve(impl, kv) for impl in ("cuda", "ref") for kv in (8, None)}
+    launches = {k: v for k, v in read_launches().items()
+                if k in ("quant_matmul", "flash_attention", "adapter_fuse")}
+    decode_branches = branch_counts()
+    gap = {kv: (runs[("cuda", kv)][0] - runs[("ref", kv)][0]).abs().amax(-1).tolist()
+           for kv in (8, None)}
+    tokens_equal = {kv: runs[("cuda", kv)][1] == runs[("ref", kv)][1] for kv in (8, None)}
+    per_step = {k: v / (2 * n_steps) for k, v in launches.items()}  # two cuda loops
+    tol = {"dlogits": 2e-2, "dlogits_f32_kv": 2e-4, "prefill": KV_TOL["int8"]}
+    finite = all(bool(torch.isfinite(v[0]).all()) for v in runs.values())
+    emit({"phase": "int4_personal", "arch": cfg.name, "quant": 4, "batch": 1,
+          "adapter": f"{ckpt.name}, r={r}", "steps": n_steps, "prompt_tokens": n_prompt,
+          "prefill_tokens": PROMPT_LEN, "prefill_max_abs_dlogits": prefill_err,
+          "prefill_quant_matmul_branches": prefill_branches,
+          "decode_ms_per_step": runs[("cuda", 8)][2] * 1e3 / n_steps,
+          "decode_ms_per_step_f32_kv": runs[("cuda", None)][2] * 1e3 / n_steps,
+          "ref_decode_ms_per_step": runs[("ref", 8)][2] * 1e3 / n_steps,
+          "launches": launches, "launches_per_step": per_step,
+          "quant_matmul_branches": decode_branches,
+          "tokens_cuda": runs[("cuda", 8)][1], "tokens_equal_int8_kv": tokens_equal[8],
+          "tokens_equal_f32_kv": tokens_equal[None],
+          "max_abs_dlogits_int8_kv": max(gap[8]), "max_abs_dlogits_f32_kv": max(gap[None]),
+          "personal_gap_per_step": gap[None], "tol": tol,
+          "tol_reason": "personal_phase's: the serving gate over INT8 KV, the reference's "
+                        "decode-parity ceiling over f32 KV (tests/test_decode_parity.py:36); "
+                        "the prefill at the serving gate", "seconds": time.perf_counter() - t0})
+    if not (finite and all(tokens_equal.values()) and max(gap[8]) <= tol["dlogits"]
+            and max(gap[None]) <= tol["dlogits_f32_kv"] and prefill_err <= tol["prefill"]):
+        raise AssertionError(f"int4 personal cuda vs ref: tokens equal {tokens_equal}, gap "
+                             f"{max(gap[8])} / {max(gap[None])}, prefill {prefill_err}")
+    require_branches("int4 personal prefill", prefill_branches, ("int4 tiled",))
+    require_branches("int4 personal decode", decode_branches, ("int4 skinny",))
+    if (per_step["adapter_fuse"] != cfg.n_periods or per_step["quant_matmul"] != 7 * cfg.n_layers
+            or decode_branches.get("int4 skinny", 0) != launches["quant_matmul"]):
+        raise AssertionError(f"int4 launches per decode step: {per_step}, {decode_branches}")
+    return {**launches, "quant_matmul_branches": {
+        b: prefill_branches.get(b, 0) + decode_branches.get(b, 0)
+        for b in set(prefill_branches) | set(decode_branches)}}
+
 
 # ---------------------------------------------------------------- training kernels
 
@@ -1545,11 +2071,14 @@ def kernel_counters():
 
 
 def reset_launches() -> None:
+    from repro_torch.kernels import quant_matmul
+
     for mod, key in kernel_counters():
         if key is None:
             mod.launches = 0
         else:
             mod.launches[key] = 0
+    quant_matmul.branch_launches.clear()
 
 
 def read_launches() -> dict:
@@ -1641,7 +2170,7 @@ def trainer_gate(spec, cuda_losses: list, keep_backbone: bool = False, layout=No
                         "quantized at the tap site, under ref on f32 taps"})
     if len(diffs) != len(cuda_losses) or max(diffs) > tol:
         raise AssertionError(f"{spec.arch} trainer cuda vs ref epoch losses differ by {diffs}")
-    PEAKS.setdefault(f"{spec.arch} training", {})["ref_max_memory_allocated"] = peak
+    PEAKS.setdefault(training_key(spec.arch, spec.quant), {})["ref_max_memory_allocated"] = peak
     return backbone
 
 
@@ -3619,6 +4148,12 @@ ROUTE_OWN_MOVE = {"moonshot-v1-16b-a3b": 1 / 4096}
 PEAKS = {}
 
 
+def training_key(arch: str, quant: int) -> str:
+    """A training run's name in ``PEAKS``: the arch, and its backbone's
+    width where it is not INT8."""
+    return f"{arch} training" if quant == 8 else f"{arch} int{quant} training"
+
+
 def route_free_gated(arch: str) -> bool:
     """Whether the free-running comparison's route share is gated (at
     ``ROUTE_SHARE_MIN`` in every layer) for ``arch``: where the reference's
@@ -4071,9 +4606,11 @@ def single_device_layout(spec, reason: str):
 def pac_run(arch: str, epochs: int = 2, steps: int = 2, profile: bool = False,
             one_backbone: bool = False, pool=None,
             path_kernels=("quant_matmul", "flash_attention", "mix_fwd", "mix_dw", "ce_fwd",
-                          "ce_bwd"), single_device: bool = False):
+                          "ce_bwd"), single_device: bool = False, quant: int = 8,
+            outputs: Path = None, path_branches=()):
     """PAC+ on ``arch`` at full width through ``EdgeSession``/
-    ``EpochRunner``: INT8 backbone, int8 activation cache, pruning init,
+    ``EpochRunner``: a ``quant``-bit backbone (INT8 unless given), int8
+    activation cache, pruning init,
     ``epochs`` x ``steps`` steps of 4 x 512 tokens, each step's launches by
     kernel; then the cached-step gate, with ``profile`` a full and a cached
     step under the profiler, and the trainer gate. Returns (launches, the
@@ -4088,12 +4625,20 @@ def pac_run(arch: str, epochs: int = 2, steps: int = 2, profile: bool = False,
     launch (xlstm-125m's has no ``quant_matmul`` or flash: its mixers
     run dense, and it has no attention). ``single_device``: the session's
     edge-pool plan must refuse the arch, and both sessions open on
-    :func:`single_device_layout` instead."""
+    :func:`single_device_layout` instead. ``outputs``: a directory for the
+    run's checkpoint (``adapter.msgpack``) and persistent cache
+    (``act_cache``), written by ``finish``; the line then carries the
+    cache manifest's quantization and backbone fingerprint.
+    ``path_branches``: the ``quant_matmul`` branches (``"int4 tiled"``,
+    ...) the run must launch, counted in the line."""
     from repro_torch.runtime import EdgeSession, EpochReport, EpochRunner, RunHooks, RunSpec
     from repro_torch.runtime.session import resolve_layout
 
-    spec = RunSpec(arch=arch, quant=8, cache_compress="int8", kernels="cuda", init="pruning",
-                   epochs=epochs, steps_per_epoch=steps, batch=4, seq=512, seed=SEED, pool=pool)
+    kept = {} if outputs is None else {"ckpt": str(outputs / "adapter.msgpack"),
+                                        "cache_dir": str(outputs / "act_cache")}
+    spec = RunSpec(arch=arch, quant=quant, cache_compress="int8", kernels="cuda",
+                   init="pruning", epochs=epochs, steps_per_epoch=steps, batch=4, seq=512,
+                   seed=SEED, pool=pool, **kept)
     layout = None
     if single_device:
         refused = None
@@ -4125,8 +4670,16 @@ def pac_run(arch: str, epochs: int = 2, steps: int = 2, profile: bool = False,
     reset_launches()
     events = list(EpochRunner(s, hooks=[StepLaunches()]).events())
     launches = read()
+    branches = branch_counts()
     steps_ = [e for e in events if not isinstance(e, EpochReport)]
     reports = [e for e in events if isinstance(e, EpochReport)]
+    extra = {}
+    if path_branches:
+        extra["quant_matmul_branches"] = branches
+    if outputs is not None:
+        s.finish()
+        extra.update(ckpt=spec.ckpt, manifest_quant=s.meta["quant"],
+                     manifest_backbone=s.meta["backbone"])
     emit({"phase": "pac_run", "arch": arch, "layers": s.cfg.n_layers, "d_model": s.cfg.d_model,
           "heads": s.cfg.n_heads, "hd": s.cfg.hd, "vocab": s.cfg.vocab, "batch": spec.batch,
           "seq": spec.seq, "quant": spec.quant, "cache": spec.cache_compress, "r": spec.r,
@@ -4141,8 +4694,8 @@ def pac_run(arch: str, epochs: int = 2, steps: int = 2, profile: bool = False,
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "plan_line": s.layout.lines[0] if s.layout.lines else None,
           "cache_bytes": s.cache.nbytes, "launches": launches,
-          "launches_per_step": [dl for dl, _ in per_step]})
-    PEAKS[f"{arch} training"] = {"max_memory_allocated": torch.cuda.max_memory_allocated()}
+          "launches_per_step": [dl for dl, _ in per_step], **extra})
+    PEAKS[training_key(arch, quant)] = {"max_memory_allocated": torch.cuda.max_memory_allocated()}
     if [r.mode for r in reports] != ["full"] + ["cached"] * (epochs - 1):
         raise AssertionError(f"{arch} modes {[r.mode for r in reports]}")
     if not all(np.isfinite(r.mean_loss) for r in reports):
@@ -4150,6 +4703,11 @@ def pac_run(arch: str, epochs: int = 2, steps: int = 2, profile: bool = False,
     missing = [n for n in path_kernels if launches[n] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on {arch}'s training path: {missing}")
+    require_branches(f"{arch} training", branches, path_branches)
+    if outputs is not None and s.meta["quant"] != quant:
+        raise AssertionError(f"{arch}: the cache manifest says quant {s.meta['quant']}")
+    if path_branches:
+        launches["quant_matmul_branches"] = branches
     cached_step_gate(s, spec)
     if profile:
         profile_steps(s)
@@ -4676,14 +5234,20 @@ def stepwise_logits(backbone, cfg, ab, prompts, n_steps: int, impl: str, page: i
 
 
 def serve_streams(backbone, cfg, users, prompts, impl: str, n_new: int, page: int,
-                  max_len: int, slots: int, r: int = 8):
-    """The prompts through ``ServeEngine`` (``users`` in turn), drained:
-    (the engine, each request's stream, wall seconds)."""
+                  max_len: int, slots: int, r: int = 8, kv_policy: str = "int8",
+                  n_pages: int = None, schedule: dict = None):
+    """The prompts through ``ServeEngine`` (``users`` in turn) over
+    ``kv_policy`` pages (``n_pages`` of them, or the engine's default),
+    drained: (the engine, each request's stream, wall seconds).
+    ``schedule`` (a dict) gets the run's admissions (:func:`watch_schedule`)."""
     from repro_torch.serve import ServeEngine
 
     names = list(users)
-    eng = ServeEngine(backbone, cfg, users, r=r, kernel_impl=impl, kv_policy="int8",
-                      page_size=page, max_len=max_len, max_batch=slots, device=DEV)
+    eng = ServeEngine(backbone, cfg, users, r=r, kernel_impl=impl, kv_policy=kv_policy,
+                      page_size=page, max_len=max_len, max_batch=slots, n_pages=n_pages,
+                      device=DEV)
+    if schedule is not None:
+        watch_schedule(eng, schedule)
     handles = [eng.submit(p, names[i % len(names)], max_new_tokens=n_new)
                for i, p in enumerate(prompts)]
     torch.cuda.synchronize()
@@ -5180,7 +5744,6 @@ GROK_LAYERS = 6  # the depth cut: grok_cut's docstring gives the reckoning
 GROK_PROJECTIONS = [(6144, 6144), (6144, 1024), (6144, 1024), (6144, 6144)]  # 48 heads over 8
 GROK_D, GROK_DA, GROK_V = 6144, 768, 131072  # r = 8: 6 adapter heads of 128 over 1
 MOE_MAX_LEN = 544
-MOE_QMM_ROWS = (1, 8, 2048, 4096)  # personal decode, serving decode, epoch-1 step, prefill
 #: the paged kernel at n_rep 6 (grok: 48 query heads over 8 kv heads, and its adapter's 6 over
 #: 1): B, Hkv, n_rep, hd, page, max_pages, lengths, padding rows
 GROK_PAGED_RAGGED = [
@@ -5249,7 +5812,7 @@ def moe_kernel_phase(timer: Timer, gen: torch.Generator, arch: str) -> dict:
                              (MOONSHOT_PROJECTIONS, MOONSHOT_D, MOONSHOT_DA, MOONSHOT_V))
     H, Hkv, Ha, Hkva = (48, 8, 6, 1) if grok else (16, 16, 2, 2)
     cap = 30.0 if grok else None
-    rows = gemma2_kernel_phase(timer, gen, arch, projections, d, da, V, None, Ms=MOE_QMM_ROWS)
+    rows = gemma2_kernel_phase(timer, gen, arch, projections, d, da, V, None, Ms=PATH_QMM_ROWS)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "bound_tc_ms",
             "bound_f32_ms", "library_ms", "at")
     r, _, sdpa = flash_case(timer, gen, 8, H, Hkv, 512, 128, f"{arch} prefill", cap)
@@ -5468,8 +6031,28 @@ def main() -> int:
     # no path's measurements carry another's leftovers
     rows = kernel_phase(Timer(), gen)
     walls = {}  # the internlm2 cells' walls, for the roofline line
-    serving = serving_phase(gen, walls)
+    keep = {}
+    serving = serving_phase(gen, walls, keep)
     serving_done_s = time.perf_counter() - T_START  # the serving slice's phases
+    # the reference's other serving paths on the same backbone, users and
+    # prompts: f32 and bf16 KV pages, a pool too small for every prompt at
+    # once; then an INT4 backbone served, trained and personal-served
+    a8, rows["paged_attention"]["unscaled"] = kv_pages_phase(Timer(), gen, keep)
+    a8["page_bound_serving"] = page_bound_phase(keep)
+    del keep["backbone"]
+    torch.cuda.empty_cache()
+    rows["quant_matmul"]["int4"] = int4_kernel_phase(Timer(), gen)
+    a8["int4_serving"], int4_backbone = int4_serving_phase(gen, keep)
+    del int4_backbone, keep
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_int4_") as int4_dir:
+        a8["int4_training"], i_backbone, _ = pac_run(
+            "internlm2-1.8b", quant=4, outputs=Path(int4_dir), path_branches=("int4 tiled",))
+        a8["int4_personal"] = int4_personal_phase(i_backbone, get_arch("internlm2-1.8b"),
+                                                  Path(int4_dir) / "adapter.msgpack")
+        del i_backbone
+    torch.cuda.empty_cache()
+    a8_done_s = time.perf_counter() - T_START
     rows.update(training_kernel_phase(Timer(), gen))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         training, backbone, ckpt, single = training_phase(Path(workdir), walls)
@@ -5640,7 +6223,7 @@ def main() -> int:
              "qwen2vl_personal": qwen2vl_personal, "qwen2vl_mrope": qwen2vl_mrope,
              "moonshot_serving": moonshot_serving, "moonshot_training": moonshot_training,
              "moonshot_personal": moonshot_personal, "grok_serving": grok_serving,
-             "grok_training": grok_training, "grok_personal": grok_personal}
+             "grok_training": grok_training, "grok_personal": grok_personal, **a8}
     home = {"quant_matmul": "serving", "flash_attention": "serving",
             "paged_attention": "serving", "adapter_fuse": "personal"}
     # each kernel's launches on its own main path (serving for the first
@@ -5655,6 +6238,9 @@ def main() -> int:
                     "ce_bwd": ["ce_split", "ce_grad_mma", "ce_dh_mma"],
                     "adapter_fuse": ["skinny::gemv (T <= 8)",
                                      "mix_fwd_mma + mix_fwd_reduce (T > 8)"]}
+    rows["quant_matmul"]["int4_branches_by_path"] = {
+        p: paths[p]["quant_matmul_branches"] for p in ("int4_serving", "int4_training",
+                                                       "int4_personal")}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "device_kernels": device_names[name],
@@ -5663,7 +6249,8 @@ def main() -> int:
          **rows[name]}
         for name, (src, rep) in sources.items()]})
     emit({"phase": "done", "wall_s": time.perf_counter() - T_START,
-          "through_serving_s": serving_done_s, "through_training_s": training_done_s,
+          "through_serving_s": serving_done_s, "through_int4_and_pages_s": a8_done_s,
+          "through_training_s": training_done_s,
           "through_personal_s": personal_done_s, "through_prefetch_s": prefetch_done_s,
           "through_distributed_s": distributed_done_s, "through_plan_s": plan_done_s,
           "through_fleet_s": fleet_done_s, "through_pipeline_grads_s": pipeline_grads_done_s,

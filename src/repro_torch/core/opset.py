@@ -220,6 +220,16 @@ _REGISTRY = {"ref": RefOpSet, "cuda": CudaOpSet}
 _INSTANCES: dict = {}
 
 
+def register_opset(name: str, factory) -> None:
+    """Register an OpSet factory (``factory(tap_policy=)``) under ``name``:
+    the plug-in point for op variants that must not touch the model code.
+    A name registered again drops the instances made by its old factory.
+    ``RunSpec.kernels`` still takes only the port's own two names."""
+    _REGISTRY[name] = factory
+    for key in [k for k in _INSTANCES if k[0] == name]:
+        del _INSTANCES[key]
+
+
 def get_opset(name, tap_policy: str = "f32") -> OpSet:
     """Resolve an OpSet by name (``"ref"`` / ``"cuda"``), one stateless
     instance per (name, tap_policy); an OpSet instance passes through."""

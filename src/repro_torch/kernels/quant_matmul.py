@@ -33,6 +33,7 @@ launches the kernel or raises.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -46,6 +47,9 @@ QBLOCK = 128  # quantization block along N (matches core.quantization)
 
 #: launches of the CUDA kernel in this process (the CPU path does not count)
 launches = 0
+#: the same launches by storage width and branch: "int8 skinny" (M <= 8, the
+#: GEMV), "int4 tiled" (M > 8, ``qmm_mma``), ...
+branch_launches: collections.Counter = collections.Counter()
 
 
 def _fn():
@@ -92,4 +96,5 @@ def quant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, bits: in
             cols, _build.stream_of(x))
     _build.check(lib, rc, "quant_matmul")
     launches += 1
+    branch_launches[f"int{bits} {'skinny' if M <= SKINNY_ROWS else 'tiled'}"] += 1
     return out

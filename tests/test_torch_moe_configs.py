@@ -60,7 +60,9 @@ from repro_torch.configs import get_arch
 from repro_torch.core import steps
 from repro_torch.core.quantization import tree_leaves, tree_map
 from repro_torch.kernels.cached_step import cached_loss_parts
+from repro_torch.core.opset import get_opset
 from repro_torch.models import backbone as tbb
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.moe import _capacity, record_routes
 from repro_torch.optim import adamw_init
 from repro_torch.runtime import EdgeSession, EpochReport, EpochRunner, RunSpec
@@ -289,6 +291,184 @@ def test_smoke_route_gates_rest_on_the_reference_move(arch, _smoke_registry):
     assert smoke.route_free_gated(name) == (move == 0.0)
     assert smoke.route_free_gated("mixtral-8x7b")
     assert move < 1.0 - smoke.ROUTE_SHARE_MIN
+
+
+# ---------------------------------------------------------------------------
+# the port's own route move against the reference's (ROADMAP C5)
+# ---------------------------------------------------------------------------
+
+#: draws of the one-ulp move below, more than ``MOVE_DRAWS``
+OWN_MOVE_DRAWS = 16
+#: the port's router-logit move a layer may reach this many times the reference's own
+#: move between its compiled and eager forms (its 99.9th percentile and its maximum over
+#: the 48 layers): the same f32 ops rounded in another order, as the port's are
+FORM_FACTOR = 2
+
+
+def _row_ulps(got, want):
+    """|got - want| in f32 ulps of each row's largest |want| (a token's
+    router input or logits): the unit of a rounding move, which an
+    element near 0 would blow up."""
+    w = np.asarray(want, np.float64).reshape(-1, want.shape[-1])
+    g = np.asarray(got, np.float64).reshape(w.shape)
+    unit = np.spacing(np.abs(w).max(-1, keepdims=True).astype(np.float32)).astype(np.float64)
+    return np.abs(g - w) / unit
+
+
+def _moved(a, b):
+    """Tokens whose experts or kept flags differ between two route records."""
+    (ea, ka), (eb, kb) = a, b
+    return int((~((ea == eb).all(-1) & (ka == kb).all(-1))).sum())
+
+
+def _worst(moves) -> np.ndarray:
+    """(99.9th percentile, maximum) of row-ulp moves, the largest over layers."""
+    return np.max([[np.percentile(u, 99.9), u.max()] for u in moves], axis=0)
+
+
+@functools.lru_cache(maxsize=None)
+def _own_route_moves(arch="moonshot-v1-16b-a3b", n_layers=48):
+    """The reference at ``_reference_route_move``'s config, depth and batch
+    (reduced widths, the published routing, the smoke's serving batch),
+    layer by layer under ``jax.jit`` as it runs: each layer's block input,
+    router logits and routes. Then two of its own moves:
+
+    * ``form``: each layer run eagerly on the same block input, its router
+      logits against the compiled run's, in row ulps (the 99.9th
+      percentile and maximum, the largest over the layers): XLA fuses and
+      reorders the same f32 ops (rope's most: its cos and sin fused under
+      ``jit``);
+    * ``carried``: over ``OWN_MOVE_DRAWS`` draws of random signs, each
+      block's output moved by one f32 ulp, so that the move carries
+      forward through the later layers as a forward rounding otherwise in
+      every op does, and the tokens each layer then routes otherwise."""
+    full = jax_get_arch(arch)
+    red = full.reduced()
+    cfg = dataclasses.replace(red, n_layers=n_layers,
+                              moe=dataclasses.replace(full.moe, d_expert=red.moe.d_expert))
+    params = jbb.init_backbone(jax.random.PRNGKey(0), cfg)
+    x0, pos = jbb.embed_inputs(params, cfg, {"tokens": jnp.asarray(_serving_batch(cfg))})
+    route_of = jbb.moe_forward
+
+    def layer(p, x, key=None, move=False):
+        seen = []
+
+        def recorded(pp, h, spec, **kw):
+            logits = h.reshape(-1, h.shape[-1]).astype(jnp.float32) @ pp["router"]
+            seen.append((logits, _jax_route_flags(pp, h, spec)))
+            return route_of(pp, h, spec, **kw)
+
+        jbb.moe_forward = recorded
+        try:
+            out = jbb.apply_block(p, x, cfg, cfg.pattern[0], pos)
+        finally:
+            jbb.moe_forward = route_of
+        if move:
+            up = jax.random.bernoulli(key, 0.5, out.shape)
+            out = jnp.nextafter(out, jnp.where(up, jnp.inf, -jnp.inf).astype(out.dtype))
+        return out, seen[0]
+
+    step = jax.jit(layer, static_argnums=3)
+
+    def run(draw):
+        x, xs, seen = x0, [], []
+        for i in range(cfg.n_periods):
+            p = jax.tree.map(lambda a: a[i], params["blocks"][0])
+            xs.append(np.array(x))  # a writable copy, for torch.from_numpy
+            x, r = step(p, x, jax.random.PRNGKey(1000 * max(draw, 0) + i), draw >= 0)
+            seen.append(jax.tree.map(np.asarray, r))
+        return xs, seen
+
+    xs, base = run(-1)
+    form = _worst([_row_ulps(np.asarray(layer(jax.tree.map(lambda a: a[i], params["blocks"][0]),
+                                              jnp.asarray(x))[1][0]), base[i][0])
+                   for i, x in enumerate(xs)])
+    carried = np.array([[_moved(r[1], b[1]) for r, b in zip(run(d)[1], base)]
+                        for d in range(OWN_MOVE_DRAWS)])
+    return {"params": jax.tree.map(np.asarray, params), "pos": np.asarray(pos), "xs": xs,
+            "base": base, "form": form, "carried": carried}
+
+
+@pytest.mark.parametrize("impl", ["ref", "cuda"])
+def test_port_route_move_is_within_the_references_own(impl):
+    """ROADMAP C5: does the smoke's forced route gate hide a port fault?
+    At moonshot's routing, 48 layers deep on the smoke's serving batch
+    (``_own_route_moves``), under the port's ``impl`` OpSet (its kernels'
+    plain versions here):
+
+    * a layer's own move: each layer of the port fed the reference's input
+      to that layer, its router logits against the reference's in row
+      ulps, the 99.9th percentile and the maximum over the layers, within
+      ``FORM_FACTOR`` times the reference's own move between its compiled
+      and eager forms;
+    * the route share: the port run freely through the 48 layers routes
+      otherwise, against the reference's compiled forward, no more tokens
+      in its worst layer, nor in all, than the reference's own forward
+      does in its worst draw under one ulp a layer on its block outputs.
+      (Under one ulp a layer on the router input alone, ``ROUTE_OWN_MOVE``,
+      the move does not carry forward, and the reference's worst layer
+      moves 1 token of 4096, test_smoke_route_gates_rest_on_the_reference_move.)"""
+    own = _own_route_moves()
+    tcfg = dataclasses.replace(_routed(get_arch("moonshot-v1-16b-a3b")), n_layers=48)
+    ops = get_opset(impl)
+    blocks = bridge.to_torch(own["params"])["blocks"]
+    pos = torch.from_numpy(own["pos"].copy())
+    logits = []
+    real = moe_mod.route
+
+    def spy(p, x, spec, *a, **k):
+        r = real(p, x, spec, *a, **k)
+        logits.append(r["logits"].numpy().reshape(-1, spec.n_experts))
+        return r
+
+    moe_mod.route = spy
+    try:
+        with torch.no_grad():
+            for i in range(tcfg.n_periods):  # each layer from the reference's input
+                tbb.apply_block(tbb.period_slice(blocks, i)[0], torch.from_numpy(own["xs"][i]),
+                                tcfg, tcfg.pattern[0], pos, ops=ops)
+            x = torch.from_numpy(own["xs"][0])
+            with record_routes() as routes:  # freely through the 48 layers
+                for i in range(tcfg.n_periods):
+                    x = tbb.apply_block(tbb.period_slice(blocks, i)[0], x, tcfg,
+                                        tcfg.pattern[0], pos, ops=ops)
+    finally:
+        moe_mod.route = real
+    move = _worst([_row_ulps(lg, b[0]) for lg, b in zip(logits, own["base"])])
+    K = tcfg.moe.top_k
+    free = [_moved((r["top_e"].numpy().reshape(-1, K), r["kept"].numpy().reshape(-1, K)), b[1])
+            for r, b in zip(routes, own["base"])]
+    carried = own["carried"]
+    print(f"C5 {impl}: router logits a layer p99.9 {move[0]:.2f}, max {move[1]:.2f} row ulps "
+          f"(the reference's compiled against eager: {own['form'][0]:.2f}, "
+          f"{own['form'][1]:.2f}); tokens routed otherwise: worst layer {max(free)}, in all "
+          f"{sum(free)} (the reference's own under one ulp a layer, worst draw: "
+          f"{carried.max()}, {carried.sum(1).max()}; in all by draw {carried.sum(1).tolist()})")
+    assert np.all(move <= FORM_FACTOR * own["form"]), (move, own["form"])
+    assert max(free) <= carried.max(), (free, carried.max(1))
+    assert sum(free) <= carried.sum(1).max(), (free, carried.sum(1))
+
+
+def test_port_rope_matches_the_references_eager_form():
+    """Where a layer's move starts: rope at moonshot's reduced hd 64 over
+    the serving batch's 512 positions. The port's matches the reference's
+    eager rope within 2 row ulps; the reference's compiled rope (cos and
+    sin fused by XLA) moves from its eager one, and the port's lies no
+    further from it than that move and the 2 ulps."""
+    from repro.models import layers as jlayers
+    from repro_torch.models import layers as tlayers
+
+    x = np.random.default_rng(0).standard_normal((8, 512, 4, 64)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(512, dtype=np.int32), (8, 512)).copy()
+    eager = np.asarray(jlayers.apply_rope(jnp.asarray(x), jnp.asarray(pos), 10000.0))
+    compiled = np.asarray(jax.jit(lambda a, b: jlayers.apply_rope(a, b, 10000.0))(
+        jnp.asarray(x), jnp.asarray(pos)))
+    port = tlayers.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), 10000.0).numpy()
+    (own, ours, to_compiled) = (_worst([_row_ulps(a, b)]) for a, b in (
+        (compiled, eager), (port, eager), (port, compiled)))
+    print(f"rope row ulps (p99.9, max): the reference compiled against eager {own}, the port "
+          f"against its eager form {ours} and its compiled form {to_compiled}")
+    assert ours[1] <= 2 and to_compiled[1] <= own[1] + 2
 
 
 # ---------------------------------------------------------------------------

@@ -261,6 +261,24 @@ def test_pac_decode_step_matches_jax(impl, kv_quant, tiny_cfg, torch_cfg, model)
     np.testing.assert_allclose(got, want, atol=LOGITS_TOL)
 
 
+@pytest.mark.parametrize("kv_quant", [None, 8])
+@pytest.mark.parametrize("impl", ["ref", "cuda"])
+def test_pac_decode_step_int4_matches_jax(impl, kv_quant, tiny_cfg, torch_cfg, tiny_backbone,
+                                          tiny_adapter):
+    """The same loop over an INT4 backbone (the reference's ``--quant 4``):
+    under ``cuda`` every projection takes ``quant_matmul``'s int4 branch
+    (its plain version here) at M = 1; equal greedy tokens, logits within
+    LOGITS_TOL of JAX ``ref``."""
+    jb = quantize_tree(tiny_backbone, bits=4, min_size=1024)
+    tb, ta = bridge.to_torch(_np(jb)), bridge.to_torch(_np(tiny_adapter))
+    assert {leaf.bits for leaf in jax.tree.leaves(
+        jb, is_leaf=lambda t: hasattr(t, "bits")) if hasattr(leaf, "bits")} == {4}
+    want_tokens, want = _greedy_jax(tiny_cfg, jb, tiny_adapter, kv_quant)
+    got_tokens, got = _greedy_torch(torch_cfg, tb, ta, kv_quant, impl)
+    assert got_tokens == want_tokens
+    np.testing.assert_allclose(got, want, atol=LOGITS_TOL)
+
+
 def test_pac_decode_step_routes_the_mix_through_adapter_fuse(torch_cfg, model, monkeypatch):
     """Under ``cuda`` every period's λ-mix calls the ``adapter_fuse``
     wrapper once (24 calls a step at full depth); ``ref`` and the paged

@@ -2,9 +2,11 @@
 the reference on seeded numpy inputs: SGD with momentum and the two
 learning-rate schedules (``repro.optim``), ``glue_like_task``
 (``repro.data``: the corpus's tokens bit for bit), ``layer_norm``
-(``repro.models.layers``) and ``pac_loss_fn`` (``repro.core.steps``: the
+(``repro.models.layers``), ``pac_loss_fn`` (``repro.core.steps``: the
 loss and the adapter's gradient, and the gradient highway: no block and
-no embedding gets a gradient).
+no embedding gets a gradient) and ``register_opset``
+(``repro.core.opset``: a registered factory resolves by name, one
+instance per (name, tap_policy), in both packages).
 
 Tolerances: the optimizer and the norm 1e-6 (f32 elementwise ops in the
 same order), the schedules 1e-6 relative (the reference's f32 against
@@ -17,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import opset as jopset
 from repro.core import steps as jsteps
 from repro.core.parallel_adapters import init_adapter
 from repro.data.pipeline import _GLUE_SIZES as JAX_GLUE_SIZES
@@ -29,12 +32,14 @@ from repro.optim import sgdm_init as jax_sgdm_init
 from repro.optim import sgdm_update as jax_sgdm_update
 from repro_torch import bridge
 from repro_torch.configs import get_arch
-from repro_torch.core import steps
+from repro_torch.core import opset, steps
 from repro_torch.core.quantization import tree_leaves, tree_map
 from repro_torch.data import glue_like_task
 from repro_torch.data.pipeline import _GLUE_SIZES
 from repro_torch.models.layers import layer_norm
 from repro_torch.optim import cosine_schedule, linear_warmup, sgdm_init, sgdm_update
+from repro_torch.runtime import RunSpec, RunSpecError
+from repro_torch.runtime.spec import KERNEL_IMPLS
 
 torch.set_num_threads(2)
 
@@ -149,3 +154,61 @@ def test_pac_loss_fn_keeps_the_gradient_highway(pac_case):
     assert all(grads[id(t)] is None for t in tree_leaves(backbone["blocks"]))
     assert grads[id(backbone["embed"])] is None
     assert float(grads[id(backbone["lm_head"])].abs().sum()) > 0
+
+
+@pytest.fixture
+def _opset_registries():
+    """Both registries as they were: a dummy registered here does not
+    outlive the test."""
+    saved = [(dict(mod._REGISTRY), mod) for mod in (jopset, opset)]
+    saved_instances = dict(opset._INSTANCES)
+    yield
+    for reg, mod in saved:
+        mod._REGISTRY.clear()
+        mod._REGISTRY.update(reg)
+    jopset._cached.cache_clear()
+    opset._INSTANCES.clear()
+    opset._INSTANCES.update(saved_instances)
+
+
+def test_registry_extension_point(_opset_registries):
+    """The twin of tests/test_opset.py::test_registry_extension_point: a
+    registered dummy resolves by name, instances are cached per (name,
+    tap_policy), as the reference's; registering the name again replaces
+    its factory; ``RunSpec.kernels`` still takes the port's two names."""
+    class _Dummy(opset.OpSet):
+        name = "dummy-test"
+
+        def __init__(self, tap_policy="f32"):
+            self.tap_policy = tap_policy
+
+    class _JaxDummy(jopset.OpSet):
+        name = "dummy-test"
+
+        def __init__(self, tap_policy="f32", interpret=None):
+            self.tap_policy = tap_policy
+
+    opset.register_opset("dummy-test", _Dummy)
+    jopset.register_opset("dummy-test", _JaxDummy)
+    for mod, cls in ((opset, _Dummy), (jopset, _JaxDummy)):
+        got = mod.get_opset("dummy-test", "bf16")
+        assert isinstance(got, cls) and got.tap_policy == "bf16"
+        assert mod.get_opset("dummy-test", "bf16") is got
+        assert mod.get_opset("dummy-test", "f32") is not got
+    mine = opset.get_opset("dummy-test", "bf16")
+    assert opset.get_opset(mine) is mine  # an instance passes through
+    assert isinstance(opset.get_opset("cuda"), opset.CudaOpSet)
+
+    class _Other(_Dummy):
+        pass
+
+    opset.register_opset("dummy-test", _Other)
+    assert type(opset.get_opset("dummy-test", "bf16")) is _Other
+    assert KERNEL_IMPLS == ("ref", "cuda")
+    with pytest.raises(RunSpecError):
+        RunSpec(kernels="dummy-test").validate()
+
+
+def test_registry_unknown_opset_raises():
+    with pytest.raises(ValueError, match="unknown OpSet"):
+        opset.get_opset("not-a-kernel-impl")

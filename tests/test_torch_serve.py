@@ -8,13 +8,18 @@ and import rules.
   KV policy: logits within the policy's tolerance, equal greedy tokens,
   page pools equal once dequantized.
 * Engine level: ``ServeEngine(device="cpu")`` and the JAX engine give
-  equal token streams for int8 and f32 KV.
+  equal token streams for int8, f32 and bf16 KV over an INT8 backbone and
+  int8 and f32 KV over an INT4 one; on a pool too small for every prompt
+  at once, the same admission schedule (which request each step admits,
+  each wave's buckets: the smoke's host replay's too) and streams; on a
+  pool too small for the decode, ``OutOfPagesError`` at the same step.
 * The engine refuses to fall back to the CPU silently; no module of the
   port (nor ``chip_smoke.py``) imports JAX or the reference package.
 """
 
 import ast
 import dataclasses
+import importlib.util
 import os
 import subprocess
 import sys
@@ -144,11 +149,16 @@ ENGINE_PROMPTS = [[5, 7, 11, 2, 9], [3, 1], [8, 8, 4, 6], [2, 2, 2]]
 USERS = ["alice", "bob", "alice", "bob"]
 
 
-@pytest.mark.parametrize("policy", ["int8", "f32"])
-def test_engine_streams_equal_jax_pallas(policy, tiny_cfg, torch_cfg, tiny_backbone):
+@pytest.mark.parametrize("policy,bits", [
+    pytest.param("int8", 8, id="int8"), pytest.param("f32", 8, id="f32"),
+    pytest.param("bf16", 8, id="bf16"), pytest.param("int8", 4, id="int4-int8"),
+    pytest.param("f32", 4, id="int4-f32")])
+def test_engine_streams_equal_jax_pallas(policy, bits, tiny_cfg, torch_cfg, tiny_backbone):
     """4 requests / 2 adapters, max_batch=2 (admission waves, swap-remove
-    retirement): the port's engine emits the JAX engine's token streams."""
-    backbone = quantize_tree(tiny_backbone, bits=8, min_size=1024)
+    retirement), an INT8 or INT4 backbone: the port's engine emits the JAX
+    engine's token streams (greedy tokens equal: the logits' tolerance of
+    the step test above, bf16 pages 3e-2, leaves every argmax alike)."""
+    backbone = quantize_tree(tiny_backbone, bits=bits, min_size=1024)
     adapters = {"alice": init_adapter(jax.random.PRNGKey(1), tiny_cfg, r=R),
                 "bob": init_adapter(jax.random.PRNGKey(2), tiny_cfg, r=R)}
     kw = dict(r=R, kv_policy=policy, page_size=PAGE, max_len=32, max_batch=2)
@@ -173,6 +183,88 @@ def test_engine_streams_equal_jax_pallas(policy, tiny_cfg, torch_cfg, tiny_backb
     assert streams[1] == streams[0]
     assert all(len(s) == 5 for s in streams[1])
     assert teng.decode_steps > 0 and teng.decode_tokens > 0 and teng.prefill_seconds > 0
+
+
+def _smoke():
+    """``chip_smoke.py`` as a module (its import needs no card): its host
+    replay of the page table and its choice of a tight pool."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+#: six prompts of 2-13 tokens; with 3 new tokens each, pages of 4 and max_len 24 the
+#: largest tight pool (7 pages) admits them in waves of 3, 2 and 1, and 6 pages run out in
+#: the first decode step
+POOL_PROMPTS = [[5, 7], [3, 1, 4, 1, 5], [8, 8, 4, 6, 1, 2, 7], [2, 7, 1, 8, 2, 8, 1],
+                [4, 4, 4], [9, 1, 9, 2, 6, 5, 3, 5, 8, 9, 7, 9, 3]]
+POOL_USERS = ["alice", "bob"] * 3
+POOL_MAX_LEN, POOL_NEW = 24, 3
+
+
+def _engines(tiny_cfg, torch_cfg, tiny_backbone, n_pages, max_batch=4):
+    backbone = quantize_tree(tiny_backbone, bits=8, min_size=1024)
+    adapters = {"alice": init_adapter(jax.random.PRNGKey(1), tiny_cfg, r=R),
+                "bob": init_adapter(jax.random.PRNGKey(2), tiny_cfg, r=R)}
+    kw = dict(r=R, kv_policy="int8", page_size=PAGE, max_len=POOL_MAX_LEN, max_batch=max_batch,
+              n_pages=n_pages)
+    jeng = JaxServeEngine(backbone, tiny_cfg, adapters, kernel_impl="pallas", interpret=True, **kw)
+    teng = ServeEngine(bridge.to_torch(_np(backbone)), torch_cfg,
+                       {u: bridge.to_torch(_np(a)) for u, a in adapters.items()},
+                       kernel_impl="cuda", device="cpu", **kw)
+    return jeng, teng
+
+
+def _drain(eng, n_new, smoke):
+    """(streams, schedule) of ``POOL_PROMPTS`` through ``eng``, drained."""
+    rec = smoke.watch_schedule(eng, {})
+    handles = [eng.submit(p, u, max_new_tokens=n_new) for p, u in zip(POOL_PROMPTS, POOL_USERS)]
+    eng.drain()
+    return [h.result() for h in handles], rec
+
+
+def test_engine_admission_under_a_tight_pool_matches_jax(tiny_cfg, torch_cfg, tiny_backbone):
+    """A pool below what the prompts need at once (chip_smoke's
+    ``tight_pool``, the largest on which the replay waits, prefills in
+    waves of different batch buckets and never runs out): the port's
+    engine admits as the JAX engine does, step by step, wave by wave, and
+    as the smoke's host replay predicts from the lengths alone; it emits
+    the JAX engine's streams (greedy tokens, as above); it never holds
+    more than ``n_pages`` - 1 pages, and frees them all once drained."""
+    smoke, n_new = _smoke(), POOL_NEW
+    lens = [len(p) for p in POOL_PROMPTS]
+    n_pages, replay = smoke.tight_pool(lens, n_new, PAGE, POOL_MAX_LEN, 4)
+    assert n_pages - 1 < sum(-(-n // PAGE) for n in lens)
+    assert replay["waits"] > 0 and len({w[2] for w in replay["waves"]}) >= 2
+    jeng, teng = _engines(tiny_cfg, torch_cfg, tiny_backbone, n_pages)
+    (jstreams, jrec), (tstreams, trec) = _drain(jeng, n_new, smoke), _drain(teng, n_new, smoke)
+    assert trec["waves"] == jrec["waves"] == replay["waves"]
+    assert trec["steps"] == jrec["steps"] == replay["steps"]
+    assert trec["max_in_use"] == jrec["max_in_use"] == replay["max_in_use"] <= n_pages - 1
+    assert tstreams == jstreams and all(len(s) == n_new for s in tstreams)
+    assert teng.allocator.free_pages == jeng.allocator.free_pages == n_pages - 1
+
+
+def test_engine_out_of_pages_mid_decode_matches_jax(tiny_cfg, torch_cfg, tiny_backbone):
+    """A pool that admits prompts its decode cannot grow: the reference's
+    engine has no eviction, so a decode step that finds no page raises.
+    Both engines raise ``OutOfPagesError`` at the same step, after the
+    same admissions, as the smoke's host replay predicts."""
+    smoke, n_new, n_pages = _smoke(), POOL_NEW, 6
+    lens = [len(p) for p in POOL_PROMPTS]
+    replay = {}
+    with pytest.raises(paging.OutOfPagesError):
+        smoke.admission_replay(lens, n_new, PAGE, POOL_MAX_LEN, 4, n_pages, rec=replay)
+    assert replay["waves"] and replay["steps"] > replay["waves"][-1][0]  # raised in a decode
+    for eng, err in zip(_engines(tiny_cfg, torch_cfg, tiny_backbone, n_pages),
+                        (jax_paging.OutOfPagesError, paging.OutOfPagesError)):
+        rec = smoke.watch_schedule(eng, {})
+        for p, u in zip(POOL_PROMPTS, POOL_USERS):
+            eng.submit(p, u, max_new_tokens=n_new)
+        with pytest.raises(err):
+            eng.drain()
+        assert (rec["steps"], rec["waves"]) == (replay["steps"], replay["waves"])
 
 
 def test_engine_without_device_refuses_cpu_fallback(torch_cfg):

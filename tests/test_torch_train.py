@@ -87,16 +87,20 @@ def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-@pytest.mark.parametrize("compress,kernels", [("f32", "cuda"), ("int8", "cuda"), ("int8", "ref")])
-def test_reduced_run_matches_the_jax_session(compress, kernels):
+@pytest.mark.parametrize("compress,kernels,quant", [
+    pytest.param("f32", "cuda", 8, id="f32-cuda"), pytest.param("int8", "cuda", 8, id="int8-cuda"),
+    pytest.param("int8", "ref", 8, id="int8-ref"),
+    pytest.param("int8", "cuda", 4, id="int8-cuda-int4"),
+    pytest.param("int8", "ref", 4, id="int8-ref-int4")])
+def test_reduced_run_matches_the_jax_session(compress, kernels, quant):
     """The reference's acceptance run (3 epochs x 2 steps, batch 2, seq
-    16, INT8 backbone): the port's session, with the JAX session's
+    16, INT8 backbone, or INT4: ``--quant 4``): the port's session, with the JAX session's
     backbone and adapter bridged in after ``open()``, gives the same
     per-epoch losses — f32 within 5e-4, int8 within 5e-2, the
     reference's own tolerances (tests/test_cached_step.py:257): under
     ``cuda`` epoch 0 trains on taps already quantized at the tap site,
     where the reference's ``ref`` path trains on f32 taps."""
-    kw = dict(reduced=True, epochs=3, steps_per_epoch=2, batch=2, seq=16, quant=8,
+    kw = dict(reduced=True, epochs=3, steps_per_epoch=2, batch=2, seq=16, quant=quant,
               cache_compress=compress)
     js = JaxSession(JaxSpec(**kw, kernels="ref")).open()
     backbone, adapter = js.backbone, js.adapter
