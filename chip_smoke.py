@@ -365,7 +365,7 @@ Phases, in order; any failure exits non-zero:
    equal; the first prompt stepwise against one ``pac_logits`` pass
    within ``STEPWISE_TOL``. No kernel runs on this path (launches
    reported).
-29. xlstm-125m training (``pac_run`` line): as 15 but 3 epochs x 1
+29. xlstm-125m training (``pac_run`` line): as 15 but 2 epochs x 1
    step (its steps are host-bound, ~6 s), its path's kernels the mixes
    and the CE (4, 4, 1, 1 a step); the cached step's gate
    with mLSTM blocks also takes 8x the ``ref`` step's own move under a
@@ -452,6 +452,7 @@ imports no JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import json
@@ -514,12 +515,18 @@ class Timer:
     step that walks 24 layers."""
 
     CALLS = 12
+    #: the host seconds every timing of this run took, summed over all
+    #: timers: ``setup_s`` before the first replay (the warm-up call and the
+    #: capture), ``replay_s`` in the replays, ``first5_s`` in each timing's
+    #: first five replays (what ``REPEATS`` = 5 would have taken)
+    spent = {"timings": 0, "setup_s": 0.0, "replay_s": 0.0, "first5_s": 0.0}
 
     def __init__(self):
         self.flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")  # > 50 MB L2
 
     def __call__(self, fns, calls: int = CALLS, repeats: int = REPEATS) -> float:
         """``calls``/``repeats`` shrink for calls of tens of milliseconds."""
+        t0 = time.perf_counter()
         fns = fns if isinstance(fns, list) else [fns]
         for fn in fns:
             fn()
@@ -528,7 +535,7 @@ class Timer:
         with torch.cuda.graph(graph):
             for i in range(calls):
                 fns[i % len(fns)]()
-        ms = self._median(graph.replay, calls, repeats)
+        ms = self._median(graph.replay, calls, repeats, t0)
         del graph
         return ms
 
@@ -536,13 +543,18 @@ class Timer:
         """The same without a CUDA graph, ``calls`` calls launched from the
         host each time (for work that cannot be captured, in calls of
         milliseconds, where the host's launches hide)."""
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        return self._median(lambda: [fn() for _ in range(calls)], calls, repeats)
+        return self._median(lambda: [fn() for _ in range(calls)], calls, repeats, t0)
 
-    def _median(self, run, calls: int, repeats: int) -> float:
+    def _median(self, run, calls: int, repeats: int, t0: float) -> float:
+        spent = Timer.spent
+        spent["timings"] += 1
+        spent["setup_s"] += time.perf_counter() - t0
         times = []
-        for _ in range(repeats):
+        for i in range(repeats):
+            t1 = time.perf_counter()
             self.flush.zero_()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -551,6 +563,9 @@ class Timer:
             end.record()
             end.synchronize()
             times.append(start.elapsed_time(end) / calls)
+            took = time.perf_counter() - t1
+            spent["replay_s"] += took
+            spent["first5_s"] += took if i < 5 else 0.0
         return statistics.median(times)
 
 
@@ -2481,6 +2496,7 @@ def prefetch_phase(workdir: Path) -> dict:
 DIST_DP, DIST_STAGES = 2, 2
 DIST_ROWS = 1  # a rank's rows: batch 4 over 2 micro-batches x dp 2, and over the pool of 4
 DIST_STEP_TOL = 1e-5  # per-step |Δloss| against the single process
+DIST_TOL = {"first_step": 1e-4, "steps": DIST_STEP_TOL, "epoch": 5e-2, "tap_codes": 1}
 TRAINING_KERNELS = ("quant_matmul", "flash_attention", "mix_fwd", "mix_dw", "ce_fwd", "ce_bwd")
 
 
@@ -2533,7 +2549,8 @@ def token_counts(seen: list):
             setattr(mod, name, fn)
 
 
-def distributed_rank(spec, runs: int, layout: str = None, reshards: dict = None) -> dict:
+def distributed_rank(spec, runs: int, layout: str = None, reshards: dict = None,
+                     count_blocks: bool = False) -> dict:
     """One rank of the distributed and plan phases: ``runs`` runs of
     ``spec`` through ``EdgeSession``/``EpochRunner`` (``layout``: the
     layout the parent resolved, as JSON), each step's loss, wall time,
@@ -2543,13 +2560,25 @@ def distributed_rank(spec, runs: int, layout: str = None, reshards: dict = None)
     those steps, from an ``on_step`` hook: its seconds (the group and
     the state broadcast, ending in a sync) and bytes broadcast are kept
     apart from the steps'. Only that run records the token counts of
-    the mix and CE calls (:func:`token_counts`)."""
+    the mix and CE calls (:func:`token_counts`). ``count_blocks`` also
+    records each step's backbone blocks run through the ``cuda`` OpSet
+    (its ``prepare_block`` calls; the adapter's blocks run on plain ops)."""
     import torch.distributed as dist
 
+    from repro_torch.core.opset import CudaOpSet
     from repro_torch.runtime import EdgeSession, EpochRunner, RunHooks
 
     rank = dist.get_rank()
     out = {"rank": rank, "runs": []}
+    blocks = [0]
+    if count_blocks:
+        prepare = CudaOpSet.prepare_block
+
+        def counted(self, p, block_spec):
+            blocks[0] += 1
+            return prepare(self, p, block_spec)
+
+        CudaOpSet.prepare_block = counted
     for run in range(runs):
         schedule = (reshards or {}) if run == runs - 1 else {}
         torch.cuda.reset_peak_memory_stats()
@@ -2574,7 +2603,9 @@ def distributed_rank(spec, runs: int, layout: str = None, reshards: dict = None)
                               "tokens": {k: sorted(v) for k, v in tokens.items()},
                               **{k: stats[k] - prev["_stats"][k] for k in stats},
                               "fingerprint": fingerprint((session.adapter, session.opt)),
-                              "_launches": now, "_stats": stats, "_seen": len(seen)})
+                              "_launches": now, "_stats": stats, "_seen": len(seen),
+                              **({"blocks": blocks[0] - prev.get("_blocks", 0),
+                                  "_blocks": blocks[0]} if count_blocks else {})})
                 dp = schedule.get((event.epoch, event.index))
                 if dp is not None:
                     torch.cuda.synchronize()
@@ -2589,6 +2620,7 @@ def distributed_rank(spec, runs: int, layout: str = None, reshards: dict = None)
                     steps[-1]["_stats"] = after
 
         reset_launches()
+        blocks[0] = 0
         with token_counts(seen) if schedule else contextlib.nullcontext():
             reports = EpochRunner(s, hooks=[Record()]).run()
         rec = {"open_s": open_s, "modes": [r.mode for r in reports],
@@ -2619,7 +2651,7 @@ def code_moves(got, want) -> dict:
 
 
 def distributed_kernel_phase(timer: Timer, gen: torch.Generator,
-                             path: str = "distributed") -> None:
+                             path: str = "distributed", arch: str = None) -> dict:
     """The six kernels of the distributed path against their plain
     versions at the shapes one rank gives them (dp=2, stages=2, batch 4
     x 512, 2 micro-batches): ``quant_matmul`` at M = 512 (a stage's
@@ -2629,21 +2661,30 @@ def distributed_kernel_phase(timer: Timer, gen: torch.Generator,
     a dp row's two rows) and T = 512 (the cached step, one row a rank),
     d = 2048, d_a = 256, V = 92544; each at the tolerance of its check
     at the training shapes. ``path`` names the lines of another path of
-    the same shapes (PAC+ through ``pipeline_grads``)."""
+    the same shapes (PAC+ through ``pipeline_grads``). ``arch``, a key of
+    ``FAMILY_DIST_WIDTHS``: that config's distributed path's shapes
+    instead (its projections at its stage's M, flash at its heads or
+    none, the mix and CE kernels at its widths and T), each line naming
+    it. Returns flash's row (None where the path runs no flash)."""
     from repro_torch.core.quantization import quantize
     from repro_torch.kernels import cached_mix, lmhead_ce, ref
 
-    M = DIST_ROWS * 512
-    for K, N in QMM_SHAPES:
+    M, projections, heads, (d, da, V), Ts = (
+        (DIST_ROWS * 512, QMM_SHAPES, (DIST_ROWS, 16, 8, 128), (TRAIN_D, TRAIN_DA, TRAIN_V),
+         (2 * DIST_ROWS * 512, DIST_ROWS * 512)) if arch is None else FAMILY_DIST_WIDTHS[arch])
+    named = {} if arch is None else {"arch": arch}
+    for K, N in sorted(set(projections), key=projections.index):
         _, _, got, want = qmm_check(gen, M, K, N, 8)
-        emit({"check": f"quant_matmul_{path}", "M": M, "K": K, "N": N, "bits": 8,
+        emit({"check": f"quant_matmul_{path}", **named, "M": M, "K": K, "N": N, "bits": 8,
               "max_abs_err": max_err(got, want),
               "check_value": float(((got - want).abs() - 1e-4 * want.abs()).max()),
               "tol": "atol 1e-3 + rtol 1e-4", "tol_reason": qmm_tol_reason(M)})
-    r = flash_case(timer, gen, DIST_ROWS, 16, 8, 512, 128, f"{path} stage")[0]
-    emit(r)
-    d, da, V = TRAIN_D, TRAIN_DA, TRAIN_V
-    for T in (2 * DIST_ROWS * 512, DIST_ROWS * 512):
+    r = None
+    if heads is not None:
+        B, H, Hkv, hd = heads
+        r = flash_case(timer, gen, B, H, Hkv, 512, hd, f"{path} stage")[0]
+        emit(dict(r, **named))
+    for T in Ts:
         ent = quantize(torch.randn(T, d, generator=gen, device=DEV), 8, 128)
         w = torch.randn(d, da, generator=gen, device=DEV) * d ** -0.5
         a = torch.randn(T, da, generator=gen, device=DEV)
@@ -2670,7 +2711,7 @@ def distributed_kernel_phase(timer: Timer, gen: torch.Generator,
         e_b = float(((dh - want_dh).abs() - 1e-4 * want_dh.abs()).max())
         check(f"ce_fwd T={T} ({path})", e_f, 2e-5)
         check(f"ce_bwd T={T} ({path})", e_b, 1e-5)
-        emit({"check": f"training_kernels_{path}", "T": T, "d": d, "da": da, "V": V,
+        emit({"check": f"training_kernels_{path}", **named, "T": T, "d": d, "da": da, "V": V,
               "storage": "int8", "mix_fwd_check": e_fwd, "mix_dw_check": e_dw,
               "ce_fwd_max_abs_err": max(max_err(nll, want_nll), max_err(lse, want_lse)),
               "ce_bwd_max_abs_err": max_err(dh, want_dh), "ce_fwd_check": e_f,
@@ -2679,6 +2720,7 @@ def distributed_kernel_phase(timer: Timer, gen: torch.Generator,
                      "atol 2e-5 + rtol 1e-5; ce_bwd atol 1e-5 + rtol 1e-4",
               "tol_reason": "the tolerances of the checks at the training shapes"})
         del h, wh, lab, gl, nll, lse, want_nll, want_lse, dh, want_dh
+    return r
 
 
 def parity(ranks: list, single: dict) -> dict:
@@ -2716,27 +2758,29 @@ def parity(ranks: list, single: dict) -> dict:
 
 
 def check_parity(line: dict, modes: list) -> None:
-    """The distributed gates on a :func:`parity` line: the modes, ranks
-    agreeing, the first step's loss within 1e-4, every step's within
-    ``DIST_STEP_TOL`` and the epoch means within 5e-2 of the single
-    process's, b0 codes bit-equal, taps and b_final within one step."""
+    """The distributed gates (``DIST_TOL``) on a :func:`parity` line: the
+    modes, ranks agreeing, the first step's loss within 1e-4, every
+    step's within ``DIST_STEP_TOL`` and the epoch means within 5e-2 of
+    the single process's, b0 codes bit-equal, taps and b_final within one
+    step."""
+    tol = DIST_TOL
     if line["modes"] != modes:
         raise AssertionError(f"modes {line['modes']}, wanted {modes}")
     if not (line["ranks_equal_losses"] and all(line["adapters_bit_equal"])):
         raise AssertionError(f"ranks disagree: losses {line['ranks_equal_losses']}, "
                              f"adapters {line['adapters_bit_equal']}")
-    if not (line["abs_dloss_first_step"] <= 1e-4
+    if not (line["abs_dloss_first_step"] <= tol["first_step"]
             and len(line["step_losses"]) == len(line["single_step_losses"])
-            and max(line["abs_dloss_steps"]) <= DIST_STEP_TOL
-            and max(line["abs_depoch"]) <= 5e-2):
+            and max(line["abs_dloss_steps"]) <= tol["steps"]
+            and max(line["abs_depoch"]) <= tol["epoch"]):
         raise AssertionError("distributed vs single-process losses: first step "
                              f"{line['abs_dloss_first_step']}, steps {line['abs_dloss_steps']}, "
                              f"epochs {line['abs_depoch']}")
     if not all(np.isfinite(x) for x in line["step_losses"]):
         raise AssertionError(f"losses {line['step_losses']}")
     summary = line["codes"]
-    if (not line["b0_codes_equal"] or summary["taps"]["max_dq"] > 1
-            or summary["b_final"]["max_dq"] > 1):
+    if (not line["b0_codes_equal"] or summary["taps"]["max_dq"] > tol["tap_codes"]
+            or summary["b_final"]["max_dq"] > tol["tap_codes"]):
         raise AssertionError(f"cache codes: b0 equal {line['b0_codes_equal']}, {summary}")
 
 
@@ -2895,7 +2939,7 @@ def distributed_phase(single: dict):
         len({str(r["runs"][1]["steps"][j]["fingerprint"]) for r in ranks}) == 1
         for j in range(len(ranks[0]["runs"][1]["steps"]))]
     line.update(rank_stats(ranks), phase_s=phase_s,
-                tol={"first_step": 1e-4, "steps": DIST_STEP_TOL, "epoch": 5e-2, "tap_codes": 1},
+                tol=DIST_TOL,
                 tol_reason=DIST_TOL_REASON)
     line.update(priced_mesh_bytes(spec, {r["rank"]: r["runs"][0] for r in ranks}))
     emit(line)
@@ -3057,7 +3101,7 @@ def plan_phase(single: dict, dist_ranks: list, workdir: Path):
                 "simulated_minibatch_s": sim["minibatch_time"],
                 "simulated_bubble_fraction": sim["bubble_fraction"],
                 "stage_time_s": [st.stage_time for st in plan.stages]},
-            "tol": {"first_step": 1e-4, "steps": DIST_STEP_TOL, "epoch": 5e-2, "tap_codes": 1},
+            "tol": DIST_TOL,
             "tol_reason": DIST_TOL_REASON}
     first = [r["runs"][0] for r in ranks]
     launches = {k: sum(r["launches"][k] for r in first) for k in TRAINING_KERNELS}
@@ -4402,7 +4446,7 @@ def mixtral_personal_phase(backbone, adapter, cfg, r: int = 8,
     prompt = torch.from_numpy(np.random.default_rng(SEED).integers(
         0, cfg.vocab, size=(1, n_prompt)).astype(np.int32)).to(DEV)
 
-    def serve(impl, follow=None, feed=None):
+    def serve(impl, follow=None, feed=None, steps=n_steps):
         """``follow``: each step's route records to replay; ``feed``: the
         greedy tokens to feed after the prompt (else the run's own)."""
         cache = init_cache(cfg, 1, max_len, device=DEV)
@@ -4410,7 +4454,7 @@ def mixtral_personal_phase(backbone, adapter, cfg, r: int = 8,
         logits, greedy, recs, tok = [], [], [], prompt[:, :1]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for p in range(n_steps):
+        for p in range(steps):
             replay = replay_routes(follow[p]) if follow else contextlib.nullcontext()
             with replay, record_routes() as rec:
                 lg, cache, acache = pac_decode_step(
@@ -4427,7 +4471,7 @@ def mixtral_personal_phase(backbone, adapter, cfg, r: int = 8,
         torch.cuda.synchronize()
         return logits, greedy, recs, time.perf_counter() - t0
 
-    serve("cuda")  # warm-up
+    serve("cuda", steps=2)  # warm-up: first launches, allocator growth
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     lc, tc, rc, wall = serve("cuda")
@@ -4746,13 +4790,13 @@ def gemma2_personal_phase(backbone, adapter, cfg, r: int = 8, phase: str = "gemm
     prompt = torch.from_numpy(np.random.default_rng(SEED).integers(
         0, cfg.vocab, size=(1, n_prompt)).astype(np.int32)).to(DEV)
 
-    def serve(impl):
+    def serve(impl, steps=n_steps):
         cache = init_cache(cfg, 1, max_len, device=DEV)
         acache = init_adapter_cache(cfg, 1, max_len, r, device=DEV)
         logits, greedy, tok = [], [], prompt[:, :1]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for p in range(n_steps):
+        for p in range(steps):
             lg, cache, acache = pac_decode_step(
                 backbone, adapter, {"tokens": tok}, cache, acache,
                 torch.full((1,), p, dtype=torch.long, device=DEV), cfg=cfg, r=r,
@@ -4765,7 +4809,7 @@ def gemma2_personal_phase(backbone, adapter, cfg, r: int = 8, phase: str = "gemm
         torch.cuda.synchronize()
         return torch.cat(logits), greedy, time.perf_counter() - t0
 
-    serve("cuda")  # warm-up
+    serve("cuda", steps=2)  # warm-up: first launches, allocator growth
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     lc, tc, wall = serve("cuda")
@@ -5843,6 +5887,349 @@ def moe_kernel_phase(timer: Timer, gen: torch.Generator, arch: str) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------- MoE and SSM, distributed
+
+MOE_DIST_LAYERS = 4  # mixtral-8x7b's depth on the distributed path: moe_dist_cut's reckoning
+SSM_PLAN_SEQ = 256  # xlstm's tokens a row on the plan path: half the training cell's
+#: xlstm-125m's 3 periods over 2 stages, 2 devices each: the only 2-stage layout (ragged)
+SSM_PLAN_LAYERS = ((0, 0), (1, 2))
+#: each family's distributed path at the shapes one rank gives its kernels: (quant_matmul's
+#: M, the layer's projections, flash's (B, H, Hkv, hd) or None, (d, d_a, V), the mix and CE
+#: kernels' T: the epoch-1 loss over a dp row's rows, then the cached step's rows a rank)
+FAMILY_DIST_WIDTHS = {
+    "mixtral-8x7b": (512, MIXTRAL_PROJECTIONS, (1, 32, 8, 128), (MIXTRAL_D, MIXTRAL_DA, MIXTRAL_V),
+                     (1024, 512)),
+    "xlstm-125m": (SSM_PLAN_SEQ, [], None, (XLSTM_D, XLSTM_DA, XLSTM_V),
+                   (2 * SSM_PLAN_SEQ, SSM_PLAN_SEQ)),
+}
+FAMILY_TOL_REASON = (
+    "the replica runs each rank's rows through the same ops one route unit at a time, so only "
+    "the order of f32 sums differs: the distributed gates (first step 1e-4, every step "
+    "DIST_STEP_TOL, epochs 5e-2, b0 codes bit-equal, tap codes one step)")
+
+
+def moe_dist_cut():
+    """mixtral-8x7b at its published width over ``MOE_DIST_LAYERS`` of its
+    32 layers, registered as :func:`grok_cut` registers grok's (``reduced``
+    lists the depth alone). Four ranks share the card and each draws the
+    whole backbone (``runtime/session.py`` ``open``; the reference's
+    session does the same): a layer holds 1.451 G values (attention 41.9
+    M, experts 1409.3 M), so 4 layers are ~5.8 GB of INT8 codes, 0.18 GB
+    of scales and the f32 embedding and head (0.52 GB each), and each
+    block's experts dequantized whole add 5.6 GB of f32 while it runs:
+    ~12-13 GB a rank at peak, ~50 GB over the four. Two layers a stage
+    keep 2 periods a stage at dp 2 x stages 2."""
+    from repro_torch.configs import get_arch, register
+
+    name = f"{MIXTRAL}-cut{MOE_DIST_LAYERS}"
+    try:
+        return get_arch(name)
+    except KeyError:  # the first call registers it
+        return register(dataclasses.replace(get_arch(MIXTRAL), name=name,
+                                            n_layers=MOE_DIST_LAYERS))
+
+
+def moe_dist_rank(spec, runs: int) -> dict:
+    """:func:`distributed_rank` on a rank of the MoE phase: the depth cut is
+    registered in the rank's process first (ranks import the registry
+    afresh)."""
+    moe_dist_cut()
+    return distributed_rank(spec, runs)
+
+
+def _cat_rows(parts: list, dim: int):
+    """Cache entries of consecutive rows (tensors or int8 QTensors) joined
+    along their batch axis."""
+    from repro_torch.core.quantization import QTensor
+
+    if isinstance(parts[0], QTensor):
+        p = parts[0]
+        return QTensor(torch.cat([x.q for x in parts], dim),
+                       torch.cat([x.scale for x in parts], dim), p.bits, p.block, p.orig_last)
+    return torch.cat(parts, dim)
+
+
+def _routes_otherwise(whole: list, units: list) -> dict:
+    """Per MoE layer, the tokens the whole batch routes or keeps otherwise
+    than its route units do (``record_routes`` records; ``units``:
+    (rows, records) in sample order)."""
+    out = []
+    for layer, w in enumerate(whole):
+        moved = sum(int(((u[layer]["top_e"] != w["top_e"][rows])
+                         | (u[layer]["kept"] != w["kept"][rows])).any(-1).sum())
+                    for rows, u in units)
+        dropped = int((~w["kept"]).any(-1).sum())
+        out.append({"moved": moved, "tokens": int(w["top_e"][..., 0].numel()),
+                    "whole_dropped": dropped,
+                    "units_dropped": sum(int((~u[layer]["kept"]).any(-1).sum())
+                                         for _, u in units)})
+    return out
+
+
+def route_unit_run(spec, n_micro: int, dp: int) -> dict:
+    """One process on ``spec`` (no mesh), the distributed run's replica:
+    epoch 0's batches through ``backbone_forward`` under ``cuda`` one
+    route unit at a time (a dp rank's rows of one micro-batch: what a
+    rank's stages route and run together), their int8 entries joined in
+    sample order into an ``ActivationCache``, and every step
+    ``pac_cached_train_step`` over the entries in the run's data order,
+    from the session's seeded adapter. Returns the replica's step and
+    epoch losses and epoch 0's entries by sample id (:func:`parity`'s
+    ``single``). With MoE layers, what distribution changes: each epoch-0
+    batch also runs whole through the same forward (per MoE layer, the
+    tokens it routes otherwise, ``record_routes``), and the same session
+    runs whole through ``EpochRunner``."""
+    from repro_torch.core import steps
+    from repro_torch.core.activation_cache import ActivationCache
+    from repro_torch.core.opset import get_opset
+    from repro_torch.core.quantization import tree_map
+    from repro_torch.models.backbone import backbone_forward
+    from repro_torch.models.moe import record_routes
+    from repro_torch.runtime import EdgeSession, EpochRunner
+
+    t0 = time.perf_counter()
+    s = EdgeSession(spec, device=DEV).open()
+    cfg, ops = s.cfg, get_opset("cuda", spec.cache_compress)
+    a, o = (tree_map(torch.clone, t) for t in (s.adapter, s.opt))
+    cache = ActivationCache(compress=spec.cache_compress)
+    mb = spec.batch // n_micro
+    q = mb // dp
+    units = [slice(m * mb + r * q, m * mb + (r + 1) * q) for m in range(n_micro)
+             for r in range(dp)]
+    losses, epoch_losses, routes, out = [], [], [], {}
+    for epoch in range(spec.epochs):
+        el = []
+        for batch in s.pipe.epoch(epoch):
+            ids = batch["seq_ids"]
+            labels = torch.from_numpy(batch["labels"]).to(DEV)
+            if epoch == 0:
+                tokens = torch.from_numpy(batch["tokens"]).to(DEV)
+                parts, recs = [], []
+                with torch.no_grad():
+                    for rows in units:
+                        with record_routes() as rec:
+                            bf, taps, x0, _ = backbone_forward(
+                                s.backbone, cfg, {"tokens": tokens[rows]}, collect_taps=True,
+                                return_inputs=True, ops=ops)
+                        parts.append((ops.emit_tap(x0), taps, ops.emit_tap(bf)))
+                        recs.append((rows, rec))
+                    if cfg.moe is not None:
+                        with record_routes() as whole_routes:
+                            backbone_forward(s.backbone, cfg, {"tokens": tokens}, ops=ops)
+                        routes.append(_routes_otherwise(whole_routes, recs))
+                entries = tuple(_cat_rows([p[i] for p in parts], dim)
+                                for i, dim in enumerate((0, 1, 0)))
+                cache.put_batch(ids, *entries, orig_last=cfg.d_model)
+            else:
+                entries = tuple(h.to(DEV) for h in cache.get_batch(
+                    ids, with_final=True, dtype=None, compressed=True))
+            cached = dict(zip(("b0", "taps", "b_final"), entries), labels=labels)
+            loss, a, o = steps.pac_cached_train_step(s.backbone, a, o, cached, cfg=cfg, r=spec.r,
+                                                     lr=spec.lr, kernel_impl="cuda")
+            losses.append(float(loss))
+            el.append(losses[-1])
+        epoch_losses.append(sum(el) / len(el))
+    out.update(replica={"step_losses": losses, "epoch_losses": epoch_losses,
+                        "codes": {int(k): cache.get(int(k), with_final=True, dtype=None,
+                                                    compressed=True)
+                                  for ids in s.pipe.epoch_order(0) for k in ids}},
+               routes=routes, replica_s=time.perf_counter() - t0)
+    del a, o, cache
+    if cfg.moe is not None:
+        t1 = time.perf_counter()
+        reports = EpochRunner(s).run()
+        out["whole"] = {"modes": [r.mode for r in reports],
+                        "step_losses": [x for r in reports for x in r.losses],
+                        "epoch_losses": [r.mean_loss for r in reports],
+                        "run_s": time.perf_counter() - t1}
+    s.close()
+    del s
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_rank_launches(ranks: list, stages: int, epoch1: dict) -> list:
+    """Each rank's launches a step of a family's distributed run, held:
+    in an epoch-1 step ``epoch1`` (kernel: count, or None for "at least
+    one") on every rank, and the four training kernels on each dp row's
+    first stage (its loss) and none on the others; in a cached step the
+    four on every rank (the cached rows shard over the whole pool).
+    Returns the rows that fail."""
+    bad = []
+    for r in ranks:
+        head = r["rank"] % stages == 0
+        for j, st in enumerate(r["runs"][0]["steps"]):
+            got = st["launches"]
+            if st["mode"].startswith("cached"):
+                ok = all(got[k] > 0 for k in CACHED_KERNELS)
+            else:
+                ok = (all(got[k] > 0 if n is None else got[k] == n for k, n in epoch1.items())
+                      and all((got[k] > 0) == head for k in CACHED_KERNELS))
+            if not ok:
+                bad.append({"rank": r["rank"], "step": j, "mode": st["mode"], "launches": got})
+    return bad
+
+
+def moe_distributed_phase() -> dict:
+    """mixtral-8x7b at full width over ``MOE_DIST_LAYERS`` layers
+    (:func:`moe_dist_cut`) on the distributed path, as the distributed
+    phase runs internlm2-1.8b: INT8, int8 cache, r 8, pruning init,
+    ``cuda``, dp 2 x stages 2 (2 periods a stage, 2 micro-batches of 1 x
+    512 a rank), 2 epochs x 2 steps of 4 x 512, four gloo ranks sharing
+    the card, once through :func:`distributed_rank`. At the published
+    capacity factor 1.25 a rank routes its 512 tokens alone, so the whole
+    batch in one process drops other tokens; the gate is the replica that
+    routes as the ranks do (:func:`route_unit_run`): :func:`check_parity`
+    against it, every rank's adapter and optimizer bit-equal after every
+    step, and on every rank in an epoch-1 step ``quant_matmul`` 4
+    projections x 2 layers x 2 micro-batches and flash 2 x 2 (the four
+    training kernels on each row's loss rank). The whole batch's loss gap
+    and the tokens it routes otherwise are printed, not gated. Returns
+    the launches summed over the ranks."""
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.runtime import RunSpec
+
+    t_phase = time.perf_counter()
+    cfg = moe_dist_cut()
+    base = dict(arch=cfg.name, quant=8, cache_compress="int8", kernels="cuda", init="pruning",
+                epochs=2, steps_per_epoch=2, batch=4, seq=512, seed=SEED)
+    spec = RunSpec(**base, dp=DIST_DP, stages=DIST_STAGES)
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    t0 = time.perf_counter()
+    ranks = spawn(moe_dist_rank, DIST_DP, DIST_STAGES, "cuda", args=(spec, 1),
+                  timeout=300.0, deadline=700.0)
+    ranks_s = time.perf_counter() - t0
+    n_micro, per_stage = spec.default_micro(), cfg.n_periods // DIST_STAGES
+    run = route_unit_run(RunSpec(**base), n_micro, DIST_DP)
+    line = {"phase": "moe_distributed", "arch": cfg.name, "layers": cfg.n_layers,
+            "reduced": [f"depth: {cfg.n_layers} of 32 layers (four ranks share the card, each "
+                        "drawing the whole backbone; widths as published)"],
+            "d_model": cfg.d_model, "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+            "experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k, "d_expert": cfg.moe.d_expert,
+            "capacity_factor": cfg.moe.capacity_factor, "vocab": cfg.vocab, "dp": DIST_DP,
+            "stages": DIST_STAGES, "ranks": len(ranks), "backend": "gloo", "n_micro": n_micro,
+            "route_unit_tokens": spec.batch // n_micro // DIST_DP * spec.seq,
+            "batch": spec.batch, "seq": spec.seq, "quant": spec.quant,
+            "cache": spec.cache_compress, "r": spec.r, "gate": "route-unit replica",
+            **parity(ranks, run["replica"]), **rank_stats(ranks), "ranks_s": ranks_s,
+            "replica_s": run["replica_s"]}
+    w, layers = run["whole"], [x for st in run["routes"] for x in st]
+    line["whole_batch"] = {  # printed, not gated
+        "step_losses": w["step_losses"], "epoch_losses": w["epoch_losses"],
+        "abs_dloss_steps_vs_distributed": [abs(a - b) for a, b in zip(w["step_losses"],
+                                                                       line["step_losses"])],
+        "routes_otherwise_per_step": run["routes"],
+        "routes_otherwise_share": sum(x["moved"] for x in layers)
+        / sum(x["tokens"] for x in layers), "run_s": w["run_s"]}
+    epoch1 = {"quant_matmul": len(MIXTRAL_PROJECTIONS) * per_stage * n_micro,
+              "flash_attention": per_stage * n_micro}
+    line.update(launches_expected_epoch1=epoch1, launch_failures=family_rank_launches(
+        ranks, DIST_STAGES, epoch1), tol=DIST_TOL, tol_reason=FAMILY_TOL_REASON,
+        phase_s=time.perf_counter() - t_phase)
+    emit(line)
+    check_parity(line, ["hybrid dp2xpp2", "cached pure-dp"])
+    if line["launch_failures"]:
+        raise AssertionError(f"moe_distributed launches: {line['launch_failures']}")
+    if not all(np.isfinite(line["whole_batch"]["step_losses"])):
+        raise AssertionError(f"the whole batch's losses {line['whole_batch']['step_losses']}")
+    first = [r["runs"][0] for r in ranks]
+    return {k: sum(r["launches"][k] for r in first) for k in TRAINING_KERNELS}
+
+
+def ssm_plan(workdir: Path):
+    """xlstm-125m's ragged 2-stage plan (``SSM_PLAN_LAYERS``, in periods),
+    two Jetson Nano (high) a stage, each taking one row of a micro-batch
+    of 2, 2 micro-batches; built by hand (the planner's layouts at this
+    size keep one stage) and saved as JSON. Returns (plan, its path)."""
+    from repro_torch.core.planner import JETSON_NANO_H, Plan, Stage
+
+    plan = Plan(stages=[Stage(a, b, (JETSON_NANO_H,) * 2, (1, 1), 0.0)
+                        for a, b in SSM_PLAN_LAYERS],
+                n_stages=len(SSM_PLAN_LAYERS), micro_batches=2, latency_begin=0.0,
+                latency_exec=0.0, latency_end=0.0)
+    path = workdir / "ssm_plan.json"
+    plan.save(str(path))
+    return plan, path
+
+
+def ssm_plan_phase(workdir: Path) -> dict:
+    """xlstm-125m at full width and depth (3 periods of 3 mLSTM + 1 sLSTM,
+    d 768) over the ragged plan of :func:`ssm_plan`: boundaries (0, 1, 3),
+    stage 0's slab padded with one masked identity period, dp 2 a stage.
+    The spec replays it (``plan=<file>, pool=4``: resolved once here to
+    dp 2 x 2 ragged stages, 2 micro-batches of 2 rows, one a dp rank) as
+    four gloo ranks through ``distributed_rank``: INT8, int8 cache, r 8,
+    pruning init, ``cuda``, 2 epochs x 2 steps of 4 x ``SSM_PLAN_SEQ``.
+    Gates against one process on the same spec (:func:`route_unit_run`'s
+    replica of the ranks' rows, one micro-batch a rank at a time, run in
+    a thread of this process while the ranks run, so the ranks' walls are
+    taken beside it): :func:`check_parity` at the distributed gates
+    (epoch 0's b0 bit-equal); the members bit-equal after every step; in an epoch-1
+    step each rank runs its stage's active blocks alone (4 blocks a
+    period x 2 micro-batches: 8 on stage 0, whose padded period runs
+    nothing, 16 on stage 1), no ``quant_matmul`` or flash (xlstm's mixers
+    run dense), and the four training kernels on each row's loss rank.
+    Returns the launches summed over the ranks."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.runtime import RunSpec
+    from repro_torch.runtime.session import resolve_layout
+
+    t_phase = time.perf_counter()
+    cfg = get_arch(XLSTM)
+    plan, path = ssm_plan(workdir)
+    base = dict(arch=XLSTM, quant=8, cache_compress="int8", kernels="cuda", init="pruning",
+                epochs=2, steps_per_epoch=2, batch=4, seq=SSM_PLAN_SEQ, seed=SEED)
+    spec = RunSpec(**base, plan=str(path), pool=4)
+    layout = resolve_layout(spec)
+    part = layout.partition
+    if (layout.dp, layout.stages, layout.n_micro, part.boundaries) != (2, 2, 2, (0, 1, 3)):
+        raise AssertionError(f"the ragged plan resolved to dp={layout.dp} x {layout.stages} "
+                             f"stages, {layout.n_micro} micro-batches, {part.boundaries}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    # the replica runs in this process while the ranks run: both are
+    # host-bound, and xlstm's ranks hold under 1 GB of the card each
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        replica = pool.submit(route_unit_run, RunSpec(**base), layout.n_micro, layout.dp)
+        ranks = spawn(distributed_rank, layout.dp, layout.stages, "cuda",
+                      args=(spec, 1, layout.to_json(), None, True), timeout=300.0,
+                      deadline=700.0)
+        ranks_s = time.perf_counter() - t0
+        run = replica.result()
+    masks = part.masks()
+    line = {"phase": "ssm_plan", "arch": cfg.name, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "plan": "hand-built ragged plan, saved and replayed",
+            "boundaries": list(part.boundaries), "masks": [list(m) for m in masks],
+            "samples_per_device": [list(x) for x in part.samples_per_device],
+            "rank_periods": {r["rank"]: list(r["runs"][0]["periods"]) for r in ranks},
+            "dp": layout.dp, "stages": layout.stages, "n_micro": layout.n_micro,
+            "pool": layout.pool, "ranks": len(ranks), "backend": "gloo", "batch": spec.batch,
+            "seq": spec.seq, "quant": spec.quant, "cache": spec.cache_compress, "r": spec.r,
+            "gate": "one process, the ranks' rows one micro-batch at a time",
+            **parity(ranks, run["replica"]), **rank_stats(ranks), "ranks_s": ranks_s,
+            "replica_s": run["replica_s"], "replica_beside_ranks": True,
+            "blocks_per_step": {r["rank"]: [st.get("blocks") for st in r["runs"][0]["steps"]]
+                                for r in ranks},
+            "tol": DIST_TOL, "tol_reason": FAMILY_TOL_REASON}
+    modes = [f"plan-driven dp{layout.dp}xpp{layout.stages}", "cached pure-dp"]
+    epoch1 = {"quant_matmul": 0, "flash_attention": 0}
+    line["launch_failures"] = family_rank_launches(ranks, layout.stages, epoch1)
+    want_blocks = {r["rank"]: [len(cfg.pattern) * sum(masks[r["rank"] % layout.stages])
+                               * layout.n_micro if not st["mode"].startswith("cached") else 0
+                               for st in r["runs"][0]["steps"]] for r in ranks}
+    line["blocks_expected"] = want_blocks
+    line["phase_s"] = time.perf_counter() - t_phase
+    emit(line)
+    check_parity(line, modes)
+    if line["launch_failures"]:
+        raise AssertionError(f"ssm_plan launches: {line['launch_failures']}")
+    if line["blocks_per_step"] != want_blocks:
+        raise AssertionError(f"blocks run a step {line['blocks_per_step']}, wanted {want_blocks}")
+    first = [r["runs"][0] for r in ranks]
+    return {k: sum(r["launches"][k] for r in first) for k in TRAINING_KERNELS}
+
+
 ROOFLINE_SHARE_MAX = 1.05  # a larger share means the pricer under-counts the step
 
 
@@ -6128,6 +6515,15 @@ def main() -> int:
     del m_backbone, m_adapter
     torch.cuda.empty_cache()
     mixtral_done_s = time.perf_counter() - T_START
+    # mixtral on the distributed path at full width over a depth cut, at
+    # the published capacity factor, gated by a replica that routes as the
+    # ranks do (its kernels at one rank's shapes first)
+    r = distributed_kernel_phase(Timer(), gen, "moe_distributed", MIXTRAL)
+    rows["flash_attention"]["moe_distributed"] = {k: r[k] for k in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "bound_tc_ms", "bound_f32_ms",
+        "library_ms", "at")}
+    moe_distributed = moe_distributed_phase()
+    moe_distributed_done_s = time.perf_counter() - T_START
 
     # the SSM family: xlstm-125m served (stepwise), trained and
     # personal-served at full width and depth, one of jamba's Mamba mixers
@@ -6136,12 +6532,17 @@ def main() -> int:
                                          XLSTM_V, None).items():
         rows[name]["xlstm"] = row
     xlstm_serving = xlstm_serving_phase(gen)
-    xlstm_training, x_backbone, x_adapter = pac_run(XLSTM, epochs=3, steps=1,
+    xlstm_training, x_backbone, x_adapter = pac_run(XLSTM, epochs=2, steps=1,
                                                     path_kernels=XLSTM_TRAIN_KERNELS)
     xlstm_personal = gemma2_personal_phase(x_backbone, x_adapter, get_arch(XLSTM),
                                            phase="xlstm_personal", qmm_per_layer=0)
     del x_backbone, x_adapter
     xlstm_done_s = time.perf_counter() - T_START
+    # xlstm-125m over its ragged 2-stage plan, replayed on four ranks
+    distributed_kernel_phase(Timer(), gen, "ssm_plan", XLSTM)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ssm_") as ssm_dir:
+        ssm_plan_launches = ssm_plan_phase(Path(ssm_dir))
+    ssm_plan_done_s = time.perf_counter() - T_START
     mamba_layer_phase(gen)
     for name, row in jamba_kernel_phase(Timer(), gen).items():
         rows[name]["jamba_reduced"] = row
@@ -6223,7 +6624,8 @@ def main() -> int:
              "qwen2vl_personal": qwen2vl_personal, "qwen2vl_mrope": qwen2vl_mrope,
              "moonshot_serving": moonshot_serving, "moonshot_training": moonshot_training,
              "moonshot_personal": moonshot_personal, "grok_serving": grok_serving,
-             "grok_training": grok_training, "grok_personal": grok_personal, **a8}
+             "grok_training": grok_training, "grok_personal": grok_personal,
+             "moe_distributed": moe_distributed, "ssm_plan": ssm_plan_launches, **a8}
     home = {"quant_matmul": "serving", "flash_attention": "serving",
             "paged_attention": "serving", "adapter_fuse": "personal"}
     # each kernel's launches on its own main path (serving for the first
@@ -6258,9 +6660,12 @@ def main() -> int:
           "through_gemma2_s": gemma2_done_s,
           "through_paper_models_s": paper_done_s, "through_baselines_s": baselines_done_s,
           "through_distill_s": distill_done_s, "through_mixtral_s": mixtral_done_s,
-          "through_xlstm_s": xlstm_done_s, "through_jamba_s": jamba_done_s,
+          "through_moe_distributed_s": moe_distributed_done_s,
+          "through_xlstm_s": xlstm_done_s, "through_ssm_plan_s": ssm_plan_done_s,
+          "through_jamba_s": jamba_done_s,
           "through_qwen2vl_s": qwen2vl_done_s, "through_moonshot_s": moonshot_done_s,
-          "through_grok_s": grok_done_s, "grok_layers": GROK_LAYERS, "peaks": PEAKS})
+          "through_grok_s": grok_done_s, "grok_layers": GROK_LAYERS, "peaks": PEAKS,
+          "timing": dict(Timer.spent, repeats=REPEATS)})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
