@@ -52,7 +52,7 @@ Phases, in order; any failure exits non-zero:
    (``paged_attention_deterministic``).
 4. Serving: internlm2-1.8b at full width (24 layers, d=2048), random
    weights from a seeded generator, INT8 backbone and INT8 KV pages,
-   4 users with r=8 adapters, 8 requests with ragged prompts, 32 new
+   4 users with r=8 adapters, 8 requests with ragged prompts, 16 new
    tokens each, through ``ServeEngine``. Launch counts are read from
    this run alone and must all be positive. Two more decode steps run
    under ``torch.profiler`` for the device's busy share and kernel time
@@ -61,7 +61,7 @@ Phases, in order; any failure exits non-zero:
 4a. Other KV pages (``f32_kv_serving``, ``bf16_kv_serving``): paged
    attention over f32 and bf16 pages at the check's shape (its unscaled
    branch), timed; then the same backbone, users and prompts served over
-   each, 16 new tokens, paged attention launched; the prefill and two
+   each, 8 new tokens, paged attention launched; the prefill and two
    decode steps under ``cuda`` and ``ref`` within 2e-4 (f32) and 2e-2
    (bf16; ``KV_TOL_REASON``), greedy equal; KV bytes a token and the
    walls beside the int8 cell's.
@@ -78,15 +78,32 @@ Phases, in order; any failure exits non-zero:
    on the dequantized weight; a layer's seven summed.
 4d. An INT4 backbone (``int4_serving``, ``pac_run`` with ``quant: 4``,
    ``int4_personal``): drawn once, served to the int8 cell's users and
-   prompts (16 new tokens; the serving gate; token agreement with the
+   prompts (8 new tokens; the serving gate; token agreement with the
    INT8 backbone's streams printed), trained (2 epochs x 2 steps of 4 x
    512, its checkpoint and persistent cache written; the cached-step and
    trainer gates) and its checkpoint personal-served (the prompt's
-   prefill, then 16 ``pac_decode_step``s over INT8 and f32 KV; 2e-2 and
+   prefill, then 12 ``pac_decode_step``s over INT8 and f32 KV; 2e-2 and
    2e-4, greedy equal). ``quant_matmul``'s launches are counted by
    branch: the tiled path must run in the serving prefill, the epoch-1
    step and the personal prefill, the skinny GEMV in the serving and
    personal decode steps.
+4e. The reference's bf16 backbone (``bf16_serving``, ``bf16_training``,
+   ``bf16_personal``): the kernels' bf16 branches at its shapes first
+   (flash with bf16 q, k, v and O at the prefill and epoch-1 shapes, one
+   bf16 rounding of O from its plain version, SDPA on bf16 beside it;
+   paged attention with a bf16 q over int8, bf16 and f32 pages; the CE
+   pair with the bf16 head, and a bf16 h); then a bf16 internlm2-1.8b
+   (each leaf drawn in f32 and cast, as the reference casts its draw)
+   served to the int8 cell's users and prompts (8 new tokens, int8
+   pages; the prefill and two decode steps under ``cuda`` and ``ref``
+   over int8, bf16 and f32 pages by :func:`bf16_logits_gate`: within
+   twice the port's own move at full depth, ``BF16_OWN_MOVE``), trained
+   (2 epoch-1 and 2 cached steps of 4 x 512 through the step entry
+   points under both OpSets: losses within 3e-2, the bf16 taps within
+   twice their own move) and personal-served (prefill, then 8 decode
+   steps at B = 1 over f32 linear KV, within the ``personal_gap``'s 2e-4,
+   greedy tokens equal). No weight is quantized, so
+   ``quant_matmul`` never runs on this path.
 5. Training kernels: flash attention timed at the epoch-1 step's
    B·H = 4·16; ``mix_fwd``/``mix_dw`` and ``ce_fwd``/``ce_bwd`` the
    same way at the training path's shapes (ragged and soft-capped cases
@@ -274,7 +291,7 @@ Phases, in order; any failure exits non-zero:
    layers, random seeded INT8 weights, 4 users with r = 8 adapters, INT8
    KV pages of 16, the serving phase's 8 requests and a ninth of 4500
    tokens (its own wave: flash prefill and paged decode cross the 4096
-   window), 32 new tokens each, through ``ServeEngine``; then each wave's
+   window), 16 new tokens each, through ``ServeEngine``; then each wave's
    prefill and two decode steps under ``cuda`` and ``ref``: logits within
    2e-2, greedy tokens equal.
 15. gemma2-2b training (``pac_run`` line): PAC+ through ``EdgeSession``/
@@ -283,7 +300,7 @@ Phases, in order; any failure exits non-zero:
    ``cuda`` against ``ref`` (loss 2e-5, gradients 1e-4·max(1, |g|max))
    and the trainer's epochs under both (5e-2).
 16. gemma2-2b personal (``gemma2_personal`` line): the trained adapter,
-   16 ``pac_decode_step``s at B = 1 over an f32 linear KV cache under both
+   12 ``pac_decode_step``s at B = 1 over an f32 linear KV cache under both
    OpSets: each step within 2e-4, greedy tokens equal, 13
    ``adapter_fuse`` and 182 ``quant_matmul`` launches a step.
 17. The paper's Table III models (t5-base-pac, bart-large-pac,
@@ -300,8 +317,9 @@ Phases, in order; any failure exits non-zero:
    attention's blocked backward recomputes its scores), PAC+'s epoch-1
    and cached steps under ``ref`` on the same backbone and under
    ``cuda`` on its INT8 quantization; per row the median per-sample ms
-   of 3 steps after a warm-up, peak memory, trainable parameters,
-   losses and launches, per model the time and memory savings
+   of 2 steps after a warm-up, peak memory, trainable parameters,
+   losses and launches (internlm2's rows a profiled step too), per model
+   the time and memory savings
    (reported). Gates: LoRA's and Houlsby's logits at init bit-equal to
    the backbone's; each baseline's losses falling; one step of each on
    reduced internlm2 on the card against the CPU (loss 1e-5, parameters
@@ -336,7 +354,7 @@ Phases, in order; any failure exits non-zero:
 24. mixtral-8x7b serving (``mixtral_serving`` line): 32 layers at full
    width, random seeded INT8 weights (46.7 B parameters), 4 users with
    r = 8 adapters, INT8 KV pages of 16, the serving phase's 8 requests,
-   32 new tokens each, through ``ServeEngine``; then their prefill and
+   16 new tokens each, through ``ServeEngine``; then their prefill and
    two decode steps under ``cuda`` and ``ref`` with every MoE layer's
    routes recorded: at least 99.9 % of tokens routed alike in every
    layer, and where a request's tokens routed alike in every layer so
@@ -359,7 +377,7 @@ Phases, in order; any failure exits non-zero:
 28. xlstm-125m serving (``xlstm_serving`` line): 12 layers (9 mLSTM, 3
    sLSTM) at full width, random seeded INT8 weights, 4 users with r = 8
    adapters, through ``ServeEngine``'s stepwise prompt path: 8 requests
-   of 64-256 prompt tokens, 32 new each, through 4 slots (4 admissions
+   of 32-128 prompt tokens, 16 new each, through 4 slots (4 admissions
    into retired rows), under ``cuda`` and ``ref``: every stream equal;
    16 teacher-forced steps under both, logits within 2e-2, greedy
    equal; the first prompt stepwise against one ``pac_logits`` pass
@@ -393,12 +411,12 @@ Phases, in order; any failure exits non-zero:
    ragged at n_rep 7, reruns and graph replays bit-equal.
 33. qwen2-vl-7b serving (``qwen2vl_serving`` line): 28 layers at full
    width, random seeded INT8 weights (7.62 G parameters), 4 users with
-   r = 8 adapters, 8 requests of 64-480 prompt tokens and 32 new through
+   r = 8 adapters, 8 requests of 64-480 prompt tokens and 16 new through
    ``ServeEngine``, then prefill and two decode steps under ``cuda`` and
    ``ref``: logits within 2e-2, greedy equal; ``quant_matmul``, flash
    and paged attention launched.
 34. qwen2-vl-7b training (``pac_run`` line, as 15) with its cached-step
-   and trainer gates, then ``qwen2vl_personal`` (as 29: 16 steps over
+   and trainer gates, then ``qwen2vl_personal`` (as 29: 12 steps over
    f32 KV within 2e-4, tokens equal, 196 ``quant_matmul`` and 28
    ``adapter_fuse`` a step).
 35. mrope with distinct streams (``qwen2vl_mrope`` line): one batch of
@@ -446,12 +464,18 @@ Phases, in order; any failure exits non-zero:
    at T <= 8), the card's line, and last ``{"ok": true, "device":
    {...}}``.
 
+``python3 chip_smoke.py --bf16-own-move`` builds the kernels, then runs
+only :func:`bf16_own_move`: the port's ``ref`` OpSet on the bf16
+internlm2-1.8b on the card against the same program on the host's CPU,
+whose readings are ``BF16_OWN_MOVE``, the yardstick of 4e's gates.
+
 Needs one CUDA card and the repository's ``src`` beside this file; it
 imports no JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
 
+import argparse
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -476,7 +500,7 @@ from repro_torch.launch.mesh import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
 from repro_torch.launch.mesh import PEAK_FLOPS_BF16 as BF16_FLOP_PER_S  # noqa: E402
 from repro_torch.launch.mesh import PEAK_FLOPS_F32 as F32_FLOP_PER_S  # noqa: E402
 
-REPEATS = 15
+REPEATS = 5
 
 QMM_SHAPES = [(2048, 2048), (2048, 1024), (2048, 8192), (8192, 2048)]  # (K, N)
 QMM_SKINNY_ROWS = 8  # quant_matmul's tiled path runs above this M (csrc/quant_matmul.cu)
@@ -514,7 +538,7 @@ class Timer:
     that inputs smaller than the 50 MB L2 are read cold, as in a decode
     step that walks 24 layers."""
 
-    CALLS = 12
+    CALLS = 6
     #: the host seconds every timing of this run took, summed over all
     #: timers: ``setup_s`` before the first replay (the warm-up call and the
     #: capture), ``replay_s`` in the replays, ``first5_s`` in each timing's
@@ -674,26 +698,33 @@ FLASH_TOL_REASON = ("the reference's flash tolerance (tests/test_kernels.py:105)
 
 
 def flash_case(timer: Timer, gen: torch.Generator, B: int, H: int, Hkv: int, S: int, hd: int,
-               at: str, cap: float = None):
+               at: str, cap: float = None, dtype=torch.float32):
     """Causal ``flash_attention`` over grouped KV at (B·H, S, hd) against
     its plain version, timed beside the plain version and SDPA (KV heads
     repeated beforehand), with both bounds: the bf16 tensor cores' (each
     product's 3-term split takes six bf16 products: 12 in all) and f32's.
     ``cap``: the attention soft-cap of the kernel and its plain version
-    (SDPA has none, and runs without). Returns (the row, (q, k, v), the
-    SDPA call)."""
+    (SDPA has none, and runs without). ``dtype`` bf16: the bf16 branch,
+    q, k, v and O bf16 (Q·Kᵀ one product, P·V three: P's terms), held to
+    one bf16 rounding of O (:func:`bf16_out_check`), SDPA on bf16. Returns
+    (the row, (q, k, v), the SDPA call)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
 
-    q = torch.randn(B * H, S, hd, generator=gen, device=DEV)
-    k = torch.randn(B * Hkv, S, hd, generator=gen, device=DEV)
-    v = torch.randn(B * Hkv, S, hd, generator=gen, device=DEV)
+    q = torch.randn(B * H, S, hd, generator=gen, device=DEV).to(dtype)
+    k = torch.randn(B * Hkv, S, hd, generator=gen, device=DEV).to(dtype)
+    v = torch.randn(B * Hkv, S, hd, generator=gen, device=DEV).to(dtype)
     got = flash_attention(q, k, v, attn_softcap=cap)
     want = ref.flash_attention_ref(q, k, v, attn_softcap=cap)
-    if got.shape != q.shape or not bool(torch.isfinite(got).all()):
-        raise AssertionError(f"flash_attention {at}: shape {tuple(got.shape)} or non-finite")
+    if (got.shape != q.shape or got.dtype != dtype or not bool(torch.isfinite(got).all())):
+        raise AssertionError(f"flash_attention {at}: shape {tuple(got.shape)}, {got.dtype} or "
+                             "non-finite")
     err = max_err(got, want)
-    check(f"flash_attention {at}", err, FLASH_TOL)
+    bf16 = dtype == torch.bfloat16
+    if bf16:
+        check(f"flash_attention {at}", bf16_out_check(got, want), BF16_OUT_ATOL)
+    else:
+        check(f"flash_attention {at}", err, FLASH_TOL)
     q4, k4, v4 = (t.reshape(B, -1, S, hd) for t in (q, k, v))
     k4r, v4r = k4.repeat_interleave(H // Hkv, dim=1), v4.repeat_interleave(H // Hkv, dim=1)
 
@@ -701,18 +732,21 @@ def flash_case(timer: Timer, gen: torch.Generator, B: int, H: int, Hkv: int, S: 
         return torch.nn.functional.scaled_dot_product_attention(q4, k4r, v4r, is_causal=True)
 
     pairs = S * (S + 1) // 2  # causal (query, key) pairs per head
-    nbytes = 4.0 * (q.numel() * 2 + k.numel() + v.numel())
+    nbytes = float(q.element_size()) * (q.numel() * 2 + k.numel() + v.numel())
     flops = 4.0 * hd * pairs * B * H
     f32_ms, f32_by = bound(nbytes, flops)
-    b_ms, b_by = bound(nbytes, 6 * flops, BF16_FLOP_PER_S)
+    # the tensor cores' products: 6 + 6 for f32 operands, 1 + 3 for bf16
+    b_ms, b_by = bound(nbytes, (2 if bf16 else 6) * flops, BF16_FLOP_PER_S)
     r = {"check": "flash_attention", "at": at, "BH": B * H, "BHkv": B * Hkv, "S": S, "hd": hd,
-         "causal": True, "softcap": cap, "max_abs_err": err, "tol": f"atol {FLASH_TOL}",
-         "tol_reason": FLASH_TOL_REASON,
+         "causal": True, "softcap": cap, "dtype": str(dtype).replace("torch.", ""),
+         "max_abs_err": err,
+         "tol": BF16_OUT_TOL if bf16 else f"atol {FLASH_TOL}",
+         "tol_reason": BF16_OUT_TOL_REASON if bf16 else FLASH_TOL_REASON,
          "ms": timer(lambda: flash_attention(q, k, v, attn_softcap=cap)),
          "plain_ms": timer(lambda: ref.flash_attention_ref(q, k, v, attn_softcap=cap)),
          "library_ms": timer(sdpa),
          "library": "scaled_dot_product_attention, causal, KV heads repeated beforehand"
-                    + (", no soft-cap (SDPA has none)" if cap else ""),
+                    + (", no soft-cap (SDPA has none)" if cap else "") + (", bf16" if bf16 else ""),
          "bound_ms": b_ms, "bound_by": b_by, "bound_tc_ms": b_ms, "bound_tc_by": b_by,
          "bound_f32_ms": f32_ms, "bound_f32_by": f32_by}
     return r, (q, k, v), sdpa
@@ -821,28 +855,29 @@ PAGE_ROW_BYTES = {"int8": lambda hd: hd + 4, "bf16": lambda hd: 2 * hd, "f32": l
 
 
 def paged_bound(lengths_np: np.ndarray, Hkv: int, n_rep: int, hd: int, page: int,
-                pages: str = "int8"):
+                pages: str = "int8", q_bytes: int = 4):
     """The least time of one call over ``pages``: each attended K/V row
-    (and an int8 row's scale) read once, q read and the output written
-    once, the block-table entries and lengths read once; 4 * n_rep * hd
-    f32 FLOPs a token and kv head."""
+    (and an int8 row's scale) read once, q (``q_bytes`` a value) read and
+    the f32 output written once, the block-table entries and lengths read
+    once; 4 * n_rep * hd f32 FLOPs a token and kv head."""
     tokens = int((lengths_np.astype(np.int64) + 1).sum())
     B = len(lengths_np)
-    nbytes = (tokens * Hkv * 2 * PAGE_ROW_BYTES[pages](hd) + 2 * B * Hkv * n_rep * hd * 4
+    nbytes = (tokens * Hkv * 2 * PAGE_ROW_BYTES[pages](hd) + B * Hkv * n_rep * hd * (q_bytes + 4)
               + 4 * int(sum(-(-(int(n) + 1) // page) for n in lengths_np)) + 4 * B)
     return bound(nbytes, 4.0 * n_rep * hd * Hkv * tokens)
 
 
 def paged_timed(timer: Timer, gen: torch.Generator, lengths_np: np.ndarray, max_pages: int,
                 at: str, Hkv: int = 8, n_rep: int = 2, hd: int = 128, cap: float = None,
-                pages: str = "int8") -> dict:
+                pages: str = "int8", q_dtype=torch.float32) -> dict:
     """``paged_attention`` at B = len(lengths), pages of 16 tokens (int8
     unless ``pages`` says "f32" or "bf16", which have no scales;
     internlm2-1.8b's Hkv = 8, n_rep = 2, hd = 128 unless given), against
     its plain version; timed beside the plain version and SDPA over the KV
     gathered to dense f32 beforehand (length mask), with the byte bound.
     ``cap``: the attention soft-cap of the kernel and its plain version
-    (SDPA has none, and runs without)."""
+    (SDPA has none, and runs without). ``q_dtype`` bf16: a bf16
+    backbone's query (the output stays f32)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import _KIND, paged_attention, plan_for
     from repro_torch.serve.paging import quantize_kv_pages
@@ -850,6 +885,7 @@ def paged_timed(timer: Timer, gen: torch.Generator, lengths_np: np.ndarray, max_
     B, page = len(lengths_np), 16
     rng = np.random.default_rng(SEED)
     qd, kf, vf, bt, lengths = paged_case(gen, rng, B, Hkv, n_rep, hd, page, max_pages, lengths_np)
+    qd = qd.to(q_dtype)
     if pages == "int8":
         (kq, ks), (vq, vs) = quantize_kv_pages(kf), quantize_kv_pages(vf)
     else:  # unscaled pages: the kernel's other branch
@@ -862,7 +898,7 @@ def paged_timed(timer: Timer, gen: torch.Generator, lengths_np: np.ndarray, max_
     if not torch.isfinite(got).all():
         raise AssertionError(f"paged_attention {at}: non-finite output")
     check(f"paged_attention {at}", max_err(got, want), PAGED_TOL[pages])
-    b_ms, b_by = paged_bound(lengths_np, Hkv, n_rep, hd, page, pages)
+    b_ms, b_by = paged_bound(lengths_np, Hkv, n_rep, hd, page, pages, qd.element_size())
     S = max_pages * page
     idx = bt.long()
 
@@ -871,7 +907,7 @@ def paged_timed(timer: Timer, gen: torch.Generator, lengths_np: np.ndarray, max_
         return t.reshape(B, S, Hkv, hd).transpose(1, 2).repeat_interleave(n_rep, dim=1)
 
     kd, vd = dense(kq, ks), dense(vq, vs)
-    qsd = qd.reshape(B, Hkv * n_rep, 1, hd)
+    qsd = qd.float().reshape(B, Hkv * n_rep, 1, hd)
     mask = (torch.arange(S, device=DEV)[None, :] <= lengths[:, None])[:, None, None, :]
     scaled = ks is not None
     pool_bytes = 2 * (kq.numel() * kq.element_size() + (4 * ks.numel() if scaled else 0))
@@ -880,7 +916,7 @@ def paged_timed(timer: Timer, gen: torch.Generator, lengths_np: np.ndarray, max_
         for _ in range(copies(pool_bytes) - 1)]
     r = {"check": "paged_attention", "at": at, "B": B, "Hkv": Hkv, "n_rep": n_rep, "hd": hd,
          "page": page, "max_pages": max_pages, "lengths": lengths_np.tolist(), "pages": pages,
-         "softcap": cap,
+         "q_dtype": str(q_dtype).replace("torch.", ""), "softcap": cap,
          "plan": plan_for(qd, B, Hkv, n_rep, hd, page, max_pages, _KIND[kq.dtype])._asdict(),
          "max_abs_err": max_err(got, want), "tol": f"atol {PAGED_TOL[pages]}",
          "tol_reason": PAGED_TOL_REASON,
@@ -1146,7 +1182,7 @@ def profile_decode(eng, prompts, names, phase: str = "decode_profile") -> None:
 
 def paged_cuda_vs_ref(backbone, cfg, ab, prompts, page: int, max_len: int, r: int, s_pad: int,
                       steps: int = 2, routes: dict = None, forced: bool = False,
-                      kv_policy: str = "int8") -> dict:
+                      kv_policy: str = "int8", runs: dict = None) -> dict:
     """The prompts' paged prefill (padded to ``s_pad``) and ``steps``
     decode steps over ``kv_policy`` KV pages, under the ``cuda`` and the ``ref``
     OpSet, the cuda run's greedy tokens fed to both: per OpSet the (B, V)
@@ -1155,20 +1191,25 @@ def paged_cuda_vs_ref(backbone, cfg, ab, prompts, page: int, max_len: int, r: in
     (``models.moe.record_routes``). ``forced``: a third run,
     ``ref_forced``, under ``ref`` with every MoE layer taking the ``cuda``
     run's routes (``models.moe.replay_routes``); its records are each
-    layer's own choice."""
+    layer's own choice. ``runs`` (name -> (OpSet, backbone, adapter rows,
+    device)) takes the place of those runs, the first one's greedy tokens
+    fed to all."""
     from repro_torch.models.moe import record_routes, replay_routes
     from repro_torch.serve import paging
     from repro_torch.serve.decode import paged_pac_decode_step, paged_prefill
 
     B = len(prompts)
     max_pages = -(-max_len // page)
-    runs = {"cuda": "cuda", "ref": "ref", **({"ref_forced": "ref"} if forced else {})}
+    if runs is None:
+        runs = {name: (impl, backbone, ab, DEV) for name, impl in (
+            ("cuda", "cuda"), ("ref", "ref"), *((("ref_forced", "ref"),) if forced else ()))}
+    lead = next(iter(runs))
     state = {}
-    for name in runs:
+    for name, (_, _, _, dev) in runs.items():
         table = paging.PageTable(paging.PageAllocator(B * max_pages + 1), page, max_pages)
         for i, p in enumerate(prompts):
             table.open(i, len(p))
-        pools = paging.init_pools(cfg, table.allocator.n_pages, page, kv_policy, DEV, n_slots=B)
+        pools = paging.init_pools(cfg, table.allocator.n_pages, page, kv_policy, dev, n_slots=B)
         state[name] = [table, pools, None]
     toks = np.zeros((B, s_pad), np.int32)
     for i, p in enumerate(prompts):
@@ -1180,26 +1221,27 @@ def paged_cuda_vs_ref(backbone, cfg, ab, prompts, page: int, max_len: int, r: in
                 else contextlib.nullcontext())
 
     for name, st in state.items():
+        impl, bb, rows, dev = runs[name]
         bt, lengths = st[0].dense(range(B))
         with following(name), record_routes() as rec:
             lg, st[1], st[2] = paged_prefill(
-                backbone, ab, torch.from_numpy(toks).to(DEV), torch.from_numpy(lengths).to(DEV),
-                st[1], torch.from_numpy(bt).to(DEV), cfg=cfg, max_len=max_len, r=r,
-                kernel_impl=runs[name])
+                bb, rows, torch.from_numpy(toks).to(dev), torch.from_numpy(lengths).to(dev),
+                st[1], torch.from_numpy(bt).to(dev), cfg=cfg, max_len=max_len, r=r,
+                kernel_impl=impl)
         logits[name] = [lg[:, 0]]
         recs[name].append(rec)
     for _ in range(steps):
-        tok = logits["cuda"][-1].argmax(-1).int()[:, None]
+        tok = logits[lead][-1].argmax(-1).int()[:, None]
         for name, st in state.items():
+            impl, bb, rows, dev = runs[name]
             table = st[0]
             for i in range(B):
                 table.extend_to(i, table.length(i) + 1)
             bt, lengths = table.dense(range(B))
             with following(name), record_routes() as rec:
                 lg, st[1], st[2] = paged_pac_decode_step(
-                    backbone, ab, tok, st[1], torch.from_numpy(bt).to(DEV),
-                    torch.from_numpy(lengths).to(DEV), st[2], cfg=cfg, r=r,
-                    kernel_impl=runs[name])
+                    bb, rows, tok.to(dev), st[1], torch.from_numpy(bt).to(dev),
+                    torch.from_numpy(lengths).to(dev), st[2], cfg=cfg, r=r, kernel_impl=impl)
             logits[name].append(lg[:, 0])
             recs[name].append(rec)
             for i in range(B):
@@ -1212,6 +1254,12 @@ def paged_cuda_vs_ref(backbone, cfg, ab, prompts, page: int, max_len: int, r: in
 #: the serving cells' config, pages of 16 tokens, max_len, batch and adapter rank
 SERVING_ARCH = "internlm2-1.8b"
 SERVING_PAGE, SERVING_MAX_LEN, SERVING_BATCH, SERVING_R = 16, 544, 8, 8
+#: new tokens a request of each config's serving cell (32 until the bf16 slice; cut for the
+#: smoke's time, as the other cells' below)
+SERVING_NEW_TOKENS = 16
+#: steps of the INT4 and the other configs' personal loops (8 teacher-forced, then greedy;
+#: 16 until the bf16 slice)
+PERSONAL_STEPS = 12
 
 
 def serving_phase(gen: torch.Generator, walls: dict, keep: dict = None):
@@ -1230,8 +1278,8 @@ def serving_phase(gen: torch.Generator, walls: dict, keep: dict = None):
     kernels = {"quant_matmul": quant_matmul, "flash_attention": flash_attention,
                "paged_attention": paged_attention}
     cfg = get_arch(SERVING_ARCH)
-    page, max_len, max_batch, n_new, r = (SERVING_PAGE, SERVING_MAX_LEN, SERVING_BATCH, 32,
-                                          SERVING_R)
+    page, max_len, max_batch, n_new, r = (SERVING_PAGE, SERVING_MAX_LEN, SERVING_BATCH,
+                                          SERVING_NEW_TOKENS, SERVING_R)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     backbone = init_backbone(gen, cfg, device="cuda", quant_bits=8)
@@ -1308,7 +1356,7 @@ def serving_phase(gen: torch.Generator, walls: dict, keep: dict = None):
 
 #: new tokens a request of the f32/bf16-page and INT4 serving cells (the int8 cell's 32, cut
 #: for the smoke's time)
-SHORT_NEW_TOKENS = 16
+SHORT_NEW_TOKENS = 8
 #: new tokens a request of the page-bound cell
 POOL_NEW_TOKENS = 8
 #: the serving gate by KV page type: max |Δlogits| of the prefill and two decode steps,
@@ -1688,8 +1736,8 @@ def int4_serving_phase(gen: torch.Generator, keep: dict) -> dict:
 def int4_personal_phase(backbone, cfg, ckpt: Path, r: int = 8) -> dict:
     """The INT4 run's checkpoint served to one user: the prompt's prefill
     (``prefill_step``, M = ``PROMPT_LEN``: the tiled path) under ``cuda``
-    and ``ref`` (the serving gate), then 16 ``pac_decode_step``s at B = 1
-    (8 teacher-forced prompt tokens, then 8 greedy; M = 1: the skinny GEMV)
+    and ``ref`` (the serving gate), then ``PERSONAL_STEPS`` ``pac_decode_step``s at B = 1
+    (8 teacher-forced prompt tokens, then greedy; M = 1: the skinny GEMV)
     over an INT8 and an f32 linear KV cache, each under ``cuda`` (launches
     counted) and ``ref``: ``personal_phase``'s gates, 2e-2 over INT8 KV
     and 2e-4 over f32 KV (the ``personal_gap``), greedy tokens equal."""
@@ -1700,7 +1748,7 @@ def int4_personal_phase(backbone, cfg, ckpt: Path, r: int = 8) -> dict:
 
     t0 = time.perf_counter()
     adapter = load_checkpoint(str(ckpt), device=DEV)["adapter"]
-    n_prompt, n_steps, max_len = 8, 16, 16
+    n_prompt, n_steps, max_len = 8, PERSONAL_STEPS, 16
     prompt = torch.from_numpy(np.random.default_rng(SEED).integers(
         0, cfg.vocab, size=(1, PROMPT_LEN)).astype(np.int32)).to(DEV)
     reset_launches()
@@ -1768,6 +1816,478 @@ def int4_personal_phase(backbone, cfg, ckpt: Path, r: int = 8) -> dict:
     return {**launches, "quant_matmul_branches": {
         b: prefill_branches.get(b, 0) + decode_branches.get(b, 0)
         for b in set(prefill_branches) | set(decode_branches)}}
+
+
+# ---------------------------------------------------------------- bf16 backbone
+
+#: the reference's bf16 tolerance for losses, adapter gradients and taps (and the
+#: serving gate of its bf16 pages), tests/test_opset.py:35-48, tests/test_decode_parity.py:36
+BF16_TOL = 3e-2
+BF16_TOL_REASON = ("the reference's bf16 tolerance (tests/test_opset.py:35-48): every op of a "
+                   "bf16 backbone rounds to 8 bits, and cuda rounds in other places than ref "
+                   "(flash's O once, the paged kernel's f32 softmax)")
+#: the port's own move on the bf16 internlm2-1.8b at full width and depth, its ``ref``
+#: OpSet on the card against the same program on the host's CPU, the same weights and
+#: inputs (:func:`bf16_own_move`, ``--bf16-own-move``; NVIDIA H100 80GB HBM3, 700.00 W):
+#: the largest |Δlogits| over the serving cell's prefill and two decode steps on int8, bf16
+#: and f32 pages (0.081-0.089 a step; 2 of 24 rows' greedy tokens differ a page policy, at
+#: top-2 margins of 0.0015-0.014), over the personal prompt's last logits, and over the
+#: epoch-1 step's bf16 taps (of a scale 23.75)
+BF16_OWN_MOVE = {"serving": 0.08939427137374878, "personal_prefill": 0.078125, "taps": 0.5625}
+#: the bf16 gates' bound over that move: the smoke's backbone is another draw than the
+#: measurement's, and C5's factor for a move measured on one draw (FORM_FACTOR in
+#: tests/test_torch_moe_configs.py)
+BF16_FORM_FACTOR = 2
+BF16_LOGITS_REASON = (
+    "the port's own move at full depth (BF16_OWN_MOVE: ref on the card against ref on the "
+    "host's CPU; cuda lay 0.072-0.084 from ref in that run), times BF16_FORM_FACTOR. Greedy "
+    "tokens equal in every row whose ref top-2 margin exceeds twice the own move, the rows "
+    "the port's own move cannot flip; its own run flipped rows at margins <= 0.014")
+#: a bf16 kernel output against its plain version's: the two f32 results a few
+#: ulps apart round to one bf16 value or to neighbours, 2^-7 of the value at most
+BF16_OUT_RTOL = 2.0 ** -7
+BF16_OUT_ATOL = 1e-6  # what bf16_out_check may exceed one bf16 step by
+BF16_OUT_TOL = f"|dO| <= 2^-7 |O| + {BF16_OUT_ATOL}"
+BF16_OUT_TOL_REASON = ("one bf16 rounding of O: q, k, v exact on the tensor cores, P in three "
+                       "terms, the softmax and O summed in f32, O rounded to bf16 once as the "
+                       "plain version rounds its f32 O")
+BF16_NEW_TOKENS = 8  # a request's new tokens on the bf16 serving path
+BF16_STEPS = 2  # epoch-1 steps, then as many cached steps
+BF16_PERSONAL_PROMPT, BF16_PERSONAL_STEPS = 4, 8  # teacher-forced, then greedy to 8 tokens
+
+
+def bf16_logits_gate(cuda: list, ref: list, phase: str, kind: str = "serving") -> dict:
+    """Each step's (B, V) logits under ``cuda`` against ``ref`` on the bf16
+    backbone: within ``BF16_FORM_FACTOR`` times the port's own move
+    ``BF16_OWN_MOVE[kind]``, greedy tokens equal in every row whose ``ref``
+    top-2 margin exceeds twice that move (``BF16_LOGITS_REASON``)."""
+    own = BF16_OWN_MOVE[kind]
+    tol = BF16_FORM_FACTOR * own
+    diffs, equal, decided, close = [], [], [], []
+    for a, b in zip(cuda, ref):
+        a, b = a.float(), b.float()
+        top2 = b.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * own
+        same = a.argmax(-1) == b.argmax(-1)
+        diffs.append(float((a - b).abs().max()))
+        equal.append(same.tolist())
+        decided.append(bool(same[clear].all()))
+        close.append(int((~clear).sum()))
+    finite = all(bool(torch.isfinite(t).all()) for t in cuda + ref)
+    if not (finite and max(diffs) <= tol and all(decided)):
+        raise AssertionError(f"{phase} cuda vs ref: |dlogits| {diffs} (tol {tol}), greedy "
+                             f"equal {equal}, equal where decided {decided}, finite {finite}")
+    return {"max_abs_dlogits": diffs, "tol": tol, "own_move": own, "greedy_equal": equal,
+            "greedy_equal_where_decided": decided, "rows_within_own_move": close,
+            "tol_reason": BF16_LOGITS_REASON}
+
+
+def bf16_out_check(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max(|Δ| − 2^-7·|want|) of a bf16 output against its plain version's."""
+    return float(((got.float() - want.float()).abs() - BF16_OUT_RTOL * want.float().abs()).max())
+
+
+def bf16_kernel_phase(timer: Timer, gen: torch.Generator) -> dict:
+    """The three kernels' bf16 branches at the bf16 path's shapes, each
+    against its plain version and timed: flash with bf16 q, k, v at the
+    prefill (B·H = 8·16) and epoch-1 (4·16) shapes, S 512, hd 128; paged
+    attention with a bf16 q over int8, bf16 and f32 pages at the check's
+    shape; ``ce_fwd``/``ce_bwd`` with the bf16 head (W) and the f32 hidden
+    (h, the side network's sum) at the training shape, with and without the
+    soft-cap, and with a bf16 h too at a ragged shape. Returns the kernels
+    line's ``bf16`` rows."""
+    from repro_torch.kernels import lmhead_ce, ref
+
+    rows = {"flash_attention": {}, "paged_attention": {}}
+    for name, B in (("prefill", 8), ("training", 4)):
+        r, _, _ = flash_case(timer, gen, B, 16, 8, 512, 128,
+                             f"bf16 {name} B*H={B}*16 over {B}*8", dtype=torch.bfloat16)
+        emit(r)
+        rows["flash_attention"][name] = {k: r[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "bound_f32_ms",
+            "library_ms", "at")}
+    lengths_np = np.random.default_rng(SEED).integers(1, 512, size=8).astype(np.int32)
+    for pages in ("int8", "bf16", "f32"):
+        r = paged_timed(timer, gen, lengths_np, 32, f"bf16 q, decode B=8 Hkv=8 n_rep=2 hd=128 "
+                        f"page=16 {pages}, lengths<=511", pages=pages, q_dtype=torch.bfloat16)
+        rows["paged_attention"][pages] = {k: r[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "at")}
+
+    T, d, V = TRAIN_T, TRAIN_D, TRAIN_V
+    h = torch.randn(T, d, generator=gen, device=DEV)
+    w = (torch.randn(d, V, generator=gen, device=DEV) * d ** -0.5).to(torch.bfloat16)
+    lab = torch.randint(0, V, (T,), generator=gen, device=DEV)
+    g = torch.randn(T, generator=gen, device=DEV)
+    reason = ("the reference's blockwise-CE tolerances (tests/test_cached_step.py:105, :113): "
+              "the bf16 W is exact on the tensor cores and h keeps its three terms")
+    errs = {"ce_fwd": 0.0, "ce_bwd": 0.0}
+    cases = [(h, w, lab, g, cap) for cap in (None, 30.0)]
+    h2 = torch.randn(37, 130, generator=gen, device=DEV)
+    w2 = (torch.randn(130, 517, generator=gen, device=DEV) * 130 ** -0.5).to(torch.bfloat16)
+    lab2 = torch.randint(0, 517, (37,), generator=gen, device=DEV)
+    g2 = torch.randn(37, generator=gen, device=DEV)
+    cases += [(h2.to(torch.bfloat16), w2, lab2, g2, 30.0), (h2, w2, lab2, g2, None)]
+    for hh, ww, ll, gg, cap in cases:
+        nll, lse = lmhead_ce.ce_fwd(hh, ww, ll, cap)
+        want_nll, want_lse = ref.ce_fwd_ref(hh, ww, ll, cap)
+        dh = lmhead_ce.ce_bwd(hh, ww, ll, want_lse, gg, cap)
+        want_dh = ref.ce_bwd_ref(hh, ww, ll, want_lse, gg, cap)
+        e_f = max(float(((nll - want_nll).abs() - 1e-5 * want_nll.abs()).max()),
+                  float(((lse - want_lse).abs() - 1e-5 * want_lse.abs()).max()))
+        bf16_h = hh.dtype == torch.bfloat16
+        e_b = (bf16_out_check(dh, want_dh) if bf16_h
+               else float(((dh - want_dh).abs() - 1e-4 * want_dh.abs()).max()))
+        at = f"T={hh.shape[0]} d={hh.shape[1]} V={ww.shape[1]} h {hh.dtype} W bf16 cap={cap}"
+        check(f"ce_fwd {at}", e_f, 2e-5)
+        check(f"ce_bwd {at}", e_b, BF16_OUT_ATOL if bf16_h else 1e-5)
+        if dh.dtype != hh.dtype:
+            raise AssertionError(f"ce_bwd {at}: dh {dh.dtype}, not h's dtype")
+        e = {"ce_fwd": max(max_err(nll, want_nll), max_err(lse, want_lse)),
+             "ce_bwd": max_err(dh, want_dh)}
+        emit({"check": "lmhead_ce_bf16", "at": at, "ce_fwd_max_abs_err": e["ce_fwd"],
+              "ce_bwd_max_abs_err": e["ce_bwd"], "ce_fwd_check": e_f, "ce_bwd_check": e_b,
+              "tol": "ce_fwd atol 2e-5 + rtol 1e-5; ce_bwd atol 1e-5 + rtol 1e-4 (a bf16 dh: "
+                     + BF16_OUT_TOL + ")", "tol_reason": reason})
+        if hh is h:
+            errs = {k: max(errs[k], e[k]) for k in errs}
+    _, lse = ref.ce_fwd_ref(h, w, lab)
+    hb = h.to(torch.bfloat16)
+    # the kernels' products: h's three terms by W's one, in the forward and
+    # in each of the backward's two GEMMs (P keeps three terms too)
+    fwd_bytes = 4.0 * T * d + 2.0 * d * V + 12.0 * T
+    b_ms, b_by = bound(fwd_bytes, 3 * 2.0 * T * d * V, flop_per_s=BF16_FLOP_PER_S)
+    f32_ms, _ = bound(fwd_bytes, 2.0 * T * d * V)
+    r = {"check": "ce_fwd", "dtype": "h f32, W bf16", "T": T, "d": d, "V": V,
+         "max_abs_err": errs["ce_fwd"],
+         "ms": timer(lambda: lmhead_ce.ce_fwd(h, w, lab), calls=2, repeats=3),
+         "plain_ms": timer(lambda: ref.ce_fwd_ref(h, w, lab), calls=2, repeats=3),
+         "library_ms": timer(lambda: torch.logsumexp(torch.matmul(hb, w), dim=-1), calls=2,
+                             repeats=3),
+         "library": "torch.matmul on bf16 (h cast beforehand), then torch.logsumexp",
+         "bound_ms": b_ms, "bound_by": b_by, "bound_f32_ms": f32_ms}
+    emit(r)
+    at = "LM-head CE forward, bf16 head, T=4*512, d=2048, V=92544"
+    rows["ce_fwd"] = _row(r, at)
+    hr = hb.clone().requires_grad_()
+
+    def library_bwd():
+        loss = torch.nn.functional.cross_entropy(torch.matmul(hr, w), lab.long(),
+                                                 reduction="sum")
+        return torch.autograd.grad(loss, hr)
+
+    bwd_bytes = 8.0 * T * d + 2.0 * d * V + 16.0 * T
+    b_ms, b_by = bound(bwd_bytes, 6 * 2.0 * T * d * V, flop_per_s=BF16_FLOP_PER_S)
+    f32_ms, _ = bound(bwd_bytes, 4.0 * T * d * V)
+    r = {"check": "ce_bwd", "dtype": "h f32, W bf16", "T": T, "d": d, "V": V,
+         "max_abs_err": errs["ce_bwd"],
+         "ms": timer(lambda: lmhead_ce.ce_bwd(h, w, lab, lse, g), calls=2, repeats=3),
+         "plain_ms": timer(lambda: ref.ce_bwd_ref(h, w, lab, lse, g), calls=2, repeats=3),
+         "library_ms": timer(library_bwd, calls=2, repeats=3),
+         "library": "autograd of F.cross_entropy(h @ W) on bf16 (its forward included)",
+         "bound_ms": b_ms, "bound_by": b_by, "bound_f32_ms": f32_ms}
+    emit(r)
+    rows["ce_bwd"] = _row(r, "LM-head CE backward (logits recomputed), bf16 head, T=4*512, "
+                             "d=2048, V=92544")
+    return rows
+
+
+def bf16_serving_phase(gen: torch.Generator, keep: dict):
+    """The reference's bf16 backbone (each leaf drawn in f32 and cast, as
+    it casts its f32 draw) at internlm2-1.8b's full width and depth, served
+    to the int8 cell's users and prompts: ``BF16_NEW_TOKENS`` new tokens a
+    request through ``ServeEngine`` over int8 pages (launches counted:
+    flash in the prefill, paged attention with a bf16 q in the decode; no
+    weight is quantized, so ``quant_matmul`` never runs), then the prefill
+    and two decode steps under ``cuda`` and ``ref`` over int8, bf16 and
+    f32 pages (:func:`paged_cuda_vs_ref`, :func:`bf16_logits_gate`).
+    Returns (launches, the backbone)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.quantization import tree_storage_bytes
+    from repro_torch.models.backbone import init_backbone
+
+    cfg = get_arch(SERVING_ARCH)
+    users, prompts = keep["users"], keep["prompts"]
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    backbone = init_backbone(gen, cfg, device=DEV, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    emit({"phase": "serving_init", "arch": cfg.name, "dtype": "bfloat16",
+          "backbone_bytes": tree_storage_bytes(backbone), "seconds": time.perf_counter() - t0})
+    serve_streams(backbone, cfg, users, prompts, "cuda", 2, SERVING_PAGE, SERVING_MAX_LEN,
+                  SERVING_BATCH, SERVING_R)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    eng, streams, wall = serve_streams(backbone, cfg, users, prompts, "cuda", BF16_NEW_TOKENS,
+                                       SERVING_PAGE, SERVING_MAX_LEN, SERVING_BATCH, SERVING_R)
+    launches = {k: v for k, v in read_launches().items()
+                if k in ("quant_matmul", "flash_attention", "paged_attention")}
+    peak = torch.cuda.max_memory_allocated()
+    s_pad = _bucket(max(map(len, prompts)), 1 << 30)
+    gates = {}
+    for policy in ("int8", "bf16", "f32"):
+        logits = paged_cuda_vs_ref(backbone, cfg, serving_adapters(users, len(prompts)), prompts,
+                                   SERVING_PAGE, SERVING_MAX_LEN, SERVING_R, s_pad,
+                                   kv_policy=policy)
+        gates[policy] = {"steps": ["prefill", "decode1", "decode2"],
+                         **bf16_logits_gate(logits["cuda"], logits["ref"],
+                                            f"bf16_serving over {policy} pages")}
+    emit({"phase": "bf16_serving", "arch": cfg.name, "dtype": "bfloat16", "kv": "int8",
+          "requests": len(prompts), "new_tokens": BF16_NEW_TOKENS, "page": SERVING_PAGE,
+          "prefill_ms": eng.prefill_seconds * 1e3, "decode_steps": eng.decode_steps,
+          "decode_ms_per_step": eng.decode_seconds * 1e3 / eng.decode_steps,
+          "decode_tokens_per_s": eng.decode_tokens / eng.decode_seconds, "wall_s": wall,
+          "max_memory_allocated": peak, "launches": launches,
+          "token_agreement_int8_backbone": [
+              float(np.mean([a == b for a, b in zip(s_, t[:BF16_NEW_TOKENS])]))
+              for s_, t in zip(streams, keep["streams"])],
+          "cuda_vs_ref": gates, "seconds": time.perf_counter() - t0})
+    if launches["quant_matmul"] != 0 or min(launches["flash_attention"],
+                                            launches["paged_attention"]) <= 0:
+        raise AssertionError(f"bf16 serving launches: {launches}")
+    return launches, backbone
+
+
+def bf16_training_phase(backbone, cfg, gen: torch.Generator, r: int = 8):
+    """PAC+ on the bf16 backbone through the step entry points: from one
+    adapter, ``BF16_STEPS`` epoch-1 steps (``pac_train_step``, B = 4, S =
+    512: flash bf16 in the frozen forward, the bf16 taps through
+    ``mix_fwd``/``mix_dw``, the bf16 head through ``ce_fwd``/``ce_bwd``),
+    then as many cached steps on the first step's activations, under
+    ``cuda`` (launches counted) and ``ref``: the losses within ``BF16_TOL``,
+    the taps within ``BF16_FORM_FACTOR`` times the port's own move,
+    the cached steps fed the same bf16 entries. Returns (launches, the
+    ``cuda`` run's adapter)."""
+    from repro_torch.core.parallel_adapters import init_adapter
+    from repro_torch.core.steps import pac_cached_train_step, pac_train_step
+    from repro_torch.models.backbone import loss_head
+    from repro_torch.optim import adamw_init
+
+    t0 = time.perf_counter()
+    if loss_head(backbone, cfg).dtype != torch.bfloat16:
+        raise AssertionError("the bf16 head was copied to another dtype")
+    rng = np.random.default_rng(SEED)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, size=(4, 512)).astype(np.int32))
+             .to(DEV) for k in ("tokens", "labels")}
+    adapter0 = init_adapter(gen, cfg, r=r, device=DEV)
+    runs, cached = {}, None
+    for impl in ("cuda", "ref"):
+        adapter, opt = adapter0, adamw_init(adapter0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if impl == "cuda":
+            reset_launches()
+        losses, walls, acts = [], [], None
+        for _ in range(BF16_STEPS):
+            t = time.perf_counter()
+            loss, adapter, opt, out = pac_train_step(backbone, adapter, opt, batch, cfg=cfg, r=r,
+                                                     kernel_impl=impl)
+            losses.append(float(loss))
+            walls.append(time.perf_counter() - t)
+            acts = out if acts is None else acts
+        if cached is None:  # the cuda run's first activations feed both cached runs
+            cached = {"b0": acts[0], "taps": acts[1], "b_final": acts[2],
+                      "labels": batch["labels"]}
+        for _ in range(BF16_STEPS):
+            t = time.perf_counter()
+            loss, adapter, opt = pac_cached_train_step(backbone, adapter, opt, cached, cfg=cfg,
+                                                       r=r, kernel_impl=impl)
+            losses.append(float(loss))
+            walls.append(time.perf_counter() - t)
+        runs[impl] = {"losses": losses, "step_s": walls, "taps": acts[1],
+                      "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                      "adapter": adapter}
+        if impl == "cuda":
+            launches = {k: v for k, v in read_launches().items() if k in TRAINING_KERNELS}
+    dloss = [abs(a - b) for a, b in zip(runs["cuda"]["losses"], runs["ref"]["losses"])]
+    dtaps = max_err(runs["cuda"]["taps"], runs["ref"]["taps"])
+    tap_mag = max(float(runs["ref"]["taps"].float().abs().max()), 1.0)
+    taps_tol = BF16_FORM_FACTOR * BF16_OWN_MOVE["taps"]
+    emit({"phase": "bf16_training", "arch": cfg.name, "dtype": "bfloat16", "batch": 4, "seq": 512,
+          "epoch1_steps": BF16_STEPS, "cached_steps": BF16_STEPS,
+          "taps_dtype": str(runs["cuda"]["taps"].dtype).replace("torch.", ""),
+          **{f"{k}_{impl}": runs[impl][k] for impl in runs
+             for k in ("losses", "step_s", "max_memory_allocated")},
+          "abs_dloss": dloss, "max_abs_dtaps": dtaps, "taps_scale": tap_mag,
+          "launches": launches, "launches_per_step": {  # flash runs in epoch 1 only
+              k: v / (BF16_STEPS if k == "flash_attention" else 2 * BF16_STEPS)
+              for k, v in launches.items()},
+          "tol": {"loss": BF16_TOL, "taps": taps_tol},
+          "tol_reason": BF16_TOL_REASON + "; taps within BF16_FORM_FACTOR times the port's own "
+                                          "move (BF16_OWN_MOVE)",
+          "seconds": time.perf_counter() - t0})
+    finite = all(np.isfinite(runs[i]["losses"]).all() for i in runs)
+    if not (finite and max(dloss) <= BF16_TOL and dtaps <= taps_tol):
+        raise AssertionError(f"bf16 training cuda vs ref: dloss {dloss}, dtaps {dtaps}")
+    if runs["cuda"]["taps"].dtype != torch.bfloat16:
+        raise AssertionError(f"bf16 taps left as {runs['cuda']['taps'].dtype}")
+    if (launches["quant_matmul"] != 0 or launches["flash_attention"] != BF16_STEPS * cfg.n_layers
+            or min(launches[k] for k in TRAINING_KERNELS[2:]) <= 0):
+        raise AssertionError(f"bf16 training launches: {launches}")
+    return launches, runs["cuda"]["adapter"]
+
+
+def bf16_personal_phase(backbone, adapter, cfg, r: int = 8) -> dict:
+    """The trained adapter served to one user on the bf16 backbone: the
+    prompt's prefill (``prefill_step``, flash bf16) under ``cuda`` and
+    ``ref``, then ``BF16_PERSONAL_STEPS`` ``pac_decode_step``s at B = 1 over
+    the linear f32 KV cache (``BF16_PERSONAL_PROMPT`` teacher-forced, then
+    the ``cuda`` run's greedy tokens, fed to ``ref`` too), the λ-mix through
+    ``adapter_fuse`` on the bf16 taps with an f32 output: each step's
+    logits within 2e-4 (the ``personal_gap``), greedy tokens equal; the
+    prompt's last logits by :func:`bf16_logits_gate`."""
+    from repro_torch.core.parallel_adapters import init_adapter_cache
+    from repro_torch.core.steps import pac_decode_step, prefill_step
+    from repro_torch.models.backbone import init_cache
+
+    t0 = time.perf_counter()
+    n_prompt, n_steps, max_len = BF16_PERSONAL_PROMPT, BF16_PERSONAL_STEPS, 16
+    prompt = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, size=(1, PROMPT_LEN)).astype(np.int32)).to(DEV)
+    reset_launches()
+    pre = {impl: prefill_step(backbone, {"tokens": prompt}, cfg=cfg, kernel_impl=impl)
+           for impl in ("cuda", "ref")}
+    prefill_launches = read_launches()["flash_attention"]
+
+    def serve(impl, feed=None):
+        cache = init_cache(cfg, 1, max_len, device=DEV)
+        acache = init_adapter_cache(cfg, 1, max_len, r, device=DEV)
+        logits, fed, tok = [], [], prompt[:, :1]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for p in range(n_steps):
+            lg, cache, acache = pac_decode_step(
+                backbone, adapter, {"tokens": tok}, cache, acache,
+                torch.full((1,), p, dtype=torch.long, device=DEV), cfg=cfg, r=r,
+                kernel_impl=impl)
+            logits.append(lg[:, 0])
+            tok = (prompt[:, p + 1:p + 2] if p + 1 < n_prompt else feed[p + 1]
+                   if feed is not None else lg[:, 0].argmax(-1, keepdim=True).int())
+            fed.append(tok)
+        torch.cuda.synchronize()
+        return logits, [prompt[:, :1]] + fed, time.perf_counter() - t
+
+    serve("cuda")  # warm-up
+    reset_launches()
+    cuda = serve("cuda")
+    ref_run = serve("ref", feed=cuda[1])
+    launches = {k: v for k, v in read_launches().items()
+                if k in ("quant_matmul", "flash_attention", "adapter_fuse")}
+    gap = [max_err(a, b) for a, b in zip(cuda[0], ref_run[0])]
+    tokens_equal = [bool(torch.equal(a.argmax(-1), b.argmax(-1)))
+                    for a, b in zip(cuda[0][n_prompt - 1:], ref_run[0][n_prompt - 1:])]
+    finite = all(bool(torch.isfinite(t).all()) for t in cuda[0] + ref_run[0])
+    gate = {"personal_gap_per_step": gap, "greedy_equal": tokens_equal, "tol": 2e-4,
+            "tol_reason": "the reference's decode-parity ceiling over f32 KV "
+                          "(tests/test_decode_parity.py:36), as every personal_gap"}
+    if not (finite and max(gap) <= 2e-4 and all(tokens_equal)):
+        raise AssertionError(f"bf16_personal cuda vs ref: gap {gap}, greedy equal "
+                             f"{tokens_equal}, finite {finite}")
+    pre_gate = bf16_logits_gate([pre["cuda"][:, -1]], [pre["ref"][:, -1]],
+                                "bf16_personal prefill", "personal_prefill")
+    emit({"phase": "bf16_personal", "arch": cfg.name, "dtype": "bfloat16", "batch": 1, "kv": "f32",
+          "steps": n_steps, "prompt_tokens": n_prompt, "prefill_tokens": PROMPT_LEN,
+          "prefill_last_token": pre_gate, "prefill_flash_launches": prefill_launches,
+          "decode_ms_per_step": cuda[2] * 1e3 / n_steps,
+          "ref_decode_ms_per_step": ref_run[2] * 1e3 / n_steps,
+          "launches": launches,
+          "launches_per_step": {k: v / n_steps for k, v in launches.items()},
+          "tokens_cuda": [int(t) for t in torch.cat(cuda[1][n_prompt:-1])],
+          "cuda_vs_ref": gate, "seconds": time.perf_counter() - t0})
+    if (launches["adapter_fuse"] != n_steps * cfg.n_periods or launches["quant_matmul"] != 0
+            or prefill_launches != cfg.n_layers):
+        raise AssertionError(f"bf16 personal launches: {launches}, prefill flash "
+                             f"{prefill_launches}")
+    return {**launches, "flash_attention": prefill_launches}
+
+
+def bf16_own_move() -> dict:
+    """The yardstick of the bf16 gates (``python3 chip_smoke.py
+    --bf16-own-move``): the port's own move on the bf16 internlm2-1.8b at
+    full width and depth, the ``ref`` OpSet on the card against the same
+    program on the host's CPU on the same weights and inputs, so that only
+    the order of the f32 sums under each bf16 rounding differs. Measured
+    at the bf16 phases' shapes: the serving cell's 8 prompts' prefill and
+    two decode steps over int8, bf16 and f32 pages (the card's greedy
+    tokens fed to both; per row the two runs' greedy tokens and the
+    card's top-2 margin), one epoch-1 step of 4 x 512 (the loss and the
+    bf16 taps) and the personal prompt's prefill; ``cuda`` on the card
+    beside each, against the card's ``ref``. Prints one line, returns it."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.parallel_adapters import init_adapter
+    from repro_torch.core.quantization import tree_map
+    from repro_torch.core.steps import pac_train_step, prefill_step
+    from repro_torch.models.backbone import init_backbone
+    from repro_torch.optim import adamw_init
+
+    t0 = time.perf_counter()
+    cfg = get_arch(SERVING_ARCH)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    backbone = init_backbone(gen, cfg, device=DEV, dtype=torch.bfloat16)
+    users = {f"user{u}": init_adapter(gen, cfg, r=SERVING_R, device=DEV) for u in range(4)}
+    adapter0 = init_adapter(gen, cfg, r=8, device=DEV)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab, size=int(n)).tolist()
+               for n in rng.integers(64, 481, size=8)]
+    rows = serving_adapters(users, len(prompts))
+
+    def host(tree):
+        return tree_map(lambda t: t.cpu() if isinstance(t, torch.Tensor) else t, tree)
+
+    on = {"card": (backbone, DEV), "cpu": (host(backbone), "cpu")}
+    line = {"phase": "bf16_own_move", "arch": cfg.name, "dtype": "bfloat16",
+            "cpu_threads": torch.get_num_threads(), "serving": {}}
+    s_pad = _bucket(max(map(len, prompts)), 1 << 30)
+    for policy in ("int8", "bf16", "f32"):
+        lg = paged_cuda_vs_ref(backbone, cfg, rows, prompts, SERVING_PAGE, SERVING_MAX_LEN,
+                               SERVING_R, s_pad, kv_policy=policy, runs={
+                                   "card": ("ref", backbone, rows, DEV),
+                                   "cpu": ("ref", on["cpu"][0], host(rows), "cpu"),
+                                   "cuda": ("cuda", backbone, rows, DEV)})
+        card = [t.float().cpu() for t in lg["card"]]
+        cpu = [t.float() for t in lg["cpu"]]
+        cuda = [t.float().cpu() for t in lg["cuda"]]
+        top2 = [t.topk(2, dim=-1).values for t in card]
+        line["serving"][policy] = {
+            "steps": ["prefill", "decode1", "decode2"],
+            "card_vs_cpu": [max_err(a, b) for a, b in zip(card, cpu)],
+            "cuda_vs_card": [max_err(a, b) for a, b in zip(cuda, card)],
+            "greedy_equal_card_cpu": [(a.argmax(-1) == b.argmax(-1)).tolist()
+                                      for a, b in zip(card, cpu)],
+            "greedy_equal_cuda_card": [(a.argmax(-1) == b.argmax(-1)).tolist()
+                                       for a, b in zip(cuda, card)],
+            "card_top2_margin": [(t[:, 0] - t[:, 1]).tolist() for t in top2],
+            "logit_scale": max(float(t.abs().max()) for t in card)}
+        emit({"bf16_own_move_serving": policy, **line["serving"][policy]})
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, size=(4, 512)).astype(np.int32))
+             for k in ("tokens", "labels")}
+    train = {}
+    for name, impl, (bb, dev) in (("card", "ref", on["card"]), ("cpu", "ref", on["cpu"]),
+                                  ("cuda", "cuda", on["card"])):
+        ad = tree_map(lambda t, dev=dev: t.to(dev), adapter0)
+        loss, _, _, out = pac_train_step(bb, ad, adamw_init(ad),
+                                         {k: v.to(dev) for k, v in batch.items()}, cfg=cfg, r=8,
+                                         kernel_impl=impl)
+        train[name] = (float(loss), out[1].float().cpu())
+        del out
+    prompt = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, size=(1, PROMPT_LEN)).astype(np.int32))
+    pre = {name: prefill_step(on[dev_of][0], {"tokens": prompt.to(on[dev_of][1])}, cfg=cfg,
+                              kernel_impl=impl)[:, -1].float().cpu()
+           for name, impl, dev_of in (("card", "ref", "card"), ("cpu", "ref", "cpu"),
+                                      ("cuda", "cuda", "card"))}
+    line.update({
+        "training": {"batch": 4, "seq": 512, "losses": {k: v[0] for k, v in train.items()},
+                     "card_vs_cpu_loss": abs(train["card"][0] - train["cpu"][0]),
+                     "cuda_vs_card_loss": abs(train["cuda"][0] - train["card"][0]),
+                     "card_vs_cpu_taps": max_err(train["card"][1], train["cpu"][1]),
+                     "cuda_vs_card_taps": max_err(train["cuda"][1], train["card"][1]),
+                     "taps_scale": float(train["card"][1].abs().max())},
+        "personal_prefill": {"tokens": PROMPT_LEN,
+                             "card_vs_cpu": max_err(pre["card"], pre["cpu"]),
+                             "cuda_vs_card": max_err(pre["cuda"], pre["card"])},
+        "seconds": time.perf_counter() - t0})
+    emit({k: v for k, v in line.items() if k != "serving"})
+    return line
 
 
 # ---------------------------------------------------------------- training kernels
@@ -3588,7 +4108,8 @@ PROMPT_LEN, N_GREEDY, PERSONAL_MAX_LEN = 32, 32, 64
 def personal_kernel_phase(timer: Timer, gen: torch.Generator):
     """``adapter_fuse`` against its plain version (f32 and bf16, λ in
     {0, 0.5, 1}) at the decode shapes T = 1 and 8, the training width
-    T = 2048, and ragged shapes on both paths (the split-K path at T = 1
+    T = 2048 (there also a bf16 b beside an f32 W and a, the bf16
+    backbone's mix, whose output is f32), and ragged shapes on both paths (the split-K path at T = 1
     and 8 with a partial 32-row slice of d, a partial 128-column block
     and 32 or 47 slices; the tiled path at T = 100), each timed beside
     the plain version and ``torch.addmm``; ``quant_matmul`` at the decode step's M = 1; flash
@@ -3655,6 +4176,21 @@ def personal_kernel_phase(timer: Timer, gen: torch.Generator):
                 rows["adapter_fuse"] = _row(r, "one period's mix at decode, T=1, d=2048, "
                                                "d_a=256, f32 (PERF.md also lists T=2048)")
             del ws
+        if d == PERSONAL_D:  # the bf16 backbone's mix: a bf16 tap, the f32 adapter, f32 out
+            b, err = b32.to(torch.bfloat16), 0.0
+            for lam_v in (0.0, 0.5, 1.0):
+                lam = torch.tensor(lam_v, device=dev)
+                got, want = adapter_fuse(b, w32, a32, lam), ref.adapter_fuse_ref(b, w32, a32, lam)
+                if got.dtype != torch.float32 or got.shape != (T, da):
+                    raise AssertionError(f"adapter_fuse gave {got.dtype} {tuple(got.shape)}")
+                err = max(err, max_err(got, want))
+                check(f"adapter_fuse T={T} d={d} da={da} b bf16, W and a f32 lam={lam_v}",
+                      max_err(got, want), 1e-4)
+            emit({"check": "adapter_fuse", "T": T, "d": d, "da": da,
+                  "dtype": "b bf16, W and a f32, out f32", "lambdas": [0.0, 0.5, 1.0],
+                  "max_abs_err": err, "tol": "atol 0.0001", "path": "split-K" if T <= 8
+                  else "tiled", "tol_reason": reason[torch.float32] + "; the bf16 b is exact "
+                                                                    "on the tensor cores"})
     qmm = {(1, K, N, 8): qmm_case(timer, gen, 1, K, N, 8) for K, N in QMM_SHAPES}
     emit({"check": "quant_matmul_layer", "M": 1, **layer_row(qmm, 1)})
     skinny_reruns(gen)
@@ -4296,7 +4832,7 @@ def mixtral_serving_phase(gen: torch.Generator, arch: str = MIXTRAL,
     over 8 kv heads, 8 experts of 14336 top-2, window 4096, V = 32000),
     random seeded INT8 weights (46.7 B parameters), 4 users with r = 8
     adapters, INT8 KV pages of 16, through ``ServeEngine``: the serving
-    phase's 8 requests (64-480-token prompts), 32 new tokens each. Then
+    phase's 8 requests (64-480-token prompts), 16 new tokens each. Then
     their prefill and two decode steps under ``cuda`` and ``ref`` with
     every layer's routes recorded: in every layer at least 99.9 % of the
     tokens routed alike; where a request's tokens routed alike in every
@@ -4315,7 +4851,7 @@ def mixtral_serving_phase(gen: torch.Generator, arch: str = MIXTRAL,
     from repro_torch.serve import ServeEngine
 
     cfg = get_arch(arch)
-    page, max_batch, n_new, r = 16, 8, 32, 8
+    page, max_batch, n_new, r = 16, 8, SERVING_NEW_TOKENS, 8
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4424,9 +4960,9 @@ def mixtral_serving_phase(gen: torch.Generator, arch: str = MIXTRAL,
 
 def mixtral_personal_phase(backbone, adapter, cfg, r: int = 8,
                            phase: str = "mixtral_personal") -> dict:
-    """The trained mixtral-8x7b adapter served to one user: 16
-    ``pac_decode_step``s at B = 1 over an f32 linear KV cache, 8
-    teacher-forced prompt tokens then 8 greedy, under ``cuda`` (launches
+    """The trained mixtral-8x7b adapter served to one user:
+    ``PERSONAL_STEPS`` ``pac_decode_step``s at B = 1 over an f32 linear KV cache, 8
+    teacher-forced prompt tokens then greedy, under ``cuda`` (launches
     counted: ``adapter_fuse`` 32 and ``quant_matmul`` 128 a step) and
     ``ref``, every layer's routes recorded: where the routes agree in
     every layer of every step so far, the step's logits within 2e-4 (the
@@ -4442,7 +4978,7 @@ def mixtral_personal_phase(backbone, adapter, cfg, r: int = 8,
     from repro_torch.models.backbone import init_cache
     from repro_torch.models.moe import record_routes, replay_routes
 
-    n_prompt, n_steps, max_len = 8, 16, 16
+    n_prompt, n_steps, max_len = 8, PERSONAL_STEPS, 16
     prompt = torch.from_numpy(np.random.default_rng(SEED).integers(
         0, cfg.vocab, size=(1, n_prompt)).astype(np.int32)).to(DEV)
 
@@ -4541,7 +5077,7 @@ def gemma2_serving_phase(gen: torch.Generator, arch: str = GEMMA2,
     soft-caps 50 and 30, tied embeddings), random seeded INT8 weights, 4
     users with r = 8 adapters, INT8 KV pages of 16, through
     ``ServeEngine``: the serving phase's 8 requests (64-480-token prompts)
-    and a ninth of 4500 tokens, 32 new tokens each. The long prompt runs
+    and a ninth of 4500 tokens, 16 new tokens each. The long prompt runs
     its own wave (bucket 1, padded to 8192): flash prefill and paged
     decode both cross the window. Then the 8 requests' prefill and two
     decode steps, and the long request's, under ``cuda`` and ``ref``:
@@ -4555,7 +5091,7 @@ def gemma2_serving_phase(gen: torch.Generator, arch: str = GEMMA2,
     from repro_torch.serve import ServeEngine
 
     cfg = get_arch(arch)
-    page, max_batch, n_new, r = 16, 8, 32, 8
+    page, max_batch, n_new, r = 16, 8, SERVING_NEW_TOKENS, 8
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4773,9 +5309,9 @@ def pac_run(arch: str, epochs: int = 2, steps: int = 2, profile: bool = False,
 
 def gemma2_personal_phase(backbone, adapter, cfg, r: int = 8, phase: str = "gemma2_personal",
                           qmm_per_layer: int = 7) -> dict:
-    """The trained gemma2-2b adapter served to one user: 16
-    ``pac_decode_step``s at B = 1 over an f32 linear KV cache, 8
-    teacher-forced prompt tokens then 8 greedy, under ``cuda`` (launches
+    """The trained gemma2-2b adapter served to one user:
+    ``PERSONAL_STEPS`` ``pac_decode_step``s at B = 1 over an f32 linear KV cache, 8
+    teacher-forced prompt tokens then greedy, under ``cuda`` (launches
     counted: ``adapter_fuse`` 13 and ``quant_matmul`` 182 a step) and
     ``ref``: each step's logits within 2e-4 (the ``personal_gap``), the
     greedy tokens equal. Another config's trained adapter likewise, as
@@ -4786,7 +5322,7 @@ def gemma2_personal_phase(backbone, adapter, cfg, r: int = 8, phase: str = "gemm
     from repro_torch.core.steps import pac_decode_step
     from repro_torch.models.backbone import init_cache
 
-    n_prompt, n_steps, max_len = 8, 16, 16
+    n_prompt, n_steps, max_len = 8, PERSONAL_STEPS, 16
     prompt = torch.from_numpy(np.random.default_rng(SEED).integers(
         0, cfg.vocab, size=(1, n_prompt)).astype(np.int32)).to(DEV)
 
@@ -4877,7 +5413,8 @@ def musicgen_phase(gen: torch.Generator) -> dict:
 # ------------------------------------------------------- baselines, distill
 
 BASELINE_MODELS = ("t5-base-pac", "internlm2-1.8b")  # Table V's model; the training cell's
-BASELINE_B, BASELINE_S, BASELINE_STEPS = 4, 512, 3  # timed steps, after one warm-up
+BASELINE_B, BASELINE_S, BASELINE_STEPS = 4, 512, 2  # timed steps, after one warm-up
+PROFILED_BASELINES = ("internlm2-1.8b",)  # the models whose rows also profile a step
 BASELINES = ("full", "lora", "adapters")
 T5_PROJECTIONS = [(768, 768)] * 4 + [(768, 3072), (768, 3072), (3072, 768)]
 T5_DA, T5_V = 96, 32128  # adapter width at r = 8; vocabulary
@@ -4942,10 +5479,11 @@ def width_kernel_phase(gen: torch.Generator, arch: str, projections, H: int, hd:
                  "2e-5 + rtol 1e-5; ce_bwd atol 1e-5 + rtol 1e-4 (the training shapes')"})
 
 
-def _timed_steps(step, tree, n: int = BASELINE_STEPS) -> dict:
+def _timed_steps(step, tree, n: int = BASELINE_STEPS, profile: bool = True) -> dict:
     """``step(tree, opt) -> (loss, tree', opt', ...)`` from ``tree`` and a
     fresh AdamW state: one warm-up step, then ``n`` timed ones on the same
-    batch, each ending in a sync, then one more under the profiler.
+    batch, each ending in a sync, then with ``profile`` one more under the
+    profiler.
     Returns the per-step walls, the timed steps' losses, the peak memory
     from the warm-up on, the kernels' launches a timed step and the
     profiled step's device busy share, host ops and top kernels. The
@@ -4969,10 +5507,11 @@ def _timed_steps(step, tree, n: int = BASELINE_STEPS) -> dict:
     out = {"step_s": walls, "losses": losses,
            "launches_per_step": {k: v / n for k, v in read_launches().items() if v},
            "max_memory_allocated": torch.cuda.max_memory_allocated()}
-    state = [tree, opt]
-    del tree, opt
-    prof = device_profile(lambda: state.__setitem__(slice(None), step(*state)[1:3]))
-    out["profile"] = dict(prof, kernels_by_device_ms=prof["kernels_by_device_ms"][:5])
+    if profile:
+        state = [tree, opt]
+        del tree, opt
+        prof = device_profile(lambda: state.__setitem__(slice(None), step(*state)[1:3]))
+        out["profile"] = dict(prof, kernels_by_device_ms=prof["kernels_by_device_ms"][:5])
     return out
 
 
@@ -5057,7 +5596,7 @@ def baselines_phase() -> dict:
     ``pac`` and ``pac_cached`` (r = 8) under the ``ref`` OpSet on the same
     backbone, and ``pac``/``pac_cached`` under ``cuda`` on its INT8
     quantization (int8 taps), as the training cell runs them. Per row: the
-    median per-sample ms of 3 timed steps after a warm-up on one repeated
+    median per-sample ms of 2 timed steps after a warm-up on one repeated
     batch, the peak memory, the trainable parameters, the losses, the
     kernels' launches a step; per model the savings of
     ``bench_step_time.py:81-86`` (reported, not gated). Gates: (a) LoRA's
@@ -5087,6 +5626,10 @@ def baselines_phase() -> dict:
         houlsby = peft.init_houlsby(gen, cfg, device=DEV)
         adapter = init_adapter(gen, cfg, 8, device=DEV)
         rows = {}
+
+        def timed(step, tree):  # t5-base-pac's rows are timed, not profiled (the budget)
+            return _timed_steps(step, tree, profile=arch in PROFILED_BASELINES)
+
         # the INT8 backbone first, drawn and quantized leaf by leaf (the f32
         # tree is never resident), then the f32 one from the same seed: each
         # row's peak holds only the backbone it trains on
@@ -5101,8 +5644,8 @@ def baselines_phase() -> dict:
                 cached.update(zip(("b0", "taps", "b_final"), out[3]))
                 return out
 
-            rows["pac" + suffix] = _timed_steps(pac, adapter)
-            rows["pac_cached" + suffix] = _timed_steps(
+            rows["pac" + suffix] = timed(pac, adapter)
+            rows["pac_cached" + suffix] = timed(
                 lambda t, o, bb=bb, impl=impl, cached=cached: steps.pac_cached_train_step(
                     bb, t, o, cached, cfg=cfg, r=8, kernel_impl=impl), adapter)
             for name in ("pac" + suffix, "pac_cached" + suffix):
@@ -5122,15 +5665,15 @@ def baselines_phase() -> dict:
         del want
         params = {"full": peft.peft_param_count(backbone), "lora": peft.peft_param_count(lora),
                   "adapters": peft.peft_param_count(houlsby), "pac": peft.peft_param_count(adapter)}
-        rows["lora"] = _timed_steps(
+        rows["lora"] = timed(
             lambda t, o: steps.lora_train_step(backbone, t, o, batch, cfg=cfg), lora)
-        rows["adapters"] = _timed_steps(
+        rows["adapters"] = timed(
             lambda t, o: steps.houlsby_train_step(backbone, t, o, batch, cfg=cfg), houlsby)
         del lora, houlsby, adapter, backbone
         torch.cuda.empty_cache()
         # full fine-tuning last: its steps replace the backbone, of which no
         # other reference is left
-        rows["full"] = _timed_steps(lambda t, o: steps.full_train_step(t, o, batch, cfg=cfg),
+        rows["full"] = timed(lambda t, o: steps.full_train_step(t, o, batch, cfg=cfg),
                                     held.pop("backbone"))
         torch.cuda.empty_cache()
         for name, row in rows.items():
@@ -5229,7 +5772,7 @@ def distill_phase(gen: torch.Generator) -> dict:
 
 XLSTM, JAMBA = "xlstm-125m", "jamba-1.5-large-398b"
 XLSTM_D, XLSTM_DA, XLSTM_V = 768, 96, 50304  # r = 8
-XLSTM_MAX_LEN, XLSTM_SLOTS = 320, 4  # prompts of 64-256 tokens + 32 new; 8 requests, 4 slots
+XLSTM_MAX_LEN, XLSTM_SLOTS = 320, 4  # prompts of 32-128 tokens + 16 new; 8 requests, 4 slots
 #: the stepwise path's last prompt logits against one pass over the prompt
 #: at xlstm's full width and depth
 STEPWISE_TOL = 5e-2
@@ -5309,7 +5852,7 @@ def xlstm_serving_phase(gen: torch.Generator) -> dict:
     """xlstm-125m at full width and depth (12 layers: 9 mLSTM, 3 sLSTM,
     d 768, 4 heads, V 50304), random seeded INT8 weights, 4 users with
     r = 8 adapters, through ``ServeEngine``'s stepwise path: 8 requests of
-    64-256 prompt tokens, 32 new tokens each, 4 slots (so 4 requests are
+    32-128 prompt tokens, 16 new tokens each, 4 slots (so 4 requests are
     admitted into retired rows), under ``cuda`` and ``ref``: every
     stream equal. Then 16 teacher-forced steps of the 8 requests under
     both OpSets (logits within 2e-2, greedy tokens equal), and the first
@@ -5325,7 +5868,7 @@ def xlstm_serving_phase(gen: torch.Generator) -> dict:
     from repro_torch.models.backbone import backbone_forward, init_backbone
 
     cfg = get_arch(XLSTM)
-    page, n_new, r = 16, 32, 8
+    page, n_new, r = 16, SERVING_NEW_TOKENS, 8
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -5335,7 +5878,7 @@ def xlstm_serving_phase(gen: torch.Generator) -> dict:
     init_s = time.perf_counter() - t0
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, cfg.vocab, size=int(n)).tolist()
-               for n in rng.integers(64, 257, size=8)]
+               for n in rng.integers(32, 129, size=8)]
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     eng, streams, wall = serve_streams(backbone, cfg, users, prompts, "cuda", n_new, page,
@@ -5890,7 +6433,7 @@ def moe_kernel_phase(timer: Timer, gen: torch.Generator, arch: str) -> dict:
 # ---------------------------------------------------------------- MoE and SSM, distributed
 
 MOE_DIST_LAYERS = 4  # mixtral-8x7b's depth on the distributed path: moe_dist_cut's reckoning
-SSM_PLAN_SEQ = 256  # xlstm's tokens a row on the plan path: half the training cell's
+SSM_PLAN_SEQ = 128  # xlstm's tokens a row on the plan path: a quarter of the training cell's
 #: xlstm-125m's 3 periods over 2 stages, 2 devices each: the only 2-stage layout (ragged)
 SSM_PLAN_LAYERS = ((0, 0), (1, 2))
 #: each family's distributed path at the shapes one rank gives its kernels: (quant_matmul's
@@ -6385,7 +6928,12 @@ def priced_mesh_bytes(spec, first_runs: dict) -> dict:
     return {"priced_bytes_per_step": priced, "priced_bytes_equal": equal}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description="Drive the port on one NVIDIA card.")
+    parser.add_argument("--bf16-own-move", action="store_true",
+                        help="build, then measure only the bf16 gates' yardstick "
+                             "(bf16_own_move) and exit")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -6413,6 +6961,10 @@ def main() -> int:
             elif "Used" in line or "spill" in line:
                 print(f"ptxas {name} {entry}: {line.strip()}", flush=True)
 
+    if args.bf16_own_move:
+        bf16_own_move()
+        print(card_line(), flush=True)
+        return 0
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     # each path's kernels are checked just before the path runs, so that
     # no path's measurements carry another's leftovers
@@ -6430,8 +6982,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows["quant_matmul"]["int4"] = int4_kernel_phase(Timer(), gen)
     a8["int4_serving"], int4_backbone = int4_serving_phase(gen, keep)
-    del int4_backbone, keep
+    del int4_backbone
     torch.cuda.empty_cache()
+    # the reference's bf16 backbone on the same users and prompts: its
+    # kernels' bf16 branches, then served, trained and personal-served
+    bf16_rows = bf16_kernel_phase(Timer(), gen)  # the kernels line's bf16 rows
+    a8["bf16_serving"], b_backbone = bf16_serving_phase(gen, keep)
+    del keep
+    a8["bf16_training"], b_adapter = bf16_training_phase(b_backbone, get_arch("internlm2-1.8b"),
+                                                         gen)
+    a8["bf16_personal"] = bf16_personal_phase(b_backbone, b_adapter,
+                                              get_arch("internlm2-1.8b"))
+    del b_backbone, b_adapter
+    torch.cuda.empty_cache()
+    bf16_done_s = time.perf_counter() - T_START
     with tempfile.TemporaryDirectory(prefix="chip_smoke_int4_") as int4_dir:
         a8["int4_training"], i_backbone, _ = pac_run(
             "internlm2-1.8b", quant=4, outputs=Path(int4_dir), path_branches=("int4 tiled",))
@@ -6640,6 +7204,8 @@ def main() -> int:
                     "ce_bwd": ["ce_split", "ce_grad_mma", "ce_dh_mma"],
                     "adapter_fuse": ["skinny::gemv (T <= 8)",
                                      "mix_fwd_mma + mix_fwd_reduce (T > 8)"]}
+    for name, row in bf16_rows.items():
+        rows[name]["bf16"] = row
     rows["quant_matmul"]["int4_branches_by_path"] = {
         p: paths[p]["quant_matmul_branches"] for p in ("int4_serving", "int4_training",
                                                        "int4_personal")}
@@ -6651,7 +7217,8 @@ def main() -> int:
          **rows[name]}
         for name, (src, rep) in sources.items()]})
     emit({"phase": "done", "wall_s": time.perf_counter() - T_START,
-          "through_serving_s": serving_done_s, "through_int4_and_pages_s": a8_done_s,
+          "through_serving_s": serving_done_s, "through_bf16_s": bf16_done_s,
+          "through_int4_and_pages_s": a8_done_s,
           "through_training_s": training_done_s,
           "through_personal_s": personal_done_s, "through_prefetch_s": prefetch_done_s,
           "through_distributed_s": distributed_done_s, "through_plan_s": plan_done_s,

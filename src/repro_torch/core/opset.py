@@ -81,8 +81,11 @@ class OpSet:
     def adapter_mix(self, b, w_down, a, lam):
         """The adapter's per-period mix ``λ·(b @ w_down) + (1−λ)·a``.
         b (B,S,d); a (B,S,d_a); w_down (d, d_a), or (B, d, d_a) with one
-        adapter per request row; λ a 0-d tensor in [0, 1] (or (B,1,1))."""
-        return lam * (b @ w_down) + (1.0 - lam) * a
+        adapter per request row; λ a 0-d tensor in [0, 1] (or (B,1,1)).
+        A bf16 ``b`` meets an f32 ``w_down`` in f32, as under JAX."""
+        from repro_torch.models.layers import promoted_matmul
+
+        return lam * promoted_matmul(b, w_down) + (1.0 - lam) * a
 
     def rms_norm(self, x, weight, eps: float = 1e-6):
         from repro_torch.models.layers import rms_norm

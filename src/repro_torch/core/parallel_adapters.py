@@ -32,7 +32,7 @@ from repro_torch.models.backbone import (
     logits_from_hidden,
     period_slice,
 )
-from repro_torch.models.layers import LeafMaker, rms_norm
+from repro_torch.models.layers import LeafMaker, promoted_matmul, rms_norm
 
 
 def adapter_config(cfg, r: int = 8):
@@ -105,11 +105,14 @@ def adapter_forward(adapter_params, cfg, b0, taps, positions, r: int = 8):
     acfg = adapter_config(cfg, r)
     downs = adapter_params["downs"]
     lambdas = torch.clamp(adapter_params["lambda"], 0.0, 1.0)
-    a = b0 @ downs[0]
+    # a bf16 backbone's b0 and taps meet the f32 adapter in f32 (JAX's
+    # promotion); the mix is cast back to the carry's dtype, as the
+    # reference's ``mixed.astype(a_prev.dtype)``
+    a = promoted_matmul(b0, downs[0])
     blocks = adapter_params["blocks"]
     for i in range(cfg.n_periods):
         lam = lambdas[i]
-        h = (lam * (taps[i] @ downs[i + 1]) + (1.0 - lam) * a).to(a.dtype)
+        h = (lam * promoted_matmul(taps[i], downs[i + 1]) + (1.0 - lam) * a).to(a.dtype)
         for spec, p in zip(acfg.pattern, period_slice(blocks, i)):
             h = apply_block(p, h, acfg, spec, positions)
         a = h
@@ -191,7 +194,7 @@ def adapter_decode(adapter_params, cfg, b0_t, taps_t, cache, pos, r: int = 8, op
     acfg = adapter_config(cfg, r)
     downs = adapter_params["downs"]
     lambdas = torch.clamp(adapter_params["lambda"], 0.0, 1.0)
-    a = b0_t @ downs[0]
+    a = promoted_matmul(b0_t, downs[0])
     blocks = adapter_params["blocks"]
     for i in range(cfg.n_periods):
         h = ops.adapter_mix(taps_t[i], downs[i + 1], a, lambdas[i]).to(a.dtype)
@@ -231,13 +234,14 @@ def adapter_prefill(adapter_params, cfg, b0, taps, positions, max_len: int, r: i
         raise ValueError(f"prompt length {S} exceeds max_len {max_len}")
     downs = adapter_params["downs"]
     lambdas = torch.clamp(adapter_params["lambda"], 0.0, 1.0)
-    a = b0 @ downs[0]
+    a = promoted_matmul(b0, downs[0])
     B = b0.shape[0]
-    caches = init_cache(acfg, B, max_len, dtype=b0.dtype, device=b0.device)
+    # the adapter's K/V in its carry's dtype (f32 beside a bf16 backbone)
+    caches = init_cache(acfg, B, max_len, dtype=a.dtype, device=b0.device)
     blocks = adapter_params["blocks"]
     for i in range(cfg.n_periods):
         lam = lambdas[i]
-        h = (lam * (taps[i] @ downs[i + 1]) + (1.0 - lam) * a).to(a.dtype)
+        h = (lam * promoted_matmul(taps[i], downs[i + 1]) + (1.0 - lam) * a).to(a.dtype)
         for j, (spec, p) in enumerate(zip(acfg.pattern, period_slice(blocks, i))):
             h, (k, v) = apply_block(p, h, acfg, spec, positions, return_kv=True)
             caches[j]["k"][i, :, :S] = k

@@ -5,10 +5,12 @@ Replaces the TPU kernel ``src/repro/kernels/adapter_fuse.py``
 (``_kernel`` / ``adapter_fuse``), with the CUDA kernel
 ``csrc/adapter_fuse.cu``. ``b`` (T, d) and ``W_down`` (d, d_a) are f32
 or bf16, ``a`` (T, d_a) f32 or bf16; the product is accumulated in f32
-and the result is in ``b``'s dtype. Ragged T, d and d_a are masked in
-the kernel (no padding copies). λ is a 0-d f32 tensor on the card,
-already clamped to [0, 1], read by the kernel: a host read per period
-would stall the stream 24 times a decode step.
+and the result is in JAX's promotion of ``b``'s and ``w_down``'s dtypes
+(bf16 only where both are; a bf16 tap mixed into the f32 adapter gives
+f32). Ragged T, d and d_a are masked in the kernel (no padding copies).
+λ is a 0-d f32 tensor on the card, already clamped to [0, 1], read by
+the kernel: a host read per period would stall the stream 24 times a
+decode step.
 
 What bounds it on the H100: on the serving path (``pac_decode_step``,
 one call per period) T is the batch (1 at B = 1), d = 2048 and
@@ -60,7 +62,8 @@ def _lib():
 
 
 def adapter_fuse(b: torch.Tensor, w_down: torch.Tensor, a: torch.Tensor, lam) -> torch.Tensor:
-    """``λ·(b @ w_down) + (1−λ)·a`` -> (T, d_a) in ``b``'s dtype.
+    """``λ·(b @ w_down) + (1−λ)·a`` -> (T, d_a) in the promotion of
+    ``b``'s and ``w_down``'s dtypes, as JAX gives ``b @ w_down``.
 
     b: (T, d); w_down: (d, d_a); a: (T, d_a); λ: a scalar in [0, 1] — on
     the card a 0-d (or one-element) f32 tensor on ``b``'s device."""
@@ -84,7 +87,7 @@ def adapter_fuse(b: torch.Tensor, w_down: torch.Tensor, a: torch.Tensor, lam) ->
             and lam.device == b.device, "λ must be a one-element f32 tensor on b's device")
     require(b.is_contiguous() and w_down.is_contiguous() and a.is_contiguous(),
             "b, w_down, a must be contiguous")
-    out = torch.empty((T, da), dtype=b.dtype, device=b.device)
+    out = torch.empty((T, da), dtype=torch.promote_types(b.dtype, w_down.dtype), device=b.device)
     if T == 0 or da == 0:
         return out
     lib = _lib()

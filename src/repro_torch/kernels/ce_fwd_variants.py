@@ -42,7 +42,7 @@ import torch
 from repro_torch.kernels import _build, lmhead_ce, ref
 
 K32 = [("BK = 64;                   // contraction per stage", "BK = 32;")]
-ONE = [("for (int ord = 2; ord >= 0; --ord)", "for (int ord = 0; ord >= 0; --ord)")]
+ONE = [("for (int ord = OMAX; ord >= 0; --ord)", "for (int ord = 0; ord >= 0; --ord)")]
 NO_MMA = [("mma_bf16(part[mm][ni], af[mm][i], bf[ord - i][ni]);", "{}")]
 VARIANTS = {
     "shipped": [],

@@ -3,7 +3,9 @@
 //
 // Replaces the TPU kernel src/repro/kernels/adapter_fuse.py (_kernel /
 // adapter_fuse). b (T, d) f32 or bf16; W_down (d, da) f32 or bf16; a
-// (T, da) f32 or bf16; out (T, da) in b's type; all row-major. The
+// (T, da) f32 or bf16; out (T, da) bf16 where b and W both are, else f32
+// (JAX's promotion of b @ W: a bf16 tap mixed into the f32 adapter gives
+// f32); all row-major. The
 // product is accumulated in f32 and the mix is applied in f32 before the
 // one rounding to out's type. λ is a 0-d f32 device tensor, already
 // clamped to [0, 1], read here (a host read would stall the stream once
@@ -45,23 +47,23 @@
 
 namespace {
 
-template <typename TB, typename TW>
+template <typename TB, typename TW, typename TO>
 int launch(int a_bf16, const void* b, const void* w, const void* a, const void* lam, void* out,
            void* partial, int T, int d, int da, int ranks, int cols, cudaStream_t s) {
   if (T <= skinny::MAX_ROWS) {
     constexpr int KIND = sizeof(TW) == 4 ? skinny::F32 : skinny::BF16;
     return skinny::launch<KIND>((const TB*)b, w, nullptr,
-                                skinny::Mix<TB>{a, a_bf16, (const float*)lam, (TB*)out}, T, d,
+                                skinny::Mix<TO>{a, a_bf16, (const float*)lam, (TO*)out}, T, d,
                                 da, ranks, cols, s);
   }
   // tiled: b is the loop's entry, its own width d
   constexpr int KIND = sizeof(TB) == 4 ? mix_tile::F32 : mix_tile::BF16;
   if (a_bf16)
-    return mixfwd::launch<KIND, TW, __nv_bfloat16, TB>(
-        b, nullptr, (const TW*)w, (const __nv_bfloat16*)a, (const float*)lam, (TB*)out, nullptr,
+    return mixfwd::launch<KIND, TW, __nv_bfloat16, TO>(
+        b, nullptr, (const TW*)w, (const __nv_bfloat16*)a, (const float*)lam, (TO*)out, nullptr,
         (float*)partial, T, d, d, da, 0, s);
-  return mixfwd::launch<KIND, TW, float, TB>(b, nullptr, (const TW*)w, (const float*)a,
-                                             (const float*)lam, (TB*)out, nullptr,
+  return mixfwd::launch<KIND, TW, float, TO>(b, nullptr, (const TW*)w, (const float*)a,
+                                             (const float*)lam, (TO*)out, nullptr,
                                              (float*)partial, T, d, d, da, 0, s);
 }
 
@@ -78,24 +80,26 @@ int adapter_fuse_partials(int T, int d, int da) {
 }
 
 // partial: (adapter_fuse_partials(T, d, da), T, da) f32 scratch when that is > 0, else unused.
-// *_bf16: that operand (and, for b, out) is bf16, else f32. ranks, cols: the skinny path's
-// plan (T <= 8; ../skinny.py), else unused.
+// *_bf16: that operand is bf16, else f32; out is bf16 where b and W both are, else f32.
+// ranks, cols: the skinny path's plan (T <= 8; ../skinny.py), else unused.
 int adapter_fuse_launch(const void* b, const void* w, const void* a, const void* lam, void* out,
                         void* partial, int T, int d, int da, int b_bf16, int w_bf16, int a_bf16,
                         int ranks, int cols, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (T <= 0 || d <= 0 || da <= 0) return (int)cudaErrorInvalidValue;
+  using BF = __nv_bfloat16;
   switch ((b_bf16 ? 2 : 0) + (w_bf16 ? 1 : 0)) {
-    case 0: return launch<float, float>(a_bf16, b, w, a, lam, out, partial, T, d, da, ranks, cols, s);
+    case 0:
+      return launch<float, float, float>(a_bf16, b, w, a, lam, out, partial, T, d, da, ranks,
+                                         cols, s);
     case 1:
-      return launch<float, __nv_bfloat16>(a_bf16, b, w, a, lam, out, partial, T, d, da, ranks,
-                                          cols, s);
+      return launch<float, BF, float>(a_bf16, b, w, a, lam, out, partial, T, d, da, ranks, cols,
+                                      s);
     case 2:
-      return launch<__nv_bfloat16, float>(a_bf16, b, w, a, lam, out, partial, T, d, da, ranks,
-                                          cols, s);
+      return launch<BF, float, float>(a_bf16, b, w, a, lam, out, partial, T, d, da, ranks, cols,
+                                      s);
     default:
-      return launch<__nv_bfloat16, __nv_bfloat16>(a_bf16, b, w, a, lam, out, partial, T, d, da,
-                                                  ranks, cols, s);
+      return launch<BF, BF, BF>(a_bf16, b, w, a, lam, out, partial, T, d, da, ranks, cols, s);
   }
 }
 

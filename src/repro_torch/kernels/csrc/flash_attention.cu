@@ -1,5 +1,5 @@
 // Causal online-softmax ("flash") attention forward for sm_90a, f32 in and
-// out, on the bf16 tensor cores.
+// out (or bf16 in and out: the bf16 branch below), on the bf16 tensor cores.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py (_kernel /
 // flash_attention_tpu). q, o: (BH, Sq, HD); k, v: (BH / n_rep, Sk, HD),
@@ -96,6 +96,17 @@
 // and none at HD = 64 (HD = 256's budget: chip_smoke.py prints ptxas's
 // report at every build, PERF.md keeps it).
 //
+// The bf16 branch (BF, HD = 128: a bf16 backbone's q, k, v and o; the
+// reference's kernel takes bf16 and casts O to q's dtype). Q, K and V are
+// exact in bf16, so each goes to the tensor cores whole, one plane: Q is
+// copied as staged, K and V only padded to whole key tiles (flash_pad), and
+// Q·Kᵀ takes one product a k16 step instead of six. P stays f32 in
+// registers and is split in three terms as in the f32 branch, so P·V takes
+// three products (V's one plane by P's three); the softmax and O sum in
+// f32 and O is rounded to bf16 once. A third of the f32 branch's shared
+// memory and scratch. Tolerance against its plain version (which rounds its
+// f32 O to bf16 the same way): one bf16 rounding of O, |dO| <= 2^-7 |O|.
+//
 // Tolerance: the reference's flash tolerance, atol 3e-5
 // (tests/test_kernels.py:105); the CPU model of this arithmetic
 // (tests/test_torch_kernels.py::test_flash_bf16_split_error_model, S = 256,
@@ -142,9 +153,14 @@ struct Shape {
 template <int HD>
 __host__ __device__ constexpr int row_ld() { return HD + 8; }
 
-template <int HD>
+// bf16 terms of each of Q, K and V: three for f32 inputs, one for bf16
+// ones (exact in bf16, they go to the tensor cores whole)
+template <bool BF>
+__host__ __device__ constexpr int in_terms() { return BF ? 1 : TERMS; }
+
+template <int HD, bool BF>
 __host__ __device__ constexpr int smem_bytes() {
-  return TERMS * (BQ + 2 * BKV) * row_ld<HD>() * (int)sizeof(uint16_t);
+  return in_terms<BF>() * (BQ + 2 * BKV) * row_ld<HD>() * (int)sizeof(uint16_t);
 }
 
 // dst: K's three planes (BHkv, Skp, HD), then V's (blockIdx.y picks which),
@@ -168,13 +184,32 @@ __global__ void flash_split(const float* __restrict__ k, const float* __restrict
     *reinterpret_cast<uint2*>(out + j * plane + e) = make_uint2(w01[j], w23[j]);
 }
 
+// The bf16 branch's K and V: one plane each, K's (BHkv, Skp, HD) then V's
+// (blockIdx.y picks which), `plane` values each, rows past Sk zero. bf16
+// values go to the tensor cores whole, so they are only padded to whole
+// key tiles. Four values a thread.
+__global__ void flash_pad(const uint16_t* __restrict__ k, const uint16_t* __restrict__ v,
+                          uint16_t* __restrict__ dst, int Sk, int Skp, int hd, long long plane) {
+  const long long e = 4 * ((long long)blockIdx.x * blockDim.x + threadIdx.x);
+  if (e >= plane) return;
+  const uint16_t* __restrict__ src = blockIdx.y ? v : k;
+  const long long row = e / hd;  // (head, key) of the padded plane
+  const int key = (int)(row % Skp), d = (int)(e % hd);
+  uint2 w = make_uint2(0u, 0u);
+  if (key < Sk) w = *reinterpret_cast<const uint2*>(src + ((row / Skp) * Sk + key) * hd + d);
+  *reinterpret_cast<uint2*>(dst + blockIdx.y * plane + e) = w;
+}
+
 // One block per (bh, query tile): grid (BH, ceil(Sq / BQ)). kv is
-// flash_split's scratch.
-template <int HD>
+// flash_split's scratch (BF: flash_pad's). BF: q and o are bf16 (their
+// raw bits), else f32.
+template <int HD, bool BF>
 __global__ void __launch_bounds__(Shape<HD>::THREADS, Shape<HD>::MIN_BLOCKS)
-flash_fwd_mma(const float* __restrict__ q, const uint16_t* __restrict__ kv, float* __restrict__ o,
+flash_fwd_mma(const std::conditional_t<BF, uint16_t, float>* __restrict__ q,
+              const uint16_t* __restrict__ kv, std::conditional_t<BF, uint16_t, float>* __restrict__ o,
               int Sq, int Sk, int Skp, int n_rep, int causal, int window, float cap, float scale,
               long long plane) {
+  constexpr int TKV = in_terms<BF>();  // terms of Q, K and V; P always has three
   constexpr int THREADS = Shape<HD>::THREADS, HDW = Shape<HD>::HDW;
   constexpr int LD = row_ld<HD>();
   constexpr int Q_TILE = BQ * LD, KV_TILE = BKV * LD;  // bf16 values of one staged term
@@ -185,9 +220,9 @@ flash_fwd_mma(const float* __restrict__ q, const uint16_t* __restrict__ kv, floa
   constexpr int CHUNKS = (KV_CHUNKS + THREADS - 1) / THREADS;  // a thread's, at most
   static_assert(NO % NG % 2 == 0, "P·V's groups take n8 tiles in pairs");
   extern __shared__ __align__(16) uint16_t smem[];
-  uint16_t* qs = smem;                 // 3 x BQ x LD
-  uint16_t* ks = qs + TERMS * Q_TILE;  // 3 x BKV x LD
-  uint16_t* vs = ks + TERMS * KV_TILE; // 3 x BKV x LD
+  uint16_t* qs = smem;               // TKV x BQ x LD
+  uint16_t* ks = qs + TKV * Q_TILE;  // TKV x BKV x LD
+  uint16_t* vs = ks + TKV * KV_TILE; // TKV x BKV x LD
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   // rows 16·grp and O's columns from col0 (folded to warp and 0 at CW = 1,
@@ -198,17 +233,17 @@ flash_fwd_mma(const float* __restrict__ q, const uint16_t* __restrict__ kv, floa
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest query tiles first
   const uint16_t* __restrict__ kg = kv + (size_t)(bh / n_rep) * Skp * HD;
-  const uint16_t* __restrict__ vg = kg + TERMS * plane;
+  const uint16_t* __restrict__ vg = kg + TKV * plane;
 
   const int q_last = min(q0 + BQ, Sq) - 1;
   const int k_end = causal ? min(Sk, q_last + 1) : Sk;  // exclusive
   int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
   k_begin = (k_begin / BKV) * BKV;
 
-  // the three planes' BKV x HD tile at key k0 -> `dst`, in padded rows
+  // the TKV planes' BKV x HD tile at key k0 -> `dst`, in padded rows
   auto load_kv = [&](uint16_t* dst, const uint16_t* __restrict__ src, int k0) {
 #pragma unroll
-    for (int j = 0; j < TERMS; ++j)
+    for (int j = 0; j < TKV; ++j)
 #pragma unroll
       for (int i = 0; i < CHUNKS; ++i) {
         const int c = tid + i * THREADS, r = c / CPR, m = (c % CPR) * 8;
@@ -219,19 +254,30 @@ flash_fwd_mma(const float* __restrict__ q, const uint16_t* __restrict__ kv, floa
 
   if (k_begin < k_end) load_kv(ks, kg, k_begin);
   cp_commit();
-  // Q: f32 rows, split in three terms as staged (rows past Sq are zero)
-  const float* __restrict__ qb = q + ((size_t)bh * Sq + q0) * HD;
+  // Q: f32 rows split in three terms as staged, bf16 rows copied whole,
+  // 16 bytes a thread (rows past Sq are zero)
+  const auto* __restrict__ qb = q + ((size_t)bh * Sq + q0) * HD;
+  if constexpr (BF) {
 #pragma unroll 4
-  for (int i = 0; i < BQ * HD / 4 / THREADS; ++i) {
-    const int c = tid + i * THREADS, r = c / (HD / 4), d = (c % (HD / 4)) * 4;
-    float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < Sq) f = *reinterpret_cast<const float4*>(qb + (size_t)r * HD + d);
-    uint32_t w01[3], w23[3];
-    split3(f.x, f.y, w01);
-    split3(f.z, f.w, w23);
+    for (int i = 0; i < BQ * HD / 8 / THREADS; ++i) {
+      const int c = tid + i * THREADS, r = c / (HD / 8), d = (c % (HD / 8)) * 8;
+      uint4 w = make_uint4(0u, 0u, 0u, 0u);
+      if (q0 + r < Sq) w = *reinterpret_cast<const uint4*>(qb + (size_t)r * HD + d);
+      *reinterpret_cast<uint4*>(qs + r * LD + d) = w;
+    }
+  } else {
+#pragma unroll 4
+    for (int i = 0; i < BQ * HD / 4 / THREADS; ++i) {
+      const int c = tid + i * THREADS, r = c / (HD / 4), d = (c % (HD / 4)) * 4;
+      float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (q0 + r < Sq) f = *reinterpret_cast<const float4*>(qb + (size_t)r * HD + d);
+      uint32_t w01[3], w23[3];
+      split3(f.x, f.y, w01);
+      split3(f.z, f.w, w23);
 #pragma unroll
-    for (int j = 0; j < TERMS; ++j)
-      *reinterpret_cast<uint2*>(qs + j * Q_TILE + r * LD + d) = make_uint2(w01[j], w23[j]);
+      for (int j = 0; j < TERMS; ++j)
+        *reinterpret_cast<uint2*>(qs + j * Q_TILE + r * LD + d) = make_uint2(w01[j], w23[j]);
+    }
   }
 
   // ldmatrix row of this lane, matrix lj = lane / 8, row lane % 8:
@@ -265,14 +311,14 @@ flash_fwd_mma(const float* __restrict__ q, const uint16_t* __restrict__ kv, floa
       for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KSTEPS; ++kk) {
-      uint32_t qa[TERMS][4];
+      uint32_t qa[TKV][4];
 #pragma unroll
-      for (int i = 0; i < TERMS; ++i) ldsm_x4(qa[i], q_lane + B * (i * Q_TILE + 16 * kk));
-      uint32_t kb[TERMS][NT][2];
+      for (int i = 0; i < TKV; ++i) ldsm_x4(qa[i], q_lane + B * (i * Q_TILE + 16 * kk));
+      uint32_t kb[TKV][NT][2];
 #pragma unroll
       for (int np = 0; np < NT / 2; ++np)
 #pragma unroll
-        for (int j = 0; j < TERMS; ++j) {
+        for (int j = 0; j < TKV; ++j) {
           uint32_t r[4];
           ldsm_x4(r, k_lane + B * (j * KV_TILE + 16 * np * LD + 16 * kk));
           kb[j][2 * np][0] = r[0];
@@ -281,14 +327,14 @@ flash_fwd_mma(const float* __restrict__ q, const uint16_t* __restrict__ kv, floa
           kb[j][2 * np + 1][1] = r[3];
         }
       // the k16 step into a fresh f32 sum, smallest products first
-      // (terms i + j = 2, 1, then hi·hi)
+      // (terms i + j = 2, 1, then hi·hi; bf16 inputs: the one product)
       float part[NT][4];
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) part[nt][e] = 0.f;
 #pragma unroll
-      for (int ord = 2; ord >= 0; --ord)
+      for (int ord = TKV - 1; ord >= 0; --ord)
 #pragma unroll
         for (int i = 0; i <= ord; ++i)
 #pragma unroll
@@ -348,13 +394,14 @@ flash_fwd_mma(const float* __restrict__ q, const uint16_t* __restrict__ kv, floa
   };
 
   // O's n8 tiles [n0, n0 + G) += P·V for k16 step kc, pa P's three terms
+  // (V's: three, or one bf16 plane)
   auto pv_group = [&](const uint32_t (&pa)[TERMS][4], int kc, int n0, auto g) {
     constexpr int G = decltype(g)::value;
-    uint32_t vb[TERMS][G][2];
+    uint32_t vb[TKV][G][2];
 #pragma unroll
     for (int np = 0; np < G / 2; ++np)
 #pragma unroll
-      for (int j = 0; j < TERMS; ++j) {
+      for (int j = 0; j < TKV; ++j) {
         uint32_t r[4];
         ldsm_x4_t(r, v_lane + B * (j * KV_TILE + 16 * kc * LD + 8 * n0 + 16 * np));
         vb[j][2 * np][0] = r[0];
@@ -370,7 +417,7 @@ flash_fwd_mma(const float* __restrict__ q, const uint16_t* __restrict__ kv, floa
 #pragma unroll
     for (int ord = 2; ord >= 0; --ord)
 #pragma unroll
-      for (int i = 0; i <= ord; ++i)
+      for (int i = ord - (TKV - 1) > 0 ? ord - (TKV - 1) : 0; i <= ord; ++i)  // V's term < TKV
 #pragma unroll
         for (int nt = 0; nt < G; ++nt) mma_bf16(part[nt], pa[i], vb[ord - i][nt]);
 #pragma unroll
@@ -425,40 +472,52 @@ flash_fwd_mma(const float* __restrict__ q, const uint16_t* __restrict__ kv, floa
     const int row = row0 + 8 * h;
     if (row >= Sq) continue;
     const float inv = 1.f / fmaxf(l, 1e-30f);
-    float* __restrict__ orow = o + ((size_t)bh * Sq + row) * HD + col0 + 2 * tq;
+    auto* __restrict__ orow = o + ((size_t)bh * Sq + row) * HD + col0 + 2 * tq;
 #pragma unroll
-    for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<float2*>(orow + 8 * n) =
-          make_float2(acc[n][2 * h] * inv, acc[n][2 * h + 1] * inv);
+    for (int n = 0; n < NO; ++n) {
+      if constexpr (BF)  // O in q's dtype, as the reference casts it
+        *reinterpret_cast<uint32_t*>(orow + 8 * n) =
+            bits(__floats2bfloat162_rn(acc[n][2 * h] * inv, acc[n][2 * h + 1] * inv));
+      else
+        *reinterpret_cast<float2*>(orow + 8 * n) =
+            make_float2(acc[n][2 * h] * inv, acc[n][2 * h + 1] * inv);
+    }
   }
 }
 
 inline int key_rows(int Sk) { return (Sk + BKV - 1) / BKV * BKV; }
 
-template <int HD>
-int launch(const float* q, const float* k, const float* v, float* o, uint16_t* scratch, int BH,
+// BF: q, k, v and o bf16 (K and V padded, one plane each), else f32 (K
+// and V split in three)
+template <int HD, bool BF>
+int launch(const void* q, const void* k, const void* v, void* o, uint16_t* scratch, int BH,
            int Sq, int Sk, int n_rep, int causal, int window, float cap, float scale,
            cudaStream_t s) {
+  using T = std::conditional_t<BF, uint16_t, float>;
   const int Skp = key_rows(Sk);
   const long long plane = (long long)(BH / n_rep) * Skp * HD;
   if (plane > 0) {
     const long long blocks = (plane / 4 + SPLIT_THREADS - 1) / SPLIT_THREADS;
-    flash_split<<<dim3((unsigned)blocks, 2), SPLIT_THREADS, 0, s>>>(k, v, scratch, Sk, Skp, HD,
-                                                                    plane);
+    if constexpr (BF)
+      flash_pad<<<dim3((unsigned)blocks, 2), SPLIT_THREADS, 0, s>>>(
+          (const uint16_t*)k, (const uint16_t*)v, scratch, Sk, Skp, HD, plane);
+    else
+      flash_split<<<dim3((unsigned)blocks, 2), SPLIT_THREADS, 0, s>>>(
+          (const float*)k, (const float*)v, scratch, Sk, Skp, HD, plane);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
   if (Sq == 0) return 0;
-  constexpr int smem = smem_bytes<HD>();
+  constexpr int smem = smem_bytes<HD, BF>();
   static bool opted = false;  // once, before any graph capture of the launch
   if (!opted) {
-    const cudaError_t e = cudaFuncSetAttribute(flash_fwd_mma<HD>,
+    const cudaError_t e = cudaFuncSetAttribute(flash_fwd_mma<HD, BF>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     opted = true;
   }
-  flash_fwd_mma<HD><<<dim3(BH, (Sq + BQ - 1) / BQ), Shape<HD>::THREADS, smem, s>>>(
-      q, scratch, o, Sq, Sk, Skp, n_rep, causal, window, cap, scale, plane);
+  flash_fwd_mma<HD, BF><<<dim3(BH, (Sq + BQ - 1) / BQ), Shape<HD>::THREADS, smem, s>>>(
+      (const T*)q, scratch, (T*)o, Sq, Sk, Skp, n_rep, causal, window, cap, scale, plane);
   return (int)cudaGetLastError();
 }
 
@@ -468,28 +527,34 @@ int launch(const float* q, const float* k, const float* v, float* o, uint16_t* s
 
 extern "C" {
 
-// bf16 values of the K/V split scratch flash_launch needs
-long long flash_scratch_elems(int BH, int Sk, int hd, int n_rep) {
-  return 2LL * flash::TERMS * (BH / n_rep) * flash::key_rows(Sk) * hd;
+// bf16 values of the K/V scratch flash_launch needs: three planes each
+// of f32 K and V, one of bf16 (bf)
+long long flash_scratch_elems(int BH, int Sk, int hd, int n_rep, int bf) {
+  return 2LL * (bf ? 1 : flash::TERMS) * (BH / n_rep) * flash::key_rows(Sk) * hd;
 }
 
+// bf: q, k, v and o bf16 (head width 128 only, the bf16 backbone's), else f32
 int flash_launch(const void* q, const void* k, const void* v, void* o, void* scratch, int BH,
                  int Sq, int Sk, int hd, int n_rep, int causal, int window, float cap,
-                 float scale, void* stream) {
+                 float scale, int bf, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   uint16_t* kv = static_cast<uint16_t*>(scratch);
+  if (bf)
+    return hd == 128 ? flash::launch<128, true>(q, k, v, o, kv, BH, Sq, Sk, n_rep, causal, window,
+                                                cap, scale, s)
+                     : (int)cudaErrorInvalidValue;
   if (hd == 64)
-    return flash::launch<64>((const float*)q, (const float*)k, (const float*)v, (float*)o, kv,
-                             BH, Sq, Sk, n_rep, causal, window, cap, scale, s);
+    return flash::launch<64, false>(q, k, v, o, kv, BH, Sq, Sk, n_rep, causal, window, cap,
+                                    scale, s);
   if (hd == 112)
-    return flash::launch<112>((const float*)q, (const float*)k, (const float*)v, (float*)o, kv,
-                              BH, Sq, Sk, n_rep, causal, window, cap, scale, s);
+    return flash::launch<112, false>(q, k, v, o, kv, BH, Sq, Sk, n_rep, causal, window, cap,
+                                     scale, s);
   if (hd == 128)
-    return flash::launch<128>((const float*)q, (const float*)k, (const float*)v, (float*)o, kv,
-                              BH, Sq, Sk, n_rep, causal, window, cap, scale, s);
+    return flash::launch<128, false>(q, k, v, o, kv, BH, Sq, Sk, n_rep, causal, window, cap,
+                                     scale, s);
   if (hd == 256)
-    return flash::launch<256>((const float*)q, (const float*)k, (const float*)v, (float*)o, kv,
-                              BH, Sq, Sk, n_rep, causal, window, cap, scale, s);
+    return flash::launch<256, false>(q, k, v, o, kv, BH, Sq, Sk, n_rep, causal, window, cap,
+                                     scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -3,8 +3,15 @@
 //
 // Replaces the TPU kernels src/repro/kernels/cached_step.py
 // _ce_fwd_kernel (_ce_fwd_impl; public lmhead_ce) and _ce_bwd_kernel
-// (_ce_bwd_impl). h (T, d) f32 row-major, W (d, V) f32 row-major,
-// labels (T,) int32 in [0, V), optional tanh soft-cap (cap > 0).
+// (_ce_bwd_impl). h (T, d) row-major, W (d, V) row-major, each f32 or
+// bf16, labels (T,) int32 in [0, V), optional tanh soft-cap (cap > 0).
+//
+// A bf16 operand (a bf16 backbone's head W, or a bf16 h) is exact in
+// bf16, so it goes to the tensor cores whole: one plane instead of three
+// (ce_pad copies it into the padded plane the loop reads), and the loop
+// takes the products of an f32 operand's three terms with it, 3 a k16
+// step instead of 6 (1 for two bf16 operands); the epilogues are the f32
+// operands' unchanged. The backward's P stays f32, three terms.
 //
 // What bounds them on the H100: at the training shape of internlm2-1.8b
 // (T = 2048, d = 2048, V = 92544) the logits are 2·T·d·V ≈ 0.78 TFLOP
@@ -118,6 +125,27 @@ constexpr int SMEM = STAGES * STAGE * (int)sizeof(uint16_t);  // 192 KB
 static_assert(3 * WARPS_N * BM * (int)sizeof(float) <= SMEM, "epilogue fits the ring");
 static_assert(TERMS * BM * BN * (int)sizeof(uint16_t) <= SMEM, "a P tile fits the ring");
 
+// dst (rows_p, cols_p) bf16: src[r·ld + c0 + c] (bf16) for r < rows and
+// c0 + c < cols, zero elsewhere; four values a thread (cols_p a multiple
+// of 4)
+__global__ void ce_pad(const uint16_t* __restrict__ src, uint16_t* __restrict__ dst, int rows,
+                       int cols, int ld, int c0, int rows_p, int cols_p, int vec) {
+  const long long e = 4 * ((long long)blockIdx.x * blockDim.x + threadIdx.x);
+  if (e >= (long long)rows_p * cols_p) return;
+  const int r = (int)(e / cols_p), c = c0 + (int)(e % cols_p);
+  const uint16_t* row = src + (size_t)r * ld + c;
+  uint2 w = make_uint2(0u, 0u);
+  if (vec && r < rows && c + 4 <= cols) {
+    w = *reinterpret_cast<const uint2*>(row);
+  } else {
+    uint16_t v[4];
+#pragma unroll
+    for (int x = 0; x < 4; ++x) v[x] = (r < rows && c + x < cols) ? row[x] : (uint16_t)0;
+    w = make_uint2(v[0] | ((uint32_t)v[1] << 16), v[2] | ((uint32_t)v[3] << 16));
+  }
+  *reinterpret_cast<uint2*>(dst + e) = w;
+}
+
 // dst (3, rows_p, cols_p) bf16: the hi, mid, lo terms of
 // src[r·ld + c0 + c] for r < rows and c0 + c < cols, zero elsewhere;
 // four values a thread (cols_p a multiple of 4)
@@ -158,12 +186,12 @@ struct Frag {
 
 // The loop of both kernels: acc (this warp's share of the block's BM x BN
 // tile at rows t0, columns n0) = the sum over k < steps·BK of A[t, k] ·
-// B(k, n), each operand three bf16 planes `a_plane` / `b_plane` values
-// apart. A is (M, K) row-major, leading dimension lda. B is (K, N)
+// B(k, n), A in TA bf16 planes and B in TB (three for an f32 operand, one
+// for a bf16 one), `a_plane` / `b_plane` values apart. A is (M, K) row-major, leading dimension lda. B is (K, N)
 // row-major (ldb, n contiguous) when !BT, the forward's W; when BT it is
 // the transpose of an (N, K) row-major plane (ldb, k contiguous), the
 // backward's Wᵀ. Leaves the shared-memory ring free for the epilogue.
-template <bool BT>
+template <bool BT, int TA = TERMS, int TB = TERMS>
 __device__ __forceinline__ void tile_mma(const uint16_t* __restrict__ a, size_t a_plane, int lda,
                                          const uint16_t* __restrict__ b, size_t b_plane, int ldb,
                                          int t0, int n0, int steps, uint16_t* smem,
@@ -178,7 +206,7 @@ __device__ __forceinline__ void tile_mma(const uint16_t* __restrict__ a, size_t 
     uint16_t* as = smem + slot * STAGE;
     uint16_t* bs = as + TERMS * A_TILE;
 #pragma unroll
-    for (int j = 0; j < TERMS; ++j)
+    for (int j = 0; j < TA; ++j)
 #pragma unroll
       for (int i = 0; i < A_TILE / 8 / THREADS; ++i) {
         const int q = tid + i * THREADS, t = q / (BK / 8), m = (q % (BK / 8)) * 8;
@@ -186,7 +214,7 @@ __device__ __forceinline__ void tile_mma(const uint16_t* __restrict__ a, size_t 
                    a + j * a_plane + (size_t)(t0 + t) * lda + k0 + m);
       }
 #pragma unroll
-    for (int j = 0; j < TERMS; ++j)
+    for (int j = 0; j < TB; ++j)
 #pragma unroll
       for (int i = 0; i < B_TILE / 8 / THREADS; ++i) {
         const int q = tid + i * THREADS;
@@ -225,11 +253,11 @@ __device__ __forceinline__ void tile_mma(const uint16_t* __restrict__ a, size_t 
 #pragma unroll
     for (int sub = 0; sub < BK / 16; ++sub) {
       const int kk = 16 * sub;
-      uint32_t bf[TERMS][NI][2];  // the warp's 8-column tiles, each term
+      uint32_t bf[TB][NI][2];  // the warp's 8-column tiles, each term
 #pragma unroll
       for (int np = 0; np < NI / 2; ++np)
 #pragma unroll
-        for (int j = 0; j < TERMS; ++j) {
+        for (int j = 0; j < TB; ++j) {
           uint32_t r[4];
           if constexpr (BT)
             ldsm_x4(r, smem_addr(bs + j * B_TILE + swz<BK>(b_n + 16 * np, kk + b_k)));
@@ -242,15 +270,15 @@ __device__ __forceinline__ void tile_mma(const uint16_t* __restrict__ a, size_t 
         }
 #pragma unroll
       for (int mp = 0; mp < MI / MG; ++mp) {  // MG 16-row tiles at a time
-        uint32_t af[MG][TERMS][4];
+        uint32_t af[MG][TA][4];
 #pragma unroll
         for (int mm = 0; mm < MG; ++mm)
 #pragma unroll
-          for (int i = 0; i < TERMS; ++i)
+          for (int i = 0; i < TA; ++i)
             ldsm_x4(af[mm][i],
                     smem_addr(as + i * A_TILE + swz<BK>(a_t + 16 * (MG * mp + mm), kk + a_k)));
         // the k16 step into a fresh f32 sum, smallest products first
-        // (terms i + j = 2, 1, then hi·hi)
+        // (terms i + j = 2, 1, then hi·hi; i < TA, j < TB)
         float part[MG][NI][4];
 #pragma unroll
         for (int mm = 0; mm < MG; ++mm)
@@ -258,10 +286,11 @@ __device__ __forceinline__ void tile_mma(const uint16_t* __restrict__ a, size_t 
           for (int ni = 0; ni < NI; ++ni)
 #pragma unroll
             for (int e = 0; e < 4; ++e) part[mm][ni][e] = 0.f;
+        constexpr int OMAX = TA + TB - 2 < 2 ? TA + TB - 2 : 2;
 #pragma unroll
-        for (int ord = 2; ord >= 0; --ord)
+        for (int ord = OMAX; ord >= 0; --ord)
 #pragma unroll
-          for (int i = 0; i <= ord; ++i)
+          for (int i = ord - (TB - 1) > 0 ? ord - (TB - 1) : 0; i <= ord && i < TA; ++i)
 #pragma unroll
             for (int mm = 0; mm < MG; ++mm)
 #pragma unroll
@@ -297,6 +326,7 @@ __device__ __forceinline__ void tile_mma(const uint16_t* __restrict__ a, size_t 
 // chunk tiles). hs (3, Tp, dp) and ws (3, dp, ncp) are the split planes;
 // the chunk starts at vocab column vt0·BN. Writes the partials (T, n_vt)
 // of vocab tile vt0 + blockIdx.y for tokens < T.
+template <int TA, int TB>
 __global__ void __launch_bounds__(THREADS, 1)
 ce_fwd_mma(const uint16_t* __restrict__ hs, const uint16_t* __restrict__ ws,
            const int* __restrict__ labels, float* __restrict__ pm, float* __restrict__ pl,
@@ -306,7 +336,8 @@ ce_fwd_mma(const uint16_t* __restrict__ hs, const uint16_t* __restrict__ ws,
   const int tid = threadIdx.x, warp = tid >> 5;
   const int t0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   float acc[MI][NI][4];
-  tile_mma<false>(hs, (size_t)Tp * dp, dp, ws, (size_t)dp * ncp, ncp, t0, n0, dp / BK, smem, acc);
+  tile_mma<false, TA, TB>(hs, (size_t)Tp * dp, dp, ws, (size_t)dp * ncp, ncp, t0, n0, dp / BK,
+                          smem, acc);
   const Frag f;
   const int wm = f.wm, wn = f.wn, gq = f.gq, tq = f.tq;
 
@@ -393,6 +424,7 @@ ce_fwd_mma(const uint16_t* __restrict__ hs, const uint16_t* __restrict__ ws,
 // three bf16 terms into ps (3, Tp, ncp) at columns blockIdx.y·BN of the
 // chunk. The terms are staged in the free ring, then stored 16 bytes a
 // thread, whole rows of the tile at a time.
+template <int TA, int TB>
 __global__ void __launch_bounds__(THREADS, 1)
 ce_grad_mma(const uint16_t* __restrict__ hs, const uint16_t* __restrict__ ws,
             const int* __restrict__ labels, const float* __restrict__ lse,
@@ -402,7 +434,8 @@ ce_grad_mma(const uint16_t* __restrict__ hs, const uint16_t* __restrict__ ws,
   const int tid = threadIdx.x;
   const int t0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   float acc[MI][NI][4];
-  tile_mma<false>(hs, (size_t)Tp * dp, dp, ws, (size_t)dp * ncp, ncp, t0, n0, dp / BK, smem, acc);
+  tile_mma<false, TA, TB>(hs, (size_t)Tp * dp, dp, ws, (size_t)dp * ncp, ncp, t0, n0, dp / BK,
+                          smem, acc);
   const Frag f;
   const int col0 = (vt0 + blockIdx.y) * BN + f.wn + 2 * f.tq;  // this thread's first vocab column
 #pragma unroll
@@ -452,6 +485,7 @@ ce_grad_mma(const uint16_t* __restrict__ hs, const uint16_t* __restrict__ ws,
 // vocab columns; ps (3, Tp, ncp) the P planes, ws (3, dp, ncp) the W
 // planes read as Wᵀ. The first chunk writes dh, later chunks add to it,
 // the last multiplies by g[t]; rows >= T and columns >= d are not stored.
+template <int TB>
 __global__ void __launch_bounds__(THREADS, 1)
 ce_dh_mma(const uint16_t* __restrict__ ps, const uint16_t* __restrict__ ws,
           const float* __restrict__ g, float* __restrict__ dh, int T, int Tp, int d, int dp,
@@ -459,8 +493,8 @@ ce_dh_mma(const uint16_t* __restrict__ ps, const uint16_t* __restrict__ ws,
   extern __shared__ __align__(16) uint16_t smem[];
   const int t0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   float acc[MI][NI][4];
-  tile_mma<true>(ps, (size_t)Tp * ncp, ncp, ws, (size_t)dp * ncp, ncp, t0, n0, ncp / BK, smem,
-                 acc);
+  tile_mma<true, TERMS, TB>(ps, (size_t)Tp * ncp, ncp, ws, (size_t)dp * ncp, ncp, t0, n0,
+                            ncp / BK, smem, acc);
   const Frag f;
 #pragma unroll
   for (int mi = 0; mi < MI; ++mi)
@@ -527,33 +561,41 @@ cudaError_t opt_in(K kernel, bool& opted) {
 }
 
 // dst (3, rows_p, cols_p) from src's rows < rows and columns [c0, c0 +
-// cols_p) below cols (ld floats a row)
-cudaError_t split(const float* src, uint16_t* dst, int rows, int cols, int ld, int c0,
+// cols_p) below cols (ld values a row): an f32 src split in three terms,
+// a bf16 src (bf16) copied whole into the first plane
+cudaError_t split(const void* src, int bf16, uint16_t* dst, int rows, int cols, int ld, int c0,
                   int rows_p, int cols_p, cudaStream_t s) {
   const long long quads = (long long)rows_p * cols_p / 4;
-  ce_split<<<(unsigned)((quads + 255) / 256), 256, 0, s>>>(
-      src, dst, rows, cols, ld, c0, rows_p, cols_p, ld % 4 == 0 && (uintptr_t)src % 16 == 0);
+  const unsigned grid = (unsigned)((quads + 255) / 256);
+  if (bf16)
+    ce_pad<<<grid, 256, 0, s>>>((const uint16_t*)src, dst, rows, cols, ld, c0, rows_p, cols_p,
+                                ld % 4 == 0 && (uintptr_t)src % 8 == 0);
+  else
+    ce_split<<<grid, 256, 0, s>>>((const float*)src, dst, rows, cols, ld, c0, rows_p, cols_p,
+                                  ld % 4 == 0 && (uintptr_t)src % 16 == 0);
   return cudaGetLastError();
 }
 
 // the whole forward: split h, then per vocab chunk split W and run the
-// tiles, then merge; returns a cudaError_t. hs: 3 * Tp * dp bf16 (Tp, dp:
-// T, d rounded up to BM, BK); ws: 3 * dp * chunk * BN bf16; partials: 3
-// arrays of T * ceil(V / BN) floats
-int fwd_launch(const float* h, const float* w, const int* labels, uint16_t* hs, uint16_t* ws,
+// tiles, then merge; returns a cudaError_t. hs: TA * Tp * dp bf16 (Tp, dp:
+// T, d rounded up to BM, BK); ws: TB * dp * chunk * BN bf16; partials: 3
+// arrays of T * ceil(V / BN) floats. TA, TB: the planes of h and W (3 for
+// f32, 1 for bf16)
+template <int TA, int TB>
+int fwd_launch(const void* h, const void* w, const int* labels, uint16_t* hs, uint16_t* ws,
                float* pm, float* pl, float* pll, float* nll, float* lse, int T, int d, int V,
                int chunk, float cap, cudaStream_t s) {
   static bool opted = false;
-  cudaError_t e = opt_in(ce_fwd_mma, opted);
+  cudaError_t e = opt_in(ce_fwd_mma<TA, TB>, opted);
   if (e != cudaSuccess) return (int)e;
   const int Tp = (T + BM - 1) / BM * BM, dp = (d + BK - 1) / BK * BK;
   const int v_tiles = (V + BN - 1) / BN;
-  if ((e = split(h, hs, T, d, d, 0, Tp, dp, s)) != cudaSuccess) return (int)e;
+  if ((e = split(h, TA == 1, hs, T, d, d, 0, Tp, dp, s)) != cudaSuccess) return (int)e;
   for (int vt0 = 0; vt0 < v_tiles; vt0 += chunk) {
     const int nt = v_tiles - vt0 < chunk ? v_tiles - vt0 : chunk, ncp = nt * BN;
-    if ((e = split(w, ws, d, V, V, vt0 * BN, dp, ncp, s)) != cudaSuccess) return (int)e;
-    ce_fwd_mma<<<dim3(Tp / BM, nt), THREADS, SMEM, s>>>(hs, ws, labels, pm, pl, pll, T, Tp, dp,
-                                                        V, ncp, vt0, v_tiles, cap);
+    if ((e = split(w, TB == 1, ws, d, V, V, vt0 * BN, dp, ncp, s)) != cudaSuccess) return (int)e;
+    ce_fwd_mma<TA, TB><<<dim3(Tp / BM, nt), THREADS, SMEM, s>>>(
+        hs, ws, labels, pm, pl, pll, T, Tp, dp, V, ncp, vt0, v_tiles, cap);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
@@ -563,28 +605,29 @@ int fwd_launch(const float* h, const float* w, const int* labels, uint16_t* hs, 
 
 // the whole backward: split h, then per vocab chunk (in order) split W,
 // write the chunk's P planes and add P @ Wᵀ into dh; returns a
-// cudaError_t. hs: 3 * Tp * dp bf16 (Tp, dp: T, d rounded up to BM, BN);
-// ws: 3 * dp * chunk * BN bf16; ps: 3 * Tp * chunk * BN bf16; dh (T, d)
+// cudaError_t. hs: TA * Tp * dp bf16 (Tp, dp: T, d rounded up to BM, BN);
+// ws: TB * dp * chunk * BN bf16; ps: 3 * Tp * chunk * BN bf16; dh (T, d)
 // f32 is fully written
-int bwd_launch(const float* h, const float* w, const int* labels, const float* lse,
+template <int TA, int TB>
+int bwd_launch(const void* h, const void* w, const int* labels, const float* lse,
                const float* g, uint16_t* hs, uint16_t* ws, uint16_t* ps, float* dh, int T, int d,
                int V, int chunk, float cap, cudaStream_t s) {
   static bool opted_grad = false, opted_dh = false;
-  cudaError_t e = opt_in(ce_grad_mma, opted_grad);
-  if (e == cudaSuccess) e = opt_in(ce_dh_mma, opted_dh);
+  cudaError_t e = opt_in(ce_grad_mma<TA, TB>, opted_grad);
+  if (e == cudaSuccess) e = opt_in(ce_dh_mma<TB>, opted_dh);
   if (e != cudaSuccess) return (int)e;
   const int Tp = (T + BM - 1) / BM * BM, dp = (d + BN - 1) / BN * BN;
   const int v_tiles = (V + BN - 1) / BN;
-  if ((e = split(h, hs, T, d, d, 0, Tp, dp, s)) != cudaSuccess) return (int)e;
+  if ((e = split(h, TA == 1, hs, T, d, d, 0, Tp, dp, s)) != cudaSuccess) return (int)e;
   for (int vt0 = 0; vt0 < v_tiles; vt0 += chunk) {
     const int nt = v_tiles - vt0 < chunk ? v_tiles - vt0 : chunk, ncp = nt * BN;
-    if ((e = split(w, ws, d, V, V, vt0 * BN, dp, ncp, s)) != cudaSuccess) return (int)e;
-    ce_grad_mma<<<dim3(Tp / BM, nt), THREADS, SMEM, s>>>(hs, ws, labels, lse, ps, T, Tp, dp, V,
-                                                         ncp, vt0, cap);
+    if ((e = split(w, TB == 1, ws, d, V, V, vt0 * BN, dp, ncp, s)) != cudaSuccess) return (int)e;
+    ce_grad_mma<TA, TB><<<dim3(Tp / BM, nt), THREADS, SMEM, s>>>(hs, ws, labels, lse, ps, T, Tp,
+                                                                 dp, V, ncp, vt0, cap);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    ce_dh_mma<<<dim3(Tp / BM, dp / BN), THREADS, SMEM, s>>>(ps, ws, g, dh, T, Tp, d, dp, ncp,
-                                                           vt0 == 0, vt0 + nt >= v_tiles);
+    ce_dh_mma<TB><<<dim3(Tp / BM, dp / BN), THREADS, SMEM, s>>>(ps, ws, g, dh, T, Tp, d, dp, ncp,
+                                                               vt0 == 0, vt0 + nt >= v_tiles);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
@@ -601,23 +644,33 @@ extern "C" {
 int ce_tile(int dim) { return dim == 0 ? ce::BM : dim == 1 ? ce::BN : ce::BK; }
 
 // hs, ws: the split planes' scratch; partials: 3 arrays of T * ceil(V / BN)
-// floats (ce::fwd_launch has the sizes); chunk: vocab tiles per W chunk
+// floats (ce::fwd_launch has the sizes); chunk: vocab tiles per W chunk;
+// h_bf16, w_bf16: that operand is bf16, else f32
 int ce_fwd_launch(const void* h, const void* w, const void* labels, void* hs, void* ws,
                   void* pm, void* pl, void* pll, void* nll, void* lse, int T, int d, int V,
-                  int chunk, float cap, void* stream) {
-  return ce::fwd_launch((const float*)h, (const float*)w, (const int*)labels, (uint16_t*)hs,
-                        (uint16_t*)ws, (float*)pm, (float*)pl, (float*)pll, (float*)nll,
-                        (float*)lse, T, d, V, chunk, cap, reinterpret_cast<cudaStream_t>(stream));
+                  int chunk, float cap, int h_bf16, int w_bf16, void* stream) {
+  auto run = [&](auto fn) {
+    return fn(h, w, (const int*)labels, (uint16_t*)hs, (uint16_t*)ws, (float*)pm, (float*)pl,
+              (float*)pll, (float*)nll, (float*)lse, T, d, V, chunk, cap,
+              reinterpret_cast<cudaStream_t>(stream));
+  };
+  if (h_bf16) return w_bf16 ? run(ce::fwd_launch<1, 1>) : run(ce::fwd_launch<1, 3>);
+  return w_bf16 ? run(ce::fwd_launch<3, 1>) : run(ce::fwd_launch<3, 3>);
 }
 
 // hs, ws, ps: the split planes' scratch (ce::bwd_launch has the sizes);
-// chunk: vocab tiles per W chunk; dh (T, d) f32 is fully written
+// chunk: vocab tiles per W chunk; dh (T, d) f32 is fully written;
+// h_bf16, w_bf16: that operand is bf16, else f32
 int ce_bwd_launch(const void* h, const void* w, const void* labels, const void* lse,
                   const void* g, void* hs, void* ws, void* ps, void* dh, int T, int d, int V,
-                  int chunk, float cap, void* stream) {
-  return ce::bwd_launch((const float*)h, (const float*)w, (const int*)labels, (const float*)lse,
-                        (const float*)g, (uint16_t*)hs, (uint16_t*)ws, (uint16_t*)ps, (float*)dh,
-                        T, d, V, chunk, cap, reinterpret_cast<cudaStream_t>(stream));
+                  int chunk, float cap, int h_bf16, int w_bf16, void* stream) {
+  auto run = [&](auto fn) {
+    return fn(h, w, (const int*)labels, (const float*)lse, (const float*)g, (uint16_t*)hs,
+              (uint16_t*)ws, (uint16_t*)ps, (float*)dh, T, d, V, chunk, cap,
+              reinterpret_cast<cudaStream_t>(stream));
+  };
+  if (h_bf16) return w_bf16 ? run(ce::bwd_launch<1, 1>) : run(ce::bwd_launch<1, 3>);
+  return w_bf16 ? run(ce::bwd_launch<3, 1>) : run(ce::bwd_launch<3, 3>);
 }
 
 const char* kernel_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -2,7 +2,7 @@
 //
 // Replaces the TPU kernel src/repro/kernels/paged_attention.py (_kernel /
 // _paged_attention_call, public paged_attention). q, out: (B, Hkv, n_rep,
-// HD) f32; k/v pages: (n_pages, page, Hkv, HD) int8 with f32 scales
+// HD), q f32 or bf16, out f32; k/v pages: (n_pages, page, Hkv, HD) int8 with f32 scales
 // (n_pages, page, Hkv), or plain f32 / bf16; block_tables (B, max_pages)
 // int32 (page 0 is the null page); lengths (B,) int32 — the index the new
 // token was written at, attended (kpos <= lengths[b]). Options: sliding
@@ -80,6 +80,11 @@
 // P·V out. Two blocks an SM, as at 64 and 128. Other widths keep their
 // geometry: HD * sizeof(T) / 8 bytes a scoring lane in equal loads, HD / 32
 // dims a P·V lane.
+//
+// A bf16 q (a bf16 backbone's decode, at HD = 128): its rows are widened to
+// f32 as they are staged, exactly, and everything after is the f32 q's
+// path, over int8, f32 and bf16 pages alike; out stays f32, as the
+// reference's kernel returns it whatever q's dtype.
 //
 // Limits: HD in {64, 112, 128, 256}, heads * n_rep <= 8 query rows a block,
 // heads in {1, 2, 4, 8} dividing Hkv; any page size and number of kv
@@ -252,9 +257,15 @@ __device__ __forceinline__ void push(float* dst, uint64_t* bar, float v) {
                ::"r"(d), "f"(v), "r"(b) : "memory");
 }
 
-template <typename T, int HD, bool ALIGNED>
+// one query value as f32: a bf16 one widened exactly
+__device__ __forceinline__ float q_at(const float* __restrict__ q, size_t i) { return __ldg(q + i); }
+__device__ __forceinline__ float q_at(const __nv_bfloat16* __restrict__ q, size_t i) {
+  return __uint_as_float((uint32_t)__ldg(reinterpret_cast<const unsigned short*>(q) + i) << 16);
+}
+
+template <typename T, int HD, bool ALIGNED, typename TQ>
 __global__ void __launch_bounds__(THREADS, min_blocks<HD>())
-paged_attn(const float* __restrict__ q, const T* __restrict__ kp, const T* __restrict__ vp,
+paged_attn(const TQ* __restrict__ q, const T* __restrict__ kp, const T* __restrict__ vp,
            const float* __restrict__ ks, const float* __restrict__ vs,
            const int* __restrict__ block_tables, const int* __restrict__ lengths,
            float* __restrict__ out, int Hkv, int n_rep, int page, int max_pages, int window,
@@ -310,14 +321,14 @@ paged_attn(const float* __restrict__ q, const T* __restrict__ kp, const T* __res
     for (int i = tid; i < qr * HD; i += THREADS) {
       const int row = i / HD, d = i % HD;
       const int u = d / (8 * EU), rem = d % (8 * EU), sub = rem / EU, e = rem % EU;
-      qs[row * HD + ((u * (EU / 4) + e / 4) * 8 + sub) * 4 + e % 4] = __ldg(q + obase + i);
+      qs[row * HD + ((u * (EU / 4) + e / 4) * 8 + sub) * 4 + e % 4] = q_at(q, obase + i);
     }
   } else {  // each padded slot from its dim, zero past HD
     for (int i = tid; i < qr * QLD; i += THREADS) {
       const int row = i / QLD, x = i % QLD, t = x / 4;
       const int sub = t % 8, e = (t / 8) % (EU / 4) * 4 + x % 4, u = t / 8 / (EU / 4);
       const int d = u * 8 * EU + sub * EU + e;
-      qs[i] = d < HD ? __ldg(q + obase + row * HD + d) : 0.f;
+      qs[i] = d < HD ? q_at(q, obase + row * HD + d) : 0.f;
     }
   }
   if (tid < MAX_ROWS) {
@@ -562,13 +573,13 @@ paged_attn(const float* __restrict__ q, const T* __restrict__ kp, const T* __res
   }
 }
 
-template <typename T, int HD, bool ALIGNED>
+template <typename T, int HD, bool ALIGNED, typename TQ>
 int launch(const void* q, const void* kp, const void* vp, const void* ks, const void* vs,
            const void* bt, const void* lengths, void* out, int B, int Hkv, int n_rep, int page,
            int max_pages, int window, float cap, float scale, int ranks, int pages, int heads,
            cudaStream_t stream) {
   const Layout L = layout<T, HD>(n_rep, heads, ranks, pages);
-  auto kernel = paged_attn<T, HD, ALIGNED>;
+  auto kernel = paged_attn<T, HD, ALIGNED, TQ>;
   static int smem_allowed = 48 * 1024;  // per instantiation
   if (L.total > smem_allowed) {
     const cudaError_t e =
@@ -589,13 +600,13 @@ int launch(const void* q, const void* kp, const void* vp, const void* ks, const 
   cfg.attrs = attr;
   cfg.numAttrs = ranks > 1;  // one rank: no cluster, no merge
   const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, kernel, (const float*)q, (const T*)kp, (const T*)vp, (const float*)ks,
+      &cfg, kernel, (const TQ*)q, (const T*)kp, (const T*)vp, (const float*)ks,
       (const float*)vs, (const int*)bt, (const int*)lengths, (float*)out, Hkv, n_rep, page,
       max_pages, window, cap, scale, ranks, pages, heads);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename TQ = float>
 int launch_hd(int hd, const void* q, const void* kp, const void* vp, const void* ks,
               const void* vs, const void* bt, const void* lengths, void* out, int B, int Hkv,
               int n_rep, int page, int max_pages, int window, float cap, float scale, int ranks,
@@ -604,32 +615,49 @@ int launch_hd(int hd, const void* q, const void* kp, const void* vp, const void*
 #define PAGED_LAUNCH(HD_)                                                                      \
   if (hd == HD_) {                                                                             \
     if (chunk != Geo<T, HD_>::CHUNK / heads) return (int)cudaErrorInvalidValue;                \
-    return aligned ? launch<T, HD_, true>(q, kp, vp, ks, vs, bt, lengths, out, B, Hkv, n_rep,  \
-                                          page, max_pages, window, cap, scale, ranks, pages,   \
-                                          heads, stream)                                       \
-                   : launch<T, HD_, false>(q, kp, vp, ks, vs, bt, lengths, out, B, Hkv, n_rep, \
-                                           page, max_pages, window, cap, scale, ranks, pages,  \
-                                           heads, stream);                                     \
+    return aligned ? launch<T, HD_, true, TQ>(q, kp, vp, ks, vs, bt, lengths, out, B, Hkv,     \
+                                              n_rep, page, max_pages, window, cap, scale,      \
+                                              ranks, pages, heads, stream)                     \
+                   : launch<T, HD_, false, TQ>(q, kp, vp, ks, vs, bt, lengths, out, B, Hkv,    \
+                                               n_rep, page, max_pages, window, cap, scale,     \
+                                               ranks, pages, heads, stream);                   \
   }
-  PAGED_LAUNCH(64)
-  PAGED_LAUNCH(112)
-  PAGED_LAUNCH(128)
-  PAGED_LAUNCH(256)
+  if constexpr (sizeof(TQ) == 2) {  // a bf16 q: the bf16 backbone's head width only
+    PAGED_LAUNCH(128)
+  } else {
+    PAGED_LAUNCH(64)
+    PAGED_LAUNCH(112)
+    PAGED_LAUNCH(128)
+    PAGED_LAUNCH(256)
+  }
 #undef PAGED_LAUNCH
   return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int launch_q(int q_bf16, int hd, const void* q, const void* kp, const void* vp, const void* ks,
+             const void* vs, const void* bt, const void* lengths, void* out, int B, int Hkv,
+             int n_rep, int page, int max_pages, int window, float cap, float scale, int ranks,
+             int pages, int heads, int chunk, cudaStream_t stream) {
+  if (q_bf16)
+    return launch_hd<T, __nv_bfloat16>(hd, q, kp, vp, ks, vs, bt, lengths, out, B, Hkv, n_rep,
+                                       page, max_pages, window, cap, scale, ranks, pages, heads,
+                                       chunk, stream);
+  return launch_hd<T>(hd, q, kp, vp, ks, vs, bt, lengths, out, B, Hkv, n_rep, page, max_pages,
+                      window, cap, scale, ranks, pages, heads, chunk, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// kind: 0 = int8 pages with scales, 1 = f32 pages, 2 = bf16 pages. The
-// plan (ranks, pages, heads, chunk) is the caller's (../paged_attention.py
-// `plan`); it is checked here.
+// kind: 0 = int8 pages with scales, 1 = f32 pages, 2 = bf16 pages; q_bf16:
+// q is bf16 (hd 128 only), else f32. The plan (ranks, pages, heads, chunk)
+// is the caller's (../paged_attention.py `plan`); it is checked here.
 int paged_launch(const void* q, const void* kp, const void* vp, const void* ks, const void* vs,
                  const void* bt, const void* lengths, void* out, int B, int Hkv, int n_rep,
                  int hd, int page, int max_pages, int kind, int window, float cap, float scale,
-                 int ranks, int pages, int heads, int chunk, void* stream) {
+                 int ranks, int pages, int heads, int chunk, int q_bf16, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (B < 1 || Hkv < 1 || page < 1 || max_pages < 1 || n_rep < 1 || heads < 1 ||
       heads > WARPS || WARPS % heads != 0 || Hkv % heads != 0 || heads * n_rep > MAX_ROWS ||
@@ -637,15 +665,16 @@ int paged_launch(const void* q, const void* kp, const void* vp, const void* ks, 
       (ranks - 1) * pages >= max_pages)
     return (int)cudaErrorInvalidValue;
   if (kind == 0)
-    return launch_hd<int8_t>(hd, q, kp, vp, ks, vs, bt, lengths, out, B, Hkv, n_rep, page,
-                             max_pages, window, cap, scale, ranks, pages, heads, chunk, s);
+    return launch_q<int8_t>(q_bf16, hd, q, kp, vp, ks, vs, bt, lengths, out, B, Hkv, n_rep, page,
+                            max_pages, window, cap, scale, ranks, pages, heads, chunk, s);
   if (kind == 1)
-    return launch_hd<float>(hd, q, kp, vp, nullptr, nullptr, bt, lengths, out, B, Hkv, n_rep,
-                            page, max_pages, window, cap, scale, ranks, pages, heads, chunk, s);
+    return launch_q<float>(q_bf16, hd, q, kp, vp, nullptr, nullptr, bt, lengths, out, B, Hkv,
+                           n_rep, page, max_pages, window, cap, scale, ranks, pages, heads,
+                           chunk, s);
   if (kind == 2)
-    return launch_hd<__nv_bfloat16>(hd, q, kp, vp, nullptr, nullptr, bt, lengths, out, B, Hkv,
-                                    n_rep, page, max_pages, window, cap, scale, ranks, pages,
-                                    heads, chunk, s);
+    return launch_q<__nv_bfloat16>(q_bf16, hd, q, kp, vp, nullptr, nullptr, bt, lengths, out, B,
+                                   Hkv, n_rep, page, max_pages, window, cap, scale, ranks, pages,
+                                   heads, chunk, s);
   return (int)cudaErrorInvalidValue;
 }
 

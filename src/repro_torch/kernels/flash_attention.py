@@ -3,7 +3,8 @@
 Replaces the TPU kernel ``src/repro/kernels/flash_attention.py``
 (``_kernel`` / ``flash_attention_tpu``), with the CUDA kernel
 ``csrc/flash_attention.cu``: causal masking, optional sliding
-``window`` and tanh ``attn_softcap``, f32 in and out.
+``window`` and tanh ``attn_softcap``, f32 in and out, or bf16 in and out
+(the bf16 backbone's branch, below).
 
 What bounds it on the H100: at the prefill shape of internlm2-1.8b
 (B·H = 8·16, S = 512, hd = 128) it does ~8.6 GFLOP of f32 work on ~101 MB,
@@ -27,6 +28,16 @@ reference's atol 3e-5 (``tests/test_kernels.py:105``); ``chip_smoke.py`` holds t
 (max |Δ| 1.4e-6 at the prefill shape) and times it: 0.213–0.215 ms a call
 at the prefill shape on an NVIDIA H100 80GB HBM3 at 700 W, against SDPA's
 0.276–0.278 and the 0.052 ms tensor-core bound (``PERF.md``).
+
+The bf16 branch (a bf16 backbone's q, k and v, at hd 128): the three go
+to the tensor cores whole, one plane each (exact in bf16, so no split),
+and Q·Kᵀ takes one product a k16 step instead of six; K and V are only
+padded to whole key tiles. The softmax, P (three terms, as in the f32
+branch) and O stay in f32, and O is rounded to bf16 once, as the
+reference casts O to q's dtype (``src/repro/models/layers.py:201``,
+``flash_attention.py:101``). P·V takes three products. Its tolerance
+against its plain version on the card is one bf16 rounding of O
+(``chip_smoke.py``'s ``BF16_OUT_TOL``).
 
 Head widths 64, 112 (kimi-k2), 128 and 256 (gemma2-2b); at 256 two warps
 share each 16-row group, each accumulating half of O's columns; at 112
@@ -52,6 +63,7 @@ from repro_torch.kernels.ref import flash_attention_ref
 launches = 0
 
 HEAD_DIMS = (64, 112, 128, 256)  # the head widths the kernel is instantiated for
+BF16_HEAD_DIMS = (128,)  # ... and those of its bf16 branch (the bf16 backbone's)
 
 
 def _fn():
@@ -59,17 +71,18 @@ def _fn():
     fn = lib.flash_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                       + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        lib.flash_scratch_elems.argtypes = [ctypes.c_int] * 4
+        lib.flash_scratch_elems.argtypes = [ctypes.c_int] * 5
         lib.flash_scratch_elems.restype = ctypes.c_longlong
     return lib, fn
 
 
-def require_head_dim(hd: int) -> None:
-    """The head widths the kernel is built for: any other is refused on the
-    card (the plain version on the CPU takes any)."""
-    require(hd in HEAD_DIMS, f"head dim {hd} not in {HEAD_DIMS}")
+def require_head_dim(hd: int, dtype=torch.float32) -> None:
+    """The head widths the kernel is built for, at ``dtype``: any other is
+    refused on the card (the plain version on the CPU takes any)."""
+    dims = BF16_HEAD_DIMS if dtype == torch.bfloat16 else HEAD_DIMS
+    require(hd in dims, f"head dim {hd} not in {dims} at {dtype}")
 
 
 def _keyless_from(Sq: int, Sk: int, window: Optional[int]) -> int:
@@ -101,10 +114,12 @@ def flash_attention(
     window: Optional[int] = None,
     attn_softcap: Optional[float] = None,
 ) -> torch.Tensor:
-    """Blocked online-softmax attention -> (BH, Sq, hd) f32.
+    """Blocked online-softmax attention -> (BH, Sq, hd) in q's dtype.
 
     q: (BH, Sq, hd); k, v: (BH / n_rep, Sk, hd) — ``n_rep = 1`` is the
     reference's repeated-KV layout, ``n_rep > 1`` reads grouped heads.
+    All three f32, or all three bf16 (the bf16 branch: taken whole by the
+    tensor cores, the softmax and O in f32, O rounded to bf16 once).
     """
     global launches
     require(q.ndim == 3 and k.ndim == 3 and k.shape == v.shape, "q, k, v must be (BH, S, hd)")
@@ -118,18 +133,20 @@ def flash_attention(
         return _build.run_plain("flash_attention", flash_attention_ref, q, k, v, causal=causal,
                                 window=window, attn_softcap=attn_softcap)
     require(q.device.type == "cuda", f"unsupported device {q.device}")
-    require(q.dtype == k.dtype == v.dtype == torch.float32, "q, k, v must be float32")
-    require_head_dim(hd)
+    require(q.dtype == k.dtype == v.dtype and q.dtype in (torch.float32, torch.bfloat16),
+            f"q, k, v must be all float32 or all bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    require_head_dim(hd, q.dtype)
     require(all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (q, k, v)),
             "q, k, v must be contiguous and 16-byte aligned")
     lib, fn = _fn()
     n_rep, Sk = BH // k.shape[0], k.shape[1]
     out = torch.empty_like(q)
-    # K's and V's three bf16 planes, padded to whole key tiles
-    scratch = torch.empty(lib.flash_scratch_elems(BH, Sk, hd, n_rep), dtype=torch.bfloat16,
+    # K's and V's three bf16 planes (one each when bf16), padded to whole key tiles
+    bf = int(q.dtype == torch.bfloat16)
+    scratch = torch.empty(lib.flash_scratch_elems(BH, Sk, hd, n_rep, bf), dtype=torch.bfloat16,
                           device=q.device)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), scratch.data_ptr(), BH, Sq,
-            Sk, hd, n_rep, int(causal), window or 0, attn_softcap or 0.0, hd ** -0.5,
+            Sk, hd, n_rep, int(causal), window or 0, attn_softcap or 0.0, hd ** -0.5, bf,
             _build.stream_of(q))
     _build.check(lib, rc, "flash_attention")
     launches += 1

@@ -4,7 +4,9 @@ log-sum-exp of ``softmax(softcap(h @ W))``, and ``dh``.
 Replaces the TPU kernels ``src/repro/kernels/cached_step.py``
 ``_ce_fwd_kernel`` (``_ce_fwd_impl``) and ``_ce_bwd_kernel``
 (``_ce_bwd_impl``), with the CUDA kernels ``csrc/lmhead_ce.cu``. Both
-split h and W once per call in three bf16 terms each, W one vocab chunk at
+split an f32 h and W once per call in three bf16 terms each (a bf16 h or
+W, a bf16 backbone's head, goes whole: one plane, and the loop takes 3
+products a k16 step instead of 6), W one vocab chunk at
 a time, and run one 128 x 128 tile per block on the bf16 tensor cores
 (one loop, shared). ``ce_fwd``: the logits tile with an online softmax in
 its epilogue, the partials of the vocab tiles merged in a second pass.
@@ -54,10 +56,12 @@ def _lib():
     lib = _build.library("lmhead_ce")
     if lib.ce_fwd_launch.argtypes is None:
         lib.ce_fwd_launch.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
-                                      + [ctypes.c_float, ctypes.c_void_p])
+                                      + [ctypes.c_float] + [ctypes.c_int] * 2
+                                      + [ctypes.c_void_p])
         lib.ce_fwd_launch.restype = ctypes.c_int
         lib.ce_bwd_launch.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
-                                      + [ctypes.c_float, ctypes.c_void_p])
+                                      + [ctypes.c_float] + [ctypes.c_int] * 2
+                                      + [ctypes.c_void_p])
         lib.ce_bwd_launch.restype = ctypes.c_int
         lib.ce_tile.argtypes = [ctypes.c_int]
         lib.ce_tile.restype = ctypes.c_int
@@ -72,11 +76,23 @@ def _validate(h, w, labels, softcap) -> None:
     require(h.device == w.device == labels.device, "h, W, labels on different devices")
 
 
-def _check_cuda(*tensors) -> None:
-    for t in tensors:
+def _check_cuda(h, w, *f32) -> None:
+    """h and W f32 or bf16 (each on its own), lse and g f32; all on the
+    card and contiguous."""
+    for t in (h, w) + f32:
         require(t.device.type == "cuda", f"unsupported device {t.device}")
-        require(t.dtype == torch.float32, f"h, W, lse, g must be float32, got {t.dtype}")
         require(t.is_contiguous(), "h, W, lse, g must be contiguous")
+    for t in (h, w):
+        require(t.dtype in (torch.float32, torch.bfloat16),
+                f"h and W must be float32 or bfloat16, got {t.dtype}")
+    for t in f32:
+        require(t.dtype == torch.float32, f"lse and g must be float32, got {t.dtype}")
+
+
+def terms(t: torch.Tensor) -> int:
+    """bf16 planes an operand takes on the tensor cores: three terms of an
+    f32 value, a bf16 value whole."""
+    return 1 if t.dtype == torch.bfloat16 else 3
 
 
 def fwd_chunk_tiles(t_tiles: int, v_tiles: int, bn: int, sms: int) -> int:
@@ -88,21 +104,23 @@ def fwd_chunk_tiles(t_tiles: int, v_tiles: int, bn: int, sms: int) -> int:
     return max(1, min(v_tiles, 2 * FWD_CHUNK // bn, waves * sms // t_tiles))
 
 
-def ce_bwd_scratch(T: int, d: int, V: int, bm: int, bn: int, sms: int) -> Tuple[int, ...]:
+def ce_bwd_scratch(T: int, d: int, V: int, bm: int, bn: int, sms: int, h_terms: int = 3,
+                   w_terms: int = 3) -> Tuple[int, ...]:
     """The backward's W chunk, in vocab tiles (the forward's), and the bf16
-    values of its three scratches: h's planes (3, Tp, dp), one W chunk's
-    (3, dp, chunk·bn) and one P chunk's (3, Tp, chunk·bn), where Tp is T
-    in whole token tiles (``bm``) and dp is d in whole ``dh`` tiles
-    (``bn``)."""
+    values of its three scratches: h's planes (h_terms, Tp, dp), one W
+    chunk's (w_terms, dp, chunk·bn) and one P chunk's (3, Tp, chunk·bn),
+    where Tp is T in whole token tiles (``bm``) and dp is d in whole
+    ``dh`` tiles (``bn``); an operand's planes are :func:`terms`."""
     t_tiles, v_tiles = -(-T // bm), -(-V // bn)
     tp, dp = t_tiles * bm, -(-d // bn) * bn
     chunk = fwd_chunk_tiles(t_tiles, v_tiles, bn, sms)
-    return chunk, 3 * tp * dp, 3 * dp * chunk * bn, 3 * tp * chunk * bn
+    return chunk, h_terms * tp * dp, w_terms * dp * chunk * bn, 3 * tp * chunk * bn
 
 
 def ce_fwd(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
            softcap: Optional[float] = None):
-    """(nll, lse), each (T,) f32. h (T, d); W (d, V); labels (T,) in [0, V)."""
+    """(nll, lse), each (T,) f32. h (T, d); W (d, V), each f32 or bf16 (a
+    bf16 operand goes to the tensor cores whole); labels (T,) in [0, V)."""
     _validate(h, w, labels, softcap)
     if _build.plain_path(h):
         return _build.run_plain("ce_fwd", ce_fwd_ref, h, w, labels, softcap)
@@ -116,15 +134,16 @@ def ce_fwd(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
     dp = -(-d // bk) * bk
     sms = torch.cuda.get_device_properties(h.device).multi_processor_count
     chunk = fwd_chunk_tiles(t_tiles, v_tiles, bn, sms)
-    hs = torch.empty(3 * t_tiles * bm * dp, dtype=torch.bfloat16, device=h.device)
-    ws = torch.empty(3 * dp * chunk * bn, dtype=torch.bfloat16, device=h.device)
+    hs = torch.empty(terms(h) * t_tiles * bm * dp, dtype=torch.bfloat16, device=h.device)
+    ws = torch.empty(terms(w) * dp * chunk * bn, dtype=torch.bfloat16, device=h.device)
     part = torch.empty((3, T, v_tiles), dtype=torch.float32, device=h.device)
     nll = torch.empty(T, dtype=torch.float32, device=h.device)
     lse = torch.empty(T, dtype=torch.float32, device=h.device)
     rc = lib.ce_fwd_launch(h.data_ptr(), w.data_ptr(), labels.data_ptr(), hs.data_ptr(),
                            ws.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
                            part[2].data_ptr(), nll.data_ptr(), lse.data_ptr(), T, d, V, chunk,
-                           softcap or 0.0, _build.stream_of(h))
+                           softcap or 0.0, int(terms(h) == 1), int(terms(w) == 1),
+                           _build.stream_of(h))
     _build.check(lib, rc, "ce_fwd")
     launches["ce_fwd"] += 1
     return nll, lse
@@ -133,7 +152,8 @@ def ce_fwd(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
 def ce_bwd(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, lse: torch.Tensor,
            g: torch.Tensor, softcap: Optional[float] = None) -> torch.Tensor:
     """``dh = g · ((softmax − onehot)·(1 − tanh²)) @ Wᵀ`` -> (T, d) in
-    ``h``'s dtype; lse and g (T,) f32."""
+    ``h``'s dtype (the reference's: summed in f32, rounded once); h and W
+    each f32 or bf16, lse and g (T,) f32."""
     _validate(h, w, labels, softcap)
     require(lse.shape == g.shape == (h.shape[0],), "lse and g must be (T,)")
     if _build.plain_path(h):
@@ -145,15 +165,17 @@ def ce_bwd(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, lse: torch.Te
     V = w.shape[1]
     labels = labels.to(torch.int32).contiguous()
     sms = torch.cuda.get_device_properties(h.device).multi_processor_count
-    chunk, *sizes = ce_bwd_scratch(T, d, V, lib.ce_tile(0), lib.ce_tile(1), sms)
+    chunk, *sizes = ce_bwd_scratch(T, d, V, lib.ce_tile(0), lib.ce_tile(1), sms, terms(h),
+                                   terms(w))
     hs, ws, ps = (torch.empty(n, dtype=torch.bfloat16, device=h.device) for n in sizes)
     dh = torch.empty((T, d), dtype=torch.float32, device=h.device)
     rc = lib.ce_bwd_launch(h.data_ptr(), w.data_ptr(), labels.data_ptr(), lse.data_ptr(),
                            g.data_ptr(), hs.data_ptr(), ws.data_ptr(), ps.data_ptr(),
-                           dh.data_ptr(), T, d, V, chunk, softcap or 0.0, _build.stream_of(h))
+                           dh.data_ptr(), T, d, V, chunk, softcap or 0.0, int(terms(h) == 1),
+                           int(terms(w) == 1), _build.stream_of(h))
     _build.check(lib, rc, "ce_bwd")
     launches["ce_bwd"] += 1
-    return dh
+    return dh if h.dtype == torch.float32 else dh.to(h.dtype)
 
 
 class CEFn(torch.autograd.Function):

@@ -42,7 +42,7 @@ def quant_matmul(x: torch.Tensor, w: QTensor) -> torch.Tensor:
 
 def adapter_fuse(b: torch.Tensor, w_down: torch.Tensor, a: torch.Tensor, lam) -> torch.Tensor:
     """``λ·(b @ w_down) + (1−λ)·a``, fused. b (…, d); a (…, d_a);
-    w_down (d, d_a) -> (…, d_a) in ``b``'s dtype."""
+    w_down (d, d_a) -> (…, d_a) in the promotion of b's and w_down's dtypes."""
     lead = b.shape[:-1]
     out = _adapter_fuse.adapter_fuse(b.reshape(-1, b.shape[-1]).contiguous(),
                                      w_down.contiguous(),

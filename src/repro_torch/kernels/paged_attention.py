@@ -43,6 +43,7 @@ from repro_torch.kernels.ref import paged_attention_ref
 launches = 0
 
 HEAD_DIMS = (64, 112, 128, 256)
+BF16_Q_HEAD_DIMS = (128,)  # a bf16 q's (the bf16 backbone's decode)
 _KIND = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
 KIND_BYTES = {0: 1, 1: 4, 2: 2}  # bytes an element of each page kind
 
@@ -113,11 +114,12 @@ def plan_for(t: torch.Tensor, B: int, Hkv: int, n_rep: int, hd: int, page: int, 
     return plan(B, Hkv, n_rep, hd, page, max_pages, kind, _sms(t.device.index))
 
 
-def require_card_shape(hd: int, n_rep: int) -> None:
-    """The head widths the kernel is built for and the query rows a block
-    holds: any other is refused on the card (the plain version on the CPU
-    takes any)."""
-    require(hd in HEAD_DIMS, f"head dim {hd} not in {HEAD_DIMS}")
+def require_card_shape(hd: int, n_rep: int, q_dtype=torch.float32) -> None:
+    """The head widths the kernel is built for (at ``q_dtype``) and the
+    query rows a block holds: any other is refused on the card (the plain
+    version on the CPU takes any)."""
+    dims = BF16_Q_HEAD_DIMS if q_dtype == torch.bfloat16 else HEAD_DIMS
+    require(hd in dims, f"head dim {hd} not in {dims} for a {q_dtype} q")
     require(n_rep <= MAX_ROWS, f"n_rep {n_rep} > {MAX_ROWS}")
 
 
@@ -126,7 +128,7 @@ def _fn():
     fn = lib.paged_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
-                       + [ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 4
+                       + [ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib, fn
@@ -146,7 +148,9 @@ def paged_attention(
 ) -> torch.Tensor:
     """Paged decode attention -> (B, Hkv, n_rep, hd) f32.
 
-    q: (B, Hkv, n_rep, hd) f32 post-rope new-token query; k/v_pages:
+    q: (B, Hkv, n_rep, hd) f32 or bf16 (a bf16 backbone's, at hd 128:
+    widened to f32 exactly as it is staged; the output stays f32, as the
+    reference's) post-rope new-token query; k/v_pages:
     (n_pages, page, Hkv, hd) — int8 with ``k_scale``/``v_scale``
     (n_pages, page, Hkv) f32, or plain f32/bf16; block_tables:
     (B, max_pages) int32 (page 0 is the null page); lengths: (B,) int32,
@@ -179,22 +183,24 @@ def paged_attention(
     tensors = [q, k_pages, v_pages, block_tables, lengths] + ([k_scale, v_scale] if quantized else [])
     require(all(t.device == q.device for t in tensors), "arguments on different devices")
     require(all(t.is_contiguous() for t in tensors), "arguments must be contiguous")
-    require(q.dtype == torch.float32, "q must be float32")
+    require(q.dtype in (torch.float32, torch.bfloat16), f"q must be float32 or bfloat16, "
+                                                       f"got {q.dtype}")
     require(block_tables.dtype == torch.int32 and lengths.dtype == torch.int32,
             "block_tables and lengths must be int32")
     require(k_pages.dtype == v_pages.dtype, "k and v pages must share a dtype")
-    require_card_shape(hd, n_rep)
+    require_card_shape(hd, n_rep, q.dtype)
     max_pages = block_tables.shape[1]
     kind = _KIND[k_pages.dtype]
     p = plan_for(q, B, hkv, n_rep, hd, k_pages.shape[1], max_pages, kind)
     lib, fn = _fn()
-    out = torch.empty_like(q)
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     ks = k_scale.data_ptr() if quantized else None
     vs = v_scale.data_ptr() if quantized else None
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ks, vs,
             block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
             B, hkv, n_rep, hd, k_pages.shape[1], max_pages, kind, window or 0,
-            attn_softcap or 0.0, hd ** -0.5, *p, _build.stream_of(q))
+            attn_softcap or 0.0, hd ** -0.5, *p, int(q.dtype == torch.bfloat16),
+            _build.stream_of(q))
     _build.check(lib, rc, "paged_attention")
     launches += 1
     return out

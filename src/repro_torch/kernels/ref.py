@@ -29,11 +29,12 @@ def quant_matmul_ref(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
 def adapter_fuse_ref(b: torch.Tensor, w_down: torch.Tensor, a: torch.Tensor, lam
                      ) -> torch.Tensor:
     """The ``adapter_fuse`` kernel's function: ``λ·(b @ w_down) + (1−λ)·a``
-    in ``b``'s dtype, the product and the mix in f32. b (T, d), w_down
-    (d, d_a), a (T, d_a); λ a scalar, already clamped to [0, 1]."""
+    in the promotion of b's and w_down's dtypes, the product and the mix in
+    f32. b (T, d), w_down (d, d_a), a (T, d_a); λ a scalar, already clamped
+    to [0, 1]."""
     lam = torch.as_tensor(lam, dtype=torch.float32, device=b.device)
     out = lam * (b.float() @ w_down.float()) + (1.0 - lam) * a.float()
-    return out.to(b.dtype)
+    return out.to(torch.promote_types(b.dtype, w_down.dtype))
 
 
 def mix_fwd_ref(b, w_down: torch.Tensor, a: torch.Tensor, lam):

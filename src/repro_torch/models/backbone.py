@@ -39,6 +39,7 @@ from repro_torch.models.layers import (
     init_attention,
     init_mlp,
     mlp_forward,
+    promoted_matmul,
     rms_norm,
     softcap,
 )
@@ -240,7 +241,7 @@ def loss_head(params, cfg) -> torch.Tensor:
 def logits_from_hidden(params, cfg, h):
     p_norm = maybe_dequantize_tree(params["final_norm"])
     h = rms_norm(h, p_norm, cfg.norm_eps)
-    logits = h @ head_weight(params, cfg)
+    logits = promoted_matmul(h, head_weight(params, cfg))
     return softcap(logits, cfg.logit_softcap)
 
 

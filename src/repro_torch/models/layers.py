@@ -133,6 +133,15 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return (x * weight + bias).to(dtype)
 
 
+def promoted_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` under JAX's type promotion, which the reference's ``@``
+    follows: two float dtypes meet in the wider (a bf16 backbone tensor
+    with an f32 adapter weight gives f32), where torch's ``@`` refuses
+    mixed dtypes."""
+    dtype = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dtype) @ w.to(dtype)
+
+
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     if cap is None:
         return x
