@@ -1894,8 +1894,11 @@ def bf16_kernel_phase(timer: Timer, gen: torch.Generator) -> dict:
     attention with a bf16 q over int8, bf16 and f32 pages at the check's
     shape; ``ce_fwd``/``ce_bwd`` with the bf16 head (W) and the f32 hidden
     (h, the side network's sum) at the training shape, with and without the
-    soft-cap, and with a bf16 h too at a ragged shape. Returns the kernels
-    line's ``bf16`` rows."""
+    soft-cap, and with a bf16 h too at a ragged shape, on the wgmma loop
+    (the kernels each route launches named, W read in place or, where V is
+    not a multiple of 8, from one padded copy), two calls bit-equal, timed
+    beside the f32 yardstick (the reference's function) and the bf16-cast
+    one. Returns the kernels line's ``bf16`` rows."""
     from repro_torch.kernels import lmhead_ce, ref
 
     rows = {"flash_attention": {}, "paged_attention": {}}
@@ -1944,50 +1947,78 @@ def bf16_kernel_phase(timer: Timer, gen: torch.Generator) -> dict:
             raise AssertionError(f"ce_bwd {at}: dh {dh.dtype}, not h's dtype")
         e = {"ce_fwd": max(max_err(nll, want_nll), max_err(lse, want_lse)),
              "ce_bwd": max_err(dh, want_dh)}
-        emit({"check": "lmhead_ce_bf16", "at": at, "ce_fwd_max_abs_err": e["ce_fwd"],
-              "ce_bwd_max_abs_err": e["ce_bwd"], "ce_fwd_check": e_f, "ce_bwd_check": e_b,
-              "tol": "ce_fwd atol 2e-5 + rtol 1e-5; ce_bwd atol 1e-5 + rtol 1e-4 (a bf16 dh: "
-                     + BF16_OUT_TOL + ")", "tol_reason": reason})
+        line = {"check": "lmhead_ce_bf16", "at": at, "ce_fwd_max_abs_err": e["ce_fwd"],
+                "ce_bwd_max_abs_err": e["ce_bwd"], "ce_fwd_check": e_f, "ce_bwd_check": e_b,
+                "tol": "ce_fwd atol 2e-5 + rtol 1e-5; ce_bwd atol 1e-5 + rtol 1e-4 (a bf16 dh: "
+                       + BF16_OUT_TOL + ")", "tol_reason": reason,
+                "w_in_place": lmhead_ce.w_in_place(ww.shape[1], ww.data_ptr())}
+        line["route"] = lmhead_ce.route_of(hh, ww)  # the kernels each call launches
+        emit(line)
         if hh is h:
             errs = {k: max(errs[k], e[k]) for k in errs}
+            # two calls bit for bit (the chunks and the merge run in a fixed order)
+            nll2, lse2 = lmhead_ce.ce_fwd(hh, ww, ll, cap)
+            dh2 = lmhead_ce.ce_bwd(hh, ww, ll, want_lse, gg, cap)
+            for name, equal in (("ce_fwd", torch.equal(nll, nll2) and torch.equal(lse, lse2)),
+                                ("ce_bwd", torch.equal(dh, dh2))):
+                emit({"check": f"{name}_deterministic", "dtype": "h f32, W bf16", "T": T,
+                      "d": d, "V": V, "softcap": cap, "bit_equal": bool(equal)})
+                if not equal:
+                    raise AssertionError(f"{name} bf16 W cap={cap}: two calls differ")
     _, lse = ref.ce_fwd_ref(h, w, lab)
-    hb = h.to(torch.bfloat16)
+    hb, wf = h.to(torch.bfloat16), w.float()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # the f32 yardstick in f32 ("highest")
     # the kernels' products: h's three terms by W's one, in the forward and
     # in each of the backward's two GEMMs (P keeps three terms too)
     fwd_bytes = 4.0 * T * d + 2.0 * d * V + 12.0 * T
     b_ms, b_by = bound(fwd_bytes, 3 * 2.0 * T * d * V, flop_per_s=BF16_FLOP_PER_S)
     f32_ms, _ = bound(fwd_bytes, 2.0 * T * d * V)
+    loop, routes = "wgmma loop (TMA ring, producer warpgroup, wgmma consumers)", \
+        lmhead_ce.route_of(h, w)
+    route = f"{loop}: {', '.join(routes['ce_fwd'])}"
     r = {"check": "ce_fwd", "dtype": "h f32, W bf16", "T": T, "d": d, "V": V,
-         "max_abs_err": errs["ce_fwd"],
+         "max_abs_err": errs["ce_fwd"], "route": route,
          "ms": timer(lambda: lmhead_ce.ce_fwd(h, w, lab), calls=2, repeats=3),
          "plain_ms": timer(lambda: ref.ce_fwd_ref(h, w, lab), calls=2, repeats=3),
-         "library_ms": timer(lambda: torch.logsumexp(torch.matmul(hb, w), dim=-1), calls=2,
+         "library_ms": timer(lambda: torch.logsumexp(torch.matmul(h, wf), dim=-1), calls=2,
                              repeats=3),
-         "library": "torch.matmul on bf16 (h cast beforehand), then torch.logsumexp",
+         "library": "torch.matmul in f32 (TF32 off, precision highest; W cast to f32 once "
+                    "beforehand), then torch.logsumexp: the reference's function",
+         "library_bf16_cast_ms": timer(lambda: torch.logsumexp(torch.matmul(hb, w), dim=-1),
+                                       calls=2, repeats=3),
+         "library_bf16_cast": "torch.matmul on bf16 with h rounded to bf16 beforehand, then "
+                              "torch.logsumexp: one product, not the same function",
          "bound_ms": b_ms, "bound_by": b_by, "bound_f32_ms": f32_ms}
     emit(r)
     at = "LM-head CE forward, bf16 head, T=4*512, d=2048, V=92544"
-    rows["ce_fwd"] = _row(r, at)
-    hr = hb.clone().requires_grad_()
+    rows["ce_fwd"] = dict(_row(r, at), route=route)
+    hr, hr32 = hb.clone().requires_grad_(), h.clone().requires_grad_()
 
-    def library_bwd():
-        loss = torch.nn.functional.cross_entropy(torch.matmul(hr, w), lab.long(),
+    def library_bwd(x, head):
+        loss = torch.nn.functional.cross_entropy(torch.matmul(x, head), lab.long(),
                                                  reduction="sum")
-        return torch.autograd.grad(loss, hr)
+        return torch.autograd.grad(loss, x)
 
     bwd_bytes = 8.0 * T * d + 2.0 * d * V + 16.0 * T
     b_ms, b_by = bound(bwd_bytes, 6 * 2.0 * T * d * V, flop_per_s=BF16_FLOP_PER_S)
     f32_ms, _ = bound(bwd_bytes, 4.0 * T * d * V)
+    route = f"{loop}: {', '.join(routes['ce_bwd'])}"
     r = {"check": "ce_bwd", "dtype": "h f32, W bf16", "T": T, "d": d, "V": V,
-         "max_abs_err": errs["ce_bwd"],
+         "max_abs_err": errs["ce_bwd"], "route": route,
          "ms": timer(lambda: lmhead_ce.ce_bwd(h, w, lab, lse, g), calls=2, repeats=3),
          "plain_ms": timer(lambda: ref.ce_bwd_ref(h, w, lab, lse, g), calls=2, repeats=3),
-         "library_ms": timer(library_bwd, calls=2, repeats=3),
-         "library": "autograd of F.cross_entropy(h @ W) on bf16 (its forward included)",
+         "library_ms": timer(lambda: library_bwd(hr32, wf), calls=2, repeats=3),
+         "library": "autograd of F.cross_entropy(h @ W) in f32 (TF32 off; W cast to f32 once "
+                    "beforehand; its forward included): the reference's function",
+         "library_bf16_cast_ms": timer(lambda: library_bwd(hr, w), calls=2, repeats=3),
+         "library_bf16_cast": "the same on bf16 with h rounded to bf16 beforehand: one "
+                              "product, not the same function",
          "bound_ms": b_ms, "bound_by": b_by, "bound_f32_ms": f32_ms}
+    torch.backends.cuda.matmul.allow_tf32 = tf32
     emit(r)
-    rows["ce_bwd"] = _row(r, "LM-head CE backward (logits recomputed), bf16 head, T=4*512, "
-                             "d=2048, V=92544")
+    rows["ce_bwd"] = dict(_row(r, "LM-head CE backward (logits recomputed), bf16 head, "
+                                  "T=4*512, d=2048, V=92544"), route=route)
     return rows
 
 
@@ -2720,7 +2751,8 @@ def profile_steps(s) -> None:
         prof = device_profile(lambda: events.append(s.step(dict(batch))),
                               watch=("mix_dw_mma", "dw_reduce", "mix_fwd_mma",
                                      "mix_fwd_reduce", "ce_split", "ce_fwd_mma", "ce_merge",
-                                     "ce_grad_mma", "ce_dh_mma", "flash_split",
+                                     "ce_grad_mma", "ce_dh_mma", "ce_fwd_wg", "ce_grad_wg",
+                                     "ce_dh_wg", "flash_split",
                                      "flash_fwd_mma", "qmm_mma"))
         if events[0].mode != mode:
             raise AssertionError(f"profiled a {events[0].mode} step, wanted {mode}")
@@ -7200,8 +7232,11 @@ def main(argv=None) -> int:
                     "paged_attention": ["paged_attn"],
                     "mix_fwd": ["mix_fwd_mma", "mix_fwd_reduce"],
                     "mix_dw": ["mix_dw_mma", "dw_reduce"],
-                    "ce_fwd": ["ce_split", "ce_fwd_mma", "ce_merge"],
-                    "ce_bwd": ["ce_split", "ce_grad_mma", "ce_dh_mma"],
+                    "ce_fwd": ["ce_split", "ce_fwd_mma (f32 W)", "ce_fwd_wg (bf16 W)",
+                               "ce_pad (bf16 h, or a bf16 W TMA cannot read in place)",
+                               "ce_merge"],
+                    "ce_bwd": ["ce_split", "ce_grad_mma + ce_dh_mma (f32 W)",
+                               "ce_grad_wg + ce_dh_wg (bf16 W)", "ce_pad (as ce_fwd)"],
                     "adapter_fuse": ["skinny::gemv (T <= 8)",
                                      "mix_fwd_mma + mix_fwd_reduce (T > 8)"]}
     for name, row in bf16_rows.items():

@@ -7,11 +7,30 @@
 // bf16, labels (T,) int32 in [0, V), optional tanh soft-cap (cap > 0).
 //
 // A bf16 operand (a bf16 backbone's head W, or a bf16 h) is exact in
-// bf16, so it goes to the tensor cores whole: one plane instead of three
-// (ce_pad copies it into the padded plane the loop reads), and the loop
-// takes the products of an f32 operand's three terms with it, 3 a k16
-// step instead of 6 (1 for two bf16 operands); the epilogues are the f32
-// operands' unchanged. The backward's P stays f32, three terms.
+// bf16, so it goes to the tensor cores whole: one plane instead of three,
+// and the loop takes the products of an f32 operand's three terms with
+// it, 3 a k16 step instead of 6 (1 for two bf16 operands); the epilogues
+// are the f32 operands' unchanged. The backward's P stays f32, three
+// terms. A bf16 h is copied into its padded plane by ce_pad.
+//
+// Two loops. An f32 W runs on tile_mma below (mma.sync, cp.async, W split
+// a chunk at a time). A bf16 W runs on Hopper's asynchronous loop
+// (wgmma_loop.cuh; fwd_launch_wg, bwd_launch_wg, the kernels of namespace
+// cw): TMA reads W where it lies (no copy, no chunks in the forward; a
+// padded copy by ce_pad only where V is not a multiple of 8 or W's base
+// is not 16-byte aligned), into a ring of stages that a producer
+// warpgroup fills and two consumer warpgroups multiply with wgmma from
+// shared memory, a fresh f32 sum a 64-deep stage. Tiles: 128 tokens x 256
+// vocab columns (ce_fwd_wg, one launch over all of V), x 128 (ce_grad_wg,
+// a chunk at a time as before), x 256 of d (ce_dh_wg, 128 blocks a chunk
+// at the training shape: under one wave of 132 SMs). At the training
+// shape (chip_smoke.py, ../ce_fwd_variants.py --w-bf16; NVIDIA H100 80GB
+// HBM3, 700 W) ce_fwd takes ~2.9 ms (its bound 2.355, 3 bf16 products)
+// and ce_bwd ~6.9 (bound 4.71), against 6.9 and 14.4 on tile_mma: the
+// forward's loop issues the three products at ~815 TFLOP/s (its TMA
+// stream alone 1.8 ms); ce_grad_wg is held by its stream of h's planes
+// from L2 and its P stores (3.4 of 3.65 ms without wgmma), ce_dh_wg by
+// the tensor cores (3.1 ms, 2.0 without wgmma).
 //
 // What bounds them on the H100: at the training shape of internlm2-1.8b
 // (T = 2048, d = 2048, V = 92544) the logits are 2·T·d·V ≈ 0.78 TFLOP
@@ -97,6 +116,7 @@
 #include <stdint.h>
 
 #include "mix_tile.cuh"
+#include "wgmma_loop.cuh"
 
 namespace {
 
@@ -518,6 +538,228 @@ ce_dh_mma(const uint16_t* __restrict__ ps, const uint16_t* __restrict__ ws,
 
 }  // namespace ce
 
+// ---- a bf16 head W on Hopper's asynchronous loop (wgmma_loop.cuh)
+
+namespace cw {
+
+using namespace mix_tile;
+using wgl::BK;
+using wgl::BM;
+// 128-column halves a consumer warpgroup owns, by kernel: two halve the
+// times h's planes (or P's) stream from L2 for ce_fwd_wg and ce_dh_wg;
+// ce_grad_wg keeps one (measured faster: ce_fwd_variants.py)
+constexpr int NH_FWD = 2, NH_GRAD = 1, NH_DH = 2;
+
+// this thread's place in its consumer warpgroup's C tile (wgl::mma's
+// layout): its first row of the block's BM, lane/4 and lane%4
+struct Place {
+  int row, gq, tq;
+  __device__ __forceinline__ Place() {
+    const int lane = threadIdx.x & 31;
+    gq = lane >> 2, tq = lane & 3;
+    row = 16 * (threadIdx.x / 32) + gq;  // consumer warps 0..7, 16 rows each
+  }
+};
+
+// column of acc[h][i] within the tile, less 2·(lane%4)
+__device__ __forceinline__ int col_of(int h, int i) {
+  return wgl::HALF * h + 8 * (i / 4) + (i & 1);
+}
+
+// One (token tile, vocab tile) a block, grid (Tp / BM, ceil(V / BN)):
+// the logits tile h @ W on the loop, A = h's TA planes (hmap: (TA·Tp, dp)),
+// B = W's (d, V) read in place (wmap: MN-major), then the forward's
+// epilogue (ce_fwd_mma's): soft-cap, columns >= V masked, per row the
+// max, the sum of exponentials and the label logit over the tile, each
+// row whole in one warp's quad. Writes the partials (T, n_vt).
+template <int TA, int NH>
+__global__ void __launch_bounds__(wgl::THREADS, 1)
+ce_fwd_wg(const __grid_constant__ CUtensorMap hmap, const __grid_constant__ CUtensorMap wmap,
+          const int* __restrict__ labels, float* __restrict__ pm, float* __restrict__ pl,
+          float* __restrict__ pll, int T, int Tp, int V, int steps, int n_vt, float cap) {
+  extern __shared__ uint8_t smem_raw[];
+  const wgl::RingOf<TA, NH> ring(smem_raw);
+  constexpr int BN = wgl::bn(NH);  // vocab columns (or d) of the tile
+  const int t0 = blockIdx.x * BM, vt = blockIdx.y;
+  if (wgl::producer_warp()) {
+    wgl::producer_regs();
+    if (wgl::producer_thread())
+      wgl::produce<TA, NH, false>(ring, &hmap, t0, Tp, &wmap, vt * BN, 0, steps);
+  } else {
+    wgl::consumer_regs();
+    float acc[NH][64];
+    wgl::consume<TA, NH, false>(ring, steps, acc);
+    const Place at;
+    const int col0 = vt * BN + 2 * at.tq;  // this thread's first vocab column
+#pragma unroll
+    for (int h = 0; h < NH; ++h)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        float z = acc[h][i];
+        if (cap > 0.f) z = cap * tanhf(z / cap);
+        acc[h][i] = col0 + col_of(h, i) < V ? z : NEG;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {  // rows lane/4 and lane/4 + 8: elements 2r, 2r + 1 of each 4
+      const int row = at.row + 8 * r;
+      float m = NEG;
+#pragma unroll
+      for (int h = 0; h < NH; ++h)
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) m = fmaxf(m, acc[h][4 * j + 2 * r + e]);
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      const int lab = t0 + row < T ? labels[t0 + row] : -1;
+      float l = 0.f, ll = 0.f;
+#pragma unroll
+      for (int h = 0; h < NH; ++h)
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float z = acc[h][4 * j + 2 * r + e];
+            l += expf(z - m);
+            if (col0 + col_of(h, 4 * j + e) == lab) ll += z;
+          }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        l += __shfl_xor_sync(0xffffffffu, l, off);
+        ll += __shfl_xor_sync(0xffffffffu, ll, off);
+      }
+      if (at.tq == 0 && t0 + row < T) {
+        const size_t o = (size_t)(t0 + row) * n_vt + vt;
+        pm[o] = m;
+        pl[o] = l;
+        pll[o] = ll;
+      }
+    }
+  }
+}
+
+// One (token tile, vocab tile of the chunk) a block, grid (Tp / BM, chunk
+// tiles): the forward's logits on the same loop (bit for bit), then
+// ce_grad_mma's P (0 at columns >= V and rows >= T) in three bf16 terms,
+// staged a half at a time in the free ring and stored 16 bytes a thread
+// into ps (3, Tp, ldp) at the chunk's column blockIdx.y·BN.
+template <int TA, int NH>
+__global__ void __launch_bounds__(wgl::THREADS, 1)
+ce_grad_wg(const __grid_constant__ CUtensorMap hmap, const __grid_constant__ CUtensorMap wmap,
+           const int* __restrict__ labels, const float* __restrict__ lse,
+           uint16_t* __restrict__ ps, int T, int Tp, int V, int ldp, int vt0, int steps,
+           float cap) {
+  extern __shared__ uint8_t smem_raw[];
+  const wgl::RingOf<TA, NH> ring(smem_raw);
+  constexpr int BN = wgl::bn(NH);  // vocab columns (or d) of the tile
+  const int t0 = blockIdx.x * BM, vt = vt0 + blockIdx.y;
+  if (wgl::producer_warp()) {
+    wgl::producer_regs();
+    if (wgl::producer_thread())
+      wgl::produce<TA, NH, false>(ring, &hmap, t0, Tp, &wmap, vt * BN, 0, steps);
+  } else {
+    wgl::consumer_regs();
+    float acc[NH][64];
+    wgl::consume<TA, NH, false>(ring, steps, acc);
+    const Place at;
+    constexpr int H = wgl::HALF;
+    static_assert(3 * BM * H * 2 <= wgl::RingOf<TA, NH>::STAGES * wgl::RingOf<TA, NH>::STAGE,
+                  "a half's P tile fits the ring");
+    uint16_t* stage = reinterpret_cast<uint16_t*>(ring.tiles);  // 3 x BM x HALF bf16
+    const int ct = threadIdx.x;  // of the consumers'
+    const size_t pplane = (size_t)Tp * ldp;
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+      wgl::consumers_sync();  // the ring (or the last half's stage) is free
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = at.row + 8 * r;
+        const bool live = t0 + row < T;
+        const int lab = live ? labels[t0 + row] : -1;
+        const float lz = live ? lse[t0 + row] : 0.f;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          float p[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = vt * BN + H * h + 8 * j + 2 * at.tq + e;
+            float z = acc[h][4 * j + 2 * r + e], slope = 1.f;
+            if (cap > 0.f) {
+              const float th = tanhf(z / cap);
+              z = cap * th;
+              slope = 1.f - th * th;
+            }
+            p[e] = live && col < V ? (expf(z - lz) - (col == lab ? 1.f : 0.f)) * slope : 0.f;
+          }
+          uint32_t w3[3];
+          split3(p[0], p[1], w3);
+#pragma unroll
+          for (int t = 0; t < 3; ++t)
+            *reinterpret_cast<uint32_t*>(stage + t * BM * H + swz<H>(row, 8 * j + 2 * at.tq)) =
+                w3[t];
+        }
+      }
+      wgl::consumers_sync();
+#pragma unroll
+      for (int t = 0; t < 3; ++t)
+#pragma unroll
+        for (int i = 0; i < BM * H / 8 / (128 * wgl::CONSUMERS); ++i) {
+          const int q = ct + i * 128 * wgl::CONSUMERS, r = q / (H / 8), c = (q % (H / 8)) * 8;
+          *reinterpret_cast<uint4*>(ps + t * pplane + (size_t)(t0 + r) * ldp + blockIdx.y * BN +
+                                    H * h + c) =
+              *reinterpret_cast<const uint4*>(stage + t * BM * H + swz<H>(r, c));
+        }
+    }
+  }
+}
+
+// dh[t0 : t0 + BM, n0 : n0 + BN] (+)= P_chunk @ W_chunkᵀ, one tile a block,
+// grid (Tp / BM, ceil(d / BN)): A = P's three planes (pmap: (3·Tp, ldp)),
+// B = W's rows n0.. read in place as Wᵀ (wtmap: (d, V), K-major), the
+// chunk's vocab from column k0, `steps` stages. The first chunk writes
+// dh, later chunks add to it, the last multiplies by g[t]; rows >= T and
+// columns >= d are not stored.
+template <int NH>
+__global__ void __launch_bounds__(wgl::THREADS, 1)
+ce_dh_wg(const __grid_constant__ CUtensorMap pmap, const __grid_constant__ CUtensorMap wtmap,
+         const float* __restrict__ g, float* __restrict__ dh, int T, int Tp, int d, int k0,
+         int steps, int first, int last) {
+  extern __shared__ uint8_t smem_raw[];
+  const wgl::RingOf<3, NH> ring(smem_raw);
+  constexpr int BN = wgl::bn(NH);  // vocab columns (or d) of the tile
+  const int t0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  if (wgl::producer_warp()) {
+    wgl::producer_regs();
+    if (wgl::producer_thread())
+      wgl::produce<3, NH, true>(ring, &pmap, t0, Tp, &wtmap, n0, k0, steps);
+  } else {
+    wgl::consumer_regs();
+    float acc[NH][64];
+    wgl::consume<3, NH, true>(ring, steps, acc);
+    const Place at;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = t0 + at.row + 8 * r;
+      if (t >= T) continue;
+      const float scale = last ? g[t] : 1.f;
+#pragma unroll
+      for (int h = 0; h < NH; ++h)
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int n = n0 + col_of(h, 4 * j + e) + 2 * at.tq;
+            if (n >= d) continue;
+            const size_t o = (size_t)t * d + n;
+            const float v = acc[h][4 * j + 2 * r + e];
+            dh[o] = (first ? v : dh[o] + v) * scale;
+          }
+    }
+  }
+}
+
+}  // namespace cw
+
 // lse = log-sum-exp over a token's n partials, nll = lse − label logit:
 // one warp a token (partials (T, n) row-major), each lane's partials in
 // order, then a fixed shuffle tree, so two calls give bit-equal results
@@ -634,14 +876,121 @@ int bwd_launch(const void* h, const void* w, const int* labels, const float* lse
   return (int)cudaSuccess;
 }
 
+
+// above the default 48 KB of shared memory: opt in, once per kernel
+template <typename K>
+cudaError_t opt_in_wg(K kernel, int bytes, bool& opted) {
+  if (opted) return cudaSuccess;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  opted = e == cudaSuccess;
+  return e;
+}
+
+// W (d, V) bf16 as the wgmma loop reads it: in place where TMA can (V a
+// multiple of 8, a 16-byte-aligned base), else copied once into ws (d x
+// Vp, Vp = V rounded up to 8) by ce_pad; sets *src and *ld
+cudaError_t w_source(const void* w, uint16_t* ws, int d, int V, const void** src, int* ld,
+                     cudaStream_t s) {
+  if (wgl::tma_readable(w, V)) {
+    *src = w, *ld = V;
+    return cudaSuccess;
+  }
+  const int vp = (V + 7) / 8 * 8;
+  *src = ws, *ld = vp;
+  return split(w, 1, ws, d, V, V, 0, d, vp, s);
+}
+
+// the forward with a bf16 W on the wgmma loop: split h (TA planes, Tp x
+// dp, dp = d rounded up to BK), one launch over every (token tile, vocab
+// tile), token tiles fastest, then merge; ws: the padded W where V or
+// W's base does not suit TMA (lmhead_ce.py's ce_fwd_scratch), else unused
+template <int TA>
+int fwd_launch_wg(const void* h, const void* w, const int* labels, uint16_t* hs, uint16_t* ws,
+                  float* pm, float* pl, float* pll, float* nll, float* lse, int T, int d, int V,
+                  int /* chunk: one launch */, float cap, cudaStream_t s) {
+  constexpr int NH = cw::NH_FWD, BN = wgl::bn(NH), SMEM = wgl::RingOf<TA, NH>::SMEM;
+  static bool opted = false;
+  cudaError_t e = opt_in_wg(cw::ce_fwd_wg<TA, NH>, SMEM, opted);
+  if (e != cudaSuccess) return (int)e;
+  const int Tp = (T + wgl::BM - 1) / wgl::BM * wgl::BM, dp = (d + wgl::BK - 1) / wgl::BK * wgl::BK;
+  const int v_tiles = (V + BN - 1) / BN;
+  if ((e = split(h, TA == 1, hs, T, d, d, 0, Tp, dp, s)) != cudaSuccess) return (int)e;
+  const void* wsrc;
+  int ldw;
+  if ((e = w_source(w, ws, d, V, &wsrc, &ldw, s)) != cudaSuccess) return (int)e;
+  CUtensorMap hmap, wmap;
+  if ((e = wgl::tensor_map(&hmap, hs, (long long)TA * Tp, dp, dp, wgl::BM)) != cudaSuccess ||
+      (e = wgl::tensor_map(&wmap, wsrc, d, V, ldw, wgl::BK)) != cudaSuccess)
+    return (int)e;
+  cw::ce_fwd_wg<TA, NH><<<dim3(Tp / wgl::BM, v_tiles), wgl::THREADS, SMEM, s>>>(
+      hmap, wmap, labels, pm, pl, pll, T, Tp, V, dp / wgl::BK, v_tiles, cap);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  ce_merge<<<(T + 7) / 8, 256, 0, s>>>(pm, pl, pll, nll, lse, T, v_tiles);
+  return (int)cudaGetLastError();
+}
+
+// the backward with a bf16 W on the wgmma loop: split h as the forward,
+// then per vocab chunk (in order) write the chunk's P planes (ps: 3 x Tp
+// x chunk·BN) and add P @ Wᵀ into dh, W read in place (or from ws, as
+// the forward); dh (T, d) f32 is fully written
+template <int TA>
+int bwd_launch_wg(const void* h, const void* w, const int* labels, const float* lse,
+                  const float* g, uint16_t* hs, uint16_t* ws, uint16_t* ps, float* dh, int T,
+                  int d, int V, int chunk, float cap, cudaStream_t s) {
+  constexpr int NG = cw::NH_GRAD, ND = cw::NH_DH, BN_G = wgl::bn(NG), BN_D = wgl::bn(ND);
+  constexpr int SMEM_G = wgl::RingOf<TA, NG>::SMEM, SMEM_D = wgl::RingOf<3, ND>::SMEM;
+  static bool opted_grad = false, opted_dh = false;
+  cudaError_t e = opt_in_wg(cw::ce_grad_wg<TA, NG>, SMEM_G, opted_grad);
+  if (e == cudaSuccess) e = opt_in_wg(cw::ce_dh_wg<ND>, SMEM_D, opted_dh);
+  if (e != cudaSuccess) return (int)e;
+  const int Tp = (T + wgl::BM - 1) / wgl::BM * wgl::BM, dp = (d + wgl::BK - 1) / wgl::BK * wgl::BK;
+  const int v_tiles = (V + BN_G - 1) / BN_G, ldp = chunk * BN_G;
+  if ((e = split(h, TA == 1, hs, T, d, d, 0, Tp, dp, s)) != cudaSuccess) return (int)e;
+  const void* wsrc;
+  int ldw;
+  if ((e = w_source(w, ws, d, V, &wsrc, &ldw, s)) != cudaSuccess) return (int)e;
+  CUtensorMap hmap, wmap, pmap, wtmap;
+  if ((e = wgl::tensor_map(&hmap, hs, (long long)TA * Tp, dp, dp, wgl::BM)) != cudaSuccess ||
+      (e = wgl::tensor_map(&wmap, wsrc, d, V, ldw, wgl::BK)) != cudaSuccess ||
+      (e = wgl::tensor_map(&pmap, ps, 3LL * Tp, ldp, ldp, wgl::BM)) != cudaSuccess ||
+      (e = wgl::tensor_map(&wtmap, wsrc, d, V, ldw, BN_D)) != cudaSuccess)
+    return (int)e;
+  for (int vt0 = 0; vt0 < v_tiles; vt0 += chunk) {
+    const int nt = v_tiles - vt0 < chunk ? v_tiles - vt0 : chunk;
+    cw::ce_grad_wg<TA, NG><<<dim3(Tp / wgl::BM, nt), wgl::THREADS, SMEM_G, s>>>(
+        hmap, wmap, labels, lse, ps, T, Tp, V, ldp, vt0, dp / wgl::BK, cap);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    cw::ce_dh_wg<ND><<<dim3(Tp / wgl::BM, (d + BN_D - 1) / BN_D), wgl::THREADS, SMEM_D, s>>>(
+        pmap, wtmap, g, dh, T, Tp, d, vt0 * BN_G, nt * BN_G / wgl::BK, vt0 == 0,
+        vt0 + nt >= v_tiles);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  return (int)cudaSuccess;
+}
+
+// 1: a bf16 W runs on the wgmma loop (fwd_launch_wg, bwd_launch_wg), an
+// f32 W on tile_mma; 0: both on tile_mma (the loop a bf16 W took before)
+constexpr int BF16_W_ON_WGMMA = 1;
+
 }  // namespace ce
 
 }  // namespace
 
 extern "C" {
 
-// The kernels' tile: 0 -> tokens (BM), 1 -> vocab columns or d (BN), 2 -> depth (BK).
-int ce_tile(int dim) { return dim == 0 ? ce::BM : dim == 1 ? ce::BN : ce::BK; }
+// 1 where a W of this type runs on the wgmma loop, whose scratch differs
+// (lmhead_ce.py's ce_fwd_scratch, ce_bwd_scratch)
+int ce_wgmma(int w_bf16) { return w_bf16 && ce::BF16_W_ON_WGMMA; }
+
+// A kernel's tile: dim 0 -> tokens (BM), 1 -> vocab columns (BN), 2 -> depth
+// (BK); kernel 0 -> tile_mma's (ce_fwd_mma, ce_grad_mma), 1 -> ce_fwd_wg's,
+// 2 -> ce_grad_wg's (the backward's vocab chunks are whole tiles of it)
+int ce_tile(int dim, int kernel) {
+  if (kernel == 0) return dim == 0 ? ce::BM : dim == 1 ? ce::BN : ce::BK;
+  const int bn = wgl::bn(kernel == 1 ? cw::NH_FWD : cw::NH_GRAD);
+  return dim == 0 ? wgl::BM : dim == 1 ? bn : wgl::BK;
+}
 
 // hs, ws: the split planes' scratch; partials: 3 arrays of T * ceil(V / BN)
 // floats (ce::fwd_launch has the sizes); chunk: vocab tiles per W chunk;
@@ -654,6 +1003,7 @@ int ce_fwd_launch(const void* h, const void* w, const void* labels, void* hs, vo
               (float*)pll, (float*)nll, (float*)lse, T, d, V, chunk, cap,
               reinterpret_cast<cudaStream_t>(stream));
   };
+  if (ce_wgmma(w_bf16)) return h_bf16 ? run(ce::fwd_launch_wg<1>) : run(ce::fwd_launch_wg<3>);
   if (h_bf16) return w_bf16 ? run(ce::fwd_launch<1, 1>) : run(ce::fwd_launch<1, 3>);
   return w_bf16 ? run(ce::fwd_launch<3, 1>) : run(ce::fwd_launch<3, 3>);
 }
@@ -669,6 +1019,7 @@ int ce_bwd_launch(const void* h, const void* w, const void* labels, const void* 
               (uint16_t*)ws, (uint16_t*)ps, (float*)dh, T, d, V, chunk, cap,
               reinterpret_cast<cudaStream_t>(stream));
   };
+  if (ce_wgmma(w_bf16)) return h_bf16 ? run(ce::bwd_launch_wg<1>) : run(ce::bwd_launch_wg<3>);
   if (h_bf16) return w_bf16 ? run(ce::bwd_launch<1, 1>) : run(ce::bwd_launch<1, 3>);
   return w_bf16 ? run(ce::bwd_launch<3, 1>) : run(ce::bwd_launch<3, 3>);
 }

@@ -3,24 +3,38 @@ log-sum-exp of ``softmax(softcap(h @ W))``, and ``dh``.
 
 Replaces the TPU kernels ``src/repro/kernels/cached_step.py``
 ``_ce_fwd_kernel`` (``_ce_fwd_impl``) and ``_ce_bwd_kernel``
-(``_ce_bwd_impl``), with the CUDA kernels ``csrc/lmhead_ce.cu``. Both
-split an f32 h and W once per call in three bf16 terms each (a bf16 h or
-W, a bf16 backbone's head, goes whole: one plane, and the loop takes 3
-products a k16 step instead of 6), W one vocab chunk at
-a time, and run one 128 x 128 tile per block on the bf16 tensor cores
-(one loop, shared). ``ce_fwd``: the logits tile with an online softmax in
-its epilogue, the partials of the vocab tiles merged in a second pass.
-``ce_bwd``: per chunk, the logits tiles recomputed bit for bit and turned
-into the softmax gradient ``P``, stored as three bf16 planes, then
-``dh += P @ Wᵀ`` on the same W planes. The (T, V) logits never reach
-device memory; the scratch is the split planes of h and of one W chunk,
-and in the backward one P chunk's (:func:`ce_bwd_scratch`).
+(``_ce_bwd_impl``), with the CUDA kernels ``csrc/lmhead_ce.cu``, on two
+loops chosen by W's type:
+
+* f32 W (``tile_mma``): h and W split once per call in three bf16 terms
+  each (a bf16 h goes whole: one plane), W one vocab chunk at a time, one
+  128 x 128 tile per block on ``mma.sync``. ``ce_fwd``: the logits tile
+  with an online softmax in its epilogue, the partials of the vocab tiles
+  merged in a second pass. ``ce_bwd``: per chunk, the logits tiles
+  recomputed bit for bit and turned into the softmax gradient ``P``,
+  stored as three bf16 planes, then ``dh += P @ Wᵀ`` on the same W
+  planes.
+* bf16 W, a bf16 backbone's head (Hopper's asynchronous loop,
+  ``csrc/wgmma_loop.cuh``): W goes whole, read by TMA where it lies
+  (:func:`w_in_place`; else from one padded copy), into a ring of
+  shared-memory stages that a producer warpgroup fills and two consumer
+  warpgroups multiply with ``wgmma``; h's three terms (3 products). The
+  forward is one launch over all of V (128 x 256 tiles), the backward the
+  same chunks of ``P`` as above (128 x 128 logits tiles, 128 x 256 ``dh``
+  tiles).
+
+The (T, V) logits never reach device memory; the scratch is h's split
+planes, W's chunk planes on ``tile_mma`` (none on the wgmma loop unless W
+needs the padded copy), and in the backward one P chunk's
+(:func:`ce_fwd_scratch`, :func:`ce_bwd_scratch`).
 
 What bounds them on the H100: at the training shape of internlm2-1.8b
 (T = 2048, d = 2048, V = 92544) the forward is 6 bf16 products of ~0.78
-TFLOP each (≈4.7 ms at 989 TFLOP/s) and the backward twice that (≈9.4
-ms), against ~0.77 GB of head weights: operations bound both. Any d and
-V are taken (ragged edges are padded with zero terms or masked).
+TFLOP each with an f32 W (≈4.7 ms at 989 TFLOP/s), 3 with a bf16 W
+(≈2.4 ms), and the backward twice that, against ~0.77 GB (f32) or 0.38
+GB (bf16) of head weights: operations bound both. Any d and V are taken
+(ragged edges are padded with zero terms, read as zeros by TMA, or
+masked).
 
 :class:`CEFn` is the counterpart of the reference's custom VJP
 ``_ce_op``: it saves ``lse`` and its backward is ``ce_bwd``; the head is
@@ -63,8 +77,10 @@ def _lib():
                                       + [ctypes.c_float] + [ctypes.c_int] * 2
                                       + [ctypes.c_void_p])
         lib.ce_bwd_launch.restype = ctypes.c_int
-        lib.ce_tile.argtypes = [ctypes.c_int]
+        lib.ce_tile.argtypes = [ctypes.c_int] * 2
         lib.ce_tile.restype = ctypes.c_int
+        lib.ce_wgmma.argtypes = [ctypes.c_int]
+        lib.ce_wgmma.restype = ctypes.c_int
     return lib
 
 
@@ -104,17 +120,72 @@ def fwd_chunk_tiles(t_tiles: int, v_tiles: int, bn: int, sms: int) -> int:
     return max(1, min(v_tiles, 2 * FWD_CHUNK // bn, waves * sms // t_tiles))
 
 
+def w_in_place(V: int, ptr: int) -> bool:
+    """Whether the wgmma loop's TMA reads a bf16 W (d, V) where it lies:
+    every row 16-byte aligned (V a multiple of 8, the base at a multiple
+    of 16 bytes). Otherwise the kernel reads one padded copy (d, Vp), Vp
+    = V rounded up to 8, that it writes into the W scratch."""
+    return V % 8 == 0 and ptr % 16 == 0
+
+
+def _w_copy(d: int, V: int, in_place: bool) -> int:
+    """bf16 values of the wgmma loop's W scratch: none where TMA reads W
+    in place, else the padded copy's d·Vp."""
+    return 0 if in_place else d * (-(-V // 8) * 8)
+
+
+def route(h_bf16: bool, w_bf16: bool, in_place: bool, wgmma: bool) -> dict:
+    """The kernels ``ce_fwd`` and ``ce_bwd`` launch on the card, in order,
+    for these operands (a bf16 h, a bf16 W, W :func:`w_in_place`) and the
+    library's loop for a bf16 W (``wgmma``: the library's ``ce_wgmma``)."""
+    h_pass = "ce_pad (h)" if h_bf16 else "ce_split (h)"
+    ta, tb = (1 if h_bf16 else 3), (1 if w_bf16 else 3)
+    if not (w_bf16 and wgmma):
+        w_pass = "ce_pad (W chunk)" if w_bf16 else "ce_split (W chunk)"
+        return {"ce_fwd": [h_pass, w_pass, f"ce_fwd_mma<{ta}, {tb}>", "ce_merge"],
+                "ce_bwd": [h_pass, w_pass, f"ce_grad_mma<{ta}, {tb}>", f"ce_dh_mma<{tb}>"]}
+    w_pass = [] if in_place else ["ce_pad (W, padded copy)"]
+    return {"ce_fwd": [h_pass, *w_pass, f"ce_fwd_wg<{ta}, 2>", "ce_merge"],
+            "ce_bwd": [h_pass, *w_pass, f"ce_grad_wg<{ta}, 1>", "ce_dh_wg<2>"]}
+
+
+def route_of(h: torch.Tensor, w: torch.Tensor) -> dict:
+    """:func:`route` for these tensors on the card (builds the library)."""
+    wgmma = bool(_lib().ce_wgmma(int(terms(w) == 1)))
+    return route(terms(h) == 1, terms(w) == 1, w_in_place(w.shape[1], w.data_ptr()), wgmma)
+
+
+def ce_fwd_scratch(T: int, d: int, V: int, bm: int, bn: int, bk: int, sms: int,
+                   h_terms: int = 3, w_terms: int = 3, wgmma: bool = False,
+                   in_place: bool = True) -> Tuple[int, ...]:
+    """The forward's W chunk, in vocab tiles, and the bf16 values of its
+    two scratches: h's planes (h_terms, Tp, dp), Tp and dp being T and d in
+    whole ``bm`` and ``bk`` tiles; on ``tile_mma`` one W chunk's planes
+    (w_terms, dp, chunk·bn), on the wgmma loop (a bf16 W, one launch, W
+    read by TMA) no W scratch, or the padded copy where W is not
+    :func:`w_in_place`."""
+    t_tiles, v_tiles = -(-T // bm), -(-V // bn)
+    tp, dp = t_tiles * bm, -(-d // bk) * bk
+    chunk = fwd_chunk_tiles(t_tiles, v_tiles, bn, sms)
+    n_w = _w_copy(d, V, in_place) if wgmma else w_terms * dp * chunk * bn
+    return chunk, h_terms * tp * dp, n_w
+
+
 def ce_bwd_scratch(T: int, d: int, V: int, bm: int, bn: int, sms: int, h_terms: int = 3,
-                   w_terms: int = 3) -> Tuple[int, ...]:
+                   w_terms: int = 3, bk: int = 64, wgmma: bool = False,
+                   in_place: bool = True) -> Tuple[int, ...]:
     """The backward's W chunk, in vocab tiles (the forward's), and the bf16
     values of its three scratches: h's planes (h_terms, Tp, dp), one W
     chunk's (w_terms, dp, chunk·bn) and one P chunk's (3, Tp, chunk·bn),
     where Tp is T in whole token tiles (``bm``) and dp is d in whole
-    ``dh`` tiles (``bn``); an operand's planes are :func:`terms`."""
+    ``dh`` tiles (``bn``); an operand's planes are :func:`terms`. On the
+    wgmma loop (``wgmma``, a bf16 W) dp is d in whole ``bk`` steps (TMA
+    reads W's rows past d as zeros) and the W scratch is the forward's."""
     t_tiles, v_tiles = -(-T // bm), -(-V // bn)
-    tp, dp = t_tiles * bm, -(-d // bn) * bn
+    tp, dp = t_tiles * bm, -(-d // (bk if wgmma else bn)) * (bk if wgmma else bn)
     chunk = fwd_chunk_tiles(t_tiles, v_tiles, bn, sms)
-    return chunk, h_terms * tp * dp, w_terms * dp * chunk * bn, 3 * tp * chunk * bn
+    n_w = _w_copy(d, V, in_place) if wgmma else w_terms * dp * chunk * bn
+    return chunk, h_terms * tp * dp, n_w, 3 * tp * chunk * bn
 
 
 def ce_fwd(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
@@ -129,14 +200,13 @@ def ce_fwd(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
     T, d = h.shape
     V = w.shape[1]
     labels = labels.to(torch.int32).contiguous()
-    bm, bn, bk = (lib.ce_tile(i) for i in range(3))
-    t_tiles, v_tiles = -(-T // bm), -(-V // bn)
-    dp = -(-d // bk) * bk
+    wgmma = lib.ce_wgmma(int(terms(w) == 1))
+    bm, bn, bk = (lib.ce_tile(i, wgmma) for i in range(3))  # ce_fwd_wg's, or tile_mma's
     sms = torch.cuda.get_device_properties(h.device).multi_processor_count
-    chunk = fwd_chunk_tiles(t_tiles, v_tiles, bn, sms)
-    hs = torch.empty(terms(h) * t_tiles * bm * dp, dtype=torch.bfloat16, device=h.device)
-    ws = torch.empty(terms(w) * dp * chunk * bn, dtype=torch.bfloat16, device=h.device)
-    part = torch.empty((3, T, v_tiles), dtype=torch.float32, device=h.device)
+    chunk, *sizes = ce_fwd_scratch(T, d, V, bm, bn, bk, sms, terms(h), terms(w), bool(wgmma),
+                                   w_in_place(V, w.data_ptr()))
+    hs, ws = (torch.empty(n, dtype=torch.bfloat16, device=h.device) for n in sizes)
+    part = torch.empty((3, T, -(-V // bn)), dtype=torch.float32, device=h.device)
     nll = torch.empty(T, dtype=torch.float32, device=h.device)
     lse = torch.empty(T, dtype=torch.float32, device=h.device)
     rc = lib.ce_fwd_launch(h.data_ptr(), w.data_ptr(), labels.data_ptr(), hs.data_ptr(),
@@ -165,8 +235,10 @@ def ce_bwd(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, lse: torch.Te
     V = w.shape[1]
     labels = labels.to(torch.int32).contiguous()
     sms = torch.cuda.get_device_properties(h.device).multi_processor_count
-    chunk, *sizes = ce_bwd_scratch(T, d, V, lib.ce_tile(0), lib.ce_tile(1), sms, terms(h),
-                                   terms(w))
+    wgmma = lib.ce_wgmma(int(terms(w) == 1))
+    bm, bn, bk = (lib.ce_tile(i, 2 * wgmma) for i in range(3))  # ce_grad_wg's, or tile_mma's
+    chunk, *sizes = ce_bwd_scratch(T, d, V, bm, bn, sms, terms(h), terms(w), bk, bool(wgmma),
+                                   w_in_place(V, w.data_ptr()))
     hs, ws, ps = (torch.empty(n, dtype=torch.bfloat16, device=h.device) for n in sizes)
     dh = torch.empty((T, d), dtype=torch.float32, device=h.device)
     rc = lib.ce_bwd_launch(h.data_ptr(), w.data_ptr(), labels.data_ptr(), lse.data_ptr(),

@@ -431,6 +431,162 @@ def test_ce_bwd_bf16_split_error_model(softcap):
 
 
 # ---------------------------------------------------------------------------
+# the bf16-head CE branches on the wgmma loop: the tensor core's truncating
+# adds and the stage-wise promotion (the CUDA kernels' arithmetic, emulated)
+# ---------------------------------------------------------------------------
+
+
+def _tc_add(c: torch.Tensor, prods: torch.Tensor) -> torch.Tensor:
+    """One wgmma k16 step as the tensor core adds it (mix_tile.cuh's note):
+    C (M, N) and the 16 exact products (M, N, 16), every addend truncated
+    toward zero on the grid of the largest (24 significant bits at its
+    exponent), summed, rounded to f32. Float64 in and out."""
+    add = torch.cat([c[..., None], prods], -1)
+    big = add.abs().amax(-1, keepdim=True)
+    grid = torch.exp2(torch.floor(torch.log2(torch.where(big > 0, big, torch.ones_like(big)))) - 23)
+    return (torch.trunc(add / grid) * grid).sum(-1).float().double()
+
+
+def _wgmma_sum(a_terms, b: torch.Tensor, promote) -> torch.Tensor:
+    """``A @ B`` as the wgmma loop sums it: A in bf16 terms (M, K), B one
+    bf16 plane (K, N), K a multiple of 16. Each promotion group of
+    ``promote`` k16 steps (None: the whole contraction) goes into a fresh
+    sum, the terms smallest first, each over the group's steps in order,
+    every step one truncating tensor-core add; one f32 add then puts the
+    group into the running sum. Returns f32."""
+    K = b.shape[0]
+    steps = K // 16
+    promote = promote or steps
+    acc = torch.zeros(a_terms[0].shape[0], b.shape[1], dtype=torch.float32)
+    for g0 in range(0, steps, promote):
+        part = torch.zeros(acc.shape, dtype=torch.float64)
+        for a in reversed(a_terms):
+            for k0 in range(16 * g0, 16 * min(steps, g0 + promote), 16):
+                part = _tc_add(part, (a[:, k0:k0 + 16, None] * b[None, k0:k0 + 16]).transpose(1, 2))
+        acc = acc + part.float()
+    return acc
+
+
+def _p_of(z: torch.Tensor, labels, lse, softcap) -> torch.Tensor:
+    """The backward's P in f32 from the f32 logits (the kernels' epilogue)."""
+    return _ce_grad(z, labels, lse.float(), softcap)
+
+
+@pytest.mark.parametrize("softcap", [None, 30.0])
+def test_ce_fwd_wgmma_promotion_error_model(softcap):
+    """The bf16-head forward on the wgmma loop (h f32 in three terms, W
+    bf16 whole), at d = 2048 with narrow T and a V that ends inside a tile:
+    the stage-wise promotion the kernel takes (a fresh sum every BK = 64,
+    four k16 steps) meets ``chip_smoke.py``'s forward check against the
+    plain version (|Δ| <= 2e-5 + 1e-5·|want| for nll and lse) and errs
+    on the logits no more than a fresh sum every k16 step (~1e-6, the f32
+    running sum's rounding); promoting only at the end errs ~1.3e-5 on
+    the logits, at least 5x the stage-wise sum: inside the check here
+    (whose 1e-5·|nll| ~1e-4 dominates), but the tensor core's truncation
+    of the small terms on the running total's grid, not f32's."""
+    T, d, V = 16, 2048, 500
+    h = torch.from_numpy(_randn((T, d), 16))
+    w = torch.from_numpy(_randn((d, V), 17, d ** -0.5)).bfloat16()
+    labels = torch.from_numpy(np.random.default_rng(18).integers(0, V, T))
+    want = ref.ce_fwd_ref(h, w, labels, softcap)
+    exact_z = h.double() @ w.double()
+    z = {n: _wgmma_sum(_bf16_terms(h, 3), w.double(), n) for n in (1, 4, None)}
+    err = {n: float((x.double() - exact_z).abs().max()) for n, x in z.items()}
+    for got, x in zip(_online_ce(z[4], labels, softcap), want):
+        assert float(((got.float() - x).abs() - 1e-5 * x.abs()).max()) <= 2e-5
+    assert err[4] <= 1.5 * err[1] and err[4] < 3e-6, err
+    assert err[None] >= 5 * err[4], err
+
+
+@pytest.mark.parametrize("softcap", [None, 30.0])
+def test_ce_dh_wgmma_promotion_error_model(softcap):
+    """The bf16-head backward's dh GEMM on the wgmma loop over one vocab
+    chunk of the training shape (66 tiles, 8448 columns: 528 k16 steps, the
+    longest contraction the loop runs), P from logits at d = 2048, 128 of
+    dh's columns: the stage-wise promotion meets ``chip_smoke.py``'s dh
+    check against the plain version (|Δ| <= 1e-5 + 1e-4·|want|). Promoting
+    only at the end meets it too, by a margin of ~8x (~1.2e-6 against the
+    float64 product on the same P, for ~7e-8 stage-wise): at least 5x the
+    stage-wise error, which is why the kernel promotes each stage."""
+    T, d, V, cols = 16, 2048, 66 * 128, 128
+    h = torch.from_numpy(_randn((T, d), 19))
+    w = torch.from_numpy(_randn((d, V), 20, d ** -0.5)).bfloat16()
+    labels = torch.from_numpy(np.random.default_rng(21).integers(0, V, T))
+    g = torch.from_numpy(_randn((T,), 22))
+    _, lse = ref.ce_fwd_ref(h, w, labels, softcap)
+    want = ref.ce_bwd_ref(h, w, labels, lse, g, softcap)[:, :cols]
+    p = _p_of(_wgmma_sum(_bf16_terms(h, 3), w.double(), 4), labels, lse, softcap)
+    wt = w.double()[:cols].T.contiguous()
+    exact = (p.double() @ wt) * g.double()[:, None]
+    dh = {n: _wgmma_sum(_bf16_terms(p, 3), wt, n) * g[:, None] for n in (4, None)}
+    err = {n: float((x.double() - exact).abs().max()) for n, x in dh.items()}
+    for x in dh.values():
+        assert float(((x - want).abs() - 1e-4 * want.abs()).max()) <= 1e-5
+    assert err[None] >= 5 * err[4] and err[None] < 1e-5 / 4, err
+
+
+def test_ce_wgmma_route_and_scratch_sizes():
+    """Which bf16 heads TMA reads in place (every row 16-byte aligned: V a
+    multiple of 8 and the base at 16 bytes) and the scratch each loop
+    takes: on the wgmma loop no W scratch at the training shape (one
+    launch over all of V), the padded copy (d, V rounded up to 8) at the
+    smoke's ragged shapes or an unaligned base, h's planes with d padded
+    to whole 64-deep stages, the backward's P chunk as before; an f32 W
+    keeps tile_mma's chunked scratch unchanged."""
+    from repro_torch.kernels.lmhead_ce import (ce_bwd_scratch, ce_fwd_scratch, fwd_chunk_tiles,
+                                               w_in_place)
+
+    assert w_in_place(92544, 1 << 20) and w_in_place(50304, 256)
+    assert not w_in_place(517, 256) and not w_in_place(3001, 256)
+    assert not w_in_place(92544, (1 << 20) + 2) and not w_in_place(50265, 256)
+    bm, bk, sms = 128, 64, 132
+    bn = 256  # ce_fwd_wg's vocab tile: two 128-column halves a consumer warpgroup
+    chunk, n_h, n_w = ce_fwd_scratch(2048, 2048, 92544, bm, bn, bk, sms, 3, 1, wgmma=True)
+    assert (n_h, n_w) == (3 * 2048 * 2048, 0)
+    bn = 128  # ce_grad_wg's: the backward's chunks are whole tiles of it
+    chunk, n_h, n_w, n_p = ce_bwd_scratch(2048, 2048, 92544, bm, bn, sms, 3, 1, bk=bk,
+                                          wgmma=True)
+    assert chunk == fwd_chunk_tiles(16, 723, bn, sms) == 66
+    assert (n_h, n_w, n_p) == (3 * 2048 * 2048, 0, 3 * 2048 * 66 * 128)
+    for T, d, V, tp in ((37, 130, 517, 128), (1001, 1000, 3001, 1024)):
+        dp, vp = -(-d // 64) * 64, -(-V // 8) * 8
+        for h_terms in (3, 1):
+            _, n_h, n_w = ce_fwd_scratch(T, d, V, bm, 256, bk, sms, h_terms, 1, wgmma=True,
+                                         in_place=False)
+            assert (n_h, n_w) == (h_terms * tp * dp, d * vp)
+            chunk, n_h, n_w, n_p = ce_bwd_scratch(T, d, V, bm, bn, sms, h_terms, 1, bk=bk,
+                                                  wgmma=True, in_place=False)
+            assert (n_h, n_w, n_p) == (h_terms * tp * dp, d * vp, 3 * tp * chunk * bn)
+    bn = 128  # tile_mma's
+    # tile_mma's scratch (an f32 W, or a bf16 W routed back to it): W's planes a chunk
+    chunk, n_h, n_w = ce_fwd_scratch(2048, 2048, 92544, bm, bn, bk, sms, 3, 3)
+    assert (n_h, n_w) == (3 * 2048 * 2048, 3 * 2048 * chunk * bn)
+    assert ce_bwd_scratch(37, 130, 517, bm, bn, sms, 3, 1)[1:3] == (3 * 128 * 256,
+                                                                    1 * 256 * 5 * 128)
+
+
+def test_ce_route_names_the_kernels_each_loop_launches():
+    """The kernels the wrappers launch, by operand: a bf16 W on the wgmma
+    loop (one forward launch, no W pass where TMA reads W in place, the
+    padded copy first where it cannot), h split or (bf16) copied; an f32
+    W, or a bf16 W routed back to tile_mma, on tile_mma with W's chunk
+    passes."""
+    from repro_torch.kernels.lmhead_ce import route
+
+    assert route(False, True, True, True) == {
+        "ce_fwd": ["ce_split (h)", "ce_fwd_wg<3, 2>", "ce_merge"],
+        "ce_bwd": ["ce_split (h)", "ce_grad_wg<3, 1>", "ce_dh_wg<2>"]}
+    r = route(True, True, False, True)
+    assert r["ce_fwd"] == ["ce_pad (h)", "ce_pad (W, padded copy)", "ce_fwd_wg<1, 2>", "ce_merge"]
+    assert r["ce_bwd"][2:] == ["ce_grad_wg<1, 1>", "ce_dh_wg<2>"]
+    for in_place in (True, False):
+        assert route(False, False, in_place, True)["ce_fwd"] == [
+            "ce_split (h)", "ce_split (W chunk)", "ce_fwd_mma<3, 3>", "ce_merge"]
+    assert route(False, True, True, False)["ce_bwd"] == [
+        "ce_split (h)", "ce_pad (W chunk)", "ce_grad_mma<3, 1>", "ce_dh_mma<1>"]
+
+
+# ---------------------------------------------------------------------------
 # quant_matmul's tiled path: x·s split in bf16 terms (the CUDA kernel's
 # arithmetic, emulated)
 # ---------------------------------------------------------------------------
@@ -582,13 +738,15 @@ def test_flash_bf16_split_error_model_hd256(softcap):
 
 
 @pytest.mark.parametrize("harness,source", [("ce_fwd_variants", "lmhead_ce.cu"),
+                                            ("ce_fwd_variants", "wgmma_loop.cuh"),
                                             ("qmm_variants", "quant_matmul.cu"),
                                             ("flash_variants", "flash_attention.cu"),
                                             ("skinny_variants", "skinny.cuh")])
 def test_variant_harness_edits_apply_to_the_shipped_source(harness, source):
     """Each variant of a kernel's timing harness replaces text that occurs
     exactly once in the source it builds from, so a kernel edit that moves
-    such text fails here rather than on the card."""
+    such text fails here rather than on the card. An edit is (old, new)
+    in the harness's first source, or (source, old, new) in a header."""
     import importlib
 
     from repro_torch.kernels import _build
@@ -596,9 +754,13 @@ def test_variant_harness_edits_apply_to_the_shipped_source(harness, source):
     variants = importlib.import_module(f"repro_torch.kernels.{harness}").VARIANTS
     text = (_build.CSRC / source).read_text()
     assert "shipped" in variants and not variants["shipped"]
+    first = {"ce_fwd_variants": "lmhead_ce.cu"}.get(harness, source)
     for name, edits in variants.items():
-        for old, new in edits:
-            assert text.count(old) == 1 and new != old, (name, old)
+        for edit in edits:
+            where, old, new = edit if len(edit) == 3 else (first, *edit)
+            assert (_build.CSRC / where).exists(), (name, where)
+            if where == source:
+                assert text.count(old) == 1 and new != old, (name, old)
 
 
 # ---------------------------------------------------------------------------
