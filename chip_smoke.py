@@ -89,8 +89,11 @@ Phases, in order; any failure exits non-zero:
    personal decode steps.
 4e. The reference's bf16 backbone (``bf16_serving``, ``bf16_training``,
    ``bf16_personal``): the kernels' bf16 branches at its shapes first
-   (flash with bf16 q, k, v and O at the prefill and epoch-1 shapes, one
-   bf16 rounding of O from its plain version, SDPA on bf16 beside it;
+   (flash with bf16 q, k, v and O on ``flash_fwd_wg``, TMA + wgmma, at
+   the prefill and epoch-1 shapes, one bf16 rounding of O from its plain
+   version, beside SDPA in f32 on the upcast inputs, the reference's
+   function, and SDPA on bf16; two calls bit-equal; S 37 and 1001, n_rep
+   1 and 2, causal or not, window 128, soft-cap 30; Sq 300 over Sk 100;
    paged attention with a bf16 q over int8, bf16 and f32 pages; the CE
    pair with the bf16 head, and a bf16 h); then a bf16 internlm2-1.8b
    (each leaf drawn in f32 and cast, as the reference casts its draw)
@@ -706,10 +709,13 @@ def flash_case(timer: Timer, gen: torch.Generator, B: int, H: int, Hkv: int, S: 
     ``cap``: the attention soft-cap of the kernel and its plain version
     (SDPA has none, and runs without). ``dtype`` bf16: the bf16 branch,
     q, k, v and O bf16 (Q·Kᵀ one product, P·V three: P's terms), held to
-    one bf16 rounding of O (:func:`bf16_out_check`), SDPA on bf16. Returns
-    (the row, (q, k, v), the SDPA call)."""
+    one bf16 rounding of O (:func:`bf16_out_check`); its ``library_ms`` is
+    the reference's function (SDPA in f32 on q, k, v cast to f32, O cast to
+    bf16), SDPA on bf16 beside it. The row names the kernels the call
+    launched (the wrapper's route). Returns (the row, (q, k, v), the SDPA
+    call)."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention, route_of
 
     q = torch.randn(B * H, S, hd, generator=gen, device=DEV).to(dtype)
     k = torch.randn(B * Hkv, S, hd, generator=gen, device=DEV).to(dtype)
@@ -737,18 +743,26 @@ def flash_case(timer: Timer, gen: torch.Generator, B: int, H: int, Hkv: int, S: 
     f32_ms, f32_by = bound(nbytes, flops)
     # the tensor cores' products: 6 + 6 for f32 operands, 1 + 3 for bf16
     b_ms, b_by = bound(nbytes, (2 if bf16 else 6) * flops, BF16_FLOP_PER_S)
+    library = ("scaled_dot_product_attention, causal, KV heads repeated beforehand"
+               + (", no soft-cap (SDPA has none)" if cap else ""))
     r = {"check": "flash_attention", "at": at, "BH": B * H, "BHkv": B * Hkv, "S": S, "hd": hd,
          "causal": True, "softcap": cap, "dtype": str(dtype).replace("torch.", ""),
-         "max_abs_err": err,
+         "route": route_of(q), "max_abs_err": err,
          "tol": BF16_OUT_TOL if bf16 else f"atol {FLASH_TOL}",
          "tol_reason": BF16_OUT_TOL_REASON if bf16 else FLASH_TOL_REASON,
          "ms": timer(lambda: flash_attention(q, k, v, attn_softcap=cap)),
          "plain_ms": timer(lambda: ref.flash_attention_ref(q, k, v, attn_softcap=cap)),
-         "library_ms": timer(sdpa),
-         "library": "scaled_dot_product_attention, causal, KV heads repeated beforehand"
-                    + (", no soft-cap (SDPA has none)" if cap else "") + (", bf16" if bf16 else ""),
+         "library_ms": timer(sdpa), "library": library,
          "bound_ms": b_ms, "bound_by": b_by, "bound_tc_ms": b_ms, "bound_tc_by": b_by,
          "bound_f32_ms": f32_ms, "bound_f32_by": f32_by}
+    if bf16:  # the reference's function: q, k, v cast to f32, S, P and O in f32, O cast once
+        q32, k32, v32 = q4.float(), k4r.float(), v4r.float()
+        r.update(library_ms=timer(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q32, k32, v32, is_causal=True).to(dtype)),
+            library=library + ", in f32 on q, k, v cast to f32 beforehand, O cast to bf16: "
+                              "the reference's function",
+            library_bf16_ms=r["library_ms"],
+            library_bf16=library + ", on bf16 (P rounded to bf16: not the same function)")
     return r, (q, k, v), sdpa
 
 
@@ -763,51 +777,68 @@ def device_kernels(fn) -> list:
                    if e.device_type == torch.autograd.DeviceType.CUDA})
 
 
-def flash_ragged(gen: torch.Generator, hds=(64, 128), n_reps=(1, 2)) -> None:
+def flash_err(got: torch.Tensor, want: torch.Tensor) -> tuple:
+    """(max |Δ|, the value its check holds to its bound, the bound): f32
+    at ``FLASH_TOL``; bf16 the excess over one bf16 rounding of O."""
+    if got.dtype == torch.bfloat16:
+        return max_err(got, want), bf16_out_check(got, want), BF16_OUT_ATOL
+    err = max_err(got, want)
+    return err, err, FLASH_TOL
+
+
+def flash_ragged(gen: torch.Generator, hds=(64, 128), n_reps=(1, 2), dtype=torch.float32,
+                 window: int = 32) -> None:
     """``flash_attention`` at Sq = Sk = 37 and 1001 (partial query and key
     tiles), each head width of ``hds``, each n_rep of ``n_reps`` (query
-    heads a kv head), each with causal on and off, window 32 or none and
+    heads a kv head), each with causal on and off, ``window`` or none and
     soft-cap 30 or none, against its plain version: one line per (S, hd,
-    n_rep)."""
+    n_rep). ``dtype`` bf16: q, k, v bf16, held to one bf16 rounding of O."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention, route_of
 
+    bf16 = dtype == torch.bfloat16
     for S in (37, 1001):
         for hd in hds:
             for n_rep in n_reps:
-                q = torch.randn(4 * n_rep, S, hd, generator=gen, device=DEV)
-                k, v = (torch.randn(4, S, hd, generator=gen, device=DEV) for _ in range(2))
+                q = torch.randn(4 * n_rep, S, hd, generator=gen, device=DEV).to(dtype)
+                k, v = (torch.randn(4, S, hd, generator=gen, device=DEV).to(dtype)
+                        for _ in range(2))
                 cases = []
                 for causal in (True, False):
-                    for window in (None, 32):
+                    for win in (None, window):
                         for cap in (None, 30.0):
-                            kw = dict(causal=causal, window=window, attn_softcap=cap)
+                            kw = dict(causal=causal, window=win, attn_softcap=cap)
                             got = flash_attention(q, k, v, **kw)
                             if not bool(torch.isfinite(got).all()):
                                 raise AssertionError(f"flash_attention S={S} {kw}: non-finite")
-                            err = max_err(got, ref.flash_attention_ref(q, k, v, **kw))
-                            check(f"flash_attention S={S} hd={hd} n_rep={n_rep} {kw}", err,
-                                  FLASH_TOL)
-                            cases.append({**kw, "max_abs_err": err})
-                worst = max(c["max_abs_err"] for c in cases)
+                            err, value, tol = flash_err(got, ref.flash_attention_ref(q, k, v, **kw))
+                            check(f"flash_attention S={S} hd={hd} n_rep={n_rep} {dtype} {kw}",
+                                  value, tol)
+                            cases.append({**kw, "max_abs_err": err, "check_value": value})
                 emit({"check": "flash_attention_ragged", "S": S, "hd": hd, "n_rep": n_rep,
-                      "BH": 4 * n_rep, "cases": cases, "max_abs_err": worst, "check_value": worst,
-                      "tol": f"atol {FLASH_TOL}", "tol_reason": FLASH_TOL_REASON})
+                      "BH": 4 * n_rep, "dtype": str(dtype).replace("torch.", ""),
+                      "route": route_of(q), "cases": cases,
+                      "max_abs_err": max(c["max_abs_err"] for c in cases),
+                      "check_value": max(c["check_value"] for c in cases),
+                      "tol": BF16_OUT_TOL if bf16 else f"atol {FLASH_TOL}",
+                      "tol_reason": BF16_OUT_TOL_REASON if bf16 else FLASH_TOL_REASON})
 
 
-def flash_keyless(gen: torch.Generator, hds=(64, 128)) -> None:
+def flash_keyless(gen: torch.Generator, hds=(64, 128), dtype=torch.float32,
+                  window: int = 32) -> None:
     """``flash_attention`` with Sq = 300 queries over Sk = 100 keys and
-    window 32 (B·H = 8 over 4 KV heads, each head width of ``hds``, causal
-    or not):
-    rows q >= Sk + window - 1 = 131 have no key and get V's mean, as in
-    the plain version and the reference."""
+    ``window`` (B·H = 8 over 4 KV heads, each head width of ``hds``, causal
+    or not): rows q >= Sk + window - 1 (131 at window 32) have no key and
+    get V's mean, as in the plain version and the reference. ``dtype``
+    bf16: held to one bf16 rounding of O."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import _keyless_from, flash_attention
+    from repro_torch.kernels.flash_attention import _keyless_from, flash_attention, route_of
 
-    Sq, Sk, window = 300, 100, 32
+    Sq, Sk = 300, 100
+    bf16 = dtype == torch.bfloat16
     for hd in hds:
-        q = torch.randn(8, Sq, hd, generator=gen, device=DEV)
-        k, v = (torch.randn(4, Sk, hd, generator=gen, device=DEV) for _ in range(2))
+        q = torch.randn(8, Sq, hd, generator=gen, device=DEV).to(dtype)
+        k, v = (torch.randn(4, Sk, hd, generator=gen, device=DEV).to(dtype) for _ in range(2))
         cases = []
         for causal in (True, False):
             got = flash_attention(q, k, v, causal=causal, window=window)
@@ -815,15 +846,17 @@ def flash_keyless(gen: torch.Generator, hds=(64, 128)) -> None:
             if got.shape != q.shape or not bool(torch.isfinite(got).all()):
                 raise AssertionError(f"flash_attention keyless hd={hd}: shape or non-finite")
             first = _keyless_from(Sq, Sk, window)
-            err = max_err(got, want)
-            check(f"flash_attention keyless hd={hd} causal={causal}", err, FLASH_TOL)
-            cases.append({"causal": causal, "max_abs_err": err,
+            err, value, tol = flash_err(got, want)
+            check(f"flash_attention keyless hd={hd} {dtype} causal={causal}", value, tol)
+            cases.append({"causal": causal, "max_abs_err": err, "check_value": value,
                           "max_abs_err_keyless_rows": max_err(got[:, first:], want[:, first:])})
-        worst = max(c["max_abs_err"] for c in cases)
         emit({"check": "flash_attention_keyless", "BH": 8, "BHkv": 4, "Sq": Sq, "Sk": Sk,
-              "window": window, "hd": hd, "keyless_rows": Sq - first, "cases": cases,
-              "max_abs_err": worst, "check_value": worst, "tol": f"atol {FLASH_TOL}",
-              "tol_reason": FLASH_TOL_REASON})
+              "window": window, "hd": hd, "dtype": str(dtype).replace("torch.", ""),
+              "route": route_of(q), "keyless_rows": Sq - first, "cases": cases,
+              "max_abs_err": max(c["max_abs_err"] for c in cases),
+              "check_value": max(c["check_value"] for c in cases),
+              "tol": BF16_OUT_TOL if bf16 else f"atol {FLASH_TOL}",
+              "tol_reason": BF16_OUT_TOL_REASON if bf16 else FLASH_TOL_REASON})
 
 
 PAGED_TOL = {"f32": 2e-4, "int8": 2e-4, "bf16": 3e-2}  # tests/test_decode_parity.py:36
@@ -1890,7 +1923,12 @@ def bf16_out_check(got: torch.Tensor, want: torch.Tensor) -> float:
 def bf16_kernel_phase(timer: Timer, gen: torch.Generator) -> dict:
     """The three kernels' bf16 branches at the bf16 path's shapes, each
     against its plain version and timed: flash with bf16 q, k, v at the
-    prefill (B·H = 8·16) and epoch-1 (4·16) shapes, S 512, hd 128; paged
+    prefill (B·H = 8·16) and epoch-1 (4·16) shapes, S 512, hd 128 (the
+    kernel its route launches named, timed beside the reference's function,
+    SDPA in f32 on the upcast inputs, and SDPA on bf16), two calls at the
+    prefill shape bit-equal, and at S 37 and 1001, n_rep 1 and 2, causal or
+    not, window 128 or none, soft-cap 30 or none, and Sq 300 over Sk 100
+    with window 128 (rows with no key); paged
     attention with a bf16 q over int8, bf16 and f32 pages at the check's
     shape; ``ce_fwd``/``ce_bwd`` with the bf16 head (W) and the f32 hidden
     (h, the side network's sum) at the training shape, with and without the
@@ -1900,15 +1938,24 @@ def bf16_kernel_phase(timer: Timer, gen: torch.Generator) -> dict:
     beside the f32 yardstick (the reference's function) and the bf16-cast
     one. Returns the kernels line's ``bf16`` rows."""
     from repro_torch.kernels import lmhead_ce, ref
+    from repro_torch.kernels.flash_attention import flash_attention
 
     rows = {"flash_attention": {}, "paged_attention": {}}
     for name, B in (("prefill", 8), ("training", 4)):
-        r, _, _ = flash_case(timer, gen, B, 16, 8, 512, 128,
-                             f"bf16 {name} B*H={B}*16 over {B}*8", dtype=torch.bfloat16)
+        r, (q, k, v), _ = flash_case(timer, gen, B, 16, 8, 512, 128,
+                                     f"bf16 {name} B*H={B}*16 over {B}*8", dtype=torch.bfloat16)
         emit(r)
-        rows["flash_attention"][name] = {k: r[k] for k in (
+        rows["flash_attention"][name] = {key: r[key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "bound_f32_ms",
-            "library_ms", "at")}
+            "library_ms", "library_bf16_ms", "route", "at")}
+        if name == "prefill":  # two calls bit for bit (each row's sums in a fixed order)
+            equal = bool(torch.equal(flash_attention(q, k, v), flash_attention(q, k, v)))
+            emit({"check": "flash_attention_deterministic", "dtype": "bfloat16", "BH": 128,
+                  "BHkv": 64, "S": 512, "hd": 128, "route": r["route"], "bit_equal": equal})
+            if not equal:
+                raise AssertionError("flash_attention bf16 prefill: two calls differ")
+    flash_ragged(gen, hds=(128,), dtype=torch.bfloat16, window=128)
+    flash_keyless(gen, hds=(128,), dtype=torch.bfloat16, window=128)
     lengths_np = np.random.default_rng(SEED).integers(1, 512, size=8).astype(np.int32)
     for pages in ("int8", "bf16", "f32"):
         r = paged_timed(timer, gen, lengths_np, 32, f"bf16 q, decode B=8 Hkv=8 n_rep=2 hd=128 "
@@ -7228,7 +7275,8 @@ def main(argv=None) -> int:
     # three, training for the four training kernels, personal for
     # adapter_fuse), every path listed
     device_names = {"quant_matmul": ["skinny::gemv (M <= 8)", "qmm_mma (M > 8)"],
-                    "flash_attention": ["flash_split", "flash_fwd_mma"],
+                    "flash_attention": ["flash_split + flash_fwd_mma (f32)",
+                                        "flash_fwd_wg (bf16)"],
                     "paged_attention": ["paged_attn"],
                     "mix_fwd": ["mix_fwd_mma", "mix_fwd_reduce"],
                     "mix_dw": ["mix_dw_mma", "dw_reduce"],

@@ -1,5 +1,6 @@
 // Causal online-softmax ("flash") attention forward for sm_90a, f32 in and
-// out (or bf16 in and out: the bf16 branch below), on the bf16 tensor cores.
+// out on flash_fwd_mma (mma.sync), or bf16 in and out on flash_fwd_wg (TMA +
+// wgmma: the bf16 branch below), on the bf16 tensor cores.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py (_kernel /
 // flash_attention_tpu). q, o: (BH, Sq, HD); k, v: (BH / n_rep, Sk, HD),
@@ -19,10 +20,10 @@
 // Split. flash_split writes K and V once per call as three bf16 planes
 // each, hi = bf16(x), mid = bf16(x − hi), lo = bf16(x − hi − mid)
 // (mix_tile.cuh's split3), zero-padded to whole key tiles (Skp), into a
-// scratch the caller allocates (flash_scratch_elems; 50 MB at the prefill
-// shape): each K/V row serves up to Sq / BQ · n_rep query tiles, so a
-// split as staged would be repeated that often. Q is read by one block
-// only and is split as it is staged into shared memory.
+// scratch the caller allocates (../flash_attention.py's scratch_elems; 50
+// MB at the prefill shape): each K/V row serves up to Sq / BQ · n_rep query
+// tiles, so a split as staged would be repeated that often. Q is read by
+// one block only and is split as it is staged into shared memory.
 //
 // The loop (flash_fwd_mma): one block per (bh, 64-row query tile), each
 // warp 16 query rows, so the softmax state (m, l, O) is a warp's own: a
@@ -96,16 +97,55 @@
 // and none at HD = 64 (HD = 256's budget: chip_smoke.py prints ptxas's
 // report at every build, PERF.md keeps it).
 //
-// The bf16 branch (BF, HD = 128: a bf16 backbone's q, k, v and o; the
-// reference's kernel takes bf16 and casts O to q's dtype). Q, K and V are
-// exact in bf16, so each goes to the tensor cores whole, one plane: Q is
-// copied as staged, K and V only padded to whole key tiles (flash_pad), and
-// Q·Kᵀ takes one product a k16 step instead of six. P stays f32 in
-// registers and is split in three terms as in the f32 branch, so P·V takes
-// three products (V's one plane by P's three); the softmax and O sum in
-// f32 and O is rounded to bf16 once. A third of the f32 branch's shared
-// memory and scratch. Tolerance against its plain version (which rounds its
-// f32 O to bf16 the same way): one bf16 rounding of O, |dO| <= 2^-7 |O|.
+// The bf16 branch (HD = 128: a bf16 backbone's q, k, v and o; the
+// reference's kernel takes bf16 and casts O to q's dtype) runs on its own
+// kernel, fwg::flash_fwd_wg, on Hopper's asynchronous loop (wgmma_loop.cuh).
+// Q, K and V are exact in bf16, so each goes to the tensor cores whole, one
+// plane: Q·Kᵀ takes one product, P·V three (P stays f32, split in three
+// bf16 terms, the reference's f32 P); the softmax and O sum in f32 and O
+// is rounded to bf16 once. At the prefill shape the products are 17.2
+// GFLOP, 0.0174 ms at 989 TFLOP/s, on ~50 MB (0.015 ms at 3.35 TB/s).
+//  * The block: (bh, 128 query rows), grid (BH, ceil(Sq / 128)), longest
+//    query tiles first; two consumer warpgroups of 64 rows and a producer
+//    warpgroup (384 threads, one block an SM, setmaxnreg 232 / 40).
+//  * TMA reads q, k and v where they lie, through 3-D maps (128, S, heads)
+//    (wgmma_loop.cuh's tensor_map3): a box past Sq or Sk reads zeros, never
+//    the next head's rows, so no padding pass and no scratch (flash_pad and
+//    its copy are gone from this path). Q once a block, two 64-column
+//    boxes; K and V of each 64-key tile through a two-stage ring, each with
+//    its full and empty mbarriers. Query row bh reads KV head bh / n_rep.
+//  * S = Q·Kᵀ on wgmma m64n64k16, both operands K-major from shared memory:
+//    each 64-deep half of the head into a fresh f32 sum, one add joins
+//    them. P·V on m64n128k16 with A from registers: the C fragments of S's
+//    n8 tiles 2kc, 2kc + 1 are the A fragment of k16 step kc, each p split
+//    in three bf16 terms there; V (keys, HD) is the MN-major B. The tile's
+//    twelve products go into a fresh f32 sum, the terms smallest first,
+//    which O = O·alpha + sum joins. The CPU model of this order
+//    (tests/test_torch_kernels.py::test_flash_bf16_wgmma_promotion_error_model)
+//    errs as the mma.sync loop's fresh sum a k16 step; one chain over the
+//    head errs ~1.25x more and P·V straight into O ~1.9x (RMS).
+//  * The softmax is flash_fwd_mma's, in the same C layout (a warp's 16 rows:
+//    quad shuffles), the mask only on tiles that cross the warp's diagonal,
+//    window edge or Sk. A key tile with no key in a warpgroup's band is
+//    waited for and released unread by that warpgroup.
+//  * Registers: O 64, P·V's fresh sum 64, P's terms 48 a thread, 229 of
+//    the 232 in use (SASS), no spill. So a warpgroup's loop is serial: S,
+//    its wait, the softmax, P·V, its wait; the two warpgroups overlap each
+//    other. A second S in flight (FlashAttention-3's intra-warpgroup
+//    overlap) does not fit; turns at the tensor cores between the two
+//    warpgroups (named barriers) and P's terms through shared memory (to
+//    free their registers for the overlap) ran slower in trials.
+//  * Epilogue: O / l in bf16, rows >= Sq not stored; a row with no key
+//    stays 0 for the wrapper. Fixed order, no atomics: bit-equal reruns.
+// What holds it (../flash_variants.py --bf16; NVIDIA H100 80GB HBM3, 700 W):
+// 0.065–0.071 ms at the prefill shape, 0.033–0.037 at the epoch-1 step's
+// BH = 4·16, against 0.098–0.101 / 0.053–0.056 for the mma.sync loop it
+// replaced (flash_pad + flash_fwd_mma<128, true>, BF16_ON_WGMMA = 0) in the
+// same process. The producer's TMA stream alone takes 0.031–0.032 (the L2
+// is flushed before each timing, so Q, K and V come from device memory
+// beside the flush's write-backs), the loop without wgmma 0.045, without
+// the softmax 0.052–0.053: the three add up, little overlaps. 128-key
+// tiles spill (972 bytes) and take 0.105–0.108.
 //
 // Tolerance: the reference's flash tolerance, atol 3e-5
 // (tests/test_kernels.py:105); the CPU model of this arithmetic
@@ -120,6 +160,7 @@
 #include <type_traits>
 
 #include "mix_tile.cuh"
+#include "wgmma_loop.cuh"
 
 namespace {
 
@@ -184,12 +225,15 @@ __global__ void flash_split(const float* __restrict__ k, const float* __restrict
     *reinterpret_cast<uint2*>(out + j * plane + e) = make_uint2(w01[j], w23[j]);
 }
 
-// The bf16 branch's K and V: one plane each, K's (BHkv, Skp, HD) then V's
-// (blockIdx.y picks which), `plane` values each, rows past Sk zero. bf16
-// values go to the tensor cores whole, so they are only padded to whole
-// key tiles. Four values a thread.
-__global__ void flash_pad(const uint16_t* __restrict__ k, const uint16_t* __restrict__ v,
-                          uint16_t* __restrict__ dst, int Sk, int Skp, int hd, long long plane) {
+// The bf16 branch's K and V on flash_fwd_mma (BF16_ON_WGMMA = 0): one
+// plane each, K's (BHkv, Skp, HD) then V's (blockIdx.y picks which),
+// `plane` values each, rows past Sk zero. bf16 values go to the tensor
+// cores whole, so they are only padded to whole key tiles. Four values a
+// thread.
+[[maybe_unused]] __global__ void flash_pad(const uint16_t* __restrict__ k,
+                                           const uint16_t* __restrict__ v,
+                                           uint16_t* __restrict__ dst, int Sk, int Skp, int hd,
+                                           long long plane) {
   const long long e = 4 * ((long long)blockIdx.x * blockDim.x + threadIdx.x);
   if (e >= plane) return;
   const uint16_t* __restrict__ src = blockIdx.y ? v : k;
@@ -523,25 +567,304 @@ int launch(const void* q, const void* k, const void* v, void* o, uint16_t* scrat
 
 }  // namespace flash
 
+// ---- the bf16 branch on Hopper's asynchronous loop (wgmma_loop.cuh)
+
+namespace fwg {
+
+using namespace mix_tile;
+using wgl::BK;                         // a TMA box's columns: one 128-byte swizzled row
+constexpr int HD = 128;                // the bf16 backbone's head width
+constexpr int BQ = 64 * wgl::CONSUMERS;  // query rows a block: 64 a consumer warpgroup
+constexpr int BKV = 64;                // keys a tile
+constexpr int STAGES = 2;              // K and V tiles in flight
+constexpr int NS = BKV / 2;            // S's f32 values a thread (a warpgroup's 64 x BKV)
+constexpr int KC = BKV / 16;           // k16 steps of P·V a tile
+constexpr int Q_BOX = BQ * BK * 2;     // bytes of one of Q's two 64-column boxes
+constexpr int KV_BOX = BKV * BK * 2;   // ... of one of a K or V tile's two boxes
+constexpr int KV_TILE = 2 * KV_BOX;
+constexpr int SMEM = 1024 + 2 * Q_BOX + 2 * STAGES * KV_TILE + (1 + 4 * STAGES) * 8;
+static_assert(BKV == 64 || BKV == 128, "S on m64n64k16 or m64n128k16");
+
+// S (+)= Q·Kᵀ over one k16 step, the warpgroup's 64 rows x BKV keys (N = NS)
+template <int N>
+__device__ __forceinline__ void qk_mma(float (&d)[N], uint64_t a, uint64_t b, int accumulate) {
+  if constexpr (N == 32)
+    wgl::mma_n64<0>(d, a, b, accumulate);
+  else
+    wgl::mma<0>(d, a, b, accumulate);
+}
+
+// One block per (bh, 128-row query tile), grid (BH, ceil(Sq / BQ)), the
+// longest query tiles first. qmap: q (BH, Sq, HD); kmap, vmap: k, v
+// (BH / n_rep, Sk, HD), all bf16 and read in place (tensor_map3); o (BH,
+// Sq, HD) bf16. The producer thread loads Q once, then each key tile's K
+// and V into their rings; each consumer warpgroup runs its 64 rows over
+// the tiles (the source's note).
+__global__ void __launch_bounds__(wgl::THREADS, 1)
+flash_fwd_wg(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+             const __grid_constant__ CUtensorMap vmap, uint16_t* __restrict__ o, int Sq, int Sk,
+             int n_rep, int causal, int window, float cap, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = smem_raw + ((1024 - wgl::saddr(smem_raw) % 1024) % 1024);
+  uint8_t* ks = qs + 2 * Q_BOX;
+  uint8_t* vs = ks + STAGES * KV_TILE;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + STAGES * KV_TILE);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* k_empty = k_full + STAGES;
+  uint64_t* v_full = k_empty + STAGES;
+  uint64_t* v_empty = v_full + STAGES;
+  if (threadIdx.x == 0) {
+    wgl::bar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      wgl::bar_init(&k_full[s], 1);  // the producer's arrive, plus the bytes
+      wgl::bar_init(&v_full[s], 1);
+      wgl::bar_init(&k_empty[s], 4 * wgl::CONSUMERS);  // one arrive a consumer warp
+      wgl::bar_init(&v_empty[s], 4 * wgl::CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest query tiles first
+  const int q_last = min(q0 + BQ, Sq) - 1;
+  const int k_end = causal ? min(Sk, q_last + 1) : Sk;  // exclusive
+  const int k_begin = (window > 0 ? max(0, q0 - window + 1) : 0) / BKV * BKV;
+  const int tiles = k_end > k_begin ? (k_end - k_begin + BKV - 1) / BKV : 0;
+
+  if (wgl::producer_warp()) {
+    wgl::producer_regs();
+    if (wgl::producer_thread() && tiles > 0) {
+      wgl::prefetch_map(&qmap);
+      wgl::prefetch_map(&kmap);
+      wgl::prefetch_map(&vmap);
+      wgl::bar_expect(q_full, 2 * Q_BOX);
+      wgl::tma_load3(qs, &qmap, 0, q0, bh, q_full);
+      wgl::tma_load3(qs + Q_BOX, &qmap, BK, q0, bh, q_full);
+      const int kvh = bh / n_rep;
+      for (int it = 0; it < tiles; ++it) {
+        const int s = it % STAGES, k0 = k_begin + it * BKV;
+        const uint32_t parity = ((it / STAGES) & 1) ^ 1;
+        wgl::bar_wait(&k_empty[s], parity);
+        wgl::bar_expect(&k_full[s], KV_TILE);
+        wgl::tma_load3(ks + s * KV_TILE, &kmap, 0, k0, kvh, &k_full[s]);
+        wgl::tma_load3(ks + s * KV_TILE + KV_BOX, &kmap, BK, k0, kvh, &k_full[s]);
+        wgl::bar_wait(&v_empty[s], parity);
+        wgl::bar_expect(&v_full[s], KV_TILE);
+        wgl::tma_load3(vs + s * KV_TILE, &vmap, 0, k0, kvh, &v_full[s]);
+        wgl::tma_load3(vs + s * KV_TILE + KV_BOX, &vmap, BK, k0, kvh, &v_full[s]);
+      }
+    }
+  } else {
+    wgl::consumer_regs();
+    const int wg = threadIdx.x / 128, warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+    const int gq = lane >> 2, tq = lane & 3;  // the C fragment's row and column pair
+    const int w0 = q0 + 16 * warp;            // the warp's first row
+    const int row0 = w0 + gq;                 // this thread's rows: row0, row0 + 8
+    const int g0 = q0 + 64 * wg;              // the warpgroup's first row ...
+    const int g_last = min(g0 + 63, Sq - 1);  // ... and last below Sq
+    // this warpgroup's 64 rows of Q's two boxes (A, K-major)
+    const uint32_t qa = wgl::saddr(qs) + wg * 64 * BK * 2;
+
+    float acc[64];  // O, unnormalised: the warpgroup's 64 rows x HD
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+
+    // s -> p in place: scale, softcap, the mask where the tile at k0 crosses
+    // the warp's band or Sk, then the online softmax's m and l; alpha: the
+    // factor of O's rows (flash_fwd_mma's softmax, in the same C layout)
+    auto softmax = [&](float (&s)[NS], int k0, float (&alpha)[2]) {
+      const bool edge = k0 + BKV > Sk || (causal && k0 + BKV - 1 > w0) ||
+                        (window > 0 && w0 + 15 - k0 >= window);
+      float mt[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        float x = s[i] * scale;
+        if (cap > 0.f) x = cap * tanhf(x / cap);
+        if (edge) {
+          const int row = row0 + 8 * ((i & 3) >> 1), key = k0 + 8 * (i >> 2) + 2 * tq + (i & 1);
+          const bool valid = key < Sk && (!causal || key <= row) &&
+                             (window <= 0 || row - key < window);
+          if (!valid) x = -INFINITY;
+        }
+        s[i] = x;
+        mt[(i & 3) >> 1] = fmaxf(mt[(i & 3) >> 1], x);
+      }
+      float mu[2], ls[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mt[h] = fmaxf(mt[h], __shfl_xor_sync(0xffffffffu, mt[h], 1));
+        mt[h] = fmaxf(mt[h], __shfl_xor_sync(0xffffffffu, mt[h], 2));
+        const float m_new = fmaxf(m_run[h], mt[h]);
+        mu[h] = m_new == -INFINITY ? 0.f : m_new;  // a row with no key yet: p = 0
+        alpha[h] = expf(m_run[h] - mu[h]);
+        m_run[h] = m_new;
+      }
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const float p = expf(s[i] - mu[(i & 3) >> 1]);
+        s[i] = p;
+        ls[(i & 3) >> 1] += p;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) l_run[h] = l_run[h] * alpha[h] + ls[h];
+    };
+
+    if (tiles > 0) wgl::bar_wait(q_full, 0);
+    for (int it = 0; it < tiles; ++it) {
+      const int s = it % STAGES, k0 = k_begin + it * BKV;
+      const uint32_t parity = (it / STAGES) & 1;
+      // whether any of the warpgroup's rows below Sq has a key of this tile
+      // in its band; a tile outside it is waited for and released unread
+      const bool live = g0 < Sq && (!causal || k0 <= g_last) &&
+                        (window <= 0 || g0 - (k0 + BKV - 1) < window);
+      float sc[NS], sp[NS], alpha[2];
+      uint32_t pa[3 * KC][4];  // P's terms: pa[KC·t + kc], t 0 hi, 1 mid, 2 lo
+      wgl::bar_wait(&k_full[s], parity);
+      // S = Q·Kᵀ: each 64-deep half of the head (one box of Q and of K) into
+      // a fresh f32 sum, one add then joins them
+      if (live) {
+        const uint32_t kb = wgl::saddr(ks + s * KV_TILE);
+        auto qk_half = [&](float (&d)[NS], int box) {
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk) {
+            const uint64_t da = wgl::desc(qa + box * Q_BOX + 32 * kk, 16, 1024);
+            const uint64_t db = wgl::desc(kb + box * KV_BOX + 32 * kk, 16, 1024);
+            qk_mma(d, da, db, kk > 0);
+          }
+          wgl::mma_commit();
+        };
+        wgl::pin(sc);
+        wgl::pin(sp);
+        wgl::mma_fence();
+        qk_half(sc, 0);
+        qk_half(sp, 1);
+        wgl::mma_wait<0>();
+        wgl::pin(sc);
+        wgl::pin(sp);
+#pragma unroll
+        for (int i = 0; i < NS; ++i) sc[i] += sp[i];
+      }
+      if (lane == 0) wgl::bar_arrive(&k_empty[s]);
+      if (live) {
+        softmax(sc, k0, alpha);
+        // the C fragments of S's n8 tiles 2kc, 2kc + 1 are the A fragment of
+        // P·V's k16 step kc, each p split in three bf16 terms
+#pragma unroll
+        for (int kc = 0; kc < KC; ++kc)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {  // a0..a3: rows +0, +8 of keys 0-7, then of keys 8-15
+            uint32_t w[3];
+            const int i = 4 * (2 * kc + (x >> 1)) + 2 * (x & 1);
+            split3(sc[i], sc[i + 1], w);
+#pragma unroll
+            for (int t = 0; t < 3; ++t) pa[KC * t + kc][x] = w[t];
+          }
+      }
+      wgl::bar_wait(&v_full[s], parity);
+      // P·V into a fresh f32 sum a tile, P's terms smallest first, each over
+      // the tile's k16 steps; V (keys, HD) is the MN-major B
+      if (live) {
+        float part[64];
+        const uint32_t vb = wgl::saddr(vs + s * KV_TILE);
+        wgl::pin(part);
+        wgl::mma_fence();
+#pragma unroll
+        for (int t = 2; t >= 0; --t)
+#pragma unroll
+          for (int kc = 0; kc < KC; ++kc)
+            wgl::mma_rs<1>(part, pa[KC * t + kc], wgl::desc(vb + 16 * 128 * kc, KV_BOX, 1024),
+                           t < 2 || kc > 0);
+        wgl::mma_commit();
+        wgl::mma_wait<0>();
+        wgl::pin(part);
+        wgl::pin(pa);
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[i] = acc[i] * alpha[(i & 3) >> 1] + part[i];
+      }
+      if (lane == 0) wgl::bar_arrive(&v_empty[s]);
+    }
+
+    // O / l in bf16, l summed over the quad in a fixed order; rows >= Sq are
+    // not stored, a row with no key (l = 0) stays 0
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float l = l_run[h];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const int row = row0 + 8 * h;
+      if (row >= Sq) continue;
+      const float inv = 1.f / fmaxf(l, 1e-30f);
+      uint16_t* __restrict__ orow = o + ((size_t)bh * Sq + row) * HD + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+            bits(__floats2bfloat162_rn(acc[4 * j + 2 * h] * inv, acc[4 * j + 2 * h + 1] * inv));
+    }
+  }
+}
+
+int launch(const void* q, const void* k, const void* v, void* o, int BH, int Sq, int Sk,
+           int n_rep, int causal, int window, float cap, float scale, cudaStream_t s) {
+  if (Sq <= 0) return (int)cudaSuccess;
+  static bool opted = false;  // once, before any graph capture of the launch
+  if (!opted) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(flash_fwd_wg, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (e != cudaSuccess) return (int)e;
+    opted = true;
+  }
+  CUtensorMap qmap, kmap = {}, vmap = {};  // no K/V map without keys (no tile reads one)
+  cudaError_t e = wgl::tensor_map3(&qmap, q, BH, Sq, HD, BQ);
+  if (e == cudaSuccess && Sk > 0) e = wgl::tensor_map3(&kmap, k, BH / n_rep, Sk, HD, BKV);
+  if (e == cudaSuccess && Sk > 0) e = wgl::tensor_map3(&vmap, v, BH / n_rep, Sk, HD, BKV);
+  if (e != cudaSuccess) return (int)e;
+  flash_fwd_wg<<<dim3(BH, (Sq + BQ - 1) / BQ), wgl::THREADS, SMEM, s>>>(
+      qmap, kmap, vmap, static_cast<uint16_t*>(o), Sq, Sk, n_rep, causal, window, cap, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace fwg
+
+// 1: bf16 q, k, v run on fwg's loop (TMA + wgmma, no scratch); 0: on
+// flash_fwd_mma<128, true> with flash_pad's scratch, the loop they took
+// before (kept for flash_variants.py's comparison only)
+constexpr int BF16_ON_WGMMA = 1;
+
+// a bf16 call on the loop WG picks (a template, so the other is not built)
+template <bool WG>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, uint16_t* scratch, int BH,
+                int Sq, int Sk, int n_rep, int causal, int window, float cap, float scale,
+                cudaStream_t s) {
+  if constexpr (WG)
+    return fwg::launch(q, k, v, o, BH, Sq, Sk, n_rep, causal, window, cap, scale, s);
+  else
+    return flash::launch<128, true>(q, k, v, o, scratch, BH, Sq, Sk, n_rep, causal, window, cap,
+                                    scale, s);
+}
+
 }  // namespace
 
 extern "C" {
 
-// bf16 values of the K/V scratch flash_launch needs: three planes each
-// of f32 K and V, one of bf16 (bf)
-long long flash_scratch_elems(int BH, int Sk, int hd, int n_rep, int bf) {
-  return 2LL * (bf ? 1 : flash::TERMS) * (BH / n_rep) * flash::key_rows(Sk) * hd;
-}
+// 1 where a call of this type runs on the wgmma loop (bf: bf16 q, k, v)
+int flash_wgmma(int bf) { return bf && BF16_ON_WGMMA; }
 
-// bf: q, k, v and o bf16 (head width 128 only, the bf16 backbone's), else f32
+// keys a tile of flash_fwd_mma, whose K/V scratch holds whole tiles
+// (flash_attention.py's scratch_elems)
+int flash_key_tile() { return flash::BKV; }
+
+// bf: q, k, v and o bf16 (head width 128 only, the bf16 backbone's), else f32;
+// scratch: flash_attention.py's scratch_elems bf16 values (none on the wgmma loop)
 int flash_launch(const void* q, const void* k, const void* v, void* o, void* scratch, int BH,
                  int Sq, int Sk, int hd, int n_rep, int causal, int window, float cap,
                  float scale, int bf, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   uint16_t* kv = static_cast<uint16_t*>(scratch);
   if (bf)
-    return hd == 128 ? flash::launch<128, true>(q, k, v, o, kv, BH, Sq, Sk, n_rep, causal, window,
-                                                cap, scale, s)
+    return hd == 128 ? launch_bf16<BF16_ON_WGMMA != 0>(q, k, v, o, kv, BH, Sq, Sk, n_rep, causal,
+                                                       window, cap, scale, s)
                      : (int)cudaErrorInvalidValue;
   if (hd == 64)
     return flash::launch<64, false>(q, k, v, o, kv, BH, Sq, Sk, n_rep, causal, window, cap,

@@ -46,9 +46,17 @@
 //
 // Host side: tensor_map encodes a 2-D bf16 map through the CUDA driver's
 // cuTensorMapEncodeTiled, fetched at run time with
-// cudaGetDriverEntryPointByVersion (no link against libcuda). A map
-// needs a 16-byte-aligned base and a row stride that is a multiple of 16
-// bytes; kernels take maps as __grid_constant__ parameters.
+// cudaGetDriverEntryPointByVersion (no link against libcuda); tensor_map3
+// a 3-D one over (heads, rows, cols), whose boxes stop at a head's last row
+// (zeros past it). A map needs a 16-byte-aligned base and a row stride that
+// is a multiple of 16 bytes; kernels take maps as __grid_constant__
+// parameters.
+//
+// Beside the loop, the pieces flash_attention.cu's bf16 kernel builds its
+// own loop from: tma_load3, mma_n64 (N = 64, both operands from shared
+// memory) and mma_rs (A from registers: mma.sync's A fragment per warp, so
+// a C fragment of one product is the A of the next without a round trip
+// through shared memory).
 #pragma once
 
 #include <cuda.h>
@@ -119,6 +127,25 @@ inline cudaError_t tensor_map(CUtensorMap* m, const void* base, long long rows, 
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// m: the same over a contiguous bf16 (heads, rows, cols) tensor, a box
+// box_rows x 64 columns of one head (tma_load3 at (column, row, head)):
+// rows past a head's last read as zeros, never as the next head's
+inline cudaError_t tensor_map3(CUtensorMap* m, const void* base, long long heads,
+                               long long rows, long long cols, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorSymbolNotFound;
+  if (!tma_readable(base, cols)) return cudaErrorMisalignedAddress;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)(rows * cols) * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)BK, (cuuint32_t)box_rows, 1};
+  const cuuint32_t steps[3] = {1, 1, 1};
+  const CUresult r = fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+                        strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // ---- device: barriers, TMA, wgmma
 
 __device__ __forceinline__ uint32_t saddr(const void* p) {
@@ -170,6 +197,16 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int 
       : "memory");
 }
 
+// the box at (column c0, row c1, head c2) of a tensor_map3 map
+__device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* map, int c0, int c1,
+                                          int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(saddr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(saddr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
@@ -215,9 +252,20 @@ __device__ __forceinline__ void mma_wait() {
 
 // keeps the compiler from moving reads or writes of d across an
 // asynchronous wgmma's issue or wait
-__device__ __forceinline__ void pin(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void pin(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// the same for a register A operand: its registers stay as they are until
+// the wgmma that reads them has completed (call after the wait)
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
 // d (+)= A · B over one k16 step, the warpgroup's 64 x 128 f32 tile (the
@@ -251,6 +299,62 @@ __device__ __forceinline__ void mma(float (&d)[64], uint64_t a, uint64_t b, int 
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_B));
+}
+
+// the same at N = 64: a warpgroup's 64 x 64 f32 tile (d[4j + e] as above,
+// j < 8), A and B from shared memory
+template <int TRANS_B>
+__device__ __forceinline__ void mma_n64(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_B));
+}
+
+// mma with A from registers: a is this thread's A fragment of the k16 step
+// (mma.sync's m16n8k16 A layout per warp, rows as d's: a[0] row lane/4,
+// columns 2·(lane%4) and +1; a[1] row +8; a[2], a[3] the same 8 columns on),
+// which must not change until the wgmma has completed (pin after the wait)
+template <int TRANS_B>
+__device__ __forceinline__ void mma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                       int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(TRANS_B));
 }
 
 // ---- the loop

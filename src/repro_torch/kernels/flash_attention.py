@@ -29,15 +29,19 @@ reference's atol 3e-5 (``tests/test_kernels.py:105``); ``chip_smoke.py`` holds t
 at the prefill shape on an NVIDIA H100 80GB HBM3 at 700 W, against SDPA's
 0.276–0.278 and the 0.052 ms tensor-core bound (``PERF.md``).
 
-The bf16 branch (a bf16 backbone's q, k and v, at hd 128): the three go
-to the tensor cores whole, one plane each (exact in bf16, so no split),
-and Q·Kᵀ takes one product a k16 step instead of six; K and V are only
-padded to whole key tiles. The softmax, P (three terms, as in the f32
-branch) and O stay in f32, and O is rounded to bf16 once, as the
+The bf16 branch (a bf16 backbone's q, k and v, at hd 128) runs on its own
+kernel, ``flash_fwd_wg``, on Hopper's asynchronous loop
+(``csrc/wgmma_loop.cuh``): TMA reads Q, K and V where they lie (no copy,
+no scratch: :func:`scratch_elems` gives 0), into a ring of K and V tiles
+that a producer warpgroup fills; two consumer warpgroups, 64 query rows
+each, run Q·Kᵀ and P·V on ``wgmma``. The three are exact in bf16 and go
+to the tensor cores whole, one plane each: Q·Kᵀ takes one product, P·V
+three (P stays f32, split in three bf16 terms, the reference's f32 P).
+The softmax and O stay in f32, and O is rounded to bf16 once, as the
 reference casts O to q's dtype (``src/repro/models/layers.py:201``,
-``flash_attention.py:101``). P·V takes three products. Its tolerance
-against its plain version on the card is one bf16 rounding of O
-(``chip_smoke.py``'s ``BF16_OUT_TOL``).
+``flash_attention.py:101``). Its tolerance against its plain version on
+the card is one bf16 rounding of O (``chip_smoke.py``'s
+``BF16_OUT_TOL``). :func:`route` names the kernels a call launches.
 
 Head widths 64, 112 (kimi-k2), 128 and 256 (gemma2-2b); at 256 two warps
 share each 16-row group, each accumulating half of O's columns; at 112
@@ -73,9 +77,44 @@ def _fn():
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                        + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        lib.flash_scratch_elems.argtypes = [ctypes.c_int] * 5
-        lib.flash_scratch_elems.restype = ctypes.c_longlong
+        lib.flash_wgmma.argtypes = [ctypes.c_int]
+        lib.flash_wgmma.restype = ctypes.c_int
+        lib.flash_key_tile.argtypes = []
+        lib.flash_key_tile.restype = ctypes.c_int
     return lib, fn
+
+
+def route(dtype, hd: int, wgmma: bool = True) -> list:
+    """The kernels one call at ``dtype`` and head width ``hd`` launches, in
+    order: bf16 q, k, v on the wgmma loop (``wgmma``: the library's
+    ``flash_wgmma``; K and V read in place by TMA, nothing before it), or,
+    routed back, on ``flash_fwd_mma`` after ``flash_pad``'s padded copy;
+    f32 on ``flash_fwd_mma`` after ``flash_split``. Refuses a head width
+    the kernel is not built for at ``dtype``."""
+    require_head_dim(hd, dtype)
+    if dtype == torch.bfloat16:
+        return ["flash_fwd_wg"] if wgmma else ["flash_pad", "flash_fwd_mma<128, bf16>"]
+    return ["flash_split", f"flash_fwd_mma<{hd}>"]
+
+
+def scratch_elems(BH: int, Sk: int, hd: int, n_rep: int, dtype, key_tile: int,
+                  wgmma: bool = True) -> int:
+    """bf16 values of the K/V scratch a call needs: none on the wgmma loop;
+    on ``flash_fwd_mma`` K's and V's planes (three each of f32 operands,
+    one each of bf16), (BH / n_rep) heads of Sk keys padded to whole
+    tiles of ``key_tile`` (the library's ``flash_key_tile``)."""
+    require_head_dim(hd, dtype)
+    bf16 = dtype == torch.bfloat16
+    if bf16 and wgmma:
+        return 0
+    return 2 * (1 if bf16 else 3) * (BH // n_rep) * (-(-Sk // key_tile) * key_tile) * hd
+
+
+def route_of(q: torch.Tensor) -> list:
+    """:func:`route` for a call with ``q`` on the card (the built library
+    says which loop bf16 takes)."""
+    lib, _ = _fn()
+    return route(q.dtype, q.shape[-1], bool(lib.flash_wgmma(int(q.dtype == torch.bfloat16))))
 
 
 def require_head_dim(hd: int, dtype=torch.float32) -> None:
@@ -141,10 +180,10 @@ def flash_attention(
     lib, fn = _fn()
     n_rep, Sk = BH // k.shape[0], k.shape[1]
     out = torch.empty_like(q)
-    # K's and V's three bf16 planes (one each when bf16), padded to whole key tiles
     bf = int(q.dtype == torch.bfloat16)
-    scratch = torch.empty(lib.flash_scratch_elems(BH, Sk, hd, n_rep, bf), dtype=torch.bfloat16,
-                          device=q.device)
+    scratch = torch.empty(scratch_elems(BH, Sk, hd, n_rep, q.dtype, lib.flash_key_tile(),
+                                        bool(lib.flash_wgmma(bf))),
+                          dtype=torch.bfloat16, device=q.device)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), scratch.data_ptr(), BH, Sq,
             Sk, hd, n_rep, int(causal), window or 0, attn_softcap or 0.0, hd ** -0.5, bf,
             _build.stream_of(q))

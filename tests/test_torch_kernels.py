@@ -737,6 +737,136 @@ def test_flash_bf16_split_error_model_hd256(softcap):
     assert err1 > 3e-5, err1
 
 
+def _tc_chain(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor, steps) -> torch.Tensor:
+    """C (BH, M, N) plus the k16 steps starting at ``steps`` of a (BH, M, K)
+    @ b (BH, K, N), each step one truncating tensor-core add
+    (:func:`_tc_add`). Float64 in and out."""
+    for k0 in steps:
+        c = _tc_add(c, (a[..., k0:k0 + 16, None] * b[:, None, k0:k0 + 16]).transpose(-1, -2))
+    return c
+
+
+def _flash_tc(q, k, v, softcap, qk: str, pv: str, bkv: int) -> torch.Tensor:
+    """Causal flash attention on bf16 values (q, k, v f32 tensors holding
+    them) as a tensor-core loop sums it, every k16 step one truncating add
+    (:func:`_tc_add`). Q·Kᵀ: a fresh f32 sum each k16 step ("step", the
+    ``mma.sync`` loop's), each 64-deep half of the head ("stage"), or one
+    chain over the head ("chain"). P in three bf16 terms times V, over key
+    tiles of ``bkv``: a fresh sum each k16 step ("step"), one a tile with
+    the terms smallest first, each over the tile's steps ("tile"), or
+    straight into the rescaled O ("into_o"). Scale, soft-cap, mask and the
+    online softmax in f32, as the kernels. Returns O in f32."""
+    BH, S, hd = q.shape
+    kt, z = k.double().transpose(1, 2), torch.zeros(BH, S, S, dtype=torch.float64)
+    steps = list(range(0, hd, 16))
+    groups = {"step": [[k0] for k0 in steps], "stage": [steps[:4], steps[4:]],
+              "chain": [steps]}[qk]
+    s_all = sum(_tc_chain(z, q.double(), kt, g).float() for g in groups) * hd ** -0.5
+    if softcap is not None:
+        s_all = softcap * torch.tanh(s_all / softcap)
+    pos = torch.arange(S)
+    s_all = torch.where(pos[:, None] >= pos[None, :], s_all, torch.tensor(-torch.inf))
+    m = torch.full((BH, S), -torch.inf)
+    l, o = torch.zeros(BH, S), torch.zeros(BH, S, hd)
+    for k0 in range(0, S, bkv):
+        s = s_all[:, :, k0:k0 + bkv]
+        m_new = torch.maximum(m, s.amax(-1))
+        mu = torch.where(m_new == -torch.inf, torch.zeros_like(m_new), m_new)
+        alpha = torch.exp(m - mu)
+        p = torch.exp(s - mu[..., None])
+        l = l * alpha + p.sum(-1)
+        lo_first = _bf16_terms(p, 3)[::-1]
+        vt = v.double()[:, k0:k0 + bkv]
+        tile_steps = range(0, bkv, 16)
+        if pv == "into_o":
+            acc = (o * alpha[..., None]).double()
+            for t in lo_first:
+                acc = _tc_chain(acc, t, vt, tile_steps)
+            o = acc.float()
+            m = m_new
+            continue
+        zero = torch.zeros(BH, S, hd, dtype=torch.float64)
+        if pv == "tile":
+            part = zero
+            for t in lo_first:
+                part = _tc_chain(part, t, vt, tile_steps)
+            o = o * alpha[..., None] + part.float()
+        else:
+            o = o * alpha[..., None]
+            for j in tile_steps:
+                part = zero
+                for t in lo_first:
+                    part = _tc_chain(part, t, vt, [j])
+                o = o + part.float()
+        m = m_new
+    return o / torch.clamp(l, min=1e-30)[..., None]
+
+
+@pytest.mark.parametrize("softcap", [None, 30.0])
+def test_flash_bf16_wgmma_promotion_error_model(softcap):
+    """flash attention's bf16 branch on the wgmma loop (bf16 q, k, v at hd
+    128, S 256, causal): Q·Kᵀ in a fresh f32 sum each 64-deep half of the
+    head, P's three terms times V in a fresh sum each 64-key tile. After
+    the bf16 rounding of O it meets ``chip_smoke.py``'s bf16 gate against
+    the Pallas kernel in interpret mode on the same bf16 inputs (|Δ| <=
+    2^-7·|O| + 1e-6). In f32 before the rounding it errs no more than 1.5x
+    the ``mma.sync`` loop's order (a fresh sum each k16 step, 32-key
+    tiles) against float64 attention, by the largest error and by the RMS
+    (~1.0x here). The designs not taken err more by the RMS: one chain over
+    the head for Q·Kᵀ (~1.25x, the tensor core truncating the second half
+    on the first's grid), and P·V straight into the running O (~1.9x: the
+    small terms truncated on O's grid), which is why the kernel sums as
+    it does."""
+    BH, S, hd = 2, 256, 128
+    q, k, v = (torch.from_numpy(_randn((BH, S, hd), seed)).bfloat16().float()
+               for seed in (41, 42, 43))
+    want = torch.from_numpy(np.array(flash_attention_tpu(
+        *(jnp.asarray(t.numpy(), jnp.bfloat16) for t in (q, k, v)), attn_softcap=softcap,
+        interpret=True).astype(jnp.float32)))
+    s = torch.einsum("bqd,bkd->bqk", q.double(), k.double()) * hd ** -0.5
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    s = s.masked_fill(torch.ones(S, S, dtype=torch.bool).triu(1), -torch.inf)
+    exact = torch.softmax(s, dim=-1) @ v.double()
+    runs = {"present": ("step", "step", 32), "kernel": ("stage", "tile", 64),
+            "qk_chain": ("chain", "tile", 64), "pv_into_o": ("stage", "into_o", 64)}
+    out = {name: _flash_tc(q, k, v, softcap, *how) for name, how in runs.items()}
+    got = out["kernel"].bfloat16().float()
+    assert float(((got - want).abs() - 2.0 ** -7 * want.abs()).max()) <= 1e-6
+    err = {name: (x.double() - exact) for name, x in out.items()}
+    top = {name: float(e.abs().max()) for name, e in err.items()}
+    rms = {name: float(e.pow(2).mean().sqrt()) for name, e in err.items()}
+    assert top["kernel"] <= 1.5 * top["present"] and rms["kernel"] <= 1.5 * rms["present"], (
+        top, rms)
+    assert rms["qk_chain"] >= 1.1 * rms["kernel"] and rms["pv_into_o"] >= 1.4 * rms["kernel"], rms
+
+
+def test_flash_wgmma_route_and_scratch_sizes():
+    """Which loop a call takes and the K/V scratch it needs: bf16 at hd 128
+    on the wgmma loop with none (TMA reads K and V in place); routed back,
+    flash_pad's one plane each, padded to whole key tiles; every f32 head
+    width keeps flash_split's planes, 2·3·(BH / n_rep)·Skp·hd; a bf16 call
+    at another head width is refused."""
+    from repro_torch.kernels.flash_attention import HEAD_DIMS, route, scratch_elems
+
+    bf, f32 = torch.bfloat16, torch.float32
+    assert route(bf, 128) == ["flash_fwd_wg"]
+    assert scratch_elems(128, 512, 128, 2, bf, 32) == 0
+    assert scratch_elems(8, 1001, 128, 2, bf, 32) == 0
+    assert route(bf, 128, wgmma=False) == ["flash_pad", "flash_fwd_mma<128, bf16>"]
+    assert scratch_elems(8, 1001, 128, 2, bf, 32, wgmma=False) == 2 * 4 * 1024 * 128
+    for hd in HEAD_DIMS:
+        assert route(f32, hd) == ["flash_split", f"flash_fwd_mma<{hd}>"]
+        for BH, Sk, n_rep in ((128, 512, 2), (8, 37, 1), (12, 1001, 6)):
+            skp = -(-Sk // 32) * 32
+            assert scratch_elems(BH, Sk, hd, n_rep, f32, 32) == 2 * 3 * (BH // n_rep) * skp * hd
+    for hd in (64, 112, 256):
+        with pytest.raises(ValueError):
+            route(bf, hd)
+        with pytest.raises(ValueError):
+            scratch_elems(8, 64, hd, 1, bf, 32)
+
+
 @pytest.mark.parametrize("harness,source", [("ce_fwd_variants", "lmhead_ce.cu"),
                                             ("ce_fwd_variants", "wgmma_loop.cuh"),
                                             ("qmm_variants", "quant_matmul.cu"),
