@@ -158,7 +158,7 @@ Phases, in order; any failure exits non-zero:
    the prompt's shapes.
 8. Personal: the checkpoint served with ``pac_decode_step`` at B = 1
    over an INT8 linear KV cache, 32 teacher-forced prompt tokens then
-   32 greedy tokens, under ``cuda`` (launch counts from this run alone:
+   16 greedy tokens, under ``cuda`` (launch counts from this run alone:
    ``adapter_fuse`` 24 and ``quant_matmul`` 168 per step) and ``ref``
    (equal tokens, logits compared), two steps under ``torch.profiler``;
    ``prefill_step`` against the teacher-forced f32-KV decode, and INT8
@@ -166,7 +166,7 @@ Phases, in order; any failure exits non-zero:
    (``personal_gap`` line: each step's gap, and the INT8 KV codes that
    the two INT8 runs wrote differently) holds ``cuda`` to ``ref``
    without the INT8 codes' one-step flips.
-9. Prefetch: the cached epoch's input path at full width, 8 steps of
+9. Prefetch: the cached epoch's input path at full width, 6 steps of
    4 x 512 tokens, int8 cache (``prefetch`` line). Epoch 0 fills the
    cache; from one snapshot the cached epoch then runs in turns through
    ``EpochRunner`` (the prefetcher: pinned ring, side-stream copies)
@@ -294,7 +294,7 @@ Phases, in order; any failure exits non-zero:
    layers, random seeded INT8 weights, 4 users with r = 8 adapters, INT8
    KV pages of 16, the serving phase's 8 requests and a ninth of 4500
    tokens (its own wave: flash prefill and paged decode cross the 4096
-   window), 16 new tokens each, through ``ServeEngine``; then each wave's
+   window), 8 new tokens each, through ``ServeEngine``; then each wave's
    prefill and two decode steps under ``cuda`` and ``ref``: logits within
    2e-2, greedy tokens equal.
 15. gemma2-2b training (``pac_run`` line): PAC+ through ``EdgeSession``/
@@ -306,6 +306,28 @@ Phases, in order; any failure exits non-zero:
    12 ``pac_decode_step``s at B = 1 over an f32 linear KV cache under both
    OpSets: each step within 2e-4, greedy tokens equal, 13
    ``adapter_fuse`` and 182 ``quant_matmul`` launches a step.
+16b. The reference's bf16 backbone at gemma2-2b (``gemma2_bf16_serving``,
+   ``gemma2_bf16_training``, ``gemma2_bf16_personal``): the bf16 branches
+   at head widths 256, 64 and 112 first (flash with bf16 q, k, v and O
+   on ``flash_pad`` + ``flash_fwd_mma<hd, bf16>`` at gemma2's prefill
+   (B·H 8·8 over 8·4, S 512, soft-cap 50), its 4500-token prompt (1·8
+   over 1·4, window 4096), its epoch-1 step (4·8 over 4·4), t5-base-pac's
+   (4·12, hd 64) and kimi-k2's (4·64 over 4·32, hd 112, soft-cap 30,
+   window 128), each within one bf16 rounding of O from its plain version,
+   two calls bit-equal, beside SDPA in f32 on the upcast inputs and SDPA
+   on bf16; the ragged and keyless cases at the three widths; paged
+   attention with a bf16 q at B 8 and hd 256 (Hkv 4, n_rep 2, soft-cap
+   50; lengths <= 511 and <= 4095), 112 (Hkv 8, n_rep 8) and 64 (Hkv 12,
+   n_rep 1) over int8, bf16 and f32 pages, reruns and graph replays
+   bit-equal, its ragged cases at the three widths; the CE pair with
+   gemma2's tied bf16 head, d 2304, V 256000, soft-cap 30, read in place);
+   then a bf16 gemma2-2b at full width and depth served to 14's users
+   and prompts (8 new tokens, int8 pages; each wave's prefill and two
+   decode steps under ``cuda`` and ``ref`` over int8, bf16 and f32 pages
+   by :func:`bf16_logits_gate` on gemma2's own move), trained (as 4e,
+   the tied bf16 head) and personal-served (as 4e). Flash 26 launches a
+   prefill, paged attention 26 a decode step, the CE pair one each a
+   step, ``quant_matmul`` none.
 17. The paper's Table III models (t5-base-pac, bart-large-pac,
    t5-large-pac): each trained as in 15, with its gates.
 18. musicgen-large (``musicgen_prefill`` line): 48 layers at full width,
@@ -357,7 +379,7 @@ Phases, in order; any failure exits non-zero:
 24. mixtral-8x7b serving (``mixtral_serving`` line): 32 layers at full
    width, random seeded INT8 weights (46.7 B parameters), 4 users with
    r = 8 adapters, INT8 KV pages of 16, the serving phase's 8 requests,
-   16 new tokens each, through ``ServeEngine``; then their prefill and
+   8 new tokens each, through ``ServeEngine``; then their prefill and
    two decode steps under ``cuda`` and ``ref`` with every MoE layer's
    routes recorded: at least 99.9 % of tokens routed alike in every
    layer, and where a request's tokens routed alike in every layer so
@@ -368,7 +390,7 @@ Phases, in order; any failure exits non-zero:
    one 48 GB backbone: the ``cuda`` session's is released before the
    ``ref`` trainer opens its own, the same seeded draw (fingerprints
    equal), which 26 then serves.
-26. mixtral-8x7b personal (``mixtral_personal`` line): 16
+26. mixtral-8x7b personal (``mixtral_personal`` line): 12
    ``pac_decode_step``s at B = 1 over an f32 linear KV cache under both
    OpSets, routes recorded: every layer's routes alike, each step within
    2e-4, greedy tokens equal, 32 ``adapter_fuse`` and 128
@@ -380,7 +402,7 @@ Phases, in order; any failure exits non-zero:
 28. xlstm-125m serving (``xlstm_serving`` line): 12 layers (9 mLSTM, 3
    sLSTM) at full width, random seeded INT8 weights, 4 users with r = 8
    adapters, through ``ServeEngine``'s stepwise prompt path: 8 requests
-   of 32-128 prompt tokens, 16 new each, through 4 slots (4 admissions
+   of 32-128 prompt tokens, 8 new each, through 4 slots (4 admissions
    into retired rows), under ``cuda`` and ``ref``: every stream equal;
    16 teacher-forced steps under both, logits within 2e-2, greedy
    equal; the first prompt stepwise against one ``pac_logits`` pass
@@ -390,7 +412,7 @@ Phases, in order; any failure exits non-zero:
    step (its steps are host-bound, ~6 s), its path's kernels the mixes
    and the CE (4, 4, 1, 1 a step); the cached step's gate
    with mLSTM blocks also takes 8x the ``ref`` step's own move under a
-   halved or quartered chunk. Then ``xlstm_personal``: 16
+   halved or quartered chunk. Then ``xlstm_personal``: 12
    ``pac_decode_step``s at B = 1 over the SSM state under both OpSets,
    within 2e-4, tokens equal, 3 ``adapter_fuse`` a step.
 30. One Mamba mixer (``mamba_layer`` line): jamba-1.5-large-398b's at
@@ -414,7 +436,7 @@ Phases, in order; any failure exits non-zero:
    ragged at n_rep 7, reruns and graph replays bit-equal.
 33. qwen2-vl-7b serving (``qwen2vl_serving`` line): 28 layers at full
    width, random seeded INT8 weights (7.62 G parameters), 4 users with
-   r = 8 adapters, 8 requests of 64-480 prompt tokens and 16 new through
+   r = 8 adapters, 8 requests of 64-480 prompt tokens and 8 new through
    ``ServeEngine``, then prefill and two decode steps under ``cuda`` and
    ``ref``: logits within 2e-2, greedy equal; ``quant_matmul``, flash
    and paged attention launched.
@@ -467,10 +489,11 @@ Phases, in order; any failure exits non-zero:
    at T <= 8), the card's line, and last ``{"ok": true, "device":
    {...}}``.
 
-``python3 chip_smoke.py --bf16-own-move`` builds the kernels, then runs
-only :func:`bf16_own_move`: the port's ``ref`` OpSet on the bf16
-internlm2-1.8b on the card against the same program on the host's CPU,
-whose readings are ``BF16_OWN_MOVE``, the yardstick of 4e's gates.
+``python3 chip_smoke.py --bf16-own-move [--arch gemma2-2b]`` builds the
+kernels, then runs only :func:`bf16_own_move`: the port's ``ref`` OpSet on
+the bf16 internlm2-1.8b (or gemma2-2b) on the card against the same
+program on the host's CPU, whose readings are ``BF16_OWN_MOVE[arch]``,
+the yardstick of 4e's and 16b's gates.
 
 Needs one CUDA card and the repository's ``src`` beside this file; it
 imports no JAX and nothing of the JAX package.
@@ -701,13 +724,14 @@ FLASH_TOL_REASON = ("the reference's flash tolerance (tests/test_kernels.py:105)
 
 
 def flash_case(timer: Timer, gen: torch.Generator, B: int, H: int, Hkv: int, S: int, hd: int,
-               at: str, cap: float = None, dtype=torch.float32):
+               at: str, cap: float = None, dtype=torch.float32, window: int = None):
     """Causal ``flash_attention`` over grouped KV at (B·H, S, hd) against
     its plain version, timed beside the plain version and SDPA (KV heads
     repeated beforehand), with both bounds: the bf16 tensor cores' (each
     product's 3-term split takes six bf16 products: 12 in all) and f32's.
     ``cap``: the attention soft-cap of the kernel and its plain version
-    (SDPA has none, and runs without). ``dtype`` bf16: the bf16 branch,
+    (SDPA has none, and runs without). ``window``: the sliding window of
+    all three (SDPA's as a boolean mask). ``dtype`` bf16: the bf16 branch,
     q, k, v and O bf16 (Q·Kᵀ one product, P·V three: P's terms), held to
     one bf16 rounding of O (:func:`bf16_out_check`); its ``library_ms`` is
     the reference's function (SDPA in f32 on q, k, v cast to f32, O cast to
@@ -720,8 +744,9 @@ def flash_case(timer: Timer, gen: torch.Generator, B: int, H: int, Hkv: int, S: 
     q = torch.randn(B * H, S, hd, generator=gen, device=DEV).to(dtype)
     k = torch.randn(B * Hkv, S, hd, generator=gen, device=DEV).to(dtype)
     v = torch.randn(B * Hkv, S, hd, generator=gen, device=DEV).to(dtype)
-    got = flash_attention(q, k, v, attn_softcap=cap)
-    want = ref.flash_attention_ref(q, k, v, attn_softcap=cap)
+    opts = dict(attn_softcap=cap, window=window)
+    got = flash_attention(q, k, v, **opts)
+    want = ref.flash_attention_ref(q, k, v, **opts)
     if (got.shape != q.shape or got.dtype != dtype or not bool(torch.isfinite(got).all())):
         raise AssertionError(f"flash_attention {at}: shape {tuple(got.shape)}, {got.dtype} or "
                              "non-finite")
@@ -733,32 +758,38 @@ def flash_case(timer: Timer, gen: torch.Generator, B: int, H: int, Hkv: int, S: 
         check(f"flash_attention {at}", err, FLASH_TOL)
     q4, k4, v4 = (t.reshape(B, -1, S, hd) for t in (q, k, v))
     k4r, v4r = k4.repeat_interleave(H // Hkv, dim=1), v4.repeat_interleave(H // Hkv, dim=1)
+    pos = torch.arange(S, device=DEV)
+    band = dict(is_causal=True) if window is None else dict(
+        attn_mask=(pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window))
 
     def sdpa():
-        return torch.nn.functional.scaled_dot_product_attention(q4, k4r, v4r, is_causal=True)
+        return torch.nn.functional.scaled_dot_product_attention(q4, k4r, v4r, **band)
 
-    pairs = S * (S + 1) // 2  # causal (query, key) pairs per head
+    # causal (query, key) pairs per head, inside the window where one is given
+    pairs = S * (S + 1) // 2 if window is None else sum(min(i + 1, window) for i in range(S))
     nbytes = float(q.element_size()) * (q.numel() * 2 + k.numel() + v.numel())
     flops = 4.0 * hd * pairs * B * H
     f32_ms, f32_by = bound(nbytes, flops)
     # the tensor cores' products: 6 + 6 for f32 operands, 1 + 3 for bf16
     b_ms, b_by = bound(nbytes, (2 if bf16 else 6) * flops, BF16_FLOP_PER_S)
     library = ("scaled_dot_product_attention, causal, KV heads repeated beforehand"
+               + ("" if window is None else f", window {window} as a boolean mask")
                + (", no soft-cap (SDPA has none)" if cap else ""))
     r = {"check": "flash_attention", "at": at, "BH": B * H, "BHkv": B * Hkv, "S": S, "hd": hd,
-         "causal": True, "softcap": cap, "dtype": str(dtype).replace("torch.", ""),
+         "causal": True, "window": window, "softcap": cap,
+         "dtype": str(dtype).replace("torch.", ""),
          "route": route_of(q), "max_abs_err": err,
          "tol": BF16_OUT_TOL if bf16 else f"atol {FLASH_TOL}",
          "tol_reason": BF16_OUT_TOL_REASON if bf16 else FLASH_TOL_REASON,
-         "ms": timer(lambda: flash_attention(q, k, v, attn_softcap=cap)),
-         "plain_ms": timer(lambda: ref.flash_attention_ref(q, k, v, attn_softcap=cap)),
+         "ms": timer(lambda: flash_attention(q, k, v, **opts)),
+         "plain_ms": timer(lambda: ref.flash_attention_ref(q, k, v, **opts)),
          "library_ms": timer(sdpa), "library": library,
          "bound_ms": b_ms, "bound_by": b_by, "bound_tc_ms": b_ms, "bound_tc_by": b_by,
          "bound_f32_ms": f32_ms, "bound_f32_by": f32_by}
     if bf16:  # the reference's function: q, k, v cast to f32, S, P and O in f32, O cast once
         q32, k32, v32 = q4.float(), k4r.float(), v4r.float()
         r.update(library_ms=timer(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q32, k32, v32, is_causal=True).to(dtype)),
+            q32, k32, v32, **band).to(dtype)),
             library=library + ", in f32 on q, k, v cast to f32 beforehand, O cast to bf16: "
                               "the reference's function",
             library_bf16_ms=r["library_ms"],
@@ -967,7 +998,7 @@ def paged_timed(timer: Timer, gen: torch.Generator, lengths_np: np.ndarray, max_
     return r
 
 
-def paged_ragged(gen: torch.Generator, shapes=None) -> None:
+def paged_ragged(gen: torch.Generator, shapes=None, q_dtype=torch.float32) -> None:
     """``paged_attention`` against its plain version at B 1, 2, 3, 5, 8
     and 72 (the last groups two kv heads a block, one rank: no cluster),
     Hkv 2, 4 and 8, n_rep 1, 2, 3, 5 and 8, hd 64 and 128, pages of 4 and
@@ -977,7 +1008,8 @@ def paged_ragged(gen: torch.Generator, shapes=None) -> None:
     and with window 20 (which leaves most ranks of a long row empty); and
     int8 and bf16 pools whose base is not 16-byte aligned. One line per
     shape; ``shapes`` replaces the shapes (B, Hkv, n_rep, hd, page,
-    max_pages, lengths, padding rows)."""
+    max_pages, lengths, padding rows); ``q_dtype`` bf16: a bf16
+    backbone's query."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import paged_attention, plan_for
     from repro_torch.serve.paging import quantize_kv_pages
@@ -1001,6 +1033,7 @@ def paged_ragged(gen: torch.Generator, shapes=None) -> None:
         lengths_np[list(padding)] = 0
         q, kf, vf, bt, lengths = paged_case(gen, rng, B, Hkv, n_rep, hd, page, max_pages,
                                             lengths_np, padding)
+        q = q.to(q_dtype)
         (kq, ks), (vq, vs) = quantize_kv_pages(kf), quantize_kv_pages(vf)
         pools = {"f32": ((kf, vf), {}), "bf16": ((kf.bfloat16(), vf.bfloat16()), {}),
                  "int8": ((kq, vq), dict(k_scale=ks, v_scale=vs))}
@@ -1024,7 +1057,7 @@ def paged_ragged(gen: torch.Generator, shapes=None) -> None:
                 check(f"paged_attention_ragged B={B} Hkv={Hkv} n_rep={n_rep} hd={hd} "
                       f"page={page} {label}", errs[label], PAGED_TOL[kind.split("_")[0]])
         emit({"check": "paged_attention_ragged", "B": B, "Hkv": Hkv, "n_rep": n_rep, "hd": hd,
-              "page": page, "max_pages": max_pages, "lengths": lengths_np.tolist(),
+              "q_dtype": str(q_dtype).replace("torch.", ""), "page": page, "max_pages": max_pages, "lengths": lengths_np.tolist(),
               "padding_rows": list(padding),
               "plan_int8": plan_for(q, B, Hkv, n_rep, hd, page, max_pages, 0)._asdict(),
               "max_abs_err": errs, "tol": {k: f"atol {v}" for k, v in PAGED_TOL.items()},
@@ -1032,15 +1065,17 @@ def paged_ragged(gen: torch.Generator, shapes=None) -> None:
 
 
 def paged_deterministic(gen: torch.Generator, lengths_np: np.ndarray, max_pages: int,
-                        Hkv: int = 8, n_rep: int = 2, hd: int = 128) -> None:
+                        Hkv: int = 8, n_rep: int = 2, hd: int = 128,
+                        q_dtype=torch.float32) -> None:
     """Two eager calls at the check's shape bit-equal, and the call
     captured in a CUDA graph and replayed three times, each bit-equal to
-    the eager call."""
+    the eager call (``q_dtype`` bf16: a bf16 backbone's query)."""
     from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.serve.paging import quantize_kv_pages
 
     q, kf, vf, bt, lengths = paged_case(gen, np.random.default_rng(SEED), len(lengths_np), Hkv,
                                         n_rep, hd, 16, max_pages, lengths_np)
+    q = q.to(q_dtype)
     (kq, ks), (vq, vs) = quantize_kv_pages(kf), quantize_kv_pages(vf)
 
     def fn():
@@ -1061,6 +1096,7 @@ def paged_deterministic(gen: torch.Generator, lengths_np: np.ndarray, max_pages:
     ok = bool(torch.equal(eager, again)) and all(replays)
     emit({"check": "paged_attention_deterministic",
           "at": f"B={len(lengths_np)} Hkv={Hkv} n_rep={n_rep} hd={hd} page=16 int8",
+          "q_dtype": str(q_dtype).replace("torch.", ""),
           "calls_bit_equal": bool(torch.equal(eager, again)), "replays_equal_eager": replays,
           "bit_equal": ok})
     if not ok:
@@ -1290,6 +1326,9 @@ SERVING_PAGE, SERVING_MAX_LEN, SERVING_BATCH, SERVING_R = 16, 544, 8, 8
 #: new tokens a request of each config's serving cell (32 until the bf16 slice; cut for the
 #: smoke's time, as the other cells' below)
 SERVING_NEW_TOKENS = 16
+#: ... of the other configs' serving cells (gemma2-2b, qwen2-vl-7b, the MoE configs,
+#: xlstm-125m; 16 until the bf16 gemma2-2b slice)
+CONFIG_NEW_TOKENS = 8
 #: steps of the INT4 and the other configs' personal loops (8 teacher-forced, then greedy;
 #: 16 until the bf16 slice)
 PERSONAL_STEPS = 12
@@ -1859,23 +1898,32 @@ BF16_TOL = 3e-2
 BF16_TOL_REASON = ("the reference's bf16 tolerance (tests/test_opset.py:35-48): every op of a "
                    "bf16 backbone rounds to 8 bits, and cuda rounds in other places than ref "
                    "(flash's O once, the paged kernel's f32 softmax)")
-#: the port's own move on the bf16 internlm2-1.8b at full width and depth, its ``ref``
-#: OpSet on the card against the same program on the host's CPU, the same weights and
-#: inputs (:func:`bf16_own_move`, ``--bf16-own-move``; NVIDIA H100 80GB HBM3, 700.00 W):
+#: the port's own move on each bf16 backbone at full width and depth, its ``ref`` OpSet on
+#: the card against the same program on the host's CPU, the same weights and inputs
+#: (:func:`bf16_own_move`, ``--bf16-own-move --arch ...``; NVIDIA H100 80GB HBM3, 700.00 W):
 #: the largest |Δlogits| over the serving cell's prefill and two decode steps on int8, bf16
-#: and f32 pages (0.081-0.089 a step; 2 of 24 rows' greedy tokens differ a page policy, at
-#: top-2 margins of 0.0015-0.014), over the personal prompt's last logits, and over the
-#: epoch-1 step's bf16 taps (of a scale 23.75)
-BF16_OWN_MOVE = {"serving": 0.08939427137374878, "personal_prefill": 0.078125, "taps": 0.5625}
+#: and f32 pages, over the personal prompt's last logits, and over the epoch-1 step's bf16
+#: taps. internlm2-1.8b: 0.081-0.089 a serving step (2 of 24 rows' greedy tokens differ a
+#: page policy, at top-2 margins of 0.0015-0.014), taps of a scale 23.75. gemma2-2b (its 8
+#: requests over the three page kinds and its 4500-token prompt over int8 pages): 0.0955-0.1093
+#: a step on the 8 requests, 0.0863-0.0921 on the long prompt (whose greedy token differs at 2
+#: of 3 steps, at margins 0.029-0.030), taps of a scale 24.75.
+BF16_OWN_MOVE = {
+    "internlm2-1.8b": {"serving": 0.08939427137374878, "personal_prefill": 0.078125,
+                       "taps": 0.5625},
+    "gemma2-2b": {"serving": 0.10926267504692078, "personal_prefill": 0.0892333984375,
+                  "taps": 0.6875},
+}
 #: the bf16 gates' bound over that move: the smoke's backbone is another draw than the
 #: measurement's, and C5's factor for a move measured on one draw (FORM_FACTOR in
 #: tests/test_torch_moe_configs.py)
 BF16_FORM_FACTOR = 2
 BF16_LOGITS_REASON = (
-    "the port's own move at full depth (BF16_OWN_MOVE: ref on the card against ref on the "
-    "host's CPU; cuda lay 0.072-0.084 from ref in that run), times BF16_FORM_FACTOR. Greedy "
+    "the port's own move at full depth (BF16_OWN_MOVE[arch]: ref on the card against ref on "
+    "the host's CPU), times BF16_FORM_FACTOR. Greedy "
     "tokens equal in every row whose ref top-2 margin exceeds twice the own move, the rows "
-    "the port's own move cannot flip; its own run flipped rows at margins <= 0.014")
+    "the port's own move cannot flip; its own runs flipped rows at margins <= 0.014 "
+    "(internlm2-1.8b) and <= 0.030 (gemma2-2b)")
 #: a bf16 kernel output against its plain version's: the two f32 results a few
 #: ulps apart round to one bf16 value or to neighbours, 2^-7 of the value at most
 BF16_OUT_RTOL = 2.0 ** -7
@@ -1889,12 +1937,13 @@ BF16_STEPS = 2  # epoch-1 steps, then as many cached steps
 BF16_PERSONAL_PROMPT, BF16_PERSONAL_STEPS = 4, 8  # teacher-forced, then greedy to 8 tokens
 
 
-def bf16_logits_gate(cuda: list, ref: list, phase: str, kind: str = "serving") -> dict:
-    """Each step's (B, V) logits under ``cuda`` against ``ref`` on the bf16
-    backbone: within ``BF16_FORM_FACTOR`` times the port's own move
-    ``BF16_OWN_MOVE[kind]``, greedy tokens equal in every row whose ``ref``
-    top-2 margin exceeds twice that move (``BF16_LOGITS_REASON``)."""
-    own = BF16_OWN_MOVE[kind]
+def bf16_logits_gate(cuda: list, ref: list, phase: str, kind: str = "serving",
+                     arch: str = SERVING_ARCH) -> dict:
+    """Each step's (B, V) logits under ``cuda`` against ``ref`` on ``arch``'s
+    bf16 backbone: within ``BF16_FORM_FACTOR`` times the port's own move
+    ``BF16_OWN_MOVE[arch][kind]``, greedy tokens equal in every row whose
+    ``ref`` top-2 margin exceeds twice that move (``BF16_LOGITS_REASON``)."""
+    own = BF16_OWN_MOVE[arch][kind]
     tol = BF16_FORM_FACTOR * own
     diffs, equal, decided, close = [], [], [], []
     for a, b in zip(cuda, ref):
@@ -1937,7 +1986,6 @@ def bf16_kernel_phase(timer: Timer, gen: torch.Generator) -> dict:
     not a multiple of 8, from one padded copy), two calls bit-equal, timed
     beside the f32 yardstick (the reference's function) and the bf16-cast
     one. Returns the kernels line's ``bf16`` rows."""
-    from repro_torch.kernels import lmhead_ce, ref
     from repro_torch.kernels.flash_attention import flash_attention
 
     rows = {"flash_attention": {}, "paged_attention": {}}
@@ -1968,15 +2016,116 @@ def bf16_kernel_phase(timer: Timer, gen: torch.Generator) -> dict:
     w = (torch.randn(d, V, generator=gen, device=DEV) * d ** -0.5).to(torch.bfloat16)
     lab = torch.randint(0, V, (T,), generator=gen, device=DEV)
     g = torch.randn(T, generator=gen, device=DEV)
-    reason = ("the reference's blockwise-CE tolerances (tests/test_cached_step.py:105, :113): "
-              "the bf16 W is exact on the tensor cores and h keeps its three terms")
-    errs = {"ce_fwd": 0.0, "ce_bwd": 0.0}
     cases = [(h, w, lab, g, cap) for cap in (None, 30.0)]
     h2 = torch.randn(37, 130, generator=gen, device=DEV)
     w2 = (torch.randn(130, 517, generator=gen, device=DEV) * 130 ** -0.5).to(torch.bfloat16)
     lab2 = torch.randint(0, 517, (37,), generator=gen, device=DEV)
     g2 = torch.randn(37, generator=gen, device=DEV)
     cases += [(h2.to(torch.bfloat16), w2, lab2, g2, 30.0), (h2, w2, lab2, g2, None)]
+    errs = bf16_ce_checks(cases, h)
+    rows.update(bf16_ce_timed(timer, h, w, lab, g, None, "bf16 head, T=4*512, d=2048, V=92544",
+                              errs))
+    return rows
+
+
+#: the bf16 branches at head widths 256, 64 and 112, at the shapes their paths give them:
+#: flash as (row, B, H, Hkv, S, hd, soft-cap, window, what), causal
+BF16_WIDE_FLASH = [
+    ("gemma2_prefill", 8, 8, 4, 512, 256, 50.0, None, "gemma2-2b prefill"),
+    ("gemma2_long", 1, 8, 4, 4500, 256, 50.0, 4096,
+     "gemma2-2b's 4500-token prompt, window 4096 (it bites)"),
+    ("gemma2_training", 4, 8, 4, 512, 256, 50.0, None, "gemma2-2b epoch-1 step"),
+    ("t5_training", 4, 12, 12, 512, 64, None, None, "t5-base-pac epoch-1 step"),
+    ("kimi_prefill", 4, 64, 32, 512, 112, 30.0, 128, "kimi-k2 prefill, window 128"),
+]
+#: paged decode with a bf16 q as (row, Hkv, n_rep, hd, lengths below, max_pages, soft-cap), B 8,
+#: pages of 16, over int8, bf16 and f32 pages
+BF16_WIDE_PAGED = [
+    ("hd256", 4, 2, 256, 512, 32, 50.0),
+    ("hd256_long", 4, 2, 256, 4096, 256, 50.0),
+    ("hd112", 8, 8, 112, 512, 32, None),
+    ("hd64", 12, 1, 64, 512, 32, None),
+]
+#: the paged kernel's ragged cases at head width 64 (the default list's), for a bf16 q
+BF16_HD64_PAGED_RAGGED = [
+    (1, 2, 1, 64, 4, 136, [543], ()),
+    (8, 2, 2, 64, 16, 34, [0, 15, 16, 17, 255, 256, 542, 543], ()),
+]
+
+
+def bf16_wide_kernel_phase(timer: Timer, gen: torch.Generator) -> dict:
+    """The bf16 branches at the other head widths, each against its plain
+    version and timed beside its bound, its plain version and its library
+    yardstick: flash with bf16 q, k, v (``flash_pad`` + ``flash_fwd_mma<hd,
+    bf16>``) at ``BF16_WIDE_FLASH``'s shapes, held to one bf16 rounding of
+    O, two calls bit-equal each, and its ragged and keyless cases at hd 64,
+    112 and 256 (window 128); paged attention with a bf16 q at
+    ``BF16_WIDE_PAGED``'s shapes over int8, bf16 and f32 pages (row 3b's
+    tolerances), two calls and three graph replays bit-equal at each width,
+    its ragged cases at each width; ``ce_fwd``/``ce_bwd`` with gemma2-2b's
+    tied bf16 head (d 2304, V 256000, read in place by TMA) and final
+    soft-cap 30. Returns the kernels line's new ``bf16`` entries."""
+    from repro_torch.kernels import lmhead_ce
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    bf = torch.bfloat16
+    rows = {"flash_attention": {}, "paged_attention": {}}
+    for name, B, H, Hkv, S, hd, cap, window, at in BF16_WIDE_FLASH:
+        r, (q, k, v), _ = flash_case(timer, gen, B, H, Hkv, S, hd, f"bf16 {at}", cap=cap,
+                                     dtype=bf, window=window)
+        emit(r)
+        rows["flash_attention"][name] = {key: r[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "bound_f32_ms",
+            "library_ms", "library_bf16_ms", "route", "at")}
+        kw = dict(attn_softcap=cap, window=window)
+        equal = bool(torch.equal(flash_attention(q, k, v, **kw), flash_attention(q, k, v, **kw)))
+        emit({"check": "flash_attention_deterministic", "dtype": "bfloat16", "at": at,
+              "BH": B * H, "BHkv": B * Hkv, "S": S, "hd": hd, "route": r["route"],
+              "bit_equal": equal})
+        if not equal:
+            raise AssertionError(f"flash_attention bf16 {at}: two calls differ")
+        del q, k, v
+    flash_ragged(gen, hds=(64, 112, 256), dtype=bf, window=128)
+    flash_keyless(gen, hds=(64, 112, 256), dtype=bf, window=128)
+
+    pkeys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "at", "plan")
+    for name, Hkv, n_rep, hd, below, max_pages, cap in BF16_WIDE_PAGED:
+        lengths = np.random.default_rng(SEED).integers(1, below, size=8).astype(np.int32)
+        for pages in ("int8", "bf16", "f32"):
+            r = paged_timed(timer, gen, lengths, max_pages, f"bf16 q, decode B=8 Hkv={Hkv} "
+                            f"n_rep={n_rep} hd={hd} page=16 {pages}, lengths<{below}",
+                            Hkv=Hkv, n_rep=n_rep, hd=hd, cap=cap, pages=pages, q_dtype=bf)
+            rows["paged_attention"][f"{name}_{pages}"] = {k_: r[k_] for k_ in pkeys}
+        if max_pages == 32:
+            paged_deterministic(gen, lengths, max_pages, Hkv=Hkv, n_rep=n_rep, hd=hd, q_dtype=bf)
+    for shapes in (HD256_PAGED_RAGGED, HD112_PAGED_RAGGED, BF16_HD64_PAGED_RAGGED):
+        paged_ragged(gen, shapes, q_dtype=bf)
+
+    T, d, V = GEMMA2_T, GEMMA2_D, GEMMA2_V
+    h = torch.randn(T, d, generator=gen, device=DEV)
+    w = (torch.randn(d, V, generator=gen, device=DEV) * d ** -0.5).to(bf)
+    lab = torch.randint(0, V, (T,), generator=gen, device=DEV)
+    g = torch.randn(T, generator=gen, device=DEV)
+    if not lmhead_ce.w_in_place(V, w.data_ptr()):
+        raise AssertionError("gemma2-2b's bf16 head is not read in place")
+    errs = bf16_ce_checks([(h, w, lab, g, 30.0)], h)
+    for name, row in bf16_ce_timed(timer, h, w, lab, g, 30.0, f"gemma2-2b's tied bf16 head, "
+                                   f"T=4*512, d={d}, V={V}, soft-cap 30", errs,
+                                   arch=GEMMA2).items():
+        rows[name] = {"gemma2": row}
+    return rows
+
+def bf16_ce_checks(cases: list, timed_h) -> dict:
+    """``ce_fwd`` and ``ce_bwd`` with a bf16 head on each case (h, W, labels,
+    g, soft-cap) against their plain versions: one ``lmhead_ce_bf16`` line
+    a case (whether TMA reads W in place, the kernels each call launches);
+    on the cases whose h is ``timed_h``, two calls bit-equal. Returns the
+    largest max |Δ| of each over those cases."""
+    from repro_torch.kernels import lmhead_ce, ref
+
+    reason = ("the reference's blockwise-CE tolerances (tests/test_cached_step.py:105, :113): "
+              "the bf16 W is exact on the tensor cores and h keeps its three terms")
+    errs = {"ce_fwd": 0.0, "ce_bwd": 0.0}
     for hh, ww, ll, gg, cap in cases:
         nll, lse = lmhead_ce.ce_fwd(hh, ww, ll, cap)
         want_nll, want_lse = ref.ce_fwd_ref(hh, ww, ll, cap)
@@ -1987,7 +2136,8 @@ def bf16_kernel_phase(timer: Timer, gen: torch.Generator) -> dict:
         bf16_h = hh.dtype == torch.bfloat16
         e_b = (bf16_out_check(dh, want_dh) if bf16_h
                else float(((dh - want_dh).abs() - 1e-4 * want_dh.abs()).max()))
-        at = f"T={hh.shape[0]} d={hh.shape[1]} V={ww.shape[1]} h {hh.dtype} W bf16 cap={cap}"
+        T, d, V = hh.shape[0], hh.shape[1], ww.shape[1]
+        at = f"T={T} d={d} V={V} h {hh.dtype} W bf16 cap={cap}"
         check(f"ce_fwd {at}", e_f, 2e-5)
         check(f"ce_bwd {at}", e_b, BF16_OUT_ATOL if bf16_h else 1e-5)
         if dh.dtype != hh.dtype:
@@ -1998,10 +2148,11 @@ def bf16_kernel_phase(timer: Timer, gen: torch.Generator) -> dict:
                 "ce_bwd_max_abs_err": e["ce_bwd"], "ce_fwd_check": e_f, "ce_bwd_check": e_b,
                 "tol": "ce_fwd atol 2e-5 + rtol 1e-5; ce_bwd atol 1e-5 + rtol 1e-4 (a bf16 dh: "
                        + BF16_OUT_TOL + ")", "tol_reason": reason,
-                "w_in_place": lmhead_ce.w_in_place(ww.shape[1], ww.data_ptr())}
+                "w_in_place": lmhead_ce.w_in_place(V, ww.data_ptr())}
         line["route"] = lmhead_ce.route_of(hh, ww)  # the kernels each call launches
         emit(line)
-        if hh is h:
+        del want_dh
+        if hh is timed_h:
             errs = {k: max(errs[k], e[k]) for k in errs}
             # two calls bit for bit (the chunks and the merge run in a fixed order)
             nll2, lse2 = lmhead_ce.ce_fwd(hh, ww, ll, cap)
@@ -2012,38 +2163,61 @@ def bf16_kernel_phase(timer: Timer, gen: torch.Generator) -> dict:
                       "d": d, "V": V, "softcap": cap, "bit_equal": bool(equal)})
                 if not equal:
                     raise AssertionError(f"{name} bf16 W cap={cap}: two calls differ")
-    _, lse = ref.ce_fwd_ref(h, w, lab)
+    return errs
+
+
+def bf16_ce_timed(timer: Timer, h, w, lab, g, cap, at: str, errs: dict,
+                  arch: str = None) -> dict:
+    """``ce_fwd`` and ``ce_bwd`` with the bf16 head ``w`` and the f32 ``h``
+    at soft-cap ``cap``, timed beside their plain versions, the f32
+    yardstick (``torch.matmul`` in f32 on W cast once, TF32 off: the
+    reference's function) and the bf16-cast one (h rounded to bf16: one
+    product, not the same function), with the bound of the kernels'
+    products (h's three terms by W's one, in the forward and in each of
+    the backward's two GEMMs). ``errs``: each one's max |Δ| from its
+    checks. Emits the ``ce_fwd`` and ``ce_bwd`` lines (with ``arch`` where
+    given); returns their rows."""
+    from repro_torch.kernels import lmhead_ce, ref
+
+    T, d = h.shape
+    V = w.shape[1]
+    _, lse = ref.ce_fwd_ref(h, w, lab, cap)
     hb, wf = h.to(torch.bfloat16), w.float()
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False  # the f32 yardstick in f32 ("highest")
-    # the kernels' products: h's three terms by W's one, in the forward and
-    # in each of the backward's two GEMMs (P keeps three terms too)
+
+    def softcapped(x):
+        return x if cap is None else cap * torch.tanh(x / cap)
+
     fwd_bytes = 4.0 * T * d + 2.0 * d * V + 12.0 * T
     b_ms, b_by = bound(fwd_bytes, 3 * 2.0 * T * d * V, flop_per_s=BF16_FLOP_PER_S)
     f32_ms, _ = bound(fwd_bytes, 2.0 * T * d * V)
     loop, routes = "wgmma loop (TMA ring, producer warpgroup, wgmma consumers)", \
         lmhead_ce.route_of(h, w)
     route = f"{loop}: {', '.join(routes['ce_fwd'])}"
-    r = {"check": "ce_fwd", "dtype": "h f32, W bf16", "T": T, "d": d, "V": V,
+    head = {"check": "ce_fwd", "dtype": "h f32, W bf16"}
+    if arch is not None:
+        head["arch"] = arch
+    r = {**head, "T": T, "d": d, "V": V, "softcap": cap,
          "max_abs_err": errs["ce_fwd"], "route": route,
-         "ms": timer(lambda: lmhead_ce.ce_fwd(h, w, lab), calls=2, repeats=3),
-         "plain_ms": timer(lambda: ref.ce_fwd_ref(h, w, lab), calls=2, repeats=3),
-         "library_ms": timer(lambda: torch.logsumexp(torch.matmul(h, wf), dim=-1), calls=2,
-                             repeats=3),
+         "ms": timer(lambda: lmhead_ce.ce_fwd(h, w, lab, cap), calls=2, repeats=3),
+         "plain_ms": timer(lambda: ref.ce_fwd_ref(h, w, lab, cap), calls=2, repeats=3),
+         "library_ms": timer(lambda: torch.logsumexp(softcapped(torch.matmul(h, wf)), dim=-1),
+                             calls=2, repeats=3),
          "library": "torch.matmul in f32 (TF32 off, precision highest; W cast to f32 once "
-                    "beforehand), then torch.logsumexp: the reference's function",
-         "library_bf16_cast_ms": timer(lambda: torch.logsumexp(torch.matmul(hb, w), dim=-1),
-                                       calls=2, repeats=3),
+                    "beforehand)" + (", the soft-cap" if cap else "") + ", then "
+                    "torch.logsumexp: the reference's function",
+         "library_bf16_cast_ms": timer(lambda: torch.logsumexp(softcapped(torch.matmul(hb, w)),
+                                                               dim=-1), calls=2, repeats=3),
          "library_bf16_cast": "torch.matmul on bf16 with h rounded to bf16 beforehand, then "
                               "torch.logsumexp: one product, not the same function",
          "bound_ms": b_ms, "bound_by": b_by, "bound_f32_ms": f32_ms}
     emit(r)
-    at = "LM-head CE forward, bf16 head, T=4*512, d=2048, V=92544"
-    rows["ce_fwd"] = dict(_row(r, at), route=route)
+    rows = {"ce_fwd": dict(_row(r, f"LM-head CE forward, {at}"), route=route)}
     hr, hr32 = hb.clone().requires_grad_(), h.clone().requires_grad_()
 
-    def library_bwd(x, head):
-        loss = torch.nn.functional.cross_entropy(torch.matmul(x, head), lab.long(),
+    def library_bwd(x, w_):
+        loss = torch.nn.functional.cross_entropy(softcapped(torch.matmul(x, w_)), lab.long(),
                                                  reduction="sum")
         return torch.autograd.grad(loss, x)
 
@@ -2051,39 +2225,68 @@ def bf16_kernel_phase(timer: Timer, gen: torch.Generator) -> dict:
     b_ms, b_by = bound(bwd_bytes, 6 * 2.0 * T * d * V, flop_per_s=BF16_FLOP_PER_S)
     f32_ms, _ = bound(bwd_bytes, 4.0 * T * d * V)
     route = f"{loop}: {', '.join(routes['ce_bwd'])}"
-    r = {"check": "ce_bwd", "dtype": "h f32, W bf16", "T": T, "d": d, "V": V,
+    r = {**head, "check": "ce_bwd", "T": T, "d": d, "V": V, "softcap": cap,
          "max_abs_err": errs["ce_bwd"], "route": route,
-         "ms": timer(lambda: lmhead_ce.ce_bwd(h, w, lab, lse, g), calls=2, repeats=3),
-         "plain_ms": timer(lambda: ref.ce_bwd_ref(h, w, lab, lse, g), calls=2, repeats=3),
+         "ms": timer(lambda: lmhead_ce.ce_bwd(h, w, lab, lse, g, cap), calls=2, repeats=3),
+         "plain_ms": timer(lambda: ref.ce_bwd_ref(h, w, lab, lse, g, cap), calls=2, repeats=3),
          "library_ms": timer(lambda: library_bwd(hr32, wf), calls=2, repeats=3),
-         "library": "autograd of F.cross_entropy(h @ W) in f32 (TF32 off; W cast to f32 once "
-                    "beforehand; its forward included): the reference's function",
+         "library": "autograd of F.cross_entropy(" + ("softcap(h @ W)" if cap else "h @ W")
+                    + ") in f32 (TF32 off; W cast to f32 once beforehand; its forward "
+                      "included): the reference's function",
          "library_bf16_cast_ms": timer(lambda: library_bwd(hr, w), calls=2, repeats=3),
          "library_bf16_cast": "the same on bf16 with h rounded to bf16 beforehand: one "
                               "product, not the same function",
          "bound_ms": b_ms, "bound_by": b_by, "bound_f32_ms": f32_ms}
     torch.backends.cuda.matmul.allow_tf32 = tf32
     emit(r)
-    rows["ce_bwd"] = dict(_row(r, "LM-head CE backward (logits recomputed), bf16 head, "
-                                  "T=4*512, d=2048, V=92544"), route=route)
+    rows["ce_bwd"] = dict(_row(r, f"LM-head CE backward (logits recomputed), {at}"), route=route)
     return rows
 
 
-def bf16_serving_phase(gen: torch.Generator, keep: dict):
+def bf16_serving_shape(arch: str) -> tuple:
+    """A bf16 serving cell's pages, max_len, batch and adapter rank: the
+    config's own serving cell's."""
+    if arch == GEMMA2:
+        return 16, GEMMA2_MAX_LEN, 8, 8
+    return SERVING_PAGE, SERVING_MAX_LEN, SERVING_BATCH, SERVING_R
+
+
+def serving_waves(prompts: list, users: dict) -> list:
+    """The cuda-vs-ref gate's waves over a serving cell's prompts, as the
+    engine admits them: the first eight together (padded to their
+    bucket), each later one alone at its own length (gemma2-2b's long
+    prompt); each (label, prompts, adapter rows, padded length), the
+    users taken in turn."""
+    from repro_torch.core.parallel_adapters import gather_adapters, stack_adapters
+
+    names = list(users)
+    bank = stack_adapters([users[u] for u in names])
+    waves = [("8 requests", prompts[:8], list(range(min(8, len(prompts)))),
+              _bucket(max(map(len, prompts[:8])), 1 << 30))]
+    waves += [(f"{len(p)}-token prompt", [p], [i], len(p))
+              for i, p in enumerate(prompts[8:], start=8)]
+    return [(label, wave, gather_adapters(bank, torch.tensor(rows, device=DEV) % len(names)),
+             s_pad) for label, wave, rows, s_pad in waves]
+
+
+def bf16_serving_phase(gen: torch.Generator, keep: dict, arch: str = SERVING_ARCH,
+                       phase: str = "bf16_serving"):
     """The reference's bf16 backbone (each leaf drawn in f32 and cast, as
-    it casts its f32 draw) at internlm2-1.8b's full width and depth, served
-    to the int8 cell's users and prompts: ``BF16_NEW_TOKENS`` new tokens a
-    request through ``ServeEngine`` over int8 pages (launches counted:
-    flash in the prefill, paged attention with a bf16 q in the decode; no
-    weight is quantized, so ``quant_matmul`` never runs), then the prefill
-    and two decode steps under ``cuda`` and ``ref`` over int8, bf16 and
-    f32 pages (:func:`paged_cuda_vs_ref`, :func:`bf16_logits_gate`).
-    Returns (launches, the backbone)."""
+    it casts its f32 draw) at ``arch``'s full width and depth, served to
+    its INT8 cell's users and prompts (``keep``): ``BF16_NEW_TOKENS`` new
+    tokens a request through ``ServeEngine`` over int8 pages (launches
+    counted: flash ``n_layers`` a prefill wave, paged attention with a
+    bf16 q ``n_layers`` a decode step; no weight is quantized, so
+    ``quant_matmul`` never runs), then each wave's prefill and two decode
+    steps under ``cuda`` and ``ref`` over int8, bf16 and f32 pages
+    (:func:`serving_waves`, :func:`paged_cuda_vs_ref`,
+    :func:`bf16_logits_gate`). Returns (launches, the backbone)."""
     from repro_torch.configs import get_arch
     from repro_torch.core.quantization import tree_storage_bytes
     from repro_torch.models.backbone import init_backbone
 
-    cfg = get_arch(SERVING_ARCH)
+    cfg = get_arch(arch)
+    page, max_len, max_batch, r = bf16_serving_shape(arch)
     users, prompts = keep["users"], keep["prompts"]
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
@@ -2091,50 +2294,62 @@ def bf16_serving_phase(gen: torch.Generator, keep: dict):
     torch.cuda.synchronize()
     emit({"phase": "serving_init", "arch": cfg.name, "dtype": "bfloat16",
           "backbone_bytes": tree_storage_bytes(backbone), "seconds": time.perf_counter() - t0})
-    serve_streams(backbone, cfg, users, prompts, "cuda", 2, SERVING_PAGE, SERVING_MAX_LEN,
-                  SERVING_BATCH, SERVING_R)  # warm-up
+    serve_streams(backbone, cfg, users, prompts[:max_batch], "cuda", 2, page, max_len,
+                  max_batch, r)  # warm-up
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    sched = {}
     eng, streams, wall = serve_streams(backbone, cfg, users, prompts, "cuda", BF16_NEW_TOKENS,
-                                       SERVING_PAGE, SERVING_MAX_LEN, SERVING_BATCH, SERVING_R)
+                                       page, max_len, max_batch, r, schedule=sched)
     launches = {k: v for k, v in read_launches().items()
                 if k in ("quant_matmul", "flash_attention", "paged_attention")}
     peak = torch.cuda.max_memory_allocated()
-    s_pad = _bucket(max(map(len, prompts)), 1 << 30)
     gates = {}
     for policy in ("int8", "bf16", "f32"):
-        logits = paged_cuda_vs_ref(backbone, cfg, serving_adapters(users, len(prompts)), prompts,
-                                   SERVING_PAGE, SERVING_MAX_LEN, SERVING_R, s_pad,
-                                   kv_policy=policy)
-        gates[policy] = {"steps": ["prefill", "decode1", "decode2"],
-                         **bf16_logits_gate(logits["cuda"], logits["ref"],
-                                            f"bf16_serving over {policy} pages")}
-    emit({"phase": "bf16_serving", "arch": cfg.name, "dtype": "bfloat16", "kv": "int8",
-          "requests": len(prompts), "new_tokens": BF16_NEW_TOKENS, "page": SERVING_PAGE,
-          "prefill_ms": eng.prefill_seconds * 1e3, "decode_steps": eng.decode_steps,
+        for label, wave, rows, s_pad in serving_waves(prompts, users):
+            logits = paged_cuda_vs_ref(backbone, cfg, rows, wave, page, max_len, r, s_pad,
+                                       kv_policy=policy)
+            gates.setdefault(policy, {})[label] = {
+                "steps": ["prefill", "decode1", "decode2"],
+                **bf16_logits_gate(logits["cuda"], logits["ref"],
+                                   f"{phase} ({label}) over {policy} pages", arch=arch)}
+            del logits
+    waves = len(sched["waves"])
+    emit({"phase": phase, "arch": cfg.name, "dtype": "bfloat16", "kv": "int8",
+          "requests": len(prompts), "prompt_lens": [len(p) for p in prompts],
+          "new_tokens": BF16_NEW_TOKENS, "page": page, "max_len": max_len,
+          "prefill_waves": waves, "prefill_ms": eng.prefill_seconds * 1e3,
+          "decode_steps": eng.decode_steps,
           "decode_ms_per_step": eng.decode_seconds * 1e3 / eng.decode_steps,
           "decode_tokens_per_s": eng.decode_tokens / eng.decode_seconds, "wall_s": wall,
           "max_memory_allocated": peak, "launches": launches,
+          "launches_per_wave_and_step": {
+              "flash_attention": launches["flash_attention"] / waves,
+              "paged_attention": launches["paged_attention"] / eng.decode_steps},
           "token_agreement_int8_backbone": [
               float(np.mean([a == b for a, b in zip(s_, t[:BF16_NEW_TOKENS])]))
               for s_, t in zip(streams, keep["streams"])],
           "cuda_vs_ref": gates, "seconds": time.perf_counter() - t0})
-    if launches["quant_matmul"] != 0 or min(launches["flash_attention"],
-                                            launches["paged_attention"]) <= 0:
-        raise AssertionError(f"bf16 serving launches: {launches}")
+    if (launches["quant_matmul"] != 0
+            or launches["flash_attention"] != cfg.n_layers * waves
+            or launches["paged_attention"] != cfg.n_layers * eng.decode_steps):
+        raise AssertionError(f"{phase} launches: {launches}, {waves} prefill waves, "
+                             f"{eng.decode_steps} decode steps")
     return launches, backbone
 
 
-def bf16_training_phase(backbone, cfg, gen: torch.Generator, r: int = 8):
+def bf16_training_phase(backbone, cfg, gen: torch.Generator, r: int = 8,
+                        phase: str = "bf16_training"):
     """PAC+ on the bf16 backbone through the step entry points: from one
     adapter, ``BF16_STEPS`` epoch-1 steps (``pac_train_step``, B = 4, S =
-    512: flash bf16 in the frozen forward, the bf16 taps through
-    ``mix_fwd``/``mix_dw``, the bf16 head through ``ce_fwd``/``ce_bwd``),
-    then as many cached steps on the first step's activations, under
-    ``cuda`` (launches counted) and ``ref``: the losses within ``BF16_TOL``,
-    the taps within ``BF16_FORM_FACTOR`` times the port's own move,
-    the cached steps fed the same bf16 entries. Returns (launches, the
-    ``cuda`` run's adapter)."""
+    512: flash bf16 in the frozen forward, ``n_layers`` launches a step,
+    the bf16 taps through ``mix_fwd``/``mix_dw``, the bf16 head, tied or
+    not, through ``ce_fwd``/``ce_bwd``, once each a step), then as many
+    cached steps on the first step's activations, under ``cuda`` (launches
+    counted) and ``ref``: the losses within ``BF16_TOL``, the taps within
+    ``BF16_FORM_FACTOR`` times the port's own move, the cached steps fed
+    the same bf16 entries. Returns (launches, the ``cuda`` run's
+    adapter)."""
     from repro_torch.core.parallel_adapters import init_adapter
     from repro_torch.core.steps import pac_cached_train_step, pac_train_step
     from repro_torch.models.backbone import loss_head
@@ -2179,8 +2394,8 @@ def bf16_training_phase(backbone, cfg, gen: torch.Generator, r: int = 8):
     dloss = [abs(a - b) for a, b in zip(runs["cuda"]["losses"], runs["ref"]["losses"])]
     dtaps = max_err(runs["cuda"]["taps"], runs["ref"]["taps"])
     tap_mag = max(float(runs["ref"]["taps"].float().abs().max()), 1.0)
-    taps_tol = BF16_FORM_FACTOR * BF16_OWN_MOVE["taps"]
-    emit({"phase": "bf16_training", "arch": cfg.name, "dtype": "bfloat16", "batch": 4, "seq": 512,
+    taps_tol = BF16_FORM_FACTOR * BF16_OWN_MOVE[cfg.name]["taps"]
+    emit({"phase": phase, "arch": cfg.name, "dtype": "bfloat16", "batch": 4, "seq": 512,
           "epoch1_steps": BF16_STEPS, "cached_steps": BF16_STEPS,
           "taps_dtype": str(runs["cuda"]["taps"].dtype).replace("torch.", ""),
           **{f"{k}_{impl}": runs[impl][k] for impl in runs
@@ -2195,16 +2410,18 @@ def bf16_training_phase(backbone, cfg, gen: torch.Generator, r: int = 8):
           "seconds": time.perf_counter() - t0})
     finite = all(np.isfinite(runs[i]["losses"]).all() for i in runs)
     if not (finite and max(dloss) <= BF16_TOL and dtaps <= taps_tol):
-        raise AssertionError(f"bf16 training cuda vs ref: dloss {dloss}, dtaps {dtaps}")
+        raise AssertionError(f"{phase} cuda vs ref: dloss {dloss}, dtaps {dtaps}")
     if runs["cuda"]["taps"].dtype != torch.bfloat16:
         raise AssertionError(f"bf16 taps left as {runs['cuda']['taps'].dtype}")
     if (launches["quant_matmul"] != 0 or launches["flash_attention"] != BF16_STEPS * cfg.n_layers
-            or min(launches[k] for k in TRAINING_KERNELS[2:]) <= 0):
-        raise AssertionError(f"bf16 training launches: {launches}")
+            or min(launches["mix_fwd"], launches["mix_dw"]) <= 0
+            or not launches["ce_fwd"] == launches["ce_bwd"] == 2 * BF16_STEPS):
+        raise AssertionError(f"{phase} launches: {launches}")
     return launches, runs["cuda"]["adapter"]
 
 
-def bf16_personal_phase(backbone, adapter, cfg, r: int = 8) -> dict:
+def bf16_personal_phase(backbone, adapter, cfg, r: int = 8,
+                        phase: str = "bf16_personal") -> dict:
     """The trained adapter served to one user on the bf16 backbone: the
     prompt's prefill (``prefill_step``, flash bf16) under ``cuda`` and
     ``ref``, then ``BF16_PERSONAL_STEPS`` ``pac_decode_step``s at B = 1 over
@@ -2258,11 +2475,11 @@ def bf16_personal_phase(backbone, adapter, cfg, r: int = 8) -> dict:
             "tol_reason": "the reference's decode-parity ceiling over f32 KV "
                           "(tests/test_decode_parity.py:36), as every personal_gap"}
     if not (finite and max(gap) <= 2e-4 and all(tokens_equal)):
-        raise AssertionError(f"bf16_personal cuda vs ref: gap {gap}, greedy equal "
+        raise AssertionError(f"{phase} cuda vs ref: gap {gap}, greedy equal "
                              f"{tokens_equal}, finite {finite}")
     pre_gate = bf16_logits_gate([pre["cuda"][:, -1]], [pre["ref"][:, -1]],
-                                "bf16_personal prefill", "personal_prefill")
-    emit({"phase": "bf16_personal", "arch": cfg.name, "dtype": "bfloat16", "batch": 1, "kv": "f32",
+                                f"{phase} prefill", "personal_prefill", cfg.name)
+    emit({"phase": phase, "arch": cfg.name, "dtype": "bfloat16", "batch": 1, "kv": "f32",
           "steps": n_steps, "prompt_tokens": n_prompt, "prefill_tokens": PROMPT_LEN,
           "prefill_last_token": pre_gate, "prefill_flash_launches": prefill_launches,
           "decode_ms_per_step": cuda[2] * 1e3 / n_steps,
@@ -2273,23 +2490,37 @@ def bf16_personal_phase(backbone, adapter, cfg, r: int = 8) -> dict:
           "cuda_vs_ref": gate, "seconds": time.perf_counter() - t0})
     if (launches["adapter_fuse"] != n_steps * cfg.n_periods or launches["quant_matmul"] != 0
             or prefill_launches != cfg.n_layers):
-        raise AssertionError(f"bf16 personal launches: {launches}, prefill flash "
+        raise AssertionError(f"{phase} launches: {launches}, prefill flash "
                              f"{prefill_launches}")
     return {**launches, "flash_attention": prefill_launches}
 
 
-def bf16_own_move() -> dict:
+def serving_prompts(cfg, long_prompt: int = None, rng: np.random.Generator = None) -> list:
+    """A serving cell's seeded prompts: 8 of 64-480 tokens, then one of
+    ``long_prompt`` tokens where given (gemma2-2b's, past its window),
+    drawn from ``rng`` (a fresh one seeded ``SEED`` by default)."""
+    rng = np.random.default_rng(SEED) if rng is None else rng
+    prompts = [rng.integers(0, cfg.vocab, size=int(n)).tolist()
+               for n in rng.integers(64, 481, size=8)]
+    if long_prompt:
+        prompts.append(rng.integers(0, cfg.vocab, size=long_prompt).tolist())
+    return prompts
+
+
+def bf16_own_move(arch: str = SERVING_ARCH) -> dict:
     """The yardstick of the bf16 gates (``python3 chip_smoke.py
-    --bf16-own-move``): the port's own move on the bf16 internlm2-1.8b at
-    full width and depth, the ``ref`` OpSet on the card against the same
-    program on the host's CPU on the same weights and inputs, so that only
-    the order of the f32 sums under each bf16 rounding differs. Measured
-    at the bf16 phases' shapes: the serving cell's 8 prompts' prefill and
-    two decode steps over int8, bf16 and f32 pages (the card's greedy
-    tokens fed to both; per row the two runs' greedy tokens and the
-    card's top-2 margin), one epoch-1 step of 4 x 512 (the loss and the
-    bf16 taps) and the personal prompt's prefill; ``cuda`` on the card
-    beside each, against the card's ``ref``. Prints one line, returns it."""
+    --bf16-own-move [--arch ...]``): the port's own move on ``arch``'s bf16
+    backbone at full width and depth, the ``ref`` OpSet on the card against
+    the same program on the host's CPU on the same weights and inputs, so
+    that only the order of the f32 sums under each bf16 rounding differs.
+    Measured at the bf16 phases' shapes: the serving cell's waves'
+    (:func:`serving_waves`: its 8 prompts, and gemma2-2b's 4500-token
+    prompt on int8 pages only, for the host's time) prefill and two decode
+    steps over int8, bf16 and f32 pages (the card's greedy tokens fed to
+    both; per row the two runs' greedy tokens and the card's top-2
+    margin), one epoch-1 step of 4 x 512 (the loss and the bf16 taps) and
+    the personal prompt's prefill; ``cuda`` on the card beside each,
+    against the card's ``ref``. Prints one line, returns it."""
     from repro_torch.configs import get_arch
     from repro_torch.core.parallel_adapters import init_adapter
     from repro_torch.core.quantization import tree_map
@@ -2298,15 +2529,14 @@ def bf16_own_move() -> dict:
     from repro_torch.optim import adamw_init
 
     t0 = time.perf_counter()
-    cfg = get_arch(SERVING_ARCH)
+    cfg = get_arch(arch)
+    page, max_len, _, r = bf16_serving_shape(arch)
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     backbone = init_backbone(gen, cfg, device=DEV, dtype=torch.bfloat16)
-    users = {f"user{u}": init_adapter(gen, cfg, r=SERVING_R, device=DEV) for u in range(4)}
+    users = {f"user{u}": init_adapter(gen, cfg, r=r, device=DEV) for u in range(4)}
     adapter0 = init_adapter(gen, cfg, r=8, device=DEV)
     rng = np.random.default_rng(SEED)
-    prompts = [rng.integers(0, cfg.vocab, size=int(n)).tolist()
-               for n in rng.integers(64, 481, size=8)]
-    rows = serving_adapters(users, len(prompts))
+    prompts = serving_prompts(cfg, GEMMA2_LONG_PROMPT if arch == GEMMA2 else None, rng)
 
     def host(tree):
         return tree_map(lambda t: t.cpu() if isinstance(t, torch.Tensor) else t, tree)
@@ -2314,28 +2544,34 @@ def bf16_own_move() -> dict:
     on = {"card": (backbone, DEV), "cpu": (host(backbone), "cpu")}
     line = {"phase": "bf16_own_move", "arch": cfg.name, "dtype": "bfloat16",
             "cpu_threads": torch.get_num_threads(), "serving": {}}
-    s_pad = _bucket(max(map(len, prompts)), 1 << 30)
     for policy in ("int8", "bf16", "f32"):
-        lg = paged_cuda_vs_ref(backbone, cfg, rows, prompts, SERVING_PAGE, SERVING_MAX_LEN,
-                               SERVING_R, s_pad, kv_policy=policy, runs={
-                                   "card": ("ref", backbone, rows, DEV),
-                                   "cpu": ("ref", on["cpu"][0], host(rows), "cpu"),
-                                   "cuda": ("cuda", backbone, rows, DEV)})
-        card = [t.float().cpu() for t in lg["card"]]
-        cpu = [t.float() for t in lg["cpu"]]
-        cuda = [t.float().cpu() for t in lg["cuda"]]
-        top2 = [t.topk(2, dim=-1).values for t in card]
-        line["serving"][policy] = {
-            "steps": ["prefill", "decode1", "decode2"],
-            "card_vs_cpu": [max_err(a, b) for a, b in zip(card, cpu)],
-            "cuda_vs_card": [max_err(a, b) for a, b in zip(cuda, card)],
-            "greedy_equal_card_cpu": [(a.argmax(-1) == b.argmax(-1)).tolist()
-                                      for a, b in zip(card, cpu)],
-            "greedy_equal_cuda_card": [(a.argmax(-1) == b.argmax(-1)).tolist()
-                                       for a, b in zip(cuda, card)],
-            "card_top2_margin": [(t[:, 0] - t[:, 1]).tolist() for t in top2],
-            "logit_scale": max(float(t.abs().max()) for t in card)}
-        emit({"bf16_own_move_serving": policy, **line["serving"][policy]})
+        for label, wave, rows, s_pad in serving_waves(prompts, users):
+            if policy != "int8" and len(wave) == 1:
+                continue  # the long prompt on the host's CPU once
+            lg = paged_cuda_vs_ref(backbone, cfg, rows, wave, page, max_len, r, s_pad,
+                                   kv_policy=policy, runs={
+                                       "card": ("ref", backbone, rows, DEV),
+                                       "cpu": ("ref", on["cpu"][0], host(rows), "cpu"),
+                                       "cuda": ("cuda", backbone, rows, DEV)})
+            card = [t.float().cpu() for t in lg["card"]]
+            cpu = [t.float() for t in lg["cpu"]]
+            cuda = [t.float().cpu() for t in lg["cuda"]]
+            top2 = [t.topk(2, dim=-1).values for t in card]
+            fig = {
+                "steps": ["prefill", "decode1", "decode2"],
+                "card_vs_cpu": [max_err(a, b) for a, b in zip(card, cpu)],
+                "cuda_vs_card": [max_err(a, b) for a, b in zip(cuda, card)],
+                "greedy_equal_card_cpu": [(a.argmax(-1) == b.argmax(-1)).tolist()
+                                          for a, b in zip(card, cpu)],
+                "greedy_equal_cuda_card": [(a.argmax(-1) == b.argmax(-1)).tolist()
+                                           for a, b in zip(cuda, card)],
+                "card_top2_margin": [(t[:, 0] - t[:, 1]).tolist() for t in top2],
+                "logit_scale": max(float(t.abs().max()) for t in card)}
+            line["serving"].setdefault(policy, {})[label] = fig
+            emit({"bf16_own_move_serving": policy, "arch": cfg.name, "wave": label, **fig})
+            del lg
+    line["serving_max"] = max(max(f["card_vs_cpu"]) for waves in line["serving"].values()
+                              for f in waves.values())
     batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, size=(4, 512)).astype(np.int32))
              for k in ("tokens", "labels")}
     train = {}
@@ -2959,11 +3195,15 @@ def persistence_phase(s, spec, steps_, run) -> None:
 # ---------------------------------------------------------------- prefetch
 
 PREFETCH_WORKER = "activation-cache-prefetch"  # CachePrefetcher's thread
+#: steps an epoch of the prefetch cell (8 until the bf16 gemma2-2b slice): at least 6, so that
+#: the profiled third step still sees a batch copied (the prefetcher's queue of 2 runs its
+#: worker three batches ahead: the third step's copy is the sixth batch's)
+PREFETCH_STEPS = 6
 
 
 def prefetch_phase(workdir: Path) -> dict:
-    """The cached epoch's input path at full width: 8 steps of 4 x 512
-    tokens, int8 cache, ``cuda`` kernels. Epoch 0 fills the cache (its
+    """The cached epoch's input path at full width: ``PREFETCH_STEPS`` steps
+    of 4 x 512 tokens, int8 cache, ``cuda`` kernels. Epoch 0 fills the cache (its
     second step profiled: the taps' device→host copy must land in pinned
     memory); then, from one snapshot, the cached epoch runs four times in
     turns: through ``EpochRunner`` (the prefetcher), through ``step``
@@ -2978,7 +3218,8 @@ def prefetch_phase(workdir: Path) -> dict:
     from repro_torch.runtime import EdgeSession, EpochReport, EpochRunner, RunSpec
 
     spec = RunSpec(arch="internlm2-1.8b", quant=8, cache_compress="int8", kernels="cuda",
-                   init="pruning", epochs=2, steps_per_epoch=8, batch=4, seq=512, seed=SEED)
+                   init="pruning", epochs=2, steps_per_epoch=PREFETCH_STEPS, batch=4, seq=512,
+                   seed=SEED)
     s = EdgeSession(spec, log=print).open()
     runner = EpochRunner(s)
     # a batch's int8 payloads and f32 scales (one per 128 columns): b0 and
@@ -3065,12 +3306,13 @@ def prefetch_phase(workdir: Path) -> dict:
             "workers_alive_after_epoch": after_epoch, "workers_alive_at_end": left,
             "launches": launches}
     emit(line)
-    if [e.mode for e in fill] != ["full"] * 8 or any(e.mode != "cached" for v in runs.values()
+    n = PREFETCH_STEPS
+    if [e.mode for e in fill] != ["full"] * n or any(e.mode != "cached" for v in runs.values()
                                                       for e in v[0]):
         raise AssertionError(f"modes {line['modes']}")
-    if line["steps_on_prefetcher"] != {"prefetched": [True] * 8, "sync": [False] * 8,
-                                       "prefetched_profiled": [True] * 8,
-                                       "sync_profiled": [False] * 8}:
+    if line["steps_on_prefetcher"] != {"prefetched": [True] * n, "sync": [False] * n,
+                                       "prefetched_profiled": [True] * n,
+                                       "sync_profiled": [False] * n}:
         raise AssertionError(f"steps on the prefetcher: {line['steps_on_prefetcher']}")
     if len({tuple(v) for v in losses.values()}) != 1 or not all(
             np.isfinite(x) for x in losses["sync"]):
@@ -4181,7 +4423,8 @@ def pipeline_grads_phase() -> dict:
 # ---------------------------------------------------------------- personal serving
 
 PERSONAL_D, PERSONAL_DA = 2048, 256  # internlm2-1.8b, r=8
-PROMPT_LEN, N_GREEDY, PERSONAL_MAX_LEN = 32, 32, 64
+#: the personal cell's prompt, greedy tokens (32 until the bf16 gemma2-2b slice) and cache
+PROMPT_LEN, N_GREEDY, PERSONAL_MAX_LEN = 32, 16, 64
 
 
 def personal_kernel_phase(timer: Timer, gen: torch.Generator):
@@ -4332,8 +4575,8 @@ def skinny_reruns(gen: torch.Generator) -> None:
 def personal_phase(backbone, cfg, ckpt: Path, walls: dict, r: int = 8):
     """Serve the trained adapter, loaded from its checkpoint, with the
     reference's one-request loop: ``pac_decode_step`` at B=1 over an
-    INT8 linear KV cache, 32 teacher-forced prompt tokens then 32 greedy
-    tokens, under ``cuda`` (launches counted) and then ``ref``. Then
+    INT8 linear KV cache, ``PROMPT_LEN`` teacher-forced prompt tokens then
+    ``N_GREEDY`` greedy tokens, under ``cuda`` (launches counted) and then ``ref``. Then
     ``prefill_step`` against the teacher-forced f32-cache decode, and
     the INT8-KV decode against the f32-KV one. Last, where the gap
     between the OpSets arises: the same loop over an f32 linear KV cache
@@ -4349,7 +4592,7 @@ def personal_phase(backbone, cfg, ckpt: Path, walls: dict, r: int = 8):
     rng = np.random.default_rng(SEED)
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab, size=(1, PROMPT_LEN)).astype(np.int32))
     prompt = prompt.to(dev)
-    n_steps = PROMPT_LEN + N_GREEDY - 1  # the last step's logits give the 32nd greedy token
+    n_steps = PROMPT_LEN + N_GREEDY - 1  # the last step's logits give the last greedy token
 
     def serve(impl, steps=n_steps, kv_quant=8):
         cache = init_cache(cfg, 1, PERSONAL_MAX_LEN, device=dev, kv_quant=kv_quant)
@@ -4911,7 +5154,7 @@ def mixtral_serving_phase(gen: torch.Generator, arch: str = MIXTRAL,
     over 8 kv heads, 8 experts of 14336 top-2, window 4096, V = 32000),
     random seeded INT8 weights (46.7 B parameters), 4 users with r = 8
     adapters, INT8 KV pages of 16, through ``ServeEngine``: the serving
-    phase's 8 requests (64-480-token prompts), 16 new tokens each. Then
+    phase's 8 requests (64-480-token prompts), ``CONFIG_NEW_TOKENS`` new tokens each. Then
     their prefill and two decode steps under ``cuda`` and ``ref`` with
     every layer's routes recorded: in every layer at least 99.9 % of the
     tokens routed alike; where a request's tokens routed alike in every
@@ -4930,7 +5173,7 @@ def mixtral_serving_phase(gen: torch.Generator, arch: str = MIXTRAL,
     from repro_torch.serve import ServeEngine
 
     cfg = get_arch(arch)
-    page, max_batch, n_new, r = 16, 8, SERVING_NEW_TOKENS, 8
+    page, max_batch, n_new, r = 16, 8, CONFIG_NEW_TOKENS, 8
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -5150,19 +5393,20 @@ def mixtral_personal_phase(backbone, adapter, cfg, r: int = 8,
 
 def gemma2_serving_phase(gen: torch.Generator, arch: str = GEMMA2,
                          max_len: int = GEMMA2_MAX_LEN, long_prompt=GEMMA2_LONG_PROMPT,
-                         phase: str = "gemma2_serving") -> dict:
+                         phase: str = "gemma2_serving", keep: dict = None) -> dict:
     """gemma2-2b at full width (26 layers, d = 2304, 8 heads of 256 over 4
     kv heads, d_ff 9216, V = 256000, window 4096 on every other layer,
     soft-caps 50 and 30, tied embeddings), random seeded INT8 weights, 4
     users with r = 8 adapters, INT8 KV pages of 16, through
     ``ServeEngine``: the serving phase's 8 requests (64-480-token prompts)
-    and a ninth of 4500 tokens, 16 new tokens each. The long prompt runs
+    and a ninth of 4500 tokens, ``CONFIG_NEW_TOKENS`` new tokens each. The long prompt runs
     its own wave (bucket 1, padded to 8192): flash prefill and paged
     decode both cross the window. Then the 8 requests' prefill and two
     decode steps, and the long request's, under ``cuda`` and ``ref``:
     logits within 2e-2, greedy tokens equal. Another config likewise, as
     ``phase``, with its ``max_len`` (``long_prompt`` None: the 8 requests
-    only)."""
+    only). ``keep`` (a dict) gets the users, prompts and streams, for the
+    bf16 backbone's serving phase."""
     from repro_torch.configs import get_arch
     from repro_torch.core.parallel_adapters import gather_adapters, init_adapter, stack_adapters
     from repro_torch.core.quantization import tree_storage_bytes
@@ -5170,7 +5414,7 @@ def gemma2_serving_phase(gen: torch.Generator, arch: str = GEMMA2,
     from repro_torch.serve import ServeEngine
 
     cfg = get_arch(arch)
-    page, max_batch, n_new, r = 16, 8, SERVING_NEW_TOKENS, 8
+    page, max_batch, n_new, r = 16, 8, CONFIG_NEW_TOKENS, 8
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -5178,11 +5422,8 @@ def gemma2_serving_phase(gen: torch.Generator, arch: str = GEMMA2,
     users = {f"user{u}": init_adapter(gen, cfg, r=r, device=DEV) for u in range(4)}
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    rng = np.random.default_rng(SEED)
-    prompt_lens = rng.integers(64, 481, size=8)
-    prompts = [rng.integers(0, cfg.vocab, size=int(n)).tolist() for n in prompt_lens]
-    if long_prompt:
-        prompts.append(rng.integers(0, cfg.vocab, size=long_prompt).tolist())
+    prompts = serving_prompts(cfg, long_prompt)
+    prompt_lens = [len(p) for p in prompts[:8]]
     names = list(users)
 
     def engine():
@@ -5208,6 +5449,8 @@ def gemma2_serving_phase(gen: torch.Generator, arch: str = GEMMA2,
     for st in streams:
         if len(st) != n_new or not all(0 <= tok < cfg.vocab for tok in st):
             raise AssertionError(f"bad stream: {st}")
+    if keep is not None:
+        keep.update(users=users, prompts=prompts, streams=streams)
     line = {"phase": phase, "arch": cfg.name, "layers": cfg.n_layers, "params": cfg.param_count(),
             "backbone_bytes": tree_storage_bytes(backbone), "init_s": init_s,
             "requests": len(prompts), "users": len(users),
@@ -5931,7 +6174,7 @@ def xlstm_serving_phase(gen: torch.Generator) -> dict:
     """xlstm-125m at full width and depth (12 layers: 9 mLSTM, 3 sLSTM,
     d 768, 4 heads, V 50304), random seeded INT8 weights, 4 users with
     r = 8 adapters, through ``ServeEngine``'s stepwise path: 8 requests of
-    32-128 prompt tokens, 16 new tokens each, 4 slots (so 4 requests are
+    32-128 prompt tokens, ``CONFIG_NEW_TOKENS`` new tokens each, 4 slots (so 4 requests are
     admitted into retired rows), under ``cuda`` and ``ref``: every
     stream equal. Then 16 teacher-forced steps of the 8 requests under
     both OpSets (logits within 2e-2, greedy tokens equal), and the first
@@ -5947,7 +6190,7 @@ def xlstm_serving_phase(gen: torch.Generator) -> dict:
     from repro_torch.models.backbone import backbone_forward, init_backbone
 
     cfg = get_arch(XLSTM)
-    page, n_new, r = 16, SERVING_NEW_TOKENS, 8
+    page, n_new, r = 16, CONFIG_NEW_TOKENS, 8
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -7012,6 +7255,8 @@ def main(argv=None) -> int:
     parser.add_argument("--bf16-own-move", action="store_true",
                         help="build, then measure only the bf16 gates' yardstick "
                              "(bf16_own_move) and exit")
+    parser.add_argument("--arch", default=SERVING_ARCH, choices=(SERVING_ARCH, GEMMA2),
+                        help="the bf16 backbone --bf16-own-move measures")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7041,7 +7286,7 @@ def main(argv=None) -> int:
                 print(f"ptxas {name} {entry}: {line.strip()}", flush=True)
 
     if args.bf16_own_move:
-        bf16_own_move()
+        bf16_own_move(args.arch)
         print(card_line(), flush=True)
         return 0
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -7121,11 +7366,27 @@ def main(argv=None) -> int:
         rows[name]["hd256"] = hd256[name]
     for name, row in gemma2_kernel_phase(Timer(), gen).items():
         rows[name]["gemma2"] = row
-    gemma2_serving = gemma2_serving_phase(gen)
+    g_keep = {}
+    gemma2_serving = gemma2_serving_phase(gen, keep=g_keep)
     gemma2_training, g_backbone, g_adapter = pac_run(GEMMA2, profile=True)
     gemma2_personal = gemma2_personal_phase(g_backbone, g_adapter, get_arch(GEMMA2))
     del g_backbone, g_adapter
     gemma2_done_s = time.perf_counter() - T_START
+    # the reference's bf16 backbone at gemma2-2b's full width and depth: the
+    # bf16 branches at head widths 256, 112 and 64, then served to its INT8
+    # cell's users and prompts, trained and personal-served
+    for name, row in bf16_wide_kernel_phase(Timer(), gen).items():
+        bf16_rows[name].update(row)
+    a8["gemma2_bf16_serving"], gb_backbone = bf16_serving_phase(gen, g_keep, GEMMA2,
+                                                                "gemma2_bf16_serving")
+    del g_keep
+    a8["gemma2_bf16_training"], gb_adapter = bf16_training_phase(
+        gb_backbone, get_arch(GEMMA2), gen, phase="gemma2_bf16_training")
+    a8["gemma2_bf16_personal"] = bf16_personal_phase(gb_backbone, gb_adapter, get_arch(GEMMA2),
+                                                     phase="gemma2_bf16_personal")
+    del gb_backbone, gb_adapter
+    torch.cuda.empty_cache()
+    gemma2_bf16_done_s = time.perf_counter() - T_START
     paper_models = {}
     for arch in PAPER_MODELS:
         for k, v in pac_run(arch)[0].items():
@@ -7276,7 +7537,9 @@ def main(argv=None) -> int:
     # adapter_fuse), every path listed
     device_names = {"quant_matmul": ["skinny::gemv (M <= 8)", "qmm_mma (M > 8)"],
                     "flash_attention": ["flash_split + flash_fwd_mma (f32)",
-                                        "flash_fwd_wg (bf16)"],
+                                        "flash_fwd_wg (bf16, hd 128)",
+                                        "flash_pad + flash_fwd_mma<hd, bf16> (bf16, hd 64, "
+                                        "112, 256)"],
                     "paged_attention": ["paged_attn"],
                     "mix_fwd": ["mix_fwd_mma", "mix_fwd_reduce"],
                     "mix_dw": ["mix_dw_mma", "dw_reduce"],
@@ -7307,7 +7570,7 @@ def main(argv=None) -> int:
           "through_distributed_s": distributed_done_s, "through_plan_s": plan_done_s,
           "through_fleet_s": fleet_done_s, "through_pipeline_grads_s": pipeline_grads_done_s,
           "through_roofline_s": roofline_done_s,
-          "through_gemma2_s": gemma2_done_s,
+          "through_gemma2_s": gemma2_done_s, "through_gemma2_bf16_s": gemma2_bf16_done_s,
           "through_paper_models_s": paper_done_s, "through_baselines_s": baselines_done_s,
           "through_distill_s": distill_done_s, "through_mixtral_s": mixtral_done_s,
           "through_moe_distributed_s": moe_distributed_done_s,

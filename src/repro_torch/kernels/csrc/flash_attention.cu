@@ -97,7 +97,7 @@
 // and none at HD = 64 (HD = 256's budget: chip_smoke.py prints ptxas's
 // report at every build, PERF.md keeps it).
 //
-// The bf16 branch (HD = 128: a bf16 backbone's q, k, v and o; the
+// The bf16 branch at HD = 128 (a bf16 backbone's q, k, v and o; the
 // reference's kernel takes bf16 and casts O to q's dtype) runs on its own
 // kernel, fwg::flash_fwd_wg, on Hopper's asynchronous loop (wgmma_loop.cuh).
 // Q, K and V are exact in bf16, so each goes to the tensor cores whole, one
@@ -146,6 +146,16 @@
 // beside the flush's write-backs), the loop without wgmma 0.045, without
 // the softmax 0.052–0.053: the three add up, little overlaps. 128-key
 // tiles spill (972 bytes) and take 0.105–0.108.
+//
+// bf16 at HD = 64, 112 and 256 (a bf16 gemma2-2b, musicgen, kimi-k2, the
+// Table III models) runs on flash_fwd_mma<HD, true>: flash_pad copies K and
+// V into one padded plane each, Q is staged whole, and the loop is the f32
+// one with one term of Q, K and V (Q·Kᵀ one product a k16 step, P·V three:
+// P keeps its three terms); O is rounded to bf16 once. Shared memory is a
+// third of the f32 loop's: 18,432 B (HD = 64), 30,720 (112) and 67,584
+// (256) a block. Moving these widths onto fwg's loop needs its own design
+// at 256, where O and P·V's fresh sum alone would take 256 of a consumer's
+// 232 registers.
 //
 // Tolerance: the reference's flash tolerance, atol 3e-5
 // (tests/test_kernels.py:105); the CPU model of this arithmetic
@@ -225,15 +235,13 @@ __global__ void flash_split(const float* __restrict__ k, const float* __restrict
     *reinterpret_cast<uint2*>(out + j * plane + e) = make_uint2(w01[j], w23[j]);
 }
 
-// The bf16 branch's K and V on flash_fwd_mma (BF16_ON_WGMMA = 0): one
-// plane each, K's (BHkv, Skp, HD) then V's (blockIdx.y picks which),
-// `plane` values each, rows past Sk zero. bf16 values go to the tensor
-// cores whole, so they are only padded to whole key tiles. Four values a
-// thread.
-[[maybe_unused]] __global__ void flash_pad(const uint16_t* __restrict__ k,
-                                           const uint16_t* __restrict__ v,
-                                           uint16_t* __restrict__ dst, int Sk, int Skp, int hd,
-                                           long long plane) {
+// The bf16 branch's K and V on flash_fwd_mma (HD = 64, 112 and 256; 128
+// only with BF16_ON_WGMMA = 0): one plane each, K's (BHkv, Skp, HD) then
+// V's (blockIdx.y picks which), `plane` values each, rows past Sk zero.
+// bf16 values go to the tensor cores whole, so they are only padded to
+// whole key tiles. Four values a thread.
+__global__ void flash_pad(const uint16_t* __restrict__ k, const uint16_t* __restrict__ v,
+                          uint16_t* __restrict__ dst, int Sk, int Skp, int hd, long long plane) {
   const long long e = 4 * ((long long)blockIdx.x * blockDim.x + threadIdx.x);
   if (e >= plane) return;
   const uint16_t* __restrict__ src = blockIdx.y ? v : k;
@@ -827,58 +835,63 @@ int launch(const void* q, const void* k, const void* v, void* o, int BH, int Sq,
 
 }  // namespace fwg
 
-// 1: bf16 q, k, v run on fwg's loop (TMA + wgmma, no scratch); 0: on
-// flash_fwd_mma<128, true> with flash_pad's scratch, the loop they took
-// before (kept for flash_variants.py's comparison only)
+// 1: bf16 q, k, v at HD = 128 run on fwg's loop (TMA + wgmma, no scratch);
+// 0: on flash_fwd_mma<128, true> with flash_pad's scratch, the loop they
+// took before (kept for flash_variants.py's comparison only). bf16 at the
+// other head widths runs on flash_fwd_mma<HD, true> either way.
 constexpr int BF16_ON_WGMMA = 1;
 
-// a bf16 call on the loop WG picks (a template, so the other is not built)
-template <bool WG>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, uint16_t* scratch, int BH,
-                int Sq, int Sk, int n_rep, int causal, int window, float cap, float scale,
-                cudaStream_t s) {
-  if constexpr (WG)
-    return fwg::launch(q, k, v, o, BH, Sq, Sk, n_rep, causal, window, cap, scale, s);
-  else
-    return flash::launch<128, true>(q, k, v, o, scratch, BH, Sq, Sk, n_rep, causal, window, cap,
-                                    scale, s);
+// a call at head width hd on the loop its type takes there (BF: bf16 q, k,
+// v and o): flash_fwd_mma<HD, BF>, or fwg's for bf16 at 128 (a constexpr
+// branch, so the loop it replaces is not built)
+template <bool BF>
+int launch_hd(int hd, const void* q, const void* k, const void* v, void* o, uint16_t* kv, int BH,
+              int Sq, int Sk, int n_rep, int causal, int window, float cap, float scale,
+              cudaStream_t s) {
+  switch (hd) {
+    case 64:
+      return flash::launch<64, BF>(q, k, v, o, kv, BH, Sq, Sk, n_rep, causal, window, cap, scale,
+                                   s);
+    case 112:
+      return flash::launch<112, BF>(q, k, v, o, kv, BH, Sq, Sk, n_rep, causal, window, cap, scale,
+                                    s);
+    case 128:
+      if constexpr (BF && BF16_ON_WGMMA)
+        return fwg::launch(q, k, v, o, BH, Sq, Sk, n_rep, causal, window, cap, scale, s);
+      else
+        return flash::launch<128, BF>(q, k, v, o, kv, BH, Sq, Sk, n_rep, causal, window, cap,
+                                      scale, s);
+    case 256:
+      return flash::launch<256, BF>(q, k, v, o, kv, BH, Sq, Sk, n_rep, causal, window, cap, scale,
+                                    s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// 1 where a call of this type runs on the wgmma loop (bf: bf16 q, k, v)
-int flash_wgmma(int bf) { return bf && BF16_ON_WGMMA; }
+// 1 where a call of this type and head width runs on the wgmma loop (bf:
+// bf16 q, k, v)
+int flash_wgmma(int bf, int hd) { return bf && hd == fwg::HD && BF16_ON_WGMMA; }
 
 // keys a tile of flash_fwd_mma, whose K/V scratch holds whole tiles
 // (flash_attention.py's scratch_elems)
 int flash_key_tile() { return flash::BKV; }
 
-// bf: q, k, v and o bf16 (head width 128 only, the bf16 backbone's), else f32;
-// scratch: flash_attention.py's scratch_elems bf16 values (none on the wgmma loop)
+// bf: q, k, v and o bf16, else f32; hd 64, 112, 128 or 256 either way;
+// scratch: flash_attention.py's scratch_elems bf16 values (none on the
+// wgmma loop)
 int flash_launch(const void* q, const void* k, const void* v, void* o, void* scratch, int BH,
                  int Sq, int Sk, int hd, int n_rep, int causal, int window, float cap,
                  float scale, int bf, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   uint16_t* kv = static_cast<uint16_t*>(scratch);
   if (bf)
-    return hd == 128 ? launch_bf16<BF16_ON_WGMMA != 0>(q, k, v, o, kv, BH, Sq, Sk, n_rep, causal,
-                                                       window, cap, scale, s)
-                     : (int)cudaErrorInvalidValue;
-  if (hd == 64)
-    return flash::launch<64, false>(q, k, v, o, kv, BH, Sq, Sk, n_rep, causal, window, cap,
-                                    scale, s);
-  if (hd == 112)
-    return flash::launch<112, false>(q, k, v, o, kv, BH, Sq, Sk, n_rep, causal, window, cap,
-                                     scale, s);
-  if (hd == 128)
-    return flash::launch<128, false>(q, k, v, o, kv, BH, Sq, Sk, n_rep, causal, window, cap,
-                                     scale, s);
-  if (hd == 256)
-    return flash::launch<256, false>(q, k, v, o, kv, BH, Sq, Sk, n_rep, causal, window, cap,
-                                     scale, s);
-  return (int)cudaErrorInvalidValue;
+    return launch_hd<true>(hd, q, k, v, o, kv, BH, Sq, Sk, n_rep, causal, window, cap, scale, s);
+  return launch_hd<false>(hd, q, k, v, o, kv, BH, Sq, Sk, n_rep, causal, window, cap, scale, s);
 }
 
 const char* kernel_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

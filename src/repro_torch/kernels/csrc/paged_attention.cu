@@ -81,9 +81,12 @@
 // geometry: HD * sizeof(T) / 8 bytes a scoring lane in equal loads, HD / 32
 // dims a P·V lane.
 //
-// A bf16 q (a bf16 backbone's decode, at HD = 128): its rows are widened to
-// f32 as they are staged, exactly, and everything after is the f32 q's
-// path, over int8, f32 and bf16 pages alike; out stays f32, as the
+// A bf16 q (a bf16 backbone's decode, at every HD): its rows are widened to
+// f32 as they are staged, exactly (q_at: one 16-bit load a value, at any
+// element offset, so 112's padded slots and 256's rows alike), and
+// everything after is the f32 q's path, over int8, f32 and bf16 pages
+// alike: the staged query rows are f32 whatever q's dtype, so the shared
+// memory (Layout) and the plan do not depend on it. Out stays f32, as the
 // reference's kernel returns it whatever q's dtype.
 //
 // Limits: HD in {64, 112, 128, 256}, heads * n_rep <= 8 query rows a block,
@@ -622,14 +625,10 @@ int launch_hd(int hd, const void* q, const void* kp, const void* vp, const void*
                                                n_rep, page, max_pages, window, cap, scale,     \
                                                ranks, pages, heads, stream);                   \
   }
-  if constexpr (sizeof(TQ) == 2) {  // a bf16 q: the bf16 backbone's head width only
-    PAGED_LAUNCH(128)
-  } else {
-    PAGED_LAUNCH(64)
-    PAGED_LAUNCH(112)
-    PAGED_LAUNCH(128)
-    PAGED_LAUNCH(256)
-  }
+  PAGED_LAUNCH(64)
+  PAGED_LAUNCH(112)
+  PAGED_LAUNCH(128)
+  PAGED_LAUNCH(256)
 #undef PAGED_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
@@ -652,7 +651,7 @@ int launch_q(int q_bf16, int hd, const void* q, const void* kp, const void* vp, 
 extern "C" {
 
 // kind: 0 = int8 pages with scales, 1 = f32 pages, 2 = bf16 pages; q_bf16:
-// q is bf16 (hd 128 only), else f32. The plan (ranks, pages, heads, chunk)
+// q is bf16, else f32. The plan (ranks, pages, heads, chunk)
 // is the caller's (../paged_attention.py `plan`); it is checked here.
 int paged_launch(const void* q, const void* kp, const void* vp, const void* ks, const void* vs,
                  const void* bt, const void* lengths, void* out, int B, int Hkv, int n_rep,

@@ -29,7 +29,7 @@ reference's atol 3e-5 (``tests/test_kernels.py:105``); ``chip_smoke.py`` holds t
 at the prefill shape on an NVIDIA H100 80GB HBM3 at 700 W, against SDPA's
 0.276–0.278 and the 0.052 ms tensor-core bound (``PERF.md``).
 
-The bf16 branch (a bf16 backbone's q, k and v, at hd 128) runs on its own
+The bf16 branch (a bf16 backbone's q, k and v) runs at hd 128 on its own
 kernel, ``flash_fwd_wg``, on Hopper's asynchronous loop
 (``csrc/wgmma_loop.cuh``): TMA reads Q, K and V where they lie (no copy,
 no scratch: :func:`scratch_elems` gives 0), into a ring of K and V tiles
@@ -41,7 +41,13 @@ The softmax and O stay in f32, and O is rounded to bf16 once, as the
 reference casts O to q's dtype (``src/repro/models/layers.py:201``,
 ``flash_attention.py:101``). Its tolerance against its plain version on
 the card is one bf16 rounding of O (``chip_smoke.py``'s
-``BF16_OUT_TOL``). :func:`route` names the kernels a call launches.
+``BF16_OUT_TOL``). At hd 64, 112 and 256 (a bf16 gemma2-2b, kimi-k2, the
+Table III models) the bf16 branch runs on the f32 loop's bf16
+instantiation, ``flash_fwd_mma<hd, bf16>``, after ``flash_pad``'s padded
+copy of K and V (one plane each: :func:`scratch_elems`): Q, K and V one
+term each, P three, the softmax and O in f32, O rounded to bf16 once, the
+same function at the same tolerance. :func:`route` names the kernels a
+call at (dtype, hd) launches.
 
 Head widths 64, 112 (kimi-k2), 128 and 256 (gemma2-2b); at 256 two warps
 share each 16-row group, each accumulating half of O's columns; at 112
@@ -67,7 +73,8 @@ from repro_torch.kernels.ref import flash_attention_ref
 launches = 0
 
 HEAD_DIMS = (64, 112, 128, 256)  # the head widths the kernel is instantiated for
-BF16_HEAD_DIMS = (128,)  # ... and those of its bf16 branch (the bf16 backbone's)
+BF16_HEAD_DIMS = HEAD_DIMS  # ... and its bf16 branch's: every one
+WGMMA_HEAD_DIMS = (128,)  # the bf16 widths on the wgmma loop (the others on flash_fwd_mma)
 
 
 def _fn():
@@ -77,51 +84,61 @@ def _fn():
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                        + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        lib.flash_wgmma.argtypes = [ctypes.c_int]
+        lib.flash_wgmma.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.flash_wgmma.restype = ctypes.c_int
         lib.flash_key_tile.argtypes = []
         lib.flash_key_tile.restype = ctypes.c_int
     return lib, fn
 
 
+def on_wgmma(dtype, hd: int, wgmma: bool = True) -> bool:
+    """Whether a call at ``dtype`` and head width ``hd`` runs on the wgmma
+    loop: bf16 at hd 128 while the library routes it there (``wgmma``: its
+    ``BF16_ON_WGMMA``); every other call on ``flash_fwd_mma``."""
+    require_head_dim(hd, dtype)
+    return wgmma and dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS
+
+
 def route(dtype, hd: int, wgmma: bool = True) -> list:
     """The kernels one call at ``dtype`` and head width ``hd`` launches, in
-    order: bf16 q, k, v on the wgmma loop (``wgmma``: the library's
-    ``flash_wgmma``; K and V read in place by TMA, nothing before it), or,
-    routed back, on ``flash_fwd_mma`` after ``flash_pad``'s padded copy;
-    f32 on ``flash_fwd_mma`` after ``flash_split``. Refuses a head width
-    the kernel is not built for at ``dtype``."""
-    require_head_dim(hd, dtype)
+    order: bf16 q, k, v at hd 128 on the wgmma loop (K and V read in place
+    by TMA, nothing before it); bf16 at the other widths, or at 128 routed
+    back (``wgmma`` false), on ``flash_fwd_mma`` after ``flash_pad``'s
+    padded copy; f32 on ``flash_fwd_mma`` after ``flash_split``. Refuses a
+    head width the kernel is not built for at ``dtype``."""
+    if on_wgmma(dtype, hd, wgmma):
+        return ["flash_fwd_wg"]
     if dtype == torch.bfloat16:
-        return ["flash_fwd_wg"] if wgmma else ["flash_pad", "flash_fwd_mma<128, bf16>"]
+        return ["flash_pad", f"flash_fwd_mma<{hd}, bf16>"]
     return ["flash_split", f"flash_fwd_mma<{hd}>"]
 
 
 def scratch_elems(BH: int, Sk: int, hd: int, n_rep: int, dtype, key_tile: int,
                   wgmma: bool = True) -> int:
-    """bf16 values of the K/V scratch a call needs: none on the wgmma loop;
-    on ``flash_fwd_mma`` K's and V's planes (three each of f32 operands,
-    one each of bf16), (BH / n_rep) heads of Sk keys padded to whole
-    tiles of ``key_tile`` (the library's ``flash_key_tile``)."""
-    require_head_dim(hd, dtype)
-    bf16 = dtype == torch.bfloat16
-    if bf16 and wgmma:
+    """bf16 values of the K/V scratch a call at (``dtype``, ``hd``) needs:
+    none on the wgmma loop; on ``flash_fwd_mma`` K's and V's planes (three
+    each of f32 operands, one each of bf16), (BH / n_rep) heads of Sk keys
+    padded to whole tiles of ``key_tile`` (the library's
+    ``flash_key_tile``)."""
+    if on_wgmma(dtype, hd, wgmma):
         return 0
-    return 2 * (1 if bf16 else 3) * (BH // n_rep) * (-(-Sk // key_tile) * key_tile) * hd
+    terms = 1 if dtype == torch.bfloat16 else 3
+    return 2 * terms * (BH // n_rep) * (-(-Sk // key_tile) * key_tile) * hd
 
 
 def route_of(q: torch.Tensor) -> list:
     """:func:`route` for a call with ``q`` on the card (the built library
-    says which loop bf16 takes)."""
+    says which loop bf16 takes at q's head width)."""
     lib, _ = _fn()
-    return route(q.dtype, q.shape[-1], bool(lib.flash_wgmma(int(q.dtype == torch.bfloat16))))
+    return route(q.dtype, q.shape[-1],
+                 bool(lib.flash_wgmma(int(q.dtype == torch.bfloat16), q.shape[-1])))
 
 
 def require_head_dim(hd: int, dtype=torch.float32) -> None:
-    """The head widths the kernel is built for, at ``dtype``: any other is
-    refused on the card (the plain version on the CPU takes any)."""
-    dims = BF16_HEAD_DIMS if dtype == torch.bfloat16 else HEAD_DIMS
-    require(hd in dims, f"head dim {hd} not in {dims} at {dtype}")
+    """The head widths the kernel is built for, the same at either dtype:
+    any other is refused on the card (the plain version on the CPU takes
+    any)."""
+    require(hd in HEAD_DIMS, f"head dim {hd} not in {HEAD_DIMS} at {dtype}")
 
 
 def _keyless_from(Sq: int, Sk: int, window: Optional[int]) -> int:
@@ -182,7 +199,7 @@ def flash_attention(
     out = torch.empty_like(q)
     bf = int(q.dtype == torch.bfloat16)
     scratch = torch.empty(scratch_elems(BH, Sk, hd, n_rep, q.dtype, lib.flash_key_tile(),
-                                        bool(lib.flash_wgmma(bf))),
+                                        bool(lib.flash_wgmma(bf, hd))),
                           dtype=torch.bfloat16, device=q.device)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), scratch.data_ptr(), BH, Sq,
             Sk, hd, n_rep, int(causal), window or 0, attn_softcap or 0.0, hd ** -0.5, bf,

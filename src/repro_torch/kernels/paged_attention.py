@@ -43,7 +43,7 @@ from repro_torch.kernels.ref import paged_attention_ref
 launches = 0
 
 HEAD_DIMS = (64, 112, 128, 256)
-BF16_Q_HEAD_DIMS = (128,)  # a bf16 q's (the bf16 backbone's decode)
+BF16_Q_HEAD_DIMS = HEAD_DIMS  # a bf16 q's (a bf16 backbone's decode): every one
 _KIND = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
 KIND_BYTES = {0: 1, 1: 4, 2: 2}  # bytes an element of each page kind
 
@@ -87,7 +87,9 @@ def plan(B: int, Hkv: int, n_rep: int, hd: int, page: int, max_pages: int, kind:
     Hkv = 8, n_rep = 2, max_pages 34) on 132 SMs: 4 ranks of 9 pages, one
     head a block, 256 blocks, which ``paged_variants.py`` measured fastest
     there (PERF.md). At gemma2-2b's (B = 8, Hkv = 4, n_rep = 2, hd = 256,
-    one block an SM): 4 ranks, one head a block, 128 blocks.
+    one block an SM): 4 ranks, one head a block, 128 blocks. q's dtype
+    does not enter: a bf16 q is widened to f32 as it is staged, so its
+    shared memory and stages are an f32 q's at every hd.
     """
     if not (B >= 1 and Hkv >= 1 and 1 <= n_rep <= MAX_ROWS and hd in HEAD_DIMS and page >= 1
             and max_pages >= 1 and kind in KIND_BYTES and sms >= 1):
@@ -115,11 +117,10 @@ def plan_for(t: torch.Tensor, B: int, Hkv: int, n_rep: int, hd: int, page: int, 
 
 
 def require_card_shape(hd: int, n_rep: int, q_dtype=torch.float32) -> None:
-    """The head widths the kernel is built for (at ``q_dtype``) and the
-    query rows a block holds: any other is refused on the card (the plain
-    version on the CPU takes any)."""
-    dims = BF16_Q_HEAD_DIMS if q_dtype == torch.bfloat16 else HEAD_DIMS
-    require(hd in dims, f"head dim {hd} not in {dims} for a {q_dtype} q")
+    """The head widths the kernel is built for (the same for an f32 and a
+    bf16 q) and the query rows a block holds: any other is refused on the
+    card (the plain version on the CPU takes any)."""
+    require(hd in HEAD_DIMS, f"head dim {hd} not in {HEAD_DIMS} for a {q_dtype} q")
     require(n_rep <= MAX_ROWS, f"n_rep {n_rep} > {MAX_ROWS}")
 
 
@@ -148,8 +149,8 @@ def paged_attention(
 ) -> torch.Tensor:
     """Paged decode attention -> (B, Hkv, n_rep, hd) f32.
 
-    q: (B, Hkv, n_rep, hd) f32 or bf16 (a bf16 backbone's, at hd 128:
-    widened to f32 exactly as it is staged; the output stays f32, as the
+    q: (B, Hkv, n_rep, hd) f32 or bf16 (a bf16 backbone's: widened to
+    f32 exactly as it is staged; the output stays f32, as the
     reference's) post-rope new-token query; k/v_pages:
     (n_pages, page, Hkv, hd) — int8 with ``k_scale``/``v_scale``
     (n_pages, page, Hkv) f32, or plain f32/bf16; block_tables:

@@ -222,12 +222,15 @@ _LOSS_HEADS: dict = {}
 
 
 def loss_head(params, cfg) -> torch.Tensor:
-    """:func:`head_weight` as one contiguous (d, V) f32 tensor, made once
-    for the life of the head's leaf (``lm_head``, or ``embed`` when tied)
-    and reused by every later step that holds the same leaf: the frozen
-    head of a session is dequantized, and a tied head transposed into
-    place, once rather than each step (at gemma2-2b's V = 256000 that is
-    2.36 GB written a step). The values are :func:`head_weight`'s."""
+    """:func:`head_weight` as one contiguous (d, V) tensor, made once for
+    the life of the head's leaf (``lm_head``, or ``embed`` when tied) and
+    reused by every later step that holds the same leaf: the frozen head
+    of a session is dequantized, and a tied head transposed into place,
+    once rather than each step (at gemma2-2b's V = 256000 that is 2.36 GB
+    written a step). The values and dtype are :func:`head_weight`'s: f32
+    for a quantized or f32 backbone, bf16 for a bf16 one (gemma2-2b's
+    tied head then a 1.18 GB bf16 copy, which the CE kernels read
+    whole)."""
     leaf = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     key = id(leaf)
     hit = _LOSS_HEADS.get(key)

@@ -842,29 +842,44 @@ def test_flash_bf16_wgmma_promotion_error_model(softcap):
 
 
 def test_flash_wgmma_route_and_scratch_sizes():
-    """Which loop a call takes and the K/V scratch it needs: bf16 at hd 128
-    on the wgmma loop with none (TMA reads K and V in place); routed back,
-    flash_pad's one plane each, padded to whole key tiles; every f32 head
-    width keeps flash_split's planes, 2·3·(BH / n_rep)·Skp·hd; a bf16 call
-    at another head width is refused."""
-    from repro_torch.kernels.flash_attention import HEAD_DIMS, route, scratch_elems
+    """Which loop a call at (dtype, hd) takes and the K/V scratch it needs:
+    bf16 at hd 128 on the wgmma loop with none (TMA reads K and V in
+    place); bf16 at hd 64, 112 and 256, or at 128 routed back, on
+    ``flash_fwd_mma<hd, bf16>`` after flash_pad's one plane each, padded to
+    whole key tiles (gemma2-2b's 4500-token prompt: 2 planes of 4 heads x
+    4512 keys x 256); every f32 head width keeps flash_split's planes,
+    2·3·(BH / n_rep)·Skp·hd; a head width the kernel is not built for is
+    refused at either dtype."""
+    from repro_torch.kernels.flash_attention import (BF16_HEAD_DIMS, HEAD_DIMS, on_wgmma, route,
+                                                     scratch_elems)
 
     bf, f32 = torch.bfloat16, torch.float32
-    assert route(bf, 128) == ["flash_fwd_wg"]
+    assert BF16_HEAD_DIMS == HEAD_DIMS
+    assert route(bf, 128) == ["flash_fwd_wg"] and on_wgmma(bf, 128)
     assert scratch_elems(128, 512, 128, 2, bf, 32) == 0
     assert scratch_elems(8, 1001, 128, 2, bf, 32) == 0
     assert route(bf, 128, wgmma=False) == ["flash_pad", "flash_fwd_mma<128, bf16>"]
     assert scratch_elems(8, 1001, 128, 2, bf, 32, wgmma=False) == 2 * 4 * 1024 * 128
+    for hd in (64, 112, 256):
+        for wgmma in (True, False):
+            assert route(bf, hd, wgmma) == ["flash_pad", f"flash_fwd_mma<{hd}, bf16>"]
+            assert not on_wgmma(bf, hd, wgmma)
+        for BH, Sk, n_rep in ((64, 512, 2), (8, 37, 1), (256, 1001, 2)):
+            skp = -(-Sk // 32) * 32
+            assert scratch_elems(BH, Sk, hd, n_rep, bf, 32) == 2 * (BH // n_rep) * skp * hd
+    assert scratch_elems(8, 4500, 256, 2, bf, 32) == 2 * 4 * 4512 * 256
     for hd in HEAD_DIMS:
         assert route(f32, hd) == ["flash_split", f"flash_fwd_mma<{hd}>"]
+        assert not on_wgmma(f32, hd)
         for BH, Sk, n_rep in ((128, 512, 2), (8, 37, 1), (12, 1001, 6)):
             skp = -(-Sk // 32) * 32
             assert scratch_elems(BH, Sk, hd, n_rep, f32, 32) == 2 * 3 * (BH // n_rep) * skp * hd
-    for hd in (64, 112, 256):
-        with pytest.raises(ValueError):
-            route(bf, hd)
-        with pytest.raises(ValueError):
-            scratch_elems(8, 64, hd, 1, bf, 32)
+    for hd in (32, 96, 192):
+        for dtype in (bf, f32):
+            with pytest.raises(ValueError):
+                route(dtype, hd)
+            with pytest.raises(ValueError):
+                scratch_elems(8, 64, hd, 1, dtype, 32)
 
 
 @pytest.mark.parametrize("harness,source", [("ce_fwd_variants", "lmhead_ce.cu"),

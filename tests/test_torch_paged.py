@@ -207,14 +207,49 @@ def test_paged_kernel_order_matches_pallas_at_n_rep7(policy):
     pa.require_card_shape(128, 7)
 
 
-def _order_matches_pallas(policy, option, hd, hkv=HKV, n_rep=N_REP):
+@pytest.mark.parametrize("hd", pa.HEAD_DIMS)
+@pytest.mark.parametrize("policy", ["f32", "bf16", "int8"])
+def test_paged_kernel_order_matches_pallas_with_a_bf16_q(policy, hd):
+    """A bf16 backbone's query at every head width: the kernel widens it to
+    f32 exactly as it stages it, so the model is the f32 q's on q's bf16
+    values, held to the Pallas kernel given the bf16 q (its output f32, as
+    the port's); the plans are an f32 q's."""
+    _order_matches_pallas(policy, "window64_cap30", hd, q_bf16=True)
+
+
+@pytest.mark.parametrize("hd", pa.HEAD_DIMS)
+def test_paged_plan_takes_a_bf16_q_at_every_head_width(hd):
+    """The card's guard admits a bf16 q at every head width the kernel is
+    built for, up to 8 query rows a kv head, and refuses more. q's dtype
+    enters neither the plan nor the kernel's shared memory (its rows are
+    widened to f32 as they are staged), so a bf16 q takes an f32 q's plan
+    over every page kind: at gemma2-2b's serving shape (B 8, Hkv 4, n_rep
+    2, hd 256, 32 pages of 16) 4 ranks of 8 pages, one head a block, and a
+    stage of 32 int8, 16 bf16 or 8 f32 rows."""
+    assert pa.BF16_Q_HEAD_DIMS == pa.HEAD_DIMS
+    for n_rep in (1, 2, pa.MAX_ROWS):
+        pa.require_card_shape(hd, n_rep, torch.bfloat16)
+    with pytest.raises(ValueError, match="n_rep"):
+        pa.require_card_shape(hd, pa.MAX_ROWS + 1, torch.bfloat16)
+    for kind in KIND.values():
+        for B, Hkv, n_rep in ((8, 4, 2), (8, 8, 8), (8, 12, 1), (1, 4, 2)):
+            _check_plan(B, Hkv, n_rep, hd, 16, 32, kind, SMS)
+    if hd == 256:
+        assert [pa.plan(8, 4, 2, 256, 16, 32, k, SMS) for k in (0, 2, 1)] == [
+            pa.Plan(4, 8, 1, c) for c in (32, 16, 8)]
+
+
+def _order_matches_pallas(policy, option, hd, hkv=HKV, n_rep=N_REP, q_bf16=False):
     window, cap = OPTIONS[option]
     q, (k, v), (ks, vs), bt = _case(policy, hd, hkv, n_rep)
+    jq = jnp.asarray(q, jnp.bfloat16) if q_bf16 else jnp.asarray(q)
+    if q_bf16:  # the kernel's exact widening of q's bf16 values
+        q = torch.from_numpy(q).bfloat16().float().numpy()
     jk, jv = jnp.asarray(k), jnp.asarray(v)
     if policy == "bf16":
         jk, jv = jk.astype(jnp.bfloat16), jv.astype(jnp.bfloat16)
     want = np.asarray(jax_paged_attention(
-        jnp.asarray(q), jk, jv, jnp.asarray(bt), jnp.asarray(LENGTHS),
+        jq, jk, jv, jnp.asarray(bt), jnp.asarray(LENGTHS),
         k_scale=None if ks is None else jnp.asarray(ks),
         v_scale=None if vs is None else jnp.asarray(vs),
         window=window, attn_softcap=cap, interpret=True))
